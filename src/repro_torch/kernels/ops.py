@@ -1,0 +1,60 @@
+"""Dispatch for the attention kernel: CUDA tensors go to the hand-written
+kernel, CPU tensors to the plain PyTorch version, anything else raises.
+There is no fallback from one to the other.
+
+``attention`` takes the JAX package's kernel layout (B,H,S,D) with the GQA map
+q-head h -> kv-head h // group; ``attention_model_layout`` takes the model's
+padded layout q (B,S,KR,Gl,D), k/v (B,T,KR,D), as ``chunked_attention`` does.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import flash_attention as fa
+from .ref import chunked_attention_ref
+
+
+def _route(t: torch.Tensor) -> str:
+    if t.device.type in ("cuda", "cpu"):
+        return t.device.type
+    raise ValueError(f"attention on {t.device}: only cuda (kernel) and cpu (plain) run")
+
+
+def attention_model_layout(
+    q, k, v, *, causal: bool = True, chunk: int = 1024, q_offset: int = 0,
+    kv_len: Optional[int] = None,
+):
+    """q (B,S,KR,Gl,D), k/v (B,T,KR,D) -> (B,S,KR,Gl,D).  ``chunk`` is the
+    plain version's kv chunk (its online-softmax steps follow the JAX
+    package's); the kernel tiles kv itself."""
+    if _route(q) == "cuda":
+        return fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    return chunked_attention_ref(
+        q, k, v, causal=causal, chunk=chunk, q_offset=q_offset, kv_len=kv_len
+    )
+
+
+def attention(q, k, v, *, causal: bool = True, block_k: int = 128):
+    """q (B,Hq,S,D), k/v (B,Hkv,T,D) -> (B,Hq,S,D), GQA group = Hq // Hkv.
+
+    The same kernel on strided views, with no copy and no repeat of kv:
+    q as (B,S,Hkv,group,D), k/v as (B,T,Hkv,D).  The causal mask is aligned
+    top-left (q_offset = 0), as the Pallas kernel's; it matches the
+    bottom-right ``attention_ref`` when S == T."""
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    if Hq % Hkv:
+        raise ValueError(f"{Hq} q heads are not a multiple of {Hkv} kv heads")
+
+    def model_view(x):  # (B,Hq,S,D) -> (B,S,Hkv,group,D)
+        return x.unflatten(1, (Hkv, Hq // Hkv)).permute(0, 3, 1, 2, 4)
+
+    qm, km, vm = model_view(q), k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    if _route(q) == "cuda":
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        fa.flash_attention(qm, km, vm, causal=causal, out=model_view(out))
+        return out
+    o = chunked_attention_ref(qm, km, vm, causal=causal, chunk=block_k)
+    return o.permute(0, 2, 3, 1, 4).reshape(B, Hq, S, D)

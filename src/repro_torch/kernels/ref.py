@@ -1,0 +1,79 @@
+"""Plain PyTorch versions of the kernels: what the CPU path runs, and what the
+CUDA kernels are held against on the card."""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e9
+
+
+def attention_ref(q, k, v, *, causal: bool = True, group_size: int = 1):
+    """Naive attention oracle (port of the JAX package's ``kernels/ref.py``).
+    q (B,Hq,S,D); k,v (B,Hkv,T,D); causal mask aligned bottom-right."""
+    B, Hq, S, D = q.shape
+    T = k.shape[2]
+    if group_size > 1:
+        k = k.repeat_interleave(group_size, dim=1)
+        v = v.repeat_interleave(group_size, dim=1)
+    s = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) / math.sqrt(D)
+    if causal:
+        mask = torch.ones(S, T, dtype=torch.bool, device=q.device).tril(T - S)
+        s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhst,bhtd->bhsd", p, v.float()).to(q.dtype)
+
+
+def chunked_attention_ref(
+    q, k, v, *, causal: bool, chunk: int, q_offset: int = 0,
+    kv_len: Optional[int] = None,
+):
+    """Online-softmax attention over kv chunks, step for step as the JAX
+    package's ``models/attention.py::chunked_attention``.
+
+    q: (B,S,KR,Gl,D); k,v: (B,T,KR,D).  Rounding points: q is scaled and
+    rounded to its dtype (the scale itself rounded to that dtype first, as a
+    weak-typed Python scalar is in JAX), scores and sums are float32, p is
+    rounded to the kv dtype before the PV product, and the output is rounded
+    to q's dtype once.
+    """
+    B, S, KR, Gl, D = q.shape
+    T = k.shape[1]
+    scale = torch.tensor(1.0 / math.sqrt(D), dtype=q.dtype, device=q.device)
+    chunk = min(chunk, T)
+    if T % chunk:  # pad kv to a chunk multiple; §4.1 pad-and-mask
+        padded = -(-T // chunk) * chunk
+        k = F.pad(k, (0, 0, 0, 0, 0, padded - T))
+        v = F.pad(v, (0, 0, 0, 0, 0, padded - T))
+        kv_len = min(kv_len, T) if kv_len is not None else T
+        T = padded
+    qf = (q * scale).to(q.dtype).float()
+    q_pos = q_offset + torch.arange(S, device=q.device)
+
+    acc = torch.zeros((B, S, KR, Gl, D), dtype=torch.float32, device=q.device)
+    m = torch.full((B, S, KR, Gl), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, S, KR, Gl), dtype=torch.float32, device=q.device)
+    for idx in range(T // chunk):
+        kb = k[:, idx * chunk:(idx + 1) * chunk]
+        vb = v[:, idx * chunk:(idx + 1) * chunk]
+        s = torch.einsum("bsngd,btnd->bsngt", qf, kb.float())
+        k_pos = idx * chunk + torch.arange(chunk, device=q.device)
+        mask = torch.ones((S, chunk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask = q_pos[:, None] >= k_pos[None, :]
+        if kv_len is not None:
+            mask = mask & (k_pos < kv_len)[None, :]
+        s = torch.where(mask[None, :, None, None, :], s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bsngt,btnd->bsngd", p.to(kb.dtype).float(), vb.float()
+        )
+        m = m_new
+    out = acc / torch.clamp_min(l[..., None], 1e-20)
+    return out.to(q.dtype)

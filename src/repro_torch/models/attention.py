@@ -1,0 +1,154 @@
+"""GQA attention with GSPMD-friendly padded-head layout.
+
+Same layout as the JAX package's ``models/attention.py``: q is
+(B,S,KR,Gl,D) and k/v (B,T,KR,D), where KR are the layout kv heads and Gl the
+(padded) q heads per layout kv head.  With no mesh the kv axis has size 1, so
+``head_layout`` gives r = 1, Gp = G: no kv replication and no q-head padding.
+The padded layout (§4.1) arrives with the sharded strategies (ROADMAP A6).
+
+``chunked_attention`` is where the JAX package runs its XLA online-softmax
+loop.  In the port it dispatches to the hand-written flash-attention kernel
+(``kernels/ops.py``) for CUDA tensors and to the step-for-step plain version
+for CPU tensors.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..configs.base import ModelConfig, Strategy
+from ..kernels import ops
+from .layers import Params, pspec, rope
+
+NEG_INF = -1e9
+
+
+def head_layout(cfg: ModelConfig, st: Strategy):
+    """(K, G, r, Gp, KR): kv heads, q-per-kv, replicas, padded group, layout heads."""
+    N, K = cfg.num_heads, cfg.num_kv_heads
+    tp = st.axis_size("kv")
+    G = N // K
+    if K >= tp:
+        assert K % tp == 0, f"kv heads {K} not divisible by axis {tp}"
+        return K, G, 1, G, K
+    assert tp % K == 0, f"axis {tp} not divisible by kv heads {K}"
+    r = tp // K
+    Gp = -(-G // r) * r
+    return K, G, r, Gp, K * r
+
+
+def attn_params(cfg: ModelConfig, st: Strategy):
+    M, N, K, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.dh
+    h = st.w_div("heads", N)
+    hd = "mlp" if h is None else None  # head_dim rides the Y axis as fallback
+    hk = st.w_div("heads", K)
+    p = {
+        "wq": pspec((M, N, Dh), st.w("embed", h, hd), fan_in=M),
+        "wk": pspec((M, K, Dh), st.w("embed", hk, None if hk else "mlp"), fan_in=M),
+        "wv": pspec((M, K, Dh), st.w("embed", hk, None if hk else "mlp"), fan_in=M),
+        "wo": pspec((N, Dh, M), st.w(h, hd, "embed"), fan_in=N * Dh),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = pspec((N, Dh), st.w(h, hd), init="zeros")
+        p["bk"] = pspec((K, Dh), st.w(hk), init="zeros")
+        p["bv"] = pspec((K, Dh), st.w(hk), init="zeros")
+    return p
+
+
+def _unpadded_layout(cfg: ModelConfig, st: Strategy):
+    K, G, r, Gp, KR = head_layout(cfg, st)
+    if r != 1 or Gp != G:
+        raise NotImplementedError(
+            "the padded head layout needs a mesh (ROADMAP A6, sharded strategies)")
+    return K, G
+
+
+def project_qkv(cfg: ModelConfig, st: Strategy, p: Params, xq, xkv, positions):
+    """Returns q (B,S,KR,Gl,D), k,v (B,T,KR,D); KR = K and Gl = G with no mesh."""
+    K, G = _unpadded_layout(cfg, st)
+    q = (xq @ p["wq"].flatten(1)).unflatten(-1, p["wq"].shape[1:])
+    k = (xkv @ p["wk"].flatten(1)).unflatten(-1, p["wk"].shape[1:])
+    v = (xkv @ p["wv"].flatten(1)).unflatten(-1, p["wv"].shape[1:])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    if cfg.rope and positions is not None:
+        q = rope(q, positions, cfg.dh)
+        k = rope(k, positions, cfg.dh)
+    B, S = q.shape[:2]
+    q = q.reshape(B, S, K, G, cfg.dh)
+    q = st.constrain(q, "batch", "seq", "kv", None, None)
+    k = st.constrain(k, "batch", "seq", "kv", None)
+    v = st.constrain(v, "batch", "seq", "kv", None)
+    return q, k, v
+
+
+def out_projection(cfg: ModelConfig, st: Strategy, p: Params, attn):
+    """attn: (B,S,KR,Gl,D) -> (B,S,M) through W_O."""
+    K, G = _unpadded_layout(cfg, st)
+    B, S = attn.shape[:2]
+    # one (n d) contraction: torch.einsum over two dims sums in another order
+    out = attn.reshape(B, S, K * G * cfg.dh) @ p["wo"].reshape(K * G * cfg.dh, cfg.d_model)
+    return st.constrain(out, "batch", "seq", "embed")
+
+
+def chunked_attention(
+    q, k, v, *, causal: bool, chunk: int, q_offset: int = 0,
+    kv_len: Optional[int] = None,
+):
+    """Online-softmax attention.  q: (B,S,KR,Gl,D); k,v: (B,T,KR,D).
+
+    ``q_offset`` is the absolute position of q[0] (decode/prefill
+    continuation); ``kv_len`` masks the valid cache prefix when decoding into
+    a longer preallocated cache.  ``chunk`` is the plain version's kv chunk;
+    the CUDA kernel uses its own tile.
+    """
+    return ops.attention_model_layout(
+        q, k, v, causal=causal, chunk=chunk, q_offset=q_offset, kv_len=kv_len
+    )
+
+
+def self_attention(cfg: ModelConfig, st: Strategy, p: Params, x, positions, *, causal=True):
+    """Full-sequence self-attention (training / prefill)."""
+    q, k, v = project_qkv(cfg, st, p, x, x, positions)
+    attn = chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
+    return out_projection(cfg, st, p, attn)
+
+
+# ---------------------------------------------------------------------------------
+# decode with KV cache
+# ---------------------------------------------------------------------------------
+
+
+def init_cache_shapes(cfg: ModelConfig, st: Strategy, batch, max_len, layers=None):
+    K, G, r, Gp, KR = head_layout(cfg, st)
+    L = layers if layers is not None else cfg.num_layers
+    return (L, batch, max_len, KR, cfg.dh)
+
+
+def decode_attention(cfg: ModelConfig, st: Strategy, p: Params, x, ck, cv, pos: int):
+    """One-token decode.  x: (B,1,M); ck/cv: (B,T,KR,D) layer cache; pos:
+    absolute position.  Returns (out, ck, cv).
+
+    The new kv row is written into ``ck``/``cv`` in place: the counterpart of
+    the JAX engine donating the cache to its jitted decode step."""
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = project_qkv(cfg, st, p, x, x, positions)
+    ck[:, pos] = k[:, 0].to(ck.dtype)
+    cv[:, pos] = v[:, 0].to(cv.dtype)
+    # one kv chunk, as in the JAX package: the kernel skips the tiles past
+    # kv_len, the plain version masks them
+    attn = chunked_attention(
+        q, ck, cv, causal=False, chunk=ck.shape[1], q_offset=pos, kv_len=pos + 1,
+    )
+    return out_projection(cfg, st, p, attn), ck, cv
+
+
+def prefill_attention(cfg: ModelConfig, st: Strategy, p: Params, x, positions):
+    """Prefill: full self-attention AND return the kv to seed a cache."""
+    q, k, v = project_qkv(cfg, st, p, x, x, positions)
+    attn = chunked_attention(q, k, v, causal=cfg.causal, chunk=cfg.attn_chunk)
+    return out_projection(cfg, st, p, attn), k, v

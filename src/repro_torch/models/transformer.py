@@ -1,0 +1,103 @@
+"""Dense decoder-only Transformer LM (paper §5.1's subject model): the forward
+pass and the cached decode step.  MoE layers and the training loss arrive in
+later slices (ROADMAP A12 and A6)."""
+from __future__ import annotations
+
+import torch
+
+from ..configs.base import ModelConfig, Strategy
+from . import attention as attn
+from .layers import (
+    Params,
+    embed_lookup,
+    embed_params,
+    layer_slice,
+    mlp_forward,
+    mlp_params,
+    pspec,
+    rms_norm,
+    stack_layers,
+    stacked,
+    unembed_logits,
+)
+
+
+def _require_dense(cfg: ModelConfig):
+    if cfg.moe:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE FFN layers are not ported yet (ROADMAP A12)")
+
+
+def layer_param_tree(cfg: ModelConfig, st: Strategy):
+    _require_dense(cfg)
+    return {
+        "ln1": pspec((cfg.d_model,), st.w("embed_vec"), init="ones", dtype="float32"),
+        "attn": attn.attn_params(cfg, st),
+        "ln2": pspec((cfg.d_model,), st.w("embed_vec"), init="ones", dtype="float32"),
+        "mlp": mlp_params(cfg, st),
+    }
+
+
+def param_tree(cfg: ModelConfig, st: Strategy):
+    return {
+        "embed": embed_params(cfg, st),
+        "layers": stacked(layer_param_tree(cfg, st), cfg.num_layers),
+        "final_ln": pspec((cfg.d_model,), st.w("embed_vec"), init="ones", dtype="float32"),
+    }
+
+
+def decoder_layer(cfg: ModelConfig, st: Strategy, lp: Params, x, positions):
+    """Returns (x, aux_loss); aux is 0 for a dense layer."""
+    h = rms_norm(x, lp["ln1"])
+    h = attn.self_attention(cfg, st, lp["attn"], h, positions, causal=cfg.causal)
+    x = st.constrain(x + h, "batch", "seq", "embed")
+    h = rms_norm(x, lp["ln2"])
+    y = mlp_forward(cfg, st, lp["mlp"], h)
+    return st.constrain(x + y, "batch", "seq", "embed"), torch.zeros((), device=x.device)
+
+
+def forward(cfg: ModelConfig, st: Strategy, params: Params, tokens):
+    """tokens (B,S) -> (logits (B,S,V), aux_loss)."""
+    _require_dense(cfg)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    x = embed_lookup(cfg, st, params["embed"], tokens)
+
+    def layer_fn(lp, carry, extra):
+        x, aux = carry
+        x, a = decoder_layer(cfg, st, lp, x, extra)
+        return x, aux + a
+
+    x, aux = stack_layers(
+        layer_fn, params["layers"], (x, torch.zeros((), device=x.device)), cfg,
+        extra=positions,
+    )
+    x = rms_norm(x, params["final_ln"])
+    return unembed_logits(cfg, st, params["embed"], x), aux
+
+
+# ---------------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------------
+
+
+def decode_layer(cfg: ModelConfig, st: Strategy, lp: Params, x, ck, cv, pos: int):
+    h = rms_norm(x, lp["ln1"])
+    h, ck, cv = attn.decode_attention(cfg, st, lp["attn"], h, ck, cv, pos)
+    x = x + h
+    h = rms_norm(x, lp["ln2"])
+    return x + mlp_forward(cfg, st, lp["mlp"], h), ck, cv
+
+
+def decode_step(cfg: ModelConfig, st: Strategy, params: Params, token, cache, pos: int):
+    """One decode step.  token (B,1) int; cache {"k","v"}: (L,B,T,KR,D),
+    updated in place at ``pos`` and returned."""
+    _require_dense(cfg)
+    x = embed_lookup(cfg, st, params["embed"], token)
+    for i in range(cache["k"].shape[0]):
+        x, _, _ = decode_layer(
+            cfg, st, layer_slice(params["layers"], i), x,
+            cache["k"][i], cache["v"][i], pos,
+        )
+    x = rms_norm(x, params["final_ln"])
+    return unembed_logits(cfg, st, params["embed"], x), cache

@@ -1,0 +1,94 @@
+"""Batched serving engine: a continuous-batching-lite slot model.
+
+Fixed B decode slots; finished sequences are replaced from the request queue
+between decode steps.  The semantics are the JAX package's
+``serve/engine.py`` exactly: one shared ``pos`` for all slots, prompts fed
+token by token through decode, a refilled slot starting at the current
+``pos`` over its previous occupant's cache rows (ROADMAP R5), and a stop at
+``max_len - 1``.  The kv cache is bfloat16 whatever ``cfg.dtype`` is, and
+the decode step updates it in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig, Strategy
+from ..models import api
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: List[int]
+    max_new_tokens: int = 16
+    temperature: float = 0.0
+    out: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class Engine:
+    def __init__(self, cfg: ModelConfig, st: Strategy, params, batch_slots: int,
+                 max_len: int, rng: Optional[torch.Generator] = None):
+        self.cfg, self.st, self.params = cfg, st, params
+        self.B, self.T = batch_slots, max_len
+        self.device = params["embed"]["embedding"].device
+        shapes = api.cache_shapes(cfg, st, batch_slots, max_len)
+        self.cache = {
+            k: torch.zeros(v, dtype=torch.float32 if k == "s" else torch.bfloat16,
+                           device=self.device)
+            for k, v in shapes.items()
+        }
+        self.pos = 0
+        # Gumbel noise for temperature sampling; torch's generator does not
+        # reproduce jax.random's bits
+        self.rng = rng if rng is not None else torch.Generator().manual_seed(0)
+
+    def _decode(self, tokens: np.ndarray):
+        token = torch.as_tensor(tokens, device=self.device)
+        return api.decode_step(self.cfg, self.st, self.params, token, self.cache, self.pos)
+
+    def _sample(self, logits, temperature):
+        logits = logits[:, -1].float().cpu().numpy()
+        if temperature <= 0:
+            return logits.argmax(-1)
+        u = torch.rand(logits.shape, generator=self.rng, dtype=torch.float64)
+        g = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float64).tiny)))
+        return (logits / temperature + g.numpy()).argmax(-1)
+
+    def generate(self, requests: List[Request]) -> List[Request]:
+        """Greedy/temperature decoding for up to B requests at a time."""
+        queue = list(requests)
+        active: List[Optional[Request]] = [None] * self.B
+        tokens = np.zeros((self.B, 1), np.int64)
+        while queue or any(a is not None for a in active):
+            for i in range(self.B):
+                if active[i] is None and queue:
+                    active[i] = queue.pop(0)
+                    active[i]._cursor = 0
+            if all(a is None for a in active):
+                break
+            for i, a in enumerate(active):
+                if a is None:
+                    continue
+                if a._cursor < len(a.prompt):
+                    tokens[i, 0] = a.prompt[a._cursor]
+                else:
+                    tokens[i, 0] = a.out[-1] if a.out else 0
+            logits, self.cache = self._decode(tokens)
+            nxt = self._sample(logits, max(a.temperature if a else 0 for a in active))
+            for i, a in enumerate(active):
+                if a is None:
+                    continue
+                a._cursor += 1
+                if a._cursor >= len(a.prompt):
+                    a.out.append(int(nxt[i]))
+                    if len(a.out) >= a.max_new_tokens:
+                        a.done = True
+                        active[i] = None
+            self.pos += 1
+            if self.pos >= self.T - 1:
+                break
+        return requests

@@ -10,3 +10,8 @@ collect_ignore_glob = (
 )
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where torch.cuda.is_available() is False")

@@ -1,0 +1,122 @@
+"""The port on the card: the CUDA flash-attention kernel against its plain
+PyTorch version, and the serving path on CUDA against the same path on the
+CPU.  Every test here needs an NVIDIA GPU and skips without one; the file
+imports no JAX, so it runs where only the port is installed:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.base import get_strategy
+from repro_torch.configs.registry import get_config, reduced_config
+from repro_torch.core.compat import assert_close
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import attention_ref, chunked_attention_ref
+from repro_torch.models import api
+from repro_torch.models.layers import tree_init
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products stay float32
+    return torch.device("cuda")
+
+
+# (B, S, T, KR, Gl, D, causal, chunk, q_offset, kv_len): GQA with Gl > 1,
+# continuation with q_offset, a kv_len prefix, S != T, ragged q and kv tiles
+CASES = [
+    (2, 40, 40, 2, 3, 32, True, 16, 0, None),
+    (1, 24, 72, 1, 4, 64, True, 32, 48, None),
+    (2, 1, 64, 2, 2, 32, False, 64, 37, 38),
+    (2, 1, 50, 3, 1, 64, False, 50, 0, 1),
+    (1, 16, 100, 2, 2, 128, True, 32, 84, 100),
+    (2, 8, 60, 1, 2, 32, False, 25, 10, 45),
+    (1, 300, 300, 2, 1, 128, True, 128, 0, None),
+]
+# p is rounded to the kv dtype at the kernel's 64-row kv tiles rather than
+# the plain version's chunks: one bf16 rounding apart; float32 differs in
+# summation order only
+TOL = {torch.float32: "f32_chain", torch.bfloat16: "bf16_round"}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,KR,Gl,D,causal,chunk,q_offset,kv_len", CASES)
+def test_kernel_matches_plain(cuda, B, S, T, KR, Gl, D, causal, chunk, q_offset, kv_len, dtype):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(B, S, KR, Gl, D, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(B, T, KR, D, generator=g, device=cuda).to(dtype) for _ in range(2))
+    before = fa.launches
+    got = ops.attention_model_layout(q, k, v, causal=causal, chunk=chunk,
+                                     q_offset=q_offset, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    want = chunked_attention_ref(q, k, v, causal=causal, chunk=chunk,
+                                 q_offset=q_offset, kv_len=kv_len)
+    assert_close(got, want, TOL[dtype])
+
+
+def test_kernel_f32_queries_on_bf16_cache(cuda):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn(3, 1, 4, 2, 64, generator=g, device=cuda)
+    k, v = (torch.randn(3, 96, 4, 64, generator=g, device=cuda).bfloat16() for _ in range(2))
+    got = ops.attention_model_layout(q, k, v, causal=False, chunk=96, q_offset=70, kv_len=71)
+    assert got.dtype == torch.float32
+    want = chunked_attention_ref(q, k, v, causal=False, chunk=96, q_offset=70, kv_len=71)
+    assert_close(got, want, "bf16_round")
+
+
+def test_kernel_reference_layout(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn(1, 6, 256, 64, generator=g, device=cuda, dtype=torch.bfloat16)
+    k, v = (torch.randn(1, 2, 256, 64, generator=g, device=cuda, dtype=torch.bfloat16)
+            for _ in range(2))
+    got = ops.attention(q, k, v, causal=True)
+    # attention_ref keeps q and p in float32 where the kernel rounds them to bf16
+    assert_close(got, attention_ref(q, k, v, causal=True, group_size=3), "bf16_round")
+
+
+def test_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 4, 1, 1, 48, device=cuda)
+    k = torch.zeros(1, 4, 1, 48, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, k, k, causal=True)
+    q = torch.zeros(1, 4, 1, 1, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, q[:, :, :, 0].float(), q[:, :, :, 0].float(), causal=True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_on_cuda_matches_cpu(cuda, dtype):
+    """Five decode steps of the reduced model on the card (the kernel) and on
+    the CPU (the plain version), from the same weights."""
+    cfg = reduced_config(get_config("qwen1.5-0.5b"), 32).with_(dtype=dtype)
+    st = get_strategy("2d_finalized")
+    cpu = tree_init(api.param_tree(cfg, st), torch.Generator().manual_seed(0),
+                    dtype=dtype, device="cpu")
+    gpu = {k: v for k, v in _to(cpu, cuda).items()}
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 5))
+    shapes = api.cache_shapes(cfg, st, 2, 16)
+    caches = [{k: torch.zeros(v, dtype=torch.bfloat16, device=d) for k, v in shapes.items()}
+              for d in ("cpu", cuda)]
+    fa.launches = 0
+    for pos in range(5):
+        tok = torch.from_numpy(tokens[:, pos:pos + 1])
+        want, caches[0] = api.decode_step(cfg, st, cpu, tok, caches[0], pos)
+        got, caches[1] = api.decode_step(cfg, st, gpu, tok.to(cuda), caches[1], pos)
+        # float32: matmuls and the kernel sum in another order than the CPU;
+        # bfloat16: cuBLAS and the CPU round some activations the other way
+        assert_close(got, want, "f32_chain" if dtype == "float32" else "bf16_chain")
+    assert fa.launches == 5 * cfg.num_layers
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)

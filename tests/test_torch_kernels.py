@@ -1,0 +1,110 @@
+"""The port's attention against the JAX package's.
+
+On the CPU the port's attention runs its plain PyTorch version; it is held
+against the Pallas kernel (interpret mode, as tests/test_kernels.py runs it),
+against ``attention_ref`` and against the model path's ``chunked_attention``.
+tests/test_torch_cuda.py holds the CUDA kernel against the plain version on
+the card.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ops import attention as pallas_attention
+from repro.kernels.ref import attention_ref as jax_attention_ref
+from repro.models.attention import chunked_attention as jax_chunked_attention
+from repro_torch.core.compat import assert_close
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import attention_ref, chunked_attention_ref
+
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _pair(arr, dtype):
+    """The same values as a jax array and a torch tensor of ``dtype``."""
+    j = jnp.asarray(arr, DTYPES[dtype][0])
+    return j, torch.from_numpy(np.array(j.astype(jnp.float32))).to(DTYPES[dtype][1])
+
+
+def _qkv(rng, q_shape, kv_shape, dtype):
+    return [_pair(rng.standard_normal(s), dtype) for s in (q_shape, kv_shape, kv_shape)]
+
+
+# Pallas scales q and keeps p in float32 where the model path (and so the
+# port) rounds both to the input dtype: in bf16 that is one rounding apart.
+PALLAS_TOL = {"float32": "f32_chain", "bfloat16": "bf16_round"}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,bk", [(1, 2, 2, 128, 64, 64), (2, 2, 1, 256, 32, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_matches_pallas_kernel(B, Hq, Hkv, S, D, bk, causal, dtype):
+    rng = np.random.default_rng(0)
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(rng, (B, Hq, S, D), (B, Hkv, S, D), dtype)
+    want = pallas_attention(qj, kj, vj, causal=causal, block_q=64, block_k=bk)
+    got = ops.attention(qt, kt, vt, causal=causal, block_k=bk)
+    assert got.dtype == DTYPES[dtype][1] and got.shape == (B, Hq, S, D)
+    assert_close(got, want, PALLAS_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,T,causal", [(64, 64, True), (32, 96, True), (48, 80, False)])
+def test_attention_ref_matches_reference(S, T, causal, dtype):
+    rng = np.random.default_rng(1)
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(rng, (2, 4, S, 32), (2, 2, T, 32), dtype)
+    want = jax_attention_ref(qj, kj, vj, causal=causal, group_size=2)
+    got = attention_ref(qt, kt, vt, causal=causal, group_size=2)
+    # float32 throughout, rounded once: only the contraction order differs
+    assert_close(got, want, "f32_dot" if dtype == "float32" else "bf16_round")
+
+
+# (B, S, T, KR, Gl, D, causal, chunk, q_offset, kv_len): GQA with Gl > 1,
+# continuation with q_offset, a kv_len prefix, S != T and a ragged last chunk
+MODEL_CASES = [
+    (2, 40, 40, 2, 3, 32, True, 16, 0, None),
+    (1, 24, 72, 1, 4, 64, True, 32, 48, None),
+    (2, 1, 64, 2, 2, 32, False, 64, 37, 38),
+    (2, 1, 50, 3, 1, 64, False, 50, 0, 1),
+    (1, 16, 100, 2, 2, 128, True, 32, 84, 100),
+    (2, 8, 60, 1, 2, 32, False, 25, 10, 45),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,T,KR,Gl,D,causal,chunk,q_offset,kv_len", MODEL_CASES)
+def test_model_layout_matches_chunked_attention(B, S, T, KR, Gl, D, causal, chunk,
+                                                q_offset, kv_len, dtype):
+    rng = np.random.default_rng(2)
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(rng, (B, S, KR, Gl, D), (B, T, KR, D), dtype)
+    want = jax_chunked_attention(qj, kj, vj, causal=causal, chunk=chunk,
+                                 q_offset=q_offset, kv_len=kv_len)
+    got = ops.attention_model_layout(qt, kt, vt, causal=causal, chunk=chunk,
+                                     q_offset=q_offset, kv_len=kv_len)
+    # the same steps: float32 scores may round p to the other bf16 neighbour
+    assert_close(got, want, "f32_dot" if dtype == "float32" else "bf16_round")
+
+
+def test_reference_layout_is_a_view_of_the_model_layout():
+    rng = np.random.default_rng(3)
+    B, Hkv, G, S, D = 2, 2, 3, 40, 32
+    q = torch.from_numpy(rng.standard_normal((B, Hkv * G, S, D)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((B, Hkv, S, D)).astype(np.float32))
+            for _ in range(2))
+    got = ops.attention(q, k, v, causal=True, block_k=16)
+    qm = q.reshape(B, Hkv, G, S, D).permute(0, 3, 1, 2, 4).contiguous()
+    want = chunked_attention_ref(qm, k.transpose(1, 2).contiguous(),
+                                 v.transpose(1, 2).contiguous(), causal=True, chunk=16)
+    assert_close(got, want.permute(0, 2, 3, 1, 4).reshape(B, Hkv * G, S, D), "exact")
+
+
+def test_kernel_takes_only_cuda_tensors():
+    q = torch.zeros(1, 4, 1, 1, 32)
+    k = torch.zeros(1, 4, 1, 32)
+    before = fa.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention(q, k, k, causal=True)
+    with pytest.raises(ValueError, match="cuda"):
+        ops.attention_model_layout(q.to("meta"), k.to("meta"), k.to("meta"))
+    assert fa.launches == before
