@@ -5,64 +5,33 @@ The CUDA source replaces the JAX package's Pallas TPU kernel
 XLA loop ``models/attention.py::chunked_attention``; the source's header says
 what bounds it on an H100 and what its design does about that.
 
-The library is built at the first CUDA call with ``nvcc`` into
-``build/repro_torch_kernels/`` beside ``src/`` (named by the source's hash,
-so an edited source rebuilds), and loaded with ``ctypes``.  The kernel
-launches on PyTorch's current stream.  ``launches`` counts the launches, so a
+The library is built at the first CUDA call (``kernels/build.py``) and
+loaded with ``ctypes``.  The kernel launches on PyTorch's current stream.  ``launches`` counts the launches, so a
 run can show that its attention went through the kernel.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
 import pathlib
-import shutil
-import subprocess
 from typing import Optional
 
 import torch
 
+from .build import build_library, strides_arg
+
 launches = 0  # kernel launches since the last reset (callers set it to 0)
 
 _SRC = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-_BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 _lib = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    return os.path.join(home, "bin", "nvcc")
-
-
 def build() -> pathlib.Path:
     """Compile the kernel library if this source has not been built yet, and
-    return its path; nvcc's output (with ptxas's register report) is beside
-    it, with the suffix ``.log``."""
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:12]
-    lib_path = _BUILD_DIR / f"libflash_attention_{digest}.so"
-    if lib_path.exists():
-        return lib_path
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", str(tmp), str(_SRC),
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    lib_path.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib_path)
-    return lib_path
+    return its path (``kernels/build.py``)."""
+    return build_library(_SRC)
 
 
 def _load():
@@ -76,13 +45,6 @@ def _load():
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
-
-
-def _strides(t: torch.Tensor, name: str):
-    if t.stride(-1) != 1:
-        raise ValueError(f"{name}: the head dim must have unit stride, got {t.stride()}")
-    dims = t.stride()[:-1]
-    return (ctypes.c_longlong * len(dims))(*dims)
 
 
 def flash_attention(
@@ -126,7 +88,8 @@ def flash_attention(
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPES[q.dtype], _DTYPES[k.dtype], B, S, KR, Gl, T, D,
-            _strides(q, "q"), _strides(k, "k"), _strides(v, "v"), _strides(out, "out"),
+            strides_arg(q, "q"), strides_arg(k, "k"), strides_arg(v, "v"),
+            strides_arg(out, "out"),
             int(causal), q_offset, kv_len, scale,
             torch.cuda.current_stream(q.device).cuda_stream,
         )

@@ -1,6 +1,6 @@
-"""Dispatch for the attention kernel: CUDA tensors go to the hand-written
-kernel, CPU tensors to the plain PyTorch version, anything else raises.
-There is no fallback from one to the other.
+"""Dispatch for the kernels: CUDA tensors go to the hand-written kernel,
+CPU tensors to the plain PyTorch version, anything else raises.  There is no
+fallback from one to the other.
 
 ``attention`` takes the JAX package's kernel layout (B,H,S,D) with the GQA map
 q-head h -> kv-head h // group; ``attention_model_layout`` takes the model's
@@ -13,13 +13,14 @@ from typing import Optional
 import torch
 
 from . import flash_attention as fa
-from .ref import chunked_attention_ref
+from . import ssd_scan as ssd_kernel
+from .ref import chunked_attention_ref, ssd_scan_ref
 
 
 def _route(t: torch.Tensor) -> str:
     if t.device.type in ("cuda", "cpu"):
         return t.device.type
-    raise ValueError(f"attention on {t.device}: only cuda (kernel) and cpu (plain) run")
+    raise ValueError(f"kernel input on {t.device}: only cuda (kernel) and cpu (plain) run")
 
 
 def attention_model_layout(
@@ -58,3 +59,11 @@ def attention(q, k, v, *, causal: bool = True, block_k: int = 128):
         return out
     o = chunked_attention_ref(qm, km, vm, causal=causal, chunk=block_k)
     return o.permute(0, 2, 3, 1, 4).reshape(B, Hq, S, D)
+
+
+def ssd(x, dt, B, C, A, *, chunk: int = 128):
+    """Mamba2 SSD: x (Bb,S,H,hd), dt (Bb,S,H), B/C (Bb,S,ds), A (H,) negative
+    -> y (Bb,S,H,hd), with chunks of min(chunk, S) rows."""
+    if _route(x) == "cuda":
+        return ssd_kernel.ssd_scan(x, dt, B, C, A, chunk=chunk)
+    return ssd_scan_ref(x, dt, B, C, A, chunk)

@@ -77,3 +77,66 @@ def chunked_attention_ref(
         m = m_new
     out = acc / torch.clamp_min(l[..., None], 1e-20)
     return out.to(q.dtype)
+
+
+def ssd_scan_ref(x, dt, B, C, A, chunk: int):
+    """Chunked SSD, step for step as the JAX package's
+    ``models/ssm.py::ssd_scan_ref``: chunk states first, then the sequential
+    scan over chunks.  x (Bb,S,Hp,hd), dt (Bb,S,Hp), B/C (Bb,S,ds), A (Hp,)
+    negative.  Returns y (Bb,S,Hp,hd)."""
+    Bb, S, Hp, hd = x.shape
+    ds = B.shape[-1]
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"sequence {S} is not a multiple of the chunk {Q}")
+    nc = S // Q
+    xc = x.reshape(Bb, nc, Q, Hp, hd)
+    dtc = dt.reshape(Bb, nc, Q, Hp)
+    Bc = B.reshape(Bb, nc, Q, ds)
+    Cc = C.reshape(Bb, nc, Q, ds)
+
+    loga = dtc * A  # (B,nc,Q,Hp), negative
+    l = torch.cumsum(loga, dim=2)  # within-chunk cumulative log decay
+
+    # intra-chunk: y[t] += sum_{s<=t} exp(l_t - l_s) dt_s (C_t . B_s) x_s
+    G = torch.einsum("bnqd,bnsd->bnqs", Cc, Bc)  # (B,nc,Q,Q)
+    diff = l[:, :, :, None, :] - l[:, :, None, :, :]  # (B,nc,Q,Q,Hp) t,s
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    # a select, not a product: exp(diff) is inf above the diagonal
+    W = torch.where(mask[None, None, :, :, None], torch.exp(diff), 0.0)
+    W = W * G[..., None] * dtc[:, :, None, :, :]  # (B,nc,Q,Q,Hp) [t,s]
+    y_intra = torch.einsum("bnqsh,bnshp->bnqhp", W, xc)
+
+    # chunk-end states: S_n = sum_s exp(l_Q - l_s) dt_s B_s (x) x_s
+    decay_end = torch.exp(l[:, :, -1:, :] - l)  # (B,nc,Q,Hp)
+    Sc = torch.einsum("bnsh,bnsd,bnshp->bnhpd", decay_end * dtc, Bc, xc)
+
+    # inter-chunk scan (sequential over nc chunks), emitting the state
+    # before each chunk
+    A_chunk = torch.exp(l[:, :, -1, :])  # (B,nc,Hp) total chunk decay
+    s = torch.zeros((Bb, Hp, hd, ds), dtype=x.dtype, device=x.device)
+    S_prev = []
+    for n in range(nc):
+        S_prev.append(s)
+        s = A_chunk[:, n, :, None, None] * s + Sc[:, n]
+    S_prev = torch.stack(S_prev, dim=1)  # (B,nc,Hp,hd,ds)
+
+    y_inter = torch.einsum("bnqd,bnhpd->bnqhp", Cc, S_prev) * torch.exp(l)[..., None]
+    return (y_intra + y_inter).reshape(Bb, S, Hp, hd)
+
+
+def ssd_recurrence(x, dt, B, C, A):
+    """The exact sequential recurrence the chunked SSD equals, one step per
+    token in float64: s_t = exp(dt_t A) s_{t-1} + dt_t x_t (x) B_t and
+    y_t = s_t C_t (the oracle of the reference's
+    ``test_ssd_kernel_matches_sequential_recurrence``).  Returns float64."""
+    x, dt, B, C, A = (t.double() for t in (x, dt, B, C, A))
+    Bb, S, H, hd = x.shape
+    s = torch.zeros((Bb, H, hd, B.shape[-1]), dtype=torch.float64, device=x.device)
+    ys = []
+    for t in range(S):
+        a = torch.exp(dt[:, t] * A)  # (Bb,H)
+        s = a[..., None, None] * s + torch.einsum(
+            "bh,bhp,bd->bhpd", dt[:, t], x[:, t], B[:, t])
+        ys.append(torch.einsum("bhpd,bd->bhp", s, C[:, t]))
+    return torch.stack(ys, dim=1)

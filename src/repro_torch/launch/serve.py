@@ -2,6 +2,7 @@
 requests.  Runs on CUDA unless ``--device cpu``; ``--reduce 1`` is full width.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b --reduce 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --reduce 8 --device cpu
 """
 from __future__ import annotations
 

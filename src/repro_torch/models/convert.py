@@ -2,8 +2,11 @@
 
 ``params_from_numpy`` takes the JAX package's param tree (nested dicts whose
 leaves are numpy arrays, layer leaves stacked along a leading L dim) and
-returns the port's params on ``device``.  Names map one to one; each leaf is
-stored in the dtype its declaration gives (``layers.stored_dtype``).
+returns the port's params on ``device``.  Names map one to one, for every
+ported family; each leaf is stored in the dtype its declaration gives
+(``layers.stored_dtype``): the compute dtype, or float32 for the leaves the
+reference reads in float32 (norm scales, Mamba2's ``A_log``, ``dt_bias``,
+``D`` and ``norm``).
 """
 from __future__ import annotations
 

@@ -6,8 +6,9 @@ tensors), mirroring the JAX package.  Rounding points follow it exactly:
 ``rms_norm`` and ``rope`` compute in float32 and round to the activation dtype
 once, and every matmul weight and bias is used in ``cfg.dtype``.  The JAX
 package casts those f32 params to ``cfg.dtype`` at every use; the port stores
-them in ``cfg.dtype`` once, which gives the same values.  Norm scales stay
-float32 (``dtype="float32"`` in their declaration).
+them in ``cfg.dtype`` once, which gives the same values.  Leaves the JAX
+package reads in float32 (norm scales; the SSM's ``A_log``, ``dt_bias`` and
+``D``) stay float32 (``dtype="float32"`` in their declaration).
 """
 from __future__ import annotations
 
@@ -29,8 +30,8 @@ Params = Dict[str, Any]
 
 def pspec(shape, spec, init="normal", fan_in=None, dtype=None):
     """Declarative param: shape, logical partition spec (a tuple), init kind
-    and fan-in.  ``dtype=None`` stores the param in the compute dtype;
-    norm scales pass ``"float32"``."""
+    and fan-in.  ``dtype=None`` stores the param in the compute dtype; leaves
+    read in float32 pass ``"float32"``."""
     return {
         "__param__": True,
         "shape": tuple(shape),
@@ -117,14 +118,19 @@ def mlp_params(cfg: ModelConfig, st: Strategy, d_ff: int = 0):
     }
 
 
+def silu(x):
+    """``jax.nn.silu`` as XLA's CPU expansion computes it: x * sigmoid(x) with
+    the logistic expanded as 1 / (1 + exp(-x)), rounded to x's dtype after
+    every op."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 def mlp_forward(cfg: ModelConfig, st: Strategy, p: Params, x):
-    """x: (..., M) activations in compute dtype.  ``jax.nn.silu`` is
-    x * sigmoid(x) with the logistic expanded as 1 / (1 + exp(-x)), rounded
-    to the compute dtype after every op; the port spells it the same way."""
+    """x: (..., M) activations in compute dtype."""
     if "wi_gate" in p:
         g = x @ p["wi_gate"]
         u = x @ p["wi_up"]
-        h = g * (1 / (1 + torch.exp(-g))) * u
+        h = silu(g) * u
     else:
         g = x @ p["wi"]
         if cfg.mlp == "gelu":
@@ -161,6 +167,44 @@ def embed_lookup(cfg: ModelConfig, st: Strategy, p: Params, tokens):
 def unembed_logits(cfg: ModelConfig, st: Strategy, p: Params, x):
     logits = x @ p["embedding"].t()
     return st.constrain(logits, "batch", "seq", "vocab")
+
+
+def softmax_xent(cfg: ModelConfig, st: Strategy, logits, labels):
+    """Mean cross entropy in float32, padded vocab masked (§4.1)."""
+    V = logits.shape[-1]
+    logits = logits.float()
+    if V > cfg.vocab_size:
+        mask = torch.arange(V, device=logits.device) < cfg.vocab_size
+        logits = torch.where(mask, logits, torch.full_like(logits, -1e9))
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, labels[..., None])[..., 0]
+    return (lse - picked).mean()
+
+
+def streamed_xent(cfg: ModelConfig, st: Strategy, x, embedding, labels):
+    """The loss per chunk of ``cfg.xent_chunk`` positions, with logits in the
+    compute dtype: the (B,S,V) float32 logits never exist at once.  The
+    max-subtracted log-sum-exp is float32 over the compute-dtype logits, and
+    the chunks' sums add up in order, as the JAX package's scan does."""
+    B, S, M = x.shape
+    Q = cfg.xent_chunk
+    if S % Q:
+        raise ValueError(f"sequence {S} is not a multiple of xent_chunk {Q}")
+    V = embedding.shape[0]
+    mask = (torch.arange(V, device=x.device) < cfg.vocab_size) if V > cfg.vocab_size else None
+    emb = embedding.to(x.dtype)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for n in range(S // Q):
+        xc, lc = x[:, n * Q:(n + 1) * Q], labels[:, n * Q:(n + 1) * Q]
+        logits = st.constrain(xc @ emb.t(), "batch", "seq", "vocab")
+        if mask is not None:
+            logits = torch.where(mask, logits, torch.full_like(logits, -1e4))
+        mx = logits.amax(dim=-1, keepdim=True)
+        z = (logits - mx).float()
+        lse = torch.log(torch.exp(z).sum(dim=-1)) + mx[..., 0].float()
+        picked = logits.float().gather(-1, lc[..., None])[..., 0]
+        total = total + (lse - picked).sum()
+    return total / (B * S)
 
 
 # ---------------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Dense decoder-only Transformer LM (paper §5.1's subject model): the forward
-pass and the cached decode step.  MoE layers and the training loss arrive in
-later slices (ROADMAP A12 and A6)."""
+pass, the loss and the cached decode step.  MoE layers arrive in a later
+slice (ROADMAP A12)."""
 from __future__ import annotations
 
 import torch
@@ -16,8 +16,10 @@ from .layers import (
     mlp_params,
     pspec,
     rms_norm,
+    softmax_xent,
     stack_layers,
     stacked,
+    streamed_xent,
     unembed_logits,
 )
 
@@ -56,8 +58,9 @@ def decoder_layer(cfg: ModelConfig, st: Strategy, lp: Params, x, positions):
     return st.constrain(x + y, "batch", "seq", "embed"), torch.zeros((), device=x.device)
 
 
-def forward(cfg: ModelConfig, st: Strategy, params: Params, tokens):
-    """tokens (B,S) -> (logits (B,S,V), aux_loss)."""
+def backbone(cfg: ModelConfig, st: Strategy, params: Params, tokens):
+    """Embedding + layer stack + final norm: tokens (B,S) -> (pre-logits
+    (B,S,M), aux_loss)."""
     _require_dense(cfg)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
@@ -72,8 +75,26 @@ def forward(cfg: ModelConfig, st: Strategy, params: Params, tokens):
         layer_fn, params["layers"], (x, torch.zeros((), device=x.device)), cfg,
         extra=positions,
     )
-    x = rms_norm(x, params["final_ln"])
+    return rms_norm(x, params["final_ln"]), aux
+
+
+def forward(cfg: ModelConfig, st: Strategy, params: Params, tokens):
+    """tokens (B,S) -> (logits (B,S,V), aux_loss)."""
+    x, aux = backbone(cfg, st, params, tokens)
     return unembed_logits(cfg, st, params["embed"], x), aux
+
+
+def loss_fn(cfg: ModelConfig, st: Strategy, params: Params, batch, aux_coef=0.01):
+    """Mean next-token cross entropy plus ``aux_coef`` times the aux loss;
+    streamed over sequence chunks when ``cfg.xent_chunk`` is set."""
+    if cfg.xent_chunk:
+        x, aux = backbone(cfg, st, params, batch["tokens"])
+        return (
+            streamed_xent(cfg, st, x, params["embed"]["embedding"], batch["labels"])
+            + aux_coef * aux
+        )
+    logits, aux = forward(cfg, st, params, batch["tokens"])
+    return softmax_xent(cfg, st, logits, batch["labels"]) + aux_coef * aux
 
 
 # ---------------------------------------------------------------------------------
@@ -87,6 +108,11 @@ def decode_layer(cfg: ModelConfig, st: Strategy, lp: Params, x, ck, cv, pos: int
     x = x + h
     h = rms_norm(x, lp["ln2"])
     return x + mlp_forward(cfg, st, lp["mlp"], h), ck, cv
+
+
+def cache_shapes(cfg: ModelConfig, st: Strategy, batch: int, max_len: int):
+    shape = attn.init_cache_shapes(cfg, st, batch, max_len)
+    return {"k": shape, "v": shape}
 
 
 def decode_step(cfg: ModelConfig, st: Strategy, params: Params, token, cache, pos: int):

@@ -4,9 +4,11 @@ Fixed B decode slots; finished sequences are replaced from the request queue
 between decode steps.  The semantics are the JAX package's
 ``serve/engine.py`` exactly: one shared ``pos`` for all slots, prompts fed
 token by token through decode, a refilled slot starting at the current
-``pos`` over its previous occupant's cache rows (ROADMAP R5), and a stop at
-``max_len - 1``.  The kv cache is bfloat16 whatever ``cfg.dtype`` is, and
-the decode step updates it in place.
+``pos`` over its previous occupant's cache rows or state (ROADMAP R5), and a
+stop at ``max_len - 1``.  Caches start as the reference allocates them:
+bfloat16 whatever ``cfg.dtype`` is, except the SSM state ``s`` in float32.
+The dense decode step writes its kv cache in place; the Mamba2 step returns
+new state tensors in the reference's dtypes.
 """
 from __future__ import annotations
 
