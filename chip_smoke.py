@@ -7,12 +7,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
 
 1. environment: the card's name and power limit, torch and CUDA versions,
    and the builds of both kernels from ``src/repro_torch`` (one nvcc each,
-   started together), with ptxas's registers and spills;
+   started together), with ptxas's registers and spills per variant and
+   the HGMMA count of each instantiation's SASS (no spill, and HGMMA in
+   every bf16 prefill instantiation, or the phase fails);
 2. flash_attention: the CUDA kernel against its plain PyTorch version on the
-   card at the shapes of the Pallas kernel's contract, GQA, prefill
-   continuation and the serve path's decode, with times (CUDA events) for
-   the kernel, the plain version and ``scaled_dot_product_attention`` (a
-   yardstick only: the port never calls it) beside the card's bound;
+   card at the shapes of the Pallas kernel's contract, the qwen loss's own
+   prefill, GQA, D = 32, a ragged prefill, prefill continuation and the
+   serve path's decode, each case with the variant and split count the
+   wrapper's plan() chose, with times (CUDA events) for the kernel, the
+   plain version and ``scaled_dot_product_attention`` (a yardstick only: the
+   port never calls it) beside the card's bound;
 3. ssd_scan: the CUDA kernel against its plain version (and, at a small
    size, the exact recurrence) at the Mamba2 loss's shape and smaller ones,
    with kernel and plain times beside the bound (no PyTorch call computes
@@ -60,6 +64,30 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
+def _ms(x):
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
+def device_ms(fn, copies, calls=10):
+    """Device time of one call: the kernels' own durations in a torch.profiler
+    trace of ``calls`` calls, without the host's time between launches (None
+    when the trace holds no device events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace now and then comes back without device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(calls):
+                fn(i % copies)
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events:
+            return sum(e.time_range.elapsed_us() for e in events) / 1e3 / calls
+    return None
+
+
 def time_ms(fn, copies):
     """Median device time of one call, from CUDA events around runs of ten
     calls that rotate over ``copies`` input sets (so that the inputs are
@@ -89,6 +117,7 @@ def kernel_case(name, *, B, S, T, KR, Gl, D, dtype, causal, q_offset=0, kv_len=N
     """Build inputs, hold the kernel against the plain version, time the
     kernel, the plain version and SDPA, and compute the bound."""
     from repro_torch.core.compat import TOLERANCES
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import chunked_attention_ref
 
@@ -170,22 +199,28 @@ def kernel_case(name, *, B, S, T, KR, Gl, D, dtype, causal, q_offset=0, kv_len=N
     flops = 4 * D * pairs * B * KR * Gl
     peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    pl = fa.plan(B, S, KR, Gl, T, D, dtype, kv_dtype, causal=causal, q_offset=q_offset,
+                 kv_len=kv_len)
     rec = {
         "case": name, "dtype": str(dtype).replace("torch.", ""),
         "kv_dtype": str(kv_dtype).replace("torch.", ""),
         "shape": dict(B=B, S=S, T=T, KR=KR, Gl=Gl, D=D, causal=causal,
                       q_offset=q_offset, kv_len=kv_len),
+        "variant": pl.variant, "splits": pl.splits,
         "max_abs_err": max_abs_err, "tol": tol,
         "ms": time_ms(run_kernel, copies),
+        "device_ms": device_ms(run_kernel, copies),
         "plain_ms": time_ms(run_plain, copies),
         "library_ms": time_ms(run_library, copies),
+        "library_device_ms": device_ms(run_library, copies),
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "flops": flops, "bytes": nbytes,
     }
-    print(f"  {name:30s} {rec['dtype']:8s} err {max_abs_err:.3g} ({tol}) "
-          f"kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  "
-          f"sdpa {rec['library_ms']:.4f} ms  bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})",
+    print(f"  {name:30s} {rec['dtype']:8s} {pl.variant}/{pl.splits} err {max_abs_err:.3g} ({tol}) "
+          f"kernel {rec['ms']:.4f} ms (device {_ms(rec['device_ms'])})  plain "
+          f"{rec['plain_ms']:.4f} ms  sdpa {rec['library_ms']:.4f} ms (device "
+          f"{_ms(rec['library_device_ms'])})  bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})",
           flush=True)
     return rec
 
@@ -202,6 +237,14 @@ def kernel_phase(seed):
         cases.append(kernel_case("gqa_24q_8kv_1024_d128", B=1, S=1024, T=1024, KR=8, Gl=3,
                                  D=128, dtype=dtype, causal=True, chunk=128,
                                  layout="reference", gen=gen))
+    # the qwen loss's own call: model layout, 24 launches per forward
+    cases.append(kernel_case("prefill_qwen_loss_2x2048", B=2, S=2048, T=2048, KR=16, Gl=1,
+                             D=64, dtype=bf16, causal=True, chunk=1024, layout="model",
+                             gen=gen))
+    cases.append(kernel_case("prefill_d32_1x8x2048", B=1, S=2048, T=2048, KR=8, Gl=1, D=32,
+                             dtype=bf16, causal=True, chunk=1024, layout="model", gen=gen))
+    cases.append(kernel_case("prefill_ragged_1000", B=2, S=1000, T=1000, KR=16, Gl=1, D=64,
+                             dtype=bf16, causal=True, chunk=1000, layout="model", gen=gen))
     cases.append(kernel_case("continuation_128_of_1024", B=2, S=128, T=1024, KR=16, Gl=1,
                              D=64, dtype=bf16, causal=True, q_offset=896, chunk=1024,
                              layout="model", gen=gen))
@@ -209,6 +252,9 @@ def kernel_phase(seed):
         cases.append(kernel_case(f"decode_8x16_pos{pos}", B=8, S=1, T=1024, KR=16, Gl=1,
                                  D=64, dtype=bf16, causal=False, q_offset=pos,
                                  kv_len=pos + 1, chunk=1024, layout="model", gen=gen))
+    cases.append(kernel_case("decode_gqa_8x8x3_d128_pos1023", B=8, S=1, T=1024, KR=8, Gl=3,
+                             D=128, dtype=bf16, causal=False, q_offset=1023, kv_len=1024,
+                             chunk=1024, layout="model", gen=gen))
     # a float32 model decoding from the bf16 cache
     cases.append(kernel_case("decode_f32q_bf16kv_pos100", B=2, S=1, T=256, KR=16, Gl=1, D=64,
                              dtype=f32, kv_dtype=bf16, causal=False, q_offset=100,
@@ -557,8 +603,41 @@ def consistency_phase(cfg, st, params, seed, kernel):
     return out
 
 
+# the kernels' templates by variant, as the mangled names in ptxas's report
+# and in the SASS show them
+VARIANT_OF = {"flash_wgmma": "prefill_wgmma", "flash_decode": "decode_splitkv",
+              "flash_fwd": "prefill_f32", "ssd_fwd": "ssd_scan"}
+
+
+def _variant(symbol):
+    return next((v for k, v in VARIANT_OF.items() if k in symbol), symbol)
+
+
+def hgmma_counts(lib):
+    """HGMMA instructions in each instantiation's SASS, by mangled name, from
+    ``cuobjdump -sass`` beside nvcc; None when the toolkit has no cuobjdump."""
+    from repro_torch.kernels.build import nvcc_path
+
+    tool = pathlib.Path(nvcc_path()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
 def build_kernels():
-    """Start one nvcc per kernel source together; print ptxas's report."""
+    """Start one nvcc per kernel source together; print ptxas's registers and
+    spills per variant and the HGMMA count of each instantiation; fail if a
+    build spills or a bf16 prefill instantiation holds no HGMMA."""
     from repro_torch.kernels import flash_attention, ssd_scan
 
     t0 = time.perf_counter()
@@ -566,13 +645,38 @@ def build_kernels():
         futures = {name: pool.submit(mod.build)
                    for name, mod in (("flash_attention", flash_attention), ("ssd_scan", ssd_scan))}
         libs = {name: f.result() for name, f in futures.items()}
-    print(f"  kernel builds {time.perf_counter() - t0:.1f} s (in parallel)", flush=True)
+    seconds = time.perf_counter() - t0
+    print(f"  kernel builds {seconds:.1f} s (in parallel)", flush=True)
+    report = {"build_s": seconds, "variants": {}}
     for name, lib in libs.items():
         ptxas = lib.with_suffix(".log").read_text()
-        regs = [int(n) for n in re.findall(r"Used (\d+) registers", ptxas)]
-        spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill stores", ptxas))
-        print(f"  {name} ({lib.name}): {len(regs)} instantiations, registers "
-              f"{sorted(set(regs))}, spill stores {spills} bytes", flush=True)
+        if "setmaxnreg ignored" in ptxas:
+            print(f"  {name}: ptxas ignored setmaxnreg", flush=True)
+        funcs = re.findall(r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores.*?"
+                           r"Used (\d+) registers", ptxas, re.S)
+        by_variant = {}
+        for sym, spills, regs in funcs:
+            v = by_variant.setdefault(_variant(sym), {"instantiations": 0, "registers": set(),
+                                                      "spill_stores": 0})
+            v["instantiations"] += 1
+            v["registers"].add(int(regs))
+            v["spill_stores"] += int(spills)
+        hgmma = hgmma_counts(lib)
+        for variant, v in sorted(by_variant.items()):
+            v["registers"] = sorted(v["registers"])
+            if hgmma is None:
+                v["hgmma"] = "not measured (no cuobjdump beside nvcc)"
+            else:
+                v["hgmma"] = sorted(n for sym, n in hgmma.items() if _variant(sym) == variant)
+            print(f"  {name} {variant}: {v['instantiations']} instantiations, registers "
+                  f"{v['registers']}, spill stores {v['spill_stores']} bytes, HGMMA per "
+                  f"instantiation {v['hgmma']}", flush=True)
+            check(v["spill_stores"] == 0, f"{name} {variant} spills registers")
+            if variant == "prefill_wgmma" and hgmma is not None:
+                check(len(v["hgmma"]) == v["instantiations"] and min(v["hgmma"]) > 0,
+                      f"a bf16 prefill instantiation holds no HGMMA: {v['hgmma']}")
+            report["variants"][variant] = v
+    return report
 
 
 def main(argv=None):
@@ -590,7 +694,7 @@ def main(argv=None):
     print(smi)
     print(f"env: torch {torch.__version__} cuda {torch.version.cuda} | "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
-    build_kernels()
+    build = build_kernels()
 
     print("kernel: flash_attention (CUDA) vs plain PyTorch on the card", flush=True)
     fa_cases = kernel_phase(args.seed)
@@ -611,6 +715,7 @@ def main(argv=None):
     mamba_consistency = consistency_phase(cfg, st, params, args.seed, "ssd_scan")
 
     fa_main = next(c for c in fa_cases if c["case"] == "decode_8x16_pos1023")
+    fa_prefill = next(c for c in fa_cases if c["case"] == "prefill_qwen_loss_2x2048")
     ssd_main = next(c for c in ssd_cases if c["case"] == "loss_8x2048_h24")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     record = {"kernels": [{
@@ -618,14 +723,18 @@ def main(argv=None):
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:81",
         "launches": qwen_serve["launches"]["flash_attention"], "launches_path": "qwen serve",
-        **{k: fa_main[k] for k in keys}, "main_case": fa_main["case"], "cases": fa_cases,
+        **{k: fa_main[k] for k in keys}, "main_case": fa_main["case"],
+        "prefill_main_case": {"case": fa_prefill["case"], **{k: fa_prefill[k] for k in keys},
+                              "launches": qwen_loss["launches"]["flash_attention"],
+                              "launches_path": "qwen loss"},
+        "cases": fa_cases,
     }, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:70",
         "launches": mamba_loss["launches"]["ssd_scan"], "launches_path": "mamba2 loss",
         **{k: ssd_main[k] for k in keys}, "main_case": ssd_main["case"], "cases": ssd_cases,
-    }], "qwen": {"serve": qwen_serve, "consistency": qwen_consistency, "loss": qwen_loss},
+    }], "build": build, "qwen": {"serve": qwen_serve, "consistency": qwen_consistency, "loss": qwen_loss},
         "mamba2": {"loss": mamba_loss, "serve": mamba_serve, "consistency": mamba_consistency}}
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps(record))

@@ -21,7 +21,8 @@ import torch
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
 
-def _nvcc() -> str:
+def nvcc_path() -> str:
+    """nvcc on the PATH, else under CUDA_HOME (or /usr/local/cuda)."""
     found = shutil.which("nvcc")
     if found:
         return found
@@ -39,7 +40,7 @@ def build_library(src: pathlib.Path) -> pathlib.Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
     cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
         "-o", str(tmp), str(src),
     ]

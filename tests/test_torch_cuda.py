@@ -33,7 +33,9 @@ def cuda():
 
 
 # (B, S, T, KR, Gl, D, causal, chunk, q_offset, kv_len): GQA with Gl > 1,
-# continuation with q_offset, a kv_len prefix, S != T, ragged q and kv tiles
+# continuation with q_offset, a kv_len prefix, S != T, ragged q and kv tiles.
+# In bf16, R = S * Gl > 16 takes the tensor-core prefill, R <= 16 the split-kv
+# decode (float32 prefill takes the CUDA-core kernel)
 CASES = [
     (2, 40, 40, 2, 3, 32, True, 16, 0, None),
     (1, 24, 72, 1, 4, 64, True, 32, 48, None),
@@ -42,10 +44,26 @@ CASES = [
     (1, 16, 100, 2, 2, 128, True, 32, 84, 100),
     (2, 8, 60, 1, 2, 32, False, 25, 10, 45),
     (1, 300, 300, 2, 1, 128, True, 128, 0, None),
+    # prefill: S not a multiple of 128, T not a multiple of the 128-key tile
+    (1, 200, 300, 2, 1, 64, True, 128, 100, None),
+    # Gl = 3 at D = 128 (q rows straddle (s, g) across the 128-row tile)
+    (1, 100, 100, 2, 3, 128, True, 64, 0, None),
+    # D = 32 (64-byte swizzle), causal, two q tiles
+    (2, 130, 130, 2, 1, 32, True, 64, 0, None),
+    # q_offset with S != T, GQA
+    (1, 64, 200, 2, 2, 64, True, 64, 136, None),
+    # kv_len < T in prefill, non-causal and causal
+    (2, 150, 256, 1, 1, 64, False, 128, 0, 190),
+    (1, 96, 160, 2, 2, 64, True, 64, 40, 120),
+    # decode: a ragged last split (1000 keys over 15 splits), Gl > 1 at
+    # D = 128, and causal rows (S = 4, Gl = 3) that see different prefixes
+    (1, 1, 1024, 2, 1, 64, False, 1024, 999, 1000),
+    (2, 1, 700, 2, 4, 128, False, 700, 650, 651),
+    (1, 4, 600, 2, 3, 64, True, 600, 500, 504),
 ]
-# p is rounded to the kv dtype at the kernel's 64-row kv tiles rather than
-# the plain version's chunks: one bf16 rounding apart; float32 differs in
-# summation order only
+# p is rounded to the kv dtype at the kernel's kv tiles rather than the plain
+# version's chunks (and, in decode, against each split's own max): one bf16
+# rounding apart; float32 differs in summation order only
 TOL = {torch.float32: "f32_chain", torch.bfloat16: "bf16_round"}
 
 
@@ -65,14 +83,29 @@ def test_kernel_matches_plain(cuda, B, S, T, KR, Gl, D, causal, chunk, q_offset,
     assert_close(got, want, TOL[dtype])
 
 
-def test_kernel_f32_queries_on_bf16_cache(cuda):
+@pytest.mark.parametrize("T,pos", [(96, 70), (1024, 900)])
+def test_kernel_f32_queries_on_bf16_cache(cuda, T, pos):
     g = torch.Generator(device=cuda).manual_seed(2)
     q = torch.randn(3, 1, 4, 2, 64, generator=g, device=cuda)
-    k, v = (torch.randn(3, 96, 4, 64, generator=g, device=cuda).bfloat16() for _ in range(2))
-    got = ops.attention_model_layout(q, k, v, causal=False, chunk=96, q_offset=70, kv_len=71)
+    k, v = (torch.randn(3, T, 4, 64, generator=g, device=cuda).bfloat16() for _ in range(2))
+    got = ops.attention_model_layout(q, k, v, causal=False, chunk=T, q_offset=pos, kv_len=pos + 1)
     assert got.dtype == torch.float32
-    want = chunked_attention_ref(q, k, v, causal=False, chunk=96, q_offset=70, kv_len=71)
+    want = chunked_attention_ref(q, k, v, causal=False, chunk=T, q_offset=pos, kv_len=pos + 1)
     assert_close(got, want, "bf16_round")
+
+
+def test_decode_reads_a_layer_slice_of_the_cache(cuda):
+    """k/v as layer l of an (L,B,T,KR,D) cache, as the decode step passes them."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    ck, cv = (torch.randn(3, 2, 512, 4, 64, generator=g, device=cuda).bfloat16()
+              for _ in range(2))
+    q = torch.randn(2, 1, 4, 1, 64, generator=g, device=cuda).bfloat16()
+    for layer in range(3):
+        got = ops.attention_model_layout(q, ck[layer], cv[layer], causal=False, chunk=512,
+                                         q_offset=400, kv_len=401)
+        want = chunked_attention_ref(q, ck[layer], cv[layer], causal=False, chunk=512,
+                                     q_offset=400, kv_len=401)
+        assert_close(got, want, "bf16_round")
 
 
 def test_kernel_reference_layout(cuda):
@@ -93,6 +126,10 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.zeros(1, 4, 1, 1, 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(TypeError):
         fa.flash_attention(q, q[:, :, :, 0].float(), q[:, :, :, 0].float(), causal=True)
+    # rows 136 bytes apart: neither TMA nor 16-byte loads take them
+    k = torch.zeros(1, 4, 1, 68, device=cuda, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="16 bytes"):
+        fa.flash_attention(q, k, k, causal=True)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

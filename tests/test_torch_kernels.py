@@ -108,3 +108,48 @@ def test_kernel_takes_only_cuda_tensors():
     with pytest.raises(ValueError, match="cuda"):
         ops.attention_model_layout(q.to("meta"), k.to("meta"), k.to("meta"))
     assert fa.launches == before
+
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+# (q dtype, kv dtype, S, Gl, variant): R = S * Gl <= 16 decodes on the CUDA
+# cores for every dtype pair; above that bf16 takes the tensor cores and
+# float32 q the CUDA-core prefill
+@pytest.mark.parametrize("q_dtype,kv_dtype,S,Gl,variant", [
+    (BF16, BF16, 1, 1, "decode_splitkv"),
+    (BF16, BF16, 4, 4, "decode_splitkv"),
+    (F32, F32, 1, 3, "decode_splitkv"),
+    (F32, BF16, 16, 1, "decode_splitkv"),
+    (BF16, BF16, 17, 1, "prefill_wgmma"),
+    (BF16, BF16, 6, 3, "prefill_wgmma"),
+    (BF16, BF16, 2048, 1, "prefill_wgmma"),
+    (F32, F32, 300, 1, "prefill_f32"),
+    (F32, BF16, 9, 2, "prefill_f32"),
+])
+def test_plan_picks_the_variant_by_dtype_and_rows(q_dtype, kv_dtype, S, Gl, variant):
+    pl = fa.plan(2, S, 4, Gl, 4096, 64, q_dtype, kv_dtype, causal=True, q_offset=4096 - S)
+    assert pl.variant == variant
+    assert pl.splits == 1 or variant == "decode_splitkv"
+
+
+@pytest.mark.parametrize("B,KR,kv_len", [
+    (8, 16, 1024), (8, 16, 1), (8, 16, 63), (8, 16, 130), (1, 1, 100_000),
+    (1, 2, 1000), (2, 2, 651), (8, 8, 1024), (64, 16, 4096), (1, 16, 193),
+])
+def test_plan_splits_decode_kv(B, KR, kv_len):
+    pl = fa.plan(B, 1, KR, 1, max(kv_len, 1024), 128, BF16, BF16, causal=False,
+                 q_offset=kv_len - 1, kv_len=kv_len)
+    assert pl.variant == "decode_splitkv" and 1 <= pl.splits <= fa.MAX_SPLITS
+    # the kernel cuts kv_len keys into even shares: the smallest is floor(kv_len / splits)
+    assert kv_len // pl.splits >= fa.MIN_SPLIT_KEYS or pl.splits == 1
+    # two blocks per SM at least, unless kv_len or the cap allows no more splits
+    most = min(fa.MAX_SPLITS, max(1, kv_len // fa.MIN_SPLIT_KEYS))
+    assert pl.splits * B * KR >= 2 * fa.SMS or pl.splits == most
+
+
+def test_plan_counts_only_the_keys_a_causal_call_can_see():
+    """Causal rows at q_offset 99 see 100 keys of a 4096-key cache: one split."""
+    pl = fa.plan(1, 2, 2, 1, 4096, 64, BF16, BF16, causal=True, q_offset=99)
+    assert pl.splits == 1
+    assert fa.plan(1, 2, 2, 1, 4096, 64, BF16, BF16, causal=False, q_offset=99).splits == 32
