@@ -8,8 +8,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
 1. environment: the card's name and power limit, torch and CUDA versions,
    and the builds of both kernels from ``src/repro_torch`` (one nvcc each,
    started together), with ptxas's registers and spills per variant and
-   the HGMMA count of each instantiation's SASS (no spill, and HGMMA in
-   every bf16 prefill instantiation, or the phase fails);
+   the HGMMA and HMMA counts of each instantiation's SASS (no spill, HGMMA
+   in every bf16 prefill instantiation and HMMA in every instantiation of
+   the SSD's two product passes, or the phase fails);
 2. flash_attention: the CUDA kernel against its plain PyTorch version on the
    card at the shapes of the Pallas kernel's contract, the qwen loss's own
    prefill, GQA, D = 32, a ragged prefill, prefill continuation and the
@@ -17,10 +18,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    wrapper's plan() chose, with times (CUDA events) for the kernel, the
    plain version and ``scaled_dot_product_attention`` (a yardstick only: the
    port never calls it) beside the card's bound;
-3. ssd_scan: the CUDA kernel against its plain version (and, at a small
-   size, the exact recurrence) at the Mamba2 loss's shape and smaller ones,
-   with kernel and plain times beside the bound (no PyTorch call computes
-   the SSD);
+3. ssd_scan: the CUDA kernel (three passes per call) against its plain
+   version (and, at a small size, the exact recurrence) at the Mamba2
+   loss's shape and smaller ones, ragged chunks and a short head group,
+   with kernel, device (and, at the loss shapes, per-pass) and plain times
+   beside the bound (no PyTorch call computes the SSD); and, on signed
+   inputs scaled by 10^3, its error against float64 beside the plain
+   float32 version's;
 4. qwen1.5-0.5b at full width (random weights from the seed): serve 16
    greedy requests behind ``Engine(slots=8, max_len=1024)``, every decode
    step launching the attention kernel once per layer; the forward against
@@ -54,6 +58,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense tensor-core bf16
+PEAK_TF32_FLOPS = 495e12   # H100 SXM dense tensor-core TF32
 PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 L2_BYTES = 50 * 2**20
@@ -68,23 +73,30 @@ def _ms(x):
     return "not measured" if x is None else f"{x:.4f} ms"
 
 
-def device_ms(fn, copies, calls=10):
+def device_ms(fn, copies, calls=10, by_name=False):
     """Device time of one call: the kernels' own durations in a torch.profiler
     trace of ``calls`` calls, without the host's time between launches (None
-    when the trace holds no device events)."""
+    when no trace holds every call's device events); with ``by_name``, a
+    dict by kernel name of its time and its launches per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn(0)
     torch.cuda.synchronize()
-    for _ in range(3):  # a trace now and then comes back without device events
+    for _ in range(3):  # a trace now and then comes back without some device events
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for i in range(calls):
                 fn(i % copies)
             torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if events:
-            return sum(e.time_range.elapsed_us() for e in events) / 1e3 / calls
+        per_name, count = {}, {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+                count[e.name] = count.get(e.name, 0) + 1
+        if count and all(n % calls == 0 for n in count.values()):  # every call's kernels
+            if not by_name:
+                return sum(per_name.values())
+            return {n: {"ms": ms, "launches": count[n] // calls} for n, ms in per_name.items()}
     return None
 
 
@@ -206,7 +218,7 @@ def kernel_case(name, *, B, S, T, KR, Gl, D, dtype, causal, q_offset=0, kv_len=N
         "kv_dtype": str(kv_dtype).replace("torch.", ""),
         "shape": dict(B=B, S=S, T=T, KR=KR, Gl=Gl, D=D, causal=causal,
                       q_offset=q_offset, kv_len=kv_len),
-        "variant": pl.variant, "splits": pl.splits,
+        "variant": pl.variant,
         "max_abs_err": max_abs_err, "tol": tol,
         "ms": time_ms(run_kernel, copies),
         "device_ms": device_ms(run_kernel, copies),
@@ -215,13 +227,12 @@ def kernel_case(name, *, B, S, T, KR, Gl, D, dtype, causal, q_offset=0, kv_len=N
         "library_device_ms": device_ms(run_library, copies),
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "flops": flops, "bytes": nbytes,
     }
     print(f"  {name:30s} {rec['dtype']:8s} {pl.variant}/{pl.splits} err {max_abs_err:.3g} ({tol}) "
           f"kernel {rec['ms']:.4f} ms (device {_ms(rec['device_ms'])})  plain "
           f"{rec['plain_ms']:.4f} ms  sdpa {rec['library_ms']:.4f} ms (device "
-          f"{_ms(rec['library_device_ms'])})  bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})",
-          flush=True)
+          f"{_ms(rec['library_device_ms'])})  bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; "
+          f"{flops:.4g} flop, {nbytes:.4g} bytes)", flush=True)
     return rec
 
 
@@ -267,12 +278,13 @@ def kernel_phase(seed):
 # ---------------------------------------------------------------------------------
 
 
-def ssd_case(name, *, B, S, H, hd, ds, chunk, gen, recurrence=False):
+def ssd_case(name, *, B, S, H, hd, ds, chunk, gen, recurrence=False, per_pass=False):
     """Inputs with tests/test_kernels.py's distributions; the kernel against
-    the plain version (or the float64 recurrence), kernel and plain times,
-    and the bound."""
+    the plain version (or the float64 recurrence), kernel, device and plain
+    times, and the bounds; with ``per_pass``, each pass's device time."""
     from repro_torch.core.compat import TOLERANCES
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd_kernel
     from repro_torch.kernels.ref import ssd_recurrence, ssd_scan_ref
 
     dev = torch.device("cuda")
@@ -316,35 +328,99 @@ def ssd_case(name, *, B, S, H, hd, ds, chunk, gen, recurrence=False):
     # (batch row, chunk); per (batch row, head) the causal half of W x in
     # every chunk, and C S^T and the state update in all chunks but one (the
     # state is zero entering the first chunk, and the one leaving the last is
-    # never read)
+    # never read).  The kernel runs each product as three TF32 tensor-core
+    # products (3xTF32: hi hi + hi lo + lo hi, float32 accuracy), so its bound
+    # by operations is 3 flops at the TF32 peak; the bound by float32 FMAs on
+    # the CUDA cores, where a kernel without tensor cores would stand, stays
+    # beside it.
     causal = Q * (Q + 1) // 2
     flops = B * nc * 2 * ds * causal + B * H * (
         nc * 2 * hd * causal + (nc - 1) * (2 * Q * ds * hd + 2 * Q * hd * ds))
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    pl = ssd_kernel.plan(B, S, H, hd, ds, chunk, sms=ssd_kernel.multiprocessors(dev))
     rec = {
         "case": name, "dtype": "float32",
         "shape": dict(B=B, S=S, H=H, hd=hd, ds=ds, Q=Q),
         "max_abs_err": max_abs_err, "tol": tol,
         "against": "recurrence" if recurrence else "plain",
         "ms": time_ms(run_kernel, copies),
+        "dev_ms": device_ms(run_kernel, copies),
         "plain_ms": time_ms(run_plain, copies),
         "library_ms": None,
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "flops": flops, "bytes": nbytes,
     }
+    # counted and planned, not measured: on the printed line only
+    f32_fma_ms = max(flops / PEAK_F32_FLOPS * 1e3, t_bytes)
     print(f"  {name:30s} err {max_abs_err:.3g} vs {rec['against']} ({tol}) "
-          f"kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  "
-          f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})", flush=True)
+          f"kernel {rec['ms']:.4f} ms (device {_ms(rec['dev_ms'])})  plain "
+          f"{rec['plain_ms']:.4f} ms  bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+          f"3xTF32; f32 FMA {f32_fma_ms:.4f}; {flops:.4g} flop, {nbytes:.4g} bytes)  head "
+          f"group {pl.head_group}, out grid {pl.out_grid}, scratch {pl.scratch_bytes} bytes",
+          flush=True)
+    if per_pass:
+        passes = device_ms(run_kernel, copies, by_name=True)
+        rec["pass_dev_ms"] = passes and {_variant(n): v["ms"] for n, v in passes.items()}
+        # kernels that one wrapper call launched, counted in the trace
+        rec["launches_per_call"] = passes and sum(v["launches"] for v in passes.values())
+        print(f"    per pass (device): " + ("not measured" if not passes else "  ".join(
+            f"{_variant(n)} {v['ms']:.4f} ms x{v['launches']}" for n, v in passes.items())),
+            flush=True)
     return rec
+
+
+def ssd_cancelling_sums(gen):
+    """Signed x scaled by 10^3 (tests/test_torch_cuda.py's cancelling-sums
+    case): the kernel's and the plain float32 version's largest errors
+    against float64 on the same inputs; fails unless the kernel's is within
+    4x of the plain version's."""
+    from repro_torch.kernels import ssd_scan as ssd_kernel
+    from repro_torch.kernels.ref import ssd_scan_ref
+
+    dev = torch.device("cuda")
+    x, dt, B, C, A = (torch.randn(2, 512, 3, 64, generator=gen, device=dev) * 1e3,
+                      torch.randn(2, 512, 3, generator=gen, device=dev).abs() * 0.5,
+                      torch.randn(2, 512, 128, generator=gen, device=dev) * 0.2,
+                      torch.randn(2, 512, 128, generator=gen, device=dev) * 0.2,
+                      -torch.randn(3, generator=gen, device=dev).abs())
+    from repro_torch.core.compat import TOLERANCES
+
+    rtol, atol = TOLERANCES["f32_chain"]
+    want = ssd_scan_ref(*(t.double() for t in (x, dt, B, C, A)), 128)
+    out = {}
+    for who, got in (("kernel", ssd_kernel.ssd_scan(x, dt, B, C, A)),
+                     ("plain", ssd_scan_ref(x, dt, B, C, A, 128))):
+        err = (got.double() - want).abs()
+        out[f"{who}_err"] = err.max().item()
+        # outputs outside f32_chain against float64: near-zero sums of large terms
+        out[f"{who}_outside_f32_chain"] = int((err > atol + rtol * want.abs()).sum().item())
+    print(f"  cancelling sums (signed x * 1e3, B2 S512 H3, |y| <= "
+          f"{want.abs().max().item():.4g}): max abs err vs float64 kernel "
+          f"{out['kernel_err']:.4g}, plain float32 {out['plain_err']:.4g} "
+          f"({out['kernel_err'] / out['plain_err']:.3f}x; limit 4x); outputs outside f32_chain "
+          f"kernel {out['kernel_outside_f32_chain']}, plain {out['plain_outside_f32_chain']} "
+          f"of {want.numel()}", flush=True)
+    check(0 < out["plain_err"] and out["kernel_err"] <= 4 * out["plain_err"],
+          "ssd_scan: the kernel's error on cancelling sums is over 4x plain float32's")
+    return out
 
 
 def ssd_phase(seed):
     gen = torch.Generator(device="cuda").manual_seed(seed + 10)
     return [
         # the Mamba2 loss phase's shape, per layer
-        ssd_case("loss_8x2048_h24", B=8, S=2048, H=24, hd=64, ds=128, chunk=128, gen=gen),
-        ssd_case("loss_1x2048_h24", B=1, S=2048, H=24, hd=64, ds=128, chunk=128, gen=gen),
+        ssd_case("loss_8x2048_h24", B=8, S=2048, H=24, hd=64, ds=128, chunk=128, gen=gen,
+                 per_pass=True),
+        ssd_case("loss_1x2048_h24", B=1, S=2048, H=24, hd=64, ds=128, chunk=128, gen=gen,
+                 per_pass=True),
+        # Q = 48: three chunks of three full m tiles; Q = 36 and Q = 100 (S <
+        # chunk), no multiple of 8: rows padded to 40 and 104 in the state
+        # pass, 48 and 112 in the output pass; H = 5 at B = 2: groups of 2
+        # heads, the last one short, and 16 chunks through the state pass
+        ssd_case("chunk48_s144", B=2, S=144, H=24, hd=64, ds=128, chunk=48, gen=gen),
+        ssd_case("chunk36_s144", B=2, S=144, H=24, hd=64, ds=128, chunk=36, gen=gen),
+        ssd_case("short_s100_q100", B=2, S=100, H=24, hd=64, ds=128, chunk=128, gen=gen),
+        ssd_case("heads5_b2_s2048", B=2, S=2048, H=5, hd=64, ds=128, chunk=128, gen=gen),
         ssd_case("short_s64_q64", B=2, S=64, H=24, hd=64, ds=128, chunk=128, gen=gen),
         ssd_case("hd32_ds16", B=1, S=256, H=1, hd=32, ds=16, chunk=128, gen=gen),
         ssd_case("recurrence_s64", B=1, S=64, H=2, hd=32, ds=16, chunk=32, gen=gen,
@@ -603,19 +679,24 @@ def consistency_phase(cfg, st, params, seed, kernel):
     return out
 
 
-# the kernels' templates by variant, as the mangled names in ptxas's report
-# and in the SASS show them
+# the kernels' templates by variant, as the mangled names in ptxas's report,
+# in the SASS and in profiler traces show them
 VARIANT_OF = {"flash_wgmma": "prefill_wgmma", "flash_decode": "decode_splitkv",
-              "flash_fwd": "prefill_f32", "ssd_fwd": "ssd_scan"}
+              "flash_fwd": "prefill_f32", "ssd_chunk_state": "ssd_chunk_state",
+              "ssd_state_pass": "ssd_state_pass", "ssd_chunk_out": "ssd_chunk_out"}
+# the SSD passes whose products run on the tensor cores (ssd_state_pass only
+# moves the states: no product)
+SSD_PRODUCT_PASSES = ("ssd_chunk_state", "ssd_chunk_out")
 
 
 def _variant(symbol):
     return next((v for k, v in VARIANT_OF.items() if k in symbol), symbol)
 
 
-def hgmma_counts(lib):
-    """HGMMA instructions in each instantiation's SASS, by mangled name, from
-    ``cuobjdump -sass`` beside nvcc; None when the toolkit has no cuobjdump."""
+def mma_counts(lib):
+    """HGMMA (wgmma) and HMMA (mma.sync) instructions in each instantiation's
+    SASS, by mangled name, from ``cuobjdump -sass`` beside nvcc; None when
+    the toolkit has no cuobjdump."""
     from repro_torch.kernels.build import nvcc_path
 
     tool = pathlib.Path(nvcc_path()).parent / "cuobjdump"
@@ -628,16 +709,19 @@ def hgmma_counts(lib):
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            counts[fn] = 0
-        elif fn is not None and "HGMMA" in line:
-            counts[fn] += 1
+            counts[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn is not None:
+            op = re.search(r"\b(HGMMA|HMMA)\.", line)
+            if op:
+                counts[fn][op.group(1)] += 1
     return counts
 
 
 def build_kernels():
     """Start one nvcc per kernel source together; print ptxas's registers and
-    spills per variant and the HGMMA count of each instantiation; fail if a
-    build spills or a bf16 prefill instantiation holds no HGMMA."""
+    spills per variant and the HGMMA and HMMA counts of each instantiation;
+    fail if a build spills, a bf16 prefill instantiation holds no HGMMA or an
+    instantiation of an SSD product pass holds no HMMA."""
     from repro_torch.kernels import flash_attention, ssd_scan
 
     t0 = time.perf_counter()
@@ -661,20 +745,25 @@ def build_kernels():
             v["instantiations"] += 1
             v["registers"].add(int(regs))
             v["spill_stores"] += int(spills)
-        hgmma = hgmma_counts(lib)
+        mma = mma_counts(lib)
         for variant, v in sorted(by_variant.items()):
             v["registers"] = sorted(v["registers"])
-            if hgmma is None:
-                v["hgmma"] = "not measured (no cuobjdump beside nvcc)"
-            else:
-                v["hgmma"] = sorted(n for sym, n in hgmma.items() if _variant(sym) == variant)
+            for op in ("HGMMA", "HMMA"):
+                if mma is None:
+                    v[op.lower()] = "not measured (no cuobjdump beside nvcc)"
+                else:
+                    v[op.lower()] = sorted(n[op] for sym, n in mma.items()
+                                           if _variant(sym) == variant)
             print(f"  {name} {variant}: {v['instantiations']} instantiations, registers "
                   f"{v['registers']}, spill stores {v['spill_stores']} bytes, HGMMA per "
-                  f"instantiation {v['hgmma']}", flush=True)
+                  f"instantiation {v['hgmma']}, HMMA {v['hmma']}", flush=True)
             check(v["spill_stores"] == 0, f"{name} {variant} spills registers")
-            if variant == "prefill_wgmma" and hgmma is not None:
+            if variant == "prefill_wgmma" and mma is not None:
                 check(len(v["hgmma"]) == v["instantiations"] and min(v["hgmma"]) > 0,
                       f"a bf16 prefill instantiation holds no HGMMA: {v['hgmma']}")
+            if variant in SSD_PRODUCT_PASSES and mma is not None:
+                check(len(v["hmma"]) == v["instantiations"] and min(v["hmma"]) > 0,
+                      f"an {variant} instantiation holds no HMMA: {v['hmma']}")
             report["variants"][variant] = v
     return report
 
@@ -700,6 +789,7 @@ def main(argv=None):
     fa_cases = kernel_phase(args.seed)
     print("kernel: ssd_scan (CUDA) vs plain PyTorch on the card", flush=True)
     ssd_cases = ssd_phase(args.seed)
+    ssd_cancel = ssd_cancelling_sums(torch.Generator(device="cuda").manual_seed(args.seed + 11))
 
     cfg, st, params = full_width_model("qwen1.5-0.5b", args.seed)
     qwen_serve = serve_phase(cfg, st, params, args.seed, "flash_attention")
@@ -718,6 +808,7 @@ def main(argv=None):
     fa_prefill = next(c for c in fa_cases if c["case"] == "prefill_qwen_loss_2x2048")
     ssd_main = next(c for c in ssd_cases if c["case"] == "loss_8x2048_h24")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    ssd_keys = ("dev_ms", "pass_dev_ms", "launches_per_call")
     record = {"kernels": [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -733,7 +824,8 @@ def main(argv=None):
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:70",
         "launches": mamba_loss["launches"]["ssd_scan"], "launches_path": "mamba2 loss",
-        **{k: ssd_main[k] for k in keys}, "main_case": ssd_main["case"], "cases": ssd_cases,
+        **{k: ssd_main[k] for k in keys + ssd_keys}, "main_case": ssd_main["case"],
+        "cancelling_sums": ssd_cancel, "cases": ssd_cases,
     }], "build": build, "qwen": {"serve": qwen_serve, "consistency": qwen_consistency, "loss": qwen_loss},
         "mamba2": {"loss": mamba_loss, "serve": mamba_serve, "consistency": mamba_consistency}}
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")

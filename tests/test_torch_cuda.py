@@ -158,7 +158,11 @@ def test_decode_on_cuda_matches_cpu(cuda, dtype):
 
 # (B, S, H, hd, ds, chunk): chip_smoke.py's cases (the Mamba2 loss shape,
 # B = 1 of it, S < chunk so Q = S, hd 32 / ds 16), a chunk of 64, and a
-# chunk that is no power of two
+# chunk that is no power of two; then Q = 16 (one m tile), Q = 40 (tile rows
+# padded to 48), H = 5 (groups of 2 heads, the last one short), hd 32 with
+# ds 128, hd 64 with ds 16, 16 chunks through the state pass at B = 1, and
+# two chunks that are no multiple of 8: Q = 100 (S < chunk; rows padded to
+# 104 in the state pass and 112 in the output pass) and Q = 36 (40 and 48)
 SSD_CASES = [
     (8, 2048, 24, 64, 128, 128),
     (1, 2048, 24, 64, 128, 128),
@@ -166,6 +170,14 @@ SSD_CASES = [
     (1, 256, 1, 32, 16, 128),
     (2, 256, 3, 64, 128, 64),
     (1, 144, 2, 64, 128, 48),
+    (2, 128, 3, 64, 128, 16),
+    (1, 120, 2, 64, 128, 40),
+    (2, 2048, 5, 64, 128, 128),
+    (2, 256, 3, 32, 128, 64),
+    (1, 256, 2, 64, 16, 128),
+    (1, 2048, 3, 64, 128, 128),
+    (1, 100, 2, 64, 128, 128),
+    (2, 144, 3, 64, 128, 36),
 ]
 
 
@@ -203,6 +215,48 @@ def test_ssd_kernel_takes_strided_views(cuda):
     BC = torch.cat([B, C], dim=-1)
     got = ssd_kernel.ssd_scan(x[:, :, 1:4], dt[:, :, 1:4], BC[..., :128], BC[..., 128:], A[1:4])
     assert_close(got, ssd_scan_ref(x[:, :, 1:4], dt[:, :, 1:4], B, C, A[1:4], 128), "f32_chain")
+
+
+def test_ssd_kernel_keeps_float32_accuracy_at_large_x(cuda):
+    """x scaled by 10^3: y is of order 10^3, so f32_chain's atol no longer
+    hides a relative error, and a kernel whose TF32 split dropped a lo term
+    (about 5e-4 relative) fails.  x, B and C are taken non-negative, so no
+    output is a near-cancelling sum: with signed inputs the plain float32
+    version itself lands outside rtol at a few hundred near-zero outputs of
+    this shape against float64, since any float32 sum errs by eps times the
+    sum of its terms' magnitudes, not of its result."""
+    x, dt, B, C, A = _ssd_inputs(cuda, 2, 512, 3, 64, 128, seed=3)
+    x, B, C = x.abs() * 1e3, B.abs(), C.abs()
+    got = ssd_kernel.ssd_scan(x, dt, B, C, A)
+    want = ssd_scan_ref(*(t.double() for t in (x, dt, B, C, A)), 128)
+    assert_close(got, want, "f32_chain")
+
+
+def test_ssd_kernel_keeps_float32_accuracy_on_cancelling_sums(cuda):
+    """Signed x scaled by 10^3, as the model's sums cancel: against float64,
+    the kernel's largest error stays within 4x of the plain float32
+    version's on the same inputs.  3xTF32 rounds each operand to about
+    2^-22 relative where float32 keeps 2^-24, so a kernel that keeps
+    float32's accuracy errs about as much as float32 does; one that drops
+    its hi * lo term fails (tools/ssd_ablation.py checks that it does)."""
+    x, dt, B, C, A = _ssd_inputs(cuda, 2, 512, 3, 64, 128, seed=3)
+    x = x * 1e3
+    want = ssd_scan_ref(*(t.double() for t in (x, dt, B, C, A)), 128)
+    kernel_err = (ssd_kernel.ssd_scan(x, dt, B, C, A).double() - want).abs().max().item()
+    plain_err = (ssd_scan_ref(x, dt, B, C, A, 128).double() - want).abs().max().item()
+    assert 0 < plain_err and kernel_err <= 4 * plain_err, (kernel_err, plain_err)
+
+
+def test_ssd_kernel_takes_rows_that_are_not_16_byte_aligned(cuda):
+    """Row strides that are no multiple of four floats: the kernel moves rows
+    in 4-byte pieces."""
+    x, dt, B, C, A = _ssd_inputs(cuda, 2, 256, 3, 64, 128, seed=4)
+    xw = torch.zeros(2, 256, 3, 65, device=cuda)
+    xw[..., 1:] = x
+    BC = torch.zeros(2, 256, 257, device=cuda)
+    BC[..., 1:129], BC[..., 129:] = B, C
+    got = ssd_kernel.ssd_scan(xw[..., 1:], dt, BC[..., 1:129], BC[..., 129:], A, chunk=64)
+    assert_close(got, ssd_scan_ref(x, dt, B, C, A, 64), "f32_chain")
 
 
 def test_ssd_kernel_refuses_what_it_does_not_take(cuda):

@@ -6,6 +6,8 @@ against ``attention_ref`` and against the model path's ``chunked_attention``.
 tests/test_torch_cuda.py holds the CUDA kernel against the plain version on
 the card.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +19,7 @@ from repro.models.attention import chunked_attention as jax_chunked_attention
 from repro_torch.core.compat import assert_close
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from repro_torch.kernels import ssd_scan as ssd_kernel
 from repro_torch.kernels.ref import attention_ref, chunked_attention_ref
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -153,3 +156,79 @@ def test_plan_counts_only_the_keys_a_causal_call_can_see():
     pl = fa.plan(1, 2, 2, 1, 4096, 64, BF16, BF16, causal=True, q_offset=99)
     assert pl.splits == 1
     assert fa.plan(1, 2, 2, 1, 4096, 64, BF16, BF16, causal=False, q_offset=99).splits == 32
+
+
+H100_SMS = 132  # streaming multiprocessors of an H100 SXM, as the wrapper reads them
+
+# (Bb, S, H, hd, ds, chunk): the Mamba2 loss shape and B = 1 of it, Q = 48,
+# Q = 40, 36 and 100 (ragged tiles), H = 5 (a short last head group),
+# S < chunk, and the small state dims
+SSD_PLAN_SHAPES = [
+    (8, 2048, 24, 64, 128, 128),
+    (1, 2048, 24, 64, 128, 128),
+    (2, 144, 24, 64, 128, 48),
+    (2, 144, 3, 64, 128, 36),
+    (1, 100, 2, 64, 128, 128),
+    (1, 2048, 5, 64, 128, 128),
+    (1, 120, 2, 64, 128, 40),
+    (2, 64, 3, 64, 128, 128),
+    (1, 256, 1, 32, 16, 128),
+    (2, 256, 3, 32, 128, 64),
+]
+
+
+def test_ssd_plan_fills_two_waves_at_the_loss_shape():
+    pl = ssd_kernel.plan(8, 2048, 24, 64, 128, 128, sms=H100_SMS)
+    assert math.prod(pl.out_grid) >= 2 * H100_SMS
+    assert pl.state_grid == (16, 24, 8) and math.prod(pl.state_grid) >= 2 * H100_SMS
+
+
+@pytest.mark.parametrize("Bb,H,head_group,groups", [
+    (8, 24, 8, 3),  # 384 blocks: three waves of 8 heads
+    (1, 24, 3, 8),  # 128 blocks: one wave
+    (1, 5, 1, 5),   # 80 blocks even with one head each
+    (2, 5, 2, 3),   # 96 blocks: the last group is one head short
+])
+def test_ssd_plan_picks_the_head_group_by_waves(Bb, H, head_group, groups):
+    pl = ssd_kernel.plan(Bb, 2048, H, 64, 128, 128, sms=H100_SMS)
+    assert (pl.head_group, pl.out_grid[1]) == (head_group, groups)
+
+
+@pytest.mark.parametrize("Bb,S,H,hd,ds,chunk", SSD_PLAN_SHAPES)
+def test_ssd_plan_computes_g_once_per_head_group(Bb, S, H, hd, ds, chunk):
+    """G = C B^T is computed once per (batch row, chunk) in each block of
+    ssd_chunk_out, for all heads of its group: the groups cover the H heads
+    exactly once, so no head's G is computed twice."""
+    pl = ssd_kernel.plan(Bb, S, H, hd, ds, chunk, sms=H100_SMS)
+    nc, groups, b = pl.out_grid
+    assert (nc, b) == (S // min(chunk, S), Bb) and pl.chunks == nc
+    assert 1 <= pl.head_group <= ssd_kernel.HEAD_GROUP
+    assert pl.head_group * (groups - 1) < H <= pl.head_group * groups
+
+
+@pytest.mark.parametrize("Bb,S,H,hd,ds,chunk", SSD_PLAN_SHAPES)
+def test_ssd_plan_sizes_the_scratch(Bb, S, H, hd, ds, chunk):
+    pl = ssd_kernel.plan(Bb, S, H, hd, ds, chunk, sms=H100_SMS)
+    Q, nc = pl.chunk, pl.chunks
+    assert Q == min(chunk, S) and nc * Q == S
+    assert pl.lsum_shape == (Bb, nc, H, Q) and pl.state_shape == (Bb, nc, H, hd, ds)
+    assert pl.scratch_bytes == 4 * Bb * nc * H * (hd * ds + Q)
+    assert pl.scratch_bytes == 4 * (math.prod(pl.lsum_shape) + math.prod(pl.state_shape))
+    # the state pass: four state values per thread cover hd * ds once
+    slices, h, b = pl.scan_grid
+    assert (h, b) == (H, Bb)
+    assert (slices - 1) * 4 * ssd_kernel.STATE_THREADS < hd * ds <= slices * 4 * ssd_kernel.STATE_THREADS
+
+
+def test_ssd_plan_scratch_at_the_loss_shape():
+    """100.7 MB of chunk states and 1.6 MB of l at B8 S2048 H24 hd64 ds128."""
+    pl = ssd_kernel.plan(8, 2048, 24, 64, 128, 128, sms=H100_SMS)
+    assert 4 * math.prod(pl.state_shape) == 100_663_296
+    assert pl.scratch_bytes == 100_663_296 + 1_572_864
+
+
+def test_ssd_plan_refuses_a_sequence_that_is_no_multiple_of_the_chunk():
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ssd_kernel.plan(1, 200, 2, 64, 128, 128, sms=H100_SMS)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ssd_kernel.plan(1, 256, 2, 64, 128, 129, sms=H100_SMS)
