@@ -6,11 +6,12 @@
 Phases, each of which raises (and so exits non-zero) on failure:
 
 1. environment: the card's name and power limit, torch and CUDA versions,
-   and the builds of both kernels from ``src/repro_torch`` (one nvcc each,
-   started together), with ptxas's registers and spills per variant and
-   the HGMMA and HMMA counts of each instantiation's SASS (no spill, HGMMA
-   in every bf16 prefill instantiation and HMMA in every instantiation of
-   the SSD's two product passes, or the phase fails);
+   and the builds of the three kernel sources from ``src/repro_torch`` (one
+   nvcc each, started together), with ptxas's registers and spills per
+   variant and the HGMMA and HMMA counts of each instantiation's SASS (no
+   spill, HGMMA in every bf16 prefill instantiation and HMMA in every
+   instantiation of the SSD's two product passes and of the bf16 backward,
+   or the phase fails);
 2. flash_attention: the CUDA kernel against its plain PyTorch version on the
    card at the shapes of the Pallas kernel's contract, the qwen loss's own
    prefill, GQA, D = 32, a ragged prefill, prefill continuation and the
@@ -18,6 +19,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
    wrapper's plan() chose, with times (CUDA events) for the kernel, the
    plain version and ``scaled_dot_product_attention`` (a yardstick only: the
    port never calls it) beside the card's bound;
+2b. flash_attention_bwd: the backward kernel (two launches per call)
+   against its plain version on the forward kernel's output and
+   log-sum-exp, at the qwen training call (B4 S2048 H16 D64), GQA at D =
+   128, D = 32, a ragged S = 1000, non-causal and float32, with times for
+   the kernel (and each launch), the plain version and SDPA's backward (a
+   yardstick only) beside the bound;
 3. ssd_scan: the CUDA kernel (three passes per call) against its plain
    version (and, at a small size, the exact recurrence) at the Mamba2
    loss's shape and smaller ones, ragged chunks and a short head group,
@@ -28,7 +35,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
 4. qwen1.5-0.5b at full width (random weights from the seed): serve 16
    greedy requests behind ``Engine(slots=8, max_len=1024)``, every decode
    step launching the attention kernel once per layer; the forward against
-   the decode loop; and ``loss_fn`` of one batch;
+   the decode loop; ``loss_fn`` of one batch; training through
+   ``launch.train.main`` (B4 S2048, ten Adafactor steps: every loss finite,
+   step 0's loss equal to ``loss_fn`` without autograd, per step 48 forward
+   launches with remat and 24 backward calls; ms per step, device busy,
+   tokens/s, peak memory); and two full-width layers' gradients on the card
+   against the CPU's plain path, per leaf, in float32 and bf16;
 5. mamba2-130m at full width: ``loss_fn`` of a batch of 8 x 2048 under
    inference mode (24 SSD launches, one per layer); serve 16 greedy
    requests (the recurrent decode: no SSD launch); and the forward (the
@@ -274,6 +286,126 @@ def kernel_phase(seed):
 
 
 # ---------------------------------------------------------------------------------
+# flash-attention backward kernel phase
+# ---------------------------------------------------------------------------------
+
+
+def bwd_case(name, *, B, S, KR, Gl, D, dtype, causal, gen):
+    """The backward kernel (two launches per call) against its plain version
+    on the forward kernel's output and log-sum-exp; kernel, device and plain
+    times, SDPA's backward as a yardstick (the port never calls it), and the
+    bound."""
+    from repro_torch.core.compat import TOLERANCES
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels.ref import flash_attention_bwd_ref
+
+    dev = torch.device("cuda")
+    esz = torch.finfo(dtype).bits // 8
+    q_bytes, kv_bytes = B * S * KR * Gl * D * esz, B * S * KR * D * esz
+    # q, o, do read and dq written; k, v read and dk, dv written; lse read
+    nbytes = 4 * q_bytes + 4 * kv_bytes + 4 * B * KR * S * Gl
+    copies = max(1, min(4, math.ceil(2 * L2_BYTES / nbytes)))
+
+    def inputs():
+        q = torch.randn(B, S, KR, Gl, D, generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn(B, S, KR, D, generator=gen, device=dev).to(dtype) for _ in range(2))
+        do = torch.randn(B, S, KR, Gl, D, generator=gen, device=dev).to(dtype)
+        lse = torch.empty(B, KR, S * Gl, device=dev)
+        out = fa.flash_attention(q, k, v, causal=causal, lse=lse)
+        return q, k, v, out, lse, do
+
+    sets = [inputs() for _ in range(copies)]
+
+    def run_kernel(i):
+        q, k, v, out, lse, do = sets[i]
+        return fab.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+
+    def run_plain(i):
+        q, k, v, out, lse, do = sets[i]
+        return flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal)
+
+    # SDPA's forward once with the graph kept, its backward timed
+    sdpa = []
+    for q, k, v, _, _, do in sets:
+        leaves = [x.permute(0, 2, 3, 1, 4).reshape(B, KR * Gl, S, D) if x.ndim == 5
+                  else x.transpose(1, 2) for x in (q, k, v)]
+        leaves = [x.detach().contiguous().requires_grad_() for x in leaves]
+        o = F.scaled_dot_product_attention(*leaves, is_causal=causal, enable_gqa=Gl > 1)
+        sdpa.append((o, leaves, do.permute(0, 2, 3, 1, 4).reshape(B, KR * Gl, S, D).contiguous()))
+
+    def run_library(i):
+        o, leaves, do = sdpa[i]
+        return torch.autograd.grad(o, leaves, do, retain_graph=True)
+
+    got = run_kernel(0)
+    torch.cuda.synchronize()
+    want = run_plain(0)
+    tol = "f32_chain" if dtype == torch.float32 else "bf16_round"
+    rtol, atol = TOLERANCES[tol]
+    max_abs_err = 0.0
+    for which, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        err = (g - w).abs()
+        max_abs_err = max(max_abs_err, err.max().item())
+        check(bool(torch.isfinite(g).all()), f"{name}: non-finite {which}")
+        check(bool((err <= atol + rtol * w.abs()).all()),
+              f"{name}: {which} kernel vs plain max abs err {err.max().item()} over {tol}")
+
+    # 10 D flops per visible (row, key) pair: five products of 2 D each
+    # (S = qf K^T, dP = dO V^T, dq = dS K, dk = dS^T qf, dv = P^T dO)
+    pos = np.arange(S)
+    pairs = int(np.minimum(pos + 1, S).sum()) if causal else S * S
+    flops = 10 * D * pairs * B * KR * Gl
+    peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    rec = {
+        "case": name, "dtype": str(dtype).replace("torch.", ""),
+        "shape": dict(B=B, S=S, KR=KR, Gl=Gl, D=D, causal=causal),
+        "max_abs_err": max_abs_err, "tol": tol,
+        "ms": time_ms(run_kernel, copies),
+        "device_ms": device_ms(run_kernel, copies),
+        "plain_ms": time_ms(run_plain, copies),
+        "library_ms": time_ms(run_library, copies),
+        "library_device_ms": device_ms(run_library, copies),
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    }
+    passes = device_ms(run_kernel, copies, by_name=True)
+    rec["pass_device_ms"] = passes and {_variant(n): v["ms"] for n, v in passes.items()}
+    short = {"bfloat16": "bf16", "float32": "f32"}[rec["dtype"]]
+    check(not passes or sorted((_variant(n), v["launches"]) for n, v in passes.items())
+          == [(f"bwd_dkdv_{short}", 1), (f"bwd_dq_{short}", 1)],
+          f"{name}: kernels per call in the trace {passes}, want one of each launch")
+    print(f"  {name:30s} {rec['dtype']:8s} err {max_abs_err:.3g} ({tol}) kernel {rec['ms']:.4f} ms "
+          f"(device {_ms(rec['device_ms'])}; " + ("per launch not measured" if not passes else
+          ", ".join(f"{_variant(n)} {v['ms']:.4f}" for n, v in passes.items())) +
+          f")  plain {rec['plain_ms']:.4f} ms  sdpa backward {rec['library_ms']:.4f} ms (device "
+          f"{_ms(rec['library_device_ms'])})  bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; "
+          f"{flops:.4g} flop, {nbytes:.4g} bytes)", flush=True)
+    return rec
+
+
+def bwd_phase(seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed + 20)
+    bf16, f32 = torch.bfloat16, torch.float32
+    return [
+        # the qwen training step's call, 24 per step
+        bwd_case("train_qwen_4x2048", B=4, S=2048, KR=16, Gl=1, D=64, dtype=bf16, causal=True,
+                 gen=gen),
+        bwd_case("gqa_3_d128_1x1024", B=1, S=1024, KR=8, Gl=3, D=128, dtype=bf16, causal=True,
+                 gen=gen),
+        bwd_case("d32_1x8x2048", B=1, S=2048, KR=8, Gl=1, D=32, dtype=bf16, causal=True, gen=gen),
+        bwd_case("ragged_2x1000", B=2, S=1000, KR=16, Gl=1, D=64, dtype=bf16, causal=True,
+                 gen=gen),
+        bwd_case("full_2x16x1024", B=2, S=1024, KR=16, Gl=1, D=64, dtype=bf16, causal=False,
+                 gen=gen),
+        bwd_case("f32_gqa_2_1x512", B=1, S=512, KR=8, Gl=2, D=64, dtype=f32, causal=True,
+                 gen=gen),
+    ]
+
+
+# ---------------------------------------------------------------------------------
 # ssd_scan kernel phase
 # ---------------------------------------------------------------------------------
 
@@ -436,14 +568,19 @@ def ssd_phase(seed):
 def counted(fn):
     """Run ``fn`` with every kernel's launch count set to 0 just before and
     read just after; returns (fn's result, {kernel: launches})."""
-    from repro_torch.kernels import flash_attention, ssd_scan
-
-    kernels = {"flash_attention": flash_attention, "ssd_scan": ssd_scan}
+    kernels = _kernel_modules()
     for mod in kernels.values():
         mod.launches = 0
     out = fn()
     torch.cuda.synchronize()
     return out, {name: mod.launches for name, mod in kernels.items()}
+
+
+def _kernel_modules():
+    from repro_torch.kernels import flash_attention, flash_attention_bwd, ssd_scan
+
+    return {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
+            "ssd_scan": ssd_scan}
 
 
 def full_width_model(arch, seed, dtype=None):
@@ -679,14 +816,151 @@ def consistency_phase(cfg, st, params, seed, kernel):
     return out
 
 
+TRAIN_STEPS = 10
+PROFILED_STEP = 6  # the step traced for device busy time (left out of the wall median)
+
+
+def train_phase(seed, B=4, S=2048):
+    """qwen1.5-0.5b at full width trained through ``launch.train.main`` (the
+    port's entry point: float32 master weights, bf16 compute, remat "dots",
+    Adafactor) for TRAIN_STEPS steps on the arithmetic pattern.  Checks:
+    every loss finite; step 0's loss equal to ``api.loss_fn`` of the same
+    weights and batch without autograd; per step, 24 forward launches plus
+    24 recomputed in the backward (remat "dots" keeps only the 2-D
+    products) and 24 backward calls (two launches each).  Reads: ms per
+    step (wall; device busy from a trace of one step), tokens/s, peak
+    memory."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import get_strategy
+    from repro_torch.configs.registry import default_strategy, get_config
+    from repro_torch.core.compat import assert_close
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import api
+    from repro_torch.train.loop import TrainConfig, init_state
+    from repro_torch.train.optimizer import get_optimizer
+
+    arch = "qwen1.5-0.5b"
+    cfg, st = get_config(arch), get_strategy(default_strategy(arch))
+    check(cfg.remat == "dots" and cfg.param_dtype == "float32", f"unexpected config {cfg}")
+    params = init_state(cfg, st, get_optimizer("adafactor"), TrainConfig(),
+                        torch.Generator("cuda").manual_seed(seed), "cuda")["params"]
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, S, B, seed=seed, pattern="arithmetic"))
+    batch0 = {k: torch.from_numpy(v).cuda().long() for k, v in pipe.batch_at(0).items()}
+    with torch.inference_mode():
+        loss0 = api.loss_fn(cfg, st, params, batch0).item()
+    del params, batch0
+    torch.cuda.empty_cache()
+
+    mods, steps, clock, trace = _kernel_modules(), [], {}, {}
+
+    def fault(step):  # called at the start of each step
+        if step == PROFILED_STEP:
+            trace["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            trace["prof"].start()
+        for mod in mods.values():
+            mod.launches = 0
+        clock["t0"] = time.perf_counter()
+
+    def metrics(step, loss):  # called once the step's loss is on the host
+        ms = (time.perf_counter() - clock["t0"]) * 1e3
+        if step == PROFILED_STEP:
+            torch.cuda.synchronize()
+            trace["prof"].stop()
+        launches = {name: mod.launches for name, mod in mods.items()}
+        steps.append({"step": step, "loss": loss, "ms": ms, "launches": launches})
+        print(f"  train step {step}: loss {loss:.6f}, {ms:.1f} ms, launches {launches}", flush=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = launch_train.main(
+        ["--arch", arch, "--reduce", "1", "--batch", str(B), "--seq", str(S), "--steps",
+         str(TRAIN_STEPS), "--data-pattern", "arithmetic", "--seed", str(seed)],
+        hooks={"fault": fault, "metrics": metrics})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+          f"train losses {losses}")
+    assert_close(np.float32(losses[0]), np.float32(loss0), "f32",
+                 err_msg="step 0's loss against api.loss_fn without autograd")
+    L = cfg.num_layers
+    want = {"flash_attention": 2 * L, "flash_attention_bwd": L, "ssd_scan": 0}
+    for rec in steps:
+        check(rec["launches"] == want, f"step {rec['step']} launches {rec['launches']} != {want}")
+    wall = statistics.median(r["ms"] for r in steps[1:] if r["step"] != PROFILED_STEP)
+    device = [e for e in trace["prof"].events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in device:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values()) if device else None
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"train {arch}: B={B} S={S}, {TRAIN_STEPS} steps, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (step 0 without autograd {loss0:.6f}); wall {wall:.1f} ms/step "
+          f"(median of steps 1-{TRAIN_STEPS - 1} but {PROFILED_STEP}), {B * S / wall * 1e3:.0f} "
+          f"tokens/s; step {PROFILED_STEP} device busy {_ms(busy)} ({len(device)} device ops); "
+          f"peak memory {peak:.2f} GiB", flush=True)
+    for name, ms in top:
+        print(f"  {ms:.4f} ms/step  {name[:90]}")
+    return {"B": B, "S": S, "losses": losses, "loss0_no_grad": loss0, "ms_per_step": wall,
+            "tokens_per_s": B * S / wall * 1e3, "device_busy_ms_per_step": busy,
+            "device_ops_per_step": len(device), "peak_gib": peak, "steps": steps,
+            "launches": {n: sum(r["launches"][n] for r in steps) for n in want},
+            "top": [{"name": n[:120], "ms_per_step": ms} for n, ms in top]}
+
+
+def two_layer_phase(seed, B=2, S=128):
+    """qwen1.5-0.5b at full width cut to two layers: ``value_and_grad`` on the
+    card (the forward and backward kernels) against the CPU's plain path,
+    from the same float32 master weights, per leaf, in float32 and bf16.
+    Gradients agree in norm within the rtol of f32_chain (float32: sums in
+    another order) or bf16_chain (bf16: cuBLAS and the kernels round some
+    activations the other way), as tests/test_torch_cuda.py holds them."""
+    from repro_torch.configs.base import get_strategy
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.compat import TOLERANCES
+    from repro_torch.core.tree import leaves_with_paths, tree_map
+    from repro_torch.train.loop import TrainConfig, init_state, value_and_grad
+    from repro_torch.train.optimizer import get_optimizer
+
+    st = get_strategy("2d_finalized")
+    out = {}
+    for dtype, kind in (("float32", "f32_chain"), ("bfloat16", "bf16_chain")):
+        cfg = get_config("qwen1.5-0.5b").with_(num_layers=2, dtype=dtype)
+        tokens = np.random.default_rng(seed + 4).integers(0, cfg.vocab_size, (B, S + 1))
+        batch = {"tokens": torch.from_numpy(tokens[:, :-1]),
+                 "labels": torch.from_numpy(tokens[:, 1:])}
+        cpu = init_state(cfg, st, get_optimizer("sgd"), TrainConfig(),
+                         torch.Generator().manual_seed(seed), "cpu")["params"]
+        gpu = tree_map(lambda p: p.detach().cuda().requires_grad_(), cpu)
+        (loss_g, grads_g), launches = counted(lambda: value_and_grad(
+            cfg, st, gpu, {k: v.cuda() for k, v in batch.items()}))
+        want = {"flash_attention": 4, "flash_attention_bwd": 2, "ssd_scan": 0}
+        check(launches == want, f"two-layer step launches {launches} != {want}")
+        loss_c, grads_c = value_and_grad(cfg, st, cpu, batch)
+        rel = {"/".join(path): ((g.cpu().double() - w.double()).norm() / w.double().norm()).item()
+               for (path, g), (_, w) in zip(leaves_with_paths(grads_g), leaves_with_paths(grads_c))}
+        worst = max(rel, key=rel.get)
+        loss_rel = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
+        print(f"two-layer step {dtype}: loss card {loss_g.item():.6f} cpu {loss_c.item():.6f}; "
+              f"gradient relative error per leaf max {rel[worst]:.3e} ({worst}; limit "
+              f"{TOLERANCES[kind][0]}, {kind}), launches {launches}", flush=True)
+        check(rel[worst] <= TOLERANCES[kind][0], f"{dtype}: {worst} gradient off by {rel[worst]}")
+        check(loss_rel <= TOLERANCES[kind][0], f"{dtype}: loss off by {loss_rel}")
+        out[dtype] = {"loss_rel_err": loss_rel, "grad_rel_err": rel, "class": kind}
+    return out
+
+
 # the kernels' templates by variant, as the mangled names in ptxas's report,
 # in the SASS and in profiler traces show them
-VARIANT_OF = {"flash_wgmma": "prefill_wgmma", "flash_decode": "decode_splitkv",
+VARIANT_OF = {"flash_bwd_dq_bf16": "bwd_dq_bf16", "flash_bwd_dkdv_bf16": "bwd_dkdv_bf16",
+              "flash_bwd_dq_f32": "bwd_dq_f32", "flash_bwd_dkdv_f32": "bwd_dkdv_f32",
+              "flash_wgmma": "prefill_wgmma", "flash_decode": "decode_splitkv",
               "flash_fwd": "prefill_f32", "ssd_chunk_state": "ssd_chunk_state",
               "ssd_state_pass": "ssd_state_pass", "ssd_chunk_out": "ssd_chunk_out"}
-# the SSD passes whose products run on the tensor cores (ssd_state_pass only
-# moves the states: no product)
-SSD_PRODUCT_PASSES = ("ssd_chunk_state", "ssd_chunk_out")
+# the SSD passes and the bf16 backward kernels whose products run on the
+# tensor cores with mma.sync (ssd_state_pass only moves the states: no product)
+HMMA_VARIANTS = ("ssd_chunk_state", "ssd_chunk_out", "bwd_dq_bf16", "bwd_dkdv_bf16")
 
 
 def _variant(symbol):
@@ -721,13 +995,15 @@ def build_kernels():
     """Start one nvcc per kernel source together; print ptxas's registers and
     spills per variant and the HGMMA and HMMA counts of each instantiation;
     fail if a build spills, a bf16 prefill instantiation holds no HGMMA or an
-    instantiation of an SSD product pass holds no HMMA."""
-    from repro_torch.kernels import flash_attention, ssd_scan
+    instantiation of an SSD product pass or of the bf16 backward holds no
+    HMMA."""
+    from repro_torch.kernels import flash_attention, flash_attention_bwd, ssd_scan
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        futures = {name: pool.submit(mod.build)
-                   for name, mod in (("flash_attention", flash_attention), ("ssd_scan", ssd_scan))}
+    mods = (("flash_attention", flash_attention), ("flash_attention_bwd", flash_attention_bwd),
+            ("ssd_scan", ssd_scan))
+    with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
+        futures = {name: pool.submit(mod.build) for name, mod in mods}
         libs = {name: f.result() for name, f in futures.items()}
     seconds = time.perf_counter() - t0
     print(f"  kernel builds {seconds:.1f} s (in parallel)", flush=True)
@@ -761,7 +1037,7 @@ def build_kernels():
             if variant == "prefill_wgmma" and mma is not None:
                 check(len(v["hgmma"]) == v["instantiations"] and min(v["hgmma"]) > 0,
                       f"a bf16 prefill instantiation holds no HGMMA: {v['hgmma']}")
-            if variant in SSD_PRODUCT_PASSES and mma is not None:
+            if variant in HMMA_VARIANTS and mma is not None:
                 check(len(v["hmma"]) == v["instantiations"] and min(v["hmma"]) > 0,
                       f"an {variant} instantiation holds no HMMA: {v['hmma']}")
             report["variants"][variant] = v
@@ -787,6 +1063,8 @@ def main(argv=None):
 
     print("kernel: flash_attention (CUDA) vs plain PyTorch on the card", flush=True)
     fa_cases = kernel_phase(args.seed)
+    print("kernel: flash_attention_bwd (CUDA) vs plain PyTorch on the card", flush=True)
+    bwd_cases = bwd_phase(args.seed)
     print("kernel: ssd_scan (CUDA) vs plain PyTorch on the card", flush=True)
     ssd_cases = ssd_phase(args.seed)
     ssd_cancel = ssd_cancelling_sums(torch.Generator(device="cuda").manual_seed(args.seed + 11))
@@ -796,6 +1074,9 @@ def main(argv=None):
     qwen_consistency = consistency_phase(cfg, st, params, args.seed, "flash_attention")
     qwen_loss = loss_phase(cfg, st, params, args.seed, B=2, S=2048, kernel="flash_attention")
     del params
+    torch.cuda.empty_cache()
+    qwen_train = train_phase(args.seed)
+    qwen_two_layer = two_layer_phase(args.seed)
 
     cfg, st, params = full_width_model("mamba2-130m", args.seed)
     mamba_loss = loss_phase(cfg, st, params, args.seed, B=8, S=2048, kernel="ssd_scan")
@@ -807,6 +1088,7 @@ def main(argv=None):
     fa_main = next(c for c in fa_cases if c["case"] == "decode_8x16_pos1023")
     fa_prefill = next(c for c in fa_cases if c["case"] == "prefill_qwen_loss_2x2048")
     ssd_main = next(c for c in ssd_cases if c["case"] == "loss_8x2048_h24")
+    bwd_main = next(c for c in bwd_cases if c["case"] == "train_qwen_4x2048")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     ssd_keys = ("dev_ms", "pass_dev_ms", "launches_per_call")
     record = {"kernels": [{
@@ -826,7 +1108,18 @@ def main(argv=None):
         "launches": mamba_loss["launches"]["ssd_scan"], "launches_path": "mamba2 loss",
         **{k: ssd_main[k] for k in keys + ssd_keys}, "main_case": ssd_main["case"],
         "cancelling_sums": ssd_cancel, "cases": ssd_cases,
-    }], "build": build, "qwen": {"serve": qwen_serve, "consistency": qwen_consistency, "loss": qwen_loss},
+    }, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:132",
+        "launches": qwen_train["launches"]["flash_attention_bwd"],
+        "launches_path": f"qwen train, {TRAIN_STEPS} steps",
+        **{k: bwd_main[k] for k in keys}, "main_case": bwd_main["case"],
+        "device_ms": bwd_main["device_ms"], "pass_device_ms": bwd_main["pass_device_ms"],
+        "cases": bwd_cases,
+    }], "build": build, "qwen": {"serve": qwen_serve, "consistency": qwen_consistency,
+                                 "loss": qwen_loss, "train": qwen_train,
+                                 "two_layer_step": qwen_two_layer},
         "mamba2": {"loss": mamba_loss, "serve": mamba_serve, "consistency": mamba_consistency}}
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps(record))

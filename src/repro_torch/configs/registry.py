@@ -2,7 +2,8 @@
 
 ``input_specs`` (abstract model inputs) arrives with the dry-run slice.
 ``reduced_config`` lives in the JAX package's ``launch/train.py``; the port
-keeps it here until it has a training entry point.
+keeps it here, where both of its entry points (``launch/serve.py`` and
+``launch/train.py``) take it.
 """
 from __future__ import annotations
 

@@ -11,6 +11,11 @@
 // (row r sees keys <= q_offset + r / Gl), keys at or past kv_len are masked,
 // and masked scores are -1e9, as in the reference.
 //
+// For training, the two prefill variants also write each q row's
+// log-sum-exp m + log(l) (float32, in the units of the scaled scores) when
+// given a pointer for it; flash_attention_bwd.cu's backward reads it.  A
+// null pointer costs one branch per row at the end.
+//
 // Layouts are strided, so one kernel serves the model layout
 // q (B,S,KR,Gl,D), k/v (B,T,KR,D) and the reference layout q (B,Hq,S,D),
 // k/v (B,Hkv,T,D) viewed as (B,S,Hkv,group,D): GQA reads kv head kr once for
@@ -85,6 +90,7 @@ struct Params {
   int B, S, KR, Gl, T, R;  // R = S * Gl q rows per (b, kr)
   int causal, q_offset, kv_end;  // kv_end = min(kv_len, T)
   float scale;  // 1/sqrt(D), already rounded to q's dtype
+  float* lse;   // (B, KR, R) float32 m + log(l) per q row, or null (prefill only)
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -281,6 +287,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Params p) {
     const float den = fmaxf(l[i], 1e-20f);
 #pragma unroll
     for (int j = 0; j < DPT; ++j) orow[tx + 8 * j] = from_f32<TQ>(acc[i][j] / den);
+    if (p.lse != nullptr && tx == 0) p.lse[(b * p.KR + kr) * p.R + r] = m[i] + logf(den);
   }
 }
 
@@ -661,6 +668,10 @@ __device__ __forceinline__ void wgmma_consumer(const Params& p, uint8_t* sQ,
     const int r = rw + 8 * i;
     if (r >= p.R) continue;
     const float den = fmaxf(i == 0 ? l0 : l1, 1e-20f);
+    // the backward's log-sum-exp, in the units of the scaled scores (the
+    // softmax's exp2 takes them times log2 e, so m is in natural units)
+    if (p.lse != nullptr && tig == 0)
+      p.lse[((long long)b * p.KR + kr) * p.R + r] = (i == 0 ? m0 : m1) + logf(den);
     __nv_bfloat16* orow = reinterpret_cast<__nv_bfloat16*>(
         const_cast<char*>(row_ptr(p.o, p.os, b, r / p.Gl, kr, r % p.Gl, 2)));
 #pragma unroll
@@ -1078,7 +1089,10 @@ cudaError_t run(const Params& p, int variant, int splits, float* ws, int* ticket
 // 0 = flash_fwd (float32 q), 1 = flash_wgmma (bf16 q and kv), 2 =
 // flash_decode (R <= 16) with ``splits`` kv splits, float32 scratch
 // ``workspace`` of B * KR * splits * R * (D + 2) values and ``tickets``, B * KR
-// int32 zeros (left at zero), both unused when splits == 1.
+// int32 zeros (left at zero), both unused when splits == 1.  ``lse``, when
+// not null, receives m + log(l) per q row as float32 (B, KR, S * Gl), row
+// r = s * Gl + g, for the backward (prefill variants only; the decode
+// refuses it).
 // Returns a cudaError_t value (0 on success); cudaErrorInvalidValue for a
 // combination the kernel does not take.
 extern "C" int flash_attention_fwd(
@@ -1087,7 +1101,7 @@ extern "C" int flash_attention_fwd(
     const long long* q_strides, const long long* k_strides,
     const long long* v_strides, const long long* o_strides,
     int causal, int q_offset, int kv_len, float scale,
-    int variant, int splits, void* workspace, void* tickets, void* stream) {
+    int variant, int splits, void* workspace, void* tickets, void* lse, void* stream) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   for (int i = 0; i < 4; ++i) { p.qs[i] = q_strides[i]; p.os[i] = o_strides[i]; }
@@ -1096,6 +1110,8 @@ extern "C" int flash_attention_fwd(
   p.causal = causal; p.q_offset = q_offset;
   p.kv_end = kv_len < T ? kv_len : T;
   p.scale = scale;
+  p.lse = static_cast<float*>(lse);
+  if (lse != nullptr && variant == kVariantDecode) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* ws = static_cast<float*>(workspace);
   int* tk = static_cast<int*>(tickets);

@@ -13,7 +13,9 @@ rows per batch row and kv head):
 - ``prefill_f32`` (float32 q, R > 16): the CUDA-core kernel.
 
 The source's header says what bounds each on an H100 and what its design does
-about that.  The library is built at the first CUDA call
+about that.  Given an ``lse`` buffer, the prefill variants also write each q
+row's log-sum-exp, which the backward kernel (``flash_attention_bwd.py``)
+reads.  The library is built at the first CUDA call
 (``kernels/build.py``) and loaded with ``ctypes``.  The kernel launches on
 PyTorch's current stream.  ``launches`` counts the launches (one per call),
 so a run can show that its attention went through the kernel.
@@ -86,7 +88,7 @@ def _load():
         ptr, i32, i64p = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
         fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32,
                        i64p, i64p, i64p, i64p, i32, i32, i32, ctypes.c_float,
-                       i32, i32, ptr, ptr, ptr]
+                       i32, i32, ptr, ptr, ptr, ptr]
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -142,11 +144,13 @@ def _scratch(device: torch.device, n_partials: int, n_tickets: int):
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     q_offset: int = 0, kv_len: Optional[int] = None,
-    out: Optional[torch.Tensor] = None,
+    out: Optional[torch.Tensor] = None, lse: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Launch the kernel.  q (B,S,KR,Gl,D), k/v (B,T,KR,D), any 16-byte
     aligned strides with a unit-stride head dim.  Writes ``out`` (same shape
     as q, q's dtype; a new contiguous tensor when None) and returns it.
+    With ``lse`` (contiguous float32 (B, KR, S * Gl)), a prefill also writes
+    each q row's log-sum-exp m + log(l) for the backward.
 
     The split-kv decode keeps one scratch buffer per device: calls that
     decode concurrently on two streams of one device are not supported."""
@@ -177,9 +181,15 @@ def flash_attention(
     q_offset = int(q_offset)
     if q_offset < 0 or kv_len < 1:
         raise ValueError(f"q_offset {q_offset} must be >= 0 and kv_len {kv_len} >= 1")
+    if lse is not None and (lse.shape != (B, KR, S * Gl) or lse.dtype != torch.float32
+                            or lse.device != dev or not lse.is_contiguous()):
+        raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype}: want contiguous float32 "
+                         f"{(B, KR, S * Gl)} on {dev}")
     strides = [_strides(t, name) for name, t in (("q", q), ("k", k), ("v", v), ("out", out))]
     pl = plan(B, S, KR, Gl, T, D, q_dtype, kv_dtype, causal=causal, q_offset=q_offset,
               kv_len=kv_len)
+    if lse is not None and pl.variant == "decode_splitkv":
+        raise ValueError("the decode variant writes no log-sum-exp")
     ws = tickets = None
     if pl.splits > 1:  # float32 partials (acc, m, l) of every split
         ws, tickets = _scratch(dev, B * KR * pl.splits * pl.block_q * (D + 2), B * KR)
@@ -189,6 +199,7 @@ def flash_attention(
             VARIANTS[pl.variant], pl.splits,
             None if ws is None else ws.data_ptr(),
             None if tickets is None else tickets.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             # PyTorch's current stream as a raw handle, without building a
             # Stream object on every call
             torch._C._cuda_getCurrentRawStream(dev.index))

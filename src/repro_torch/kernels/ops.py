@@ -1,6 +1,11 @@
 """Dispatch for the kernels: CUDA tensors go to the hand-written kernel,
 CPU tensors to the plain PyTorch version, anything else raises.  There is no
-fallback from one to the other.
+fallback from one to the other.  On the card, attention that needs a
+gradient (grad enabled and an input that requires it) goes through
+``flash_attention_bwd.flash_attention_train``, whose backward is the
+backward kernel, and raises where that kernel does not cover the call;
+everything else takes the forward kernel alone.  On the CPU, autograd
+differentiates the plain version.
 
 ``attention`` takes the JAX package's kernel layout (B,H,S,D) with the GQA map
 q-head h -> kv-head h // group; ``attention_model_layout`` takes the model's
@@ -13,6 +18,7 @@ from typing import Optional
 import torch
 
 from . import flash_attention as fa
+from . import flash_attention_bwd as fab
 from . import ssd_scan as ssd_kernel
 from .ref import chunked_attention_ref, ssd_scan_ref
 
@@ -23,6 +29,10 @@ def _route(t: torch.Tensor) -> str:
     raise ValueError(f"kernel input on {t.device}: only cuda (kernel) and cpu (plain) run")
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def attention_model_layout(
     q, k, v, *, causal: bool = True, chunk: int = 1024, q_offset: int = 0,
     kv_len: Optional[int] = None,
@@ -31,6 +41,9 @@ def attention_model_layout(
     plain version's kv chunk (its online-softmax steps follow the JAX
     package's); the kernel tiles kv itself."""
     if _route(q) == "cuda":
+        if _needs_grad(q, k, v):
+            return fab.flash_attention_train(q, k, v, causal=causal, q_offset=q_offset,
+                                             kv_len=kv_len)
         return fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
     return chunked_attention_ref(
         q, k, v, causal=causal, chunk=chunk, q_offset=q_offset, kv_len=kv_len
@@ -54,6 +67,9 @@ def attention(q, k, v, *, causal: bool = True, block_k: int = 128):
 
     qm, km, vm = model_view(q), k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
     if _route(q) == "cuda":
+        if _needs_grad(q, k, v):
+            o = fab.flash_attention_train(qm, km, vm, causal=causal)
+            return o.permute(0, 2, 3, 1, 4).reshape(B, Hq, S, D)
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
         fa.flash_attention(qm, km, vm, causal=causal, out=model_view(out))
         return out

@@ -79,6 +79,50 @@ def chunked_attention_ref(
     return out.to(q.dtype)
 
 
+def attention_lse_ref(q, k, *, causal: bool):
+    """Each q row's log-sum-exp of its scaled, masked scores in float32, as
+    the forward kernel writes it for the backward: (B, KR, S * Gl), row
+    r = s * Gl + g; the causal mask aligned top-left (q_offset = 0)."""
+    B, S, KR, Gl, D = q.shape
+    T = k.shape[1]
+    scale = torch.tensor(1.0 / math.sqrt(D), dtype=q.dtype, device=q.device)
+    qf = (q * scale).to(q.dtype).float()
+    s = torch.einsum("bsngd,btnd->bnsgt", qf, k.float())
+    if causal:
+        mask = torch.arange(S, device=q.device)[:, None] >= torch.arange(T, device=q.device)
+        s = torch.where(mask[None, None, :, None, :], s, torch.full_like(s, NEG_INF))
+    return torch.logsumexp(s, dim=-1).reshape(B, KR, S * Gl)
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, do, *, causal: bool):
+    """The backward kernel's formulas in plain PyTorch: (dq, dk, dv) of
+    attention with q (B,S,KR,Gl,D), k/v (B,T,KR,D), from the forward's
+    output ``out`` and log-sum-exp ``lse`` (B, KR, S * Gl) and the output's
+    gradient ``do``.  qf = round(q * scale); P = exp(qf K^T - lse), masked
+    (causal top-left, q_offset = 0); Delta = rowsum(do * out); dS = P * (dP -
+    Delta) with dP = do V^T, all float32.  P is rounded to the kv dtype
+    before its product with do, dS to q's dtype before its products with K
+    and qf (as the kernel's bf16 operands), and dq = scale * dS K is rounded
+    once."""
+    B, S, KR, Gl, D = q.shape
+    T = k.shape[1]
+    scale = torch.tensor(1.0 / math.sqrt(D), dtype=q.dtype, device=q.device)
+    qf = (q * scale).to(q.dtype).float()
+    s = torch.einsum("bsngd,btnd->bsngt", qf, k.float())
+    lse = lse.reshape(B, KR, S, Gl).permute(0, 2, 1, 3)
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        mask = torch.arange(S, device=q.device)[:, None] >= torch.arange(T, device=q.device)
+        p = torch.where(mask[None, :, None, None, :], p, torch.zeros_like(p))
+    delta = (do.float() * out.float()).sum(dim=-1)
+    dp = torch.einsum("bsngd,btnd->bsngt", do.float(), v.float())
+    ds = (p * (dp - delta[..., None])).to(q.dtype).float()
+    dq = (torch.einsum("bsngt,btnd->bsngd", ds, k.float()) * scale.float()).to(q.dtype)
+    dk = torch.einsum("bsngt,bsngd->btnd", ds, qf).to(k.dtype)
+    dv = torch.einsum("bsngt,bsngd->btnd", p.to(v.dtype).float(), do.float()).to(v.dtype)
+    return dq, dk, dv
+
+
 def ssd_scan_ref(x, dt, B, C, A, chunk: int):
     """Chunked SSD, step for step as the JAX package's
     ``models/ssm.py::ssd_scan_ref``: chunk states first, then the sequential

@@ -19,7 +19,7 @@ import torch
 
 from ..configs.base import ModelConfig, Strategy
 from ..kernels import ops
-from .layers import Params, pspec, rope
+from .layers import Params, at_use, pspec, rope
 
 NEG_INF = -1e9
 
@@ -67,13 +67,13 @@ def _unpadded_layout(cfg: ModelConfig, st: Strategy):
 def project_qkv(cfg: ModelConfig, st: Strategy, p: Params, xq, xkv, positions):
     """Returns q (B,S,KR,Gl,D), k,v (B,T,KR,D); KR = K and Gl = G with no mesh."""
     K, G = _unpadded_layout(cfg, st)
-    q = (xq @ p["wq"].flatten(1)).unflatten(-1, p["wq"].shape[1:])
-    k = (xkv @ p["wk"].flatten(1)).unflatten(-1, p["wk"].shape[1:])
-    v = (xkv @ p["wv"].flatten(1)).unflatten(-1, p["wv"].shape[1:])
+    q = (xq @ at_use(p["wq"], cfg).flatten(1)).unflatten(-1, p["wq"].shape[1:])
+    k = (xkv @ at_use(p["wk"], cfg).flatten(1)).unflatten(-1, p["wk"].shape[1:])
+    v = (xkv @ at_use(p["wv"], cfg).flatten(1)).unflatten(-1, p["wv"].shape[1:])
     if cfg.qkv_bias:
-        q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
+        q = q + at_use(p["bq"], cfg)
+        k = k + at_use(p["bk"], cfg)
+        v = v + at_use(p["bv"], cfg)
     if cfg.rope and positions is not None:
         q = rope(q, positions, cfg.dh)
         k = rope(k, positions, cfg.dh)
@@ -90,7 +90,7 @@ def out_projection(cfg: ModelConfig, st: Strategy, p: Params, attn):
     K, G = _unpadded_layout(cfg, st)
     B, S = attn.shape[:2]
     # one (n d) contraction: torch.einsum over two dims sums in another order
-    out = attn.reshape(B, S, K * G * cfg.dh) @ p["wo"].reshape(K * G * cfg.dh, cfg.d_model)
+    out = attn.reshape(B, S, K * G * cfg.dh) @ at_use(p["wo"], cfg).reshape(K * G * cfg.dh, cfg.d_model)
     return st.constrain(out, "batch", "seq", "embed")
 
 

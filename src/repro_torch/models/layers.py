@@ -4,18 +4,24 @@ the layer loop.
 Layers are plain functions over explicit param trees (nested dicts of
 tensors), mirroring the JAX package.  Rounding points follow it exactly:
 ``rms_norm`` and ``rope`` compute in float32 and round to the activation dtype
-once, and every matmul weight and bias is used in ``cfg.dtype``.  The JAX
-package casts those f32 params to ``cfg.dtype`` at every use; the port stores
-them in ``cfg.dtype`` once, which gives the same values.  Leaves the JAX
-package reads in float32 (norm scales; the SSM's ``A_log``, ``dt_bias`` and
-``D``) stay float32 (``dtype="float32"`` in their declaration).
+once, and every matmul weight and bias is cast to ``cfg.dtype`` at its use
+(``at_use``), as the JAX package casts its float32 params.  Training stores
+every leaf in ``cfg.param_dtype`` (float32 master weights, which the
+optimizer updates); serving may store them in ``cfg.dtype`` once, where the
+cast at use is a no-op and gives the same values.  Leaves the JAX package
+reads in float32 (norm scales; the SSM's ``A_log``, ``dt_bias`` and ``D``)
+are float32 in either case (``dtype="float32"`` in their declaration).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable, Dict
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from ..configs.base import ModelConfig, Strategy
 from ..core.sharding import pad_to_multiple
@@ -53,13 +59,16 @@ def tree_map_params(fn: Callable, tree, path=()):
     return {k: tree_map_params(fn, v, path + (k,)) for k, v in tree.items()}
 
 
-def stored_dtype(decl, cfg_dtype: str) -> torch.dtype:
-    return getattr(torch, decl["dtype"] or cfg_dtype)
+def stored_dtype(decl, store: str) -> torch.dtype:
+    """The dtype a leaf is stored in: its declaration's, else ``store``
+    (``cfg.param_dtype`` to train, ``cfg.dtype`` to serve)."""
+    return getattr(torch, decl["dtype"] or store)
 
 
 def tree_init(tree, gen: torch.Generator, *, dtype: str, device) -> Params:
     """Materialize params from ``gen`` (a generator on ``device``): normal
-    with std 1/sqrt(fan_in), drawn in float32, stored per ``stored_dtype``."""
+    with std 1/sqrt(fan_in), drawn in float32, stored per ``stored_dtype``
+    with ``dtype`` as the store dtype."""
 
     def mk(p, _path):
         shape, out = p["shape"], stored_dtype(p, dtype)
@@ -78,6 +87,11 @@ def tree_init(tree, gen: torch.Generator, *, dtype: str, device) -> Params:
 # ---------------------------------------------------------------------------------
 # numerics
 # ---------------------------------------------------------------------------------
+
+
+def at_use(w, cfg: ModelConfig):
+    """A weight or bias in the compute dtype (a no-op where it is stored so)."""
+    return w.to(getattr(torch, cfg.dtype))
 
 
 def rms_norm(x, scale, eps=1e-6):
@@ -128,18 +142,18 @@ def silu(x):
 def mlp_forward(cfg: ModelConfig, st: Strategy, p: Params, x):
     """x: (..., M) activations in compute dtype."""
     if "wi_gate" in p:
-        g = x @ p["wi_gate"]
-        u = x @ p["wi_up"]
+        g = x @ at_use(p["wi_gate"], cfg)
+        u = x @ at_use(p["wi_up"], cfg)
         h = silu(g) * u
     else:
-        g = x @ p["wi"]
+        g = x @ at_use(p["wi"], cfg)
         if cfg.mlp == "gelu":
             h = torch.nn.functional.gelu(g, approximate="tanh")
         elif cfg.mlp == "relu2":
             h = torch.relu(g).square()
         else:
             raise ValueError(f"unknown mlp {cfg.mlp!r}")
-    return h @ p["wo"]
+    return h @ at_use(p["wo"], cfg)
 
 
 # ---------------------------------------------------------------------------------
@@ -160,12 +174,12 @@ def embed_params(cfg: ModelConfig, st: Strategy):
 
 
 def embed_lookup(cfg: ModelConfig, st: Strategy, p: Params, tokens):
-    out = torch.nn.functional.embedding(tokens, p["embedding"])
+    out = at_use(torch.nn.functional.embedding(tokens, p["embedding"]), cfg)
     return st.constrain(out, "batch", "seq", "embed")
 
 
 def unembed_logits(cfg: ModelConfig, st: Strategy, p: Params, x):
-    logits = x @ p["embedding"].t()
+    logits = x @ at_use(p["embedding"], cfg).t()
     return st.constrain(logits, "batch", "seq", "vocab")
 
 
@@ -199,7 +213,7 @@ def streamed_xent(cfg: ModelConfig, st: Strategy, x, embedding, labels):
         logits = st.constrain(xc @ emb.t(), "batch", "seq", "vocab")
         if mask is not None:
             logits = torch.where(mask, logits, torch.full_like(logits, -1e4))
-        mx = logits.amax(dim=-1, keepdim=True)
+        mx = logits.amax(dim=-1, keepdim=True).detach()  # the reference's stop_gradient
         z = (logits - mx).float()
         lse = torch.log(torch.exp(z).sum(dim=-1)) + mx[..., 0].float()
         picked = logits.float().gather(-1, lc[..., None])[..., 0]
@@ -219,18 +233,51 @@ def layer_slice(params_stacked, i: int) -> Params:
     return params_stacked[i]
 
 
+def layer_slices(params_stacked, n: int):
+    """The ``n`` layers' param trees as views, from one ``unbind`` per leaf.
+    Under autograd one unbind is one backward node that stacks the layers'
+    gradients, where ``n`` selects would each add a gradient the size of the
+    whole stack (n^2 / 2 stacks of traffic in the backward)."""
+    if isinstance(params_stacked, dict):
+        per_key = {k: layer_slices(v, n) for k, v in params_stacked.items()}
+        return [{k: per_key[k][i] for k in per_key} for i in range(n)]
+    return params_stacked.unbind(0)
+
+
 def num_stacked(params_stacked) -> int:
     while isinstance(params_stacked, dict):
         params_stacked = next(iter(params_stacked.values()))
     return params_stacked.shape[0]
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """``checkpoint_dots_with_no_batch_dims``: keep the outputs of matrix
+    products without batch dims (the 2-D ``mm``/``addmm`` that projections
+    and MLPs lower to), recompute everything else (attention among it)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def stack_layers(layer_fn, params_stacked, x, cfg: ModelConfig, extra=None):
     """Run a stack of identical layers as a Python loop (the JAX package's
-    ``scan_layers=False`` semantics; serving needs no remat).
-    ``params_stacked`` leaves have leading dim L."""
-    for i in range(num_stacked(params_stacked)):
-        x = layer_fn(layer_slice(params_stacked, i), x, extra)
+    ``scan_layers=False`` semantics).  ``params_stacked`` leaves have leading
+    dim L.  Where autograd records, each layer is rematerialized per
+    ``cfg.remat`` as the reference's ``jax.checkpoint`` does: "full"
+    recomputes the whole layer in the backward, "dots" saves only the
+    products without batch dims, "none" saves everything.  Remat changes
+    memory and launches, not values."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    remat = cfg.remat != "none" and torch.is_grad_enabled()
+    for lp in layer_slices(params_stacked, num_stacked(params_stacked)):
+        if not remat:
+            x = layer_fn(lp, x, extra)
+        elif cfg.remat == "full":
+            x = checkpoint(layer_fn, lp, x, extra, use_reentrant=False)
+        else:
+            x = checkpoint(layer_fn, lp, x, extra, use_reentrant=False, context_fn=functools.partial(
+                create_selective_checkpoint_contexts, _save_dots))
     return x
 
 

@@ -1,6 +1,6 @@
-"""The port on the card: the CUDA flash-attention and SSD-scan kernels
-against their plain PyTorch versions, and the serving and forward paths on
-CUDA against the same paths on the CPU.  Every test here needs an NVIDIA GPU and skips without one; the file
+"""The port on the card: the CUDA flash-attention (forward and backward)
+and SSD-scan kernels against their plain PyTorch versions, and the serving,
+forward and training paths on CUDA against the same paths on the CPU.  Every test here needs an NVIDIA GPU and skips without one; the file
 imports no JAX, so it runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -12,14 +12,19 @@ import torch
 from repro_torch.configs.base import get_strategy
 from repro_torch.configs.registry import get_config, reduced_config
 from repro_torch.core.compat import TOLERANCES, assert_close
+from repro_torch.core.tree import leaves, leaves_with_paths, tree_map
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_attention_bwd as fab
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as ssd_kernel
 from repro_torch.kernels.ref import (
-    attention_ref, chunked_attention_ref, ssd_recurrence, ssd_scan_ref,
+    attention_lse_ref, attention_ref, chunked_attention_ref, flash_attention_bwd_ref,
+    ssd_recurrence, ssd_scan_ref,
 )
 from repro_torch.models import api
 from repro_torch.models.layers import tree_init
+from repro_torch.train.loop import TrainConfig, init_state, make_train_step, value_and_grad
+from repro_torch.train.optimizer import get_optimizer
 
 pytestmark = pytest.mark.cuda
 
@@ -327,3 +332,143 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+# ---------------------------------------------------------------------------------
+# the backward kernel and training on the card
+# ---------------------------------------------------------------------------------
+
+# (B, S, KR, Gl, D, causal, dtype): the qwen training call (B4 S2048 H16 D64),
+# GQA Gl = 3 at D = 128, D = 32, a ragged S = 1000, non-causal, and float32
+# (the CUDA-core kernels) at each D
+BWD_CASES = [
+    (4, 2048, 16, 1, 64, True, torch.bfloat16),
+    (1, 300, 2, 3, 128, True, torch.bfloat16),
+    (2, 256, 4, 1, 32, True, torch.bfloat16),
+    (2, 1000, 4, 1, 64, True, torch.bfloat16),
+    (2, 200, 2, 2, 64, False, torch.bfloat16),
+    (1, 130, 2, 3, 32, True, torch.float32),
+    (2, 200, 2, 1, 64, False, torch.float32),
+    (1, 100, 2, 2, 128, True, torch.float32),
+]
+# bf16: P and dS are rounded to bf16 at the same points as the plain
+# version, but the kernel's exp and sums land some of them on the other
+# side of a rounding: one bf16 rounding apart; float32: sum order only
+BWD_TOL = {torch.float32: "f32_chain", torch.bfloat16: "bf16_round"}
+
+
+def _bwd_inputs(cuda, B, S, KR, Gl, D, dtype, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, S, KR, Gl, D, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(B, S, KR, D, generator=g, device=cuda).to(dtype) for _ in range(2))
+    do = torch.randn(B, S, KR, Gl, D, generator=g, device=cuda).to(dtype)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("B,S,KR,Gl,D,causal,dtype", BWD_CASES)
+def test_backward_kernel_matches_plain(cuda, B, S, KR, Gl, D, causal, dtype):
+    q, k, v, do = _bwd_inputs(cuda, B, S, KR, Gl, D, dtype)
+    lse = torch.empty(B, KR, S * Gl, device=cuda)
+    out = fa.flash_attention(q, k, v, causal=causal, lse=lse)
+    # the forward's log-sum-exp: float32 sums in another order
+    assert_close(lse, attention_lse_ref(q, k, causal=causal), "f32_chain")
+    before = fab.launches
+    got = fab.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert fab.launches == before + 1
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal)
+    for name, gt, w in zip("qkv", got, want):
+        assert gt.dtype == dtype and bool(torch.isfinite(gt).all())
+        assert_close(gt, w, BWD_TOL[dtype], err_msg=f"d{name}")
+
+
+def test_gradient_through_the_kernel_matches_autograd_of_the_plain_version(cuda):
+    """loss.backward() through ops.attention_model_layout (the forward and
+    backward kernels) against autograd through the plain version, GQA."""
+    q, k, v, do = _bwd_inputs(cuda, 2, 160, 2, 3, 64, torch.bfloat16, seed=1)
+    grads = []
+    for attend in (ops.attention_model_layout, chunked_attention_ref):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        (attend(*leaves, causal=True, chunk=64).float() * do.float()).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for name, gt, w in zip("qkv", *grads):
+        assert_close(gt, w, "bf16_round", err_msg=f"d{name}")
+
+
+def test_gradient_requiring_calls_the_backward_does_not_cover_raise(cuda):
+    q, k, v, _ = _bwd_inputs(cuda, 1, 64, 2, 1, 64, torch.bfloat16)
+    q.requires_grad_()
+    before = (fa.launches, fab.launches)
+    with pytest.raises(RuntimeError, match="q_offset"):
+        ops.attention_model_layout(q, k, v, causal=True, q_offset=8)
+    with pytest.raises(RuntimeError, match="kv_len"):
+        ops.attention_model_layout(q, k, v, causal=True, kv_len=32)
+    assert (fa.launches, fab.launches) == before
+    with torch.no_grad():  # no gradient wanted: the forward kernel alone
+        ops.attention_model_layout(q, k, v, causal=True, q_offset=8)
+    assert fa.launches == before[0] + 1
+
+
+def _train_params(cfg, st):
+    """Float32 master weights on the CPU, from a seed."""
+    return init_state(cfg, st, get_optimizer("sgd"), TrainConfig(),
+                      torch.Generator().manual_seed(0), "cpu")["params"]
+
+
+# norm-relative, per leaf: float32 sums in another order; bf16 activations
+# rounded by cuBLAS and the kernels where the CPU rounds them the other way
+GRAD_CLASS = {"float32": "f32_chain", "bfloat16": "bf16_chain"}
+
+
+def _assert_grads_agree(got, want, dtype):
+    rtol = TOLERANCES[GRAD_CLASS[dtype]][0]
+    for (path, gt), (_, w) in zip(leaves_with_paths(got), leaves_with_paths(want)):
+        assert gt is not None and gt.device.type == "cuda", path
+        rel = ((gt.cpu().double() - w.double()).norm() / w.double().norm()).item()
+        assert rel <= rtol, f"{path}: relative error {rel} over {GRAD_CLASS[dtype]}"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_loss_backward_on_cuda_matches_cpu(cuda, dtype):
+    """The fault this guards against: the forward kernel's output carried no
+    gradient, so loss.backward() on the card left wq (and wk, wv and their
+    biases) without one.  The reduced qwen, float32 master weights, one
+    batch: every parameter's gradient on the card against the CPU's."""
+    cfg = reduced_config(get_config("qwen1.5-0.5b"), 16).with_(dtype=dtype)
+    st = get_strategy("2d_finalized")
+    cpu = _train_params(cfg, st)
+    gpu = tree_map(lambda p: p.detach().to(cuda).requires_grad_(), cpu)
+    batch = {k: torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 128)))
+             for k in ("tokens", "labels")}
+    fab.launches = 0
+    api.loss_fn(cfg, st, gpu, {k: v.to(cuda) for k, v in batch.items()}).backward()
+    assert fab.launches == cfg.num_layers
+    api.loss_fn(cfg, st, cpu, batch).backward()
+    _assert_grads_agree(tree_map(lambda p: p.grad, gpu), tree_map(lambda p: p.grad, cpu), dtype)
+    assert all(p.grad is not None for p in leaves(gpu))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_full_width_train_step_on_cuda_matches_cpu(cuda, dtype):
+    """Two layers of qwen1.5-0.5b at full width: value_and_grad and one
+    Adafactor step of make_train_step on the card against the same on the
+    CPU (loss and grad norm; gradients per leaf)."""
+    cfg = get_config("qwen1.5-0.5b").with_(num_layers=2, dtype=dtype)
+    st = get_strategy("2d_finalized")
+    cpu = _train_params(cfg, st)
+    gpu = tree_map(lambda p: p.detach().to(cuda).requires_grad_(), cpu)
+    tokens = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 129))
+    batch = {"tokens": torch.from_numpy(tokens[:, :-1]), "labels": torch.from_numpy(tokens[:, 1:])}
+    gbatch = {k: v.to(cuda) for k, v in batch.items()}
+    loss_g, grads_g = value_and_grad(cfg, st, gpu, gbatch)
+    loss_c, grads_c = value_and_grad(cfg, st, cpu, batch)
+    _assert_grads_agree(grads_g, grads_c, dtype)
+    kind = "f32_chain" if dtype == "float32" else "bf16_round"
+    assert_close(loss_g, loss_c, kind)
+    opt = get_optimizer("adafactor")
+    metrics = []
+    for params, b in ((gpu, gbatch), (cpu, batch)):
+        state = {"params": params, "opt": opt.init(params), "step": 0}
+        metrics.append(make_train_step(cfg, st, opt, TrainConfig())(state, b)[1])
+    for key in ("loss", "grad_norm"):
+        assert_close(metrics[0][key], metrics[1][key], kind, err_msg=key)

@@ -8,6 +8,7 @@ the card.
 """
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,9 +19,12 @@ from repro.kernels.ref import attention_ref as jax_attention_ref
 from repro.models.attention import chunked_attention as jax_chunked_attention
 from repro_torch.core.compat import assert_close
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_attention_bwd as fab
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as ssd_kernel
-from repro_torch.kernels.ref import attention_ref, chunked_attention_ref
+from repro_torch.kernels.ref import (
+    attention_lse_ref, attention_ref, chunked_attention_ref, flash_attention_bwd_ref,
+)
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -232,3 +236,76 @@ def test_ssd_plan_refuses_a_sequence_that_is_no_multiple_of_the_chunk():
         ssd_kernel.plan(1, 200, 2, 64, 128, 128, sms=H100_SMS)
     with pytest.raises(ValueError, match="multiple of the chunk"):
         ssd_kernel.plan(1, 256, 2, 64, 128, 129, sms=H100_SMS)
+
+
+# ---------------------------------------------------------------------------------
+# the gradient: the port's autograd through the plain version against
+# jax.grad of the JAX package's chunked_attention, and the backward kernel's
+# formulas (flash_attention_bwd_ref) against that autograd
+# ---------------------------------------------------------------------------------
+
+# float32: contractions in another order; bf16: the reference's cotangents
+# are rounded at other points than PyTorch's (per chunk, in XLA's fusions)
+GRAD_TOL = {"float32": "f32_chain", "bfloat16": "bf16_chain"}
+
+
+def _attention_vjp_inputs(rng, S, Gl, D, dtype):
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(rng, (2, S, 2, Gl, D), (2, S, 2, D), dtype)
+    doj, dot = _pair(rng.standard_normal((2, S, 2, Gl, D)), dtype)
+    return (qj, kj, vj, doj), (qt, kt, vt, dot)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("Gl", [1, 3])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_backward_matches_jax_grad(causal, Gl, D, dtype):
+    """dq, dk, dv of chunked_attention: S = 40 over chunks of 16 (a ragged
+    last chunk), GQA with Gl = 3."""
+    (qj, kj, vj, doj), (qt, kt, vt, dot) = _attention_vjp_inputs(
+        np.random.default_rng(10), 40, Gl, D, dtype)
+    _, vjp = jax.vjp(lambda q, k, v: jax_chunked_attention(q, k, v, causal=causal, chunk=16),
+                     qj, kj, vj)
+    want = vjp(doj)
+    q, k, v = (t.clone().requires_grad_() for t in (qt, kt, vt))
+    out = ops.attention_model_layout(q, k, v, causal=causal, chunk=16)
+    got = torch.autograd.grad(out, (q, k, v), dot)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == DTYPES[dtype][1]
+        assert_close(g, w, GRAD_TOL[dtype], err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,Gl,S", [(True, 1, 40), (True, 3, 33), (False, 2, 40)])
+def test_flash_attention_bwd_ref_matches_autograd(causal, Gl, S, dtype):
+    """The kernel's formulas (P from the forward's log-sum-exp, Delta from
+    its output) against autograd through the plain forward."""
+    _, (qt, kt, vt, dot) = _attention_vjp_inputs(np.random.default_rng(11), S, Gl, 32, dtype)
+    q, k, v = (t.clone().requires_grad_() for t in (qt, kt, vt))
+    out = chunked_attention_ref(q, k, v, causal=causal, chunk=16)
+    want = torch.autograd.grad(out, (q, k, v), dot)
+    lse = attention_lse_ref(qt, kt, causal=causal)
+    got = flash_attention_bwd_ref(qt, kt, vt, out.detach(), lse, dot, causal=causal)
+    # float32: the same sums in another order; bf16: the formulas round dS
+    # and P (and take Delta from the rounded output) where autograd rounds
+    # the chunks' cotangents
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == w.dtype
+        assert_close(g, w, "f32_chain" if dtype == "float32" else "bf16_round",
+                     err_msg=f"d{name}")
+
+
+def test_gradient_through_the_kernel_path_raises_where_it_is_not_covered():
+    """On the card a gradient-requiring call that the backward kernel does
+    not cover raises (checked before any launch, so it shows here); it never
+    falls back to the plain version."""
+    q = torch.zeros(1, 32, 1, 1, 64, requires_grad=True)
+    k = torch.zeros(1, 32, 1, 64)
+    for kw, why in (({"q_offset": 4}, "q_offset"), ({"kv_len": 16}, "kv_len")):
+        with pytest.raises(RuntimeError, match=why):
+            fab.check_trainable(q, k, k, **kw)
+    with pytest.raises(RuntimeError, match="dtypes"):
+        fab.check_trainable(q, k.bfloat16(), k.bfloat16())
+    with pytest.raises(RuntimeError, match="decode"):
+        fab.check_trainable(q[:, :8], k, k)
+    fab.check_trainable(q, k, k)  # the training call itself is covered
