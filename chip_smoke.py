@@ -9,9 +9,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    and the builds of the three kernel sources from ``src/repro_torch`` (one
    nvcc each, started together), with ptxas's registers and spills per
    variant and the HGMMA and HMMA counts of each instantiation's SASS (no
-   spill, HGMMA in every bf16 prefill instantiation and HMMA in every
-   instantiation of the SSD's two product passes and of the bf16 backward,
-   or the phase fails);
+   spill, HGMMA in every instantiation of the bf16 prefill and of the bf16
+   backward's bwd_main, and HMMA in every instantiation of the SSD's two
+   product passes, or the phase fails);
 2. flash_attention: the CUDA kernel against its plain PyTorch version on the
    card at the shapes of the Pallas kernel's contract, the qwen loss's own
    prefill, GQA, D = 32, a ragged prefill, prefill continuation and the
@@ -19,12 +19,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    wrapper's plan() chose, with times (CUDA events) for the kernel, the
    plain version and ``scaled_dot_product_attention`` (a yardstick only: the
    port never calls it) beside the card's bound;
-2b. flash_attention_bwd: the backward kernel (two launches per call)
-   against its plain version on the forward kernel's output and
-   log-sum-exp, at the qwen training call (B4 S2048 H16 D64), GQA at D =
-   128, D = 32, a ragged S = 1000, non-causal and float32, with times for
-   the kernel (and each launch), the plain version and SDPA's backward (a
-   yardstick only) beside the bound;
+2b. flash_attention_bwd: the backward kernel (bf16: bwd_prep, bwd_main,
+   bwd_dq_out; float32: two launches) against its plain version on the
+   forward kernel's output and log-sum-exp, at the qwen training call (B4
+   S2048 H16 D64), GQA at D = 128, D = 32, a ragged S = 1000, non-causal
+   and float32, with times for the kernel (and each launch, from the
+   trace), the plain version and SDPA's backward (a yardstick only) beside
+   the bound;
 3. ssd_scan: the CUDA kernel (three passes per call) against its plain
    version (and, at a small size, the exact recurrence) at the Mamba2
    loss's shape and smaller ones, ragged chunks and a short head group,
@@ -38,8 +39,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the decode loop; ``loss_fn`` of one batch; training through
    ``launch.train.main`` (B4 S2048, ten Adafactor steps: every loss finite,
    step 0's loss equal to ``loss_fn`` without autograd, per step 48 forward
-   launches with remat and 24 backward calls; ms per step, device busy,
-   tokens/s, peak memory); and two full-width layers' gradients on the card
+   launches with remat and 24 backward calls; ms per step, device busy
+   and the backward's share of it, tokens/s, peak memory); and two full-width layers' gradients on the card
    against the CPU's plain path, per leaf, in float32 and bf16;
 5. mamba2-130m at full width: ``loss_fn`` of a batch of 8 x 2048 under
    inference mode (24 SSD launches, one per layer); serve 16 greedy
@@ -291,7 +292,8 @@ def kernel_phase(seed):
 
 
 def bwd_case(name, *, B, S, KR, Gl, D, dtype, causal, gen):
-    """The backward kernel (two launches per call) against its plain version
+    """The backward kernel (three launches per bf16 call, two per float32
+    call) against its plain version
     on the forward kernel's output and log-sum-exp; kernel, device and plain
     times, SDPA's backward as a yardstick (the port never calls it), and the
     bound."""
@@ -373,10 +375,10 @@ def bwd_case(name, *, B, S, KR, Gl, D, dtype, causal, gen):
     }
     passes = device_ms(run_kernel, copies, by_name=True)
     rec["pass_device_ms"] = passes and {_variant(n): v["ms"] for n, v in passes.items()}
-    short = {"bfloat16": "bf16", "float32": "f32"}[rec["dtype"]]
+    want = (BWD_LAUNCHES_BF16 if dtype == torch.bfloat16 else BWD_LAUNCHES_F32)
     check(not passes or sorted((_variant(n), v["launches"]) for n, v in passes.items())
-          == [(f"bwd_dkdv_{short}", 1), (f"bwd_dq_{short}", 1)],
-          f"{name}: kernels per call in the trace {passes}, want one of each launch")
+          == [(v, 1) for v in sorted(want)],
+          f"{name}: kernels per call in the trace {passes}, want one of each of {want}")
     print(f"  {name:30s} {rec['dtype']:8s} err {max_abs_err:.3g} ({tol}) kernel {rec['ms']:.4f} ms "
           f"(device {_ms(rec['device_ms'])}; " + ("per launch not measured" if not passes else
           ", ".join(f"{_variant(n)} {v['ms']:.4f}" for n, v in passes.items())) +
@@ -827,9 +829,9 @@ def train_phase(seed, B=4, S=2048):
     every loss finite; step 0's loss equal to ``api.loss_fn`` of the same
     weights and batch without autograd; per step, 24 forward launches plus
     24 recomputed in the backward (remat "dots" keeps only the 2-D
-    products) and 24 backward calls (two launches each).  Reads: ms per
-    step (wall; device busy from a trace of one step), tokens/s, peak
-    memory."""
+    products) and 24 backward calls (three launches each).  Reads: ms per
+    step (wall; device busy and the backward kernel's share of it from a
+    trace of one step), tokens/s, peak memory."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -894,16 +896,24 @@ def train_phase(seed, B=4, S=2048):
     for e in device:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values()) if device else None
+    bwd = {}  # the backward's launches in the traced step, by variant
+    for n, ms in by_name.items():
+        if _variant(n) in BWD_LAUNCHES_BF16:
+            bwd[_variant(n)] = bwd.get(_variant(n), 0.0) + ms
+    bwd_ms = sum(bwd.values()) if device else None
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     print(f"train {arch}: B={B} S={S}, {TRAIN_STEPS} steps, loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f} (step 0 without autograd {loss0:.6f}); wall {wall:.1f} ms/step "
           f"(median of steps 1-{TRAIN_STEPS - 1} but {PROFILED_STEP}), {B * S / wall * 1e3:.0f} "
-          f"tokens/s; step {PROFILED_STEP} device busy {_ms(busy)} ({len(device)} device ops); "
-          f"peak memory {peak:.2f} GiB", flush=True)
+          f"tokens/s; step {PROFILED_STEP} device busy {_ms(busy)} ({len(device)} device ops), "
+          f"the backward kernel {_ms(bwd_ms)}" + (f" ({bwd_ms / busy:.1%}: " + ", ".join(
+              f"{v} {ms:.3f}" for v, ms in sorted(bwd.items())) + ")" if busy else "") +
+          f"; peak memory {peak:.2f} GiB", flush=True)
     for name, ms in top:
         print(f"  {ms:.4f} ms/step  {name[:90]}")
     return {"B": B, "S": S, "losses": losses, "loss0_no_grad": loss0, "ms_per_step": wall,
             "tokens_per_s": B * S / wall * 1e3, "device_busy_ms_per_step": busy,
+            "bwd_device_ms_per_step": bwd_ms, "bwd_device_ms_by_launch": bwd,
             "device_ops_per_step": len(device), "peak_gib": peak, "steps": steps,
             "launches": {n: sum(r["launches"][n] for r in steps) for n in want},
             "top": [{"name": n[:120], "ms_per_step": ms} for n, ms in top]}
@@ -953,14 +963,20 @@ def two_layer_phase(seed, B=2, S=128):
 
 # the kernels' templates by variant, as the mangled names in ptxas's report,
 # in the SASS and in profiler traces show them
-VARIANT_OF = {"flash_bwd_dq_bf16": "bwd_dq_bf16", "flash_bwd_dkdv_bf16": "bwd_dkdv_bf16",
+VARIANT_OF = {"flash_bwd_prep": "bwd_prep", "flash_bwd_main": "bwd_main",
+              "flash_bwd_dq_out": "bwd_dq_out",
               "flash_bwd_dq_f32": "bwd_dq_f32", "flash_bwd_dkdv_f32": "bwd_dkdv_f32",
               "flash_wgmma": "prefill_wgmma", "flash_decode": "decode_splitkv",
               "flash_fwd": "prefill_f32", "ssd_chunk_state": "ssd_chunk_state",
               "ssd_state_pass": "ssd_state_pass", "ssd_chunk_out": "ssd_chunk_out"}
-# the SSD passes and the bf16 backward kernels whose products run on the
-# tensor cores with mma.sync (ssd_state_pass only moves the states: no product)
-HMMA_VARIANTS = ("ssd_chunk_state", "ssd_chunk_out", "bwd_dq_bf16", "bwd_dkdv_bf16")
+# the kernels whose products run on wgmma (HGMMA in the SASS)
+HGMMA_VARIANTS = ("prefill_wgmma", "bwd_main")
+# the SSD passes whose products run on the tensor cores with mma.sync
+# (ssd_state_pass only moves the states: no product)
+HMMA_VARIANTS = ("ssd_chunk_state", "ssd_chunk_out")
+# the backward's launches per call
+BWD_LAUNCHES_BF16 = ("bwd_prep", "bwd_main", "bwd_dq_out")
+BWD_LAUNCHES_F32 = ("bwd_dq_f32", "bwd_dkdv_f32")
 
 
 def _variant(symbol):
@@ -994,9 +1010,9 @@ def mma_counts(lib):
 def build_kernels():
     """Start one nvcc per kernel source together; print ptxas's registers and
     spills per variant and the HGMMA and HMMA counts of each instantiation;
-    fail if a build spills, a bf16 prefill instantiation holds no HGMMA or an
-    instantiation of an SSD product pass or of the bf16 backward holds no
-    HMMA."""
+    fail if a build spills, an instantiation of the bf16 prefill or of the
+    bf16 backward's bwd_main holds no HGMMA or an instantiation of an SSD
+    product pass holds no HMMA."""
     from repro_torch.kernels import flash_attention, flash_attention_bwd, ssd_scan
 
     t0 = time.perf_counter()
@@ -1034,9 +1050,9 @@ def build_kernels():
                   f"{v['registers']}, spill stores {v['spill_stores']} bytes, HGMMA per "
                   f"instantiation {v['hgmma']}, HMMA {v['hmma']}", flush=True)
             check(v["spill_stores"] == 0, f"{name} {variant} spills registers")
-            if variant == "prefill_wgmma" and mma is not None:
+            if variant in HGMMA_VARIANTS and mma is not None:
                 check(len(v["hgmma"]) == v["instantiations"] and min(v["hgmma"]) > 0,
-                      f"a bf16 prefill instantiation holds no HGMMA: {v['hgmma']}")
+                      f"an {variant} instantiation holds no HGMMA: {v['hgmma']}")
             if variant in HMMA_VARIANTS and mma is not None:
                 check(len(v["hmma"]) == v["instantiations"] and min(v["hmma"]) > 0,
                       f"an {variant} instantiation holds no HMMA: {v['hmma']}")

@@ -2,8 +2,9 @@
 
 Each source under ``csrc/`` has a plain C interface.  ``build_library``
 compiles it with ``nvcc`` for ``sm_90a`` at its first use, into
-``build/repro_torch_kernels/`` beside ``src/`` (named by the source's hash,
-so an edited source rebuilds), and the wrappers load it with ``ctypes``.
+``build/repro_torch_kernels/`` beside ``src/`` (named by the hash of the
+source and of the shared headers under ``csrc/``, so an edit to either
+rebuilds), and the wrappers load it with ``ctypes``.
 nvcc's output, with ptxas's register report, is kept beside the library with
 the suffix ``.log``.
 """
@@ -31,9 +32,12 @@ def nvcc_path() -> str:
 
 
 def build_library(src: pathlib.Path) -> pathlib.Path:
-    """Compile ``src`` if this content has not been built yet, and return the
-    library's path."""
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    """Compile ``src`` if this content (the source and the headers beside it)
+    has not been built yet, and return the library's path."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     lib_path = BUILD_DIR / f"lib{src.stem}_{digest}.so"
     if lib_path.exists():
         return lib_path

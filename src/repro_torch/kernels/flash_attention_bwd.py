@@ -14,15 +14,22 @@ than falling back to the plain version:
 - one dtype (float32 or bfloat16) for q, k and v; D in {32, 64, 128};
 - R = S * Gl > 16 q rows (a prefill variant, which writes the log-sum-exp).
 
-One call is two launches on PyTorch's current stream: ``flash_bwd_dq``
-(Delta and dq) and ``flash_bwd_dkdv``.  ``launches`` counts calls (one per
-call, not two), so a run can show that its gradient went through them.
+A bf16 call is three launches on PyTorch's current stream (``plan`` gives
+their grids, tiles and scratch): ``flash_bwd_prep`` (Delta, the scaled q and
+a copy of dO in a row-contiguous layout, a zeroed dq accumulator),
+``flash_bwd_main`` (wgmma fed by TMA: dk and dv per 128-key block, dq added
+into the float32 accumulator by bulk atomic adds) and ``flash_bwd_dq_out``
+(dq rounded into q's layout).  A float32 call is two CUDA-core launches,
+``flash_bwd_dq_f32`` and ``flash_bwd_dkdv_f32``.  ``launches`` counts calls
+(one per call, whatever the launches), so a run can show that its gradient
+went through the kernel.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import pathlib
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -34,6 +41,35 @@ launches = 0  # calls that launched the kernels since the last reset (callers se
 _SRC = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attention_bwd.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
+
+BLOCK_Q = 64        # q rows per tile of flash_bwd_main (one TMA box)
+BLOCK_K = 128       # keys per flash_bwd_main block: two consumer warpgroups of 64
+PREP_THREADS = 256  # flash_bwd_prep: D / 8 threads per row
+OUT_THREADS = 256   # flash_bwd_dq_out: one thread per eight columns of a row
+
+
+class Plan(NamedTuple):
+    variant: str       # "wgmma" (bf16: three launches) or "f32" (two CUDA-core launches)
+    rows_padded: int   # R = S * Gl rounded up to BLOCK_Q: the scratch's rows (wgmma)
+    grids: tuple       # blocks of flash_bwd_prep, flash_bwd_main, flash_bwd_dq_out (wgmma)
+    scratch: dict      # name -> (shape, dtype) of what the wrapper allocates
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(B: int, S: int, KR: int, Gl: int, T: int, D: int, dtype: torch.dtype) -> Plan:
+    """Launches, grids and scratch of a call (pure Python; the bf16 launch
+    recomputes the grids and refuses others)."""
+    R = S * Gl
+    if dtype == torch.float32:
+        return Plan("f32", R, (), {"delta": ((B, KR, R), torch.float32)})
+    Rp = -(-R // BLOCK_Q) * BLOCK_Q
+    grids = (B * KR * Rp * (D // 8) // PREP_THREADS, -(-T // BLOCK_K) * KR * B,
+             -(-B * KR * R * (D // 8) // OUT_THREADS))
+    rows = (B * KR, Rp)
+    scratch = {"qf": ((*rows, D), torch.bfloat16), "dob": ((*rows, D), torch.bfloat16),
+               "lse_p": (rows, torch.float32), "delta": (rows, torch.float32),
+               "dq_acc": ((*rows, D), torch.float32)}
+    return Plan("wgmma", Rp, grids, scratch)
 
 
 def build() -> pathlib.Path:
@@ -47,8 +83,8 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         fn = lib.flash_attention_bwd
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 10 + [i32] * 8 + [ctypes.c_float, ptr]
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [ptr] * 14 + [i32] * 8 + [ctypes.c_float, i32] + [i64] * 3 + [ptr]
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -95,12 +131,20 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool):
     if dev.type != "cuda" or any(t.device != dev for t in (k, v, out, lse, dout)):
         raise ValueError("the backward takes tensors on one CUDA device")
     q, k, v, out, lse, dout = (t.contiguous() for t in (q, k, v, out, lse, dout))
+    if any(t.data_ptr() % 16 for t in (q, k, v, out, dout)):
+        raise ValueError("the backward moves 16-byte chunks and TMA boxes: q, k, v, out and "
+                         "dout must start at multiples of 16 bytes")
+    pl = plan(B, S, KR, Gl, T, D, q.dtype)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty_like(lse)
+    scratch = {name: torch.empty(shape, dtype=dt, device=dev)
+               for name, (shape, dt) in pl.scratch.items()}
+    grids = pl.grids if pl.variant == "wgmma" else (0, 0, 0)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *(scratch[n].data_ptr() if n in scratch else None
+              for n in ("delta", "qf", "dob", "lse_p", "dq_acc")),
             _DTYPES[q.dtype], B, S, KR, Gl, T, D, int(causal), fa._scale(D, q.dtype),
-            torch._C._cuda_getCurrentRawStream(dev.index))
+            pl.rows_padded, *grids, torch._C._cuda_getCurrentRawStream(dev.index))
     fn = _load().flash_attention_bwd
     if dev.index == torch.cuda.current_device():
         err = fn(*args)

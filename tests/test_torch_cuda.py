@@ -340,7 +340,10 @@ def _to(tree, device):
 
 # (B, S, KR, Gl, D, causal, dtype): the qwen training call (B4 S2048 H16 D64),
 # GQA Gl = 3 at D = 128, D = 32, a ragged S = 1000, non-causal, and float32
-# (the CUDA-core kernels) at each D
+# (the CUDA-core kernels) at each D; then, for bf16's 64-row tiles and
+# 128-key blocks: Gl = 3 with R = 210 (no multiple of 64) at D = 64, S = 190
+# (no multiple of 128) at D = 32, and B * KR = 160 blocks per kv tile (more
+# than the H100's 132 SMs)
 BWD_CASES = [
     (4, 2048, 16, 1, 64, True, torch.bfloat16),
     (1, 300, 2, 3, 128, True, torch.bfloat16),
@@ -350,10 +353,15 @@ BWD_CASES = [
     (1, 130, 2, 3, 32, True, torch.float32),
     (2, 200, 2, 1, 64, False, torch.float32),
     (1, 100, 2, 2, 128, True, torch.float32),
+    (2, 70, 2, 3, 64, True, torch.bfloat16),
+    (2, 190, 3, 1, 32, True, torch.bfloat16),
+    (10, 256, 16, 1, 64, True, torch.bfloat16),
 ]
 # bf16: P and dS are rounded to bf16 at the same points as the plain
 # version, but the kernel's exp and sums land some of them on the other
-# side of a rounding: one bf16 rounding apart; float32: sum order only
+# side of a rounding, and dq's float32 sums are added by atomics in an order
+# that changes from run to run: one bf16 rounding of sums taken in varying
+# order apart; float32: sum order only
 BWD_TOL = {torch.float32: "f32_chain", torch.bfloat16: "bf16_round"}
 
 
@@ -380,6 +388,20 @@ def test_backward_kernel_matches_plain(cuda, B, S, KR, Gl, D, causal, dtype):
     for name, gt, w in zip("qkv", got, want):
         assert gt.dtype == dtype and bool(torch.isfinite(gt).all())
         assert_close(gt, w, BWD_TOL[dtype], err_msg=f"d{name}")
+
+
+def test_backward_kernel_repeats_dk_dv_bit_for_bit(cuda):
+    """Two calls on one input: dq's atomic float32 sums may land in another
+    order (one bf16 rounding apart, as against the plain version), dk and dv
+    are summed in a fixed order and repeat exactly."""
+    q, k, v, do = _bwd_inputs(cuda, 2, 1000, 4, 1, 64, torch.bfloat16, seed=2)
+    lse = torch.empty(2, 4, 1000, device=cuda)
+    out = fa.flash_attention(q, k, v, causal=True, lse=lse)
+    first, second = (fab.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    assert_close(second[0], first[0], "bf16_round", err_msg="dq")
+    assert torch.equal(second[1], first[1]) and torch.equal(second[2], first[2])
 
 
 def test_gradient_through_the_kernel_matches_autograd_of_the_plain_version(cuda):

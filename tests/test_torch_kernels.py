@@ -309,3 +309,45 @@ def test_gradient_through_the_kernel_path_raises_where_it_is_not_covered():
     with pytest.raises(RuntimeError, match="decode"):
         fab.check_trainable(q[:, :8], k, k)
     fab.check_trainable(q, k, k)  # the training call itself is covered
+
+
+# ---------------------------------------------------------------------------------
+# the backward kernel's plan: bf16 runs bwd_prep, bwd_main and bwd_dq_out on
+# scratch of R rows padded to the 64-row tile; float32 two CUDA-core launches
+# ---------------------------------------------------------------------------------
+
+
+# (B, S, KR, Gl, T, D): the training call, ragged R (Gl = 3, S not a
+# multiple of 64) and ragged T (not a multiple of the 128-key block)
+@pytest.mark.parametrize("B,S,KR,Gl,T,D", [
+    (4, 2048, 16, 1, 2048, 64), (2, 70, 2, 3, 70, 64), (1, 300, 2, 3, 300, 128),
+    (2, 190, 3, 1, 190, 32), (1, 17, 1, 1, 200, 64), (10, 256, 16, 1, 256, 64),
+])
+def test_bwd_plan_pads_rows_to_the_tile_and_covers_every_launch(B, S, KR, Gl, T, D):
+    pl = fab.plan(B, S, KR, Gl, T, D, BF16)
+    R = S * Gl
+    assert pl.variant == "wgmma" and (fab.BLOCK_Q, fab.BLOCK_K) == (64, 128)
+    assert pl.rows_padded % 64 == 0 and R <= pl.rows_padded < R + 64
+    prep, main, out = pl.grids
+    assert prep * fab.PREP_THREADS == B * KR * pl.rows_padded * (D // 8)  # every padded row
+    assert main == -(-T // 128) * KR * B  # every key, one block per 128
+    assert (out - 1) * fab.OUT_THREADS < B * KR * R * (D // 8) <= out * fab.OUT_THREADS
+    rows = (B * KR, pl.rows_padded)
+    assert pl.scratch == {"qf": ((*rows, D), BF16), "dob": ((*rows, D), BF16),
+                          "lse_p": (rows, F32), "delta": (rows, F32),
+                          "dq_acc": ((*rows, D), F32)}
+
+
+def test_bwd_plan_at_the_training_call():
+    """B4 S2048 H16 D64: 1024 main blocks, a 33.5 MB dq accumulator."""
+    pl = fab.plan(4, 2048, 16, 1, 2048, 64, BF16)
+    assert pl.rows_padded == 2048 and pl.grids == (4096, 1024, 4096)
+    nbytes = {n: math.prod(shape) * torch.finfo(dt).bits // 8 for n, (shape, dt) in pl.scratch.items()}
+    assert nbytes["dq_acc"] == 4 * 16 * 2048 * 64 * 4 == 33554432
+    assert nbytes["qf"] == nbytes["dob"] == 16777216
+
+
+def test_bwd_plan_for_float32_keeps_the_cuda_core_pair():
+    pl = fab.plan(1, 130, 2, 3, 130, 32, F32)
+    assert pl.variant == "f32" and pl.grids == ()
+    assert pl.scratch == {"delta": ((1, 2, 390), F32)}

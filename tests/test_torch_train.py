@@ -5,6 +5,7 @@ Weights come from the reference's ``tree_init``, carried across through
 numpy; batches from the pipelines; tolerances from the port's
 ``TOLERANCES``."""
 import time
+import types
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +38,7 @@ from repro_torch.models.convert import params_from_numpy
 from repro_torch.train.loop import (
     NumericFaultSpec, TrainConfig, TrainLoop, make_train_step, value_and_grad,
 )
+from repro_torch.train import loop as train_loop
 from repro_torch.train.optimizer import get_optimizer
 
 ST = get_strategy("2d_finalized")
@@ -362,15 +364,20 @@ def test_train_entry_point_asks_for_cuda_by_default():
     assert len(losses) == 2 and all(np.isfinite(losses))
 
 
-def test_train_loop_fails_at_step_watches_stragglers_and_swaps_its_step():
+def test_train_loop_fails_at_step_watches_stragglers_and_swaps_its_step(monkeypatch):
     _, cfg = _tiny("float32")
     opt = get_optimizer("sgd", lr=0.01)
     pipe = TokenPipeline(DataConfig(cfg.vocab_size, 8, 2, seed=3, pattern="arithmetic"))
     with pytest.raises(RuntimeError, match="injected failure at step 2"):
         TrainLoop(cfg, ST, opt, TrainConfig(steps=5, fail_at_step=2), pipe).run()
+    # The loop's clock runs 1000 s ahead from step 9's fault hook on: a stall
+    # no machine's step time can hide, however slow or loaded the host
+    stall = {"s": 0.0}
+    monkeypatch.setattr(train_loop, "time", types.SimpleNamespace(
+        perf_counter=lambda: time.perf_counter() + stall["s"]))
     events, seen = [], []
     hooks = {"straggler": lambda s, dt, med: events.append(s),
-             "fault": lambda s: time.sleep(0.5) if s == 9 else None,
+             "fault": lambda s: stall.update(s=1000.0) if s == 9 else None,
              "metrics": lambda s, loss: seen.append((s, loss))}
     loop = TrainLoop(cfg, ST, opt, TrainConfig(steps=10, straggler_factor=3.0), pipe, hooks=hooks)
     state, losses = loop.run()
