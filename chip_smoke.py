@@ -46,13 +46,25 @@ Phases, each of which raises (and so exits non-zero) on failure:
    inference mode (24 SSD launches, one per layer); serve 16 greedy
    requests (the recurrent decode: no SSD launch); and the forward (the
    kernel) against 256 decode steps (the exact recurrence), with a planted
-   fault that the phase's limits must reject.
+   fault that the phase's limits must reject;
+6. partition: the port's own partitioner (capture, sharding completion,
+   reshard planning, local compute, collectives) on a simulated (2,4) mesh
+   whose eight devices' shards all live on the card: qwen1.5-0.5b's SwiGLU
+   MLP at full width (8,192 tokens) in float32 and bf16, a contracting-dim
+   product, expert-dim recursive grouping and a 2-D spatial halo
+   convolution, each against the same function unsharded on the card, with
+   the collectives run, the ops that took the gather-all fallback (none, or
+   the phase fails), the largest error against its limit, and both runs'
+   device ms and peak memory (times of the simulation: one card does the
+   eight devices' work), run in a process of its own so that its profiler
+   traces are whole.  No kernel of the port lies on this path.
 
 Every path runs with the kernels' launch counts set to 0 just before it and
 read just after.  The last two lines of output are the kernels' JSON record
 and ``{"ok": true, "device": {...}}``.
 """
 import argparse
+import collections
 import concurrent.futures
 import json
 import math
@@ -961,6 +973,175 @@ def two_layer_phase(seed, B=2, S=128):
     return out
 
 
+# ---------------------------------------------------------------------------------
+# partition phase: the port's own partitioner on a simulated (2,4) mesh
+# ---------------------------------------------------------------------------------
+
+
+def _swiglu(mesh):
+    from repro_torch.core import annotate, mesh_split
+
+    def mlp(x, wg, wu, wd):
+        x = annotate(x, mesh_split(2, mesh, ["x", -1]))      # tokens on x
+        wg = annotate(wg, mesh_split(2, mesh, [-1, "y"]))    # d_ff on y
+        wu = annotate(wu, mesh_split(2, mesh, [-1, "y"]))
+        return (F.silu(x @ wg) * (x @ wu)) @ wd
+
+    return mlp
+
+
+def _contracting(mesh):
+    from repro_torch.core import annotate, mesh_split
+
+    def f(x, w):
+        x = annotate(x, mesh_split(2, mesh, ["x", "y"]))
+        w = annotate(w, mesh_split(2, mesh, ["y", -1]))
+        return torch.einsum("bd,df->bf", x, w)
+
+    return f
+
+
+def _expert(mesh):
+    from repro_torch.core import annotate, mesh_split
+
+    def f(e1, e2):
+        e1 = annotate(e1, mesh_split(3, mesh, ["x", -1, "y"]))
+        e2 = annotate(e2, mesh_split(3, mesh, ["x", "y", -1]))
+        return torch.einsum("ebm,emh->ebh", e1, e2)
+
+    return f
+
+
+def _halo2d(mesh):
+    from repro_torch.core import annotate, mesh_split
+
+    def f(x, w):
+        return F.conv2d(annotate(x, mesh_split(4, mesh, [-1, -1, "x", "y"])), w, padding=1)
+
+    return f
+
+
+def partition_case(name, fn, args, kind, mesh, counts):
+    """``fn`` partitioned on ``mesh`` (every device's shard on this card)
+    against ``fn`` unsharded on the card: largest error against its
+    tolerance class, collectives by kind, ops that took the fallback (must
+    be none), device ms of both (profiler; the partitioned run is one card
+    doing eight devices' work, so the times measure the simulation) and
+    their peak memory."""
+    from repro_torch.core.compat import TOLERANCES
+    from repro_torch.core.partitioner import spmd_partition
+
+    runner = spmd_partition(fn, mesh, compile_plans=False, device="cuda")
+    got = runner(*args)
+    want = fn(*args)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name}: {tuple(got.shape)} {got.dtype} != {tuple(want.shape)} {want.dtype}")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    rtol, atol = TOLERANCES[kind]
+    err = (got.float() - want.float()).abs()
+    limit = atol + rtol * want.float().abs()
+    worst = (err / limit).max().item()
+    rec = {"case": name, "dtype": str(args[0].dtype).replace("torch.", ""),
+           "shapes": [list(a.shape) for a in args], "out_shape": list(got.shape),
+           "max_abs_err": err.max().item(), "tol": kind, "err_over_limit": worst,
+           "collectives": dict(runner.collectives), "fallbacks": list(runner.fallbacks)}
+    del got, want, err, limit
+    for label, call in (("partitioned", lambda i: runner(*args)), ("unsharded", lambda i: fn(*args))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        call(0)
+        torch.cuda.synchronize()
+        rec[f"{label}_peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        rec[f"{label}_device_ms"] = device_ms(call, 1, calls=5)
+    by_name = device_ms(lambda i: runner(*args), 1, calls=5, by_name=True) or {}
+    rec["partitioned_top"] = [{"name": n[:100], "ms": v["ms"], "launches": v["launches"]}
+                              for n, v in sorted(by_name.items(), key=lambda kv: -kv[1]["ms"])[:4]]
+    coll = ", ".join(f"{k} x{v}" for k, v in sorted(rec["collectives"].items())) or "none"
+    print(f"  {name} ({rec['dtype']}): collectives {coll}; fallbacks {rec['fallbacks'] or 'none'}",
+          flush=True)
+    print(f"    max abs err {rec['max_abs_err']:.3e}, worst err/limit {worst:.3f} ({kind}: rtol "
+          f"{rtol}, atol {atol}); device ms partitioned {_ms(rec['partitioned_device_ms'])} "
+          f"unsharded {_ms(rec['unsharded_device_ms'])}; peak above inputs partitioned "
+          f"{rec['partitioned_peak_gib']:.3f} GiB unsharded {rec['unsharded_peak_gib']:.3f} GiB",
+          flush=True)
+    for t in rec["partitioned_top"]:
+        print(f"      partitioned, by kernel: {t['ms']:.4f} ms x{t['launches']} {t['name'][:70]}",
+              flush=True)
+    check(not rec["fallbacks"], f"{name}: ops took the gather-all fallback: {rec['fallbacks']}")
+    check(worst <= 1.0, f"{name}: partitioned != unsharded beyond {kind} (err/limit {worst})")
+    counts.update(rec["collectives"])
+    return rec
+
+
+def partition_phase_in_own_process(seed):
+    """Run ``partition_phase`` in a fresh process: late in a long run,
+    after the earlier phases' many profiler sessions, its traces came back
+    without some kernels' device events (a whole kernel missing passes
+    ``device_ms``'s check), while the same phase in its own process traced
+    every call.  The kernels' launch counts are read there too."""
+    code = (f"import sys, json; sys.path.insert(0, {str(ROOT)!r}); import torch, chip_smoke; "
+            "torch.backends.cuda.matmul.allow_tf32 = False; "
+            "torch.backends.cudnn.allow_tf32 = False; "
+            f"out, n = chip_smoke.counted(lambda: chip_smoke.partition_phase({seed})); "
+            "print(json.dumps({'phase': out, 'launches': n}))")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=600)
+    lines = proc.stdout.splitlines()
+    print("\n".join(lines[:-1]), flush=True)
+    check(proc.returncode == 0 and lines,
+          f"partition phase failed ({proc.returncode}): {proc.stderr[-3000:]}")
+    res = json.loads(lines[-1])
+    check(not any(res["launches"].values()),
+          f"the partition phase launched kernels: {res['launches']}")
+    return res["phase"]
+
+
+def partition_phase(seed):
+    """The port's partitioner (capture, sharding completion, reshard
+    planning, local compute, collectives) on a simulated (2,4) mesh, at
+    qwen1.5-0.5b's widths: the SwiGLU MLP (8,192 tokens, d_model, d_ff) in
+    float32 and bf16, a contracting-dim product, expert-dim recursive
+    grouping, and a 2-D spatial halo convolution (cuDNN TF32 off)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import Mesh
+
+    check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 must be off: float32 cases compare float32 products")
+    print("  float32 products and convolutions run without TF32 (cuBLAS and cuDNN)", flush=True)
+    mesh = Mesh.create((2, 4), ("x", "y"))
+    cfg = get_config("qwen1.5-0.5b")
+    T, D, Fd = 8192, cfg.d_model, cfg.d_ff
+    gen = torch.Generator(device="cuda").manual_seed(seed + 30)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    cases, counts = [], collections.Counter()
+    for dtype, kind in ((torch.float32, "f32_chain"), (torch.bfloat16, "bf16_chain")):
+        args = (randn(T, D, dtype=dtype), randn(D, Fd, scale=D ** -0.5, dtype=dtype),
+                randn(D, Fd, scale=D ** -0.5, dtype=dtype),
+                randn(Fd, D, scale=Fd ** -0.5, dtype=dtype))
+        cases.append(partition_case(f"qwen_swiglu_mlp_{T}x{D}x{Fd}", _swiglu(mesh), args, kind,
+                                    mesh, counts))
+        del args
+    args = (randn(T, D), randn(D, Fd, scale=D ** -0.5))
+    cases.append(partition_case(f"contracting_{T}x{D}x{Fd}", _contracting(mesh), args,
+                                "f32_chain", mesh, counts))
+    E = 8
+    args = (randn(E, T // E, D), randn(E, D, Fd, scale=D ** -0.5))
+    cases.append(partition_case(f"expert_grouping_{E}x{T // E}x{D}x{Fd}", _expert(mesh), args,
+                                "f32_chain", mesh, counts))
+    args = (randn(8, 64, 256, 256), randn(64, 64, 3, 3, scale=(64 * 9) ** -0.5))
+    cases.append(partition_case("halo_conv2d_8x64x256x256_k3", _halo2d(mesh), args, "f32_chain",
+                                mesh, counts))
+    del args
+    torch.cuda.empty_cache()
+    return {"mesh": {"shape": list(mesh.shape), "axes": list(mesh.axis_names)},
+            "collectives": dict(counts), "cases": cases}
+
+
 # the kernels' templates by variant, as the mangled names in ptxas's report,
 # in the SASS and in profiler traces show them
 VARIANT_OF = {"flash_bwd_prep": "bwd_prep", "flash_bwd_main": "bwd_main",
@@ -1100,6 +1281,12 @@ def main(argv=None):
     del params
     cfg, st, params = full_width_model("mamba2-130m", args.seed, dtype="float32")
     mamba_consistency = consistency_phase(cfg, st, params, args.seed, "ssd_scan")
+    del params
+    torch.cuda.empty_cache()
+
+    print("partition: the port's partitioner on a simulated (2,4) mesh, against the same "
+          "functions unsharded on the card", flush=True)
+    partition = partition_phase_in_own_process(args.seed)
 
     fa_main = next(c for c in fa_cases if c["case"] == "decode_8x16_pos1023")
     fa_prefill = next(c for c in fa_cases if c["case"] == "prefill_qwen_loss_2x2048")
@@ -1136,7 +1323,8 @@ def main(argv=None):
     }], "build": build, "qwen": {"serve": qwen_serve, "consistency": qwen_consistency,
                                  "loss": qwen_loss, "train": qwen_train,
                                  "two_layer_step": qwen_two_layer},
-        "mamba2": {"loss": mamba_loss, "serve": mamba_serve, "consistency": mamba_consistency}}
+        "mamba2": {"loss": mamba_loss, "serve": mamba_serve, "consistency": mamba_consistency},
+        "partition": partition}
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

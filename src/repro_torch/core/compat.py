@@ -38,7 +38,11 @@ rounding flips are expected.
 """
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
+import torch
+from torch.utils._pytree import tree_unflatten
 
 # kind -> (rtol, atol); see module docstring for the policy table
 TOLERANCES = {
@@ -74,3 +78,73 @@ def _f32(x):
     if hasattr(x, "detach"):  # torch tensor: numpy has no bfloat16
         return x.detach().float().cpu().numpy()
     return np.asarray(x, np.float32)
+
+
+# ---------------------------------------------------------------------------------
+# Capture: the counterpart of ``jax.make_jaxpr``
+# ---------------------------------------------------------------------------------
+#
+# ``make_fx`` records the function as an aten graph: placeholders
+# are its invars, the output node's (flattened) arguments its outvars, tensor
+# constants ``get_attr`` nodes, and Python scalars in node arguments its
+# Literals.  Tracing runs on fake tensors, so capture costs no device work.
+# An in-place operator is refused: the graph must be functional, as a jaxpr
+# is.
+
+
+class Captured:
+    """A captured program: the graph, its invars and outvars, and the pytree
+    structure of its outputs."""
+
+    def __init__(self, gm: torch.fx.GraphModule):
+        self.gm = gm
+        self.graph = gm.graph
+        for n in self.graph.nodes:
+            schema = getattr(n.target, "_schema", None)
+            if n.op == "call_function" and schema is not None and schema.is_mutable:
+                raise NotImplementedError(
+                    f"capture: {n.target} writes into its operand; the partitioner takes "
+                    "functional programs (a jaxpr has no mutation): write it out of place")
+        self.invars = [n for n in self.graph.nodes if n.op == "placeholder"]
+        out = next(n for n in self.graph.nodes if n.op == "output")
+        outs = out.args[0]
+        info = getattr(self.graph._codegen, "pytree_info", None)
+        self.out_spec = info.out_spec if info is not None else None
+        if self.out_spec is None and not isinstance(outs, (list, tuple)):
+            outs = [outs]
+            self.single = True
+        else:
+            self.single = False
+        self.outvars = list(outs)
+
+    def constant(self, node):
+        """The tensor a ``get_attr`` node holds."""
+        obj = self.gm
+        for part in node.target.split("."):
+            obj = getattr(obj, part)
+        return obj
+
+    def unflatten(self, outs):
+        if self.out_spec is not None:
+            return tree_unflatten(list(outs), self.out_spec)
+        return outs[0] if self.single else tuple(outs)
+
+    def digest(self) -> str:
+        """Content digest: the graph's code, its outputs' structure and its
+        constants' bytes (the counterpart of hashing the jaxpr and its
+        consts)."""
+        h = hashlib.sha256(self.gm.code.encode())
+        h.update(str(self.out_spec).encode())  # the outputs' structure
+        for n in self.graph.nodes:
+            if n.op == "get_attr":
+                c = self.constant(n).detach().cpu().contiguous()
+                h.update(f"{n.target}:{c.dtype}:{tuple(c.shape)}".encode())
+                h.update(c.view(-1).view(torch.uint8).numpy().tobytes())
+        return h.hexdigest()
+
+
+def capture(fn, *args) -> Captured:
+    """Record ``fn(*args)`` as an aten graph (``make_fx`` on fake tensors)."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    return Captured(make_fx(fn, tracing_mode="fake")(*args))

@@ -1,0 +1,634 @@
+"""Per-operator sharding propagation rules (paper §3.5), keyed by aten ops.
+
+A port of the JAX package's ``core/rules.py``.  The reference keys its rules
+by jaxpr primitive names; a captured aten graph has other operators, so each
+aten op is keyed here by its overload packet (``"aten.mm"``) and
+:func:`lower` reads what the rule needs from the node (the counterpart of an
+equation's params): ``mm``/``bmm``/``addmm`` get ``dimension_numbers``,
+``permute``/``transpose``/``t`` a ``permutation``, ``unsqueeze``/``expand``
+``broadcast_dimensions``, the reductions their ``axes``.
+
+Each rule looks at the current (possibly None) shardings of an op's tensor
+operands and output and proposes refinements for the opposite side.  Rules
+never *remove* sharding — the propagation pass only refines (merge of
+compatible shardings), which guarantees a fixed point.
+
+Priorities (lower = propagates earlier), as in the reference:
+  0  elementwise ops and annotations (no comm if consistent; most intuitive)
+  0  broadcast (unsqueeze, expand): the paper's high priority backward
+  1  transpose, reshape, pad/slice/cat and other data-formatting ops
+  2  mm/bmm/addmm, convolution, reductions (dimension-changing)
+  3  everything else (no rule -> no propagation)
+
+Where an aten graph differs from a jaxpr:
+
+* aten broadcasts operands implicitly (right-aligned ranks, size-1 dims),
+  where a jaxpr inserts ``broadcast_in_dim`` first; the elementwise rule
+  maps each operand dim to the output dim it broadcasts to, and only dims of
+  equal size carry sharding — what ``rule_broadcast_in_dim`` then
+  ``rule_elementwise`` do in the reference;
+* reductions may keep their dims (``keepdim``);
+* ``slice`` has the same-rank rule, as the reference's ``slice``; ``select``
+  and the indexing ops (``index``, ``gather``, ``embedding``) have no rule and
+  take the partitioner's fallback, as the reference's ops without rules do;
+  ``alias``/``detach``/``clone`` are elementwise, as the reference's ``copy``;
+* factory ops (``ones``, ``zeros``, ``arange``, ...) are created replicated,
+  like the reference's ``iota``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import operator
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch.fx.operator_schemas import normalize_function
+
+from .sharding import Sharding, merge_shardings
+
+MaybeS = Optional[Sharding]
+
+ANNOTATE = "repro_torch.annotate"
+
+
+# ---------------------------------------------------------------------------------
+# aten node -> equation (the rule's view of one op)
+# ---------------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Aval:
+    shape: Tuple[int, ...]
+    dtype: Any
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+
+def aval(node) -> Optional[Aval]:
+    """The node's shape and dtype, or None when it is not a tensor."""
+    v = node.meta.get("val") if isinstance(node, torch.fx.Node) else None
+    if isinstance(v, torch.Tensor):
+        return Aval(tuple(int(s) for s in v.shape), v.dtype)
+    return None
+
+
+@dataclasses.dataclass
+class Eqn:
+    node: Any
+    name: str  # the op's overload packet, e.g. "aten.mm"
+    invars: list  # tensor operand nodes, in argument order
+    in_avals: List[Aval]
+    out_avals: List[Aval]  # [] when the op returns a tuple
+    params: Dict[str, Any]
+
+
+def op_name(node) -> str:
+    t = node.target
+    if t is operator.getitem:
+        return "getitem"
+    if isinstance(t, torch._ops.HigherOrderOperator):
+        return f"higher_order.{t.name()}"
+    packet = getattr(t, "_overloadpacket", None)
+    return str(packet) if packet is not None else str(t)
+
+
+def kwargs_of(node) -> Dict[str, Any]:
+    """The node's arguments by schema name, defaults filled in."""
+    r = normalize_function(node.target, tuple(node.args), dict(node.kwargs),
+                           normalize_to_only_use_kwargs=True)
+    return dict(r.kwargs) if r is not None else dict(node.kwargs)
+
+
+def _norm(d: int, rank: int) -> int:
+    return d + rank if d < 0 else d
+
+
+def _tensor_args(args) -> list:
+    out = []
+    for a in args:
+        if isinstance(a, (list, tuple)):
+            out += _tensor_args(a)
+        elif aval(a) is not None:
+            out.append(a)
+    return out
+
+
+def lower(node) -> Eqn:
+    """The equation view of a ``call_function`` node."""
+    name = op_name(node)
+    if name.startswith("higher_order."):
+        raise NotImplementedError(
+            f"{name}: control-flow operators (the torch scan node) are not "
+            "partitioned yet (ROADMAP A9)")
+    invars = _tensor_args(list(node.args) + list(node.kwargs.values()))
+    in_avals = [aval(v) for v in invars]
+    out = aval(node)
+    out_avals = [out] if out is not None else []
+    params: Dict[str, Any] = {}
+    fn = _PARAMS.get(name)
+    if fn is not None and out is not None:
+        params = fn(node, in_avals, out)
+    if name == "aten.convolution":
+        invars, in_avals = invars[:2], in_avals[:2]  # the bias joins after the product
+    return Eqn(node, name, invars, in_avals, out_avals, params)
+
+
+def _permute_params(node, ins, out):
+    return {"permutation": tuple(_norm(d, out.ndim) for d in kwargs_of(node)["dims"])}
+
+
+def _transpose_params(node, ins, out):
+    kw = kwargs_of(node)
+    r = out.ndim
+    perm = list(range(r))
+    a, b = _norm(kw["dim0"], r), _norm(kw["dim1"], r)
+    perm[a], perm[b] = perm[b], perm[a]
+    return {"permutation": tuple(perm)}
+
+
+def _t_params(node, ins, out):
+    return {"permutation": (1, 0) if out.ndim == 2 else tuple(range(out.ndim))}
+
+
+def _unsqueeze_params(node, ins, out):
+    d = _norm(kwargs_of(node)["dim"], out.ndim)
+    return {"broadcast_dimensions": tuple(i if i < d else i + 1 for i in range(ins[0].ndim)),
+            "shape": out.shape}
+
+
+def _expand_params(node, ins, out):
+    r, R = ins[0].ndim, out.ndim
+    return {"broadcast_dimensions": tuple(range(R - r, R)), "shape": out.shape}
+
+
+def _reduce_params(node, ins, out):
+    kw = kwargs_of(node)
+    rank = ins[0].ndim
+    dims = kw.get("dim")
+    if dims is None or (isinstance(dims, (list, tuple)) and not dims):
+        axes = tuple(range(rank))
+    elif isinstance(dims, int):
+        axes = (_norm(dims, rank),)
+    else:
+        axes = tuple(sorted(_norm(d, rank) for d in dims))
+    keepdim = bool(kw.get("keepdim", False)) and rank > 0
+    if keepdim:
+        out_to_in = tuple(None if i in axes else i for i in range(rank))
+    else:
+        out_to_in = tuple(i for i in range(rank) if i not in axes)
+    return {"axes": axes, "keepdim": keepdim, "out_to_in": out_to_in}
+
+
+def _mm_params(node, ins, out):
+    return {"dimension_numbers": (((1,), (0,)), ((), ()))}
+
+
+def _bmm_params(node, ins, out):
+    return {"dimension_numbers": (((2,), (1,)), ((0,), (0,)))}
+
+
+def _addmm_params(node, ins, out):
+    kw = kwargs_of(node)
+    return {"dimension_numbers": (((1,), (0,)), ((), ())),
+            "beta": kw.get("beta", 1), "alpha": kw.get("alpha", 1)}
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvDims:
+    """aten's fixed NC-spatial layout, in the reference's ``ConvDimensionNumbers``
+    terms."""
+
+    lhs_spec: Tuple[int, ...]
+    rhs_spec: Tuple[int, ...]
+    out_spec: Tuple[int, ...]
+
+
+def _conv_params(node, ins, out):
+    kw = kwargs_of(node)
+    spec = tuple(range(out.ndim))
+    nsp = out.ndim - 2
+    pad = list(kw["padding"]) * (nsp if len(kw["padding"]) == 1 else 1)
+    return {"dimension_numbers": ConvDims(spec, spec, spec),
+            "window_strides": tuple(kw["stride"]) * (nsp if len(kw["stride"]) == 1 else 1),
+            "padding": tuple((p, p) for p in pad),
+            "dilation": tuple(kw["dilation"]), "transposed": bool(kw["transposed"]),
+            "groups": int(kw["groups"]), "has_bias": kw["bias"] is not None}
+
+
+def _cat_params(node, ins, out):
+    return {"modified_dims": (_norm(kwargs_of(node).get("dim", 0), out.ndim),)}
+
+
+def _slice_params(node, ins, out):
+    kw = kwargs_of(node)
+    d = _norm(kw.get("dim", 0), out.ndim)
+    size = ins[0].shape[d]
+    start, end, step = kw.get("start"), kw.get("end"), kw.get("step", 1)
+    start = 0 if start is None else _norm(start, size)
+    end = size if end is None else min(_norm(end, size), size)
+    full = start == 0 and end >= size and step == 1
+    return {"modified_dims": () if full else (d,)}
+
+
+def _pad_params(node, ins, out):
+    pad = list(kwargs_of(node)["pad"])
+    r = out.ndim
+    mod = tuple(sorted({r - 1 - i // 2 for i, p in enumerate(pad) if p}))
+    return {"modified_dims": mod}
+
+
+def _flip_params(node, ins, out):
+    return {"modified_dims": tuple(sorted(_norm(d, out.ndim) for d in kwargs_of(node)["dims"]))}
+
+
+# ---------------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------------
+
+
+def _merge_many(shs: Sequence[MaybeS]) -> MaybeS:
+    out: MaybeS = None
+    for s in shs:
+        if s is None:
+            continue
+        if out is None:
+            out = s
+        else:
+            m = merge_shardings(out, s)
+            out = m if m is not None else out
+    return out
+
+
+def _project(s: Sharding, dim_map: Sequence[Optional[int]], out_rank: int) -> Sharding:
+    """Build a rank-``out_rank`` sharding where out dim j gets s.dims_mapping[i]
+    whenever dim_map[j] == i (None -> unsharded).  Drops duplicate axis uses."""
+    dm: List[Tuple[str, ...]] = [() for _ in range(out_rank)]
+    used = set()
+    for j, i in enumerate(dim_map):
+        if i is None:
+            continue
+        axes = s.dims_mapping[i]
+        if axes and not any(a in used for a in axes):
+            dm[j] = axes
+            used.update(axes)
+    return Sharding(s.mesh, tuple(dm))
+
+
+def _bcast_map(in_shape, out_shape) -> List[Optional[int]]:
+    """out dim -> operand dim for aten's implicit (right-aligned) broadcast;
+    a size-1 operand dim broadcast to a larger one maps to nothing."""
+    off = len(out_shape) - len(in_shape)
+    return [j - off if j >= off and in_shape[j - off] == out_shape[j] else None
+            for j in range(len(out_shape))]
+
+
+def _invert(dim_map: Sequence[Optional[int]], in_rank: int) -> List[Optional[int]]:
+    inv: List[Optional[int]] = [None] * in_rank
+    for j, i in enumerate(dim_map):
+        if i is not None:
+            inv[i] = j
+    return inv
+
+
+# ---------------------------------------------------------------------------------
+# elementwise
+# ---------------------------------------------------------------------------------
+
+ELEMENTWISE = {
+    "aten." + n for n in (
+        "add", "sub", "rsub", "mul", "div", "pow", "maximum", "minimum", "remainder",
+        "fmod", "atan2", "neg", "sign", "floor", "ceil", "round", "trunc", "abs", "exp",
+        "exp2", "log", "log1p", "log2", "expm1", "tanh", "sigmoid", "sin", "cos", "tan",
+        "asin", "acos", "atan", "sinh", "cosh", "asinh", "acosh", "atanh", "sqrt", "rsqrt",
+        "reciprocal", "square", "erf", "erfc", "erfinv", "isfinite", "isnan", "isinf",
+        "logical_not", "logical_and", "logical_or", "logical_xor", "bitwise_not",
+        "bitwise_and", "bitwise_or", "bitwise_xor", "bitwise_left_shift",
+        "bitwise_right_shift", "eq", "ne", "ge", "gt", "le", "lt", "where", "clamp",
+        "clamp_min", "clamp_max", "nextafter", "_to_copy", "clone", "copy", "detach",
+        "alias", "lift_fresh_copy", "relu", "silu", "gelu", "hardtanh", "leaky_relu",
+        "elu", "softplus", "logaddexp", "xlogy", "lerp", "addcmul", "addcdiv",
+        "masked_fill", "fill", "zeros_like", "ones_like", "full_like", "empty_like",
+        "tanh_backward", "sigmoid_backward", "threshold_backward", "silu_backward",
+        "gelu_backward", "hardtanh_backward", "leaky_relu_backward", "elu_backward",
+        "softplus_backward")
+} | {ANNOTATE}
+
+
+def rule_elementwise(eqn, in_sh: List[MaybeS], out_sh: List[MaybeS], direction):
+    out_shape = eqn.out_avals[0].shape
+    rank = len(out_shape)
+    maps = [_bcast_map(a.shape, out_shape) for a in eqn.in_avals]
+    cands = [_project(s, m, rank) for s, m in zip(in_sh, maps) if s is not None]
+    cands += [s for s in out_sh if s is not None and s.rank == rank]
+    m = _merge_many(cands)
+    if m is None:
+        return in_sh, out_sh
+    new_in = [_project(m, _invert(mp, a.ndim), a.ndim)
+              for mp, a in zip(maps, eqn.in_avals)]
+    return new_in, [m for _ in out_sh]
+
+
+# ---------------------------------------------------------------------------------
+# structural ops
+# ---------------------------------------------------------------------------------
+
+
+def rule_transpose(eqn, in_sh, out_sh, direction):
+    perm = eqn.params["permutation"]
+    (s_in,), (s_out,) = in_sh, out_sh
+    if direction == "fwd" and s_in is not None:
+        # output dim j comes from input dim perm[j]
+        new = _project(s_in, list(perm), len(perm))
+        return in_sh, [new]
+    if direction == "bwd" and s_out is not None:
+        inv = [0] * len(perm)
+        for j, i in enumerate(perm):
+            inv[i] = j
+        new = _project(s_out, inv, len(perm))
+        return [new], out_sh
+    return in_sh, out_sh
+
+
+def rule_broadcast_in_dim(eqn, in_sh, out_sh, direction):
+    bcast = eqn.params["broadcast_dimensions"]
+    in_aval = eqn.in_avals[0]
+    out_aval = eqn.out_avals[0]
+    (s_in,), (s_out,) = in_sh, out_sh
+    if direction == "fwd" and s_in is not None:
+        dim_map = [None] * out_aval.ndim
+        for i, j in enumerate(bcast):
+            if in_aval.shape[i] == out_aval.shape[j]:
+                dim_map[j] = i
+        return in_sh, [_project(s_in, dim_map, out_aval.ndim)]
+    if direction == "bwd" and s_out is not None:
+        dim_map = [None] * in_aval.ndim
+        for i, j in enumerate(bcast):
+            if in_aval.shape[i] == out_aval.shape[j]:
+                dim_map[i] = j
+        return [_project(s_out, dim_map, in_aval.ndim)], out_sh
+    return in_sh, out_sh
+
+
+def _reshape_dim_map(in_shape, out_shape):
+    """Greedy factor-block matching: returns (in->out) and (out->in) partial maps
+    for dims whose size is preserved at the front of a matching block."""
+    in_to_out = {}
+    out_to_in = {}
+    i = j = 0
+    while i < len(in_shape) and j < len(out_shape):
+        # skip size-1 dims
+        if in_shape[i] == 1 and (j >= len(out_shape) or out_shape[j] != 1):
+            i += 1
+            continue
+        if out_shape[j] == 1 and in_shape[i] != 1:
+            j += 1
+            continue
+        pi, pj = in_shape[i], out_shape[j]
+        bi, bj = [i], [j]
+        ii, jj = i, j
+        while pi != pj:
+            if pi < pj:
+                ii += 1
+                pi *= in_shape[ii]
+                bi.append(ii)
+            else:
+                jj += 1
+                pj *= out_shape[jj]
+                bj.append(jj)
+        # block [bi] of input matches block [bj] of output
+        if len(bi) == 1 and len(bj) == 1:
+            in_to_out[bi[0]] = bj[0]
+            out_to_in[bj[0]] = bi[0]
+        else:
+            # major (first) dims correspond if equal size
+            if in_shape[bi[0]] == out_shape[bj[0]]:
+                in_to_out[bi[0]] = bj[0]
+                out_to_in[bj[0]] = bi[0]
+            # merged dim: sharding on the major input dim maps to the merged
+            # output dim (and vice versa) when sizes allow clean tiling; we only
+            # propagate the major-dim case (GSPMD supports more via resharding).
+            elif len(bj) == 1:  # merge
+                in_to_out[bi[0]] = bj[0]
+            elif len(bi) == 1:  # split
+                out_to_in[bj[0]] = bi[0]
+        i, j = bi[-1] + 1, bj[-1] + 1
+    return in_to_out, out_to_in
+
+
+def rule_reshape(eqn, in_sh, out_sh, direction):
+    in_aval = eqn.in_avals[0]
+    out_aval = eqn.out_avals[0]
+    (s_in,), (s_out,) = in_sh, out_sh
+    i2o, o2i = _reshape_dim_map(in_aval.shape, out_aval.shape)
+    if direction == "fwd" and s_in is not None:
+        dim_map = [None] * out_aval.ndim
+        for i, j in i2o.items():
+            # divisibility check for merge case
+            n = s_in.num_shards(i)
+            if out_aval.shape[j] % max(n, 1) == 0:
+                dim_map[j] = i
+        return in_sh, [_project(s_in, dim_map, out_aval.ndim)]
+    if direction == "bwd" and s_out is not None:
+        dim_map = [None] * in_aval.ndim
+        for j, i in o2i.items():
+            n = s_out.num_shards(j)
+            if in_aval.shape[i] % max(n, 1) == 0:
+                dim_map[i] = j
+        return [_project(s_out, dim_map, in_aval.ndim)], out_sh
+    return in_sh, out_sh
+
+
+def rule_same_rank_passthrough(eqn, in_sh, out_sh, direction):
+    """pad, slice, flip, cat and cumulative formatting ops: dims keep
+    identity; the partitioner does the data movement (§4.3)."""
+    rank = eqn.out_avals[0].ndim
+    cands = [
+        s
+        for a, s in zip(eqn.in_avals + eqn.out_avals, in_sh + out_sh)
+        if s is not None and a.ndim == rank
+    ]
+    m = _merge_many(cands)
+    if m is None:
+        return in_sh, out_sh
+    new_in = [m if a.ndim == rank else s for a, s in zip(eqn.in_avals, in_sh)]
+    return new_in, [m for _ in out_sh]
+
+
+def rule_reduce(eqn, in_sh, out_sh, direction):
+    in_aval = eqn.in_avals[0]
+    out_rank = eqn.out_avals[0].ndim
+    out_to_in = eqn.params["out_to_in"]
+    (s_in,) = in_sh[:1]
+    (s_out,) = out_sh[:1]
+    if direction == "fwd" and s_in is not None:
+        return in_sh, [_project(s_in, out_to_in, out_rank)]
+    if direction == "bwd" and s_out is not None:
+        new_in = list(in_sh)
+        new_in[0] = _project(s_out, _invert(out_to_in, in_aval.ndim), in_aval.ndim)
+        return new_in, out_sh
+    return in_sh, out_sh
+
+
+# ---------------------------------------------------------------------------------
+# dot_general — the Einsum of §3.2 / Figure 3 (aten's mm and bmm)
+# ---------------------------------------------------------------------------------
+
+
+def rule_dot_general(eqn, in_sh, out_sh, direction):
+    ((lc, rc), (lb, rb)) = eqn.params["dimension_numbers"]
+    l_aval, r_aval = eqn.in_avals[-2], eqn.in_avals[-1]
+    out_rank = eqn.out_avals[0].ndim
+    l_sh, r_sh = in_sh[-2:]
+    (s_out,) = out_sh
+    l_nc = [i for i in range(l_aval.ndim) if i not in lc and i not in lb]
+    r_nc = [i for i in range(r_aval.ndim) if i not in rc and i not in rb]
+    # output layout: batch dims, then lhs non-contracting, then rhs non-contracting
+    if direction == "fwd" and (l_sh is not None or r_sh is not None):
+        proposals = []
+        if l_sh is not None:
+            dim_map = [None] * out_rank
+            for j, i in enumerate(lb):
+                dim_map[j] = i
+            for k, i in enumerate(l_nc):
+                dim_map[len(lb) + k] = i
+            proposals.append(_project(l_sh, dim_map, out_rank))
+        if r_sh is not None:
+            dim_map = [None] * out_rank
+            for j, i in enumerate(rb):
+                dim_map[j] = i
+            for k, i in enumerate(r_nc):
+                dim_map[len(rb) + len(l_nc) + k] = i
+            proposals.append(_project(r_sh, dim_map, out_rank))
+        m = _merge_many(proposals)  # Figure 3: merged from both inputs
+        if m is not None:
+            return in_sh, [m]
+        return in_sh, out_sh
+    if direction == "bwd" and s_out is not None:
+        new_l, new_r = l_sh, r_sh
+        dim_map = [None] * l_aval.ndim
+        for j, i in enumerate(lb):
+            dim_map[i] = j
+        for k, i in enumerate(l_nc):
+            dim_map[i] = len(lb) + k
+        cand = _project(s_out, dim_map, l_aval.ndim)
+        new_l = cand if new_l is None else (merge_shardings(new_l, cand) or new_l)
+        dim_map = [None] * r_aval.ndim
+        for j, i in enumerate(rb):
+            dim_map[i] = j
+        for k, i in enumerate(r_nc):
+            dim_map[i] = len(rb) + len(l_nc) + k
+        cand = _project(s_out, dim_map, r_aval.ndim)
+        new_r = cand if new_r is None else (merge_shardings(new_r, cand) or new_r)
+        return list(in_sh[:-2]) + [new_l, new_r], out_sh
+    return in_sh, out_sh
+
+
+def rule_addmm(eqn, in_sh, out_sh, direction):
+    """bias + lhs·rhs: the product's rule on (lhs, rhs), the bias broadcast
+    into the output as an elementwise operand."""
+    new_in, new_out = rule_dot_general(eqn, in_sh, out_sh, direction)
+    (s_out,) = new_out
+    bias = eqn.in_avals[0]
+    bmap = _bcast_map(bias.shape, eqn.out_avals[0].shape)
+    if direction == "fwd" and in_sh[0] is not None:
+        prop = _project(in_sh[0], bmap, len(bmap))
+        s_out = prop if s_out is None else (merge_shardings(s_out, prop) or s_out)
+        return new_in, [s_out]
+    if direction == "bwd" and s_out is not None:
+        new_in = [_project(s_out, _invert(bmap, bias.ndim), bias.ndim)] + list(new_in[1:])
+    return new_in, new_out
+
+
+def rule_conv(eqn, in_sh, out_sh, direction):
+    dn = eqn.params["dimension_numbers"]
+    lhs_spec, rhs_spec, out_spec = dn.lhs_spec, dn.rhs_spec, dn.out_spec
+    # lhs_spec = (batch, feature, *spatial)
+    out_rank = eqn.out_avals[0].ndim
+    (l_sh, r_sh) = in_sh
+    (s_out,) = out_sh
+    if direction == "fwd" and l_sh is not None:
+        dim_map = [None] * out_rank
+        dim_map[out_spec[0]] = lhs_spec[0]  # batch
+        for k in range(len(lhs_spec) - 2):  # spatial dims pass through (halo)
+            dim_map[out_spec[2 + k]] = lhs_spec[2 + k]
+        return in_sh, [_project(l_sh, dim_map, out_rank)]
+    if direction == "bwd" and s_out is not None:
+        l_rank = eqn.in_avals[0].ndim
+        dim_map = [None] * l_rank
+        dim_map[lhs_spec[0]] = out_spec[0]
+        for k in range(l_rank - 2):
+            dim_map[lhs_spec[2 + k]] = out_spec[2 + k]
+        cand = _project(s_out, dim_map, l_rank)
+        new_l = cand if l_sh is None else (merge_shardings(l_sh, cand) or l_sh)
+        return [new_l, r_sh], out_sh
+    return in_sh, out_sh
+
+
+# ---------------------------------------------------------------------------------
+# registry + priorities
+# ---------------------------------------------------------------------------------
+
+SAME_RANK = {"aten.constant_pad_nd", "aten.flip", "aten.cat", "aten.slice",
+             "aten.cumsum", "aten.cumprod"}
+TRANSPOSE = {"aten.permute", "aten.transpose", "aten.t"}
+BROADCAST = {"aten.unsqueeze", "aten.expand"}
+RESHAPE = {"aten.view", "aten._unsafe_view", "aten.reshape", "aten.squeeze"}
+REDUCE = {"aten.sum", "aten.mean", "aten.amax", "aten.amin", "aten.prod",
+          "aten.any", "aten.all"}
+ARGMINMAX = {"aten.argmax", "aten.argmin"}
+DOT = {"aten.mm", "aten.bmm"}
+# created replicated, like the reference's iota
+FACTORY = {"aten." + n for n in (
+    "ones", "zeros", "full", "empty", "arange", "scalar_tensor", "eye", "linspace",
+    "randn", "rand", "randint", "new_ones", "new_zeros", "new_full", "new_empty")}
+
+_PARAMS = {
+    "aten.permute": _permute_params,
+    "aten.transpose": _transpose_params,
+    "aten.t": _t_params,
+    "aten.unsqueeze": _unsqueeze_params,
+    "aten.expand": _expand_params,
+    "aten.mm": _mm_params,
+    "aten.bmm": _bmm_params,
+    "aten.addmm": _addmm_params,
+    "aten.convolution": _conv_params,
+    "aten.cat": _cat_params,
+    "aten.slice": _slice_params,
+    "aten.constant_pad_nd": _pad_params,
+    "aten.flip": _flip_params,
+}
+for _n in REDUCE | ARGMINMAX:
+    _PARAMS[_n] = _reduce_params
+
+RULES = {}
+PRIORITY = {}
+
+for name in ELEMENTWISE:
+    RULES[name] = rule_elementwise
+    PRIORITY[name] = 0
+for name in SAME_RANK:
+    RULES[name] = rule_same_rank_passthrough
+    PRIORITY[name] = 1
+for name in TRANSPOSE:
+    RULES[name] = rule_transpose
+    PRIORITY[name] = 1
+for name in BROADCAST:
+    RULES[name] = rule_broadcast_in_dim
+    PRIORITY[name] = 0  # paper: backward through Broadcast is high prio
+for name in RESHAPE:
+    RULES[name] = rule_reshape
+    PRIORITY[name] = 1
+for name in REDUCE | ARGMINMAX:
+    RULES[name] = rule_reduce
+    PRIORITY[name] = 2
+for name in DOT:
+    RULES[name] = rule_dot_general
+    PRIORITY[name] = 2
+RULES["aten.addmm"] = rule_addmm
+PRIORITY["aten.addmm"] = 2
+RULES["aten.convolution"] = rule_conv
+PRIORITY["aten.convolution"] = 2
+
+MAX_PRIORITY = 3

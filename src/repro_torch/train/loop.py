@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig, Strategy
+from ..core.device import resolve_device
 from ..core.tree import leaves, leaves_with_paths, tree_from_paths, tree_map
 from ..models import api
 from ..models.layers import tree_init
@@ -163,7 +164,7 @@ class TrainLoop:
     throughput."""
 
     def __init__(self, cfg, st, opt, tc: TrainConfig, pipeline, gen=None, step_fn=None,
-                 hooks=None, device="cpu"):
+                 hooks=None, device="cuda"):
         if tc.ckpt_dir:
             raise NotImplementedError(
                 "TrainConfig.ckpt_dir needs train/checkpoint.py, which is not ported yet "
@@ -171,7 +172,7 @@ class TrainLoop:
         self.cfg, self.st, self.opt, self.tc = cfg, st, opt, tc
         self.pipeline = pipeline
         self.hooks = hooks or {}
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.step_fn = step_fn or make_train_step(cfg, st, opt, tc)
         self.gen = gen if gen is not None else torch.Generator(self.device).manual_seed(0)
         self.step_times = []

@@ -494,3 +494,71 @@ def test_full_width_train_step_on_cuda_matches_cpu(cuda, dtype):
         metrics.append(make_train_step(cfg, st, opt, TrainConfig())(state, b)[1])
     for key in ("loss", "grad_norm"):
         assert_close(metrics[0][key], metrics[1][key], kind, err_msg=key)
+
+
+# ---------------------------------------------------------------------------------
+# the partitioner on a simulated (2,4) mesh, every device's shard on the card
+# ---------------------------------------------------------------------------------
+
+
+def _mesh():
+    from repro_torch.core import Mesh
+
+    return Mesh.create((2, 4), ("x", "y"))
+
+
+@pytest.mark.parametrize("dtype,kind", [(torch.float32, "f32_chain"),
+                                        (torch.bfloat16, "bf16_chain")])
+def test_partitioned_quickstart_mlp_on_cuda_matches_unsharded(cuda, dtype, kind):
+    """The quickstart's MLP through spmd_partition at its default device
+    (the card) against the same function unsharded on the card."""
+    from repro_torch.core import annotate, mesh_split
+    from repro_torch.core.partitioner import spmd_partition
+
+    mesh = _mesh()
+
+    def mlp(x, w1, w2):
+        x = annotate(x, mesh_split(2, mesh, ["x", -1]))
+        w1 = annotate(w1, mesh_split(2, mesh, [-1, "y"]))
+        return torch.relu(x @ w1) @ w2
+
+    gen = torch.Generator().manual_seed(0)
+    # weights scaled by fan-in: outputs of order one, as in a model
+    x, w1, w2 = ((torch.randn(s, generator=gen) * scale).to(cuda, dtype)
+                 for s, scale in (((64, 256), 1.0), ((256, 512), 256 ** -0.5),
+                                  ((512, 128), 512 ** -0.5)))
+    runner = spmd_partition(mlp, mesh, compile_plans=False)
+    got = runner(x, w1, w2)
+    assert got.device.type == cuda.type and got.dtype == dtype
+    assert runner.fallbacks == [] and runner.collectives == {"all-reduce": 1}
+    assert_close(got, mlp(x, w1, w2), kind)
+
+
+@pytest.mark.parametrize("shape,kernel,stride,pad,dims", [
+    ((2, 8, 32, 32), (16, 8, 3, 3), 1, 1, [-1, -1, "x", "y"]),
+    ((2, 3, 48), (4, 3, 5), 2, 2, ["x", -1, "y"]),
+])
+def test_partitioned_halo_conv_on_cuda_matches_unsharded(cuda, monkeypatch, shape, kernel,
+                                                         stride, pad, dims):
+    """Spatial dims sharded across the mesh: halo exchange by ppermute on the
+    card, against cuDNN's unsharded convolution (TF32 off on both)."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import annotate, mesh_split
+    from repro_torch.core.partitioner import spmd_partition
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    mesh = _mesh()
+    conv = F.conv2d if len(shape) == 4 else F.conv1d
+
+    def f(x, w):
+        return conv(annotate(x, mesh_split(len(shape), mesh, dims)), w, stride=stride,
+                    padding=pad)
+
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(shape, generator=gen).to(cuda)
+    w = torch.randn(kernel, generator=gen).to(cuda)
+    runner = spmd_partition(f, mesh, compile_plans=False)
+    got = runner(x, w)
+    assert runner.fallbacks == [] and set(runner.collectives) == {"collective-permute"}
+    assert_close(got, f(x, w), "f32_chain")

@@ -288,7 +288,8 @@ def test_train_loop_loss_curve_matches_reference():
     jstate = jax_init_state(jcfg, JST, jopt, jtc, jax.random.PRNGKey(0))
     state = _port_state(jstate, cfg, opt, tc)
     _, want = jloop.run(initial_state=jstate, start_step=0)
-    loop = TrainLoop(cfg, ST, opt, tc, TokenPipeline(DataConfig(cfg.vocab_size, 256, 8, **dc)))
+    loop = TrainLoop(cfg, ST, opt, tc, TokenPipeline(DataConfig(cfg.vocab_size, 256, 8, **dc)),
+                     device="cpu")
     _, got = loop.run(initial_state=state)
     assert len(got) == 5 and len(loop.step_times) == 5 and len(loop.tokens_per_s) == 5
     assert got[-1] < got[0]
@@ -347,7 +348,7 @@ def test_unported_settings_raise_and_name_their_roadmap_items():
         make_train_step(cfg, ST, opt, TrainConfig(guard=object()))
     pipe = TokenPipeline(DataConfig(cfg.vocab_size, 16, 4))
     with pytest.raises(NotImplementedError, match="A14"):
-        TrainLoop(cfg, ST, opt, TrainConfig(ckpt_dir="ck"), pipe)
+        TrainLoop(cfg, ST, opt, TrainConfig(ckpt_dir="ck"), pipe, device="cpu")
     with pytest.raises(NotImplementedError, match="A14"):
         launch_train.main(["--device", "cpu", "--reduce", "16", "--ckpt-dir", "ck"])
     with pytest.raises(NotImplementedError, match="A8"):
@@ -364,12 +365,20 @@ def test_train_entry_point_asks_for_cuda_by_default():
     assert len(losses) == 2 and all(np.isfinite(losses))
 
 
+def test_train_loop_asks_for_cuda_by_default(monkeypatch):
+    _, cfg = _tiny("float32")
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, 8, 2))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TrainLoop(cfg, ST, get_optimizer("sgd"), TrainConfig(steps=1), pipe)
+
+
 def test_train_loop_fails_at_step_watches_stragglers_and_swaps_its_step(monkeypatch):
     _, cfg = _tiny("float32")
     opt = get_optimizer("sgd", lr=0.01)
     pipe = TokenPipeline(DataConfig(cfg.vocab_size, 8, 2, seed=3, pattern="arithmetic"))
     with pytest.raises(RuntimeError, match="injected failure at step 2"):
-        TrainLoop(cfg, ST, opt, TrainConfig(steps=5, fail_at_step=2), pipe).run()
+        TrainLoop(cfg, ST, opt, TrainConfig(steps=5, fail_at_step=2), pipe, device="cpu").run()
     # The loop's clock runs 1000 s ahead from step 9's fault hook on: a stall
     # no machine's step time can hide, however slow or loaded the host
     stall = {"s": 0.0}
@@ -379,7 +388,8 @@ def test_train_loop_fails_at_step_watches_stragglers_and_swaps_its_step(monkeypa
     hooks = {"straggler": lambda s, dt, med: events.append(s),
              "fault": lambda s: stall.update(s=1000.0) if s == 9 else None,
              "metrics": lambda s, loss: seen.append((s, loss))}
-    loop = TrainLoop(cfg, ST, opt, TrainConfig(steps=10, straggler_factor=3.0), pipe, hooks=hooks)
+    loop = TrainLoop(cfg, ST, opt, TrainConfig(steps=10, straggler_factor=3.0), pipe, hooks=hooks,
+                     device="cpu")
     state, losses = loop.run()
     assert 9 in events and [s for s, _ in seen] == list(range(10)) and state["step"] == 10
     step_fn = loop.step_fn
