@@ -47,17 +47,24 @@ Phases, each of which raises (and so exits non-zero) on failure:
    requests (the recurrent decode: no SSD launch); and the forward (the
    kernel) against 256 decode steps (the exact recurrence), with a planted
    fault that the phase's limits must reject;
-6. partition: the port's own partitioner (capture, sharding completion,
-   reshard planning, local compute, collectives) on a simulated (2,4) mesh
-   whose eight devices' shards all live on the card: qwen1.5-0.5b's SwiGLU
-   MLP at full width (8,192 tokens) in float32 and bf16, a contracting-dim
-   product, expert-dim recursive grouping and a 2-D spatial halo
-   convolution, each against the same function unsharded on the card, with
-   the collectives run, the ops that took the gather-all fallback (none, or
-   the phase fails), the largest error against its limit, and both runs'
-   device ms and peak memory (times of the simulation: one card does the
-   eight devices' work), run in a process of its own so that its profiler
-   traces are whole.  No kernel of the port lies on this path.
+6. partition: the port's own partitioner on a simulated (2,4) mesh whose
+   eight devices' shards all live on the card, by compiled plan
+   (``spmd_partition(..., optimize=False)``: capture, sharding completion
+   and the plan once, then the plan's steps on every call) and by the
+   dynamic path: qwen1.5-0.5b's SwiGLU MLP at full width (8,192 tokens) in
+   float32 and bf16, a contracting-dim product, expert-dim recursive
+   grouping, a 2-D spatial halo convolution, and qwen1.5-0.5b's full-width
+   decoder layer (B4 S2048; x, positions and weights annotated by
+   2d_finalized on ("data" 2, "model" 4)) in bf16 and float32, whose
+   attention is the flash kernel, launched once per partitioned call for
+   all eight devices.  Each against the same function unsharded on the
+   card, with the collectives run, the fallbacks (none that gathers a
+   sharded dim, or the phase fails), the largest error against its limit,
+   device ms of the three runs and host and wall ms per call (times of the
+   simulation: one card does the eight devices' work), peak memory beside
+   the plan's modeled peak, the plan's steps and stats, and its
+   ``PlanCost`` priced with a profile measured in this run; run in a
+   process of its own so that its profiler traces are whole.
 
 Every path runs with the kernels' launch counts set to 0 just before it and
 read just after.  The last two lines of output are the kernels' JSON record
@@ -217,8 +224,11 @@ def kernel_case(name, *, B, S, T, KR, Gl, D, dtype, causal, q_offset=0, kv_len=N
             qs, ks, vs, attn_mask=mask, is_causal=causal and mask is None,
             enable_gqa=Gl > 1)
 
+    before = fa.launches
     got = as_model(run_kernel(0)).float()
     torch.cuda.synchronize()
+    launched = fa.launches - before
+    check(launched == 1, f"{name}: the checked call launched the kernel {launched} times")
     want = run_plain(0).float()
     # p is rounded to the kv dtype at other tile boundaries than the plain
     # version's chunks: one bf16 rounding apart; float32 differs in sum order
@@ -277,6 +287,12 @@ def kernel_phase(seed):
     cases.append(kernel_case("prefill_qwen_loss_2x2048", B=2, S=2048, T=2048, KR=16, Gl=1,
                              D=64, dtype=bf16, causal=True, chunk=1024, layout="model",
                              gen=gen))
+    # the partitioned decoder layer's one launch: q (8 devices x B4/2, S, KR16/4,
+    # Gl, D) folded to (16, 2048, 4, 1, 64), in both of that phase's dtypes
+    for dtype in (bf16, f32):
+        cases.append(kernel_case("partitioned_layer_fold_16x2048_kr4", B=16, S=2048, T=2048,
+                                 KR=4, Gl=1, D=64, dtype=dtype, causal=True, chunk=1024,
+                                 layout="model", gen=gen))
     cases.append(kernel_case("prefill_d32_1x8x2048", B=1, S=2048, T=2048, KR=8, Gl=1, D=32,
                              dtype=bf16, causal=True, chunk=1024, layout="model", gen=gen))
     cases.append(kernel_case("prefill_ragged_1000", B=2, S=1000, T=1000, KR=16, Gl=1, D=64,
@@ -1021,19 +1037,138 @@ def _halo2d(mesh):
     return f
 
 
-def partition_case(name, fn, args, kind, mesh, counts):
-    """``fn`` partitioned on ``mesh`` (every device's shard on this card)
-    against ``fn`` unsharded on the card: largest error against its
-    tolerance class, collectives by kind, ops that took the fallback (must
-    be none), device ms of both (profiler; the partitioned run is one card
-    doing eight devices' work, so the times measure the simulation) and
-    their peak memory."""
+def _first(out):
+    return out[0] if isinstance(out, (tuple, list)) else out
+
+
+def host_and_wall_ms(fn, calls=7):
+    """Median over ``calls`` of the host's time from a call's entry to its
+    return (the device drained before each: what the host spends deciding
+    and enqueueing) and of its wall time to the device finishing."""
+    host, wall = [], []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        host.append((t1 - t0) * 1e3)
+        wall.append((t2 - t0) * 1e3)
+    return statistics.median(host), statistics.median(wall)
+
+
+def measured_roofline(mesh):
+    """A ``RooflineParams`` for ``PlanCost`` from this card and this run: a
+    bf16 GEMM rate and an HBM copy rate (CUDA events), the link rate from
+    the H100 SXM data sheet (NVLink 4: 900 GB/s both ways, 450 GB/s each
+    way), the launch cost of one small psum on the simulated mesh (host wall
+    per call, synchronised), and no overlap (one stream runs the simulated
+    collectives and the products in series)."""
+    from repro_torch.analysis.roofline import RooflineParams
+    from repro_torch.core import mesh_runtime as mr
+
+    n = 8192
+    a = torch.randn(n, n, device="cuda").bfloat16()
+    b = torch.randn(n, n, device="cuda").bfloat16()
+    gemm_ms = time_ms(lambda i: a @ b, 1)
+    del a, b
+    x = torch.empty(2**28, device="cuda")
+    y = torch.empty_like(x)
+    copy_ms = time_ms(lambda i: y.copy_(x), 1)
+    del x, y
+    z = torch.randn(mesh.size, 256, device="cuda")
+    for _ in range(10):
+        mr.psum(z, mesh, ("y",))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        mr.psum(z, mesh, ("y",))
+    torch.cuda.synchronize()
+    psum_s = (time.perf_counter() - t0) / 200
+    rec = {"bf16_gemm_tflops": 2 * n**3 / gemm_ms / 1e9, "hbm_copy_gbs": 2 * 4 * 2**28 / copy_ms / 1e6,
+           "link_gbs_data_sheet": 450.0, "small_psum_us_simulated": psum_s * 1e6,
+           "overlap_efficiency": 0.0}
+    print(f"  roofline profile (this run): bf16 GEMM {rec['bf16_gemm_tflops']:.1f} TFLOP/s "
+          f"(8192^3, events), HBM copy {rec['hbm_copy_gbs']:.1f} GB/s (1 GiB), link 450 GB/s "
+          f"each way (H100 SXM data sheet, NVLink 4; not measured), collective launch "
+          f"{rec['small_psum_us_simulated']:.1f} us (one small psum on the simulated mesh), "
+          f"overlap 0 (one stream)", flush=True)
+    params = RooflineParams(peak_flops=rec["bf16_gemm_tflops"] * 1e12,
+                            hbm_bw=rec["hbm_copy_gbs"] * 1e9, ici_bw=450e9,
+                            collective_launch_s=psum_s, overlap_efficiency=0.0)
+    return params, rec
+
+
+def _watch_fold():
+    """Count the flash op's folds that are views and those that copy (the
+    partitioner's ``_fold``, wrapped for this phase)."""
+    from repro_torch.core import partitioner as pt
+
+    seen = {"view": 0, "copy": 0}
+    fold = pt._fold
+
+    def watched(x):
+        y = fold(x)
+        seen["view" if y.data_ptr() == x.data_ptr() else "copy"] += 1
+        return y
+
+    pt._fold = watched
+    return seen
+
+
+def plain_attention(fn):
+    """``fn`` with its attention through the plain version: the reference
+    for a partitioned program whose attention runs the kernel, so that the
+    kernel is not held against itself.  Fails if the kernel launches."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import chunked_attention_ref
+
+    def plain(q, k, v, causal, q_offset, kv_len, chunk):
+        return chunked_attention_ref(q, k, v, causal=causal, chunk=chunk, q_offset=q_offset,
+                                     kv_len=kv_len)
+
+    def ref(*args):
+        kernel, before = ops._flash_forward, fa.launches
+        ops._flash_forward = plain
+        try:
+            out = fn(*args)
+        finally:
+            ops._flash_forward = kernel
+        check(fa.launches == before, "the plain reference launched the flash kernel")
+        return out
+
+    return ref
+
+
+def partition_case(name, fn, args, kind, mesh, counts, params, fold=None, reference=None,
+                   allowed_fallbacks=()):
+    """``fn`` partitioned on ``mesh`` (every device's shard on this card) by
+    compiled plan and by the dynamic path, against ``reference`` (``fn`` by
+    default) unsharded on the card: the largest error against its tolerance
+    class, collectives by kind, fallbacks (only ``allowed_fallbacks``, and
+    none that gathers a sharded dim), device ms of the three runs (profiler;
+    a partitioned run is one card doing eight devices' work, so the times
+    measure the simulation; the unsharded run is ``fn``), host and wall ms
+    per call, peak memory beside the plan's modeled peak × 8, the plan's
+    steps and stats, and its ``PlanCost`` priced with ``params``.  With
+    ``fold``, the flash kernel must launch exactly once per partitioned
+    call."""
     from repro_torch.core.compat import TOLERANCES
     from repro_torch.core.partitioner import spmd_partition
+    from repro_torch.core.plan import plan_cost
+    from repro_torch.kernels import flash_attention as fa
 
-    runner = spmd_partition(fn, mesh, compile_plans=False, device="cuda")
-    got = runner(*args)
-    want = fn(*args)
+    compiled = spmd_partition(fn, mesh, optimize=False, device="cuda", profile=params)
+    dynamic = spmd_partition(fn, mesh, compile_plans=False, device="cuda")
+    t0 = time.perf_counter()
+    got = _first(compiled(*args))
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    dyn = _first(dynamic(*args))
+    want = _first((reference or fn)(*args))
+    unsharded = _first(fn(*args)) if reference is not None else want
     torch.cuda.synchronize()
     check(got.shape == want.shape and got.dtype == want.dtype,
           f"{name}: {tuple(got.shape)} {got.dtype} != {tuple(want.shape)} {want.dtype}")
@@ -1042,12 +1177,33 @@ def partition_case(name, fn, args, kind, mesh, counts):
     err = (got.float() - want.float()).abs()
     limit = atol + rtol * want.float().abs()
     worst = (err / limit).max().item()
-    rec = {"case": name, "dtype": str(args[0].dtype).replace("torch.", ""),
-           "shapes": [list(a.shape) for a in args], "out_shape": list(got.shape),
-           "max_abs_err": err.max().item(), "tol": kind, "err_over_limit": worst,
-           "collectives": dict(runner.collectives), "fallbacks": list(runner.fallbacks)}
-    del got, want, err, limit
-    for label, call in (("partitioned", lambda i: runner(*args)), ("unsharded", lambda i: fn(*args))):
+    (entry,) = compiled.plans.values()
+    plan = entry.plan
+    cost = plan_cost(plan).as_dict()
+    rec = {"case": name, "dtype": str(got.dtype).replace("torch.", ""),
+           "out_shape": list(got.shape), "max_abs_err": err.max().item(), "tol": kind,
+           "err_over_limit": worst, "compiled_equals_dynamic": bool(torch.equal(got, dyn)),
+           "reference": "unsharded, plain attention" if reference is not None else "unsharded",
+           "max_abs_err_vs_unsharded_fn": (got.float() - unsharded.float()).abs().max().item(),
+           "collectives": dict(compiled.collectives), "fallbacks": list(compiled.fallbacks),
+           "fallback_gathers": list(compiled.fallback_gathers),
+           "dynamic_collectives": dict(dynamic.collectives),
+           "plan_steps": len(plan.steps), "plan_stats": plan.stats.as_dict(),
+           "modeled_peak_x8_gib": plan.peak_bytes * mesh.size / 2**30,
+           "plan_cost": cost, "first_call_ms": first_ms}
+    del got, dyn, want, unsharded, err, limit
+    if fold is not None:
+        for label, runner in (("compiled", compiled), ("dynamic", dynamic)):
+            fa.launches = 0
+            fold.update(view=0, copy=0)
+            runner(*args)
+            torch.cuda.synchronize()
+            rec[f"{label}_flash_launches_per_call"] = fa.launches
+            rec[f"{label}_fold"] = dict(fold)
+            check(fa.launches == 1, f"{name}: {label} call launched flash {fa.launches} times")
+    runs = (("compiled", lambda i: compiled(*args)), ("dynamic", lambda i: dynamic(*args)),
+            ("unsharded", lambda i: fn(*args)))
+    for label, call in runs:
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -1055,24 +1211,48 @@ def partition_case(name, fn, args, kind, mesh, counts):
         torch.cuda.synchronize()
         rec[f"{label}_peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
         rec[f"{label}_device_ms"] = device_ms(call, 1, calls=5)
-    by_name = device_ms(lambda i: runner(*args), 1, calls=5, by_name=True) or {}
-    rec["partitioned_top"] = [{"name": n[:100], "ms": v["ms"], "launches": v["launches"]}
-                              for n, v in sorted(by_name.items(), key=lambda kv: -kv[1]["ms"])[:4]]
+        rec[f"{label}_host_ms"], rec[f"{label}_wall_ms"] = host_and_wall_ms(lambda: call(0))
+    by_name = device_ms(lambda i: compiled(*args), 1, calls=5, by_name=True) or {}
+    rec["compiled_top"] = [{"name": n[:100], "ms": v["ms"], "launches": v["launches"]}
+                           for n, v in sorted(by_name.items(), key=lambda kv: -kv[1]["ms"])[:5]]
     coll = ", ".join(f"{k} x{v}" for k, v in sorted(rec["collectives"].items())) or "none"
-    print(f"  {name} ({rec['dtype']}): collectives {coll}; fallbacks {rec['fallbacks'] or 'none'}",
-          flush=True)
-    print(f"    max abs err {rec['max_abs_err']:.3e}, worst err/limit {worst:.3f} ({kind}: rtol "
-          f"{rtol}, atol {atol}); device ms partitioned {_ms(rec['partitioned_device_ms'])} "
-          f"unsharded {_ms(rec['unsharded_device_ms'])}; peak above inputs partitioned "
-          f"{rec['partitioned_peak_gib']:.3f} GiB unsharded {rec['unsharded_peak_gib']:.3f} GiB",
-          flush=True)
-    for t in rec["partitioned_top"]:
-        print(f"      partitioned, by kernel: {t['ms']:.4f} ms x{t['launches']} {t['name'][:70]}",
+    print(f"  {name} ({rec['dtype']}): collectives {coll}; fallbacks {rec['fallbacks'] or 'none'} "
+          f"(gathering a sharded dim: {rec['fallback_gathers'] or 'none'})", flush=True)
+    print(f"    against the {rec['reference']} program: max abs err {rec['max_abs_err']:.3e}, "
+          f"worst err/limit {worst:.3f} ({kind}: rtol {rtol}, atol {atol}); against the "
+          f"unsharded program as run: max abs err {rec['max_abs_err_vs_unsharded_fn']:.3e}; "
+          f"compiled == dynamic bit for bit: {rec['compiled_equals_dynamic']}", flush=True)
+    print(f"    device ms compiled {_ms(rec['compiled_device_ms'])} dynamic "
+          f"{_ms(rec['dynamic_device_ms'])} unsharded {_ms(rec['unsharded_device_ms'])}; host ms "
+          f"per call compiled {rec['compiled_host_ms']:.3f} dynamic {rec['dynamic_host_ms']:.3f} "
+          f"unsharded {rec['unsharded_host_ms']:.3f}; wall ms compiled "
+          f"{rec['compiled_wall_ms']:.3f} dynamic {rec['dynamic_wall_ms']:.3f} unsharded "
+          f"{rec['unsharded_wall_ms']:.3f}; first compiled call (capture, completion, plan) "
+          f"{first_ms:.1f} ms", flush=True)
+    print(f"    plan: {rec['plan_steps']} steps, stats {json.dumps(rec['plan_stats'])}", flush=True)
+    print(f"    peak above inputs GiB: compiled {rec['compiled_peak_gib']:.3f} (modeled plan peak "
+          f"x{mesh.size} {rec['modeled_peak_x8_gib']:.3f}) dynamic {rec['dynamic_peak_gib']:.3f} "
+          f"unsharded {rec['unsharded_peak_gib']:.3f}", flush=True)
+    print(f"    PlanCost (this run's profile): {json.dumps(cost)}", flush=True)
+    if fold is not None:
+        print(f"    flash launches per call: compiled {rec['compiled_flash_launches_per_call']}, "
+              f"dynamic {rec['dynamic_flash_launches_per_call']}; device-dim fold of q, k, v "
+              f"{rec['compiled_fold']}", flush=True)
+    for t in rec["compiled_top"]:
+        print(f"      compiled, by kernel: {t['ms']:.4f} ms x{t['launches']} {t['name'][:70]}",
               flush=True)
-    check(not rec["fallbacks"], f"{name}: ops took the gather-all fallback: {rec['fallbacks']}")
+    check(not rec["fallback_gathers"],
+          f"{name}: fallbacks gathered a sharded dim: {rec['fallback_gathers']}")
+    check(set(rec["fallbacks"]) <= set(allowed_fallbacks),
+          f"{name}: ops took the fallback: {rec['fallbacks']} (allowed: {allowed_fallbacks})")
     check(worst <= 1.0, f"{name}: partitioned != unsharded beyond {kind} (err/limit {worst})")
     counts.update(rec["collectives"])
     return rec
+
+
+# rope's halves: slice and cat along the head dim, which no spec shards, so
+# the fallback keeps every sharded dim
+ROPE_FALLBACKS = ("aten.slice", "aten.cat")
 
 
 def partition_phase_in_own_process(seed):
@@ -1080,37 +1260,54 @@ def partition_phase_in_own_process(seed):
     after the earlier phases' many profiler sessions, its traces came back
     without some kernels' device events (a whole kernel missing passes
     ``device_ms``'s check), while the same phase in its own process traced
-    every call.  The kernels' launch counts are read there too."""
+    every call.  The kernels' launch counts are read there too: the flash
+    kernel launches (once per partitioned decoder-layer call, which
+    ``partition_case`` checks), and no other kernel does."""
     code = (f"import sys, json; sys.path.insert(0, {str(ROOT)!r}); import torch, chip_smoke; "
             "torch.backends.cuda.matmul.allow_tf32 = False; "
             "torch.backends.cudnn.allow_tf32 = False; "
             f"out, n = chip_smoke.counted(lambda: chip_smoke.partition_phase({seed})); "
             "print(json.dumps({'phase': out, 'launches': n}))")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                          timeout=600)
+                          timeout=900)
     lines = proc.stdout.splitlines()
     print("\n".join(lines[:-1]), flush=True)
     check(proc.returncode == 0 and lines,
           f"partition phase failed ({proc.returncode}): {proc.stderr[-3000:]}")
     res = json.loads(lines[-1])
-    check(not any(res["launches"].values()),
-          f"the partition phase launched kernels: {res['launches']}")
+    launched = res["launches"]
+    check(launched["flash_attention"] > 0 and not any(
+        n for k, n in launched.items() if k != "flash_attention"),
+        f"the partition phase's launches: {launched}")
+    res["phase"]["launches"] = launched
     return res["phase"]
 
 
 def partition_phase(seed):
-    """The port's partitioner (capture, sharding completion, reshard
-    planning, local compute, collectives) on a simulated (2,4) mesh, at
-    qwen1.5-0.5b's widths: the SwiGLU MLP (8,192 tokens, d_model, d_ff) in
-    float32 and bf16, a contracting-dim product, expert-dim recursive
-    grouping, and a 2-D spatial halo convolution (cuDNN TF32 off)."""
+    """The port's partitioner by compiled plan (capture, sharding completion
+    and plan compilation once; then the plan's steps: local compute,
+    reshards, collectives) and by the dynamic path, on a simulated (2,4)
+    mesh, at qwen1.5-0.5b's widths: the SwiGLU MLP (8,192 tokens, d_model,
+    d_ff) in float32 and bf16, a contracting-dim product, expert-dim
+    recursive grouping, a 2-D spatial halo convolution (cuDNN TF32 off), and
+    the full-width decoder layer (B4 S2048, x, positions and weights
+    annotated by 2d_finalized on ("data" 2, "model" 4)) in bf16 and float32,
+    its attention through the flash kernel."""
+    from repro_torch.configs.base import get_strategy
     from repro_torch.configs.registry import get_config
     from repro_torch.core import Mesh
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import tree_init
 
     check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
           "TF32 must be off: float32 cases compare float32 products")
-    print("  float32 products and convolutions run without TF32 (cuBLAS and cuDNN)", flush=True)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(f"  every number of this phase on {card}; float32 products and convolutions run "
+          "without TF32 (cuBLAS and cuDNN)", flush=True)
     mesh = Mesh.create((2, 4), ("x", "y"))
+    params, profile = measured_roofline(mesh)
     cfg = get_config("qwen1.5-0.5b")
     T, D, Fd = 8192, cfg.d_model, cfg.d_ff
     gen = torch.Generator(device="cuda").manual_seed(seed + 30)
@@ -1124,22 +1321,37 @@ def partition_phase(seed):
                 randn(D, Fd, scale=D ** -0.5, dtype=dtype),
                 randn(Fd, D, scale=Fd ** -0.5, dtype=dtype))
         cases.append(partition_case(f"qwen_swiglu_mlp_{T}x{D}x{Fd}", _swiglu(mesh), args, kind,
-                                    mesh, counts))
+                                    mesh, counts, params))
         del args
     args = (randn(T, D), randn(D, Fd, scale=D ** -0.5))
     cases.append(partition_case(f"contracting_{T}x{D}x{Fd}", _contracting(mesh), args,
-                                "f32_chain", mesh, counts))
+                                "f32_chain", mesh, counts, params))
     E = 8
     args = (randn(E, T // E, D), randn(E, D, Fd, scale=D ** -0.5))
     cases.append(partition_case(f"expert_grouping_{E}x{T // E}x{D}x{Fd}", _expert(mesh), args,
-                                "f32_chain", mesh, counts))
+                                "f32_chain", mesh, counts, params))
     args = (randn(8, 64, 256, 256), randn(64, 64, 3, 3, scale=(64 * 9) ** -0.5))
     cases.append(partition_case("halo_conv2d_8x64x256x256_k3", _halo2d(mesh), args, "f32_chain",
-                                mesh, counts))
+                                mesh, counts, params))
     del args
+    # the full-width decoder layer on ("data", "model")
+    st, lmesh, fold = get_strategy("2d_finalized"), make_test_mesh(), _watch_fold()
+    B, S = 4, 2048
+    for dtype, kind in (("bfloat16", "bf16_chain"), ("float32", "f32_chain")):
+        lcfg = cfg.with_(dtype=dtype)
+        lp = tree_init(transformer.layer_param_tree(lcfg, st), gen, dtype=dtype, device="cuda")
+        x = randn(B, S, D, dtype=getattr(torch, dtype))
+        positions = torch.arange(S, device="cuda").expand(B, S)
+        fn = transformer.partitionable_layer(lcfg, st, lmesh)
+        cases.append(partition_case(f"qwen_decoder_layer_B{B}_S{S}", fn, (lp, x, positions),
+                                    kind, lmesh, counts, params, fold=fold,
+                                    reference=plain_attention(fn),
+                                    allowed_fallbacks=ROPE_FALLBACKS))
+        del lp, x
     torch.cuda.empty_cache()
-    return {"mesh": {"shape": list(mesh.shape), "axes": list(mesh.axis_names)},
-            "collectives": dict(counts), "cases": cases}
+    return {"card": card, "mesh": {"shape": list(mesh.shape), "axes": list(mesh.axis_names)},
+            "layer_mesh": {"shape": list(lmesh.shape), "axes": list(lmesh.axis_names)},
+            "roofline_profile": profile, "collectives": dict(counts), "cases": cases}
 
 
 # the kernels' templates by variant, as the mangled names in ptxas's report,
@@ -1284,8 +1496,8 @@ def main(argv=None):
     del params
     torch.cuda.empty_cache()
 
-    print("partition: the port's partitioner on a simulated (2,4) mesh, against the same "
-          "functions unsharded on the card", flush=True)
+    print("partition: the port's partitioner on a simulated (2,4) mesh, by compiled plan and "
+          "by the dynamic path, against the same functions unsharded on the card", flush=True)
     partition = partition_phase_in_own_process(args.seed)
 
     fa_main = next(c for c in fa_cases if c["case"] == "decode_8x16_pos1023")
@@ -1303,6 +1515,9 @@ def main(argv=None):
         "prefill_main_case": {"case": fa_prefill["case"], **{k: fa_prefill[k] for k in keys},
                               "launches": qwen_loss["launches"]["flash_attention"],
                               "launches_path": "qwen loss"},
+        "partition_launches_per_call": {
+            f"{c['case']} {c['dtype']}": c["compiled_flash_launches_per_call"]
+            for c in partition["cases"] if "compiled_flash_launches_per_call" in c},
         "cases": fa_cases,
     }, {
         "name": "ssd_scan", "route": "cuda",

@@ -7,7 +7,8 @@ propagation complete the shardings, and run one SPMD program on a simulated
 
 The mesh is simulated: every device's local shard lives on the one device
 chosen, stacked along a leading dimension, and the collectives are exact
-tensor operations over it.
+tensor operations over it.  The partitioner compiles a plan once per input
+signature (plan once, run many) and executes it on every call.
 """
 import argparse
 import os
@@ -57,10 +58,18 @@ def main(argv=None):
     out = gspmd_jit(mlp, mesh, device=args.device)(x, w1, w2)
     print("gspmd_jit out:", tuple(out.shape), "on", out.device)
 
-    # 4b. the partitioner itself, dynamic path, with explicit collectives (§4)
-    runner = spmd_partition(mlp, mesh, compile_plans=False, device=args.device)
+    # 4b. the partitioner itself: a compiled plan with explicit collectives (§4)
+    runner = spmd_partition(mlp, mesh, optimize=False, device=args.device)
     out_ref = runner(x, w1, w2)
+    (entry,) = runner.plans.values()
+    print("plan steps:")
+    for step in entry.plan.steps:
+        what = step.program.collectives() if step.program is not None else step.axes or ""
+        print(f"  {step.kind:10} {step.op:18} {what}")
     print("collectives:", runner.collectives, "fallbacks:", runner.fallbacks)
+    # the dynamic path decides every op again on each call; same result
+    dynamic = spmd_partition(mlp, mesh, compile_plans=False, device=args.device)
+    np.testing.assert_array_equal(out_ref.cpu().numpy(), dynamic(x, w1, w2).cpu().numpy())
     np.testing.assert_allclose(out.cpu().numpy(), out_ref.cpu().numpy(), rtol=1e-4,
                                atol=1e-4)
     oracle = np.maximum(xn @ w1n, 0) @ w2n

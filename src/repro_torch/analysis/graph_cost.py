@@ -1,0 +1,67 @@
+"""Analytic FLOP counting over a captured aten graph: the counterpart of the
+JAX package's ``analysis/jaxpr_cost.py::count_flops``.
+
+Products (``mm``, ``bmm``, ``addmm``) and convolutions are counted exactly;
+elementwise arithmetic at 1 flop per output element; reductions at 1 flop
+per input element; the flash-attention operator at 4·B·H·S·T·D (its two
+products), halved for a causal mask.  Data movement (views, permutes,
+copies, casts) counts nothing.  ``core/plan.py::plan_cost`` divides the
+total by the mesh size for the ideal per-device balance point.
+
+The graph spells some ops otherwise than a jaxpr: ``addmm`` holds its bias
+add (the reference counts a separate ``add``), a convolution its bias, and
+``aten.mean`` is one reduction (the reference's ``mean`` is a sum and a
+divide).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch.fx
+
+from ..core.rules import FLASH, REDUCE, lower
+
+ELEMENTWISE_1FLOP = {"aten." + n for n in (
+    "add", "sub", "rsub", "mul", "div", "maximum", "minimum", "neg", "abs", "exp", "log",
+    "tanh", "sigmoid", "rsqrt", "sqrt", "where", "pow", "erf", "sin", "cos", "sign",
+    "floor", "ceil", "round", "square", "relu", "reciprocal", "clamp_min", "clamp_max")}
+
+
+def _nelems(shape) -> float:
+    return float(np.prod(shape)) if shape else 1.0
+
+
+def eqn_flops(eqn) -> float:
+    """FLOPs of one equation on global shapes."""
+    name = eqn.name
+    if not eqn.out_avals:
+        return 0.0
+    out = eqn.out_avals[0].shape
+    if name in ("aten.mm", "aten.bmm", "aten.addmm"):
+        (lc, _), _ = eqn.params["dimension_numbers"]
+        k = _nelems([eqn.in_avals[-2].shape[c] for c in lc])
+        bias = _nelems(out) if name == "aten.addmm" else 0.0
+        return 2.0 * _nelems(out) * k + bias
+    if name == "aten.convolution":
+        rhs = eqn.in_avals[1].shape
+        bias = _nelems(out) if eqn.params["has_bias"] else 0.0
+        return 2.0 * _nelems(out) * (_nelems(rhs) / rhs[0]) + bias
+    if name == FLASH:
+        B, S, KR, Gl, D = eqn.in_avals[0].shape
+        return flash_flops(B, S, KR * Gl, eqn.in_avals[1].shape[1], D, eqn.params["causal"])
+    if name in ELEMENTWISE_1FLOP:
+        return _nelems(out)
+    if name in REDUCE:
+        return _nelems(eqn.in_avals[0].shape)
+    return 0.0
+
+
+def flash_flops(B, S, H, T, D, causal: bool) -> float:
+    """4·B·H·S·T·D for the two products, halved for a causal mask."""
+    f = 4.0 * B * H * S * T * D
+    return f / 2 if causal else f
+
+
+def count_flops(graph: torch.fx.Graph) -> float:
+    """Total FLOPs for one evaluation of the captured graph (global,
+    unsharded)."""
+    return sum(eqn_flops(lower(n)) for n in graph.nodes if n.op == "call_function")

@@ -1,11 +1,16 @@
-"""Roofline cost model, first part: the per-collective wire-byte model that
-the reshard planner (``core/collective_planner.py``) and the einsum planner
-(``core/einsum_rules.py``) minimise.
+"""Roofline cost model: the per-collective wire-byte model that the reshard
+planner (``core/collective_planner.py``) and the einsum planner
+(``core/einsum_rules.py``) minimise, and the time-valued pricing of
+compiled plans (``core/plan.py::PlanCost``).
 
-A port of the JAX package's ``analysis/roofline.py::collective_wire_bytes``.
-Time-valued pricing (peak rates, link bandwidth, launch overheads) arrives
-with compiled plans and a machine profile fitted on the H100; nothing here
-carries a device constant.
+A port of the JAX package's ``analysis/roofline.py`` (``RooflineParams``,
+``overlap_time_s``, ``collective_wire_bytes``, ``collective_time_s``).  The
+reference's ``RooflineParams`` defaults to TPU v5e-class constants; the
+port's has no defaults and carries no device constant.  Every field is
+required, so a time is only ever priced with a profile the caller measured
+(``chip_smoke.py`` builds one from rates it measures on the card).  The
+modeled quantities that need no constant (wire bytes, launches, flops, peak
+bytes) are priced without one.
 
 Given the per-device *input* bytes B of a collective over a group of n
 devices (ring algorithms, per device):
@@ -19,6 +24,53 @@ devices (ring algorithms, per device):
   DynamicSlice   0              local addressing, no wire traffic
 """
 from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+from typing import Dict
+
+
+@dataclasses.dataclass(frozen=True)
+class RooflineParams:
+    """Machine constants for every time-valued roofline formula.
+
+    ``peak_flops`` (FLOP/s per device), ``hbm_bw`` (B/s per device),
+    ``ici_bw`` (B/s per link), ``collective_launch_s`` (fixed cost of one
+    collective launch) and ``overlap_efficiency`` (the fraction of the
+    smaller of the compute and collective terms an overlapping schedule
+    hides).  Frozen, so it can ride in cache keys.
+    """
+
+    peak_flops: float
+    hbm_bw: float
+    ici_bw: float
+    collective_launch_s: float
+    overlap_efficiency: float
+
+    def as_dict(self) -> Dict[str, float]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, float]) -> "RooflineParams":
+        fields = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: float(v) for k, v in d.items() if k in fields})
+
+    def digest(self) -> str:
+        """Stable short hash of the constants (a cache-key ingredient)."""
+        payload = json.dumps(self.as_dict(), sort_keys=True)
+        return hashlib.sha256(payload.encode()).hexdigest()[:16]
+
+
+def overlap_time_s(compute_s: float, comm_s: float, params: RooflineParams) -> float:
+    """Max-of-terms roofline time for one scheduled slot: the dominant term
+    plus the unhidden fraction of the smaller one,
+
+        max(compute_s, comm_s) + (1 - overlap_efficiency) · min(...)
+    """
+    hi = compute_s if compute_s >= comm_s else comm_s
+    lo = compute_s + comm_s - hi
+    return hi + (1.0 - params.overlap_efficiency) * lo
 
 
 def collective_wire_bytes(kind: str, group_size: int, in_bytes: float) -> float:
@@ -39,3 +91,11 @@ def collective_wire_bytes(kind: str, group_size: int, in_bytes: float) -> float:
     if kind == "dynamic-slice":
         return 0.0
     raise ValueError(f"unknown collective kind {kind!r}")
+
+
+def collective_time_s(kind: str, group_size: int, in_bytes: float,
+                      params: RooflineParams) -> float:
+    """Modeled wall time of one collective launch: the fixed launch cost plus
+    wire time."""
+    return params.collective_launch_s + collective_wire_bytes(
+        kind, group_size, in_bytes) / params.ici_bw

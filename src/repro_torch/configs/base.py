@@ -4,10 +4,12 @@ A ``Strategy`` is the user-annotation layer of GSPMD: it maps *logical* tensor
 dimensions (batch, embed, heads, mlp, vocab, expert, ...) to mesh axes,
 separately for weights and activations — the columns of the paper's Table 1.
 
-The port has no mesh yet, so every ``Strategy`` behaves as the JAX package's
-does outside a mesh context: ``axis_size`` is 1, ``constrain`` returns its
-input unchanged and specs are the unfiltered rule lookups (as tuples).  The
-rule tables are kept verbatim so the partitioner slices can use them.
+Every ``Strategy`` behaves as the JAX package's does outside a mesh context:
+``axis_size`` is 1, ``constrain`` returns its input unchanged (its mesh
+context is ROADMAP A6) and specs are the unfiltered rule lookups (as
+tuples).  ``filter_spec_by_shape`` and ``spec_sharding`` place such a spec
+on a given mesh, which is how a program annotates its inputs for the
+partitioner (``models/transformer.py::partitionable_layer``).
 """
 from __future__ import annotations
 
@@ -135,6 +137,47 @@ class Strategy:
         """Product of mesh-axis sizes a logical dim is sharded over: 1 with no
         mesh."""
         return 1
+
+
+def filter_spec_by_shape(spec: Spec, shape, mesh) -> Spec:
+    """Drop mesh axes the mesh lacks, axes that don't divide the
+    corresponding dim size, and axes already used by an earlier dim (first
+    dim wins; §4.1 fallback).  The reference drops the mesh's missing axes
+    when it builds the spec (``Strategy._spec`` under a mesh context); the
+    port's specs are built with no mesh, so it drops them here: X =
+    ("pod", "data") is ("data",) on a ("data", "model") mesh."""
+    sizes = dict(zip(mesh.axis_names, mesh.shape))
+    entries = []
+    used = set()
+    for i, entry in enumerate(tuple(spec) + (None,) * (len(shape) - len(spec))):
+        if entry is None:
+            entries.append(None)
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        kept = []
+        n = 1
+        for a in axes:
+            if a in sizes and a not in used and shape[i] % (n * sizes[a]) == 0:
+                kept.append(a)
+                used.add(a)
+                n *= sizes[a]
+        if not kept:
+            entries.append(None)
+        elif len(kept) == 1:
+            entries.append(kept[0])
+        else:
+            entries.append(tuple(kept))
+    while entries and entries[-1] is None:
+        entries.pop()
+    return tuple(entries)
+
+
+def spec_sharding(spec: Spec, shape, mesh):
+    """A ``Strategy.w(...)`` / ``Strategy.a(...)`` spec as a ``Sharding`` of a
+    tensor of ``shape`` on ``mesh`` (filtered by ``filter_spec_by_shape``)."""
+    from ..core.sharding import from_partition_spec
+
+    return from_partition_spec(mesh, len(shape), filter_spec_by_shape(spec, shape, mesh))
 
 
 def _strategy(name, weight_rules, act_rules):

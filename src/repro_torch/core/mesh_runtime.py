@@ -39,6 +39,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import contextvars
+import functools
 from typing import Callable, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -94,9 +95,17 @@ def axis_index(mesh: Mesh, axis: str) -> np.ndarray:
     return np.unravel_index(np.arange(mesh.size), mesh.shape)[k]
 
 
+@functools.lru_cache(maxsize=256)
+def _on_device(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A small constant tensor (device masks, tile indices), copied to
+    ``device`` once: a copy from host memory on every call would wait for
+    the device's queue to drain."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def device_mask(mask: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     """A per-device boolean as a tensor that broadcasts against ``like``."""
-    t = torch.as_tensor(np.asarray(mask, bool), device=like.device)
+    t = _on_device(tuple(bool(b) for b in np.asarray(mask, bool)), torch.bool, like.device)
     return t.reshape((-1,) + (1,) * (like.ndim - 1))
 
 
@@ -232,6 +241,7 @@ def dynamic_slice_in_dim(x: torch.Tensor, starts: Sequence[int], size: int,
 # ---------------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=1024)
 def _tiles(s: Sharding) -> Tuple[np.ndarray, Tuple[int, ...]]:
     """The tile (flat index over the tile grid) held at each stacked position."""
     assign = s.device_assignment()
@@ -261,7 +271,7 @@ def shard(x: torch.Tensor, s: Sharding) -> torch.Tensor:
     blocks = x.reshape([v for pair in zip(tile_shape, local) for v in pair])
     blocks = blocks.permute(list(range(0, 2 * r, 2)) + list(range(1, 2 * r, 2)))
     blocks = blocks.reshape([int(np.prod(tile_shape))] + local)
-    return blocks[torch.as_tensor(tiles, device=x.device)]
+    return blocks[_on_device(tuple(int(t) for t in tiles), torch.long, x.device)]
 
 
 def unshard(x: torch.Tensor, s: Sharding) -> torch.Tensor:
@@ -273,7 +283,7 @@ def unshard(x: torch.Tensor, s: Sharding) -> torch.Tensor:
     picks = [first[t] for t in range(int(np.prod(tile_shape)))]
     local = list(x.shape[1:])
     r = s.rank
-    blocks = x[torch.as_tensor(picks, device=x.device)].reshape(list(tile_shape) + local)
+    blocks = x[_on_device(tuple(picks), torch.long, x.device)].reshape(list(tile_shape) + local)
     order = [i for d in range(r) for i in (d, r + d)]
     return blocks.permute(order).reshape([n * l for n, l in zip(tile_shape, local)])
 

@@ -19,6 +19,9 @@ devices' shards), with explicit collectives:
 * convolution      — halo exchange on sharded spatial dims (§4.3);
 * formatting       — pad/slice/cat/flip keep the sharding of the dims they do
                      not touch and gather the rest (§4.5);
+* flash attention  — the ``repro_torch::flash_attention`` op on batch- and
+                     kv-head-sharded operands (S, T and D gathered), one
+                     kernel launch for all devices (``flash_local``);
 * annotate         — explicit resharding to the user's annotation.
 
 An op with no handler takes ``_fallback``: gather every operand, run the op
@@ -26,9 +29,12 @@ on the global values, reshard to the propagated sharding — GSPMD semantics,
 exactly as in the reference.  The partitioner records the op names that
 took it (``fallbacks``), so a run shows where the reference would gather.
 
-The compiled-plan path (``core/plan.py``), for which this path is the
-executable specification, is not ported yet (ROADMAP A5, compiled plans);
-``spmd_partition(..., compile_plans=True)`` raises.
+The decisions and local computations of every handler are module-level
+functions shared with the compiled-plan path (``core/plan.py``): this path
+makes every decision anew on each call, as the reference's dynamic path
+does; ``spmd_partition(..., compile_plans=True)`` (the default) makes them
+once per input signature into a ``PartitionPlan`` and executes it on every
+call.
 """
 from __future__ import annotations
 
@@ -42,6 +48,8 @@ import torch
 import torch.fx
 from torch.utils._pytree import tree_flatten
 
+from ..analysis.roofline import RooflineParams
+from ..kernels.ops import flash_forward
 from . import mesh_runtime as mr
 from .annotate import ANNOTATE_OP, decode
 from .compat import capture
@@ -50,14 +58,16 @@ from .einsum_rules import partitioned_einsum
 from .halo import local_conv, sharded_conv_nd
 from .propagation import PropagationResult, propagate
 from .reshard import reshard_local, shard_shape
-from .rules import (BROADCAST, DOT, ELEMENTWISE, FACTORY, REDUCE, RESHAPE, TRANSPOSE,
-                    _bcast_map, _invert, _project, _reshape_dim_map, lower)
+from .rules import (BROADCAST, DOT, ELEMENTWISE, FACTORY, FLASH, REDUCE, RESHAPE, TRANSPOSE,
+                    _bcast_map, _invert, _project, _reshape_dim_map, flash_heads, flash_layout,
+                    lower)
 from .sharding import Mesh, Sharding, merge_shardings, replicated
 
 
-# the reductions that combine local results across devices (the rest gather)
-_CROSS_DEVICE_REDUCE = {"aten.sum": mr.psum, "aten.mean": mr.psum, "aten.amax": mr.pmax,
-                        "aten.amin": mr.pmin}
+# the reductions that combine local results across devices (the rest gather),
+# by the collective that combines them
+REDUCE_OP = {"aten.sum": "add", "aten.mean": "add", "aten.amax": "max", "aten.amin": "min"}
+COLLECTIVE = {"add": mr.psum, "max": mr.pmax, "min": mr.pmin}
 
 
 def _substitute(x, value_of):
@@ -67,6 +77,235 @@ def _substitute(x, value_of):
     if isinstance(x, (list, tuple)):
         return type(x)(_substitute(a, value_of) for a in x)
     return x
+
+
+# ---------------------------------------------------------------------------------
+# per-op decisions and local compute, shared by both paths
+# ---------------------------------------------------------------------------------
+#
+# Every handler splits into a decision (target shardings, collectives, output
+# sharding: a function of the op, its shapes and its operands' shardings,
+# never of data) and a local computation on stacked shards.  The dynamic
+# ``SpmdPartitioner`` below makes the decision and computes at once on every
+# call; ``core/plan.py::PlanBuilder`` makes each decision once and records
+# the computation as a plan step.
+
+
+def run_node(node, value_of):
+    """The node's op on the values ``value_of`` gives its Node arguments."""
+    return node.target(*_substitute(node.args, value_of),
+                       **{k: _substitute(a, value_of) for k, a in node.kwargs.items()})
+
+
+def dot_spec(eqn) -> str:
+    """mm / bmm / addmm's ``dimension_numbers`` as an einsum spec."""
+    (lc, rc), (lb, rb) = eqn.params["dimension_numbers"]
+    lrank, rrank = eqn.in_avals[-2].ndim, eqn.in_avals[-1].ndim
+    letters = iter(string.ascii_lowercase)
+    l_names = [next(letters) for _ in range(lrank)]
+    r_names = [None] * rrank
+    for i, j in zip(lb, rb):
+        r_names[j] = l_names[i]
+    for i, j in zip(lc, rc):
+        r_names[j] = l_names[i]
+    for j in range(len(r_names)):
+        if r_names[j] is None:
+            r_names[j] = next(letters)
+    l_nc = [i for i in range(len(l_names)) if i not in lc and i not in lb]
+    r_nc = [j for j in range(len(r_names)) if j not in rc and j not in rb]
+    out_names = [l_names[i] for i in lb] + [l_names[i] for i in l_nc] + [r_names[j] for j in r_nc]
+    return f"{''.join(l_names)},{''.join(r_names)}->{''.join(out_names)}"
+
+
+def align(v, rank: int, out_rank: int):
+    """A stacked operand of rank ``rank`` shaped to broadcast against a
+    stacked result of rank ``out_rank`` as aten would: a rank-0 operand
+    becomes the 0-d value (replicated, so every device holds the same),
+    keeping aten's type promotion for 0-d tensors."""
+    if rank == out_rank:
+        return v
+    if rank == 0:
+        return v[0]
+    return v.reshape((v.shape[0],) + (1,) * (out_rank - rank) + tuple(v.shape[1:]))
+
+
+def elementwise_targets(eqn, shardings, mesh: Mesh):
+    """The result's sharding (the merge of the operands' on the dims they
+    carry into the output) and each operand's target.  A size-1 broadcast
+    dim stays replicated on that operand: every shard needs its value."""
+    out_shape = eqn.out_avals[0].shape
+    rank = len(out_shape)
+    maps = [_bcast_map(a.shape, out_shape) for a in eqn.in_avals]
+    tgt = None
+    for s, mp in zip(shardings, maps):
+        m = _project(s, mp, rank)
+        tgt = m if tgt is None else (merge_shardings(tgt, m) or tgt)
+    if tgt is None:
+        tgt = replicated(mesh, rank)
+    return tgt, [_project(tgt, _invert(mp, a.ndim), a.ndim)
+                 for mp, a in zip(maps, eqn.in_avals)]
+
+
+def elementwise_local(eqn):
+    """The op on stacked operands, given in ``eqn.invars`` order."""
+    node, invars = eqn.node, eqn.invars
+    ranks = [a.ndim for a in eqn.in_avals]
+    out_rank = eqn.out_avals[0].ndim
+
+    def run(*vals):
+        local = {v: align(x, r, out_rank) for v, x, r in zip(invars, vals, ranks)}
+        return run_node(node, local.__getitem__)
+
+    return run
+
+
+def reduce_decision(eqn, sh: Sharding, mesh: Mesh):
+    """(psum axes, gather first, output sharding): a sum, mean, max or min
+    over sharded dims reduces locally and then across the devices; prod,
+    any and all gather the operand first."""
+    name, axes = eqn.name, eqn.params["axes"]
+    psum_axes = tuple(a for d in axes for a in sh.dims_mapping[d])
+    gather_first = bool(psum_axes) and name not in REDUCE_OP
+    src = replicated(mesh, sh.rank) if gather_first else sh
+    osh = Sharding(mesh, tuple(
+        src.dims_mapping[i] if i is not None else () for i in eqn.params["out_to_in"]))
+    return (() if gather_first else psum_axes), gather_first, osh
+
+
+def local_reduce(name, val, axes, keepdim, out_dtype):
+    if not axes:  # a 0-d operand: nothing to reduce
+        return val.to(out_dtype)
+    dims = [a + 1 for a in axes]
+    if name in ("aten.sum", "aten.mean"):
+        fn = torch.sum if name == "aten.sum" else torch.mean
+        return fn(val, dim=dims, keepdim=keepdim, dtype=out_dtype)
+    if name in ("aten.amax", "aten.amin"):
+        fn = torch.amax if name == "aten.amax" else torch.amin
+        return fn(val, dim=dims, keepdim=keepdim)
+    # prod / any / all reduce one dim at a time, innermost first
+    fn = {"aten.prod": torch.prod, "aten.any": torch.any, "aten.all": torch.all}[name]
+    out = val
+    for d in sorted(dims, reverse=True):
+        out = fn(out, dim=d, keepdim=keepdim)
+    return out.to(out_dtype)
+
+
+def group_size(mesh: Mesh, axes) -> int:
+    return int(np.prod([mesh.axis_size(a) for a in axes]))
+
+
+def transpose_sharding(eqn, sh: Sharding, mesh: Mesh) -> Sharding:
+    return Sharding(mesh, tuple(sh.dims_mapping[i] for i in eqn.params["permutation"]))
+
+
+def broadcast_sharding(eqn, sh: Sharding, mesh: Mesh) -> Sharding:
+    """A broadcast dim keeps its operand dim's sharding where sizes match."""
+    bcast, gshape = eqn.params["broadcast_dimensions"], eqn.params["shape"]
+    dm = [() for _ in gshape]
+    in_shape = eqn.in_avals[0].shape
+    for i, j in enumerate(bcast):
+        if in_shape[i] == gshape[j]:
+            dm[j] = sh.dims_mapping[i]
+    return Sharding(mesh, tuple(dm))
+
+
+def broadcast_local(val, bcast, local_shape):
+    placed = [1] * len(local_shape)
+    for i, j in enumerate(bcast):
+        placed[j] = val.shape[1 + i]
+    return val.reshape([val.shape[0]] + placed).expand([val.shape[0]] + list(local_shape))
+
+
+def local_reshape_ok(in_shape, out_shape, sh: Sharding, want: Sharding) -> bool:
+    """A reshape of each shard is the shard of the reshape when every
+    sharded dim is the major dim of a matching factor block on both sides,
+    sharded the same way (the maps propagation itself uses)."""
+    i2o, o2i = _reshape_dim_map(in_shape, out_shape)
+    pairs = set(i2o.items()) | {(i, j) for j, i in o2i.items()}
+    for i, axes in enumerate(sh.dims_mapping):
+        if axes and not any(p == i and want.dims_mapping[q] == axes for p, q in pairs):
+            return False
+    for j, axes in enumerate(want.dims_mapping):
+        if axes and not any(q == j and sh.dims_mapping[p] == axes for p, q in pairs):
+            return False
+    return True
+
+
+def conv_target(eqn, ls: Sharding, mesh: Mesh) -> Optional[Sharding]:
+    """The input layout the convolution runs in exactly (one axis per sharded
+    spatial dim, where the output divides; feature sharding only without
+    spatial sharding), or None for the fallback (base or window dilation,
+    transposed and grouped convolutions, §A.2)."""
+    p = eqn.params
+    if any(d != 1 for d in p["dilation"]) or p["transposed"] or p["groups"] != 1:
+        return None
+    strides, padding = p["window_strides"], p["padding"]
+    keep = list(ls.dims_mapping)
+    for d in range(2, ls.rank):
+        axes = keep[d][:1]
+        if axes:
+            n = mesh.axis_size(axes[0])
+            k = eqn.in_avals[1].shape[d]
+            lo, hi = padding[d - 2]
+            out_len = (eqn.in_avals[0].shape[d] + lo + hi - k) // strides[d - 2] + 1
+            if out_len % n:
+                axes = ()
+        keep[d] = axes
+    if keep[1] and any(keep[2:]):
+        keep[1] = ()
+    return Sharding(mesh, tuple(keep))
+
+
+def conv_feature_local(lv, rv, mesh: Mesh, ax, strides, padding):
+    """Feature-dim sharded: each device's slice of the kernel's input
+    features against its shard (Megatron-style); the caller psums."""
+    for a in ax:
+        rv = mr.dynamic_slice_by_axis_index(rv, mesh, a, 1)
+    return local_conv(lv, rv, strides, padding, same_kernel=False)
+
+
+def conv_halo_local(lv, rv, mesh: Mesh, ls: Sharding, strides, padding):
+    """Spatial dims sharded: halo exchange, then the local convolution."""
+    sharded = [(d, ls.dims_mapping[d][0]) for d in range(2, ls.rank) if ls.dims_mapping[d]]
+    return sharded_conv_nd(lv, rv, mesh=mesh, sharded=sharded,
+                           window_strides=strides, padding=padding)
+
+
+def conv_bias(out, bv):
+    return out + bv.reshape((bv.shape[0], 1, bv.shape[1]) + (1,) * (out.ndim - 3))
+
+
+def flash_targets(eqn, shardings, want: Optional[Sharding], mesh: Mesh):
+    """The (batch, kv heads) layout the flash-attention op runs in: the
+    completed output sharding's, else the merge of the operands'.  Any axis
+    on S, T, Gl or D is gathered.  Returns the targets of q, k, v and the
+    output's sharding."""
+    cands = [want] if want is not None else list(shardings)
+    bh = None
+    for s in cands:
+        m = flash_heads(s)
+        bh = m if bh is None else (merge_shardings(bh, m) or bh)
+    return [flash_layout(bh, a.ndim) for a in eqn.in_avals], flash_layout(bh, 5)
+
+
+def _fold(x):
+    """Stacked (n, B, ...) as (n·B, ...): a view when the two dims merge; a
+    copy where they do not, or where the kernel's 16-byte alignment of the
+    base and strides (unit-stride head dim) would not hold."""
+    y = x.reshape((-1,) + tuple(x.shape[2:]))
+    esz = y.element_size()
+    if (y.stride(-1) != 1 or y.data_ptr() % 16
+            or any(s * esz % 16 for n, s in zip(y.shape[:-1], y.stride()[:-1]) if n > 1)):
+        y = y.contiguous()
+    return y
+
+
+def flash_local(q, k, v, params):
+    """One launch for every device: the stacked device dim is folded into
+    the batch (q (n, B, S, KR, Gl, D) runs as (n·B, S, KR, Gl, D))."""
+    out = flash_forward(_fold(q), _fold(k), _fold(v), params["causal"],
+                        params["q_offset"], params["kv_len"], params["chunk"])
+    return out.reshape(q.shape)
 
 
 # ---------------------------------------------------------------------------------
@@ -108,9 +347,42 @@ def fallback_keep_sharding(eqn, in_shardings, mesh: Mesh) -> Optional[Sharding]:
     return kept
 
 
+def gathers(src: Sharding, dst: Sharding) -> bool:
+    """Whether a reshard from ``src`` to ``dst`` gathers a sharded dim (drops
+    a mesh axis from a dim)."""
+    return any(a not in d for s, d in zip(src.dims_mapping, dst.dims_mapping) for a in s)
+
+
+def fallback_local(eqn):
+    """The op run on each device's shards (``torch.vmap`` over the stacked
+    dim), operands in ``eqn.invars`` order."""
+    node, invars = eqn.node, eqn.invars
+
+    def one_device(*shards):
+        m = dict(zip(invars, shards))
+        return run_node(node, m.__getitem__)
+
+    return torch.vmap(one_device)
+
+
+def fallback_global(eqn, mesh: Mesh):
+    """The op on the whole (replicated) operands, replicated again; a tuple
+    result is a list of replicated values."""
+    node, invars = eqn.node, eqn.invars
+
+    def run(*vals):
+        whole = dict(zip(invars, (x[0] for x in vals)))
+        out = run_node(node, whole.__getitem__)
+        if isinstance(out, (list, tuple)):
+            return [mr.replicate(o, mesh) if isinstance(o, torch.Tensor) else o for o in out]
+        return mr.replicate(out, mesh) if isinstance(out, torch.Tensor) else out
+
+    return run
+
+
 class SpmdPartitioner:
     """Evaluates a captured graph on stacked local shards, inserting
-    collectives per §4."""
+    collectives per §4, deciding every op anew on each call."""
 
     def __init__(self, prop: PropagationResult, mesh: Mesh):
         self.prop = prop
@@ -119,6 +391,7 @@ class SpmdPartitioner:
         self.vals: Dict[torch.fx.Node, object] = {}
         self.shardings: Dict[torch.fx.Node, object] = {}
         self.fallbacks: List[str] = []  # op names that took _fallback, in order
+        self.fallback_gathers: List[str] = []  # those that gathered a sharded dim
 
     # -- var access -------------------------------------------------------------
     def read(self, v):
@@ -167,182 +440,84 @@ class SpmdPartitioner:
             val, sh = self.read(node.args[0])
             tgt, _ = decode(*node.args[1:])
             self.write(node, self._to(val, sh, tgt), tgt)
-            return
-        if name == "getitem":
+        elif name == "getitem":
             vals, shs = self.read(node.args[0])
             i = node.args[1]
             self.write(node, vals[i], shs[i])
-            return
-        if name in DOT:
-            self._dot(eqn)
-            return
-        if name == "aten.addmm":
+        elif name in DOT:
+            self.write(node, *self._dot_values(eqn))
+        elif name == "aten.addmm":
             self._addmm(eqn)
-            return
-        if name in ELEMENTWISE and eqn.out_avals:
+        elif name in ELEMENTWISE and eqn.out_avals:
             self._elementwise(eqn)
-            return
-        if name in REDUCE:
+        elif name in REDUCE:
             self._reduce(eqn)
-            return
-        if name in TRANSPOSE:
-            self._transpose(eqn)
-            return
-        if name in BROADCAST:
-            self._broadcast(eqn)
-            return
-        if name in RESHAPE:
+        elif name in TRANSPOSE:
+            val, sh = self.read(eqn.invars[0])
+            out = val.permute((0,) + tuple(p + 1 for p in eqn.params["permutation"]))
+            self.write(node, out, transpose_sharding(eqn, sh, self.mesh))
+        elif name in BROADCAST:
+            val, sh = self.read(eqn.invars[0])
+            osh = broadcast_sharding(eqn, sh, self.mesh)
+            out = broadcast_local(val, eqn.params["broadcast_dimensions"],
+                                  shard_shape(tuple(eqn.params["shape"]), osh))
+            self.write(node, out, osh)
+        elif name in RESHAPE:
             self._reshape(eqn)
-            return
-        if name == "aten.convolution":
+        elif name == "aten.convolution":
             self._conv(eqn)
-            return
-        if name in FACTORY:
+        elif name == FLASH:
+            self._flash(eqn)
+        elif name in FACTORY:
             out = node.target(*node.args, **node.kwargs)
             self.write(node, mr.replicate(out, self.mesh), replicated(self.mesh, out.ndim))
-            return
-        # fallback: gather everything, run globally, re-slice to inferred sharding
-        self._fallback(eqn)
+        else:
+            # fallback: gather everything, run globally, re-slice to inferred sharding
+            self._fallback(eqn)
 
     # -- op handlers ----------------------------------------------------------------
-    def _dot_values(self, eqn, want):
-        (lc, rc), (lb, rb) = eqn.params["dimension_numbers"]
+    def _dot_values(self, eqn):
         lv, ls = self.read(eqn.invars[-2])
         rv, rs = self.read(eqn.invars[-1])
-        # express the dot as an einsum spec
-        letters = iter(string.ascii_lowercase)
-        l_names = [next(letters) for _ in range(ls.rank)]
-        r_names = [None] * rs.rank
-        for i, j in zip(lb, rb):
-            r_names[j] = l_names[i]
-        for i, j in zip(lc, rc):
-            r_names[j] = l_names[i]
-        for j in range(len(r_names)):
-            if r_names[j] is None:
-                r_names[j] = next(letters)
-        l_nc = [i for i in range(len(l_names)) if i not in lc and i not in lb]
-        r_nc = [j for j in range(len(r_names)) if j not in rc and j not in rb]
-        out_names = (
-            [l_names[i] for i in lb] + [l_names[i] for i in l_nc] + [r_names[j] for j in r_nc]
-        )
-        spec = f"{''.join(l_names)},{''.join(r_names)}->{''.join(out_names)}"
-        return partitioned_einsum(spec, lv, rv, ls, rs, want,
+        return partitioned_einsum(dot_spec(eqn), lv, rv, ls, rs, self.prop.get(eqn.node),
                                   preferred_element_type=eqn.out_avals[0].dtype)
 
-    def _dot(self, eqn):
-        out, osh = self._dot_values(eqn, self.prop.get(eqn.node))
-        self.write(eqn.node, out, osh)
-
     def _addmm(self, eqn):
-        z, zsh = self._dot_values(eqn, self.prop.get(eqn.node))
+        z, zsh = self._dot_values(eqn)
         bv, bs = self.read(eqn.invars[0])
         out_shape = eqn.out_avals[0].shape
         bmap = _bcast_map(eqn.in_avals[0].shape, out_shape)
-        bv = self._align(self._to(bv, bs, _project(zsh, _invert(bmap, bs.rank), bs.rank)),
-                         bs.rank, len(out_shape))
+        bv = align(self._to(bv, bs, _project(zsh, _invert(bmap, bs.rank), bs.rank)),
+                   bs.rank, len(out_shape))
         beta, alpha = eqn.params["beta"], eqn.params["alpha"]
         out = (bv if beta == 1 else beta * bv) + (z if alpha == 1 else alpha * z)
         self.write(eqn.node, out, zsh)
 
-    def _align(self, v, rank: int, out_rank: int):
-        """A stacked operand of rank ``rank`` shaped to broadcast against a
-        stacked result of rank ``out_rank`` as aten would: a rank-0 operand
-        becomes the 0-d value (replicated, so every device holds the same),
-        keeping aten's type promotion for 0-d tensors."""
-        if rank == out_rank:
-            return v
-        if rank == 0:
-            return v[0]
-        return v.reshape((v.shape[0],) + (1,) * (out_rank - rank) + tuple(v.shape[1:]))
-
     def _elementwise(self, eqn):
-        out_shape = eqn.out_avals[0].shape
-        rank = len(out_shape)
-        maps = [_bcast_map(a.shape, out_shape) for a in eqn.in_avals]
-        # size-1 broadcast dims must stay replicated on that operand: every
-        # shard needs the single value
-        tgt = None
-        for v, mp in zip(eqn.invars, maps):
-            m = _project(self.shardings[v], mp, rank)
-            tgt = m if tgt is None else (merge_shardings(tgt, m) or tgt)
-        if tgt is None:
-            tgt = replicated(self.mesh, rank)
-        local = {}
-        for v, mp, a in zip(eqn.invars, maps, eqn.in_avals):
-            val, sh = self.read(v)
-            val = self._to(val, sh, _project(tgt, _invert(mp, a.ndim), a.ndim))
-            local[v] = self._align(val, a.ndim, rank)
-        node = eqn.node
-        out = node.target(*_substitute(node.args, local.__getitem__),
-                          **{k: _substitute(a, local.__getitem__) for k, a in node.kwargs.items()})
-        self.write(node, out, tgt)
+        tgt, targets = elementwise_targets(eqn, [self.shardings[v] for v in eqn.invars],
+                                           self.mesh)
+        vals = [self._to(*self.read(v), t) for v, t in zip(eqn.invars, targets)]
+        self.write(eqn.node, elementwise_local(eqn)(*vals), tgt)
 
     def _reduce(self, eqn):
         val, sh = self.read(eqn.invars[0])
-        axes, keepdim = eqn.params["axes"], eqn.params["keepdim"]
         name = eqn.name
-        psum_axes = tuple(a for d in axes for a in sh.dims_mapping[d])
-        gather_first = bool(psum_axes) and name not in _CROSS_DEVICE_REDUCE
+        psum_axes, gather_first, osh = reduce_decision(eqn, sh, self.mesh)
         if gather_first:  # prod/any/all: gather first instead
             val = self._to(val, sh, replicated(self.mesh, sh.rank))
-            sh = replicated(self.mesh, sh.rank)
-        out = self._local_reduce(name, val, axes, keepdim, eqn.out_avals[0].dtype)
-        if psum_axes and not gather_first:
-            out = _CROSS_DEVICE_REDUCE[name](out, self.mesh, psum_axes)
+        out = local_reduce(name, val, eqn.params["axes"], eqn.params["keepdim"],
+                           eqn.out_avals[0].dtype)
+        if psum_axes:
+            out = COLLECTIVE[REDUCE_OP[name]](out, self.mesh, psum_axes)
             if name == "aten.mean":
-                out = out / int(np.prod([self.mesh.axis_size(a) for a in psum_axes]))
-        osh = Sharding(self.mesh, tuple(
-            sh.dims_mapping[i] if i is not None else () for i in eqn.params["out_to_in"]))
-        self.write(eqn.node, out, osh)
-
-    @staticmethod
-    def _local_reduce(name, val, axes, keepdim, out_dtype):
-        if not axes:  # a 0-d operand: nothing to reduce
-            return val.to(out_dtype)
-        dims = [a + 1 for a in axes]
-        if name in ("aten.sum", "aten.mean"):
-            fn = torch.sum if name == "aten.sum" else torch.mean
-            return fn(val, dim=dims, keepdim=keepdim, dtype=out_dtype)
-        if name in ("aten.amax", "aten.amin"):
-            fn = torch.amax if name == "aten.amax" else torch.amin
-            return fn(val, dim=dims, keepdim=keepdim)
-        # prod / any / all reduce one dim at a time, innermost first
-        fn = {"aten.prod": torch.prod, "aten.any": torch.any, "aten.all": torch.all}[name]
-        out = val
-        for d in sorted(dims, reverse=True):
-            out = fn(out, dim=d, keepdim=keepdim)
-        return out.to(out_dtype)
-
-    def _transpose(self, eqn):
-        val, sh = self.read(eqn.invars[0])
-        perm = eqn.params["permutation"]
-        out = val.permute((0,) + tuple(p + 1 for p in perm))
-        osh = Sharding(self.mesh, tuple(sh.dims_mapping[i] for i in perm))
-        self.write(eqn.node, out, osh)
-
-    def _broadcast(self, eqn):
-        val, sh = self.read(eqn.invars[0])
-        bcast = eqn.params["broadcast_dimensions"]
-        gshape = eqn.params["shape"]
-        out_rank = len(gshape)
-        dm = [() for _ in range(out_rank)]
-        in_shape = eqn.in_avals[0].shape
-        for i, j in enumerate(bcast):
-            if in_shape[i] == gshape[j]:
-                dm[j] = sh.dims_mapping[i]
-        osh = Sharding(self.mesh, tuple(dm))
-        local_shape = shard_shape(tuple(gshape), osh)
-        placed = [1] * out_rank
-        for i, j in enumerate(bcast):
-            placed[j] = val.shape[1 + i]
-        out = val.reshape([val.shape[0]] + placed).expand([val.shape[0]] + list(local_shape))
+                out = out / group_size(self.mesh, psum_axes)
         self.write(eqn.node, out, osh)
 
     def _reshape(self, eqn):
         val, sh = self.read(eqn.invars[0])
         want = self.prop.get(eqn.node)
         gshape = eqn.out_avals[0].shape
-        if want is not None and self._local_reshape_ok(eqn.in_avals[0].shape, gshape, sh, want):
+        if want is not None and local_reshape_ok(eqn.in_avals[0].shape, gshape, sh, want):
             out = val.reshape((val.shape[0],) + shard_shape(tuple(gshape), want))
             self.write(eqn.node, out, want)
             return
@@ -353,67 +528,36 @@ class SpmdPartitioner:
         out = self._to(out, replicated(self.mesh, len(gshape)), osh)
         self.write(eqn.node, out, osh)
 
-    @staticmethod
-    def _local_reshape_ok(in_shape, out_shape, sh: Sharding, want: Sharding) -> bool:
-        """A reshape of each shard is the shard of the reshape when every
-        sharded dim is the major dim of a matching factor block on both sides,
-        sharded the same way (the maps propagation itself uses)."""
-        i2o, o2i = _reshape_dim_map(in_shape, out_shape)
-        pairs = set(i2o.items()) | {(i, j) for j, i in o2i.items()}
-        for i, axes in enumerate(sh.dims_mapping):
-            if axes and not any(p == i and want.dims_mapping[q] == axes for p, q in pairs):
-                return False
-        for j, axes in enumerate(want.dims_mapping):
-            if axes and not any(q == j and sh.dims_mapping[p] == axes for p, q in pairs):
-                return False
-        return True
-
     def _conv(self, eqn):
         p = eqn.params
-        if any(d != 1 for d in p["dilation"]) or p["transposed"] or p["groups"] != 1:
-            self._fallback(eqn)  # base/window dilation are not implemented (§A.2)
-            return
         lv, ls = self.read(eqn.invars[0])
+        tgt = conv_target(eqn, ls, self.mesh)
+        if tgt is None:
+            self._fallback(eqn)
+            return
         rv, rs = self.read(eqn.invars[1])
         # kernel replicated; lhs may be sharded on batch and/or spatial dims
         rv = self._to(rv, rs, replicated(self.mesh, rs.rank))
-        rank = ls.rank
-        strides, padding = p["window_strides"], p["padding"]
-        # one axis per sharded spatial dim, and only where the output divides
-        keep = list(ls.dims_mapping)
-        for d in range(2, rank):
-            axes = keep[d][:1]
-            if axes:
-                n = self.mesh.axis_size(axes[0])
-                k = eqn.in_avals[1].shape[d]
-                lo, hi = padding[d - 2]
-                out_len = (eqn.in_avals[0].shape[d] + lo + hi - k) // strides[d - 2] + 1
-                if out_len % n:
-                    axes = ()
-            keep[d] = axes
-        if keep[1] and any(keep[2:]):
-            keep[1] = ()  # feature-sharded contraction only without spatial sharding
-        tgt = Sharding(self.mesh, tuple(keep))
         lv, ls = self._to(lv, ls, tgt), tgt
+        strides, padding = p["window_strides"], p["padding"]
         if ls.dims_mapping[1]:
-            # feature-dim sharded: contract locally then psum (Megatron-style)
             ax = ls.dims_mapping[1]
-            rv_local = rv
-            for a in ax:
-                rv_local = mr.dynamic_slice_by_axis_index(rv_local, self.mesh, a, 1)
-            out = local_conv(lv, rv_local, strides, padding, same_kernel=False)
-            out = mr.psum(out, self.mesh, ax)
-            osh = Sharding(self.mesh, (ls.dims_mapping[0], ()) + ((),) * (rank - 2))
+            out = mr.psum(conv_feature_local(lv, rv, self.mesh, ax, strides, padding),
+                          self.mesh, ax)
+            osh = Sharding(self.mesh, (ls.dims_mapping[0], ()) + ((),) * (ls.rank - 2))
         else:
-            sharded = [(d, ls.dims_mapping[d][0]) for d in range(2, rank) if ls.dims_mapping[d]]
-            out = sharded_conv_nd(lv, rv, mesh=self.mesh, sharded=sharded,
-                                  window_strides=strides, padding=padding)
+            out = conv_halo_local(lv, rv, self.mesh, ls, strides, padding)
             osh = ls
         if p["has_bias"]:
             bv, bs = self.read(eqn.node.args[2])
-            bv = self._to(bv, bs, replicated(self.mesh, 1))
-            out = out + bv.reshape((bv.shape[0], 1, bv.shape[1]) + (1,) * (rank - 2))
+            out = conv_bias(out, self._to(bv, bs, replicated(self.mesh, 1)))
         self.write(eqn.node, out, osh)
+
+    def _flash(self, eqn):
+        targets, osh = flash_targets(eqn, [self.shardings[v] for v in eqn.invars],
+                                     self.prop.get(eqn.node), self.mesh)
+        q, k, v = (self._to(*self.read(n), t) for n, t in zip(eqn.invars, targets))
+        self.write(eqn.node, flash_local(q, k, v, eqn.params), osh)
 
     def _fallback(self, eqn):
         """Gather → op → reshard to the propagated sharding (§4.5).
@@ -427,43 +571,27 @@ class SpmdPartitioner:
         self.fallbacks.append(eqn.name)
         in_sh = [self.shardings[v] for v in eqn.invars]
         kept_sh = fallback_keep_sharding(eqn, in_sh, self.mesh)
+        targets = [kept_sh if kept_sh is not None and a.ndim == kept_sh.rank
+                   else replicated(self.mesh, a.ndim) for a in eqn.in_avals]
+        if any(gathers(s, t) for s, t in zip(in_sh, targets)):
+            self.fallback_gathers.append(eqn.name)
+        vals = [self._to(*self.read(v), t) for v, t in zip(eqn.invars, targets)]
         if kept_sh is not None:
-            rank = kept_sh.rank
-            local = {}
-            for v, a in zip(eqn.invars, eqn.in_avals):
-                val, sh = self.read(v)
-                local[v] = self._to(val, sh, kept_sh if a.ndim == rank
-                                    else replicated(self.mesh, a.ndim))
-            order = list(local)
-
-            def one_device(*shards):
-                m = dict(zip(order, shards))
-                return node.target(*_substitute(node.args, m.__getitem__),
-                                   **{k: _substitute(a, m.__getitem__)
-                                      for k, a in node.kwargs.items()})
-
-            out = torch.vmap(one_device)(*(local[v] for v in order))
+            out = fallback_local(eqn)(*vals)
             osh = Sharding(self.mesh, tuple(
-                kept_sh.dims_mapping[d] if d < rank else () for d in range(out.ndim - 1)))
+                kept_sh.dims_mapping[d] if d < kept_sh.rank else ()
+                for d in range(out.ndim - 1)))
             want = self.prop.get(node) or osh
             self.write(node, self._to(out, osh, want), want)
             return
-        whole = {}
-        for v in eqn.invars:
-            val, sh = self.read(v)
-            whole[v] = self._to(val, sh, replicated(self.mesh, sh.rank))[0]
-        out = node.target(*_substitute(node.args, whole.__getitem__),
-                          **{k: _substitute(a, whole.__getitem__) for k, a in node.kwargs.items()})
+        out = fallback_global(eqn, self.mesh)(*vals)
         if isinstance(out, torch.Tensor):
-            rep = replicated(self.mesh, out.ndim)
+            rep = replicated(self.mesh, out.ndim - 1)
             want = self.prop.get(node) or rep
-            self.write(node, self._to(mr.replicate(out, self.mesh), rep, want), want)
-        elif isinstance(out, (list, tuple)):  # results read back by getitem nodes
-            vals = [mr.replicate(o, self.mesh) if isinstance(o, torch.Tensor) else o
-                    for o in out]
-            shs = [replicated(self.mesh, o.ndim) if isinstance(o, torch.Tensor) else None
-                   for o in out]
-            self.write(node, vals, shs)
+            self.write(node, self._to(out, rep, want), want)
+        elif isinstance(out, list):  # results read back by getitem nodes
+            self.write(node, out, [replicated(self.mesh, o.ndim - 1)
+                                   if isinstance(o, torch.Tensor) else None for o in out])
         else:
             self.write(node, out, None)
 
@@ -502,15 +630,17 @@ class PlanCacheStats:
 class _CacheEntry:
     captured: object  # compat.Captured: the graph the shardings refer to
     prop: PropagationResult
+    plan: Optional[object] = None  # plan.PartitionPlan on the compiled path
 
 
 def _aval_key(a) -> tuple:
     return (tuple(a.shape), str(a.dtype))
 
 
-# The per-runner cache skips capture and propagation for repeated calls; the
-# process cache shares an entry across ``spmd_partition`` call sites that
-# partition the same program, keyed by the captured graph's content digest.
+# The per-runner cache skips capture, propagation and plan compilation for
+# repeated calls; the process cache shares an entry across ``spmd_partition``
+# call sites that partition the same program, keyed by the captured graph's
+# content digest.
 
 _PROCESS_CACHE: Dict[tuple, _CacheEntry] = {}
 _PROCESS_STATS = PlanCacheStats()
@@ -538,24 +668,33 @@ def spmd_partition(fn, mesh: Mesh, compile_plans: bool = True, optimize: bool = 
 
     The user writes ``fn`` against global shapes with ``annotate`` hints.  On
     the first call for an input signature the runner captures ``fn``,
-    completes the shardings (propagation pass) and caches both; every call
-    shards its global tensor arguments onto ``device`` by the completed
-    input shardings, runs the partitioned program over the stacked shards
-    (``SpmdPartitioner``), and returns global tensors, as the reference's
-    ``shard_map`` does.
+    completes the shardings (propagation pass) and, on the compiled path,
+    lowers the result into a ``plan.PartitionPlan``; all of it is cached.
+    Every call shards its global tensor arguments onto ``device`` by the
+    completed input shardings, runs the partitioned program over the stacked
+    shards, and returns global tensors, as the reference's ``shard_map``
+    does.
 
-    The keywords are the reference's.  This slice has the dynamic path only:
-    ``compile_plans=True`` (the reference's default), ``autoshard``,
-    ``guard``, ``trace`` and ``profile`` raise ``NotImplementedError`` naming
-    their ROADMAP item; ``optimize`` and ``verify`` apply to compiled plans
-    only, as in the reference.  ``process_cache=False`` opts this runner out
-    of the process-level cache.  ``device`` is "cuda" unless the caller asks
-    for "cpu" (no fallback from one to the other).
+    The keywords are the reference's.  ``compile_plans=True`` (the default)
+    executes the cached plan: steady-state calls capture, propagate and
+    decide nothing.  ``compile_plans=False`` is the dynamic path
+    (``SpmdPartitioner``), which decides every op anew on each call.
+    ``optimize=True`` (the reference's default: the whole-program optimizer)
+    and ``verify=True`` (the plan verifier) apply to compiled plans and
+    raise until ROADMAP A9 ports them, so callers pass ``optimize=False``;
+    ``verify=None`` runs no verifier.  ``profile`` takes a
+    ``RooflineParams``, which the plan's ``PlanCost`` prices time with; a
+    fitted profile (A15), ``autoshard`` (A11), ``guard`` (A9) and ``trace``
+    (A15) raise naming their item.  ``process_cache=False`` opts this
+    runner out of the process-level cache.  ``device`` is "cuda" unless the
+    caller asks for "cpu" (no fallback from one to the other).
 
     The runner exposes ``cache_stats`` (hits/misses), ``plans`` (cache key →
-    captured graph and completed shardings), and, after each call,
-    ``fallbacks`` (the op names that took ``_fallback``, in graph order) and
-    ``collectives`` (the collectives run, by kind).
+    entry: the captured graph, the completed shardings and, compiled,
+    ``plan``), and, after each call, ``fallbacks`` (the op names that took
+    the fallback, in graph order), ``fallback_gathers`` (those of them that
+    gathered a sharded dim) and ``collectives`` (the collectives run, by
+    kind).
     """
     if autoshard is not None:
         _refuse("autoshard", "A11", "the autoshard search")
@@ -563,12 +702,15 @@ def spmd_partition(fn, mesh: Mesh, compile_plans: bool = True, optimize: bool = 
         _refuse("guard", "A9", "the plan guard epilogue")
     if trace is not None:
         _refuse("trace", "A15", "plan-step tracing (obs/trace.py)")
-    if profile is not None:
+    if profile is not None and not isinstance(profile, RooflineParams):
         _refuse("profile", "A15", "a fitted machine profile (obs/profile.py)")
-    if compile_plans:
-        _refuse("compile_plans", "A5, compiled plans",
-                "core/plan.py (compile_plan/lower_plan); pass compile_plans=False")
+    if compile_plans and optimize:
+        _refuse("optimize", "A9", "the whole-program optimizer (core/plan_opt.py); pass "
+                "optimize=False")
+    if compile_plans and verify:
+        _refuse("verify", "A9", "the plan verifier (core/plan_verify.py)")
     dev = resolve_device(device)
+    mkey = mesh.structural_key()
     cache: Dict[tuple, _CacheEntry] = {}
     stats = PlanCacheStats()
 
@@ -576,14 +718,20 @@ def spmd_partition(fn, mesh: Mesh, compile_plans: bool = True, optimize: bool = 
         captured = capture(fn, *args)
         pkey: Optional[tuple] = None
         if process_cache:
-            pkey = (captured.digest(), mesh.structural_key(),
-                    tuple(_aval_key(a) for a in flat))
+            pkey = (captured.digest(), mkey, tuple(_aval_key(a) for a in flat), compile_plans,
+                    profile.digest() if profile is not None else None)
             entry = _PROCESS_CACHE.get(pkey)
             if entry is not None:
                 _PROCESS_STATS.record_hit()
                 return entry
             _PROCESS_STATS.record_miss()
-        entry = _CacheEntry(captured, propagate(captured, mesh).result())
+        prop = propagate(captured, mesh).result()
+        plan = None
+        if compile_plans:
+            from .plan import compile_plan
+
+            plan = compile_plan(captured, prop, mesh, optimize=False, profile=profile)
+        entry = _CacheEntry(captured, prop, plan)
         if pkey is not None:
             _PROCESS_CACHE[pkey] = entry
         return entry
@@ -593,22 +741,31 @@ def spmd_partition(fn, mesh: Mesh, compile_plans: bool = True, optimize: bool = 
         if not all(isinstance(a, torch.Tensor) for a in flat):
             raise TypeError("spmd_partition: every argument leaf must be a tensor")
         flat = [a.to(dev) for a in flat]
-        args = in_spec.unflatten(flat)
-        key = (mesh.structural_key(), tuple(_aval_key(a) for a in flat), str(in_spec))
+        key = (mkey, tuple(_aval_key(a) for a in flat), str(in_spec))
         entry = cache.get(key)
         if entry is None:
             stats.record_miss()
-            entry = _build(flat, args)
+            entry = _build(flat, in_spec.unflatten(flat))
             cache[key] = entry
         else:
             stats.record_hit()
-        captured, prop = entry.captured, entry.prop
-        local = [mr.shard(a, prop.get(v) or replicated(mesh, a.ndim))
-                 for a, v in zip(flat, captured.invars)]
-        part = SpmdPartitioner(prop, mesh)
-        with mr.recording() as log:
-            outs, shs = part.run(captured, *local)
-        runner.fallbacks = list(part.fallbacks)
+        captured, plan = entry.captured, entry.plan
+        if plan is not None:
+            local = [mr.shard(a, s) for a, s in zip(flat, plan.in_shardings)]
+            with mr.recording() as log:
+                outs = plan.execute(*local)
+            shs = plan.out_shardings
+            fallbacks, gathered = plan.fallbacks, plan.fallback_gathers
+        else:
+            prop = entry.prop
+            local = [mr.shard(a, prop.get(v) or replicated(mesh, a.ndim))
+                     for a, v in zip(flat, captured.invars)]
+            part = SpmdPartitioner(prop, mesh)
+            with mr.recording() as log:
+                outs, shs = part.run(captured, *local)
+            fallbacks, gathered = part.fallbacks, part.fallback_gathers
+        runner.fallbacks = list(fallbacks)
+        runner.fallback_gathers = list(gathered)
         runner.collectives = dict(log)
         return captured.unflatten([mr.unshard(o, s) if s is not None else o
                                    for o, s in zip(outs, shs)])
@@ -616,5 +773,6 @@ def spmd_partition(fn, mesh: Mesh, compile_plans: bool = True, optimize: bool = 
     runner.cache_stats = stats
     runner.plans = cache
     runner.fallbacks = []
+    runner.fallback_gathers = []
     runner.collectives = {}
     return runner

@@ -1,0 +1,914 @@
+"""Compiled partition plans: plan once, execute many (paper §4).
+
+A port of the JAX package's ``core/plan.py`` over captured aten graphs.  The
+dynamic path (``partitioner.py::SpmdPartitioner``) re-decides every op on
+every call: it classifies the op, merges shardings, plans each reshard and
+each einsum's grouping.  Those decisions depend only on the graph, the mesh
+and the completed shardings, never on data, so :class:`PlanBuilder` makes
+them once and lowers the graph into a :class:`PartitionPlan`: a flat list of
+:class:`PlanStep`s over pre-resolved decisions —
+
+* the op's local computation (the functions ``partitioner.py`` shares with
+  the dynamic path: einsum, elementwise, reductions, convolutions with
+  halos, the flash-attention operator, the fallback);
+* operand reshard **programs** (``collective_planner.plan_reshard``), emitted
+  as first-class ``reshard`` steps;
+* the ReduceScatter-vs-AllReduce choice for partial sums
+  (``einsum_rules.compile_einsum``), with trailing AllReduces emitted as
+  first-class ``collective`` steps;
+* the output epilogue: outputs whose completed sharding differs from the
+  one the body leaves them in get a reshard step that writes a
+  :class:`ProxyVar`, and ``out_keys`` names what execution returns.
+
+Every step declares its dataflow (``reads`` / ``writes`` env keys) and its
+runner reads operands through those tuples, as the reference's do, so the
+whole-program optimizer (``plan_opt``, ROADMAP A9) can rewire them.
+Executing a plan is a straight walk of the step list over the simulated
+mesh's stacked shards, with a dict environment: no capture, no propagation,
+no per-op classification, no reshard search.
+
+Cost-only lowering (:func:`lower_plan`, :func:`lower_for_cost`) runs the
+same propagation and lowering on a graph captured from fake tensors, with
+every step's runner a raising stub, and returns the plan or its
+:class:`PlanCost`: modeled collective wire bytes and launches, per-device
+FLOPs against the ideal balance point (``analysis/graph_cost.py``), and a
+per-device live-memory peak from a liveness walk.  No device is touched, so
+a full-size program can be priced on a mesh far larger than the card.
+
+Not in this slice: the whole-program optimizer and the verifier (A9:
+``optimize=True`` and ``verify=True`` raise), call steps for scan bodies
+(A9, with the scan node), the guard epilogue (A9) and state-reshard plans
+(A14).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.fx
+
+from ..analysis.graph_cost import count_flops, flash_flops
+from ..analysis.roofline import RooflineParams, collective_wire_bytes, overlap_time_s
+from . import mesh_runtime as mr
+from .annotate import ANNOTATE_OP, decode
+from .collective_planner import (PlanError, ReshardProgram, _candidate_gather_all,
+                                 _candidate_legacy, execute_program, plan_reshard,
+                                 search_telemetry, simulate)
+from .einsum_rules import compile_einsum, execute_einsum
+from .partitioner import (COLLECTIVE, REDUCE_OP, align, broadcast_local, broadcast_sharding,
+                          conv_bias, conv_feature_local, conv_halo_local, conv_target,
+                          dot_spec, elementwise_local, elementwise_targets,
+                          fallback_global, fallback_keep_sharding, fallback_local,
+                          flash_local, flash_targets, gathers, group_size, local_reduce,
+                          local_reshape_ok, reduce_decision, transpose_sharding)
+from .propagation import PropagationResult, propagate
+from .reshard import shard_shape
+from .rules import (BROADCAST, DOT, ELEMENTWISE, FACTORY, FLASH, REDUCE, RESHAPE, TRANSPOSE,
+                    _bcast_map, _invert, _project, aval, lower)
+from .sharding import Mesh, Sharding, replicated
+
+Env = Dict[object, object]
+
+
+def _refuse(what: str, item: str, module: str):
+    raise NotImplementedError(
+        f"{what} needs {module}, which is not ported yet (ROADMAP {item}); pass "
+        f"{what.split('=')[0]}=False")
+
+
+# ---------------------------------------------------------------------------------
+# env keys and structured steps
+# ---------------------------------------------------------------------------------
+
+
+class ProxyVar:
+    """A plan-local SSA value key (a resharded operand, a pre-psum partial).
+
+    Graph nodes name the values of the source program; the plan needs names
+    for the intermediate values the partitioner itself introduces.
+    """
+
+    __slots__ = ("note",)
+
+    def __init__(self, note: str = ""):
+        self.note = note
+
+    def __repr__(self):  # pragma: no cover - debugging aid
+        return f"<proxy:{self.note}>"
+
+
+@dataclasses.dataclass
+class PlanStep:
+    """One resolved execution step with explicit dataflow.
+
+    ``run(env, reads, writes)`` reads its operands positionally from
+    ``reads`` and writes its results to ``writes``.
+
+    Kinds:
+      * ``compute``    — a local op on stacked shards (einsum, elementwise,
+                         reduce, the flash-attention kernel, …);
+      * ``reshard``    — replay of one :class:`ReshardProgram`;
+      * ``collective`` — a standalone trailing collective (psum/pmax/pmin)
+                         split out of its producing op.
+    """
+
+    kind: str
+    reads: Tuple[object, ...]
+    writes: Tuple[object, ...]
+    run: Callable[[Env, Tuple, Tuple], None]
+    op: str = ""  # the aten op / collective kind
+    program: Optional[ReshardProgram] = None  # reshard steps only
+    axes: Tuple[str, ...] = ()  # collective steps only
+    reduce_op: str = ""  # "add" | "max" | "min"
+    lshape: Tuple[int, ...] = ()  # local shape of reads[0] on entry
+    dbytes: int = 0
+    dtype: str = ""
+    # -- cost-model annotations (lower_for_cost / PlanCost) ---------------------
+    flops: float = 0.0  # per-device local FLOPs of this step
+    wbytes: Tuple[float, ...] = ()  # local bytes of each write (memory model)
+
+    @property
+    def in_bytes(self) -> float:
+        return _nbytes_of(self.lshape, self.dbytes)
+
+
+def _nbytes_of(shape: Tuple[int, ...], dbytes: int) -> float:
+    return float(dbytes) * float(np.prod(shape)) if shape else float(dbytes)
+
+
+def _alias_run(env, reads, writes):
+    env[writes[0]] = env[reads[0]]
+
+
+def _compute_run(fn):
+    def run(env, reads, writes, fn=fn):
+        env[writes[0]] = fn(*[env[k] for k in reads])
+
+    return run
+
+
+def _reshard_run(prog: ReshardProgram):
+    def run(env, reads, writes, prog=prog):
+        env[writes[0]] = execute_program(env[reads[0]], prog)
+
+    return run
+
+
+def _collective_run(mesh: Mesh, axes: Tuple[str, ...], reduce_op: str):
+    fn = COLLECTIVE[reduce_op]
+
+    def run(env, reads, writes, fn=fn, axes=axes):
+        env[writes[0]] = fn(env[reads[0]], mesh, axes)
+
+    return run
+
+
+def _cost_only_run(env, reads, writes):  # pragma: no cover - guard rail
+    raise RuntimeError("cost-only plan executed: this plan was lowered by lower_plan / "
+                       "lower_for_cost and carries no runnables")
+
+
+# ---------------------------------------------------------------------------------
+# stats
+# ---------------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class PlanStats:
+    """Planned-collective accounting for one compiled plan."""
+
+    collectives: Dict[str, int] = dataclasses.field(default_factory=dict)
+    reshard_bytes: float = 0.0  # modeled wire bytes of planned reshards
+    # the same operand and output reshards priced under the AllGather-first
+    # (replicate, then re-slice) and the pre-planner greedy schedules
+    baseline_bytes: float = 0.0
+    legacy_bytes: float = 0.0
+    eqns: int = 0
+    steps: int = 0
+    # lattice-search telemetry delta accumulated while this plan compiled
+    lattice: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    def count(self, kind: str, n: int = 1) -> None:
+        self.collectives[kind] = self.collectives.get(kind, 0) + n
+
+    def add_program(self, prog: Optional[ReshardProgram]) -> None:
+        if prog is None or prog.is_identity:
+            return
+        for s in prog.steps:
+            self.count(s.op.replace("_", "-"))
+        self.reshard_bytes += prog.cost_bytes
+
+    def as_dict(self) -> Dict:
+        return {
+            "collectives": dict(self.collectives),
+            "reshard_bytes": self.reshard_bytes,
+            "baseline_bytes": self.baseline_bytes,
+            "legacy_bytes": self.legacy_bytes,
+            "eqns": self.eqns,
+            "steps": self.steps,
+            "lattice": dict(self.lattice),
+        }
+
+
+# ---------------------------------------------------------------------------------
+# the compiled plan
+# ---------------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class PartitionPlan:
+    """A fully resolved partitioning of one captured graph over one mesh.
+
+    ``out_keys`` holds one env key per graph output: the output node when
+    the body already leaves it in the completed output sharding, the
+    :class:`ProxyVar` the epilogue reshard step writes otherwise, or the
+    output itself when it is not a tensor node.  ``fallbacks`` names the ops
+    that took the fallback, and ``fallback_gathers`` those of them that
+    gathered a sharded dim, in graph order.
+    """
+
+    graph: torch.fx.Graph
+    mesh: Mesh
+    steps: List[PlanStep]
+    invars: List[torch.fx.Node]
+    in_shardings: List[Sharding]
+    out_shardings: List[Optional[Sharding]]
+    out_keys: List[object]
+    stats: PlanStats
+    consts: Dict[torch.fx.Node, torch.Tensor]  # stacked (replicated) constants
+    const_bytes: float = 0.0  # their bytes on each device
+    fallbacks: List[str] = dataclasses.field(default_factory=list)
+    fallback_gathers: List[str] = dataclasses.field(default_factory=list)
+    peak_bytes: float = 0.0  # modeled per-device live-memory peak
+    params: Optional[RooflineParams] = None
+    # per step, the env keys no later step reads and no output names: run
+    # eagerly, a value lives until its key leaves the env
+    dead: List[Tuple[object, ...]] = dataclasses.field(init=False)
+
+    def __post_init__(self):
+        self.dead = _dead_after(self.steps, self.out_keys)
+
+    def execute(self, *args):
+        """Run the plan on the stacked local shards of its inputs; returns the
+        outputs' stacked shards (under ``out_shardings``).  Each value is
+        dropped after its last reader, as ``plan_peak_bytes`` models."""
+        env: Env = dict(self.consts)
+        env.update(zip(self.invars, args))
+        for step, dead in zip(self.steps, self.dead):
+            step.run(env, step.reads, step.writes)
+            for k in dead:
+                del env[k]
+        return [env[k] if isinstance(k, (torch.fx.Node, ProxyVar)) else k
+                for k in self.out_keys]
+
+    def total_flops(self) -> float:
+        """Modeled per-device FLOPs of one plan execution."""
+        return sum(s.flops for s in self.steps)
+
+
+def _dead_after(steps: List[PlanStep], out_keys) -> List[Tuple[object, ...]]:
+    """For each step, the keys whose last use (read or write) it is, outputs
+    excepted: what ``PartitionPlan.execute`` drops once the step has run."""
+    last: Dict[object, int] = {}
+    for i, step in enumerate(steps):
+        for k in (*step.reads, *step.writes):
+            last[k] = i
+    for k in out_keys:
+        if isinstance(k, (torch.fx.Node, ProxyVar)):
+            last.pop(k, None)
+    dead: List[List[object]] = [[] for _ in steps]
+    for k, i in last.items():
+        dead[i].append(k)
+    return [tuple(d) for d in dead]
+
+
+# ---------------------------------------------------------------------------------
+# PlanBuilder: abstract interpretation over shardings, emitting steps
+# ---------------------------------------------------------------------------------
+
+
+class PlanBuilder:
+    """Walks a captured graph once, under its completed shardings, and emits
+    resolved steps.
+
+    Mirrors ``SpmdPartitioner``'s per-op semantics through the decision and
+    local-compute functions it shares with it: every decision the dynamic
+    path makes on each call (merge targets, reshard sequences,
+    psum-vs-scatter, fallback gathers) is made here once, from shardings and
+    static shapes alone.
+    """
+
+    def __init__(self, captured, prop: PropagationResult, mesh: Mesh,
+                 cost_only: bool = False):
+        self.captured = captured
+        self.prop = prop
+        self.mesh = mesh
+        self.cost_only = cost_only
+        self.sh: Dict[object, object] = {}
+        self.steps: List[PlanStep] = []
+        self.stats = PlanStats()
+        self.fallbacks: List[str] = []
+        self.fallback_gathers: List[str] = []
+
+    # -- sharding/shape bookkeeping ---------------------------------------------
+    def _lshape(self, v) -> Tuple[int, ...]:
+        return shard_shape(aval(v).shape, self.sh[v])
+
+    @staticmethod
+    def _dbytes(v) -> int:
+        return aval(v).dtype.itemsize
+
+    @staticmethod
+    def _dtype(v) -> str:
+        return str(aval(v).dtype)
+
+    def _account(self, prog: ReshardProgram, lshape, dbytes) -> None:
+        self.stats.add_program(prog)
+        # the same move under both reference schedules: the AllGather-first
+        # expression and the pre-planner greedy one
+        for attr, gen in (("baseline_bytes", _candidate_gather_all),
+                          ("legacy_bytes", _candidate_legacy)):
+            cost = prog.cost_bytes  # candidate inexpressible: no claimed saving
+            try:
+                steps = gen(prog.src, prog.dst, lshape)
+                if steps is not None:
+                    cost = simulate(prog.src, prog.dst, steps, lshape, dbytes)
+            except PlanError:
+                pass
+            setattr(self.stats, attr, getattr(self.stats, attr) + cost)
+
+    # -- step emission helpers ---------------------------------------------------
+    def emit(self, step: PlanStep) -> None:
+        if self.cost_only:
+            step.run = _cost_only_run
+        if not step.wbytes:
+            # memory model: local bytes of each written node; a proxy without
+            # an explicit hint from its handler is priced as the step's input
+            wb = []
+            for w in step.writes:
+                a = aval(w) if isinstance(w, torch.fx.Node) else None
+                if a is not None and isinstance(self.sh.get(w), Sharding):
+                    wb.append(_nbytes_of(shard_shape(a.shape, self.sh[w]), a.dtype.itemsize))
+                else:
+                    wb.append(step.in_bytes)
+            step.wbytes = tuple(wb)
+        self.steps.append(step)
+
+    def emit_reshard(self, src_key, out_key, prog: ReshardProgram,
+                     lshape: Tuple[int, ...], dbytes: int, dtype: str) -> None:
+        # local size after the program: gathers grow the shard, slices shrink it
+        factor = 1.0
+        for s in prog.steps:
+            n = self.mesh.axis_size(s.axis)
+            if s.op == "all_gather":
+                factor *= n
+            elif s.op == "dynamic_slice":
+                factor /= n
+        self.emit(PlanStep(
+            "reshard", (src_key,), (out_key,), _reshard_run(prog),
+            op="reshard", program=prog, lshape=lshape, dbytes=dbytes, dtype=dtype,
+            wbytes=(_nbytes_of(lshape, dbytes) * factor,),
+        ))
+
+    def emit_collective(self, src_key, out_key, axes: Tuple[str, ...], reduce_op: str,
+                        lshape: Tuple[int, ...], dbytes: int, dtype: str) -> None:
+        self.emit(PlanStep(
+            "collective", (src_key,), (out_key,), _collective_run(self.mesh, axes, reduce_op),
+            op="all-reduce", axes=axes, reduce_op=reduce_op,
+            lshape=lshape, dbytes=dbytes, dtype=dtype, wbytes=(_nbytes_of(lshape, dbytes),),
+        ))
+
+    def emit_compute(self, reads, write, fn, op: str, flops: float = 0.0, wbytes=()):
+        self.emit(PlanStep("compute", tuple(reads), (write,), _compute_run(fn), op=op,
+                           flops=flops, wbytes=tuple(wbytes)))
+
+    def reshard_operand(self, v, tgt: Sharding):
+        """Reshard node ``v`` to ``tgt`` by a reshard step; returns the env key
+        that holds the result (``v`` itself when it already is in ``tgt``)."""
+        cur = self.sh[v]
+        if cur.dims_mapping == tgt.dims_mapping:
+            return v
+        lshape, dbytes = self._lshape(v), self._dbytes(v)
+        prog = plan_reshard(cur, tgt, lshape, dbytes)
+        self._account(prog, lshape, dbytes)
+        proxy = ProxyVar(f"reshard:{cur}->{tgt}")
+        self.emit_reshard(v, proxy, prog, lshape, dbytes, self._dtype(v))
+        return proxy
+
+    def _emit_program(self, src_key, out_key, prog: Optional[ReshardProgram],
+                      lshape, dbytes, dtype):
+        """Emit a pre-planned (already accounted) program as a reshard step."""
+        if prog is None or prog.is_identity:
+            return src_key
+        self.emit_reshard(src_key, out_key, prog, lshape, dbytes, dtype)
+        return out_key
+
+    # -- the walk -----------------------------------------------------------------
+    def build(self) -> PartitionPlan:
+        invars, consts, const_bytes = [], {}, 0.0
+        for node in self.captured.graph.nodes:
+            if node.op == "placeholder":
+                a = aval(node)
+                self.sh[node] = self.prop.get(node) or replicated(self.mesh, a.ndim)
+                invars.append(node)
+            elif node.op == "get_attr":
+                c = self.captured.constant(node)
+                self.sh[node] = replicated(self.mesh, c.ndim)
+                const_bytes += float(c.numel() * c.element_size())
+                if not self.cost_only:
+                    consts[node] = mr.replicate(c, self.mesh)
+            elif node.op == "call_function":
+                self.stats.eqns += 1
+                self.eqn(lower(node))
+        out_shardings: List[Optional[Sharding]] = []
+        out_keys: List[object] = []
+        for v in self.captured.outvars:
+            if not isinstance(v, torch.fx.Node):
+                out_keys.append(v)
+                out_shardings.append(None)
+                continue
+            cur = self.sh[v]
+            want = self.prop.get(v) or replicated(self.mesh, cur.rank)
+            key: object = v
+            if cur.dims_mapping != want.dims_mapping:
+                lshape, dbytes = self._lshape(v), self._dbytes(v)
+                prog = plan_reshard(cur, want, lshape, dbytes)
+                self._account(prog, lshape, dbytes)
+                key = ProxyVar(f"out:{cur}->{want}")
+                self.emit_reshard(v, key, prog, lshape, dbytes, self._dtype(v))
+            out_keys.append(key)
+            out_shardings.append(want)
+        self.stats.steps = len(self.steps)
+        plan = PartitionPlan(
+            self.captured.graph, self.mesh, self.steps, invars,
+            [self.sh[v] for v in invars], out_shardings, out_keys, self.stats, consts,
+            const_bytes, self.fallbacks, self.fallback_gathers)
+        plan.peak_bytes = plan_peak_bytes(plan)
+        return plan
+
+    # -- per-op lowering ------------------------------------------------------------
+    def eqn(self, eqn) -> None:
+        name, node = eqn.name, eqn.node
+        if node.target is ANNOTATE_OP:
+            self._annotate(eqn)
+        elif name == "getitem":
+            src, i = node.args
+            self.sh[node] = self.sh[src][i]
+            self.emit_compute((src,), node, lambda t, i=i: t[i], "getitem")
+        elif name in DOT:
+            self.sh[node] = self._dot(eqn, node)
+        elif name == "aten.addmm":
+            self._addmm(eqn)
+        elif name in ELEMENTWISE and eqn.out_avals:
+            self._elementwise(eqn)
+        elif name in REDUCE:
+            self._reduce(eqn)
+        elif name in TRANSPOSE:
+            self._transpose(eqn)
+        elif name in BROADCAST:
+            self._broadcast(eqn)
+        elif name in RESHAPE:
+            self._reshape(eqn)
+        elif name == "aten.convolution":
+            self._conv(eqn)
+        elif name == FLASH:
+            self._flash(eqn)
+        elif name in FACTORY:
+            self._factory(eqn)
+        else:
+            self._fallback(eqn)
+
+    def _local_elems(self, node) -> float:
+        return float(np.prod(self._lshape(node) or (1,)))
+
+    def _annotate(self, eqn) -> None:
+        node = eqn.node
+        iv = node.args[0]
+        tgt, _ = decode(*node.args[1:])
+        cur = self.sh[iv]
+        self.sh[node] = tgt
+        if cur.dims_mapping == tgt.dims_mapping:
+            self.emit(PlanStep("compute", (iv,), (node,), _alias_run, op="annotate"))
+            return
+        lshape, dbytes = self._lshape(iv), self._dbytes(iv)
+        prog = plan_reshard(cur, tgt, lshape, dbytes)
+        self._account(prog, lshape, dbytes)
+        self.emit_reshard(iv, node, prog, lshape, dbytes, self._dtype(iv))
+
+    def _dot(self, eqn, out_key) -> Sharding:
+        """The product's steps (operand reshards, the local einsum with any
+        ReduceScatter, a trailing AllReduce, the output reshard), writing
+        ``out_key``; returns its sharding."""
+        (lc, _), _ = eqn.params["dimension_numbers"]
+        lv, rv = eqn.invars[-2], eqn.invars[-1]
+        eplan = compile_einsum(dot_spec(eqn), self.sh[lv], self.sh[rv],
+                               self.prop.get(eqn.node), self._lshape(lv), self._lshape(rv),
+                               self._dbytes(lv))
+        for prog in (eplan.lhs_program, eplan.rhs_program, eplan.out_program):
+            self.stats.add_program(prog)
+        for _ in eplan.scatter:
+            self.stats.count("reduce-scatter")
+        for _ in eplan.reduce_axes:
+            self.stats.count("all-reduce")
+        out = eqn.out_avals[0]
+        odt, odb = str(out.dtype), out.dtype.itemsize
+        lk = self._emit_program(lv, ProxyVar("dot.lhs"), eplan.lhs_program,
+                                self._lshape(lv), self._dbytes(lv), self._dtype(lv))
+        rk = self._emit_program(rv, ProxyVar("dot.rhs"), eplan.rhs_program,
+                                self._lshape(rv), self._dbytes(rv), self._dtype(rv))
+        # local shape of the partial result at the psum point (post-scatter)
+        pre_out = eplan.out_program.src if eplan.out_program is not None else eplan.final_sharding
+        zshape = shard_shape(out.shape, pre_out)
+        # per-device local FLOPs: 2 · |local output| · |local contraction|
+        k_local = 1.0
+        for ci in lc:
+            k_local *= eqn.in_avals[-2].shape[ci] / max(eplan.lhs_local.num_shards(ci), 1)
+        exec_plan = dataclasses.replace(eplan, lhs_program=None, rhs_program=None,
+                                        reduce_axes=(), out_program=None)
+        tail = bool(eplan.reduce_axes) or eplan.out_program is not None
+        mid = ProxyVar("dot.z") if tail else out_key
+        self.emit_compute((lk, rk), mid,
+                          lambda x, y, p=exec_plan, t=out.dtype: execute_einsum(p, x, y, t)[0],
+                          eqn.name, flops=2.0 * float(np.prod(zshape or (1,))) * k_local,
+                          wbytes=(_nbytes_of(zshape, odb),))
+        cur = mid
+        if eplan.reduce_axes:
+            nxt = out_key if eplan.out_program is None else ProxyVar("dot.psum")
+            self.emit_collective(cur, nxt, tuple(eplan.reduce_axes), "add", zshape, odb, odt)
+            cur = nxt
+        if eplan.out_program is not None:
+            self.emit_reshard(cur, out_key, eplan.out_program, zshape, odb, odt)
+        return eplan.final_sharding
+
+    def _addmm(self, eqn) -> None:
+        node, z = eqn.node, ProxyVar("addmm.z")
+        zsh = self._dot(eqn, z)
+        bv = eqn.invars[0]
+        bs, out_rank = self.sh[bv], eqn.out_avals[0].ndim
+        bmap = _bcast_map(eqn.in_avals[0].shape, eqn.out_avals[0].shape)
+        bk = self.reshard_operand(bv, _project(zsh, _invert(bmap, bs.rank), bs.rank))
+        beta, alpha = eqn.params["beta"], eqn.params["alpha"]
+
+        def run(b, z, r=bs.rank):
+            b = align(b, r, out_rank)
+            return (b if beta == 1 else beta * b) + (z if alpha == 1 else alpha * z)
+
+        self.sh[node] = zsh
+        self.emit_compute((bk, z), node, run, eqn.name, flops=self._local_elems(node))
+
+    def _elementwise(self, eqn) -> None:
+        tgt, targets = elementwise_targets(eqn, [self.sh[v] for v in eqn.invars], self.mesh)
+        keys = [self.reshard_operand(v, t) for v, t in zip(eqn.invars, targets)]
+        self.sh[eqn.node] = tgt
+        self.emit_compute(keys, eqn.node, elementwise_local(eqn), eqn.name,
+                          flops=self._local_elems(eqn.node))
+
+    def _reduce(self, eqn) -> None:
+        node, iv, name = eqn.node, eqn.invars[0], eqn.name
+        sh = self.sh[iv]
+        psum_axes, gather_first, osh = reduce_decision(eqn, sh, self.mesh)
+        key = iv
+        if gather_first:  # prod/any/all: gather the reduced axes first
+            key = self.reshard_operand(iv, replicated(self.mesh, sh.rank))
+            sh = replicated(self.mesh, sh.rank)
+        elif psum_axes:
+            self.stats.count("all-reduce", len(psum_axes))
+        self.sh[node] = osh
+        out = eqn.out_avals[0]
+        olshape, odb, odt = shard_shape(out.shape, osh), out.dtype.itemsize, str(out.dtype)
+        axes, keepdim = eqn.params["axes"], eqn.params["keepdim"]
+        mean = name == "aten.mean" and bool(psum_axes)
+        mid = ProxyVar("reduce.local") if psum_axes else node
+        self.emit_compute(
+            (key,), mid, lambda x: local_reduce(name, x, axes, keepdim, out.dtype), name,
+            flops=float(np.prod(shard_shape(eqn.in_avals[0].shape, sh) or (1,))),
+            wbytes=(_nbytes_of(olshape, odb),))
+        if psum_axes:
+            nxt = ProxyVar("reduce.psum") if mean else node
+            self.emit_collective(mid, nxt, psum_axes, REDUCE_OP[name], olshape, odb, odt)
+            if mean:  # the mean of local means: the psum over the group size
+                n = group_size(self.mesh, psum_axes)
+                self.emit_compute((nxt,), node, lambda x: x / n, "mean-divide",
+                                  flops=float(np.prod(olshape or (1,))))
+
+    def _transpose(self, eqn) -> None:
+        iv, perm = eqn.invars[0], eqn.params["permutation"]
+        self.sh[eqn.node] = transpose_sharding(eqn, self.sh[iv], self.mesh)
+        order = (0,) + tuple(p + 1 for p in perm)
+        self.emit_compute((iv,), eqn.node, lambda x: x.permute(order), eqn.name)
+
+    def _broadcast(self, eqn) -> None:
+        iv = eqn.invars[0]
+        osh = broadcast_sharding(eqn, self.sh[iv], self.mesh)
+        self.sh[eqn.node] = osh
+        bcast = eqn.params["broadcast_dimensions"]
+        local_shape = shard_shape(tuple(eqn.params["shape"]), osh)
+        self.emit_compute((iv,), eqn.node, lambda x: broadcast_local(x, bcast, local_shape),
+                          eqn.name)
+
+    def _reshape(self, eqn) -> None:
+        node, iv = eqn.node, eqn.invars[0]
+        sh, want = self.sh[iv], self.prop.get(node)
+        gshape = tuple(eqn.out_avals[0].shape)
+        if want is not None and local_reshape_ok(eqn.in_avals[0].shape, gshape, sh, want):
+            local = shard_shape(gshape, want)
+            self.sh[node] = want
+            self.emit_compute((iv,), node, lambda x: x.reshape((x.shape[0],) + local), eqn.name)
+            return
+        # gather, reshape globally, re-slice
+        key = self.reshard_operand(iv, replicated(self.mesh, sh.rank))
+        osh = want or replicated(self.mesh, len(gshape))
+        slice_prog = None
+        if not osh.is_fully_replicated():
+            slice_prog = plan_reshard(replicated(self.mesh, len(gshape)), osh, gshape,
+                                      self._dbytes(iv))
+            self.stats.add_program(slice_prog)
+        self.sh[node] = osh
+        mid = ProxyVar("reshape.global") if slice_prog is not None else node
+        self.emit_compute((key,), mid, lambda x: x.reshape((x.shape[0],) + gshape), eqn.name,
+                          wbytes=(_nbytes_of(gshape, self._dbytes(iv)),))
+        if slice_prog is not None:
+            self.emit_reshard(mid, node, slice_prog, gshape, self._dbytes(iv), self._dtype(iv))
+
+    def _conv(self, eqn) -> None:
+        node, p = eqn.node, eqn.params
+        lv, rv = eqn.invars
+        tgt = conv_target(eqn, self.sh[lv], self.mesh)
+        if tgt is None:
+            self._fallback(eqn)
+            return
+        rk = self.reshard_operand(rv, replicated(self.mesh, self.sh[rv].rank))
+        lk = self.reshard_operand(lv, tgt)
+        strides, padding, mesh = p["window_strides"], p["padding"], self.mesh
+        out = eqn.out_avals[0]
+        rsh = eqn.in_avals[1].shape
+        k_per_out = float(np.prod(rsh)) / max(rsh[0], 1)
+        after = ProxyVar("conv.out") if p["has_bias"] else node
+        if tgt.dims_mapping[1]:
+            # feature-dim sharded: contract locally then psum (Megatron-style)
+            ax = tgt.dims_mapping[1]
+            osh = Sharding(mesh, (tgt.dims_mapping[0], ()) + ((),) * (tgt.rank - 2))
+            out_local = shard_shape(out.shape, osh)
+            self.stats.count("all-reduce", len(ax))
+            mid = ProxyVar("conv.partial")
+            self.emit_compute(
+                (lk, rk), mid, lambda x, w: conv_feature_local(x, w, mesh, ax, strides, padding),
+                "conv", flops=2.0 * float(np.prod(out_local)) * k_per_out / group_size(mesh, ax),
+                wbytes=(_nbytes_of(out_local, out.dtype.itemsize),))
+            self.emit_collective(mid, after, ax, "add", out_local, out.dtype.itemsize,
+                                 str(out.dtype))
+        else:
+            osh = tgt
+            out_local = shard_shape(out.shape, osh)
+            self.emit_compute(
+                (lk, rk), after, lambda x, w: conv_halo_local(x, w, mesh, tgt, strides, padding),
+                "conv", flops=2.0 * float(np.prod(out_local)) * k_per_out,
+                wbytes=(_nbytes_of(out_local, out.dtype.itemsize),))
+        self.sh[node] = osh
+        if p["has_bias"]:
+            bk = self.reshard_operand(node.args[2], replicated(mesh, 1))
+            self.emit_compute((after, bk), node, conv_bias, "conv-bias",
+                              flops=float(np.prod(out_local)))
+
+    def _flash(self, eqn) -> None:
+        node = eqn.node
+        targets, osh = flash_targets(eqn, [self.sh[v] for v in eqn.invars],
+                                     self.prop.get(node), self.mesh)
+        keys = [self.reshard_operand(v, t) for v, t in zip(eqn.invars, targets)]
+        self.sh[node] = osh
+        B, S, KR, Gl, D = shard_shape(eqn.in_avals[0].shape, targets[0])
+        params = eqn.params
+        self.emit_compute(keys, node, lambda q, k, v: flash_local(q, k, v, params), eqn.name,
+                          flops=flash_flops(B, S, KR * Gl, eqn.in_avals[1].shape[1], D,
+                                            params["causal"]))
+
+    def _factory(self, eqn) -> None:
+        node, mesh = eqn.node, self.mesh
+        self.sh[node] = replicated(mesh, eqn.out_avals[0].ndim)
+        self.emit_compute((), node, lambda: mr.replicate(
+            node.target(*node.args, **node.kwargs), mesh), eqn.name)
+
+    def _fallback(self, eqn) -> None:
+        """Gather → op → reshard (§4.5), gathering only the dims the op
+        modifies where the op's touched dims are known."""
+        node, mesh = eqn.node, self.mesh
+        self.fallbacks.append(eqn.name)
+        in_sh = [self.sh[v] for v in eqn.invars]
+        kept = fallback_keep_sharding(eqn, in_sh, mesh)
+        targets = [kept if kept is not None and a.ndim == kept.rank
+                   else replicated(mesh, a.ndim) for a in eqn.in_avals]
+        if any(gathers(s, t) for s, t in zip(in_sh, targets)):
+            self.fallback_gathers.append(eqn.name)
+        keys = [self.reshard_operand(v, t) for v, t in zip(eqn.invars, targets)]
+        out = eqn.out_avals[0] if eqn.out_avals else None
+        if kept is not None:
+            osh = Sharding(mesh, tuple(kept.dims_mapping[d] if d < kept.rank else ()
+                                       for d in range(out.ndim)))
+            fn = fallback_local(eqn)
+        else:
+            osh = replicated(mesh, out.ndim) if out is not None else None
+            fn = fallback_global(eqn, mesh)
+        if out is None:  # a tuple (read back by getitem nodes) or a non-tensor
+            val = node.meta.get("val")
+            self.sh[node] = ([replicated(mesh, o.ndim) if isinstance(o, torch.Tensor) else None
+                              for o in val] if isinstance(val, (list, tuple)) else None)
+            self.emit_compute(keys, node, fn, eqn.name)
+            return
+        want = self.prop.get(node) or osh
+        self.sh[node] = want
+        mid = node if osh.dims_mapping == want.dims_mapping else ProxyVar("fallback.out")
+        lshape, db = shard_shape(out.shape, osh), out.dtype.itemsize
+        self.emit_compute(keys, mid, fn, eqn.name, flops=float(np.prod(lshape or (1,))),
+                          wbytes=(_nbytes_of(lshape, db),))
+        if mid is not node:
+            prog = plan_reshard(osh, want, lshape, db)
+            self.stats.add_program(prog)
+            self.emit_reshard(mid, node, prog, lshape, db, str(out.dtype))
+
+
+# ---------------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------------
+
+
+def compile_plan(captured, prop: PropagationResult, mesh: Mesh, optimize: bool = True,
+                 cost_only: bool = False, verify: Optional[bool] = None,
+                 profile: Optional[RooflineParams] = None) -> PartitionPlan:
+    """Lower a captured graph under its completed shardings into a
+    :class:`PartitionPlan`.
+
+    ``optimize=True`` (the reference's default: the whole-program optimizer
+    ``plan_opt``) and ``verify=True`` (the static verifier ``plan_verify``)
+    raise until ROADMAP A9 ports them; ``verify=None`` runs no verifier.
+    ``cost_only=True`` replaces every step's runner with a raising stub: the
+    plan prices but never runs.  ``profile`` attaches the
+    :class:`RooflineParams` that :class:`PlanCost` prices time with.
+    """
+    if optimize:
+        _refuse("optimize=True", "A9", "the whole-program optimizer (core/plan_opt.py)")
+    if verify:
+        _refuse("verify=True", "A9", "the plan verifier (core/plan_verify.py)")
+    t0 = search_telemetry()
+    plan = PlanBuilder(captured, prop, mesh, cost_only=cost_only).build()
+    plan.params = profile
+    t1 = search_telemetry()
+    plan.stats.lattice = {k: t1[k] - t0[k] for k in t1}
+    return plan
+
+
+def plan_peak_bytes(plan: PartitionPlan) -> float:
+    """Modeled per-device live-memory peak of one plan execution.
+
+    Inputs and constants are resident for the whole plan; intermediates are
+    allocated at their producing step (each step's ``wbytes``) and freed
+    after their last reader; outputs stay live to the end.
+    """
+    resident = plan.const_bytes
+    pinned = set()
+    for v, s in zip(plan.invars, plan.in_shardings):
+        a = aval(v)
+        resident += _nbytes_of(shard_shape(a.shape, s), a.dtype.itemsize)
+        pinned.add(id(v))
+    last_read: Dict[int, int] = {}
+    for i, step in enumerate(plan.steps):
+        for k in step.reads:
+            last_read[id(k)] = i
+    for k in plan.out_keys:
+        last_read[id(k)] = len(plan.steps)
+    live = peak = resident
+    alive: Dict[int, float] = {}
+    for i, step in enumerate(plan.steps):
+        for w, b in zip(step.writes, step.wbytes):
+            if id(w) in pinned:
+                continue
+            alive[id(w)] = b
+            live += b
+        peak = max(peak, live)
+        for k in list(alive):
+            if last_read.get(k, -1) <= i:
+                live -= alive.pop(k)
+    return peak
+
+
+def plan_wire_bytes(plan: PartitionPlan) -> float:
+    """Modeled wire bytes of one execution: every reshard step's program and
+    every collective step's AllReduce, priced per axis (as
+    ``einsum_rules.compile_einsum`` prices each psum axis)."""
+    total = 0.0
+    for s in plan.steps:
+        if s.kind == "reshard" and s.program is not None:
+            total += s.program.cost_bytes
+        elif s.kind == "collective":
+            total += sum(collective_wire_bytes("all-reduce", plan.mesh.axis_size(a), s.in_bytes)
+                         for a in s.axes)
+    return total
+
+
+def plan_collective_launches(plan: PartitionPlan) -> int:
+    """Collective launches of one execution: each reshard program step that
+    moves data, and each collective step (one launch over all its axes)."""
+    n = 0
+    for s in plan.steps:
+        if s.kind == "reshard" and s.program is not None:
+            n += sum(1 for ps in s.program.steps if ps.op != "dynamic_slice")
+        elif s.kind == "collective":
+            n += 1
+    return n
+
+
+@dataclasses.dataclass
+class PlanCost:
+    """Whole-program modeled cost of one lowered plan.
+
+    The modeled quantities (wire bytes, launches, per-device and ideal
+    FLOPs, peak bytes, steps) need no machine constant.  The time-valued
+    properties price them with ``params`` (a :class:`RooflineParams`); the
+    port has no default constants, so with no params they raise.
+    :attr:`total_s` is max-of-terms: the roofline overlap time of the
+    compute term (per-device FLOPs / peak) and the collective term (wire
+    bytes / link bandwidth + a launch cost per collective).
+    """
+
+    wire_bytes: float
+    launches: int
+    flops_per_device: float
+    ideal_flops_per_device: float
+    peak_bytes: float
+    steps: int
+    params: Optional[RooflineParams] = None
+
+    def _p(self) -> RooflineParams:
+        if self.params is None:
+            raise ValueError(
+                "PlanCost: no machine profile (RooflineParams) to price time with: the port "
+                "has no default constants; pass profile= to compile_plan / lower_plan / "
+                "lower_for_cost (a fitted MachineProfile is ROADMAP A15)")
+        return self.params
+
+    @property
+    def collective_s(self) -> float:
+        p = self._p()
+        return self.wire_bytes / p.ici_bw + self.launches * p.collective_launch_s
+
+    @property
+    def compute_s(self) -> float:
+        return self.flops_per_device / self._p().peak_flops
+
+    @property
+    def imbalance_s(self) -> float:
+        excess = max(self.flops_per_device - self.ideal_flops_per_device, 0.0)
+        return excess / self._p().peak_flops
+
+    @property
+    def total_s(self) -> float:
+        return overlap_time_s(self.compute_s, self.collective_s, self._p())
+
+    def as_dict(self) -> Dict:
+        d = {"wire_bytes": self.wire_bytes, "launches": self.launches,
+             "flops_per_device": self.flops_per_device,
+             "ideal_flops_per_device": self.ideal_flops_per_device,
+             "peak_bytes": self.peak_bytes, "steps": self.steps}
+        if self.params is not None:
+            d.update(collective_s=self.collective_s, compute_s=self.compute_s,
+                     imbalance_s=self.imbalance_s, total_s=self.total_s)
+        return d
+
+
+def plan_cost(plan: PartitionPlan) -> PlanCost:
+    """Price an already-lowered plan under the roofline cost model."""
+    return PlanCost(
+        wire_bytes=plan_wire_bytes(plan),
+        launches=plan_collective_launches(plan),
+        flops_per_device=plan.total_flops(),
+        ideal_flops_per_device=count_flops(plan.graph) / max(plan.mesh.size, 1),
+        peak_bytes=plan.peak_bytes,
+        steps=len(plan.steps),
+        params=plan.params,
+    )
+
+
+def lower_plan(captured, in_shardings, mesh: Mesh, optimize: bool = True,
+               verify: Optional[bool] = None,
+               profile: Optional[RooflineParams] = None) -> PartitionPlan:
+    """Cost-only lowering that returns the :class:`PartitionPlan` itself
+    (step runners are raising stubs: the plan prices, it does not run).
+
+    ``captured`` is a ``compat.capture`` of the program, typically on fake
+    or meta tensors; ``in_shardings`` is one ``Optional[Sharding]`` per
+    input, ``None`` entries left for propagation to infer.  Raises
+    ``PlanError`` when the program demands a reshard the planner cannot
+    express.
+    """
+    prop = propagate(captured, mesh, in_shardings=list(in_shardings or []))
+    return compile_plan(captured, prop.result(), mesh, optimize=optimize, cost_only=True,
+                        verify=verify, profile=profile)
+
+
+def lower_for_cost(captured, in_shardings, mesh: Mesh, optimize: bool = True,
+                   verify: Optional[bool] = None,
+                   profile: Optional[RooflineParams] = None) -> PlanCost:
+    """:func:`lower_plan`, priced: no execution, no device."""
+    return plan_cost(lower_plan(captured, in_shardings, mesh, optimize=optimize,
+                                verify=verify, profile=profile))

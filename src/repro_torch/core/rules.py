@@ -33,7 +33,11 @@ Where an aten graph differs from a jaxpr:
   take the partitioner's fallback, as the reference's ops without rules do;
   ``alias``/``detach``/``clone`` are elementwise, as the reference's ``copy``;
 * factory ops (``ones``, ``zeros``, ``arange``, ...) are created replicated,
-  like the reference's ``iota``.
+  like the reference's ``iota``;
+* the flash-attention operator (``repro_torch::flash_attention``, which the
+  reference's jaxpr has no counterpart of: its attention is an XLA loop)
+  maps batch and layout kv heads between q (B,S,KR,Gl,D), k/v (B,T,KR,D) and
+  its output; S, T, Gl and D stay replicated.
 """
 from __future__ import annotations
 
@@ -49,6 +53,7 @@ from .sharding import Sharding, merge_shardings
 MaybeS = Optional[Sharding]
 
 ANNOTATE = "repro_torch.annotate"
+FLASH = "repro_torch.flash_attention"
 
 
 # ---------------------------------------------------------------------------------
@@ -237,6 +242,12 @@ def _pad_params(node, ins, out):
     r = out.ndim
     mod = tuple(sorted({r - 1 - i // 2 for i, p in enumerate(pad) if p}))
     return {"modified_dims": mod}
+
+
+def _flash_params(node, ins, out):
+    kw = kwargs_of(node)
+    return {"causal": bool(kw["causal"]), "q_offset": int(kw["q_offset"]),
+            "kv_len": kw["kv_len"], "chunk": int(kw["chunk"])}
 
 
 def _flip_params(node, ins, out):
@@ -567,6 +578,30 @@ def rule_conv(eqn, in_sh, out_sh, direction):
 
 
 # ---------------------------------------------------------------------------------
+# flash attention: batch and kv heads
+# ---------------------------------------------------------------------------------
+
+
+def flash_heads(s: Sharding) -> Sharding:
+    """The rank-2 (batch, kv heads) sharding of a q, k, v or output sharding:
+    dims 0 and 2 in all four."""
+    return _project(s, [0, 2], 2)
+
+
+def flash_layout(bh: Sharding, rank: int) -> Sharding:
+    """A (batch, kv heads) sharding placed on a rank-5 q/output or a rank-4
+    k/v, every other dim replicated."""
+    return _project(bh, [0, None, 1] + [None] * (rank - 3), rank)
+
+
+def rule_flash_attention(eqn, in_sh, out_sh, direction):
+    m = _merge_many([flash_heads(s) for s in list(in_sh) + list(out_sh) if s is not None])
+    if m is None:
+        return in_sh, out_sh
+    return [flash_layout(m, a.ndim) for a in eqn.in_avals], [flash_layout(m, 5)]
+
+
+# ---------------------------------------------------------------------------------
 # registry + priorities
 # ---------------------------------------------------------------------------------
 
@@ -598,6 +633,7 @@ _PARAMS = {
     "aten.slice": _slice_params,
     "aten.constant_pad_nd": _pad_params,
     "aten.flip": _flip_params,
+    FLASH: _flash_params,
 }
 for _n in REDUCE | ARGMINMAX:
     _PARAMS[_n] = _reduce_params
@@ -630,5 +666,7 @@ RULES["aten.addmm"] = rule_addmm
 PRIORITY["aten.addmm"] = 2
 RULES["aten.convolution"] = rule_conv
 PRIORITY["aten.convolution"] = 2
+RULES[FLASH] = rule_flash_attention
+PRIORITY[FLASH] = 2
 
 MAX_PRIORITY = 3

@@ -10,12 +10,23 @@ differentiates the plain version.
 ``attention`` takes the JAX package's kernel layout (B,H,S,D) with the GQA map
 q-head h -> kv-head h // group; ``attention_model_layout`` takes the model's
 padded layout q (B,S,KR,Gl,D), k/v (B,T,KR,D), as ``chunked_attention`` does.
+
+Attention that needs no gradient is, under graph capture
+(``core/compat.py::capture``), the custom operator
+``repro_torch::flash_attention`` (``flash_attention_op``), which the capture
+keeps as one node and the partitioner shards on batch and kv heads
+(``core/rules.py``, ``core/partitioner.py::flash_local``).  Run eagerly,
+the same call goes to the kernel or the plain version directly
+(``flash_forward``): the operator's dispatch costs host time on every call,
+and serving makes one call per layer per decode step.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor, is_fake
+from torch.fx.experimental.proxy_tensor import get_proxy_mode
 
 from . import flash_attention as fa
 from . import flash_attention_bwd as fab
@@ -33,6 +44,40 @@ def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def _flash_forward(q, k, v, causal, q_offset, kv_len, chunk):
+    if _route(q) == "cuda":
+        return fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    return chunked_attention_ref(
+        q, k, v, causal=causal, chunk=chunk, q_offset=q_offset, kv_len=kv_len
+    )
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                       q_offset: int, kv_len: Optional[int], chunk: int) -> torch.Tensor:
+    """The forward kernel as an operator: q (B,S,KR,Gl,D), k/v (B,T,KR,D) ->
+    (B,S,KR,Gl,D).  A CUDA tensor goes to the kernel, a CPU tensor to the
+    plain version (``chunk`` is its kv chunk).  It has no gradient."""
+    return _flash_forward(q, k, v, causal, q_offset, kv_len, chunk)
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, causal, q_offset, kv_len, chunk):
+    if not is_fake(q):  # an eager call on the meta device: no kernel runs there
+        _route(q)
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+def flash_forward(q, k, v, causal: bool, q_offset: int, kv_len: Optional[int], chunk: int):
+    """The forward with no gradient: the operator while a graph is being
+    captured (fake tensors, or a proxy mode on the stack), else the kernel
+    (CUDA) or the plain version (CPU) called directly."""
+    if isinstance(q, FakeTensor) or get_proxy_mode() is not None:
+        return flash_attention_op(q, k, v, bool(causal), int(q_offset),
+                                  None if kv_len is None else int(kv_len), int(chunk))
+    return _flash_forward(q, k, v, causal, q_offset, kv_len, chunk)
+
+
 def attention_model_layout(
     q, k, v, *, causal: bool = True, chunk: int = 1024, q_offset: int = 0,
     kv_len: Optional[int] = None,
@@ -40,11 +85,11 @@ def attention_model_layout(
     """q (B,S,KR,Gl,D), k/v (B,T,KR,D) -> (B,S,KR,Gl,D).  ``chunk`` is the
     plain version's kv chunk (its online-softmax steps follow the JAX
     package's); the kernel tiles kv itself."""
+    if not _needs_grad(q, k, v):
+        return flash_forward(q, k, v, causal, q_offset, kv_len, chunk)
     if _route(q) == "cuda":
-        if _needs_grad(q, k, v):
-            return fab.flash_attention_train(q, k, v, causal=causal, q_offset=q_offset,
-                                             kv_len=kv_len)
-        return fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
+        return fab.flash_attention_train(q, k, v, causal=causal, q_offset=q_offset,
+                                         kv_len=kv_len)
     return chunked_attention_ref(
         q, k, v, causal=causal, chunk=chunk, q_offset=q_offset, kv_len=kv_len
     )

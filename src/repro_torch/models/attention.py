@@ -9,7 +9,8 @@ The padded layout (§4.1) arrives with the sharded strategies (ROADMAP A6).
 ``chunked_attention`` is where the JAX package runs its XLA online-softmax
 loop.  In the port it dispatches to the hand-written flash-attention kernel
 (``kernels/ops.py``) for CUDA tensors and to the step-for-step plain version
-for CPU tensors.
+for CPU tensors.  With no gradient to take, a graph capture records it as
+the operator ``repro_torch::flash_attention``, which the partitioner shards.
 """
 from __future__ import annotations
 

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from ..configs.base import ModelConfig, Strategy
+from ..configs.base import ModelConfig, Strategy, spec_sharding
 from . import attention as attn
 from .layers import (
     Params,
@@ -20,6 +20,7 @@ from .layers import (
     stack_layers,
     stacked,
     streamed_xent,
+    tree_map_params,
     unembed_logits,
 )
 
@@ -56,6 +57,33 @@ def decoder_layer(cfg: ModelConfig, st: Strategy, lp: Params, x, positions):
     h = rms_norm(x, lp["ln2"])
     y = mlp_forward(cfg, st, lp["mlp"], h)
     return st.constrain(x + y, "batch", "seq", "embed"), torch.zeros((), device=x.device)
+
+
+def partitionable_layer(cfg: ModelConfig, st: Strategy, mesh):
+    """``decoder_layer`` as a program for the partitioner
+    (``core/partitioner.py::spmd_partition``): ``fn(lp, x, positions)``
+    annotates x, positions and every weight at entry by ``st``'s activation
+    and weight specs, filtered to ``mesh``, and runs the layer."""
+    from ..core.annotate import annotate
+
+    decls = layer_param_tree(cfg, st)
+
+    def at_entry(t, spec):
+        return annotate(t, spec_sharding(spec, tuple(t.shape), mesh))
+
+    def fn(lp, x, positions):
+        def leaf(decl, path):
+            node = lp
+            for k in path:
+                node = node[k]
+            return at_entry(node, decl["spec"])
+
+        lp = tree_map_params(leaf, decls)
+        x = at_entry(x, st.a("batch", "seq", "embed"))
+        positions = at_entry(positions, st.a("batch", "seq"))
+        return decoder_layer(cfg, st, lp, x, positions)
+
+    return fn
 
 
 def backbone(cfg: ModelConfig, st: Strategy, params: Params, tokens):

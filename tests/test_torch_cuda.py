@@ -562,3 +562,114 @@ def test_partitioned_halo_conv_on_cuda_matches_unsharded(cuda, monkeypatch, shap
     got = runner(x, w)
     assert runner.fallbacks == [] and set(runner.collectives) == {"collective-permute"}
     assert_close(got, f(x, w), "f32_chain")
+
+
+@pytest.mark.parametrize("dtype,kind", [(torch.float32, "f32_chain"),
+                                        (torch.bfloat16, "bf16_round")])
+def test_flash_op_on_cuda_launches_the_kernel_once(cuda, dtype, kind):
+    """``repro_torch::flash_attention`` on CUDA tensors: one kernel launch,
+    equal to the plain version on the same inputs."""
+    gen = torch.Generator().manual_seed(2)
+    q = torch.randn((2, 256, 4, 2, 64), generator=gen).to(cuda, dtype)
+    k, v = (torch.randn((2, 256, 4, 64), generator=gen).to(cuda, dtype) for _ in range(2))
+    fa.launches = 0
+    got = ops.flash_attention_op(q, k, v, True, 0, None, 128)
+    torch.cuda.synchronize()
+    assert fa.launches == 1
+    assert_close(got, chunked_attention_ref(q, k, v, causal=True, chunk=128), kind)
+
+
+def test_eager_attention_on_cuda_launches_the_kernel_without_the_operator(cuda, monkeypatch):
+    """Eager no-grad attention on the card: one launch, straight to the
+    kernel (the operator's dispatch is for capture only)."""
+    gen = torch.Generator().manual_seed(4)
+    q = torch.randn((2, 128, 4, 2, 64), generator=gen).to(cuda, torch.bfloat16)
+    k, v = (torch.randn((2, 128, 4, 64), generator=gen).to(cuda, torch.bfloat16)
+            for _ in range(2))
+
+    def refuse(*a, **kw):
+        raise AssertionError("eager call went through the operator")
+
+    monkeypatch.setattr(ops, "flash_attention_op", refuse)
+    fa.launches = 0
+    got = ops.attention_model_layout(q, k, v, causal=True, chunk=64)
+    torch.cuda.synchronize()
+    assert fa.launches == 1
+    assert_close(got, chunked_attention_ref(q, k, v, causal=True, chunk=64), "bf16_round")
+
+
+@pytest.mark.parametrize("dtype,kind", [(torch.float32, "f32_chain"),
+                                        (torch.bfloat16, "bf16_round")])
+def test_partitioned_flash_op_on_cuda_folds_devices_into_one_launch(cuda, dtype, kind):
+    """The op's partition handler on the card: q sharded on batch ("x") and kv
+    heads ("y") and k/v on sequence (gathered), every device's attention in
+    one launch, against the kernel unsharded."""
+    from repro_torch.core import annotate, mesh_split
+    from repro_torch.core.partitioner import spmd_partition
+
+    mesh = _mesh()
+
+    def f(q, k, v):
+        q = annotate(q, mesh_split(5, mesh, ["x", -1, "y", -1, -1]))
+        k = annotate(k, mesh_split(4, mesh, [-1, "y", -1, -1]))
+        return ops.attention_model_layout(q, k, v, causal=True, chunk=128)
+
+    gen = torch.Generator().manual_seed(3)
+    q = torch.randn((4, 256, 8, 2, 64), generator=gen).to(cuda, dtype)
+    k, v = (torch.randn((4, 256, 8, 64), generator=gen).to(cuda, dtype) for _ in range(2))
+    want = f(q, k, v)
+    for compile_plans in (True, False):
+        runner = spmd_partition(f, mesh, compile_plans=compile_plans, optimize=False)
+        fa.launches = 0
+        got = runner(q, k, v)
+        torch.cuda.synchronize()
+        assert fa.launches == 1 and runner.fallbacks == []
+        assert_close(got, want, kind)
+
+
+def test_compiled_plan_on_cuda_equals_dynamic(cuda):
+    """The quickstart MLP's compiled plan on the card, bit for bit the
+    dynamic path's."""
+    from repro_torch.core import annotate, mesh_split
+    from repro_torch.core.partitioner import spmd_partition
+
+    mesh = _mesh()
+
+    def mlp(x, w1, w2):
+        x = annotate(x, mesh_split(2, mesh, ["x", -1]))
+        w1 = annotate(w1, mesh_split(2, mesh, [-1, "y"]))
+        return torch.relu(x @ w1) @ w2
+
+    gen = torch.Generator().manual_seed(4)
+    args = [torch.randn(s, generator=gen).to(cuda) for s in ((64, 256), (256, 512), (512, 128))]
+    compiled = spmd_partition(mlp, mesh, optimize=False)
+    got = compiled(*args)
+    assert compiled.collectives == {"all-reduce": 1}
+    assert torch.equal(got, spmd_partition(mlp, mesh, compile_plans=False)(*args))
+
+
+@pytest.mark.parametrize("dtype,kind", [("float32", "f32_chain"), ("bfloat16", "bf16_chain")])
+def test_partitioned_decoder_layer_on_cuda_matches_unsharded(cuda, dtype, kind):
+    """qwen's decoder layer at reduced width (4 heads on "model"),
+    partitioned by compiled plan on ("data" 2, "model" 4) on the card: one
+    flash launch per call, no fallback that gathers, equal to the layer
+    unsharded on the card."""
+    from repro_torch.core.partitioner import spmd_partition
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer
+
+    cfg = reduced_config(get_config("qwen1.5-0.5b"), 8).with_(dtype=dtype)
+    st = get_strategy("2d_finalized")
+    mesh = make_test_mesh()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    lp = tree_init(transformer.layer_param_tree(cfg, st), gen, dtype=dtype, device="cuda")
+    x = torch.randn((4, 128, cfg.d_model), generator=gen, device="cuda").to(getattr(torch, dtype))
+    positions = torch.arange(128, device="cuda").expand(4, 128)
+    fn = transformer.partitionable_layer(cfg, st, mesh)
+    want, _ = fn(lp, x, positions)
+    runner = spmd_partition(fn, mesh, optimize=False)
+    fa.launches = 0
+    got, _ = runner(lp, x, positions)
+    torch.cuda.synchronize()
+    assert fa.launches == 1 and runner.fallback_gathers == []
+    assert_close(got, want, kind)

@@ -344,7 +344,7 @@ def test_runner_and_process_caches():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({}, "A5"), ({"compile_plans": True}, "A5"),
+    ({}, "A9"), ({"compile_plans": True, "optimize": False, "verify": True}, "A9"),
     ({"compile_plans": False, "autoshard": object()}, "A11"),
     ({"compile_plans": False, "guard": object()}, "A9"),
     ({"compile_plans": False, "trace": object()}, "A15"),
