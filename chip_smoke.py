@@ -14,16 +14,18 @@ Phases, each of which raises (and so exits non-zero) on failure:
    product passes, or the phase fails);
 2. flash_attention: the CUDA kernel against its plain PyTorch version on the
    card at the shapes of the Pallas kernel's contract, the qwen loss's own
-   prefill, GQA, D = 32, a ragged prefill, prefill continuation and the
-   serve path's decode, each case with the variant and split count the
+   prefill, the partitioned layer's and train step's folded prefills, GQA,
+   D = 32, a ragged prefill, prefill continuation and the serve path's
+   decode, each case with the variant and split count the
    wrapper's plan() chose, with times (CUDA events) for the kernel, the
    plain version and ``scaled_dot_product_attention`` (a yardstick only: the
    port never calls it) beside the card's bound;
 2b. flash_attention_bwd: the backward kernel (bf16: bwd_prep, bwd_main,
    bwd_dq_out; float32: two launches) against its plain version on the
    forward kernel's output and log-sum-exp, at the qwen training call (B4
-   S2048 H16 D64), GQA at D = 128, D = 32, a ragged S = 1000, non-causal
-   and float32, with times for the kernel (and each launch, from the
+   S2048 H16 D64), the partitioned train step's folded call (B32 S512 KR4
+   D64), GQA at D = 128, D = 32, a ragged S = 1000, non-causal and
+   float32, with times for the kernel (and each launch, from the
    trace), the plain version and SDPA's backward (a yardstick only) beside
    the bound;
 3. ssd_scan: the CUDA kernel (three passes per call) against its plain
@@ -64,7 +66,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
    simulation: one card does the eight devices' work), peak memory beside
    the plan's modeled peak, the plan's steps and stats, and its
    ``PlanCost`` priced with a profile measured in this run; run in a
-   process of its own so that its profiler traces are whole.
+   process of its own so that its profiler traces are whole;
+7. partitioned training, in the partition phase's process: qwen1.5-0.5b
+   at its published widths (bf16 compute, float32 masters, Adafactor,
+   remat "none", B8 S512) trained by ``TrainLoop`` under ``set_mesh`` on
+   ("data" 2, "model" 4), the whole step one program through the
+   partitioner (2d_finalized with 24 layers for three steps, 2d_attempt1
+   and 2d_attempt2 with two layers for two), against the same loop
+   unsharded on the card: losses, the step-0 gradient and update, per
+   step one flash forward launch and one backward call per layer for all
+   eight devices, no gathering fallback, no plan step holding a whole
+   vocabulary dim; first-call seconds (capture, completion, plan
+   compile), plan steps and collectives per step, wall, host and
+   device-busy ms per step, peak memory beside the plan's modeled peak.
 
 Every path runs with the kernels' launch counts set to 0 just before it and
 read just after.  The last two lines of output are the kernels' JSON record
@@ -293,6 +307,10 @@ def kernel_phase(seed):
         cases.append(kernel_case("partitioned_layer_fold_16x2048_kr4", B=16, S=2048, T=2048,
                                  KR=4, Gl=1, D=64, dtype=dtype, causal=True, chunk=1024,
                                  layout="model", gen=gen))
+    # the partitioned train step's forward, folded as its backward (below)
+    cases.append(kernel_case("partitioned_train_fold_32x512_kr4", B=32, S=512, T=512, KR=4,
+                             Gl=1, D=64, dtype=bf16, causal=True, chunk=512, layout="model",
+                             gen=gen))
     cases.append(kernel_case("prefill_d32_1x8x2048", B=1, S=2048, T=2048, KR=8, Gl=1, D=32,
                              dtype=bf16, causal=True, chunk=1024, layout="model", gen=gen))
     cases.append(kernel_case("prefill_ragged_1000", B=2, S=1000, T=1000, KR=16, Gl=1, D=64,
@@ -432,6 +450,10 @@ def bwd_phase(seed):
                  gen=gen),
         bwd_case("f32_gqa_2_1x512", B=1, S=512, KR=8, Gl=2, D=64, dtype=f32, causal=True,
                  gen=gen),
+        # the partitioned train step's call, folded: 8 devices x local batch 4
+        # (B8 on "data" 2), S512, KR 16 / 4 on "model"; 24 per step
+        bwd_case("partitioned_train_fold_32x512_kr4", B=32, S=512, KR=4, Gl=1, D=64,
+                 dtype=bf16, causal=True, gen=gen),
     ]
 
 
@@ -1267,9 +1289,12 @@ def partition_phase_in_own_process(seed):
             "torch.backends.cuda.matmul.allow_tf32 = False; "
             "torch.backends.cudnn.allow_tf32 = False; "
             f"out, n = chip_smoke.counted(lambda: chip_smoke.partition_phase({seed})); "
-            "print(json.dumps({'phase': out, 'launches': n}))")
+            f"train, m = chip_smoke.counted(lambda: chip_smoke.partition_train_phase({seed}, "
+            "out['card'])); "
+            "print(json.dumps({'phase': out, 'launches': n, 'train': train, "
+            "'train_launches': m}))")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                          timeout=900)
+                          timeout=1000)
     lines = proc.stdout.splitlines()
     print("\n".join(lines[:-1]), flush=True)
     check(proc.returncode == 0 and lines,
@@ -1279,7 +1304,12 @@ def partition_phase_in_own_process(seed):
     check(launched["flash_attention"] > 0 and not any(
         n for k, n in launched.items() if k != "flash_attention"),
         f"the partition phase's launches: {launched}")
+    check(res["train_launches"]["flash_attention_bwd"] > 0
+          and res["train_launches"]["ssd_scan"] == 0,
+          f"the partitioned-training phase's launches: {res['train_launches']}")
     res["phase"]["launches"] = launched
+    res["phase"]["train"] = res["train"]
+    res["phase"]["train_launches"] = res["train_launches"]
     return res["phase"]
 
 
@@ -1352,6 +1382,314 @@ def partition_phase(seed):
     return {"card": card, "mesh": {"shape": list(mesh.shape), "axes": list(mesh.axis_names)},
             "layer_mesh": {"shape": list(lmesh.shape), "axes": list(lmesh.axis_names)},
             "roofline_profile": profile, "collectives": dict(counts), "cases": cases}
+
+
+# ---------------------------------------------------------------------------------
+# partitioned training: the train step as one program through the partitioner
+# ---------------------------------------------------------------------------------
+
+# (strategy, layers, steps, whether step 0's gradient is held per element
+# within coarse): the finalized strategy at full depth, the two earlier
+# attempts of Table 1 cut to two layers to keep the phase short.  At 24
+# layers one element of the value bias's gradient read 1.026 x coarse on
+# the card (the other leaves at most 0.728), so there each leaf is held in
+# norm only; at two layers the largest reading was 0.525
+PARTITION_TRAIN = (("2d_finalized", 24, 3, False), ("2d_attempt1", 2, 2, True),
+                   ("2d_attempt2", 2, 2, True))
+PARTITION_TRAIN_B, PARTITION_TRAIN_S = 8, 512
+# softmax ignores a shift shared by all keys, so the key bias's exact
+# gradient is 0: both runs' gradients of it are rounding noise, printed
+# beside the others and not held to a limit
+KEY_BIAS = "layers/attn/bk"
+
+
+def _rel(got, want):
+    got, want = got.detach().double(), want.detach().double()
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+def _err_over(got, want, kind):
+    from repro_torch.core.compat import TOLERANCES
+
+    rtol, atol = TOLERANCES[kind]
+    got, want = got.detach().float(), want.detach().float()
+    return ((got - want).abs() / (atol + rtol * want.abs())).max().item()
+
+
+def whole_vocab_steps(runner, args, V):
+    """Run ``runner``'s plan once more on ``args`` and return the plan steps
+    whose result holds a whole vocabulary dim (size ``V``) on a device: a
+    gathered (B,S,V) logits tensor or (V, M) table would."""
+    from torch.utils._pytree import tree_flatten
+
+    from repro_torch.core import mesh_runtime as mr
+
+    (entry,) = runner.plans.values()
+    plan, found = entry.plan, []
+
+    def look(step, env):
+        for w in step.writes:
+            vals = env[w] if isinstance(env[w], list) else [env[w]]
+            if any(isinstance(t, torch.Tensor) and V in tuple(t.shape[1:]) for t in vals):
+                found.append(step.op)
+
+    flat, _ = tree_flatten(args)
+    with torch.no_grad():
+        plan.execute(*(mr.shard(a.to("cuda"), s) for a, s in zip(flat, plan.in_shardings)),
+                     on_step=look)
+    return found
+
+
+def partition_train_run(label, cfg, st, opt, state, pipe, steps, mesh, batch):
+    """``TrainLoop.run`` for ``steps`` steps under ``mesh`` (None: unsharded)
+    with the kernels' launches per step, wall ms per step (the host clock
+    around the step, to its loss on the host), the params after step 0 and
+    the peak memory; then host and wall ms per step (device drained before
+    each), device-busy ms per step (profiler) and, partitioned, the plan's
+    readings."""
+    from repro_torch.core.compat import set_mesh
+    from repro_torch.core.tree import tree_map
+    from repro_torch.train.loop import TrainConfig, TrainLoop
+
+    mods, recs, clock, snap = _kernel_modules(), [], {}, {}
+
+    def fault(step):
+        for mod in mods.values():
+            mod.launches = 0
+        clock["t0"] = time.perf_counter()
+
+    def metrics(step, loss):
+        ms = (time.perf_counter() - clock["t0"]) * 1e3
+        recs.append({"step": step, "loss": loss, "ms": ms,
+                     "launches": {n: mod.launches for n, mod in mods.items()}})
+        if step == 0:
+            snap["params"] = tree_map(lambda p: p.detach().clone(), state["params"])
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with set_mesh(mesh):
+        loop = TrainLoop(cfg, st, opt, TrainConfig(steps=steps, log_every=10**9), pipe,
+                         device="cuda", hooks={"fault": fault, "metrics": metrics})
+        _, losses = loop.run(initial_state=state)
+    torch.cuda.synchronize()
+    out = {"label": label, "losses": losses, "steps": recs,
+           "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+           "params_after_step0": snap["params"],
+           "wall_ms_per_step": statistics.median(r["ms"] for r in recs[1:])}
+    call = lambda: loop.step_fn(state, batch)  # noqa: E731 - more steps, after the comparison
+    out["host_ms_per_step"], out["drained_wall_ms_per_step"] = host_and_wall_ms(call, calls=3)
+    # one traced step: traced over two, no reading came back (device_ms
+    # wants each kernel's count to split evenly over the calls)
+    out["device_busy_ms_per_step"] = device_ms(lambda i: call(), 1, calls=1)
+    runner = getattr(loop.step_fn, "runner", None)
+    if runner is not None:
+        (entry,) = runner.plans.values()
+        out.update(runner=runner, first_call_s=dict(entry.build_s),
+                   plan_steps=len(entry.plan.steps), plan_stats=entry.plan.stats.as_dict(),
+                   modeled_peak_x8_gib=entry.plan.peak_bytes * mesh.size / 2**30,
+                   collectives_per_step=dict(runner.collectives),
+                   fallbacks=dict(collections.Counter(runner.fallbacks)),
+                   fallback_gathers=list(runner.fallback_gathers))
+    return out
+
+
+def partition_train_case(strategy, layers, steps, coarse_grads, seed, card):
+    """qwen1.5-0.5b at its published widths (``layers`` deep; bf16 compute,
+    float32 masters, Adafactor, remat "none") trained by ``TrainLoop`` under
+    ``set_mesh`` on ("data" 2, "model" 4) (the partitioned step) and without
+    a mesh, from the same weights on the same batches with the same kernels.
+    Gates: step 0's loss within bf16_chain and the losses within loss_curve
+    of the unsharded run; step 0's gradient per leaf (the key bias aside:
+    ``KEY_BIAS``) in norm within bf16_grad and, where ``coarse_grads``, per
+    element within coarse; the params after step 0 per leaf within coarse
+    of the unsharded optimizer's step on the partitioned gradient; against
+    the unsharded run, step 0's update over the leaves of two or more dims
+    (Adafactor's factored update is continuous in the gradient) in norm
+    within bf16_grad, and on 1-D leaves, where the first update is sign(g),
+    which a gradient within rounding of 0 flips, 95 % of the signs
+    agreeing.  Per step one flash forward launch and one backward call per
+    layer (all eight devices in one), no fallback that gathers (rope's slice
+    and cat keep their sharding) and no plan step holding a whole
+    vocabulary dim."""
+    from repro_torch.configs.base import get_strategy
+    from repro_torch.core.compat import TOLERANCES, set_mesh
+    from repro_torch.core.partitioner import spmd_partition
+    from repro_torch.core.tree import leaves, leaves_with_paths, tree_map
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.train.loop import (TrainConfig, init_state, sharded_value_and_grad,
+                                        value_and_grad)
+    from repro_torch.train.optimizer import get_optimizer
+
+    cfg = partition_train_config(layers)
+    st, opt, mesh = get_strategy(strategy), get_optimizer("adafactor"), make_test_mesh()
+    B, S, L, V = PARTITION_TRAIN_B, PARTITION_TRAIN_S, cfg.num_layers, cfg.vocab_size
+    pipe = TokenPipeline(DataConfig(V, S, B, seed=seed, pattern="arithmetic"))
+    batch = {k: torch.from_numpy(v).to("cuda").long() for k, v in pipe.batch_at(0).items()}
+    with set_mesh(mesh):
+        state0 = init_state(cfg, st, opt, TrainConfig(),
+                            torch.Generator("cuda").manual_seed(seed), "cuda")
+
+    def fresh():
+        params = tree_map(lambda p: p.detach().clone().requires_grad_(), state0["params"])
+        return {"params": params, "opt": opt.init(params), "step": 0}
+
+    # step 0's gradients: the step's own program partitioned, and autograd unsharded
+    with set_mesh(mesh):
+        grad_runner = spmd_partition(sharded_value_and_grad(cfg, st, mesh), mesh,
+                                     optimize=False, device="cuda")
+        (loss_s, grads_s), launched = counted(lambda: grad_runner(
+            tree_map(torch.Tensor.detach, state0["params"]), batch))
+    (entry,) = grad_runner.plans.values()
+    grad_first = dict(entry.build_s)
+    check(launched["flash_attention"] == L and launched["flash_attention_bwd"] == L,
+          f"{strategy}: the partitioned gradient launched {launched}, want {L} and {L}")
+    loss_u, grads_u = value_and_grad(cfg, st, fresh()["params"], batch)
+    grad = {"/".join(p): {"rel": _rel(g, u), "over_coarse": _err_over(g, u, "coarse"),
+                          "norm": g.norm().item(), "norm_unsharded": u.norm().item()}
+            for (p, g), u in zip(leaves_with_paths(grads_s), leaves(grads_u))}
+    # the unsharded optimizer's step 0 on the partitioned gradient: what the
+    # partitioned step's own update must give
+    with torch.no_grad():
+        p0 = tree_map(torch.Tensor.detach, state0["params"])
+        own_update, _ = opt.apply(grads_s, opt.init(p0), p0, torch.tensor(0))
+    del grads_s, grads_u, grad_runner, entry, p0
+
+    sharded = partition_train_run("sharded", cfg, st, opt, fresh(), pipe, steps, mesh, batch)
+    runner = sharded.pop("runner")
+    state = fresh()
+    holders = whole_vocab_steps(runner, (tree_map(torch.Tensor.detach, state["params"]),
+                                         state["opt"], torch.tensor(0), batch), V)
+    del runner, state
+    unsharded = partition_train_run("unsharded", cfg, st, opt, fresh(), pipe, steps, None,
+                                    batch)
+
+    upd, upd_s, upd_u, sign_agree = {}, [], [], 1.0
+    for (path, p), q, r, p0 in zip(leaves_with_paths(sharded.pop("params_after_step0")),
+                                   leaves(unsharded.pop("params_after_step0")),
+                                   leaves(own_update), leaves(state0["params"])):
+        p0 = p0.detach()
+        upd["/".join(path)] = {
+            "own_over_coarse": _err_over(p, r, "coarse"),
+            "over_coarse": _err_over(p, q, "coarse"), "rel": _rel(p - p0, q - p0),
+            "signs": ((p - p0).sign() == (q - p0).sign()).float().mean().item()}
+        if p.ndim >= 2:
+            upd_s.append((p - p0).flatten())
+            upd_u.append((q - p0).flatten())
+        else:
+            sign_agree = min(sign_agree, upd["/".join(path)]["signs"])
+    update_rel_all = _rel(torch.cat(upd_s), torch.cat(upd_u))
+    del own_update, upd_s, upd_u
+    gated = [n for n in grad if n != KEY_BIAS]
+    grad_max = max(gated, key=lambda n: grad[n]["rel"])
+    coarse_max = max(gated, key=lambda n: grad[n]["over_coarse"])
+    own_max = max(upd, key=lambda n: upd[n]["own_over_coarse"])
+    upd_max = max(gated, key=lambda n: upd[n]["rel"])
+    params_max = max(gated, key=lambda n: upd[n]["over_coarse"])
+    limit = TOLERANCES["bf16_grad"][0]
+    rec = {"strategy": strategy, "layers": L, "steps": steps, "B": B, "S": S, "card": card,
+           "losses_sharded": sharded["losses"], "losses_unsharded": unsharded["losses"],
+           "step0_loss_err_over_bf16_chain": _err_over(torch.tensor(sharded["losses"][0]),
+                                                       torch.tensor(unsharded["losses"][0]),
+                                                       "bf16_chain"),
+           "loss_curve_err_over_limit": _err_over(torch.tensor(sharded["losses"]),
+                                                  torch.tensor(unsharded["losses"]),
+                                                  "loss_curve"),
+           "grad_loss_sharded": loss_s.item(), "grad_loss_unsharded": loss_u.item(),
+           "grad_by_leaf": grad, "grad_rel_err_max": [grad_max, grad[grad_max]["rel"]],
+           "grad_err_over_coarse_max": [coarse_max, grad[coarse_max]["over_coarse"]],
+           "update_by_leaf": upd,
+           "params_step0_own_update_err_over_coarse_max": [
+               own_max, upd[own_max]["own_over_coarse"]],
+           "update_rel_err": update_rel_all, "params_1d_sign_agreement": sign_agree,
+           "update_rel_err_max": [upd_max, upd[upd_max]["rel"]],
+           "params_step0_err_over_coarse_max": [params_max, upd[params_max]["over_coarse"]],
+           "whole_vocab_steps": holders, "grad_program_first_call_s": grad_first,
+           **{f"sharded_{k}": v for k, v in sharded.items() if k not in ("losses", "label")},
+           **{f"unsharded_{k}": v for k, v in unsharded.items()
+              if k not in ("losses", "label")}}
+    want = {"flash_attention": L, "flash_attention_bwd": L, "ssd_scan": 0}
+    print(f"  {strategy}: {L} layers, B{B} S{S}, {steps} steps on ("
+          f"{', '.join(f'{a} {n}' for a, n in zip(mesh.axis_names, mesh.shape))}); {card}",
+          flush=True)
+    print(f"    losses sharded {sharded['losses']} unsharded {unsharded['losses']}: step 0 "
+          f"err/limit {rec['step0_loss_err_over_bf16_chain']:.3f} (bf16_chain), curve "
+          f"{rec['loss_curve_err_over_limit']:.3f} (loss_curve)", flush=True)
+    print(f"    step-0 gradient per leaf, relative error in norm (bf16_grad {limit}) and "
+          "elementwise err/coarse:", flush=True)
+    for n, r in grad.items():
+        print(f"      {n}: {r['rel']:.3e}, {r['over_coarse']:.3f}; norm {r['norm']:.4e} "
+              f"(unsharded {r['norm_unsharded']:.4e})" + ("; not gated" if n == KEY_BIAS else ""),
+              flush=True)
+    print("    step 0's params per leaf: err/coarse against the unsharded optimizer on the "
+          "partitioned gradient; against the unsharded run, err/coarse, the update's relative "
+          "error in norm and the share of its signs agreeing:", flush=True)
+    for n, r in upd.items():
+        print(f"      {n}: {r['own_over_coarse']:.2e}; {r['over_coarse']:.3f}, {r['rel']:.3e}, "
+              f"{r['signs']:.4f}", flush=True)
+    print(f"    step-0 update against the unsharded run over the leaves of 2-D and up: "
+          f"{update_rel_all:.3e} in norm; 1-D update signs agreeing {sign_agree:.4f}", flush=True)
+    print(f"    launches per step sharded {[r['launches'] for r in sharded['steps']]}; "
+          f"unsharded {[r['launches'] for r in unsharded['steps']]}", flush=True)
+    print(f"    first call (gradient program): {json.dumps(grad_first)}; first step: "
+          f"{json.dumps(sharded['first_call_s'])}; plan {sharded['plan_steps']} steps; "
+          f"collectives per step {json.dumps(sharded['collectives_per_step'])}; fallbacks "
+          f"{json.dumps(sharded['fallbacks'])}", flush=True)
+    for tag, r in (("sharded", sharded), ("unsharded", unsharded)):
+        print(f"    {tag}: wall {r['wall_ms_per_step']:.1f} ms/step (steps 1-{steps - 1}); host "
+              f"{r['host_ms_per_step']:.1f} ms, drained wall {r['drained_wall_ms_per_step']:.1f} "
+              f"ms, device busy {_ms(r['device_busy_ms_per_step'])} per step; peak "
+              f"{r['peak_gib']:.3f} GiB"
+              + (f" (plan's modeled peak x8 {r['modeled_peak_x8_gib']:.3f})"
+                 if "modeled_peak_x8_gib" in r else ""), flush=True)
+    for r in sharded["steps"] + unsharded["steps"]:
+        check(r["launches"] == want,
+              f"{strategy}: step {r['step']} launched {r['launches']}, want {want}")
+    check(not sharded["fallback_gathers"],
+          f"{strategy}: fallbacks gathered a sharded dim: {sharded['fallback_gathers']}")
+    check(set(sharded["fallbacks"]) <= set(ROPE_FALLBACKS),
+          f"{strategy}: ops took the fallback: {sharded['fallbacks']}")
+    check(not holders, f"{strategy}: plan steps held a whole vocabulary dim: {holders}")
+    check(all(math.isfinite(x) for x in sharded["losses"]), f"{strategy}: non-finite loss")
+    check(rec["step0_loss_err_over_bf16_chain"] <= 1.0, f"{strategy}: step-0 loss off")
+    check(rec["loss_curve_err_over_limit"] <= 1.0, f"{strategy}: loss curve off")
+    off = {n: grad[n]["rel"] for n in gated if grad[n]["rel"] > limit}
+    check(not off, f"{strategy}: step 0's gradient off in norm: {off}")
+    off = {n: grad[n]["over_coarse"] for n in gated if grad[n]["over_coarse"] > 1.0}
+    check(not (coarse_grads and off),
+          f"{strategy}: step 0's gradient off per element (err/coarse): {off}")
+    off = {n: r["own_over_coarse"] for n, r in upd.items() if r["own_over_coarse"] > 1.0}
+    check(not off, f"{strategy}: step 0's params off the unsharded optimizer's on the same "
+          f"gradient (err/coarse): {off}")
+    check(update_rel_all <= limit and sign_agree >= 0.95,
+          f"{strategy}: step 0's update off ({update_rel_all} in norm, 1-D signs {sign_agree})")
+    return rec
+
+
+def partition_train_config(layers):
+    """qwen1.5-0.5b at its published widths, ``layers`` deep, with remat
+    "none" and the layer loop unrolled (what the partitioned step covers)."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config("qwen1.5-0.5b")
+    check((cfg.d_model, cfg.num_heads, cfg.dh, cfg.d_ff, cfg.vocab_size, cfg.dtype,
+           cfg.param_dtype) == (1024, 16, 64, 2816, 151936, "bfloat16", "float32"),
+          f"unexpected config {cfg}")
+    return cfg.with_(num_layers=layers, remat="none", scan_layers=False)
+
+
+def partition_train_phase(seed, card):
+    """The partitioned training step for each strategy of ``PARTITION_TRAIN``
+    (``partition_train_case``)."""
+    print("partition: qwen1.5-0.5b trained by TrainLoop under set_mesh (the train step as one "
+          "program through spmd_partition(..., optimize=False)) against the same loop "
+          "unsharded on the card", flush=True)
+    cases = []
+    for strategy, layers, steps, coarse_grads in PARTITION_TRAIN:
+        cases.append(partition_train_case(strategy, layers, steps, coarse_grads, seed, card))
+        torch.cuda.empty_cache()
+    return cases
 
 
 # the kernels' templates by variant, as the mangled names in ptxas's report,
@@ -1504,6 +1842,12 @@ def main(argv=None):
     fa_prefill = next(c for c in fa_cases if c["case"] == "prefill_qwen_loss_2x2048")
     ssd_main = next(c for c in ssd_cases if c["case"] == "loss_8x2048_h24")
     bwd_main = next(c for c in bwd_cases if c["case"] == "train_qwen_4x2048")
+    bwd_fold = next(c for c in bwd_cases if c["case"] == "partitioned_train_fold_32x512_kr4")
+    fa_fold = next(c for c in fa_cases if c["case"] == "partitioned_train_fold_32x512_kr4")
+    train_launches = {  # per step of each strategy's partitioned TrainLoop run
+        name: {c["strategy"]: [r["launches"][name] for r in c["sharded_steps"]]
+               for c in partition["train"]}
+        for name in ("flash_attention", "flash_attention_bwd")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     ssd_keys = ("dev_ms", "pass_dev_ms", "launches_per_call")
     record = {"kernels": [{
@@ -1518,6 +1862,8 @@ def main(argv=None):
         "partition_launches_per_call": {
             f"{c['case']} {c['dtype']}": c["compiled_flash_launches_per_call"]
             for c in partition["cases"] if "compiled_flash_launches_per_call" in c},
+        "partition_train_launches_per_step": train_launches["flash_attention"],
+        "partition_train_case": {"case": fa_fold["case"], **{k: fa_fold[k] for k in keys}},
         "cases": fa_cases,
     }, {
         "name": "ssd_scan", "route": "cuda",
@@ -1534,6 +1880,9 @@ def main(argv=None):
         "launches_path": f"qwen train, {TRAIN_STEPS} steps",
         **{k: bwd_main[k] for k in keys}, "main_case": bwd_main["case"],
         "device_ms": bwd_main["device_ms"], "pass_device_ms": bwd_main["pass_device_ms"],
+        "partition_train_launches_per_step": train_launches["flash_attention_bwd"],
+        "partition_train_case": {"case": bwd_fold["case"], **{k: bwd_fold[k] for k in keys},
+                                 "device_ms": bwd_fold["device_ms"]},
         "cases": bwd_cases,
     }], "build": build, "qwen": {"serve": qwen_serve, "consistency": qwen_consistency,
                                  "loss": qwen_loss, "train": qwen_train,

@@ -3,8 +3,9 @@ JAX package's ``analysis/jaxpr_cost.py::count_flops``.
 
 Products (``mm``, ``bmm``, ``addmm``) and convolutions are counted exactly;
 elementwise arithmetic at 1 flop per output element; reductions at 1 flop
-per input element; the flash-attention operator at 4·B·H·S·T·D (its two
-products), halved for a causal mask.  Data movement (views, permutes,
+per input element; the flash-attention operators at 4·B·H·S·T·D (the
+forward's two products; ``flash_attention`` and ``flash_attention_fwd``) and
+2.5 times that (the backward's five), halved for a causal mask.  Data movement (views, permutes,
 copies, casts) counts nothing.  ``core/plan.py::plan_cost`` divides the
 total by the mesh size for the ideal per-device balance point.
 
@@ -18,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch.fx
 
-from ..core.rules import FLASH, REDUCE, lower
+from ..core.rules import FLASH, FLASH_BWD, FLASH_FWD, REDUCE, lower
 
 ELEMENTWISE_1FLOP = {"aten." + n for n in (
     "add", "sub", "rsub", "mul", "div", "maximum", "minimum", "neg", "abs", "exp", "log",
@@ -33,6 +34,10 @@ def _nelems(shape) -> float:
 def eqn_flops(eqn) -> float:
     """FLOPs of one equation on global shapes."""
     name = eqn.name
+    if name in (FLASH_FWD, FLASH_BWD):
+        B, S, KR, Gl, D = eqn.in_avals[0].shape
+        f = flash_bwd_flops if name == FLASH_BWD else flash_flops
+        return f(B, S, KR * Gl, eqn.in_avals[1].shape[1], D, eqn.params["causal"])
     if not eqn.out_avals:
         return 0.0
     out = eqn.out_avals[0].shape
@@ -59,6 +64,13 @@ def flash_flops(B, S, H, T, D, causal: bool) -> float:
     """4·B·H·S·T·D for the two products, halved for a causal mask."""
     f = 4.0 * B * H * S * T * D
     return f / 2 if causal else f
+
+
+def flash_bwd_flops(B, S, H, T, D, causal: bool) -> float:
+    """2.5 times the forward's: five products of 2·B·H·S·T·D (S = qK^T
+    recomputed, dP = dO V^T, dq = dS K, dk = dS^T q, dv = P^T dO), halved
+    for a causal mask."""
+    return 2.5 * flash_flops(B, S, H, T, D, causal)
 
 
 def count_flops(graph: torch.fx.Graph) -> float:

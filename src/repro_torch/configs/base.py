@@ -4,17 +4,22 @@ A ``Strategy`` is the user-annotation layer of GSPMD: it maps *logical* tensor
 dimensions (batch, embed, heads, mlp, vocab, expert, ...) to mesh axes,
 separately for weights and activations — the columns of the paper's Table 1.
 
-Every ``Strategy`` behaves as the JAX package's does outside a mesh context:
-``axis_size`` is 1, ``constrain`` returns its input unchanged (its mesh
-context is ROADMAP A6) and specs are the unfiltered rule lookups (as
-tuples).  ``filter_spec_by_shape`` and ``spec_sharding`` place such a spec
-on a given mesh, which is how a program annotates its inputs for the
-partitioner (``models/transformer.py::partitionable_layer``).
+A ``Strategy`` reads the ambient mesh (``core.compat.set_mesh``), as the JAX
+package's reads ``jax.set_mesh``'s: under a mesh its specs drop the axes the
+mesh lacks, ``constrain`` annotates the activation (``core.annotate``, by
+``filter_spec_by_shape``'s spec) for the partitioner, and ``axis_size``
+multiplies the mesh's axis sizes.  With no mesh, ``axis_size`` is 1,
+``constrain`` returns its input unchanged and specs are the unfiltered rule
+lookups (as tuples).  ``filter_spec_by_shape`` and ``spec_sharding`` place
+a spec on a given mesh, which is how a program annotates its inputs for
+the partitioner (``models/transformer.py::partitionable_layer``).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Optional, Tuple
+
+from ..core.compat import get_abstract_mesh
 
 # X / Y in the paper's terms:
 X = ("pod", "data")
@@ -104,9 +109,13 @@ class Strategy:
     act_rules: Rules
 
     def _spec(self, rules: Rules, logical: Tuple[Optional[str], ...]) -> Spec:
+        mesh = get_abstract_mesh()
+        have = set(mesh.axis_names) if mesh is not None else None
         entries = []
         for name in logical:
             axes = rules.get(name, ()) if name else ()
+            if have is not None:
+                axes = tuple(a for a in axes if a in have)
             if not axes:
                 entries.append(None)
             elif len(axes) == 1:
@@ -125,8 +134,15 @@ class Strategy:
         return self._spec(self.act_rules, logical)
 
     def constrain(self, x, *logical):
-        """Annotate an activation: a no-op until the port has a mesh."""
-        return x
+        """Annotate an activation (a no-op outside a mesh).  Axes that do not
+        divide the dim size are dropped (§4.1 fallback: replicate rather
+        than fail)."""
+        mesh = get_abstract_mesh()
+        if mesh is None:
+            return x
+        from ..core.annotate import annotate
+
+        return annotate(x, spec_sharding(self.a(*logical), tuple(x.shape), mesh))
 
     def w_div(self, name: str, size: int):
         """Logical name if ``size`` divides evenly over its mesh axes, else None."""
@@ -134,18 +150,26 @@ class Strategy:
         return name if n > 0 and size % n == 0 else None
 
     def axis_size(self, logical_name: str, kind: str = "act") -> int:
-        """Product of mesh-axis sizes a logical dim is sharded over: 1 with no
-        mesh."""
-        return 1
+        """Product of mesh-axis sizes a logical dim is sharded over (1 with no
+        mesh): what the padded vocab and head layout are sized by."""
+        mesh = get_abstract_mesh()
+        if mesh is None:
+            return 1
+        rules = self.act_rules if kind == "act" else self.weight_rules
+        sizes = dict(zip(mesh.axis_names, mesh.shape))
+        n = 1
+        for a in rules.get(logical_name, ()):
+            n *= sizes.get(a, 1)
+        return n
 
 
 def filter_spec_by_shape(spec: Spec, shape, mesh) -> Spec:
     """Drop mesh axes the mesh lacks, axes that don't divide the
     corresponding dim size, and axes already used by an earlier dim (first
-    dim wins; §4.1 fallback).  The reference drops the mesh's missing axes
-    when it builds the spec (``Strategy._spec`` under a mesh context); the
-    port's specs are built with no mesh, so it drops them here: X =
-    ("pod", "data") is ("data",) on a ("data", "model") mesh."""
+    dim wins; §4.1 fallback).  ``Strategy._spec`` under a mesh already drops
+    the mesh's missing axes, as the reference's does; a spec built with no
+    mesh has them dropped here: X = ("pod", "data") is ("data",) on a
+    ("data", "model") mesh."""
     sizes = dict(zip(mesh.axis_names, mesh.shape))
     entries = []
     used = set()

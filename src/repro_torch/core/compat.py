@@ -27,6 +27,13 @@ bf16_chain  2e-2 / 8e-2    bf16 logits of a whole layer stack: XLA compiles
                            op-by-op kernels; the flipped ulps grow through
                            the layers and the unembedding, to about two
                            ulps (2^-5 each) at logits of magnitude 4 to 8
+bf16_grad   5e-2 / 0       float32 gradients of a bf16 layer stack, in norm
+                           per leaf, between rounding schedules: the flash
+                           backward's formulas round P and dS to bf16
+                           (``flash_attention_bwd_ref``, as the kernel),
+                           and a partitioned product rounds each device's
+                           partial sum to bf16 before the psum (as XLA's
+                           SPMD partitioner does); a few ulps (2^-8 each)
 ========== ============== =================================================
 
 Tightening a class is always safe; loosening one (or adding an ad-hoc rtol
@@ -34,10 +41,18 @@ in a test) needs a comment explaining which new reduction reorder justifies
 it.  ``bf16_round`` and ``bf16_chain`` are the port's additions: the JAX
 classes were set for one framework against itself, while the port's tests
 compare XLA's CPU kernels with PyTorch's on bf16 data, where one-ulp
-rounding flips are expected.
+rounding flips are expected.  ``bf16_grad`` is the port's too: the
+partitioned training step's bf16 gradients, each leaf held in norm (its
+atol is 0), and the first update those gradients make, held in norm over
+all its leaves of two or more dims joined.  Each psum over "data" of the
+CPU test config's bf16 gradient program, dropped alone, puts the loss or
+a gradient leaf outside its limit
+(``tests/test_torch_sharded_train.py``).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import hashlib
 
 import numpy as np
@@ -55,6 +70,7 @@ TOLERANCES = {
     "loss_curve": (5e-2, 0.0),
     "bf16_round": (2e-2, 2e-2),
     "bf16_chain": (2e-2, 8e-2),
+    "bf16_grad": (5e-2, 0.0),
 }
 
 
@@ -81,6 +97,34 @@ def _f32(x):
 
 
 # ---------------------------------------------------------------------------------
+# The ambient mesh: the counterpart of ``jax.set_mesh`` / ``get_abstract_mesh``
+# ---------------------------------------------------------------------------------
+#
+# ``Strategy`` (``configs/base.py``) reads it: under ``set_mesh(mesh)`` its
+# specs drop the axes the mesh lacks, ``constrain`` annotates and
+# ``axis_size`` multiplies the mesh's axis sizes.  With no mesh all three
+# behave as the unsharded program needs.
+
+_MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh", default=None)
+
+
+@contextlib.contextmanager
+def set_mesh(mesh):
+    """Make ``mesh`` (a ``core.sharding.Mesh``) the ambient mesh inside the
+    block."""
+    token = _MESH.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESH.reset(token)
+
+
+def get_abstract_mesh():
+    """The ambient mesh, or None outside ``set_mesh``."""
+    return _MESH.get()
+
+
+# ---------------------------------------------------------------------------------
 # Capture: the counterpart of ``jax.make_jaxpr``
 # ---------------------------------------------------------------------------------
 #
@@ -89,7 +133,10 @@ def _f32(x):
 # constants ``get_attr`` nodes, and Python scalars in node arguments its
 # Literals.  Tracing runs on fake tensors, so capture costs no device work.
 # An in-place operator is refused: the graph must be functional, as a jaxpr
-# is.
+# is.  A gradient taken inside the program (``torch.autograd.grad``) is
+# recorded with it; the model's backward is out of place, since attention
+# under capture is the flash operator pair, whose gradient is an operator
+# too (``kernels/ops.py``).
 
 
 class Captured:

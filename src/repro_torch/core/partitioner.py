@@ -21,7 +21,16 @@ devices' shards), with explicit collectives:
                      not touch and gather the rest (§4.5);
 * flash attention  — the ``repro_torch::flash_attention`` op on batch- and
                      kv-head-sharded operands (S, T and D gathered), one
-                     kernel launch for all devices (``flash_local``);
+                     kernel launch for all devices (``flash_local``), and
+                     so the differentiable pair ``flash_attention_fwd`` /
+                     ``_bwd`` (``LocalOp`` decisions, below);
+* index ops        — embedding, its gradient, gather and scatter_add with
+                     the indexed dim sharded: masked local lookups plus a
+                     psum, or masked local scatters, no gather of the table;
+* logsumexp        — local max, pmax, local sum of exp, psum;
+* stack / unbind / select and their gradients — the dim they insert,
+                     remove or slice replicated, the others kept;
+* factories        — replicated, a sharded constant fill at its local shape;
 * annotate         — explicit resharding to the user's annotation.
 
 An op with no handler takes ``_fallback``: gather every operand, run the op
@@ -39,8 +48,10 @@ call.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import string
 import threading
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -48,8 +59,9 @@ import torch
 import torch.fx
 from torch.utils._pytree import tree_flatten
 
+from ..analysis.graph_cost import flash_bwd_flops, flash_flops
 from ..analysis.roofline import RooflineParams
-from ..kernels.ops import flash_forward
+from ..kernels.ops import flash_attention_bwd_op, flash_attention_fwd_op, flash_forward
 from . import mesh_runtime as mr
 from .annotate import ANNOTATE_OP, decode
 from .compat import capture
@@ -58,9 +70,10 @@ from .einsum_rules import partitioned_einsum
 from .halo import local_conv, sharded_conv_nd
 from .propagation import PropagationResult, propagate
 from .reshard import reshard_local, shard_shape
-from .rules import (BROADCAST, DOT, ELEMENTWISE, FACTORY, FLASH, REDUCE, RESHAPE, TRANSPOSE,
-                    _bcast_map, _invert, _project, _reshape_dim_map, flash_heads, flash_layout,
-                    lower)
+from .rules import (BROADCAST, DOT, ELEMENTWISE, FACTORY, FLASH, FLASH_BWD, FLASH_FWD, REDUCE,
+                    RESHAPE, TRANSPOSE, _bcast_map, _heads, _heads_layout, _invert, _project,
+                    _reshape_dim_map, flash_heads, flash_layout, index_maps, insert_map,
+                    kwargs_of, lower)
 from .sharding import Mesh, Sharding, merge_shardings, replicated
 
 
@@ -309,6 +322,373 @@ def flash_local(q, k, v, params):
 
 
 # ---------------------------------------------------------------------------------
+# ops decided as one local computation: LocalOp
+# ---------------------------------------------------------------------------------
+#
+# The differentiable flash operators, the factories, the ops of a captured
+# training step that drop, insert or slice a dim, ``logsumexp`` and the index
+# ops.  Each ``decide_*`` function takes the equation, its operands'
+# current shardings, the completed sharding of its result (a list for a
+# tuple result) and the mesh, and returns a ``LocalOp``, or None where the
+# op must take the fallback.  Both paths reshard each operand to its target
+# and run ``fn`` on the stacked shards; ``fn`` runs the op's collectives
+# itself (the masked lookups' psums, logsumexp's pmax and psum).
+
+
+@dataclasses.dataclass
+class LocalOp:
+    targets: list  # each operand's target sharding, in ``eqn.invars`` order
+    out: object  # the result's sharding (a list for a tuple result)
+    fn: object  # the local computation on the resharded stacked operands
+    collectives: Dict[str, int] = dataclasses.field(default_factory=dict)  # run by fn
+    flops: float = 0.0  # per-device local FLOPs
+
+
+def _want(eqn, prop) -> object:
+    """The completed sharding of the result, a list for a tuple result."""
+    if eqn.out_avals:
+        return prop.get(eqn.node)
+    return [prop.get(o) for o in eqn.tuple_outs]
+
+
+def _sharding(mesh: Mesh, dims) -> Sharding:
+    return Sharding(mesh, tuple(tuple(a) for a in dims))
+
+
+def _without(sh: Sharding, axes) -> Sharding:
+    """``sh`` with the mesh axes ``axes`` taken off every dim."""
+    return _sharding(sh.mesh, [tuple(a for a in d if a not in axes) for d in sh.dims_mapping])
+
+
+@functools.lru_cache(maxsize=256)
+def _offsets(sh: Sharding, dim: int, size: int) -> tuple:
+    """Each stacked position's offset along ``dim`` of a tensor of global
+    ``size`` there, under ``sh``."""
+    return tuple(sh.offset(int(d), dim, size) for d in sh.mesh.devices.flat)
+
+
+def _offsets_like(sh: Sharding, dim: int, size: int, like: torch.Tensor) -> torch.Tensor:
+    """The offsets as a tensor that broadcasts against the stacked ``like``."""
+    t = mr._on_device(_offsets(sh, dim, size), torch.long, like.device)
+    return t.reshape((-1,) + (1,) * (like.ndim - 1))
+
+
+# -- the flash operator pair ---------------------------------------------------------
+
+
+def _flash_pair_targets(eqn, shardings, want, mesh: Mesh):
+    """Batch and kv heads of the result's completed shardings (else of the
+    operands'), on every operand and result; S, T, Gl and D gathered."""
+    avals = list(eqn.tuple_avals)
+    cands = [(s, a) for s, a in zip(want or [], avals) if s is not None] or \
+        list(zip(shardings, eqn.in_avals))
+    bh = None
+    for s, a in cands:
+        m = _heads(s, a.ndim)
+        bh = m if bh is None else (merge_shardings(bh, m) or bh)
+    return ([_heads_layout(bh, a.ndim) for a in eqn.in_avals],
+            [_heads_layout(bh, a.ndim) for a in avals])
+
+
+def decide_flash(eqn, shardings, want, mesh: Mesh) -> LocalOp:
+    """The no-gradient forward: ``flash_targets``, one launch (``flash_local``)."""
+    targets, osh = flash_targets(eqn, shardings, want, mesh)
+    params = eqn.params
+    B, S, KR, Gl, D = shard_shape(eqn.in_avals[0].shape, targets[0])
+    return LocalOp(targets, osh, lambda q, k, v: flash_local(q, k, v, params),
+                   flops=flash_flops(B, S, KR * Gl, eqn.in_avals[1].shape[1], D,
+                                     params["causal"]))
+
+
+def decide_flash_fwd(eqn, shardings, want, mesh: Mesh) -> LocalOp:
+    """One launch of the forward (with the log-sum-exp) for every device:
+    the stacked device dim folded into the batch, as ``flash_local``."""
+    targets, outs = _flash_pair_targets(eqn, shardings, want, mesh)
+    causal, chunk = eqn.params["causal"], eqn.params["chunk"]
+    B, S, KR, Gl, D = shard_shape(eqn.in_avals[0].shape, targets[0])
+
+    def fn(q, k, v):
+        out, lse = flash_attention_fwd_op(_fold(q), _fold(k), _fold(v), causal, chunk)
+        return [out.reshape(q.shape), lse.reshape(tuple(q.shape[:2]) + tuple(lse.shape[1:]))]
+
+    return LocalOp(targets, outs, fn, flops=flash_flops(B, S, KR * Gl, eqn.in_avals[1].shape[1],
+                                                         D, causal))
+
+
+def decide_flash_bwd(eqn, shardings, want, mesh: Mesh) -> LocalOp:
+    """One call of the backward for every device, folded as the forward."""
+    targets, outs = _flash_pair_targets(eqn, shardings, want, mesh)
+    causal = eqn.params["causal"]
+    B, S, KR, Gl, D = shard_shape(eqn.in_avals[0].shape, targets[0])
+
+    def fn(q, k, v, out, lse, dout):
+        dq, dk, dv = flash_attention_bwd_op(*(_fold(t) for t in (q, k, v, out, lse, dout)),
+                                            causal)
+        return [dq.reshape(q.shape), dk.reshape(k.shape), dv.reshape(v.shape)]
+
+    return LocalOp(targets, outs, fn, flops=flash_bwd_flops(
+        B, S, KR * Gl, eqn.in_avals[1].shape[1], D, causal))
+
+
+# -- factories -----------------------------------------------------------------------
+
+# constant fills: every shard of the result is the same constant, so a
+# sharded result is created shard by shard
+FILLS = {"aten.zeros", "aten.ones", "aten.full", "aten.empty", "aten.new_zeros",
+         "aten.new_ones", "aten.new_full", "aten.new_empty"}
+
+
+def decide_factory(eqn, shardings, want, mesh: Mesh) -> LocalOp:
+    """Created replicated (as the reference's iota); a constant fill whose
+    completed sharding is sharded is created at its local shape instead.
+    A tensor operand (``new_zeros``' template) gives only dtype and device:
+    it is read where it is."""
+    node = eqn.node
+    out = eqn.out_avals[0]
+    osh = want if (eqn.name in FILLS and want is not None) else replicated(mesh, out.ndim)
+    local = shard_shape(out.shape, osh)
+    size_at = 1 if eqn.name.startswith("aten.new_") else 0
+    invars = eqn.invars
+
+    def fn(*vals):
+        first = dict(zip(invars, (v[0] for v in vals)))
+        args = list(_substitute(node.args, first.__getitem__))
+        kwargs = {k: _substitute(a, first.__getitem__) for k, a in node.kwargs.items()}
+        if eqn.name in FILLS:
+            if "size" in kwargs:
+                kwargs["size"] = list(local)
+            else:
+                args[size_at] = list(local)
+        return mr.replicate(node.target(*args, **kwargs), mesh)
+
+    return LocalOp(list(shardings), osh, fn)
+
+
+# -- ops that drop, insert or slice a dim --------------------------------------------
+
+
+def decide_drop_dim(eqn, shardings, want, mesh: Mesh) -> LocalOp:
+    """unbind (a list of results) and select: the removed dim gathered first,
+    the others kept."""
+    d, i = eqn.params["dim"], eqn.params["index"]
+    tgt = shardings[0].with_dim(d, ())
+    out = _sharding(mesh, [a for j, a in enumerate(tgt.dims_mapping) if j != d])
+    if eqn.name == "aten.select":
+        return LocalOp([tgt], out, lambda x: x.select(d + 1, i))
+    return LocalOp([tgt], [out] * len(eqn.tuple_avals), lambda x: list(x.unbind(d + 1)))
+
+
+def _inserted(eqn, shardings, want, mesh: Mesh):
+    """The operand layout (every operand's) and the result's sharding of an
+    op that inserts dim ``d``: the result's completed sharding where it has
+    one, else the first operand's, with ``d`` replicated."""
+    d = eqn.params["dim"]
+    rank = eqn.out_avals[0].ndim
+    base = want if want is not None else _project(shardings[0], insert_map(rank - 1, d), rank)
+    out = base.with_dim(d, ())
+    tgt = _sharding(mesh, [a for j, a in enumerate(out.dims_mapping) if j != d])
+    return tgt, out
+
+
+def decide_stack(eqn, shardings, want, mesh: Mesh) -> LocalOp:
+    tgt, out = _inserted(eqn, shardings, want, mesh)
+    d = eqn.params["dim"]
+    return LocalOp([tgt] * len(shardings), out, lambda *xs: torch.stack(xs, d + 1))
+
+
+def decide_select_backward(eqn, shardings, want, mesh: Mesh) -> LocalOp:
+    tgt, out = _inserted(eqn, shardings, want, mesh)
+    d, i = eqn.params["dim"], eqn.params["index"]
+    local = shard_shape(eqn.out_avals[0].shape, out)
+    return LocalOp([tgt], out, lambda g: torch.ops.aten.select_backward(
+        g, (g.shape[0],) + local, d + 1, i))
+
+
+def decide_slice_backward(eqn, shardings, want, mesh: Mesh) -> LocalOp:
+    p = eqn.params
+    d = p["dim"]
+    base = want if want is not None else shardings[0]
+    out = base.with_dim(d, ())
+    local = shard_shape(eqn.out_avals[0].shape, out)
+    return LocalOp([out], out, lambda g: torch.ops.aten.slice_backward(
+        g, (g.shape[0],) + local, d + 1, p["start"], p["end"], p["step"]))
+
+
+# -- logsumexp over sharded dims -----------------------------------------------------
+
+
+def decide_logsumexp(eqn, shardings, want, mesh: Mesh) -> LocalOp:
+    """The local max, its pmax over the axes sharding the reduced dims, the
+    local sum of exp(x - max), its psum, and log + max: no gather."""
+    (sh,) = shardings
+    axes, keepdim = eqn.params["axes"], eqn.params["keepdim"]
+    psum_axes = tuple(a for d in axes for a in sh.dims_mapping[d])
+    osh = Sharding(mesh, tuple(sh.dims_mapping[i] if i is not None else ()
+                               for i in eqn.params["out_to_in"]))
+    dims = [a + 1 for a in axes]
+    if not psum_axes:
+        return LocalOp([sh], osh, lambda x: torch.logsumexp(x, dims, keepdim))
+
+    def fn(x):
+        m = mr.pmax(torch.amax(x, dims, keepdim=True), mesh, psum_axes)
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        total = mr.psum(torch.exp(x - m).sum(dims, keepdim=True), mesh, psum_axes)
+        out = torch.log(total) + m
+        return out if keepdim else out.squeeze(dims)
+
+    return LocalOp([sh], osh, fn, collectives={"all-reduce": 2})
+
+
+# -- index ops with a sharded indexed dim --------------------------------------------
+
+
+def _pass_through(eqn, shardings, want, mesh: Mesh):
+    """The result's sharding for an index op: its completed sharding (else
+    the merge of the operands' pass-through dims), without the axes that
+    shard the indexed dim of the table or input (``idx_axes``)."""
+    maps = index_maps(eqn)
+    rank = eqn.out_avals[0].ndim
+    base = want
+    if base is None:
+        base = replicated(mesh, rank)
+        for s, mp in zip(shardings, maps):
+            base = merge_shardings(base, _project(s, mp, rank)) or base
+    return base, maps
+
+
+def _targets(eqn, out: Sharding, maps, mesh: Mesh) -> list:
+    """Each operand's target: the result's sharding on the dims it maps to."""
+    return [_project(out, _invert(mp, a.ndim), a.ndim) for mp, a in zip(maps, eqn.in_avals)]
+
+
+def decide_embedding(eqn, shardings, want, mesh: Mesh) -> Optional[LocalOp]:
+    """Rows of the table sharded on axes A: each device looks up the ids in
+    its row range (others read as zero) and a psum over A completes the
+    rows; the table is never gathered."""
+    kw = kwargs_of(eqn.node)
+    if kw.get("padding_idx", -1) != -1 or kw.get("scale_grad_by_freq") or kw.get("sparse"):
+        return None
+    w_sh = shardings[0]
+    A = w_sh.dims_mapping[0]
+    base, maps = _pass_through(eqn, shardings, want, mesh)
+    out = _without(base, A)
+    targets = _targets(eqn, out, maps, mesh)
+    targets[0] = targets[0].with_dim(0, A)
+    V = eqn.in_avals[0].shape[0]
+    wt = targets[0]
+
+    def fn(w, idx):
+        n, Vl = w.shape[0], w.shape[1]
+        local = idx - _offsets_like(wt, 0, V, idx)
+        valid = (local >= 0) & (local < Vl)
+        rows = torch.where(valid, local, torch.zeros_like(local)) + Vl * torch.arange(
+            n, device=idx.device).reshape((-1,) + (1,) * (idx.ndim - 1))
+        got = torch.nn.functional.embedding(rows, w.reshape((n * Vl,) + tuple(w.shape[2:])))
+        got = torch.where(valid[..., None], got, torch.zeros_like(got))
+        return mr.psum(got, mesh, A) if A else got
+
+    return LocalOp(targets, out, fn, collectives={"all-reduce": 1} if A else {})
+
+
+def decide_embedding_backward(eqn, shardings, want, mesh: Mesh) -> Optional[LocalOp]:
+    """The table's gradient, rows sharded on axes A: each device adds its
+    gradient rows into the table rows in its range (a masked local scatter),
+    and a psum over the axes that shard the ids completes the sums."""
+    kw = kwargs_of(eqn.node)
+    if kw.get("padding_idx", -1) != -1 or kw.get("scale_grad_by_freq"):
+        return None
+    V, M = eqn.out_avals[0].shape
+    g_sh = shardings[0]
+    k = eqn.in_avals[1].ndim
+    base = want if want is not None else replicated(mesh, 2)
+    A = base.dims_mapping[0]
+    m_axes = tuple(a for a in g_sh.dims_mapping[k] if a not in A)
+    batch = [tuple(a for a in g_sh.dims_mapping[j] if a not in A and a not in m_axes)
+             for j in range(k)]
+    out = _sharding(mesh, [A, m_axes])
+    g_t = _sharding(mesh, batch + [m_axes])
+    idx_t = _sharding(mesh, batch)
+    P = tuple(a for d in batch for a in d)
+
+    def fn(g, idx):
+        n = g.shape[0]
+        Vl, Ml = V // out.num_shards(0), g.shape[-1]
+        local = idx - _offsets_like(out, 0, V, idx)
+        valid = (local >= 0) & (local < Vl)
+        rows = torch.where(valid, local, torch.zeros_like(local)) + Vl * torch.arange(
+            n, device=idx.device).reshape((-1,) + (1,) * (idx.ndim - 1))
+        g = torch.where(valid[..., None], g, torch.zeros_like(g))
+        table = torch.zeros((n * Vl, Ml), dtype=g.dtype, device=g.device)
+        table.index_add_(0, rows.reshape(-1), g.reshape(-1, Ml))
+        table = table.reshape(n, Vl, Ml)
+        return mr.psum(table, mesh, P) if P else table
+
+    return LocalOp([g_t, idx_t], out, fn, collectives={"all-reduce": 1} if P else {})
+
+
+def decide_gather(eqn, shardings, want, mesh: Mesh) -> LocalOp:
+    """``input`` sharded on the gathered dim by axes A: each device picks the
+    indices in its range (others read as zero) and a psum over A completes
+    the picks; the input is never gathered."""
+    d = eqn.params["dim"]
+    A = shardings[0].dims_mapping[d]
+    base, maps = _pass_through(eqn, shardings, want, mesh)
+    out = _without(base, A).with_dim(d, ())
+    targets = _targets(eqn, out, maps, mesh)
+    targets[0] = targets[0].with_dim(d, A)
+    size = eqn.in_avals[0].shape[d]
+    it = targets[0]
+
+    def fn(x, idx):
+        n_l = x.shape[d + 1]
+        local = idx - _offsets_like(it, d, size, idx)
+        valid = (local >= 0) & (local < n_l)
+        got = torch.gather(x, d + 1, torch.where(valid, local, torch.zeros_like(local)))
+        got = torch.where(valid, got, torch.zeros_like(got))
+        return mr.psum(got, mesh, A) if A else got
+
+    return LocalOp(targets, out, fn, collectives={"all-reduce": 1} if A else {})
+
+
+def decide_scatter_add(eqn, shardings, want, mesh: Mesh) -> LocalOp:
+    """``self`` sharded on the scattered dim by axes A: each device adds the
+    values whose indices fall in its range (a masked local scatter); no
+    collective."""
+    d = eqn.params["dim"]
+    base, maps = _pass_through(eqn, shardings, want, mesh)
+    A = base.dims_mapping[d]
+    targets = _targets(eqn, base, maps, mesh)
+    size = eqn.out_avals[0].shape[d]
+
+    def fn(x, idx, src):
+        n_l = x.shape[d + 1]
+        local = idx - _offsets_like(base, d, size, idx)
+        valid = (local >= 0) & (local < n_l)
+        src = torch.where(valid, src, torch.zeros_like(src))
+        return x.scatter_add(d + 1, torch.where(valid, local, torch.zeros_like(local)), src)
+
+    return LocalOp(targets, base, fn)
+
+
+LOCAL_OPS = {
+    FLASH: decide_flash,
+    FLASH_FWD: decide_flash_fwd,
+    FLASH_BWD: decide_flash_bwd,
+    "aten.unbind": decide_drop_dim,
+    "aten.select": decide_drop_dim,
+    "aten.stack": decide_stack,
+    "aten.select_backward": decide_select_backward,
+    "aten.slice_backward": decide_slice_backward,
+    "aten.logsumexp": decide_logsumexp,
+    "aten.embedding": decide_embedding,
+    "aten.embedding_dense_backward": decide_embedding_backward,
+    "aten.gather": decide_gather,
+    "aten.scatter_add": decide_scatter_add,
+    **{name: decide_factory for name in FACTORY},
+}
+
+
+# ---------------------------------------------------------------------------------
 # fallback analysis: which dims does a formatting op actually modify?
 # ---------------------------------------------------------------------------------
 #
@@ -450,6 +830,8 @@ class SpmdPartitioner:
             self._addmm(eqn)
         elif name in ELEMENTWISE and eqn.out_avals:
             self._elementwise(eqn)
+        elif name in LOCAL_OPS and self._local(eqn):
+            pass
         elif name in REDUCE:
             self._reduce(eqn)
         elif name in TRANSPOSE:
@@ -466,11 +848,6 @@ class SpmdPartitioner:
             self._reshape(eqn)
         elif name == "aten.convolution":
             self._conv(eqn)
-        elif name == FLASH:
-            self._flash(eqn)
-        elif name in FACTORY:
-            out = node.target(*node.args, **node.kwargs)
-            self.write(node, mr.replicate(out, self.mesh), replicated(self.mesh, out.ndim))
         else:
             # fallback: gather everything, run globally, re-slice to inferred sharding
             self._fallback(eqn)
@@ -553,11 +930,16 @@ class SpmdPartitioner:
             out = conv_bias(out, self._to(bv, bs, replicated(self.mesh, 1)))
         self.write(eqn.node, out, osh)
 
-    def _flash(self, eqn):
-        targets, osh = flash_targets(eqn, [self.shardings[v] for v in eqn.invars],
-                                     self.prop.get(eqn.node), self.mesh)
-        q, k, v = (self._to(*self.read(n), t) for n, t in zip(eqn.invars, targets))
-        self.write(eqn.node, flash_local(q, k, v, eqn.params), osh)
+    def _local(self, eqn) -> bool:
+        """A ``LocalOp`` decision and its computation; False where the op
+        must take the fallback instead."""
+        d = LOCAL_OPS[eqn.name](eqn, [self.shardings[v] for v in eqn.invars],
+                                _want(eqn, self.prop), self.mesh)
+        if d is None:
+            return False
+        vals = [self._to(*self.read(v), t) for v, t in zip(eqn.invars, d.targets)]
+        self.write(eqn.node, d.fn(*vals), d.out)
+        return True
 
     def _fallback(self, eqn):
         """Gather → op → reshard to the propagated sharding (§4.5).
@@ -631,6 +1013,8 @@ class _CacheEntry:
     captured: object  # compat.Captured: the graph the shardings refer to
     prop: PropagationResult
     plan: Optional[object] = None  # plan.PartitionPlan on the compiled path
+    # host seconds of the build: capture, completion and plan compilation
+    build_s: Dict[str, float] = dataclasses.field(default_factory=dict)
 
 
 def _aval_key(a) -> tuple:
@@ -690,8 +1074,9 @@ def spmd_partition(fn, mesh: Mesh, compile_plans: bool = True, optimize: bool = 
     caller asks for "cpu" (no fallback from one to the other).
 
     The runner exposes ``cache_stats`` (hits/misses), ``plans`` (cache key →
-    entry: the captured graph, the completed shardings and, compiled,
-    ``plan``), and, after each call, ``fallbacks`` (the op names that took
+    entry: the captured graph, the completed shardings, compiled,
+    ``plan``, and ``build_s``, the seconds of capture, completion and plan
+    compilation), and, after each call, ``fallbacks`` (the op names that took
     the fallback, in graph order), ``fallback_gathers`` (those of them that
     gathered a sharded dim) and ``collectives`` (the collectives run, by
     kind).
@@ -715,7 +1100,9 @@ def spmd_partition(fn, mesh: Mesh, compile_plans: bool = True, optimize: bool = 
     stats = PlanCacheStats()
 
     def _build(flat, args):
+        t0 = time.perf_counter()
         captured = capture(fn, *args)
+        t1 = time.perf_counter()
         pkey: Optional[tuple] = None
         if process_cache:
             pkey = (captured.digest(), mkey, tuple(_aval_key(a) for a in flat), compile_plans,
@@ -726,12 +1113,15 @@ def spmd_partition(fn, mesh: Mesh, compile_plans: bool = True, optimize: bool = 
                 return entry
             _PROCESS_STATS.record_miss()
         prop = propagate(captured, mesh).result()
+        t2 = time.perf_counter()
         plan = None
         if compile_plans:
             from .plan import compile_plan
 
             plan = compile_plan(captured, prop, mesh, optimize=False, profile=profile)
-        entry = _CacheEntry(captured, prop, plan)
+        entry = _CacheEntry(captured, prop, plan, {
+            "capture_s": t1 - t0, "completion_s": t2 - t1,
+            "plan_compile_s": time.perf_counter() - t2})
         if pkey is not None:
             _PROCESS_CACHE[pkey] = entry
         return entry

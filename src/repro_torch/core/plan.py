@@ -49,7 +49,7 @@ import numpy as np
 import torch
 import torch.fx
 
-from ..analysis.graph_cost import count_flops, flash_flops
+from ..analysis.graph_cost import count_flops
 from ..analysis.roofline import RooflineParams, collective_wire_bytes, overlap_time_s
 from . import mesh_runtime as mr
 from .annotate import ANNOTATE_OP, decode
@@ -57,16 +57,17 @@ from .collective_planner import (PlanError, ReshardProgram, _candidate_gather_al
                                  _candidate_legacy, execute_program, plan_reshard,
                                  search_telemetry, simulate)
 from .einsum_rules import compile_einsum, execute_einsum
-from .partitioner import (COLLECTIVE, REDUCE_OP, align, broadcast_local, broadcast_sharding,
+from .partitioner import (COLLECTIVE, LOCAL_OPS, REDUCE_OP, _want, align, broadcast_local,
+                          broadcast_sharding,
                           conv_bias, conv_feature_local, conv_halo_local, conv_target,
                           dot_spec, elementwise_local, elementwise_targets,
                           fallback_global, fallback_keep_sharding, fallback_local,
-                          flash_local, flash_targets, gathers, group_size, local_reduce,
+                          gathers, group_size, local_reduce,
                           local_reshape_ok, reduce_decision, transpose_sharding)
 from .propagation import PropagationResult, propagate
 from .reshard import shard_shape
-from .rules import (BROADCAST, DOT, ELEMENTWISE, FACTORY, FLASH, REDUCE, RESHAPE, TRANSPOSE,
-                    _bcast_map, _invert, _project, aval, lower)
+from .rules import (BROADCAST, DOT, ELEMENTWISE, REDUCE, RESHAPE, TRANSPOSE, _bcast_map, _invert,
+                    _project, aval, lower)
 from .sharding import Mesh, Sharding, replicated
 
 Env = Dict[object, object]
@@ -250,14 +251,18 @@ class PartitionPlan:
     def __post_init__(self):
         self.dead = _dead_after(self.steps, self.out_keys)
 
-    def execute(self, *args):
+    def execute(self, *args, on_step: Optional[Callable[[PlanStep, Env], None]] = None):
         """Run the plan on the stacked local shards of its inputs; returns the
         outputs' stacked shards (under ``out_shardings``).  Each value is
-        dropped after its last reader, as ``plan_peak_bytes`` models."""
+        dropped after its last reader, as ``plan_peak_bytes`` models.
+        ``on_step(step, env)``, if given, sees each step's results before
+        its dead values are dropped."""
         env: Env = dict(self.consts)
         env.update(zip(self.invars, args))
         for step, dead in zip(self.steps, self.dead):
             step.run(env, step.reads, step.writes)
+            if on_step is not None:
+                on_step(step, env)
             for k in dead:
                 del env[k]
         return [env[k] if isinstance(k, (torch.fx.Node, ProxyVar)) else k
@@ -463,6 +468,8 @@ class PlanBuilder:
             self._addmm(eqn)
         elif name in ELEMENTWISE and eqn.out_avals:
             self._elementwise(eqn)
+        elif name in LOCAL_OPS and self._local(eqn):
+            pass
         elif name in REDUCE:
             self._reduce(eqn)
         elif name in TRANSPOSE:
@@ -473,10 +480,6 @@ class PlanBuilder:
             self._reshape(eqn)
         elif name == "aten.convolution":
             self._conv(eqn)
-        elif name == FLASH:
-            self._flash(eqn)
-        elif name in FACTORY:
-            self._factory(eqn)
         else:
             self._fallback(eqn)
 
@@ -672,23 +675,24 @@ class PlanBuilder:
             self.emit_compute((after, bk), node, conv_bias, "conv-bias",
                               flops=float(np.prod(out_local)))
 
-    def _flash(self, eqn) -> None:
+    def _local(self, eqn) -> bool:
+        """A ``LocalOp`` decision as one compute step after its operands'
+        reshards; False where the op must take the fallback instead."""
         node = eqn.node
-        targets, osh = flash_targets(eqn, [self.sh[v] for v in eqn.invars],
-                                     self.prop.get(node), self.mesh)
-        keys = [self.reshard_operand(v, t) for v, t in zip(eqn.invars, targets)]
-        self.sh[node] = osh
-        B, S, KR, Gl, D = shard_shape(eqn.in_avals[0].shape, targets[0])
-        params = eqn.params
-        self.emit_compute(keys, node, lambda q, k, v: flash_local(q, k, v, params), eqn.name,
-                          flops=flash_flops(B, S, KR * Gl, eqn.in_avals[1].shape[1], D,
-                                            params["causal"]))
-
-    def _factory(self, eqn) -> None:
-        node, mesh = eqn.node, self.mesh
-        self.sh[node] = replicated(mesh, eqn.out_avals[0].ndim)
-        self.emit_compute((), node, lambda: mr.replicate(
-            node.target(*node.args, **node.kwargs), mesh), eqn.name)
+        d = LOCAL_OPS[eqn.name](eqn, [self.sh[v] for v in eqn.invars],
+                                _want(eqn, self.prop), self.mesh)
+        if d is None:
+            return False
+        keys = [self.reshard_operand(v, t) for v, t in zip(eqn.invars, d.targets)]
+        self.sh[node] = d.out
+        for kind, n in d.collectives.items():
+            self.stats.count(kind, n)
+        outs = list(zip(eqn.out_avals, [d.out])) if eqn.out_avals else \
+            list(zip(eqn.tuple_avals, d.out))
+        wbytes = sum(_nbytes_of(shard_shape(a.shape, sh), a.dtype.itemsize)
+                     for a, sh in outs if a is not None)
+        self.emit_compute(keys, node, d.fn, eqn.name, flops=d.flops, wbytes=(wbytes,))
+        return True
 
     def _fallback(self, eqn) -> None:
         """Gather → op → reshard (§4.5), gathering only the dims the op

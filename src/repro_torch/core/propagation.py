@@ -138,14 +138,17 @@ class Propagation:
             self.refine(x, self.get(eqn.node))
             return
         rule = RULES.get(eqn.name)
-        if rule is None or not eqn.out_avals:
+        if rule is None or not (eqn.out_avals or eqn.tuple_outs):
             return
+        # a tuple result's shardings live on the getitem nodes that read it
+        outs = [eqn.node] if eqn.out_avals else eqn.tuple_outs
         in_sh = [self.get(v) for v in eqn.invars]
-        out_sh = [self.get(eqn.node)]
+        out_sh = [self.get(o) for o in outs]
         new_in, new_out = rule(eqn, in_sh, out_sh, direction)
         for v, s in zip(eqn.invars, new_in):
             self.refine(v, s)
-        self.refine(eqn.node, new_out[0])
+        for o, s in zip(outs, new_out):
+            self.refine(o, s)
 
     # -- the sweeps ---------------------------------------------------------------
     def run(self, max_rounds: int = 32) -> Dict[torch.fx.Node, Sharding]:

@@ -28,16 +28,28 @@ Where an aten graph differs from a jaxpr:
   equal size carry sharding — what ``rule_broadcast_in_dim`` then
   ``rule_elementwise`` do in the reference;
 * reductions may keep their dims (``keepdim``);
-* ``slice`` has the same-rank rule, as the reference's ``slice``; ``select``
-  and the indexing ops (``index``, ``gather``, ``embedding``) have no rule and
-  take the partitioner's fallback, as the reference's ops without rules do;
+* ``slice`` has the same-rank rule, as the reference's ``slice``;
   ``alias``/``detach``/``clone`` are elementwise, as the reference's ``copy``;
+* ops that return a tuple (``unbind``, the flash operator pair) map each
+  result to the ``getitem`` node that reads it (``Eqn.tuple_outs``);
+* the ops a captured training step adds: ``stack``, ``unbind``, ``select``,
+  ``select_backward`` and ``slice_backward`` keep the sharding of the dims
+  they do not touch; ``logsumexp`` is a reduction; ``embedding``,
+  ``embedding_dense_backward``, ``gather`` and ``scatter_add`` carry the
+  sharding of their pass-through dims, and the partitioner lets their
+  indexed dim stay sharded (a masked local lookup plus a psum, or a masked
+  local scatter).  The reference has no rule for ``gather``/``scatter`` and
+  takes its fallback, where XLA partitions its model layer; the port has no
+  XLA behind it, so these rules stand in for XLA's partitioning of the
+  sharded loss (ROADMAP Queue C);
 * factory ops (``ones``, ``zeros``, ``arange``, ...) are created replicated,
   like the reference's ``iota``;
-* the flash-attention operator (``repro_torch::flash_attention``, which the
-  reference's jaxpr has no counterpart of: its attention is an XLA loop)
-  maps batch and layout kv heads between q (B,S,KR,Gl,D), k/v (B,T,KR,D) and
-  its output; S, T, Gl and D stay replicated.
+* the flash-attention operators (``repro_torch::flash_attention``, and the
+  pair ``flash_attention_fwd`` / ``flash_attention_bwd`` of differentiable
+  attention, which the reference's jaxpr has no counterpart of: its
+  attention is an XLA loop) map batch and layout kv heads between q
+  (B,S,KR,Gl,D), k/v (B,T,KR,D), the output and its gradients, and the
+  log-sum-exp (B,KR,S*Gl); S, T, Gl and D stay replicated.
 """
 from __future__ import annotations
 
@@ -54,6 +66,8 @@ MaybeS = Optional[Sharding]
 
 ANNOTATE = "repro_torch.annotate"
 FLASH = "repro_torch.flash_attention"
+FLASH_FWD = "repro_torch.flash_attention_fwd"
+FLASH_BWD = "repro_torch.flash_attention_bwd"
 
 
 # ---------------------------------------------------------------------------------
@@ -87,6 +101,10 @@ class Eqn:
     in_avals: List[Aval]
     out_avals: List[Aval]  # [] when the op returns a tuple
     params: Dict[str, Any]
+    # a tuple result: each element's aval and the getitem node that reads it
+    # (None where nothing does)
+    tuple_avals: List[Optional[Aval]] = dataclasses.field(default_factory=list)
+    tuple_outs: List[Any] = dataclasses.field(default_factory=list)
 
 
 def op_name(node) -> str:
@@ -132,12 +150,21 @@ def lower(node) -> Eqn:
     out = aval(node)
     out_avals = [out] if out is not None else []
     params: Dict[str, Any] = {}
+    tuple_avals, tuple_outs = [], []
+    val = node.meta.get("val")
+    if out is None and isinstance(val, (list, tuple)):
+        tuple_avals = [Aval(tuple(int(d) for d in t.shape), t.dtype)
+                       if isinstance(t, torch.Tensor) else None for t in val]
+        tuple_outs = [None] * len(val)
+        for u in node.users:
+            if u.target is operator.getitem:
+                tuple_outs[u.args[1]] = u
     fn = _PARAMS.get(name)
-    if fn is not None and out is not None:
-        params = fn(node, in_avals, out)
+    if fn is not None and (out is not None or tuple_avals):
+        params = fn(node, in_avals, out if out is not None else tuple_avals)
     if name == "aten.convolution":
         invars, in_avals = invars[:2], in_avals[:2]  # the bias joins after the product
-    return Eqn(node, name, invars, in_avals, out_avals, params)
+    return Eqn(node, name, invars, in_avals, out_avals, params, tuple_avals, tuple_outs)
 
 
 def _permute_params(node, ins, out):
@@ -248,6 +275,34 @@ def _flash_params(node, ins, out):
     kw = kwargs_of(node)
     return {"causal": bool(kw["causal"]), "q_offset": int(kw["q_offset"]),
             "kv_len": kw["kv_len"], "chunk": int(kw["chunk"])}
+
+
+def _dim_param(node, rank: int) -> int:
+    return _norm(kwargs_of(node).get("dim", 0), rank)
+
+
+def _drop_dim_params(node, ins, out):
+    """unbind and select: the dim they remove (and select's index)."""
+    return {"dim": _dim_param(node, ins[0].ndim), "index": kwargs_of(node).get("index")}
+
+
+def _stack_params(node, ins, out):
+    return {"dim": _dim_param(node, out.ndim)}
+
+
+def _select_backward_params(node, ins, out):
+    kw = kwargs_of(node)
+    return {"dim": _norm(kw["dim"], out.ndim), "index": kw["index"]}
+
+
+def _slice_backward_params(node, ins, out):
+    kw = kwargs_of(node)
+    return {"dim": _norm(kw["dim"], out.ndim), "start": kw["start"], "end": kw["end"],
+            "step": kw["step"], "modified_dims": (_norm(kw["dim"], out.ndim),)}
+
+
+def _gather_params(node, ins, out):
+    return {"dim": _dim_param(node, ins[0].ndim)}
 
 
 def _flip_params(node, ins, out):
@@ -601,6 +656,119 @@ def rule_flash_attention(eqn, in_sh, out_sh, direction):
     return [flash_layout(m, a.ndim) for a in eqn.in_avals], [flash_layout(m, 5)]
 
 
+def _heads(s: Sharding, rank: int) -> Sharding:
+    """(batch, kv heads) of a flash operand: dims 0 and 1 of the rank-3
+    log-sum-exp (B, KR, S*Gl), dims 0 and 2 of the others."""
+    return _project(s, [0, 1], 2) if rank == 3 else flash_heads(s)
+
+
+def _heads_layout(bh: Sharding, rank: int) -> Sharding:
+    return _project(bh, [0, 1, None], 3) if rank == 3 else flash_layout(bh, rank)
+
+
+def rule_flash_pair(eqn, in_sh, out_sh, direction):
+    """The differentiable flash operators: batch and kv heads shared by every
+    operand and result."""
+    avals = list(eqn.in_avals) + list(eqn.tuple_avals)
+    m = _merge_many([_heads(s, a.ndim) for s, a in zip(list(in_sh) + list(out_sh), avals)
+                     if s is not None])
+    if m is None:
+        return in_sh, out_sh
+    return ([_heads_layout(m, a.ndim) for a in eqn.in_avals],
+            [_heads_layout(m, a.ndim) for a in eqn.tuple_avals])
+
+
+# ---------------------------------------------------------------------------------
+# ops of the captured training step: a dim dropped or inserted, index ops
+# ---------------------------------------------------------------------------------
+
+
+def drop_map(rank: int, dim: int) -> List[Optional[int]]:
+    """For a result of rank ``rank - 1`` with ``dim`` removed: result dim ->
+    operand dim."""
+    return [j if j < dim else j + 1 for j in range(rank - 1)]
+
+
+def insert_map(rank: int, dim: int) -> List[Optional[int]]:
+    """For a result of rank ``rank + 1`` with a new ``dim``: result dim ->
+    operand dim (None at ``dim``)."""
+    return [None if j == dim else (j if j < dim else j - 1) for j in range(rank + 1)]
+
+
+def _mapped(in_sh, out_sh, in_avals, out_avals, maps):
+    """A rule over ops whose every result dim maps to one dim of each operand
+    (``maps[i][j]``: result dim j -> dim of operand i, or None): merge every
+    side's projection onto the result, then project it back."""
+    rank = out_avals[0].ndim
+    cands = [_project(s, m, rank) for s, m in zip(in_sh, maps) if s is not None]
+    cands += [s for s in out_sh if s is not None]
+    m = _merge_many(cands)
+    if m is None:
+        return in_sh, out_sh
+    new_in = [_project(m, _invert(mp, a.ndim), a.ndim) for mp, a in zip(maps, in_avals)]
+    return new_in, [m for _ in out_sh]
+
+
+def rule_drop_dim(eqn, in_sh, out_sh, direction):
+    """unbind (each result) and select: the removed dim's sharding dropped,
+    the others carried."""
+    a = eqn.in_avals[0]
+    return _mapped(in_sh, out_sh, eqn.in_avals, eqn.out_avals or eqn.tuple_avals,
+                   [drop_map(a.ndim, eqn.params["dim"])])
+
+
+def rule_insert_dim(eqn, in_sh, out_sh, direction):
+    """stack (every operand) and select_backward (the gradient): the new dim
+    replicated, the others carried."""
+    d = eqn.params["dim"]
+    maps = [insert_map(a.ndim, d) for a in eqn.in_avals]
+    return _mapped(in_sh, out_sh, eqn.in_avals, eqn.out_avals, maps)
+
+
+def rule_keep_unmodified(eqn, in_sh, out_sh, direction):
+    """slice_backward: every dim but the sliced one carried."""
+    rank = eqn.out_avals[0].ndim
+    mod = set(eqn.params["modified_dims"])
+    mp = [None if j in mod else j for j in range(rank)]
+    return _mapped(in_sh, out_sh, eqn.in_avals, eqn.out_avals, [mp])
+
+
+def index_maps(eqn) -> List[List[Optional[int]]]:
+    """Result dim -> operand dim for the index ops' pass-through dims (the
+    indexed dim maps to nothing):
+
+    * embedding(weight (V, M), indices (...)) -> (..., M);
+    * embedding_dense_backward(grad (..., M), indices (...)) -> (V, M);
+    * gather(input, dim, index) -> index's shape;
+    * scatter_add(self, dim, index, src) -> self's shape.
+
+    A dim maps between operands of equal size only."""
+    name, ins = eqn.name, eqn.in_avals
+    out = eqn.out_avals[0]
+    if name == "aten.embedding":
+        w, idx = ins
+        k = idx.ndim
+        return [[None] * k + [1], list(range(k)) + [None]]
+    if name == "aten.embedding_dense_backward":
+        g, idx = ins
+        k = idx.ndim
+        return [[None, k], [None, None]]
+    d = eqn.params["dim"]
+
+    def same(a):
+        return [j if j != d and a.shape[j] == out.shape[j] else None for j in range(out.ndim)]
+
+    if name == "aten.gather":
+        inp, idx = ins
+        return [same(inp), [j if j != d else None for j in range(out.ndim)]]
+    s, idx, src = ins  # scatter_add: self keeps every dim, the indexed one too
+    return [list(range(out.ndim)), same(idx), same(src)]
+
+
+def rule_index(eqn, in_sh, out_sh, direction):
+    return _mapped(in_sh, out_sh, eqn.in_avals, eqn.out_avals, index_maps(eqn))
+
+
 # ---------------------------------------------------------------------------------
 # registry + priorities
 # ---------------------------------------------------------------------------------
@@ -611,7 +779,7 @@ TRANSPOSE = {"aten.permute", "aten.transpose", "aten.t"}
 BROADCAST = {"aten.unsqueeze", "aten.expand"}
 RESHAPE = {"aten.view", "aten._unsafe_view", "aten.reshape", "aten.squeeze"}
 REDUCE = {"aten.sum", "aten.mean", "aten.amax", "aten.amin", "aten.prod",
-          "aten.any", "aten.all"}
+          "aten.any", "aten.all", "aten.logsumexp"}
 ARGMINMAX = {"aten.argmax", "aten.argmin"}
 DOT = {"aten.mm", "aten.bmm"}
 # created replicated, like the reference's iota
@@ -634,6 +802,16 @@ _PARAMS = {
     "aten.constant_pad_nd": _pad_params,
     "aten.flip": _flip_params,
     FLASH: _flash_params,
+    FLASH_FWD: lambda node, ins, out: {"causal": bool(kwargs_of(node)["causal"]),
+                                       "chunk": int(kwargs_of(node)["chunk"])},
+    FLASH_BWD: lambda node, ins, out: {"causal": bool(kwargs_of(node)["causal"])},
+    "aten.unbind": _drop_dim_params,
+    "aten.select": _drop_dim_params,
+    "aten.stack": _stack_params,
+    "aten.select_backward": _select_backward_params,
+    "aten.slice_backward": _slice_backward_params,
+    "aten.gather": _gather_params,
+    "aten.scatter_add": _gather_params,
 }
 for _n in REDUCE | ARGMINMAX:
     _PARAMS[_n] = _reduce_params
@@ -668,5 +846,15 @@ RULES["aten.convolution"] = rule_conv
 PRIORITY["aten.convolution"] = 2
 RULES[FLASH] = rule_flash_attention
 PRIORITY[FLASH] = 2
+for name in (FLASH_FWD, FLASH_BWD):
+    RULES[name] = rule_flash_pair
+    PRIORITY[name] = 2
+INDEX = {"aten.embedding", "aten.embedding_dense_backward", "aten.gather", "aten.scatter_add"}
+for name, rule in (("aten.unbind", rule_drop_dim), ("aten.select", rule_drop_dim),
+                   ("aten.stack", rule_insert_dim), ("aten.select_backward", rule_insert_dim),
+                   ("aten.slice_backward", rule_keep_unmodified),
+                   *((n, rule_index) for n in INDEX)):
+    RULES[name] = rule
+    PRIORITY[name] = 1
 
 MAX_PRIORITY = 3

@@ -15,14 +15,21 @@ Attention that needs no gradient is, under graph capture
 (``core/compat.py::capture``), the custom operator
 ``repro_torch::flash_attention`` (``flash_attention_op``), which the capture
 keeps as one node and the partitioner shards on batch and kv heads
-(``core/rules.py``, ``core/partitioner.py::flash_local``).  Run eagerly,
-the same call goes to the kernel or the plain version directly
-(``flash_forward``): the operator's dispatch costs host time on every call,
-and serving makes one call per layer per decode step.
+(``core/rules.py``, ``core/partitioner.py::flash_local``).  Attention that
+needs one is, under capture, ``repro_torch::flash_attention_fwd`` (the
+output and each q row's float32 log-sum-exp), whose registered gradient is
+the operator ``repro_torch::flash_attention_bwd``; both shard the same way
+(``core/partitioner.py::decide_flash_fwd``, ``decide_flash_bwd``).  A CUDA tensor reaching either goes to the kernels
+(the forward with its log-sum-exp; the backward kernel's launches), a CPU
+tensor to the plain versions (``chunked_attention_ref`` and
+``attention_lse_ref``; ``flash_attention_bwd_ref``).  Run eagerly, the same
+calls go to the kernels or the plain versions directly (``flash_forward``,
+``flash_attention_train``): an operator's dispatch costs host time on every
+call, and serving makes one call per layer per decode step.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor, is_fake
@@ -31,7 +38,8 @@ from torch.fx.experimental.proxy_tensor import get_proxy_mode
 from . import flash_attention as fa
 from . import flash_attention_bwd as fab
 from . import ssd_scan as ssd_kernel
-from .ref import chunked_attention_ref, ssd_scan_ref
+from .ref import (attention_lse_ref, chunked_attention_ref, flash_attention_bwd_ref,
+                  ssd_scan_ref)
 
 
 def _route(t: torch.Tensor) -> str:
@@ -68,11 +76,80 @@ def _(q, k, v, causal, q_offset, kv_len, chunk):
     return torch.empty_like(q, memory_format=torch.contiguous_format)
 
 
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def flash_attention_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                           chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward of differentiable attention as an operator: q
+    (B,S,KR,Gl,D), k/v (B,T,KR,D) -> (out (B,S,KR,Gl,D), lse float32
+    (B,KR,S*Gl)), q_offset 0 and every key valid.  A CUDA tensor goes to the
+    forward kernel (writing the log-sum-exp, within the backward kernel's
+    limits: ``check_trainable``), a CPU tensor to the plain versions."""
+    if _route(q) == "cuda":
+        fab.check_trainable(q, k, v)
+        B, S, KR, Gl, _ = q.shape
+        lse = torch.empty((B, KR, S * Gl), dtype=torch.float32, device=q.device)
+        return fa.flash_attention(q, k, v, causal=causal, lse=lse), lse
+    return (chunked_attention_ref(q, k, v, causal=causal, chunk=chunk).contiguous(),
+            attention_lse_ref(q, k, causal=causal).contiguous())
+
+
+@flash_attention_fwd_op.register_fake
+def _(q, k, v, causal, chunk):
+    if q.device.type == "cuda":
+        fab.check_trainable(q, k, v)
+    B, S, KR, Gl, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((B, KR, S * Gl), dtype=torch.float32))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def flash_attention_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                           lse: torch.Tensor, dout: torch.Tensor, causal: bool
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``flash_attention_fwd`` as an operator: (dq, dk, dv)
+    from the forward's inputs, output and log-sum-exp and the output's
+    gradient.  A CUDA tensor goes to the backward kernel, a CPU tensor to
+    its plain version."""
+    if _route(q) == "cuda":
+        return fab.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    return tuple(t.contiguous() for t in flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                                                 causal=causal))
+
+
+@flash_attention_bwd_op.register_fake
+def _(q, k, v, out, lse, dout, causal):
+    if q.device.type == "cuda":
+        fab.check_trainable(q, k, v)
+    like = lambda t: torch.empty_like(t, memory_format=torch.contiguous_format)
+    return like(q), like(k), like(v)
+
+
+def _fwd_setup(ctx, inputs, output):
+    q, k, v, causal, _ = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.causal = causal
+
+
+def _fwd_backward(ctx, dout, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = flash_attention_bwd_op(q, k, v, out, lse, dout, ctx.causal)
+    return dq, dk, dv, None, None
+
+
+flash_attention_fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup)
+
+
+def _capturing(q) -> bool:
+    """Whether a graph is being captured: fake tensors, or a proxy mode on
+    the stack."""
+    return isinstance(q, FakeTensor) or get_proxy_mode() is not None
+
+
 def flash_forward(q, k, v, causal: bool, q_offset: int, kv_len: Optional[int], chunk: int):
     """The forward with no gradient: the operator while a graph is being
     captured (fake tensors, or a proxy mode on the stack), else the kernel
     (CUDA) or the plain version (CPU) called directly."""
-    if isinstance(q, FakeTensor) or get_proxy_mode() is not None:
+    if _capturing(q):
         return flash_attention_op(q, k, v, bool(causal), int(q_offset),
                                   None if kv_len is None else int(kv_len), int(chunk))
     return _flash_forward(q, k, v, causal, q_offset, kv_len, chunk)
@@ -87,6 +164,14 @@ def attention_model_layout(
     package's); the kernel tiles kv itself."""
     if not _needs_grad(q, k, v):
         return flash_forward(q, k, v, causal, q_offset, kv_len, chunk)
+    if _capturing(q):
+        if q.device.type == "cuda":
+            fab.check_trainable(q, k, v, q_offset=q_offset, kv_len=kv_len)
+        elif q_offset != 0 or kv_len not in (None, k.shape[1]):
+            raise NotImplementedError(
+                f"differentiable attention under capture takes q_offset 0 and every key "
+                f"valid, not q_offset {q_offset}, kv_len {kv_len}")
+        return flash_attention_fwd_op(q, k, v, bool(causal), int(chunk))[0]
     if _route(q) == "cuda":
         return fab.flash_attention_train(q, k, v, causal=causal, q_offset=q_offset,
                                          kv_len=kv_len)

@@ -4,13 +4,17 @@ Same layout as the JAX package's ``models/attention.py``: q is
 (B,S,KR,Gl,D) and k/v (B,T,KR,D), where KR are the layout kv heads and Gl the
 (padded) q heads per layout kv head.  With no mesh the kv axis has size 1, so
 ``head_layout`` gives r = 1, Gp = G: no kv replication and no q-head padding.
-The padded layout (§4.1) arrives with the sharded strategies (ROADMAP A6).
+Under a mesh whose kv axis outnumbers the kv heads (§4.1), each kv head is
+broadcast r times and each group of q heads padded from G to Gp with zero
+rows, whose W_O columns are zero too, so they add exactly nothing.
 
 ``chunked_attention`` is where the JAX package runs its XLA online-softmax
 loop.  In the port it dispatches to the hand-written flash-attention kernel
 (``kernels/ops.py``) for CUDA tensors and to the step-for-step plain version
-for CPU tensors.  With no gradient to take, a graph capture records it as
-the operator ``repro_torch::flash_attention``, which the partitioner shards.
+for CPU tensors.  Under graph capture it is the operator
+``repro_torch::flash_attention`` (no gradient) or the pair
+``repro_torch::flash_attention_fwd`` / ``_bwd`` (with one), which the
+partitioner shards.
 """
 from __future__ import annotations
 
@@ -57,17 +61,19 @@ def attn_params(cfg: ModelConfig, st: Strategy):
     return p
 
 
-def _unpadded_layout(cfg: ModelConfig, st: Strategy):
-    K, G, r, Gp, KR = head_layout(cfg, st)
-    if r != 1 or Gp != G:
-        raise NotImplementedError(
-            "the padded head layout needs a mesh (ROADMAP A6, sharded strategies)")
-    return K, G
+def _pad_group(x, G: int, Gp: int, dim: int):
+    """Zero rows appended to the q-head group dim: G -> Gp."""
+    if Gp == G:
+        return x
+    pad = [0, 0] * (x.ndim - 1 - dim) + [0, Gp - G]
+    return torch.nn.functional.pad(x, pad)
 
 
 def project_qkv(cfg: ModelConfig, st: Strategy, p: Params, xq, xkv, positions):
-    """Returns q (B,S,KR,Gl,D), k,v (B,T,KR,D); KR = K and Gl = G with no mesh."""
-    K, G = _unpadded_layout(cfg, st)
+    """Returns q (B,S,KR,Gl,D), k,v (B,T,KR,D) in the padded layout; KR = K
+    and Gl = G with no mesh."""
+    K, G, r, Gp, KR = head_layout(cfg, st)
+    Gl = Gp // r
     q = (xq @ at_use(p["wq"], cfg).flatten(1)).unflatten(-1, p["wq"].shape[1:])
     k = (xkv @ at_use(p["wk"], cfg).flatten(1)).unflatten(-1, p["wk"].shape[1:])
     v = (xkv @ at_use(p["wv"], cfg).flatten(1)).unflatten(-1, p["wv"].shape[1:])
@@ -79,19 +85,36 @@ def project_qkv(cfg: ModelConfig, st: Strategy, p: Params, xq, xkv, positions):
         q = rope(q, positions, cfg.dh)
         k = rope(k, positions, cfg.dh)
     B, S = q.shape[:2]
+    T = k.shape[1]
     q = q.reshape(B, S, K, G, cfg.dh)
+    if Gp != G:
+        # §4.1: (K, G) does not divide the kv axis until padded; the head
+        # dims stay unsharded across the pad, as in the reference
+        q = st.constrain(q, "batch", "seq", None, None, None)
+        q = _pad_group(q, G, Gp, dim=3)
+        q = st.constrain(q, "batch", "seq", None, None, None)
+    if (KR, Gl) != (K, G):
+        q = q.reshape(B, S, KR, Gl, cfg.dh)
     q = st.constrain(q, "batch", "seq", "kv", None, None)
+    if r > 1:
+        k = k[:, :, :, None, :].expand(B, T, K, r, cfg.dh).reshape(B, T, KR, cfg.dh)
+        v = v[:, :, :, None, :].expand(B, T, K, r, cfg.dh).reshape(B, T, KR, cfg.dh)
     k = st.constrain(k, "batch", "seq", "kv", None)
     v = st.constrain(v, "batch", "seq", "kv", None)
     return q, k, v
 
 
 def out_projection(cfg: ModelConfig, st: Strategy, p: Params, attn):
-    """attn: (B,S,KR,Gl,D) -> (B,S,M) through W_O."""
-    K, G = _unpadded_layout(cfg, st)
+    """attn: (B,S,KR,Gl,D) padded layout -> (B,S,M) through W_O, padded
+    with zero columns for the padded heads."""
+    K, G, r, Gp, KR = head_layout(cfg, st)
     B, S = attn.shape[:2]
     # one (n d) contraction: torch.einsum over two dims sums in another order
-    out = attn.reshape(B, S, K * G * cfg.dh) @ at_use(p["wo"], cfg).reshape(K * G * cfg.dh, cfg.d_model)
+    attn = attn.reshape(B, S, K * Gp * cfg.dh)
+    wo = at_use(p["wo"], cfg)
+    if Gp != G:
+        wo = _pad_group(wo.reshape(K, G, cfg.dh, cfg.d_model), G, Gp, dim=1)
+    out = attn @ wo.reshape(K * Gp * cfg.dh, cfg.d_model)
     return st.constrain(out, "batch", "seq", "embed")
 
 

@@ -59,6 +59,43 @@ def tree_map_params(fn: Callable, tree, path=()):
     return {k: tree_map_params(fn, v, path + (k,)) for k, v in tree.items()}
 
 
+def tree_specs(tree):
+    """The partition-spec tree (tuples) of a param-declaration tree."""
+    return tree_map_params(lambda p, _path: p["spec"], tree)
+
+
+def tree_shapes(tree, store: str):
+    """Meta tensors of each leaf's shape and stored dtype (``stored_dtype``
+    with ``store``): a param tree to capture or price a program with, no
+    memory behind it."""
+    return tree_map_params(
+        lambda p, _path: torch.empty(p["shape"], dtype=stored_dtype(p, store), device="meta"),
+        tree)
+
+
+def annotate_spec(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """``t`` annotated by ``spec`` filtered to ``mesh``
+    (``configs.base.spec_sharding``): how a program hands the partitioner
+    an input's sharding at entry."""
+    from ..configs.base import spec_sharding
+    from ..core.annotate import annotate
+
+    return annotate(t, spec_sharding(spec, tuple(t.shape), mesh))
+
+
+def annotate_tree(tree, params, mesh) -> Params:
+    """``params`` with every leaf annotated by its declaration's spec in
+    ``tree`` (``annotate_spec``)."""
+
+    def leaf(decl, path):
+        t = params
+        for k in path:
+            t = t[k]
+        return annotate_spec(t, decl["spec"], mesh)
+
+    return tree_map_params(leaf, tree)
+
+
 def stored_dtype(decl, store: str) -> torch.dtype:
     """The dtype a leaf is stored in: its declaration's, else ``store``
     (``cfg.param_dtype`` to train, ``cfg.dtype`` to serve)."""
@@ -179,7 +216,14 @@ def embed_lookup(cfg: ModelConfig, st: Strategy, p: Params, tokens):
 
 
 def unembed_logits(cfg: ModelConfig, st: Strategy, p: Params, x):
-    logits = x @ at_use(p["embedding"], cfg).t()
+    """Logits (B,S,V).  Under a mesh the product is vocab-parallel: x whole
+    along M and the table split only on its rows (annotations, no-ops with
+    no mesh), so the partitioner's einsum gathers x's M and the table's M
+    rather than the vocab, and the logits and their gradient stay split on
+    the vocab (the reference leaves this choice to XLA)."""
+    x = st.constrain(x, "batch", "seq", None)
+    emb = st.constrain(at_use(p["embedding"], cfg), "vocab", None)
+    logits = x @ emb.t()
     return st.constrain(logits, "batch", "seq", "vocab")
 
 

@@ -5,10 +5,12 @@ from __future__ import annotations
 
 import torch
 
-from ..configs.base import ModelConfig, Strategy, spec_sharding
+from ..configs.base import ModelConfig, Strategy
 from . import attention as attn
 from .layers import (
     Params,
+    annotate_spec,
+    annotate_tree,
     embed_lookup,
     embed_params,
     layer_slice,
@@ -20,7 +22,6 @@ from .layers import (
     stack_layers,
     stacked,
     streamed_xent,
-    tree_map_params,
     unembed_logits,
 )
 
@@ -64,23 +65,12 @@ def partitionable_layer(cfg: ModelConfig, st: Strategy, mesh):
     (``core/partitioner.py::spmd_partition``): ``fn(lp, x, positions)``
     annotates x, positions and every weight at entry by ``st``'s activation
     and weight specs, filtered to ``mesh``, and runs the layer."""
-    from ..core.annotate import annotate
-
     decls = layer_param_tree(cfg, st)
 
-    def at_entry(t, spec):
-        return annotate(t, spec_sharding(spec, tuple(t.shape), mesh))
-
     def fn(lp, x, positions):
-        def leaf(decl, path):
-            node = lp
-            for k in path:
-                node = node[k]
-            return at_entry(node, decl["spec"])
-
-        lp = tree_map_params(leaf, decls)
-        x = at_entry(x, st.a("batch", "seq", "embed"))
-        positions = at_entry(positions, st.a("batch", "seq"))
+        lp = annotate_tree(decls, lp, mesh)
+        x = annotate_spec(x, st.a("batch", "seq", "embed"), mesh)
+        positions = annotate_spec(positions, st.a("batch", "seq"), mesh)
         return decoder_layer(cfg, st, lp, x, positions)
 
     return fn

@@ -12,6 +12,17 @@ sums their gradients in float32; remat is the model config's
 wall times and tokens per second and flags straggler steps (> k x median)
 through a hook.
 
+Under an ambient mesh (``core.compat.set_mesh``) ``make_train_step``
+builds the step as one partitioned program instead
+(``partitioned_train_step``): the functional step ``(params, opt_state,
+step, batch) -> (params', opt_state', loss, grad_norm)``, its inputs
+annotated at entry (params by their declared specs, the optimizer state by
+``opt_state_specs``, the batch on "data") and the gradient taken inside it,
+runs through ``spmd_partition(..., optimize=False)``: capture, completion
+and the plan on the first call, the plan alone on every later one.  The
+step writes the results back into the state's tensors, so callers see the
+same in-place contract.
+
 Not ported yet, and refused where asked for: numerics guards
 (``TrainConfig.guard``: ``core/plan.py``'s GuardConfig and the skip/rewind
 epilogue, ROADMAP A9), checkpoint/restart (``TrainConfig.ckpt_dir``:
@@ -29,11 +40,12 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig, Strategy
+from ..core.compat import get_abstract_mesh
 from ..core.device import resolve_device
 from ..core.tree import leaves, leaves_with_paths, tree_from_paths, tree_map
 from ..models import api
-from ..models.layers import tree_init
-from .optimizer import Optimizer
+from ..models.layers import annotate_spec, annotate_tree, tree_init, tree_shapes, tree_specs
+from .optimizer import Optimizer, opt_state_specs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,8 +123,12 @@ def _in_window(step: int, at: int, width: int) -> bool:
 
 def make_train_step(cfg: ModelConfig, st: Strategy, opt: Optimizer, tc: TrainConfig):
     """Returns step(state, batch) -> (state, metrics); state = {"params",
-    "opt", "step"[, "ef"]}, updated in place."""
+    "opt", "step"[, "ef"]}, updated in place.  Under an ambient mesh, the
+    partitioned step (``partitioned_train_step``)."""
     _require_trainable(cfg, tc)
+    mesh = get_abstract_mesh()
+    if mesh is not None:
+        return partitioned_train_step(cfg, st, opt, tc, mesh)
 
     def step_fn(state, batch):
         params, opt_state, step = state["params"], state["opt"], state["step"]
@@ -139,6 +155,95 @@ def make_train_step(cfg: ModelConfig, st: Strategy, opt: Optimizer, tc: TrainCon
         state["step"] = step + 1
         return state, {"loss": loss, "grad_norm": torch.sqrt(gnorm)}
 
+    return step_fn
+
+
+def sharded_value_and_grad(cfg: ModelConfig, st: Strategy, mesh):
+    """The program ``(params, batch) -> (loss, grads)`` of the partitioned
+    step: params annotated at entry by their declared specs filtered to
+    ``mesh``, tokens and labels on ("data",), the gradient taken with
+    autograd inside the program."""
+    decls = api.param_tree(cfg, st)
+
+    def program(params, batch):
+        params = annotate_tree(decls, params, mesh)
+        batch = {k: annotate_spec(v, ("data",), mesh) for k, v in batch.items()}
+        live = tree_map(lambda p: p.detach().requires_grad_(), params)
+        with torch.enable_grad():
+            return value_and_grad(cfg, st, live, batch)
+
+    return program
+
+
+def _refuse_unpartitioned(cfg: ModelConfig, tc: TrainConfig):
+    why = []
+    if cfg.remat != "none":
+        why.append(f"remat {cfg.remat!r} (torch.utils.checkpoint inside a captured gradient; "
+                   "ROADMAP A6, remat under the partitioned step)")
+    if tc.grad_accum > 1:
+        why.append(f"grad_accum {tc.grad_accum} (its microbatch loop is the scan of ROADMAP A9)")
+    if tc.compress_grads:
+        why.append("compress_grads (ROADMAP A6, the partitioned step's gradient exchange)")
+    if tc.numeric_fault is not None:
+        why.append("numeric_fault (ROADMAP A6, the partitioned step's fault window)")
+    if why:
+        raise NotImplementedError("the partitioned train step does not cover " + "; ".join(why))
+
+
+def partitioned_train_step(cfg: ModelConfig, st: Strategy, opt: Optimizer, tc: TrainConfig,
+                           mesh):
+    """The train step as one SPMD program on ``mesh`` (the simulated mesh
+    of ``core/mesh_runtime.py``), through the port's partitioner.
+
+    The program takes (params, opt_state, step, batch) at global shapes,
+    annotates them at entry (params by ``tree_specs``, the state by
+    ``opt_state_specs``, tokens and labels on ("data",), as the reference's
+    ``launch/elastic.py::state_partition_specs`` places them), takes the
+    loss's gradient with autograd inside the program (attention's through
+    the flash operators) and applies ``opt.apply``; it returns (params',
+    opt_state', loss, grad_norm).  ``spmd_partition(..., optimize=False)``
+    captures, completes and plans it on the first call, on the device the
+    params are on; every later call runs the plan.  The step writes the
+    results into ``state``'s tensors.  The runner is ``step.runner``."""
+    from ..core.partitioner import spmd_partition
+
+    _refuse_unpartitioned(cfg, tc)
+    decls = api.param_tree(cfg, st)
+    pspecs = tree_specs(decls)
+    ospecs = opt_state_specs(opt, pspecs, tree_shapes(decls, cfg.param_dtype))
+
+    grad_program = sharded_value_and_grad(cfg, st, mesh)
+
+    def program(params, opt_state, step, batch):
+        opt_state = tree_map(lambda t, spec: annotate_spec(t, spec, mesh), opt_state, ospecs)
+        loss, grads = grad_program(params, batch)
+        with torch.no_grad():
+            new_params, new_opt = opt.apply(grads, opt_state, params, step)
+            gnorm = torch.zeros((), dtype=torch.float32, device=loss.device)
+            for g in leaves(grads):  # the reference's leaf order
+                gnorm = gnorm + g.float().square().sum()
+        return new_params, new_opt, loss, torch.sqrt(gnorm)
+
+    runners = {}
+
+    def step_fn(state, batch):
+        params, opt_state, step = state["params"], state["opt"], state["step"]
+        dev = leaves(params)[0].device
+        runner = runners.get(dev)
+        if runner is None:
+            runner = runners[dev] = spmd_partition(program, mesh, optimize=False,
+                                                   device=str(dev))
+            step_fn.runner = runner
+        with torch.no_grad():
+            new_params, new_opt, loss, gnorm = runner(
+                tree_map(torch.Tensor.detach, params), opt_state,
+                torch.tensor(step, dtype=torch.int64), batch)
+            tree_map(lambda p, n: p.copy_(n), params, new_params)
+            tree_map(lambda s, n: s.copy_(n), opt_state, new_opt)
+        state["step"] = step + 1
+        return state, {"loss": loss, "grad_norm": gnorm}
+
+    step_fn.runner = None
     return step_fn
 
 

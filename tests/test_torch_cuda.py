@@ -673,3 +673,63 @@ def test_partitioned_decoder_layer_on_cuda_matches_unsharded(cuda, dtype, kind):
     torch.cuda.synchronize()
     assert fa.launches == 1 and runner.fallback_gathers == []
     assert_close(got, want, kind)
+
+
+def test_flash_operator_pair_at_the_partitioned_fold_matches_plain(cuda):
+    """The differentiable flash operators at the partitioned train step's
+    folded shape (8 devices x local batch 4, S 512, KR 4, Gl 1, D 64, bf16):
+    the forward (one launch) with its log-sum-exp, and the backward (one
+    call: three launches) against their plain versions."""
+    q, k, v, do = _bwd_inputs(cuda, 32, 512, 4, 1, 64, torch.bfloat16, seed=6)
+    fa.launches = fab.launches = 0
+    out, lse = ops.flash_attention_fwd_op(q, k, v, True, 512)
+    got = ops.flash_attention_bwd_op(q, k, v, out, lse, do, True)
+    torch.cuda.synchronize()
+    assert (fa.launches, fab.launches) == (1, 1)
+    assert_close(out, chunked_attention_ref(q, k, v, causal=True, chunk=512), "bf16_round")
+    assert_close(lse, attention_lse_ref(q, k, causal=True), "f32_chain")
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do, causal=True)
+    for name, gt, w in zip("qkv", got, want):
+        assert gt.dtype == torch.bfloat16 and bool(torch.isfinite(gt).all())
+        assert_close(gt, w, BWD_TOL[torch.bfloat16], err_msg=f"d{name}")
+
+
+def test_partitioned_train_step_on_cuda_matches_unsharded(cuda):
+    """qwen at reduced width (d128, 4 heads of 32 on "model") cut to two
+    layers, remat "none", bf16 compute with float32 masters: one Adafactor
+    step of TrainLoop under set_mesh on ("data" 2, "model" 4) against the
+    same step unsharded on the card.  Per step, one flash forward launch and
+    one backward call per layer, all eight devices in each; no fallback that
+    gathers; loss within bf16_chain, the step's update in norm within
+    bf16_grad."""
+    from repro_torch.core.compat import set_mesh
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.train.loop import TrainLoop
+
+    cfg = reduced_config(get_config("qwen1.5-0.5b"), 8).with_(num_layers=2, remat="none",
+                                                               scan_layers=False)
+    st, opt, mesh = get_strategy("2d_finalized"), get_optimizer("adafactor"), make_test_mesh()
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, 128, 8, seed=7, pattern="arithmetic"))
+    with set_mesh(mesh):
+        state0 = init_state(cfg, st, opt, TrainConfig(), torch.Generator("cuda").manual_seed(7),
+                            "cuda")
+    runs = []
+    for m in (mesh, None):
+        params = tree_map(lambda p: p.detach().clone().requires_grad_(), state0["params"])
+        state = {"params": params, "opt": opt.init(params), "step": 0}
+        launched = []
+        hooks = {"fault": lambda step: [setattr(mod, "launches", 0) for mod in (fa, fab)],
+                 "metrics": lambda step, loss: launched.append((fa.launches, fab.launches))}
+        with set_mesh(m):
+            loop = TrainLoop(cfg, st, opt, TrainConfig(steps=1), pipe, hooks=hooks)
+            state, losses = loop.run(initial_state=state)
+        assert launched == [(2, 2)]
+        runs.append((loop, state, losses))
+    (loop, sharded, loss_s), (_, unsharded, loss_u) = runs
+    assert loop.step_fn.runner.fallback_gathers == []
+    assert_close(np.float32(loss_s[0]), np.float32(loss_u[0]), "bf16_chain")
+    cat = lambda st_: torch.cat([(p - p0).flatten() for p, p0 in zip(
+        leaves(st_["params"]), leaves(state0["params"])) if p.ndim >= 2])
+    upd_s, upd_u = cat(sharded).double(), cat(unsharded).double()
+    assert ((upd_s - upd_u).norm() / upd_u.norm()).item() <= TOLERANCES["bf16_grad"][0]
