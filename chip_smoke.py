@@ -16,7 +16,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    card at the shapes of the Pallas kernel's contract, the qwen loss's own
    prefill, the partitioned layer's and train step's folded prefills, GQA,
    D = 32, a ragged prefill, prefill continuation and the serve path's
-   decode, each case with the variant and split count the
+   decode (with host positions, and with its position on the card at the
+   serve shape and the partitioned serve step's fold, B32 KR4, at positions
+   0, 1, a split boundary, the one before it and T - 2), each case with the
+   variant and split count the
    wrapper's plan() chose, with times (CUDA events) for the kernel, the
    plain version and ``scaled_dot_product_attention`` (a yardstick only: the
    port never calls it) beside the card's bound;
@@ -32,7 +35,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    version (and, at a small size, the exact recurrence) at the Mamba2
    loss's shape and smaller ones, ragged chunks and a short head group,
    with kernel, device (and, at the loss shapes, per-pass) and plain times
-   beside the bound (no PyTorch call computes the SSD); and, on signed
+   beside the bound (no PyTorch call computes the SSD), A per batch row at
+   the loss shape and at the partitioned loss's fold (32 x 2048, 6 heads);
+   and, on signed
    inputs scaled by 10^3, its error against float64 beside the plain
    float32 version's;
 4. qwen1.5-0.5b at full width (random weights from the seed): serve 16
@@ -78,7 +83,20 @@ Phases, each of which raises (and so exits non-zero) on failure:
    eight devices, no gathering fallback, no plan step holding a whole
    vocabulary dim; first-call seconds (capture, completion, plan
    compile), plan steps and collectives per step, wall, host and
-   device-busy ms per step, peak memory beside the plan's modeled peak.
+   device-busy ms per step, peak memory beside the plan's modeled peak;
+8. partitioned Mamba2 and serving, in a process of their own: mamba2-130m's
+   loss (B8 S2048, bf16, no gradient) as one program through the
+   partitioner under 2d_finalized against the same loss unsharded (24 SSD
+   calls per forward, each one call for all eight devices); and
+   ``Engine(slots=8, max_len=1024)`` under ``set_mesh`` (the decode step
+   one program, its position an int32 on the card, one plan for the run)
+   for qwen1.5-0.5b (24 layers, bf16), mamba2-130m (bf16 and float32) and
+   the two earlier Table-1 attempts (qwen, two layers), each against the
+   same ``Engine`` unsharded: logits per step, the unsharded step rerun on
+   the sharded step's input at a few steps, launches per step, no
+   gathering fallback and no plan step holding a whole vocabulary dim;
+   tokens/s, step wall, host and device-busy ms, the cache's shard and
+   unshard ms, syncs per step and peak memory.
 
 Every path runs with the kernels' launch counts set to 0 just before it and
 read just after.  The last two lines of output are the kernels' JSON record
@@ -285,6 +303,83 @@ def kernel_case(name, *, B, S, T, KR, Gl, D, dtype, causal, q_offset=0, kv_len=N
     return rec
 
 
+def decode_position_case(name, *, B, KR, gen, T=1024, D=64):
+    """The decode with its position on the device (``ops.flash_decode``: an
+    int32 the kernel reads, splits sized by T) against the plain version at
+    positions 0 and 1 (fewer keys than splits: empty splits), the one
+    before a split boundary and the boundary (the visible keys a multiple
+    of 64 per split, and one less), and T - 2; then timed at T - 2 beside
+    the plain version, SDPA over the visible keys and the bound, as
+    ``kernel_case``.  One launch per call; the host never reads the
+    position."""
+    from repro_torch.core.compat import TOLERANCES
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import chunked_attention_ref
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    pl = fa.plan(B, 1, KR, 1, T, D, bf16, bf16, causal=False, q_offset=0, kv_len=1,
+                 position_on_device=True)
+    boundary = pl.splits * fa.MIN_SPLIT_KEYS - 1  # pos + 1 keys: 64 per split
+    positions = (0, 1, boundary - 1, boundary, T - 2)
+    last = T - 2
+    q_bytes = B * KR * D * 2
+    nbytes = 2 * q_bytes + 2 * B * (last + 1) * KR * D * 2 + 4  # q, o, visible k/v, pos
+    copies = max(1, min(8, math.ceil(2 * L2_BYTES / (nbytes + 2 * B * T * KR * D * 2))))
+    sets = [(torch.randn(B, 1, KR, 1, D, generator=gen, device=dev).to(bf16),
+             torch.randn(B, T, KR, D, generator=gen, device=dev).to(bf16),
+             torch.randn(B, T, KR, D, generator=gen, device=dev).to(bf16)) for _ in range(copies)]
+    pos = torch.zeros((), dtype=torch.int32, device=dev)
+    rtol, atol = TOLERANCES["bf16_round"]
+    errs = {}
+    for p in positions:
+        pos.fill_(p)
+        q, k, v = sets[0]
+        before = fa.launches
+        got = ops.flash_decode(q, k, v, pos, T).float()
+        torch.cuda.synchronize()
+        check(fa.launches == before + 1, f"{name} pos {p}: {fa.launches - before} launches")
+        want = chunked_attention_ref(q, k, v, causal=False, chunk=T, q_offset=p,
+                                     kv_len=p + 1).float()
+        err = (got - want).abs()
+        errs[p] = err.max().item()
+        check(bool(torch.isfinite(got).all()), f"{name} pos {p}: non-finite output")
+        check(bool((err <= atol + rtol * want.abs()).all()),
+              f"{name} pos {p}: kernel vs plain max abs err {errs[p]} over bf16_round")
+    pos.fill_(last)
+
+    def run_kernel(i):
+        return ops.flash_decode(*sets[i], pos, T)
+
+    def run_plain(i):
+        q, k, v = sets[i]
+        return chunked_attention_ref(q, k, v, causal=False, chunk=T, q_offset=last,
+                                     kv_len=last + 1)
+
+    sdpa = [(q.reshape(B, KR, 1, D), k[:, :last + 1].transpose(1, 2).contiguous(),
+             v[:, :last + 1].transpose(1, 2).contiguous()) for q, k, v in sets]
+    t_ops = 4 * D * (last + 1) * B * KR / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    rec = {
+        "case": name, "dtype": "bfloat16", "variant": pl.variant, "splits": pl.splits,
+        "shape": dict(B=B, S=1, T=T, KR=KR, Gl=1, D=D), "positions": list(positions),
+        "max_abs_err_by_pos": errs, "max_abs_err": max(errs.values()), "tol": "bf16_round",
+        "ms": time_ms(run_kernel, copies), "device_ms": device_ms(run_kernel, copies),
+        "plain_ms": time_ms(run_plain, copies),
+        "library_ms": time_ms(lambda i: F.scaled_dot_product_attention(*sdpa[i]), copies),
+        "library_device_ms": device_ms(lambda i: F.scaled_dot_product_attention(*sdpa[i]),
+                                       copies),
+        "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops > t_bytes else "bytes",
+    }
+    print(f"  {name:30s} bfloat16 {pl.variant}/{pl.splits} (position on the device) errs "
+          f"{', '.join(f'pos {p}: {e:.3g}' for p, e in errs.items())} (bf16_round); at pos "
+          f"{last}: kernel {rec['ms']:.4f} ms (device {_ms(rec['device_ms'])})  plain "
+          f"{rec['plain_ms']:.4f} ms  sdpa {rec['library_ms']:.4f} ms (device "
+          f"{_ms(rec['library_device_ms'])})  bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})",
+          flush=True)
+    return rec
+
+
 def kernel_phase(seed):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -329,6 +424,11 @@ def kernel_phase(seed):
     cases.append(kernel_case("decode_f32q_bf16kv_pos100", B=2, S=1, T=256, KR=16, Gl=1, D=64,
                              dtype=f32, kv_dtype=bf16, causal=False, q_offset=100,
                              kv_len=101, chunk=256, layout="model", gen=gen))
+    # the decode with its position on the device: the serve path's call
+    # unsharded (B8 KR16) and the partitioned serve step's fold (eight
+    # devices' B4 KR4 in one launch)
+    cases.append(decode_position_case("decode_devpos_8x16", B=8, KR=16, gen=gen))
+    cases.append(decode_position_case("decode_devpos_fold_32x4", B=32, KR=4, gen=gen))
     return cases
 
 
@@ -462,10 +562,14 @@ def bwd_phase(seed):
 # ---------------------------------------------------------------------------------
 
 
-def ssd_case(name, *, B, S, H, hd, ds, chunk, gen, recurrence=False, per_pass=False):
+def ssd_case(name, *, B, S, H, hd, ds, chunk, gen, recurrence=False, per_pass=False,
+             per_row_a=False):
     """Inputs with tests/test_kernels.py's distributions; the kernel against
     the plain version (or the float64 recurrence), kernel, device and plain
-    times, and the bounds; with ``per_pass``, each pass's device time."""
+    times, and the bounds; with ``per_pass``, each pass's device time; with
+    ``per_row_a``, A (B, H), one per batch row, as a partitioned call folds
+    each device's heads into the batch."""
+    from repro_torch.analysis.graph_cost import ssd_flops
     from repro_torch.core.compat import TOLERANCES
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as ssd_kernel
@@ -473,9 +577,8 @@ def ssd_case(name, *, B, S, H, hd, ds, chunk, gen, recurrence=False, per_pass=Fa
 
     dev = torch.device("cuda")
     Q = min(chunk, S)
-    nc = S // Q
     # x and y once, dt once, B and C once (not per head), A
-    nbytes = 4 * (2 * B * S * H * hd + B * S * H + 2 * B * S * ds + H)
+    nbytes = 4 * (2 * B * S * H * hd + B * S * H + 2 * B * S * ds + H * (B if per_row_a else 1))
     copies = max(1, min(8, math.ceil(2 * L2_BYTES / nbytes)))
 
     def inputs():
@@ -483,7 +586,7 @@ def ssd_case(name, *, B, S, H, hd, ds, chunk, gen, recurrence=False, per_pass=Fa
                 torch.randn(B, S, H, generator=gen, device=dev).abs() * 0.5,
                 torch.randn(B, S, ds, generator=gen, device=dev) * 0.2,
                 torch.randn(B, S, ds, generator=gen, device=dev) * 0.2,
-                -torch.randn(H, generator=gen, device=dev).abs())
+                -torch.randn(*((B, H) if per_row_a else (H,)), generator=gen, device=dev).abs())
 
     sets = [inputs() for _ in range(copies)]
 
@@ -517,14 +620,12 @@ def ssd_case(name, *, B, S, H, hd, ds, chunk, gen, recurrence=False, per_pass=Fa
     # by operations is 3 flops at the TF32 peak; the bound by float32 FMAs on
     # the CUDA cores, where a kernel without tensor cores would stand, stays
     # beside it.
-    causal = Q * (Q + 1) // 2
-    flops = B * nc * 2 * ds * causal + B * H * (
-        nc * 2 * hd * causal + (nc - 1) * (2 * Q * ds * hd + 2 * Q * hd * ds))
+    flops = ssd_flops(B, S, H, hd, ds, chunk)
     t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     pl = ssd_kernel.plan(B, S, H, hd, ds, chunk, sms=ssd_kernel.multiprocessors(dev))
     rec = {
         "case": name, "dtype": "float32",
-        "shape": dict(B=B, S=S, H=H, hd=hd, ds=ds, Q=Q),
+        "shape": dict(B=B, S=S, H=H, hd=hd, ds=ds, Q=Q, A=[B, H] if per_row_a else [H]),
         "max_abs_err": max_abs_err, "tol": tol,
         "against": "recurrence" if recurrence else "plain",
         "ms": time_ms(run_kernel, copies),
@@ -597,6 +698,12 @@ def ssd_phase(seed):
                  per_pass=True),
         ssd_case("loss_1x2048_h24", B=1, S=2048, H=24, hd=64, ds=128, chunk=128, gen=gen,
                  per_pass=True),
+        # A per batch row: the unsharded loss shape, and the partitioned
+        # Mamba2 loss's one call (eight devices' 4 rows of 6 heads folded)
+        ssd_case("loss_8x2048_h24_row_a", B=8, S=2048, H=24, hd=64, ds=128, chunk=128,
+                 gen=gen, per_pass=True, per_row_a=True),
+        ssd_case("partitioned_loss_fold_32x2048_h6", B=32, S=2048, H=6, hd=64, ds=128,
+                 chunk=128, gen=gen, per_pass=True, per_row_a=True),
         # Q = 48: three chunks of three full m tiles; Q = 36 and Q = 100 (S <
         # chunk), no multiple of 8: rows padded to 40 and 104 in the state
         # pass, 48 and 112 in the output pass; H = 5 at B = 2: groups of 2
@@ -729,8 +836,9 @@ def profile_decode(cfg, st, params, eng, ms_per_step, steps=5):
     token = torch.zeros((eng.B, 1), dtype=torch.long, device="cuda")
     check(eng.pos + steps < eng.T, "no room in the cache to profile")
 
-    def step(i):
-        logits, _ = api.decode_step(cfg, st, params, token, eng.cache, eng.pos + i)
+    def step(i):  # as the engine steps: its position an int32 on the card
+        eng._pos.fill_(eng.pos + i)
+        logits, _ = api.decode_step(cfg, st, params, token, eng.cache, eng._pos)
         logits[:, -1].float().cpu()
 
     return profile_device(f"{cfg.name} decode steps from pos {eng.pos}", step, steps, ms_per_step)
@@ -1692,6 +1800,485 @@ def partition_train_phase(seed, card):
     return cases
 
 
+# ---------------------------------------------------------------------------------
+# Mamba2's loss partitioned, and serving partitioned
+# ---------------------------------------------------------------------------------
+
+SHARDED_LOSS_B, SHARDED_LOSS_S = 8, 2048
+# (arch, strategy, layers, dtype, decode steps at least): both families at
+# full width under the finalized strategy, Mamba2 in bf16 and in float32
+# (bf16 Mamba2 with random weights is chaotic under rounding: its bf16
+# logits are read, not held; the float32 run holds the partitioned step
+# at every step), and the two earlier attempts of Table 1 at two layers
+# for a few steps
+SHARDED_SERVE = (("qwen1.5-0.5b", "2d_finalized", 24, "bfloat16", 64),
+                 ("mamba2-130m", "2d_finalized", 24, "bfloat16", 64),
+                 ("mamba2-130m", "2d_finalized", 24, "float32", 64),
+                 ("qwen1.5-0.5b", "2d_attempt1", 2, "bfloat16", 8),
+                 ("qwen1.5-0.5b", "2d_attempt2", 2, "bfloat16", 8))
+SERVE_SLOTS, SERVE_MAX_LEN = 8, 1024
+TEACHER_STEPS = (0, 8, 32, 63)  # steps at which the unsharded step reruns the sharded input
+
+
+def _plan_of(runner):
+    (entry,) = runner.plans.values()
+    return entry
+
+
+def _plan_readings(runner, mesh):
+    entry = _plan_of(runner)
+    return {"first_call_s": dict(entry.build_s), "plan_steps": len(entry.plan.steps),
+            "plan_stats": entry.plan.stats.as_dict(),
+            "modeled_peak_x8_gib": entry.plan.peak_bytes * mesh.size / 2**30,
+            "collectives_per_call": dict(runner.collectives),
+            "fallbacks": dict(collections.Counter(runner.fallbacks)),
+            "fallback_gathers": list(runner.fallback_gathers)}
+
+
+def sharded_loss_phase(seed, card):
+    """mamba2-130m at its published widths (bf16): ``api.loss_fn`` of a B8
+    S2048 batch with no gradient as one program (``api.partitionable_loss``:
+    params by their specs, the batch on "data") through
+    ``spmd_partition(..., optimize=False)`` under 2d_finalized on ("data" 2,
+    "model" 4), against the same loss unsharded on the card: within
+    bf16_chain, exactly 24 SSD calls (72 launches) per forward, each one
+    call for all eight devices, no fallback that gathers; first-call
+    seconds, plan steps and collectives, device-busy, host and wall ms per
+    forward sharded and unsharded, peak memory beside the plan's modeled
+    peak x 8."""
+    from repro_torch.core.compat import TOLERANCES
+    from repro_torch.core.partitioner import spmd_partition
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import api
+
+    cfg, st, params = full_width_model("mamba2-130m", seed)
+    mesh, L = make_test_mesh(), cfg.num_layers
+    B, S = SHARDED_LOSS_B, SHARDED_LOSS_S
+    rng = np.random.default_rng(seed + 40)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).cuda()
+             for k in ("tokens", "labels")}
+    runner = spmd_partition(api.partitionable_loss(cfg, st, mesh), mesh, optimize=False,
+                            device="cuda")
+    runs = {}
+    with torch.no_grad():
+        for label, fn in (("unsharded", lambda: api.loss_fn(cfg, st, params, batch)),
+                          ("sharded", lambda: runner(params, batch))):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            loss, launches = counted(fn)
+            _, again = counted(fn)  # the plan alone, after the first call's build
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            host, wall = host_and_wall_ms(fn, calls=3)
+            runs[label] = {"loss": loss.item(), "launches_first": launches,
+                           "launches": again, "host_ms": host, "wall_ms": wall,
+                           "device_busy_ms": device_ms(lambda i: fn(), 1, calls=1),
+                           "peak_gib": peak}
+    sh, un = runs["sharded"], runs["unsharded"]
+    sh.update(_plan_readings(runner, mesh))
+    err = abs(sh["loss"] - un["loss"])
+    rtol, atol = TOLERANCES["bf16_chain"]
+    over = err / (atol + rtol * abs(un["loss"]))
+    print(f"partition: mamba2-130m loss B{B} S{S} under 2d_finalized on (data 2, model 4); "
+          f"{card}", flush=True)
+    print(f"  loss sharded {sh['loss']:.6f} unsharded {un['loss']:.6f}: err/bf16_chain "
+          f"{over:.3f}; launches per forward sharded {sh['launches']} unsharded "
+          f"{un['launches']}", flush=True)
+    print(f"  first call {json.dumps(sh['first_call_s'])}; plan {sh['plan_steps']} steps; "
+          f"collectives per forward {json.dumps(sh['collectives_per_call'])}; fallbacks "
+          f"{json.dumps(sh['fallbacks'])}", flush=True)
+    for tag, r in (("sharded", sh), ("unsharded", un)):
+        print(f"  {tag}: device busy {_ms(r['device_busy_ms'])}, host {r['host_ms']:.1f} ms, "
+              f"wall {r['wall_ms']:.1f} ms per forward; peak {r['peak_gib']:.3f} GiB"
+              + (f" (plan's modeled peak x8 {r['modeled_peak_x8_gib']:.3f})"
+                 if "modeled_peak_x8_gib" in r else ""), flush=True)
+    want = {"flash_attention": 0, "flash_attention_bwd": 0, "ssd_scan": L}
+    check(sh["launches"] == want and sh["launches_first"] == want and un["launches"] == want,
+          f"SSD calls per forward: sharded {sh['launches']}, unsharded {un['launches']}; "
+          f"want {want}")
+    check(not sh["fallback_gathers"], f"fallbacks gathered: {sh['fallback_gathers']}")
+    check(math.isfinite(sh["loss"]) and over <= 1.0, f"sharded loss off: {sh['loss']} vs "
+          f"{un['loss']}")
+    return {"arch": "mamba2-130m", "strategy": st.name, "B": B, "S": S, "card": card,
+            "loss_err_over_bf16_chain": over, "sharded": sh, "unsharded": un}
+
+
+def dropped_psum_readings(runner, step):
+    """Planted faults, one at a time: the first, the middle and the last
+    standalone psum of the plan replaced by the local value; each reading
+    is the relative change of the step's logits in norm over bf16_grad's
+    limit (a gate at that limit must read each above 1)."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.compat import TOLERANCES
+
+    psums = [s for s in _plan_of(runner).plan.steps
+             if s.kind == "collective" and s.reduce_op == "add"]
+    with torch.no_grad():
+        sound = step()[0].float()
+        out = []
+        for fault in (psums[0], psums[len(psums) // 2], psums[-1]):
+            run, fault.run = fault.run, plan_mod._alias_run
+            try:
+                got = step()[0].float()
+            finally:
+                fault.run = run
+            out.append(((got - sound).norm() / sound.norm()).item() / TOLERANCES["bf16_grad"][0])
+    return out
+
+
+def _logits_rule(got, want, kind, norm_limit=None):
+    """tests/test_torch_serve.py's rule over per-step last-position logits
+    (lists of (B, V) float32 tensors): each step within ``kind`` until the
+    first step whose greedy tokens differ, where the reference's top-2
+    margin must be within twice the tolerance.  With ``norm_limit`` each
+    step's logits are held in norm instead (the difference's norm over
+    theirs), and ``kind`` gives only the margin's per-logit tolerance.
+    Returns (held, the step where the streams part or None, the worst
+    err/limit before it)."""
+    from repro_torch.core.compat import TOLERANCES
+
+    rtol, atol = TOLERANCES[kind]
+    worst = 0.0
+    for step, (g, w) in enumerate(zip(got, want)):
+        if norm_limit is not None:
+            over = ((g - w).norm() / w.norm()).item() / norm_limit
+        else:
+            over = ((g - w).abs() / (atol + rtol * w.abs())).max().item()
+        worst = max(worst, over)
+        if worst > 1.0:
+            return False, step, worst
+        top2 = w.topk(2, dim=-1).values
+        differs = g.argmax(-1) != w.argmax(-1)
+        if bool(differs.any()):
+            near = (top2[:, 0] - top2[:, 1]) <= 2 * (atol + rtol * top2[:, 0].abs())
+            return bool(near[differs].all()), step, worst
+    return True, None, worst
+
+
+def float64_step(cfg, st, params, token, cache, pos):
+    """The unsharded decode step evaluated in float64: params and cache
+    widened, the model's dtype float64 and every ``.float()`` it takes read
+    as ``.double()`` for the call.  Returns the last position's logits."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import api
+
+    widen = torch.Tensor.float
+    torch.Tensor.float = torch.Tensor.double
+    try:
+        with torch.no_grad():
+            logits, _ = api.decode_step(cfg.with_(dtype="float64"), st,
+                                        tree_map(torch.Tensor.double, params), token,
+                                        {k: v.double() for k, v in cache.items()}, pos)
+    finally:
+        torch.Tensor.float = widen
+    return logits[:, -1].cpu()
+
+
+def serve_run(cfg, st, params, mesh, prompts, new_tokens, teacher=None):
+    """``Engine(slots=8, max_len=1024)`` (under ``set_mesh(mesh)``: the
+    partitioned step) serving ``prompts``: each decode step's last-position
+    logits, wall ms (the device drained before; to the sampler's read of
+    the logits) and kernel launches; tokens/s after the first step (whose
+    time holds the partitioned program's build); peak memory.  With
+    ``teacher``, at the steps it names the unsharded eager step reruns the
+    step's input (a copy of the cache, the token and the position) outside
+    the timed region, and its logits are kept beside the step's, with, in
+    a float32 model, the step's logits evaluated in float64."""
+    from repro_torch.core.compat import set_mesh
+    from repro_torch.models import api
+    from repro_torch.serve.engine import Engine, Request
+
+    mods = _kernel_modules()
+    with set_mesh(mesh):
+        eng = Engine(cfg, st, params, batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN)
+    seen, ms, launches, forced = [], [], [], []
+    decode = eng._decode
+
+    def timed(tokens):
+        step = len(ms)
+        if teacher is not None and step in teacher:
+            # the unsharded step's cache: Mamba2's heads padded to the mesh
+            # (zero states) cut off; a padded kv layout is not taken
+            whole = api.cache_shapes(cfg, st, SERVE_SLOTS, SERVE_MAX_LEN)
+            check(cfg.family == "ssm" or all(tuple(v.shape) == whole[k]
+                                             for k, v in eng.cache.items()),
+                  f"{cfg.name}: a padded kv layout under the mesh")
+            copy = {k: v[tuple(slice(0, n) for n in whole[k])].clone()
+                    for k, v in eng.cache.items()}
+            token, pos = torch.as_tensor(tokens, device="cuda").clone(), eng.pos
+        for mod in mods.values():
+            mod.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = decode(tokens)
+        last = out[0][:, -1].float().cpu()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append({n: mod.launches for n, mod in mods.items()})
+        seen.append(last)
+        if teacher is not None and step in teacher:
+            exact = (float64_step(cfg, st, params, token, copy, pos)
+                     if cfg.dtype == "float32" else None)
+            with torch.no_grad():
+                want, _ = api.decode_step(cfg, st, params, token, copy, pos)
+            forced.append((step, last, want[:, -1].float().cpu(), exact))
+            del copy
+        return out
+
+    eng._decode = timed
+    reqs = [Request(prompt=p, max_new_tokens=new_tokens) for p in prompts]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        eng.generate(reqs)
+    seconds = time.perf_counter() - t0
+    ntok = sum(len(r.out) for r in reqs)
+    return eng, {
+        "steps": eng.pos, "tokens": ntok, "seconds": seconds,
+        "tok_per_s_after_first_step": ntok / (seconds - ms[0] / 1e3),
+        "step_wall_ms_median": statistics.median(ms[1:]), "first_step_ms": ms[0],
+        "launches_per_step": launches, "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+        "done": all(r.done for r in reqs), "outs": [r.out for r in reqs],
+    }, seen, forced
+
+
+def _syncs_in(fn):
+    """The host-device synchronisations ``fn`` makes, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them: their count
+    and the source lines that made them."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = [f"{pathlib.Path(w.filename).name}:{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message)]
+    return len(where), sorted(set(where))
+
+
+def sharded_serve_case(arch, strategy, layers, dtype, min_steps, seed, card):
+    """``Engine`` under ``set_mesh`` on ("data" 2, "model" 4) (the decode step
+    one program through the partitioner: params by their specs, the token on
+    "data", the cache by ``api.cache_specs``, the position an int32 on the
+    card) against the same ``Engine`` unsharded, from the same bf16 serving
+    weights and prompts.  Gates: one plan for the whole run; qwen one
+    decode launch per layer per step (all eight devices in one), Mamba2 no
+    SSD launch; no fallback that gathers and no plan step holding a whole
+    vocabulary dim; the logits by tests/test_torch_serve.py's rule against
+    the unsharded run (at two layers per element, bf16_chain; at 24 in
+    norm: qwen bf16 within bf16_grad, which three planted dropped psums
+    must break, Mamba2 float32 within CONSIST's limit; bf16 Mamba2
+    printed only), and at the steps of TEACHER_STEPS
+    against the unsharded step on the same input (printed; for qwen held
+    as the free run).  Readings: tokens/s, step wall,
+    host and device-busy ms, the cache's shard and unshard ms per step,
+    syncs per step, peak memory."""
+    from repro_torch.configs.base import get_strategy, spec_sharding
+    from repro_torch.core import mesh_runtime as mr
+    from repro_torch.core.compat import TOLERANCES, set_mesh
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import api
+
+    cfg, _, params = full_width_model(arch, seed, dtype=dtype)
+    if layers != cfg.num_layers:
+        cfg = cfg.with_(num_layers=layers)
+        params = {**params, "layers": _first_layers(params["layers"], layers)}
+    st, mesh, L, V = get_strategy(strategy), make_test_mesh(), cfg.num_layers, cfg.vocab_size
+    rng = np.random.default_rng(seed + 50)
+    # one request per slot, prompts of 8-16 tokens: with 64 new tokens each
+    # the run takes 72-80 decode steps, with 4 (the two-layer runs) 12-20
+    prompts = [rng.integers(0, V, int(n)).tolist()
+               for n in rng.integers(8, 17, size=SERVE_SLOTS)]
+    new = 64 if min_steps > 8 else 4
+    teacher = TEACHER_STEPS if min_steps > 8 else (0, 5)
+    kernel = "flash_attention" if cfg.family == "dense" else None
+    eng_u, un, seen_u, _ = serve_run(cfg, st, params, None, prompts, new)
+    eng_u_pos = eng_u.pos
+    del eng_u
+    torch.cuda.empty_cache()
+    eng, sh, seen_s, forced = serve_run(cfg, st, params, mesh, prompts, new, teacher)
+    runner = eng.runner
+    sh.update(_plan_readings(runner, mesh))
+    check(sh["steps"] >= min_steps and eng.pos == eng_u_pos,
+          f"{arch} {strategy}: {sh['steps']} steps (unsharded {eng_u_pos}), want {min_steps}+")
+    # the step again, drained: host and wall ms, device busy, syncs
+    token = torch.zeros((SERVE_SLOTS, 1), dtype=torch.long, device="cuda")
+    eng._pos.fill_(eng.pos)
+
+    def step():
+        return runner(params, token, eng.cache, eng._pos)
+
+    with torch.no_grad():
+        sh["host_ms"], sh["drained_wall_ms"] = host_and_wall_ms(step, calls=3)
+        sh["device_busy_ms"] = device_ms(lambda i: step(), 1, calls=1)
+        sh["syncs_per_step"], sh["sync_sites"] = _syncs_in(step)
+        with set_mesh(mesh):
+            specs = api.cache_specs(cfg, st)
+        shards = {k: spec_sharding(specs[k], tuple(c.shape), mesh) for k, c in eng.cache.items()}
+        stacked = {k: mr.shard(c, shards[k]) for k, c in eng.cache.items()}
+        sh["cache_shard_ms"] = time_ms(lambda i: [mr.shard(c, shards[k])
+                                                  for k, c in eng.cache.items()], 1)
+        sh["cache_unshard_ms"] = time_ms(lambda i: [mr.unshard(v, shards[k])
+                                                    for k, v in stacked.items()], 1)
+        del stacked
+        holders = whole_vocab_steps(runner, (params, token, eng.cache, eng._pos), V)
+        whole = api.cache_shapes(cfg, st, SERVE_SLOTS, SERVE_MAX_LEN)
+        cut = {k: v[tuple(slice(0, n) for n in whole[k])].clone() for k, v in eng.cache.items()}
+        unsharded_step = lambda: api.decode_step(cfg, st, params, token, cut, eng._pos)  # noqa: E731
+        un["host_ms"], un["drained_wall_ms"] = host_and_wall_ms(unsharded_step, calls=3)
+        un["device_busy_ms"] = device_ms(lambda i: unsharded_step(), 1, calls=1)
+        un["syncs_per_step"], un["sync_sites"] = _syncs_in(unsharded_step)
+    # bf16 at 24 layers: the partitioned products round each device's
+    # partial sums to bf16 before their psums (as XLA's partitioner does),
+    # 3-4 such products a layer, and the logits land a few bf16 ulps away
+    # per element (1.3 x bf16_chain at step 0 on the card): held in norm
+    # within bf16_grad, the class of that rounding schedule
+    kind = "coarse" if dtype == "float32" else "bf16_chain"
+    norm_limit = None
+    if L > 2:
+        norm_limit = CONSIST["ssm"][0] if dtype == "float32" else TOLERANCES["bf16_grad"][0]
+    if L > 2 and dtype == "bfloat16" and cfg.family == "dense":  # planted faults
+        sh["dropped_psum_rel_over_limit"] = dropped_psum_readings(runner, step)
+    held, parted, worst = _logits_rule(seen_s, seen_u, kind, norm_limit)
+    elementwise = _logits_rule(seen_s, seen_u, kind)
+    rtol, atol = TOLERANCES["bf16_chain"]
+    tf = []
+    rel = lambda a, b: ((a.double() - b.double()).norm() / b.double().norm()).item()  # noqa: E731
+    for step_i, got, want, exact in forced:
+        r = {"step": step_i, "rel_err_norm": rel(got, want),
+             "err_over_bf16_chain": ((got - want).abs() / (atol + rtol * want.abs())).max().item()}
+        if exact is not None:
+            r.update(sharded_vs_float64=rel(got, exact), unsharded_vs_float64=rel(want, exact))
+        tf.append(r)
+    want_launch = {"flash_attention": L if kernel else 0, "flash_attention_bwd": 0,
+                   "ssd_scan": 0}
+    bad = [i for i, l in enumerate(sh["launches_per_step"]) if l != want_launch]
+    bad_u = [i for i, l in enumerate(un["launches_per_step"]) if l != want_launch]
+    rec = {"arch": arch, "strategy": strategy, "layers": L, "dtype": dtype, "card": card,
+           "slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN, "requests": len(prompts),
+           "logits_rule": {"kind": kind, "norm_limit": norm_limit, "held": held,
+                           "parted_at_step": parted, "worst_err_over_limit": worst},
+           "logits_elementwise": dict(zip(("held", "parted_at_step", "worst_err_over_limit"),
+                                          elementwise)),
+           "teacher_forced": tf, "whole_vocab_steps": holders,
+           **{f"sharded_{k}": v for k, v in sh.items() if k not in ("outs", "launches_per_step")},
+           **{f"unsharded_{k}": v for k, v in un.items() if k not in ("outs", "launches_per_step")},
+           "tokens_equal": sh["outs"] == un["outs"],
+           "sharded_launches_per_step": {n: sorted({l[n] for l in sh["launches_per_step"]})
+                                         for n in want_launch}}
+    print(f"  {arch} {strategy} {L} layers {dtype}: {sh['steps']} decode steps, {sh['tokens']} "
+          f"tokens; {card}", flush=True)
+    rule = kind if norm_limit is None else f"{norm_limit} in norm"
+    print(f"    logits vs unsharded ({rule} rule): held {held}, streams part at step {parted}, "
+          f"worst err/limit before {worst:.3f}; per element: held {elementwise[0]} (parted at "
+          f"{elementwise[1]}, worst {elementwise[2]:.3f}); tokens equal {rec['tokens_equal']}",
+          flush=True)
+    print("    from the same input, sharded vs unsharded step: " + "; ".join(
+        f"step {r['step']}: {r['rel_err_norm']:.3e} in norm, {r['err_over_bf16_chain']:.3f} "
+        "x bf16_chain" + (f", against the float64 step sharded {r['sharded_vs_float64']:.3e}, "
+                          f"unsharded {r['unsharded_vs_float64']:.3e}"
+                          if "sharded_vs_float64" in r else "") for r in tf), flush=True)
+    print(f"    one plan: {len(runner.plans)}; first call {json.dumps(sh['first_call_s'])}; "
+          f"plan {sh['plan_steps']} steps; collectives per step "
+          f"{json.dumps(sh['collectives_per_call'])}; fallbacks {json.dumps(sh['fallbacks'])}",
+          flush=True)
+    for tag, r in (("sharded", sh), ("unsharded", un)):
+        print(f"    {tag}: {r['tok_per_s_after_first_step']:.1f} tok/s after the first step "
+              f"(first step {r['first_step_ms']:.1f} ms); step wall {r['step_wall_ms_median']:.2f} "
+              f"ms (median), drained: host {r['host_ms']:.2f} ms, wall {r['drained_wall_ms']:.2f} "
+              f"ms, device busy {_ms(r['device_busy_ms'])}; syncs per step "
+              f"{r['syncs_per_step']} {r['sync_sites']}; peak {r['peak_gib']:.3f} GiB"
+              + (f" (plan's modeled peak x8 {r['modeled_peak_x8_gib']:.3f}); cache shard "
+                 f"{r['cache_shard_ms']:.3f} ms, unshard {r['cache_unshard_ms']:.3f} ms per step"
+                 if "cache_shard_ms" in r else ""), flush=True)
+    check(len(runner.plans) == 1 and runner.cache_stats.misses == 1,
+          f"{arch} {strategy}: {len(runner.plans)} plans, {runner.cache_stats.misses} builds")
+    check(not bad and not bad_u, f"{arch} {strategy}: launches off at steps {bad} (sharded), "
+          f"{bad_u} (unsharded); want {want_launch} per step")
+    check(not sh["fallback_gathers"], f"{arch} {strategy}: fallbacks gathered: "
+          f"{sh['fallback_gathers']}")
+    check(not holders, f"{arch} {strategy}: plan steps held a whole vocabulary dim: {holders}")
+    check(sh["done"] and all(bool(torch.isfinite(c.float()).all()) for c in eng.cache.values()),
+          f"{arch} {strategy}: unfinished requests or a non-finite cache")
+    check(sh["syncs_per_step"] < L, f"{arch} {strategy}: {sh['syncs_per_step']} syncs per step")
+    if cfg.family == "ssm":
+        # Mamba2's 24-layer stack with random weights is ill-conditioned:
+        # in bf16 a rounding flip reaches the logits' leading digits within
+        # one step from the same state (R6), and in float32 a batch row's
+        # cancelling sums leave even the unsharded step 0.19 off the same
+        # step in float64 (while the partitioned step is 2.8e-3 off it).
+        # The logits against the unsharded run are read, not held; in
+        # float32 each step of TEACHER_STEPS is held to the float64 step:
+        # the partitioned step within 4x the unsharded step's error, or
+        # within f32_chain's rtol where both are smaller
+        check(all(bool(torch.isfinite(x).all()) for x in seen_s), f"{arch}: non-finite logits")
+        bad = [r for r in tf if "sharded_vs_float64" in r and r["sharded_vs_float64"] > max(
+            4 * r["unsharded_vs_float64"], TOLERANCES["f32_chain"][0])]
+        check(not bad, f"{arch} {strategy}: the partitioned step off the float64 step: {bad}")
+    else:
+        check(held, f"{arch} {strategy}: logits off the unsharded run at step {parted} "
+              f"({worst:.3f} x {kind})")
+    if "dropped_psum_rel_over_limit" in sh:
+        print(f"    dropped psums (first, middle, last), logits' change in norm over bf16_grad: "
+              f"{', '.join(f'{x:.2f}' for x in sh['dropped_psum_rel_over_limit'])}", flush=True)
+        check(min(sh["dropped_psum_rel_over_limit"]) > 1.0,
+              f"{arch} {strategy}: a dropped psum went unseen by the bf16_grad limit")
+    if cfg.family == "dense":
+        limit = TOLERANCES["bf16_grad"][0]
+        check(all(r["rel_err_norm"] <= limit if L > 2 else r["err_over_bf16_chain"] <= 1.0
+                  for r in tf), f"{arch} {strategy}: a step from the same input off: {tf}")
+    del eng, runner
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _first_layers(layers, n):
+    """The first ``n`` layers of a stacked param tree."""
+    if isinstance(layers, dict):
+        return {k: _first_layers(v, n) for k, v in layers.items()}
+    return layers[:n]
+
+
+def sharded_serve_phase(seed, card):
+    print("partition: serving under set_mesh (the decode step as one program through "
+          "spmd_partition(..., optimize=False), its position on the card) against the same "
+          "Engine unsharded", flush=True)
+    return [sharded_serve_case(*case, seed, card) for case in SHARDED_SERVE]
+
+
+def sharded_phases_in_own_process(seed, card):
+    """``sharded_loss_phase`` and ``sharded_serve_phase`` in a fresh process
+    (whole profiler traces, as ``partition_phase_in_own_process``), each
+    with the kernels' launch counts set to 0 before and read after: the SSD
+    launches in the loss and not in serving; the flash kernel in qwen's
+    serving."""
+    code = (f"import sys, json; sys.path.insert(0, {str(ROOT)!r}); import torch, chip_smoke; "
+            "torch.backends.cuda.matmul.allow_tf32 = False; "
+            "torch.backends.cudnn.allow_tf32 = False; "
+            f"loss, n = chip_smoke.counted(lambda: chip_smoke.sharded_loss_phase({seed}, "
+            f"{card!r})); "
+            f"serve, m = chip_smoke.counted(lambda: chip_smoke.sharded_serve_phase({seed}, "
+            f"{card!r})); "
+            "print(json.dumps({'loss': loss, 'loss_launches': n, 'serve': serve, "
+            "'serve_launches': m}))")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=900)
+    lines = proc.stdout.splitlines()
+    print("\n".join(lines[:-1]), flush=True)
+    check(proc.returncode == 0 and lines,
+          f"sharded phases failed ({proc.returncode}): {proc.stderr[-3000:]}")
+    res = json.loads(lines[-1])
+    check(res["loss_launches"]["ssd_scan"] > 0 and res["serve_launches"]["ssd_scan"] == 0
+          and res["serve_launches"]["flash_attention"] > 0,
+          f"the sharded phases' launches: {res['loss_launches']}, {res['serve_launches']}")
+    return res
+
+
 # the kernels' templates by variant, as the mangled names in ptxas's report,
 # in the SASS and in profiler traces show them
 VARIANT_OF = {"flash_bwd_prep": "bwd_prep", "flash_bwd_main": "bwd_main",
@@ -1837,10 +2424,15 @@ def main(argv=None):
     print("partition: the port's partitioner on a simulated (2,4) mesh, by compiled plan and "
           "by the dynamic path, against the same functions unsharded on the card", flush=True)
     partition = partition_phase_in_own_process(args.seed)
+    print("partition: Mamba2's loss and serving of both families through the partitioner, "
+          "against the same paths unsharded on the card", flush=True)
+    sharded = sharded_phases_in_own_process(args.seed, partition["card"])
 
     fa_main = next(c for c in fa_cases if c["case"] == "decode_8x16_pos1023")
     fa_prefill = next(c for c in fa_cases if c["case"] == "prefill_qwen_loss_2x2048")
     ssd_main = next(c for c in ssd_cases if c["case"] == "loss_8x2048_h24")
+    ssd_fold = next(c for c in ssd_cases if c["case"] == "partitioned_loss_fold_32x2048_h6")
+    devpos = {c["case"]: c for c in fa_cases if c["case"].startswith("decode_devpos")}
     bwd_main = next(c for c in bwd_cases if c["case"] == "train_qwen_4x2048")
     bwd_fold = next(c for c in bwd_cases if c["case"] == "partitioned_train_fold_32x512_kr4")
     fa_fold = next(c for c in fa_cases if c["case"] == "partitioned_train_fold_32x512_kr4")
@@ -1864,6 +2456,11 @@ def main(argv=None):
             for c in partition["cases"] if "compiled_flash_launches_per_call" in c},
         "partition_train_launches_per_step": train_launches["flash_attention"],
         "partition_train_case": {"case": fa_fold["case"], **{k: fa_fold[k] for k in keys}},
+        "decode_position_on_device": {n: {k: c[k] for k in keys + ("device_ms", "splits")}
+                                      for n, c in devpos.items()},
+        "partition_serve_launches_per_step": {
+            f"{c['arch']} {c['strategy']} {c['layers']}L {c['dtype']}":
+            c["sharded_launches_per_step"]["flash_attention"] for c in sharded["serve"]},
         "cases": fa_cases,
     }, {
         "name": "ssd_scan", "route": "cuda",
@@ -1871,6 +2468,8 @@ def main(argv=None):
         "replaces": "src/repro/kernels/ssd_scan.py:70",
         "launches": mamba_loss["launches"]["ssd_scan"], "launches_path": "mamba2 loss",
         **{k: ssd_main[k] for k in keys + ssd_keys}, "main_case": ssd_main["case"],
+        "partition_loss_launches_per_forward": sharded["loss"]["sharded"]["launches"]["ssd_scan"],
+        "partition_loss_case": {"case": ssd_fold["case"], **{k: ssd_fold[k] for k in keys + ssd_keys}},
         "cancelling_sums": ssd_cancel, "cases": ssd_cases,
     }, {
         "name": "flash_attention_bwd", "route": "cuda",
@@ -1888,7 +2487,7 @@ def main(argv=None):
                                  "loss": qwen_loss, "train": qwen_train,
                                  "two_layer_step": qwen_two_layer},
         "mamba2": {"loss": mamba_loss, "serve": mamba_serve, "consistency": mamba_consistency},
-        "partition": partition}
+        "partition": partition, "sharded": sharded}
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,8 +4,9 @@ JAX package's ``analysis/jaxpr_cost.py::count_flops``.
 Products (``mm``, ``bmm``, ``addmm``) and convolutions are counted exactly;
 elementwise arithmetic at 1 flop per output element; reductions at 1 flop
 per input element; the flash-attention operators at 4·B·H·S·T·D (the
-forward's two products; ``flash_attention`` and ``flash_attention_fwd``) and
-2.5 times that (the backward's five), halved for a causal mask.  Data movement (views, permutes,
+forward's two products; ``flash_attention``, ``flash_decode`` and
+``flash_attention_fwd``) and 2.5 times that (the backward's five), halved for
+a causal mask; the SSD scan as ``ssd_flops`` counts it.  Data movement (views, permutes,
 copies, casts) counts nothing.  ``core/plan.py::plan_cost`` divides the
 total by the mesh size for the ideal per-device balance point.
 
@@ -19,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch.fx
 
-from ..core.rules import FLASH, FLASH_BWD, FLASH_FWD, REDUCE, lower
+from ..core.rules import FLASH, FLASH_BWD, FLASH_DECODE, FLASH_FWD, REDUCE, SSD, lower
 
 ELEMENTWISE_1FLOP = {"aten." + n for n in (
     "add", "sub", "rsub", "mul", "div", "maximum", "minimum", "neg", "abs", "exp", "log",
@@ -50,9 +51,12 @@ def eqn_flops(eqn) -> float:
         rhs = eqn.in_avals[1].shape
         bias = _nelems(out) if eqn.params["has_bias"] else 0.0
         return 2.0 * _nelems(out) * (_nelems(rhs) / rhs[0]) + bias
-    if name == FLASH:
+    if name in (FLASH, FLASH_DECODE):
         B, S, KR, Gl, D = eqn.in_avals[0].shape
         return flash_flops(B, S, KR * Gl, eqn.in_avals[1].shape[1], D, eqn.params["causal"])
+    if name == SSD:
+        Bb, S, H, hd = eqn.in_avals[0].shape
+        return ssd_flops(Bb, S, H, hd, eqn.in_avals[2].shape[-1], eqn.params["chunk"])
     if name in ELEMENTWISE_1FLOP:
         return _nelems(out)
     if name in REDUCE:
@@ -71,6 +75,19 @@ def flash_bwd_flops(B, S, H, T, D, causal: bool) -> float:
     recomputed, dP = dO V^T, dq = dS K, dk = dS^T q, dv = P^T dO), halved
     for a causal mask."""
     return 2.5 * flash_flops(B, S, H, T, D, causal)
+
+
+def ssd_flops(Bb, S, H, hd, ds, chunk) -> float:
+    """What the chunked SSD needs, with Q = min(chunk, S) and nc = S / Q
+    chunks: the causal half (t >= s) of G = C B^T once per (batch row,
+    chunk); per (batch row, head) the causal half of W x in every chunk, and
+    C S^T and the state update in all chunks but one (the state is zero
+    entering the first chunk, and the one leaving the last is never read)."""
+    Q = min(chunk, S)
+    nc = S // Q
+    causal = Q * (Q + 1) // 2
+    return float(Bb * nc * 2 * ds * causal + Bb * H * (
+        nc * 2 * hd * causal + (nc - 1) * (2 * Q * ds * hd + 2 * Q * hd * ds)))
 
 
 def count_flops(graph: torch.fx.Graph) -> float:

@@ -23,7 +23,13 @@ devices' shards), with explicit collectives:
                      kv-head-sharded operands (S, T and D gathered), one
                      kernel launch for all devices (``flash_local``), and
                      so the differentiable pair ``flash_attention_fwd`` /
-                     ``_bwd`` (``LocalOp`` decisions, below);
+                     ``_bwd`` and the decode step's ``flash_decode`` at a
+                     tensor position (``LocalOp`` decisions, below);
+* SSD scan         — ``repro_torch::ssd_scan`` on batch-, head- and
+                     head-dim-sharded operands, one call for all devices
+                     with each device's A per folded row;
+* cache write      — ``index_copy`` writes each device's rows, masked
+                     where the written dim is sharded;
 * index ops        — embedding, its gradient, gather and scatter_add with
                      the indexed dim sharded: masked local lookups plus a
                      psum, or masked local scatters, no gather of the table;
@@ -59,9 +65,10 @@ import torch
 import torch.fx
 from torch.utils._pytree import tree_flatten
 
-from ..analysis.graph_cost import flash_bwd_flops, flash_flops
+from ..analysis.graph_cost import flash_bwd_flops, flash_flops, ssd_flops
 from ..analysis.roofline import RooflineParams
-from ..kernels.ops import flash_attention_bwd_op, flash_attention_fwd_op, flash_forward
+from ..kernels.ops import (flash_attention_bwd_op, flash_attention_fwd_op, flash_decode,
+                           flash_forward, ssd)
 from . import mesh_runtime as mr
 from .annotate import ANNOTATE_OP, decode
 from .compat import capture
@@ -70,10 +77,11 @@ from .einsum_rules import partitioned_einsum
 from .halo import local_conv, sharded_conv_nd
 from .propagation import PropagationResult, propagate
 from .reshard import reshard_local, shard_shape
-from .rules import (BROADCAST, DOT, ELEMENTWISE, FACTORY, FLASH, FLASH_BWD, FLASH_FWD, REDUCE,
-                    RESHAPE, TRANSPOSE, _bcast_map, _heads, _heads_layout, _invert, _project,
-                    _reshape_dim_map, flash_heads, flash_layout, index_maps, insert_map,
-                    kwargs_of, lower)
+from .rules import (BROADCAST, DOT, ELEMENTWISE, FACTORY, FLASH, FLASH_BWD, FLASH_DECODE,
+                    FLASH_FWD, REDUCE, RESHAPE, SSD, TRANSPOSE, _SSD_DIMS, _bcast_map, _heads,
+                    _heads_layout, _invert, _project, _reshape_dim_map, _ssd_dims,
+                    flash_heads, flash_layout, index_copy_maps, index_maps, insert_map,
+                    kwargs_of, lower, ssd_heads, ssd_layout)
 from .sharding import Mesh, Sharding, merge_shardings, replicated
 
 
@@ -293,7 +301,7 @@ def flash_targets(eqn, shardings, want: Optional[Sharding], mesh: Mesh):
     completed output sharding's, else the merge of the operands'.  Any axis
     on S, T, Gl or D is gathered.  Returns the targets of q, k, v and the
     output's sharding."""
-    cands = [want] if want is not None else list(shardings)
+    cands = [want] if want is not None else [s for s in shardings if s.rank]
     bh = None
     for s in cands:
         m = flash_heads(s)
@@ -398,6 +406,77 @@ def decide_flash(eqn, shardings, want, mesh: Mesh) -> LocalOp:
     return LocalOp(targets, osh, lambda q, k, v: flash_local(q, k, v, params),
                    flops=flash_flops(B, S, KR * Gl, eqn.in_avals[1].shape[1], D,
                                      params["causal"]))
+
+
+def decide_flash_decode(eqn, shardings, want, mesh: Mesh) -> LocalOp:
+    """A decode step's attention at a tensor position: ``flash_targets`` (the
+    0-d position replicated), one launch for every device, the stacked
+    device dim folded into the batch as ``flash_local``; the kernel reads
+    the position (every device's copy is the same) on the device."""
+    targets, osh = flash_targets(eqn, shardings, want, mesh)
+    chunk = eqn.params["chunk"]
+    B, S, KR, Gl, D = shard_shape(eqn.in_avals[0].shape, targets[0])
+
+    def fn(q, k, v, pos):
+        return flash_decode(_fold(q), _fold(k), _fold(v), pos[0], chunk).reshape(q.shape)
+
+    return LocalOp(targets, osh, fn,
+                   flops=flash_flops(B, S, KR * Gl, eqn.in_avals[1].shape[1], D, False))
+
+
+def decide_ssd(eqn, shardings, want, mesh: Mesh) -> LocalOp:
+    """One call of the SSD scan (three kernel launches on the card) for every
+    device: batch, heads and head dim of the completed output sharding (else
+    the merge of the operands'), S and the state dim gathered; the stacked
+    device dim folded into the batch, with each device's A repeated over its
+    rows, which the kernel reads per row (A (n·B, H))."""
+    dims = [_ssd_dims(a, i) for i, a in enumerate(eqn.in_avals)]
+    cands = [(want, _SSD_DIMS[4])] if want is not None else list(zip(shardings, dims))
+    bhp = None
+    for s, d in cands:
+        m = ssd_heads(s, d)
+        bhp = m if bhp is None else (merge_shardings(bhp, m) or bhp)
+    targets = [ssd_layout(bhp, d) for d in dims]
+    chunk = eqn.params["chunk"]
+    Bb, S, H, hd = shard_shape(eqn.in_avals[0].shape, targets[0])
+
+    def fn(x, dt, B, C, A):
+        n, b = x.shape[:2]
+        A = A[:, None, :].expand(n, b, A.shape[-1]).reshape(n * b, A.shape[-1])
+        y = ssd(_fold(x), _fold(dt), _fold(B), _fold(C), A, chunk=chunk)
+        return y.reshape(x.shape)
+
+    return LocalOp(targets, ssd_layout(bhp, _SSD_DIMS[4]), fn,
+                   flops=ssd_flops(Bb, S, H, hd, eqn.in_avals[2].shape[-1], chunk))
+
+
+def decide_index_copy(eqn, shardings, want, mesh: Mesh) -> Optional[LocalOp]:
+    """The decode step's cache write, ``self.index_copy(d, index, source)``:
+    where dim d is not sharded each device writes its shard's rows locally;
+    where it is (a sequence-sharded cache), each device writes a one-row
+    source where the index falls in its range (a masked local write: a
+    select against the global position of each local row), and no device
+    gathers the cache.  A sharded dim with more than one index row takes
+    the fallback."""
+    d = eqn.params["dim"]
+    maps = index_copy_maps(eqn)
+    base = want if want is not None else shardings[0]
+    targets = [_project(base, _invert(mp, a.ndim), a.ndim)
+               for mp, a in zip(maps, eqn.in_avals)]
+    A = base.dims_mapping[d]
+    if not A:
+        return LocalOp(targets, base, lambda x, idx, src: x.index_copy(d + 1, idx[0], src))
+    if eqn.in_avals[1].shape != (1,):
+        return None
+    size = eqn.out_avals[0].shape[d]
+
+    def fn(x, idx, src):
+        n_l = x.shape[d + 1]
+        rows = torch.arange(n_l, device=x.device).reshape((1, n_l) + (1,) * (x.ndim - d - 2))
+        at = idx.reshape((-1,) + (1,) * (x.ndim - 1))
+        return torch.where(rows + _offsets_like(base, d, size, x) == at, src.to(x.dtype), x)
+
+    return LocalOp(targets, base, fn)
 
 
 def decide_flash_fwd(eqn, shardings, want, mesh: Mesh) -> LocalOp:
@@ -674,6 +753,9 @@ LOCAL_OPS = {
     FLASH: decide_flash,
     FLASH_FWD: decide_flash_fwd,
     FLASH_BWD: decide_flash_bwd,
+    FLASH_DECODE: decide_flash_decode,
+    SSD: decide_ssd,
+    "aten.index_copy": decide_index_copy,
     "aten.unbind": decide_drop_dim,
     "aten.select": decide_drop_dim,
     "aten.stack": decide_stack,

@@ -44,7 +44,12 @@ Where an aten graph differs from a jaxpr:
   sharded loss (ROADMAP Queue C);
 * factory ops (``ones``, ``zeros``, ``arange``, ...) are created replicated,
   like the reference's ``iota``;
-* the flash-attention operators (``repro_torch::flash_attention``, and the
+* the SSD scan (``repro_torch::ssd_scan``) maps batch, heads and the head
+  dim between x, dt, B, C, A and y (S and the state dim replicated);
+  ``index_copy``, the decode step's cache write, keeps every dim of the
+  cache, the written one too;
+* the flash-attention operators (``repro_torch::flash_attention``, its
+  decode sibling ``flash_decode`` with a 0-d position, and the
   pair ``flash_attention_fwd`` / ``flash_attention_bwd`` of differentiable
   attention, which the reference's jaxpr has no counterpart of: its
   attention is an XLA loop) map batch and layout kv heads between q
@@ -68,6 +73,8 @@ ANNOTATE = "repro_torch.annotate"
 FLASH = "repro_torch.flash_attention"
 FLASH_FWD = "repro_torch.flash_attention_fwd"
 FLASH_BWD = "repro_torch.flash_attention_bwd"
+FLASH_DECODE = "repro_torch.flash_decode"
+SSD = "repro_torch.ssd_scan"
 
 
 # ---------------------------------------------------------------------------------
@@ -645,12 +652,17 @@ def flash_heads(s: Sharding) -> Sharding:
 
 def flash_layout(bh: Sharding, rank: int) -> Sharding:
     """A (batch, kv heads) sharding placed on a rank-5 q/output or a rank-4
-    k/v, every other dim replicated."""
+    k/v, every other dim replicated (a 0-d position: replicated)."""
+    if rank == 0:
+        return Sharding(bh.mesh, ())
     return _project(bh, [0, None, 1] + [None] * (rank - 3), rank)
 
 
 def rule_flash_attention(eqn, in_sh, out_sh, direction):
-    m = _merge_many([flash_heads(s) for s in list(in_sh) + list(out_sh) if s is not None])
+    """``flash_attention`` and ``flash_decode``: batch and kv heads shared by
+    q, k, v and the output; the decode's 0-d position stays replicated."""
+    m = _merge_many([flash_heads(s) for s in list(in_sh) + list(out_sh)
+                     if s is not None and s.rank])
     if m is None:
         return in_sh, out_sh
     return [flash_layout(m, a.ndim) for a in eqn.in_avals], [flash_layout(m, 5)]
@@ -676,6 +688,41 @@ def rule_flash_pair(eqn, in_sh, out_sh, direction):
         return in_sh, out_sh
     return ([_heads_layout(m, a.ndim) for a in eqn.in_avals],
             [_heads_layout(m, a.ndim) for a in eqn.tuple_avals])
+
+
+# ---------------------------------------------------------------------------------
+# the SSD scan: batch, heads and head dim
+# ---------------------------------------------------------------------------------
+
+# each operand's dims as dims of the scan's (batch, heads, head dim) layout:
+# x and y (B,S,H,hd), dt (B,S,H), B and C (B,S,ds), A (H,).  The sequence and
+# the state dim ds stay replicated; hd may be sharded, since the scan is
+# separable over it.
+_SSD_DIMS = {4: (0, None, 1, 2), 3: (0, None, 1), 1: (1,)}
+
+
+def _ssd_dims(a, i: int):
+    """Operand ``i``'s dims in the scan layout (B and C are operands 2 and 3)."""
+    return (0, None, None) if i in (2, 3) else _SSD_DIMS[a.ndim]
+
+
+def ssd_heads(s: Sharding, dims) -> Sharding:
+    """The rank-3 (batch, heads, head dim) sharding of an SSD operand."""
+    return _project(s, _invert(list(dims), 3), 3)
+
+
+def ssd_layout(bhp: Sharding, dims) -> Sharding:
+    return _project(bhp, list(dims), len(dims))
+
+
+def rule_ssd(eqn, in_sh, out_sh, direction):
+    """Batch, heads and head dim shared by x, dt, B, C, A and y."""
+    dims = [_ssd_dims(a, i) for i, a in enumerate(eqn.in_avals)] + [_SSD_DIMS[4]]
+    m = _merge_many([ssd_heads(s, d) for s, d in zip(list(in_sh) + list(out_sh), dims)
+                     if s is not None])
+    if m is None:
+        return in_sh, out_sh
+    return [ssd_layout(m, d) for d in dims[:-1]], [ssd_layout(m, dims[-1])]
 
 
 # ---------------------------------------------------------------------------------
@@ -769,6 +816,22 @@ def rule_index(eqn, in_sh, out_sh, direction):
     return _mapped(in_sh, out_sh, eqn.in_avals, eqn.out_avals, index_maps(eqn))
 
 
+def index_copy_maps(eqn) -> List[List[Optional[int]]]:
+    """index_copy(self, dim, index, source) -> self's shape: every dim of
+    self carried, the written one too; source's dims but the written one
+    (its length is the index's); the index replicated."""
+    d, rank = eqn.params["dim"], eqn.out_avals[0].ndim
+    return [list(range(rank)), [None] * rank, [j if j != d else None for j in range(rank)]]
+
+
+def rule_index_copy(eqn, in_sh, out_sh, direction):
+    """The cache write of a decode step, the counterpart of the reference's
+    ``dynamic_update_slice_in_dim``: the written dim keeps its sharding (the
+    partitioner writes each device's rows, masked where that dim is
+    sharded), the source follows the other dims."""
+    return _mapped(in_sh, out_sh, eqn.in_avals, eqn.out_avals, index_copy_maps(eqn))
+
+
 # ---------------------------------------------------------------------------------
 # registry + priorities
 # ---------------------------------------------------------------------------------
@@ -812,6 +875,10 @@ _PARAMS = {
     "aten.slice_backward": _slice_backward_params,
     "aten.gather": _gather_params,
     "aten.scatter_add": _gather_params,
+    "aten.index_copy": _gather_params,
+    FLASH_DECODE: lambda node, ins, out: {"causal": False,
+                                          "chunk": int(kwargs_of(node)["chunk"])},
+    SSD: lambda node, ins, out: {"chunk": int(kwargs_of(node)["chunk"])},
 }
 for _n in REDUCE | ARGMINMAX:
     _PARAMS[_n] = _reduce_params
@@ -844,8 +911,11 @@ RULES["aten.addmm"] = rule_addmm
 PRIORITY["aten.addmm"] = 2
 RULES["aten.convolution"] = rule_conv
 PRIORITY["aten.convolution"] = 2
-RULES[FLASH] = rule_flash_attention
-PRIORITY[FLASH] = 2
+for name in (FLASH, FLASH_DECODE):
+    RULES[name] = rule_flash_attention
+    PRIORITY[name] = 2
+RULES[SSD] = rule_ssd
+PRIORITY[SSD] = 2
 for name in (FLASH_FWD, FLASH_BWD):
     RULES[name] = rule_flash_pair
     PRIORITY[name] = 2
@@ -853,6 +923,7 @@ INDEX = {"aten.embedding", "aten.embedding_dense_backward", "aten.gather", "aten
 for name, rule in (("aten.unbind", rule_drop_dim), ("aten.select", rule_drop_dim),
                    ("aten.stack", rule_insert_dim), ("aten.select_backward", rule_insert_dim),
                    ("aten.slice_backward", rule_keep_unmodified),
+                   ("aten.index_copy", rule_index_copy),
                    *((n, rule_index) for n in INDEX)):
     RULES[name] = rule
     PRIORITY[name] = 1

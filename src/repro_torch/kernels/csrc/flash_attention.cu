@@ -61,7 +61,14 @@
 //    of its (b, kr) to finish, found by an atomic ticket after
 //    __threadfence(), combines the splits, o = sum e^(m_i - M) acc_i /
 //    max(sum e^(m_i - M) l_i, 1e-20), and resets the ticket to 0, so a call
-//    stays one launch.
+//    stays one launch.  Its position is read on the device: q_offset and
+//    kv_len are the host's values plus an int32 that the kernel loads (a
+//    decode step's position, or a zero), so one launch serves every
+//    position of a decode loop without the host knowing it; each split
+//    takes an even share of the keys visible from that position, and a
+//    split left with none (a short prefix cut into many splits) writes an
+//    empty partial (m = -1e9, l = 0, acc = 0), which the combine weighs by
+//    e^(-1e9 - M) = 0.
 // 3. flash_fwd (float32 q, R > 16): the first CUDA-core kernel, kept for
 //    float32 prefill, which no registered config runs (tensor cores would
 //    need TF32, which the float32 tolerance does not admit).  One block of
@@ -91,6 +98,8 @@ struct Params {
   long long os[4];  // o over (b, s, kr, g)
   int B, S, KR, Gl, T, R;  // R = S * Gl q rows per (b, kr)
   int causal, q_offset, kv_end;  // kv_end = min(kv_len, T)
+  int kv_len;            // as given (the decode adds *pos to it and to q_offset)
+  const int* pos;        // decode only: the device-side position base
   float scale;  // 1/sqrt(D), already rounded to q's dtype
   float* lse;   // (B, KR, R) float32 m + log(l) per q row, or null (prefill only)
 };
@@ -643,8 +652,12 @@ flash_decode(const Params p, int splits, float* __restrict__ ws, int* __restrict
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int split = blockIdx.x, kr = blockIdx.y, b = blockIdx.z;
   const int R = p.R;
-  // this split's keys: an even share of the visible prefix
-  const int kv_stop = kv_stop_for(p, R - 1);
+  // the position, read on the device; this split's keys: an even share of
+  // the prefix it makes visible
+  const int base = __ldg(p.pos);
+  const int q_offset = base + p.q_offset;
+  const int kv_end = min(base + p.kv_len, p.T);
+  const int kv_stop = max(0, p.causal ? min(kv_end, q_offset + (R - 1) / p.Gl + 1) : kv_end);
   const int t_begin = (int)((long long)split * kv_stop / splits);
   const int t_end = (int)((long long)(split + 1) * kv_stop / splits);
   const int n_tiles = (t_end - t_begin + C::BK - 1) / C::BK;
@@ -701,7 +714,7 @@ flash_decode(const Params p, int splits, float* __restrict__ ws, int* __restrict
       for (int ch = 0; ch < C::CHUNKS; ++ch)
         s = dot_chunk(*reinterpret_cast<const uint4*>(kt + c * C::PITCH + ch * 16),
                       qv + ch * EPC, s, TKV());
-      const bool ok = t < t_end && (!p.causal || t <= p.q_offset + r / p.Gl);
+      const bool ok = t < t_end && (!p.causal || t <= q_offset + r / p.Gl);
       sP[idx] = ok ? s : kNegInf;
     }
     __syncthreads();
@@ -870,7 +883,8 @@ cudaError_t run(const Params& p, int variant, int splits, float* ws, int* ticket
     default: return cudaErrorInvalidValue;        \
   }
   if (variant == kVariantDecode) {
-    if (p.R > kMaxRows || splits < 1 || splits > kMaxSplits || (splits > 1 && !(ws && tickets)))
+    if (p.R > kMaxRows || splits < 1 || splits > kMaxSplits || (splits > 1 && !(ws && tickets))
+        || p.pos == nullptr)
       return cudaErrorInvalidValue;
     FLASH_BY_D((launch_decode<TQ, TKV, kD>(p, splits, ws, tickets, stream)))
   }
@@ -893,7 +907,10 @@ cudaError_t run(const Params& p, int variant, int splits, float* ws, int* ticket
 // 0 = flash_fwd (float32 q), 1 = flash_wgmma (bf16 q and kv), 2 =
 // flash_decode (R <= 16) with ``splits`` kv splits, float32 scratch
 // ``workspace`` of B * KR * splits * R * (D + 2) values and ``tickets``, B * KR
-// int32 zeros (left at zero), both unused when splits == 1.  ``lse``, when
+// int32 zeros (left at zero), both unused when splits == 1; it reads its
+// position from the device: ``pos`` (an int32 on the card, not null) is
+// added to q_offset and to kv_len.  The prefill variants take the host's
+// q_offset and kv_len as they are and ignore ``pos``.  ``lse``, when
 // not null, receives m + log(l) per q row as float32 (B, KR, S * Gl), row
 // r = s * Gl + g, for the backward (prefill variants only; the decode
 // refuses it).
@@ -904,7 +921,7 @@ extern "C" int flash_attention_fwd(
     int q_dtype, int kv_dtype, int B, int S, int KR, int Gl, int T, int D,
     const long long* q_strides, const long long* k_strides,
     const long long* v_strides, const long long* o_strides,
-    int causal, int q_offset, int kv_len, float scale,
+    int causal, int q_offset, int kv_len, const void* pos, float scale,
     int variant, int splits, void* workspace, void* tickets, void* lse, void* stream) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
@@ -913,6 +930,8 @@ extern "C" int flash_attention_fwd(
   p.B = B; p.S = S; p.KR = KR; p.Gl = Gl; p.T = T; p.R = S * Gl;
   p.causal = causal; p.q_offset = q_offset;
   p.kv_end = kv_len < T ? kv_len : T;
+  p.kv_len = kv_len;
+  p.pos = static_cast<const int*>(pos);
   p.scale = scale;
   p.lse = static_cast<float*>(lse);
   if (lse != nullptr && variant == kVariantDecode) return cudaErrorInvalidValue;

@@ -5,9 +5,11 @@
 // src/repro/kernels/ssd_scan.py:70 ssd_scan (body _ssd_kernel) and, on the
 // model path, the pure-jnp oracle it stands in for,
 // src/repro/models/ssm.py::ssd_scan_ref.  Inputs x (Bb,S,H,hd), dt (Bb,S,H),
-// B and C (Bb,S,ds) shared by all heads, A (H,) negative; output y in x's
-// layout.  Everything is float32.  For each chunk c of Q rows, with l the
-// within-chunk cumulative sum of dt*A:
+// B and C (Bb,S,ds) shared by all heads, A (H,) negative, or one per batch
+// row where rows hold different heads (a partitioned call folds each
+// device's heads into the batch); output y in x's layout.  Everything is
+// float32.  For each chunk c of Q rows, with l the within-chunk cumulative
+// sum of dt*A:
 //
 //   S_c  = (exp(l_Q - l) * dt * x)^T B               (hd x ds, chunk-local)
 //   S_in[0] = 0,  S_in[c] = exp(l_Q[c-1]) S_in[c-1] + S_{c-1}
@@ -107,6 +109,7 @@ struct Params {
   long long bs[2];   // B over (b, s)
   long long cs[2];   // C over (b, s)
   long long ys[3];   // y over (b, s, h)
+  long long as;      // A over b (0: every row reads the same A over h)
   int Q, H, nc, head_group;
   int vec;           // x, B and C rows move as 16-byte chunks (else 4-byte)
 };
@@ -314,7 +317,7 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_chunk_state(const Params p) {
   for (int t = tid; t < Q; t += kThreads) sdt[t] = p.dt[b * p.dts[0] + (t0 + t) * p.dts[1] + h];
   __syncthreads();
   if (tid < 32) {
-    chunk_cumsum(sdt, p.A[h], Q, sl);
+    chunk_cumsum(sdt, p.A[b * p.as + h], Q, sl);
     float* lg = p.lsum + (((long long)b * p.nc + c) * p.H + h) * Q;
     const float lQ = sl[Q - 1];
     for (int t = tid; t < Kp; t += 32) {
@@ -631,8 +634,10 @@ bool aligned16(const void* ptr, const long long* strides, int n) {
 }  // namespace
 
 // float32 only.  hd in {32, 64}, ds in {16, 128}, 1 <= Q <= 128 and
-// S % Q == 0.  lsum (Bb, S/Q, H, Q) and state (Bb, S/Q, H, hd, ds) are
-// contiguous float32 scratch from the caller; heads are taken head_group at
+// S % Q == 0.  A is read at A[b * a_stride + h]: a_stride 0 for one A (H,)
+// shared by every row, H or more for an A (Bb, H) of one row each.  lsum
+// (Bb, S/Q, H, Q) and state (Bb, S/Q, H, hd, ds) are contiguous float32
+// scratch from the caller; heads are taken head_group at
 // a time in pass 3.  grid holds the three passes' grids, three numbers each
 // (kernels/ssd_scan.py::plan), and scan_threads pass 2's block size.
 // Launches three kernels on `stream`.  Returns a cudaError_t value (0 on
@@ -643,13 +648,13 @@ extern "C" int ssd_scan_fwd(
     float* y, float* lsum, float* state, int Bb, int S, int H, int hd, int ds, int Q,
     int head_group, const int* grid, int scan_threads, const long long* x_strides,
     const long long* dt_strides, const long long* b_strides, const long long* c_strides,
-    const long long* y_strides, void* stream) {
+    const long long* y_strides, long long a_stride, void* stream) {
   if (Q < 1 || Q > kMaxQ || S % Q != 0 || Bb < 1 || H < 1 || Bb > 65535 || H > 65535
       || head_group < 1)
     return cudaErrorInvalidValue;
   Params p;
   p.x = x; p.dt = dt; p.B = B; p.C = C; p.A = A; p.y = y;
-  p.lsum = lsum; p.state = state;
+  p.lsum = lsum; p.state = state; p.as = a_stride;
   for (int i = 0; i < 3; ++i) { p.xs[i] = x_strides[i]; p.ys[i] = y_strides[i]; }
   for (int i = 0; i < 2; ++i) {
     p.dts[i] = dt_strides[i]; p.bs[i] = b_strides[i]; p.cs[i] = c_strides[i];

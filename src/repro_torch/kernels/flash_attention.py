@@ -9,7 +9,9 @@ rows per batch row and kv head):
 - ``prefill_wgmma`` (bf16 q and kv, R > 16): tensor-core prefill, K/V tiles
   fed by TMA to two wgmma warpgroups;
 - ``decode_splitkv`` (R <= 16, every dtype pair): split-kv decode on the CUDA
-  cores, its splits combined in the same launch;
+  cores, its splits combined in the same launch, its position read on the
+  device (``pos``: a decode loop's step never waits on the host, and one
+  captured graph serves every position);
 - ``prefill_f32`` (float32 q, R > 16): the CUDA-core kernel.
 
 The source's header says what bounds each on an H100 and what its design does
@@ -45,6 +47,7 @@ MIN_SPLIT_KEYS = 64  # keys per split, at least
 MAX_SPLITS = 32
 _lib = None
 _scratch_by_device = {}  # device index -> (partials, tickets) of the split-kv decode
+_zero_by_device = {}  # device index -> an int32 zero: the decode's position base by default
 
 
 class Plan(NamedTuple):
@@ -57,13 +60,17 @@ class Plan(NamedTuple):
 @functools.lru_cache(maxsize=4096)
 def plan(B: int, S: int, KR: int, Gl: int, T: int, D: int, q_dtype: torch.dtype,
          kv_dtype: torch.dtype, *, causal: bool, q_offset: int = 0,
-         kv_len: Optional[int] = None) -> Plan:
+         kv_len: Optional[int] = None, position_on_device: bool = False) -> Plan:
     """The variant, tiles and split count for a call (pure Python; the same
-    choice the launch makes)."""
+    choice the launch makes).  The decode's splits are sized by the keys the
+    host knows to be visible, or by T where the position lies on the device
+    (``position_on_device``)."""
     R = S * Gl
     kv_stop = min(T if kv_len is None else kv_len, T)
     if causal:
         kv_stop = min(kv_stop, q_offset + (R - 1) // Gl + 1)
+    if position_on_device:
+        kv_stop = T
     if R <= DECODE_ROWS:
         kv_bytes = D * torch.finfo(kv_dtype).bits // 8
         want = -(-DECODE_BLOCKS // (B * KR))
@@ -87,7 +94,7 @@ def _load():
         fn = lib.flash_attention_fwd
         ptr, i32, i64p = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
         fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32,
-                       i64p, i64p, i64p, i64p, i32, i32, i32, ctypes.c_float,
+                       i64p, i64p, i64p, i64p, i32, i32, i32, ptr, ctypes.c_float,
                        i32, i32, ptr, ptr, ptr, ptr]
         fn.restype = ctypes.c_int
         _lib = lib
@@ -141,16 +148,30 @@ def _scratch(device: torch.device, n_partials: int, n_tickets: int):
     return ws, tickets
 
 
+def _zero(device: torch.device) -> torch.Tensor:
+    """An int32 zero on ``device``, made once: the decode's position base
+    when the caller gives the position on the host."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _zero_by_device:
+        _zero_by_device[idx] = torch.zeros((), dtype=torch.int32, device=device)
+    return _zero_by_device[idx]
+
+
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     q_offset: int = 0, kv_len: Optional[int] = None,
     out: Optional[torch.Tensor] = None, lse: Optional[torch.Tensor] = None,
+    pos: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Launch the kernel.  q (B,S,KR,Gl,D), k/v (B,T,KR,D), any 16-byte
     aligned strides with a unit-stride head dim.  Writes ``out`` (same shape
     as q, q's dtype; a new contiguous tensor when None) and returns it.
     With ``lse`` (contiguous float32 (B, KR, S * Gl)), a prefill also writes
-    each q row's log-sum-exp m + log(l) for the backward.
+    each q row's log-sum-exp m + log(l) for the backward.  ``pos``, a 0-d
+    int32 tensor on q's device, is a decode's position on the device: the
+    kernel reads it and adds it to ``q_offset`` and ``kv_len`` (so a decode
+    step at position p passes q_offset 0 and kv_len 1), and its splits are
+    sized by T; the host never reads it.
 
     The split-kv decode keeps one scratch buffer per device: calls that
     decode concurrently on two streams of one device are not supported."""
@@ -187,15 +208,22 @@ def flash_attention(
                          f"{(B, KR, S * Gl)} on {dev}")
     strides = [_strides(t, name) for name, t in (("q", q), ("k", k), ("v", v), ("out", out))]
     pl = plan(B, S, KR, Gl, T, D, q_dtype, kv_dtype, causal=causal, q_offset=q_offset,
-              kv_len=kv_len)
+              kv_len=kv_len, position_on_device=pos is not None)
     if lse is not None and pl.variant == "decode_splitkv":
         raise ValueError("the decode variant writes no log-sum-exp")
+    if pos is not None and (pl.variant != "decode_splitkv" or pos.device != dev
+                            or pos.dtype != torch.int32 or pos.numel() != 1):
+        raise ValueError(f"pos ({pos.dtype}, {tuple(pos.shape)} on {pos.device}) is a decode's "
+                         f"int32 position on {dev}; the {pl.variant} variant takes host ints")
+    if pl.variant == "decode_splitkv" and pos is None:
+        pos = _zero(dev)
     ws = tickets = None
     if pl.splits > 1:  # float32 partials (acc, m, l) of every split
         ws, tickets = _scratch(dev, B * KR * pl.splits * pl.block_q * (D + 2), B * KR)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPES[q_dtype], _DTYPES[kv_dtype], B, S, KR, Gl, T, D, *strides,
-            int(causal), q_offset, kv_len, _scale(D, q_dtype),
+            int(causal), q_offset, kv_len, None if pos is None else pos.data_ptr(),
+            _scale(D, q_dtype),
             VARIANTS[pl.variant], pl.splits,
             None if ws is None else ws.data_ptr(),
             None if tickets is None else tickets.data_ptr(),

@@ -11,6 +11,10 @@ differentiates the plain version.
 q-head h -> kv-head h // group; ``attention_model_layout`` takes the model's
 padded layout q (B,S,KR,Gl,D), k/v (B,T,KR,D), as ``chunked_attention`` does.
 
+A decode step whose position is a tensor (``flash_decode``) is, under
+capture, the operator ``repro_torch::flash_decode``, whose position stays
+data (the kernel reads it on the device), so one graph serves every step.
+The SSD scan is, under capture, ``repro_torch::ssd_scan`` (``ssd``).
 Attention that needs no gradient is, under graph capture
 (``core/compat.py::capture``), the custom operator
 ``repro_torch::flash_attention`` (``flash_attention_op``), which the capture
@@ -139,6 +143,41 @@ def _fwd_backward(ctx, dout, _dlse):
 flash_attention_fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup)
 
 
+def _flash_decode(q, k, v, pos, chunk):
+    if _route(q) == "cuda":
+        return fa.flash_attention(q, k, v, causal=False, q_offset=0, kv_len=1, pos=pos)
+    return chunked_attention_ref(q, k, v, causal=False, chunk=chunk, q_offset=pos,
+                                 kv_len=pos + 1)
+
+
+@torch.library.custom_op("repro_torch::flash_decode", mutates_args=())
+def flash_decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
+                    chunk: int) -> torch.Tensor:
+    """One decode step's attention as an operator: q (B,S,KR,Gl,D) at
+    position ``pos`` (a 0-d int32 tensor: q_offset pos, keys below pos + 1
+    valid, no causal mask), k/v (B,T,KR,D) -> (B,S,KR,Gl,D).  The position
+    is data, so one captured graph serves every step.  A CUDA tensor goes to
+    the kernel's decode, which reads ``pos`` on the device; a CPU tensor to
+    the plain version.  It has no gradient."""
+    return _flash_decode(q, k, v, pos, chunk)
+
+
+@flash_decode_op.register_fake
+def _(q, k, v, pos, chunk):
+    if not is_fake(q):  # an eager call on the meta device: no kernel runs there
+        _route(q)
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+def flash_decode(q, k, v, pos, chunk: int):
+    """A decode step's attention at the tensor position ``pos``: the operator
+    while a graph is being captured, else the kernel (CUDA) or the plain
+    version (CPU) called directly, as ``flash_forward``."""
+    if _capturing(q):
+        return flash_decode_op(q, k, v, pos, int(chunk))
+    return _flash_decode(q, k, v, pos, chunk)
+
+
 def _capturing(q) -> bool:
     """Whether a graph is being captured: fake tensors, or a proxy mode on
     the stack."""
@@ -207,9 +246,39 @@ def attention(q, k, v, *, causal: bool = True, block_k: int = 128):
     return o.permute(0, 2, 3, 1, 4).reshape(B, Hq, S, D)
 
 
-def ssd(x, dt, B, C, A, *, chunk: int = 128):
-    """Mamba2 SSD: x (Bb,S,H,hd), dt (Bb,S,H), B/C (Bb,S,ds), A (H,) negative
-    -> y (Bb,S,H,hd), with chunks of min(chunk, S) rows."""
+def _ssd(x, dt, B, C, A, chunk):
     if _route(x) == "cuda":
         return ssd_kernel.ssd_scan(x, dt, B, C, A, chunk=chunk)
     return ssd_scan_ref(x, dt, B, C, A, chunk)
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=())
+def ssd_scan_op(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                A: torch.Tensor, chunk: int) -> torch.Tensor:
+    """The SSD scan as an operator: x (Bb,S,H,hd), dt (Bb,S,H), B/C (Bb,S,ds),
+    A (H,) -> y (Bb,S,H,hd) float32.  A CUDA tensor goes to the kernel, a CPU
+    tensor to the plain version.  It has no gradient (the kernel has no
+    backward yet, ROADMAP A8)."""
+    return _ssd(x, dt, B, C, A, chunk)
+
+
+@ssd_scan_op.register_fake
+def _(x, dt, B, C, A, chunk):
+    if not is_fake(x):  # an eager call on the meta device: no kernel runs there
+        _route(x)
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def ssd(x, dt, B, C, A, *, chunk: int = 128):
+    """Mamba2 SSD: x (Bb,S,H,hd), dt (Bb,S,H), B/C (Bb,S,ds), A (H,) negative
+    -> y (Bb,S,H,hd), with chunks of min(chunk, S) rows.  Under graph capture
+    the operator ``repro_torch::ssd_scan`` (one node, which the partitioner
+    shards on batch, heads and head dim: ``core/partitioner.py::decide_ssd``);
+    else the kernel (CUDA) or the plain version (CPU) called directly."""
+    if _capturing(x):
+        if _needs_grad(x, dt, B, C, A):
+            raise NotImplementedError(
+                "the SSD scan under capture has no gradient: its backward kernel is not "
+                "ported yet (ROADMAP A8)")
+        return ssd_scan_op(x, dt, B, C, A, int(chunk))
+    return _ssd(x, dt, B, C, A, chunk)

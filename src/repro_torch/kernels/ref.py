@@ -127,7 +127,8 @@ def ssd_scan_ref(x, dt, B, C, A, chunk: int):
     """Chunked SSD, step for step as the JAX package's
     ``models/ssm.py::ssd_scan_ref``: chunk states first, then the sequential
     scan over chunks.  x (Bb,S,Hp,hd), dt (Bb,S,Hp), B/C (Bb,S,ds), A (Hp,)
-    negative.  Returns y (Bb,S,Hp,hd)."""
+    negative, or (Bb,Hp) one per row as the kernel takes it.  Returns y
+    (Bb,S,Hp,hd)."""
     Bb, S, Hp, hd = x.shape
     ds = B.shape[-1]
     Q = min(chunk, S)
@@ -139,7 +140,7 @@ def ssd_scan_ref(x, dt, B, C, A, chunk: int):
     Bc = B.reshape(Bb, nc, Q, ds)
     Cc = C.reshape(Bb, nc, Q, ds)
 
-    loga = dtc * A  # (B,nc,Q,Hp), negative
+    loga = dtc * (A if A.ndim == 1 else A[:, None, None, :])  # (B,nc,Q,Hp), negative
     l = torch.cumsum(loga, dim=2)  # within-chunk cumulative log decay
 
     # intra-chunk: y[t] += sum_{s<=t} exp(l_t - l_s) dt_s (C_t . B_s) x_s

@@ -107,7 +107,8 @@ def _load():
         lib = ctypes.CDLL(str(build()))
         fn = lib.ssd_scan_fwd
         ptr, i32, i64p = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
-        fn.argtypes = [ptr] * 8 + [i32] * 7 + [ctypes.POINTER(i32), i32] + [i64p] * 5 + [ptr]
+        fn.argtypes = ([ptr] * 8 + [i32] * 7 + [ctypes.POINTER(i32), i32] + [i64p] * 5
+                       + [ctypes.c_longlong, ptr])
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -115,18 +116,20 @@ def _load():
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
              A: torch.Tensor, *, chunk: int = MAX_CHUNK) -> torch.Tensor:
-    """Launch the kernel.  x (Bb,S,H,hd), dt (Bb,S,H), B/C (Bb,S,ds), A (H,),
-    all float32 on one CUDA device, any strides with a unit-stride last dim.
+    """Launch the kernel.  x (Bb,S,H,hd), dt (Bb,S,H), B/C (Bb,S,ds), A (H,)
+    shared by every row or (Bb,H) one per row (a partitioned call folds each
+    device's heads, and so its A, into the batch), all float32 on one CUDA
+    device, any strides with a unit-stride last dim.
     The chunk is Q = min(chunk, S), and S must be a multiple of Q.  Returns y
     (Bb,S,H,hd), a new contiguous float32 tensor."""
     global launches
-    if x.ndim != 4 or dt.ndim != 3 or B.ndim != 3 or C.shape != B.shape or A.ndim != 1:
-        raise ValueError(f"want x (Bb,S,H,hd), dt (Bb,S,H), B/C (Bb,S,ds), A (H,); got "
+    if x.ndim != 4 or dt.ndim != 3 or B.ndim != 3 or C.shape != B.shape or A.ndim not in (1, 2):
+        raise ValueError(f"want x (Bb,S,H,hd), dt (Bb,S,H), B/C (Bb,S,ds), A (H,) or (Bb,H); got "
                          f"{tuple(x.shape)}, {tuple(dt.shape)}, {tuple(B.shape)}, "
                          f"{tuple(C.shape)}, {tuple(A.shape)}")
     Bb, S, H, hd = x.shape
     ds = B.shape[-1]
-    if dt.shape != (Bb, S, H) or B.shape[:2] != (Bb, S) or A.shape != (H,):
+    if dt.shape != (Bb, S, H) or B.shape[:2] != (Bb, S) or A.shape not in ((H,), (Bb, H)):
         raise ValueError(f"dt {tuple(dt.shape)}, B/C {tuple(B.shape)} or A {tuple(A.shape)} "
                          f"do not match x {tuple(x.shape)}")
     if hd not in _HEAD_DIMS or ds not in _STATE_DIMS:
@@ -140,8 +143,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor, C: torch.Tensor
     if torch.is_grad_enabled() and any(t.requires_grad for _, t in tensors):
         raise RuntimeError("ssd_scan has no backward kernel yet: call it under "
                            "torch.no_grad() or torch.inference_mode()")
-    if A.stride(0) != 1:
-        raise ValueError(f"A must have unit stride, got {A.stride()}")
+    if A.stride(-1) != 1:
+        raise ValueError(f"A must have a unit-stride last dim, got {A.stride()}")
+    a_stride = A.stride(0) if A.ndim == 2 and Bb > 1 else 0
     pl = plan(Bb, S, H, hd, ds, chunk, sms=multiprocessors(x.device))
     grid = (ctypes.c_int * 9)(*pl.state_grid, *pl.scan_grid, *pl.out_grid)
     y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
@@ -153,7 +157,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor, C: torch.Tensor
             x.data_ptr(), dt.data_ptr(), B.data_ptr(), C.data_ptr(), A.data_ptr(),
             y.data_ptr(), lsum.data_ptr(), state.data_ptr(), Bb, S, H, hd, ds, pl.chunk,
             pl.head_group, grid, STATE_THREADS, strides_arg(x, "x"), strides_arg(dt, "dt"),
-            strides_arg(B, "B"), strides_arg(C, "C"), strides_arg(y, "y"),
+            strides_arg(B, "B"), strides_arg(C, "C"), strides_arg(y, "y"), a_stride,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     launches += 1

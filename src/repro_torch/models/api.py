@@ -7,15 +7,22 @@ Every family exposes:
   decode_step(cfg, st, params, token, cache, pos) -> (logits, cache)
   cache_shapes(cfg, st, batch, max_len)        dict of cache array shapes
 
-The port has the dense and ssm families so far; the others raise and name
-the ROADMAP item that brings them.
+and, for any family, ``cache_specs`` / ``abstract_cache`` (the reference's)
+and the programs the partitioner runs under a mesh: ``partitionable_loss``
+(the loss, no gradient) and ``partitionable_decode`` (one serve step, its
+position a tensor).  The port has the dense and ssm families so far; the
+others raise and name the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from ..configs.base import ModelConfig, Strategy
+import torch
+
+from ..configs.base import X, ModelConfig, Strategy
+from ..core.compat import set_mesh
 from . import ssm_lm, transformer
+from .layers import annotate_spec, annotate_tree
 
 _PENDING = {
     "moe": "A12",
@@ -53,9 +60,72 @@ def loss_fn(cfg: ModelConfig, st: Strategy, params, batch):
     return family_module(cfg).loss_fn(cfg, st, params, batch)
 
 
-def decode_step(cfg: ModelConfig, st: Strategy, params, token, cache, pos: int):
+def decode_step(cfg: ModelConfig, st: Strategy, params, token, cache, pos):
+    """pos: an int, or a 0-d int32 tensor on the device (the engine's)."""
     return family_module(cfg).decode_step(cfg, st, params, token, cache, pos)
 
 
 def cache_shapes(cfg: ModelConfig, st: Strategy, batch: int, max_len: int) -> Dict[str, tuple]:
     return family_module(cfg).cache_shapes(cfg, st, batch, max_len)
+
+
+def cache_specs(cfg: ModelConfig, st: Strategy) -> Dict[str, tuple]:
+    """The spec (a plain tuple, trailing Nones dropped) of each cache entry,
+    its leading layer dim unsharded: kv caches on ("batch", seq, "kv", None),
+    seq on "kv_seq" where ``cfg.shard_kv_seq``; the SSM state on ("batch",
+    "heads", None, None) and its conv buffer on ("batch", None, "heads",
+    None).  Under a mesh the strategy drops the axes the mesh lacks."""
+    seq_ax = "kv_seq" if cfg.shard_kv_seq else None
+    logical = {"k": ("batch", seq_ax, "kv", None), "v": ("batch", seq_ax, "kv", None),
+               "s": ("batch", "heads", None, None), "conv": ("batch", None, "heads", None)}
+    return {name: st.a(*((None,) * (len(shape) - len(logical[name])) + logical[name]))
+            for name, shape in cache_shapes(cfg, st, 1, 2).items()}
+
+
+def cache_dtype(name: str) -> torch.dtype:
+    """The reference's cache dtypes: bfloat16, the SSM state ``s`` float32."""
+    return torch.float32 if name == "s" else torch.bfloat16
+
+
+def abstract_cache(cfg: ModelConfig, st: Strategy, batch: int, max_len: int):
+    """The cache as meta tensors of the reference's shapes and dtypes (what
+    ``core/plan.py::lower_plan`` prices a decode step on); ``cache_specs``
+    gives their specs."""
+    return {name: torch.empty(shape, dtype=cache_dtype(name), device="meta")
+            for name, shape in cache_shapes(cfg, st, batch, max_len).items()}
+
+
+def partitionable_loss(cfg: ModelConfig, st: Strategy, mesh):
+    """``loss_fn`` as a program for the partitioner: ``fn(params, batch)``
+    annotates every param by its declared spec and the batch on "data" (X,
+    filtered to ``mesh``), and returns the loss (no gradient)."""
+    with set_mesh(mesh):
+        decls = param_tree(cfg, st)
+
+    def program(params, batch):
+        with set_mesh(mesh):
+            params = annotate_tree(decls, params, mesh)
+            batch = {k: annotate_spec(v, (X,), mesh) for k, v in batch.items()}
+            return loss_fn(cfg, st, params, batch)
+
+    return program
+
+
+def partitionable_decode(cfg: ModelConfig, st: Strategy, mesh):
+    """``decode_step`` as a program for the partitioner: ``fn(params, token,
+    cache, pos)`` annotates the params by their declared specs, the token on
+    "data" and the cache by ``cache_specs`` (filtered to ``mesh``), as the
+    reference's dry-run lowers its serve step, and runs one step at the 0-d
+    int32 position ``pos``, which stays data: one program serves every
+    position.  Returns (logits, new cache)."""
+    with set_mesh(mesh):
+        decls, specs = param_tree(cfg, st), cache_specs(cfg, st)
+
+    def program(params, token, cache, pos):
+        with set_mesh(mesh):
+            params = annotate_tree(decls, params, mesh)
+            token = annotate_spec(token, (X,), mesh)
+            cache = {k: annotate_spec(v, specs[k], mesh) for k, v in cache.items()}
+            return decode_step(cfg, st, params, token, cache, pos)
+
+    return program

@@ -82,6 +82,13 @@ def project_qkv(cfg: ModelConfig, st: Strategy, p: Params, xq, xkv, positions):
         k = k + at_use(p["bk"], cfg)
         v = v + at_use(p["bv"], cfg)
     if cfg.rope and positions is not None:
+        # where the heads do not divide the axis, the head dim rides it
+        # (attn_params' fallback); rope's halves need it whole, so it is
+        # gathered here by annotation, as the layout below needs it anyway
+        if st.w_div("heads", cfg.num_heads) is None:
+            q = st.constrain(q, "batch", "seq", None, None)
+        if st.w_div("heads", K) is None:
+            k = st.constrain(k, "batch", "seq", None, None)
         q = rope(q, positions, cfg.dh)
         k = rope(k, positions, cfg.dh)
     B, S = q.shape[:2]
@@ -152,22 +159,32 @@ def init_cache_shapes(cfg: ModelConfig, st: Strategy, batch, max_len, layers=Non
     return (L, batch, max_len, KR, cfg.dh)
 
 
-def decode_attention(cfg: ModelConfig, st: Strategy, p: Params, x, ck, cv, pos: int):
+def decode_attention(cfg: ModelConfig, st: Strategy, p: Params, x, ck, cv, pos):
     """One-token decode.  x: (B,1,M); ck/cv: (B,T,KR,D) layer cache; pos:
-    absolute position.  Returns (out, ck, cv).
+    absolute position, a 0-d int32 tensor on x's device (the kernel reads it
+    there, so no step waits on the host and one captured graph serves every
+    position).  Returns (out, ck, cv).
 
-    The new kv row is written into ``ck``/``cv`` in place: the counterpart of
-    the JAX engine donating the cache to its jitted decode step."""
+    Run eagerly, the new kv row is written into ``ck``/``cv`` in place: the
+    counterpart of the JAX engine donating the cache to its jitted decode
+    step.  Under graph capture the write is functional (``index_copy``, the
+    counterpart of the reference's ``dynamic_update_slice_in_dim``) and
+    returns new caches, annotated as the reference's are."""
     B = x.shape[0]
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q, k, v = project_qkv(cfg, st, p, x, x, positions)
-    ck[:, pos] = k[:, 0].to(ck.dtype)
-    cv[:, pos] = v[:, 0].to(cv.dtype)
-    # one kv chunk, as in the JAX package: the kernel skips the tiles past
-    # kv_len, the plain version masks them
-    attn = chunked_attention(
-        q, ck, cv, causal=False, chunk=ck.shape[1], q_offset=pos, kv_len=pos + 1,
-    )
+    q, k, v = project_qkv(cfg, st, p, x, x, pos.expand(B, 1))
+    at = pos.reshape(1).long()
+    k, v = k.to(ck.dtype), v.to(cv.dtype)
+    if ops._capturing(ck):
+        ck, cv = ck.index_copy(1, at, k), cv.index_copy(1, at, v)
+    else:
+        ck.index_copy_(1, at, k)
+        cv.index_copy_(1, at, v)
+    seq_ax = "kv_seq" if cfg.shard_kv_seq else None
+    ck = st.constrain(ck, "batch", seq_ax, "kv", None)
+    cv = st.constrain(cv, "batch", seq_ax, "kv", None)
+    # one kv chunk, as in the JAX package: the kernel splits the keys below
+    # pos + 1, the plain version masks the rest
+    attn = ops.flash_decode(q, ck, cv, pos, ck.shape[1])
     return out_projection(cfg, st, p, attn), ck, cv
 
 

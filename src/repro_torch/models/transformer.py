@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ModelConfig, Strategy
+from ..kernels import ops
 from . import attention as attn
 from .layers import (
     Params,
@@ -120,7 +121,7 @@ def loss_fn(cfg: ModelConfig, st: Strategy, params: Params, batch, aux_coef=0.01
 # ---------------------------------------------------------------------------------
 
 
-def decode_layer(cfg: ModelConfig, st: Strategy, lp: Params, x, ck, cv, pos: int):
+def decode_layer(cfg: ModelConfig, st: Strategy, lp: Params, x, ck, cv, pos):
     h = rms_norm(x, lp["ln1"])
     h, ck, cv = attn.decode_attention(cfg, st, lp["attn"], h, ck, cv, pos)
     x = x + h
@@ -133,15 +134,25 @@ def cache_shapes(cfg: ModelConfig, st: Strategy, batch: int, max_len: int):
     return {"k": shape, "v": shape}
 
 
-def decode_step(cfg: ModelConfig, st: Strategy, params: Params, token, cache, pos: int):
-    """One decode step.  token (B,1) int; cache {"k","v"}: (L,B,T,KR,D),
-    updated in place at ``pos`` and returned."""
+def decode_step(cfg: ModelConfig, st: Strategy, params: Params, token, cache, pos):
+    """One decode step.  token (B,1) int; cache {"k","v"}: (L,B,T,KR,D); pos
+    an int or a 0-d int32 tensor (kept on the device: the engine's).  Run
+    eagerly, the cache is updated in place at ``pos`` and returned; under
+    graph capture the step returns a new cache, stacked from the layers'
+    new caches as the reference's scan stacks them."""
     _require_dense(cfg)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=token.device)
     x = embed_lookup(cfg, st, params["embed"], token)
+    ks, vs = [], []
     for i in range(cache["k"].shape[0]):
-        x, _, _ = decode_layer(
+        x, ck, cv = decode_layer(
             cfg, st, layer_slice(params["layers"], i), x,
             cache["k"][i], cache["v"][i], pos,
         )
+        ks.append(ck)
+        vs.append(cv)
     x = rms_norm(x, params["final_ln"])
-    return unembed_logits(cfg, st, params["embed"], x), cache
+    logits = unembed_logits(cfg, st, params["embed"], x)
+    if ops._capturing(x):
+        cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return logits, cache

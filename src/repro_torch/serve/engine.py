@@ -7,8 +7,19 @@ token by token through decode, a refilled slot starting at the current
 ``pos`` over its previous occupant's cache rows or state (ROADMAP R5), and a
 stop at ``max_len - 1``.  Caches start as the reference allocates them:
 bfloat16 whatever ``cfg.dtype`` is, except the SSM state ``s`` in float32.
-The dense decode step writes its kv cache in place; the Mamba2 step returns
-new state tensors in the reference's dtypes.
+The step's position is a 0-d int32 tensor on the params' device, set from
+the host's count before each step (no step waits on the device for it).
+With no mesh the dense decode step writes its kv cache in place and the
+Mamba2 step returns new state tensors in the reference's dtypes.
+
+Constructed under ``core.compat.set_mesh(mesh)``, the engine runs its decode
+step as one SPMD program on that (simulated) mesh, as the reference's jitted
+step runs under its mesh: ``models/api.py::partitionable_decode`` (params by
+their specs, the token on "data", the cache by ``api.cache_specs``, the
+position as data) through ``spmd_partition(..., optimize=False)`` on the
+params' device.  Its plan is compiled at the first step and serves every
+later one (``runner.plans``).  The cache stays a global tensor, sharded
+and gathered by the runner at each step; the runner is ``engine.runner``.
 """
 from __future__ import annotations
 
@@ -19,6 +30,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig, Strategy
+from ..core.compat import get_abstract_mesh
 from ..models import api
 
 
@@ -37,20 +49,35 @@ class Engine:
         self.cfg, self.st, self.params = cfg, st, params
         self.B, self.T = batch_slots, max_len
         self.device = params["embed"]["embedding"].device
+        self.mesh = get_abstract_mesh()
         shapes = api.cache_shapes(cfg, st, batch_slots, max_len)
-        self.cache = {
-            k: torch.zeros(v, dtype=torch.float32 if k == "s" else torch.bfloat16,
-                           device=self.device)
-            for k, v in shapes.items()
-        }
+        dtypes = {k: api.cache_dtype(k) for k in shapes}
+        if self.mesh is not None and "conv" in dtypes:
+            # the step returns its conv buffer in the promotion of the
+            # buffer's and the model's dtypes (float32 in a float32 model,
+            # as the reference's after its first step): start there, so
+            # that every step has one input signature and so one plan
+            dtypes["conv"] = torch.promote_types(dtypes["conv"], getattr(torch, cfg.dtype))
+        self.cache = {k: torch.zeros(v, dtype=dtypes[k], device=self.device)
+                      for k, v in shapes.items()}
         self.pos = 0
+        self._pos = torch.zeros((), dtype=torch.int32, device=self.device)
         # Gumbel noise for temperature sampling; torch's generator does not
         # reproduce jax.random's bits
         self.rng = rng if rng is not None else torch.Generator().manual_seed(0)
+        self.runner = None
+        if self.mesh is not None:
+            from ..core.partitioner import spmd_partition
+
+            self.runner = spmd_partition(api.partitionable_decode(cfg, st, self.mesh), self.mesh,
+                                         optimize=False, device=str(self.device))
 
     def _decode(self, tokens: np.ndarray):
         token = torch.as_tensor(tokens, device=self.device)
-        return api.decode_step(self.cfg, self.st, self.params, token, self.cache, self.pos)
+        self._pos.fill_(self.pos)
+        if self.runner is not None:
+            return self.runner(self.params, token, self.cache, self._pos)
+        return api.decode_step(self.cfg, self.st, self.params, token, self.cache, self._pos)
 
     def _sample(self, logits, temperature):
         logits = logits[:, -1].float().cpu().numpy()

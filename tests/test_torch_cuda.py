@@ -733,3 +733,94 @@ def test_partitioned_train_step_on_cuda_matches_unsharded(cuda):
         leaves(st_["params"]), leaves(state0["params"])) if p.ndim >= 2])
     upd_s, upd_u = cat(sharded).double(), cat(unsharded).double()
     assert ((upd_s - upd_u).norm() / upd_u.norm()).item() <= TOLERANCES["bf16_grad"][0]
+
+
+@pytest.mark.parametrize("B,S,H,hd,ds", [(4, 256, 3, 64, 128), (32, 2048, 6, 64, 128)])
+def test_ssd_kernel_with_a_per_row_matches_plain(cuda, B, S, H, hd, ds):
+    """A (Bb, H), one per batch row, as a partitioned call folds each
+    device's heads into the batch: a small shape and the folded Mamba2 loss
+    shape (eight devices' 4 rows of 6 heads).  The kernel against the plain
+    version on the same per-row A within f32_chain; a shared A (H,) and the
+    same A repeated over the rows give the same bits."""
+    x, dt, Bm, Cm, _ = _ssd_inputs(cuda, B, S, H, hd, ds, seed=5)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    A = -torch.rand(B, H, generator=g, device=cuda) - 0.05
+    before = ssd_kernel.launches
+    got = ssd_kernel.ssd_scan(x, dt, Bm, Cm, A, chunk=128)
+    torch.cuda.synchronize()
+    assert ssd_kernel.launches == before + 1
+    assert_close(got, ssd_scan_ref(x, dt, Bm, Cm, A, 128), "f32_chain")
+    shared = ssd_kernel.ssd_scan(x, dt, Bm, Cm, A[0].contiguous(), chunk=128)
+    rows = ssd_kernel.ssd_scan(x, dt, Bm, Cm, A[:1].expand(B, H).contiguous(), chunk=128)
+    assert torch.equal(shared, rows)
+
+
+# positions: 0 (one key: splits with none write empty partials), 1 and 2
+# (fewer keys than splits), 63 and 64 (around a 64-key split share), the
+# last but one of the cache
+DECODE_POSITIONS = [0, 1, 2, 63, 64, 1022]
+
+
+@pytest.mark.parametrize("B,KR", [(8, 16), (32, 4)])
+def test_decode_with_the_position_on_the_device_matches_plain(cuda, B, KR):
+    """The decode reads its position from an int32 on the card and sizes its
+    splits by T: at the unsharded serve shape (B8 KR16 T1024) and the
+    partitioned serve step's fold (B32 KR4 T1024), bf16, every position of
+    DECODE_POSITIONS, one launch each, finite and within bf16_round of the
+    plain version at the same position; the host never reads it."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q = torch.randn(B, 1, KR, 1, 64, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(B, 1024, KR, 64, generator=g, device=cuda).bfloat16() for _ in range(2))
+    pos = torch.zeros((), dtype=torch.int32, device=cuda)
+    pl = fa.plan(B, 1, KR, 1, 1024, 64, torch.bfloat16, torch.bfloat16, causal=False,
+                 q_offset=0, kv_len=1, position_on_device=True)
+    assert pl.variant == "decode_splitkv" and pl.splits > 2
+    for p in DECODE_POSITIONS:
+        pos.fill_(p)
+        before = fa.launches
+        got = ops.flash_decode(q, k, v, pos, 1024)
+        torch.cuda.synchronize()
+        assert fa.launches == before + 1
+        assert bool(torch.isfinite(got.float()).all()), p
+        want = chunked_attention_ref(q, k, v, causal=False, chunk=1024, q_offset=p, kv_len=p + 1)
+        assert_close(got, want, "bf16_round", err_msg=f"pos {p}")
+
+
+def test_captured_decode_step_serves_two_positions_with_one_plan(cuda):
+    """qwen at reduced width (d128, 4 heads and 4 kv heads on "model"), two
+    layers, float32 compute on a bf16 cache: ``api.partitionable_decode``
+    through ``spmd_partition`` on the card at two positions, one plan for
+    both and one decode launch per layer per step (all eight devices in
+    one), each step's logits within f32_chain of the unsharded eager step
+    on the same inputs and its new cache within bf16_round (the new rows
+    are float32 projections summed in another order, then rounded to
+    bf16); no fallback that gathers."""
+    from repro_torch.core.compat import set_mesh
+    from repro_torch.core.partitioner import spmd_partition
+    from repro_torch.launch.mesh import make_test_mesh
+
+    cfg = reduced_config(get_config("qwen1.5-0.5b"), 8).with_(dtype="float32", num_layers=2)
+    st, mesh = get_strategy("2d_finalized"), make_test_mesh()
+    with set_mesh(mesh):
+        params = tree_init(api.param_tree(cfg, st), torch.Generator("cuda").manual_seed(9),
+                           dtype="float32", device="cuda")
+        shapes = api.cache_shapes(cfg, st, 4, 64)
+    g = torch.Generator(device=cuda).manual_seed(10)
+    cache = {n: (torch.randn(s, generator=g, device=cuda) * 0.5).bfloat16() for n, s in shapes.items()}
+    runner = spmd_partition(api.partitionable_decode(cfg, st, mesh), mesh, optimize=False,
+                            device="cuda")
+    for p in (5, 40):
+        token = torch.randint(0, cfg.vocab_size, (4, 1), generator=g, device=cuda)
+        pos = torch.tensor(p, dtype=torch.int32, device=cuda)
+        before = fa.launches
+        with torch.no_grad():
+            logits, new = runner(params, token, cache, pos)
+        torch.cuda.synchronize()
+        assert fa.launches == before + cfg.num_layers
+        with torch.no_grad():
+            eager = {n: c.clone() for n, c in cache.items()}
+            want, _ = api.decode_step(cfg, st, params, token, eager, pos)
+        assert_close(logits, want, "f32_chain", err_msg=f"pos {p}")
+        for n in cache:
+            assert_close(new[n], eager[n], "bf16_round", err_msg=n)
+    assert len(runner.plans) == 1 and runner.fallback_gathers == []

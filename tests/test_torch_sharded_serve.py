@@ -1,0 +1,345 @@
+"""Serving through the port's own partitioner on a simulated ("data" 2,
+"model" 4) mesh, against the JAX package's ``Engine`` unsharded.
+
+* ``Engine`` constructed under ``set_mesh(make_test_mesh())`` runs its decode
+  step as one program (``api.partitionable_decode``: params by their specs,
+  the token on "data", the cache by ``api.cache_specs``, the position a 0-d
+  int32 tensor) through ``spmd_partition(..., optimize=False)``, for
+  qwen1.5-0.5b at ``reduced_config(.., 16)`` (2 heads on 2 kv heads: the kv
+  heads broadcast to the 4-wide "model" axis) and mamba2-130m at ``(.., 8)``
+  (3 heads padded to 4), under 2d_attempt1, 2d_attempt2 and 2d_finalized,
+  in float32 and bf16: the checks of ``tests/test_torch_serve.py``, one
+  plan for the whole run (captured once), no fallback that gathers a sharded
+  dim, and the port's unsharded ``Engine`` on the same weights giving the
+  same tokens;
+* ``api.cache_specs`` and ``api.abstract_cache`` against the reference's
+  under the same abstract mesh, both families, three strategies, with and
+  without ``shard_kv_seq``;
+* the cache write (``index_copy``) on a sequence-sharded cache: a masked
+  local write, no gather;
+* cost-only lowering of the full-width qwen1.5-0.5b decode step on meta
+  tensors (``lower_plan``), printed under ``-s``.
+
+Weights come from the reference's ``tree_init`` through numpy; under the
+mesh Mamba2's vocabulary (6,285) is padded to 6,288 with zero rows, and its
+logits are compared on the reference's 6,285.
+"""
+import collections
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import get_strategy as jax_get_strategy
+from repro.configs.registry import get_config as jax_get_config
+from repro.launch.train import reduced_config as jax_reduced_config
+from repro.models import api as jax_api
+from repro.models.layers import tree_init as jax_tree_init
+from repro.serve.engine import Engine as JaxEngine
+from repro.serve.engine import Request as JaxRequest
+from repro_torch.configs.base import get_strategy
+from repro_torch.configs.registry import get_config, reduced_config
+from repro_torch.core.compat import TOLERANCES, assert_close, capture, set_mesh
+from repro_torch.core.partitioner import spmd_partition
+from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.models import api
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.models.layers import annotate_spec, padded_vocab
+from repro_torch.serve.engine import Engine, Request
+
+MESH = make_test_mesh()
+STRATEGIES = ["2d_attempt1", "2d_attempt2", "2d_finalized"]
+REDUCE = {"qwen1.5-0.5b": 16, "mamba2-130m": 8}
+# logits of the float32 serve against the reference: tests/test_torch_serve.py's
+# classes, but "coarse" for qwen at this width too: its kv cache is bf16 and
+# attention rounds p to the cache's dtype before the PV product (as the
+# reference does), and at this width the port's unsharded engine, in this
+# tree as in its parent's, already reads 2.4e-4 off the reference from the
+# step after the first refill (f32_chain's limit there is about 1.1e-4)
+FLOAT32_TOL = {"qwen1.5-0.5b": "coarse", "mamba2-130m": "coarse"}
+FLASH_DECODE = "repro_torch.flash_decode"
+
+
+def _configs(arch, dtype):
+    jcfg = jax_reduced_config(jax_get_config(arch), REDUCE[arch]).with_(dtype=dtype)
+    return jcfg, reduced_config(get_config(arch), REDUCE[arch]).with_(dtype=dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _weights(arch):
+    jcfg, _ = _configs(arch, "float32")
+    jp = jax_tree_init(jax_api.param_tree(jcfg, jax_get_strategy("2d_finalized")),
+                       jax.random.PRNGKey(0))
+    return jax.tree_util.tree_map(np.asarray, jp)
+
+
+def _prompts(vocab):
+    return [[(7 * i + j) % vocab for j in range(4)] for i in range(3)]
+
+
+def _recorded(engine, vocab):
+    """Record the logits each decode step hands to the sampler, on the
+    reference's vocabulary."""
+    seen, sample = [], engine._sample
+
+    def record(logits, temperature):
+        if isinstance(logits, torch.Tensor):
+            seen.append(logits.float().numpy()[..., :vocab])
+        else:
+            seen.append(np.array(logits.astype(jnp.float32))[..., :vocab])
+        return sample(logits, temperature)
+
+    engine._sample = record
+    return seen
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(arch, dtype):
+    """The reference's engine unsharded (test_system's setting: 2 slots,
+    max_len 32, 3 requests of 4 new tokens); Mamba2's step op by op (R6)."""
+    jcfg, _ = _configs(arch, dtype)
+    jst = jax_get_strategy("2d_finalized")
+    jp = jax.tree_util.tree_map(jnp.asarray, _weights(arch))
+    eng = JaxEngine(jcfg, jst, jp, batch_slots=2, max_len=32)
+    if jcfg.family == "ssm":
+        eng._decode = lambda p, t, c, pos: jax_api.decode_step(jcfg, jst, p, t, c, pos)
+    seen = _recorded(eng, jcfg.vocab_size)
+    reqs = eng.generate([JaxRequest(prompt=p, max_new_tokens=4)
+                         for p in _prompts(jcfg.vocab_size)])
+    return reqs, seen, eng.pos
+
+
+def _port_engine(arch, dtype, strategy, mesh):
+    _, cfg = _configs(arch, dtype)
+    st = get_strategy(strategy)
+    with set_mesh(mesh):
+        V = padded_vocab(cfg, st)
+        tree = dict(_weights(arch))
+        emb = tree["embed"]["embedding"]
+        tree["embed"] = {"embedding": np.pad(emb, ((0, V - emb.shape[0]), (0, 0)))}
+        params = params_from_numpy(tree, cfg, "cpu", st)
+        eng = Engine(cfg, st, params, batch_slots=2, max_len=32)
+    seen = _recorded(eng, cfg.vocab_size)
+    reqs = eng.generate([Request(prompt=p, max_new_tokens=4) for p in _prompts(cfg.vocab_size)])
+    return eng, reqs, seen
+
+
+@functools.lru_cache(maxsize=None)
+def _unsharded(arch, dtype):
+    eng, reqs, seen = _port_engine(arch, dtype, "2d_finalized", None)
+    return [r.out for r in reqs], seen
+
+
+def _check_float32(jreqs, reqs, jseen, seen, tol):
+    assert [r.out for r in reqs] == [r.out for r in jreqs]
+    assert all(len(r.out) == 4 and r.done for r in reqs)
+    for step, (got, want) in enumerate(zip(seen, jseen)):
+        assert_close(got, want, tol, err_msg=f"step {step}")
+
+
+def _check_bfloat16(jreqs, reqs, jseen, seen):
+    """Greedy tokens agree wherever the reference's top-2 margin is wider
+    than the logits' tolerance; after a near-tie the streams may part."""
+    rtol, atol = TOLERANCES["bf16_chain"]
+    for step, (got, want) in enumerate(zip(seen, jseen)):
+        assert_close(got, want, "bf16_chain", err_msg=f"step {step}")
+        top2 = np.sort(want[:, -1], axis=-1)[:, -2:]
+        margin = top2[:, 1] - top2[:, 0]
+        differs = got[:, -1].argmax(-1) != want[:, -1].argmax(-1)
+        assert not np.any(differs & (margin > 2 * (atol + rtol * np.abs(top2[:, 1])))), step
+        if differs.any():
+            return
+    assert [r.out for r in reqs] == [r.out for r in jreqs]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", sorted(REDUCE))
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_sharded_engine_matches_reference(strategy, arch, dtype):
+    """The partitioned serve step against the reference's engine unsharded,
+    as tests/test_torch_serve.py holds the unsharded one; one plan for every
+    position of the run, captured once; no fallback that gathers; qwen's
+    step holds one decode operator per layer; against the port's own
+    unsharded engine: float32 tokens equal and logits within the float32
+    class of the family (the partitioned sums run in another order; Mamba2's
+    cancelling SSD sums make its chain "coarse", as against the reference),
+    bf16 by the bf16 rules."""
+    eng, reqs, seen = _port_engine(arch, dtype, strategy, MESH)
+    jreqs, jseen, jpos = _reference(arch, dtype)
+    assert eng.pos == jpos and len(seen) == len(jseen)
+    runner = eng.runner
+    assert len(runner.plans) == 1
+    assert (runner.cache_stats.misses, runner.cache_stats.hits) == (1, len(seen) - 1)
+    assert runner.fallback_gathers == []
+    (entry,) = runner.plans.values()
+    if eng.cfg.family == "dense":
+        steps = collections.Counter(s.op for s in entry.plan.steps)
+        assert steps[FLASH_DECODE] == eng.cfg.num_layers
+    for name, c in eng.cache.items():
+        assert bool(torch.isfinite(c.float()).all()), name
+    out, useen = _unsharded(arch, dtype)
+    if dtype == "float32":
+        _check_float32(jreqs, reqs, jseen, seen, FLOAT32_TOL[arch])
+        assert [r.out for r in reqs] == out
+        for step, (got, want) in enumerate(zip(seen, useen)):
+            assert_close(got, want, FLOAT32_TOL[arch], err_msg=f"step {step}")
+    elif eng.cfg.family == "dense":
+        _check_bfloat16(jreqs, reqs, jseen, seen)
+        _check_bfloat16([Request(prompt=[], out=o) for o in out], reqs, useen, seen)
+    else:
+        _check_mamba2_bfloat16(jseen, seen)
+
+
+def _check_mamba2_bfloat16(jseen, seen):
+    """bf16 Mamba2 with random weights is chaotic under rounding (R6): one
+    step taken from the same state by the partitioned program and by the
+    port's unsharded step differs by up to 5.3e-2 in norm (the unsharded
+    step from the reference's state reads up to 4.6e-2 off the
+    reference's), and the recurrent state carries such flips from step to
+    step, so the free-running logits leave bf16_chain of the reference's
+    by the third step (0.16 to 0.27 where the limit is about 0.12) before
+    any token parts.  Held: the first two steps of the run within
+    bf16_chain of the reference's (a dropped psum or a wrong cast shows
+    there), every logit finite; the float32 runs hold the partitioned
+    Mamba2 step to the reference at every step."""
+    for step, (got, want) in enumerate(zip(seen[:2], jseen[:2])):
+        assert_close(got, want, "bf16_chain", err_msg=f"step {step}")
+    assert all(np.isfinite(s).all() for s in seen)
+
+
+def _trim(spec):
+    spec = tuple(spec)
+    while spec and spec[-1] is None:
+        spec = spec[:-1]
+    return spec
+
+
+@pytest.mark.parametrize("shard_kv_seq", [False, True])
+@pytest.mark.parametrize("arch", sorted(REDUCE))
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_cache_specs_and_abstract_cache_match_reference(strategy, arch, shard_kv_seq):
+    """``api.cache_specs`` (plain tuples) and ``api.abstract_cache`` (meta
+    tensors: shapes, and dtypes bf16 with the SSM state in float32) under
+    the mesh against the reference's under a device-free ``AbstractMesh``
+    of the same axes."""
+    jcfg, cfg = _configs(arch, "bfloat16")
+    jcfg, cfg = jcfg.with_(shard_kv_seq=shard_kv_seq), cfg.with_(shard_kv_seq=shard_kv_seq)
+    jst, st = jax_get_strategy(strategy), get_strategy(strategy)
+    with jax.sharding.use_abstract_mesh(jax.sharding.AbstractMesh((2, 4), ("data", "model"))):
+        want_specs = {k: _trim(v) for k, v in jax_api.cache_specs(jcfg, jst).items()}
+        want_cache = jax_api.abstract_cache(jcfg, jst, 8, 64)
+    with set_mesh(MESH):
+        specs = api.cache_specs(cfg, st)
+        cache = api.abstract_cache(cfg, st, 8, 64)
+    assert specs == want_specs
+    assert sorted(cache) == sorted(want_cache)
+    for name, t in cache.items():
+        w = want_cache[name]
+        assert t.device.type == "meta" and tuple(t.shape) == tuple(w.shape), name
+        assert str(t.dtype).split(".")[-1] == str(w.dtype), name
+    if shard_kv_seq and arch == "qwen1.5-0.5b":
+        assert specs["k"][2] == "data"  # kv_seq rides X on the cache's sequence dim
+
+
+def test_cache_write_on_a_sequence_sharded_cache_is_a_masked_local_write():
+    """``index_copy`` into a cache whose written dim (the sequence) is sharded
+    on "data": each device writes the row only where the position falls in
+    its range, no fallback and no collective, equal to the unsharded write
+    at every position, the first and last of a shard among them."""
+    rng = np.random.default_rng(3)
+    cache = torch.from_numpy(rng.standard_normal((4, 16, 8, 8)).astype(np.float32))
+    row = torch.from_numpy(rng.standard_normal((4, 1, 8, 8)).astype(np.float32))
+
+    def fn(c, r, pos):
+        c = annotate_spec(c, (None, "data", "model", None), MESH)
+        return c.index_copy(1, pos.reshape(1).long(), annotate_spec(r, (None, None, "model"), MESH))
+
+    runner = spmd_partition(fn, MESH, optimize=False, device="cpu")
+    for p in (0, 7, 8, 15):
+        pos = torch.tensor(p, dtype=torch.int32)
+        got = runner(cache, row, pos)
+        assert_close(got, cache.index_copy(1, torch.tensor([p]), row), "exact")
+    assert runner.fallbacks == [] and runner.collectives == {}
+    assert len(runner.plans) == 1
+
+
+def test_full_width_qwen_decode_step_prices_on_meta_tensors():
+    """Cost-only lowering of qwen1.5-0.5b's serve step at full width (24
+    layers, d1024, 16 heads, B8, a 1,024-row cache; bf16 params as the
+    reference's dry-run serves them) on meta tensors under 2d_finalized:
+    its plan steps, collectives by kind and modeled per-device peak, with
+    one decode operator per layer and no fallback that gathers."""
+    from repro_torch.core.plan import lower_plan
+    from repro_torch.models.layers import tree_shapes
+
+    cfg, st = get_config("qwen1.5-0.5b"), get_strategy("2d_finalized")
+    with set_mesh(MESH):
+        params = tree_shapes(api.param_tree(cfg, st), "bfloat16")
+        cache = api.abstract_cache(cfg, st, 8, 1024)
+        token = torch.empty((8, 1), dtype=torch.long, device="meta")
+        pos = torch.empty((), dtype=torch.int32, device="meta")
+        cap = capture(api.partitionable_decode(cfg, st, MESH), params, token, cache, pos)
+    plan = lower_plan(cap, None, MESH, optimize=False)
+    kinds = collections.Counter(s.op for s in plan.steps if s.kind == "collective")
+    kinds.update(step.op for s in plan.steps if s.kind == "reshard" for step in s.program.steps)
+    assert collections.Counter(s.op for s in plan.steps)[FLASH_DECODE] == cfg.num_layers
+    assert plan.fallback_gathers == []
+    assert plan.peak_bytes > 0
+    print(f"\nqwen1.5-0.5b decode step, B8 T1024, 2d_finalized on (2,4): {len(plan.steps)} plan "
+          f"steps; collectives by kind {dict(kinds)}; plan_peak_bytes "
+          f"{plan.peak_bytes / 2**20:.1f} MiB per device; stats {plan.stats.as_dict()}")
+
+
+@pytest.mark.parametrize("B,KR", [(8, 16), (32, 4), (64, 4), (1, 2)])
+def test_decode_with_the_position_on_the_device_splits_by_the_cache_length(B, KR):
+    """With its position on the device the decode's split count cannot read
+    the visible keys: ``plan`` sizes it by T, as a host call that sees
+    every key (kv_len T) would be; the serve shape keeps its 3 splits."""
+    from repro_torch.kernels import flash_attention as fa
+
+    bf16 = torch.bfloat16
+    on_device = fa.plan(B, 1, KR, 1, 1024, 64, bf16, bf16, causal=False, q_offset=0, kv_len=1,
+                        position_on_device=True)
+    whole = fa.plan(B, 1, KR, 1, 1024, 64, bf16, bf16, causal=False, q_offset=1023,
+                    kv_len=1024)
+    assert on_device == whole and on_device.variant == "decode_splitkv"
+    if (B, KR) == (8, 16):
+        assert on_device.splits == 3
+
+
+def test_mamba2_with_its_heads_on_the_model_axis_serves_as_the_reference():
+    """mamba2-130m at ``reduced_config(.., 2)`` cut to two layers and a
+    512-token vocabulary: 12 heads divide "model", so the weights, the
+    state and the conv buffer shard on the heads themselves (at width 8 and
+    4 they pad and the head dim rides the axis instead), as at full width.
+    The partitioned engine in float32 against the reference's engine
+    unsharded (coarse, tokens equal) and the port's unsharded engine
+    (tokens equal), with one plan and no gathering fallback."""
+    arch, dtype = "mamba2-130m", "float32"
+    over = dict(num_layers=2, vocab_size=512)
+    jcfg = jax_reduced_config(jax_get_config(arch), 2).with_(dtype=dtype, **over)
+    cfg = reduced_config(get_config(arch), 2).with_(dtype=dtype, **over)
+    jst, st = jax_get_strategy("2d_finalized"), get_strategy("2d_finalized")
+    jp = jax_tree_init(jax_api.param_tree(jcfg, jst), jax.random.PRNGKey(1))
+    np_tree = jax.tree_util.tree_map(np.asarray, jp)
+    jeng = JaxEngine(jcfg, jst, jp, batch_slots=2, max_len=32)
+    jeng._decode = lambda p, t, c, pos: jax_api.decode_step(jcfg, jst, p, t, c, pos)
+    jseen = _recorded(jeng, cfg.vocab_size)
+    jreqs = jeng.generate([JaxRequest(prompt=p, max_new_tokens=4) for p in _prompts(512)])
+    runs = []
+    for mesh in (MESH, None):
+        with set_mesh(mesh):
+            eng = Engine(cfg, st, params_from_numpy(np_tree, cfg, "cpu", st), batch_slots=2,
+                         max_len=32)
+        seen = _recorded(eng, cfg.vocab_size)
+        reqs = eng.generate([Request(prompt=p, max_new_tokens=4) for p in _prompts(512)])
+        runs.append((eng, reqs, seen))
+    (eng, reqs, seen), (_, ureqs, _) = runs
+    with set_mesh(MESH):
+        assert api.cache_shapes(cfg, st, 2, 32)["s"][2] == 12  # no padded head
+    assert len(eng.runner.plans) == 1 and eng.runner.fallback_gathers == []
+    _check_float32(jreqs, reqs, jseen, seen, "coarse")
+    assert [r.out for r in reqs] == [r.out for r in ureqs]
