@@ -18,8 +18,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    D = 32, a ragged prefill, prefill continuation and the serve path's
    decode (with host positions, and with its position on the card at the
    serve shape and the partitioned serve step's fold, B32 KR4, at positions
-   0, 1, a split boundary, the one before it and T - 2), each case with the
-   variant and split count the
+   0, 1, a split boundary, the one before it and T - 2; and with a position
+   per batch row and each row's log-sum-exp at the sequence-sharded serve
+   step's fold, 8 devices x 8 slots, KR4, 512 keys per device, across the
+   shard boundary and with rows that see no key, in bf16 and float32),
+   each case with the variant and split count the
    wrapper's plan() chose, with times (CUDA events) for the kernel, the
    plain version and ``scaled_dot_product_attention`` (a yardstick only: the
    port never calls it) beside the card's bound;
@@ -73,28 +76,35 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``PlanCost`` priced with a profile measured in this run; run in a
    process of its own so that its profiler traces are whole;
 7. partitioned training, in the partition phase's process: qwen1.5-0.5b
-   at its published widths (bf16 compute, float32 masters, Adafactor,
-   remat "none", B8 S512) trained by ``TrainLoop`` under ``set_mesh`` on
-   ("data" 2, "model" 4), the whole step one program through the
-   partitioner (2d_finalized with 24 layers for three steps, 2d_attempt1
-   and 2d_attempt2 with two layers for two), against the same loop
-   unsharded on the card: losses, the step-0 gradient and update, per
-   step one flash forward launch and one backward call per layer for all
-   eight devices, no gathering fallback, no plan step holding a whole
-   vocabulary dim; first-call seconds (capture, completion, plan
-   compile), plan steps and collectives per step, wall, host and
-   device-busy ms per step, peak memory beside the plan's modeled peak;
+   at its published widths (bf16 compute, float32 masters, Adafactor)
+   trained by ``TrainLoop`` under ``set_mesh`` on ("data" 2, "model" 4),
+   the whole step one program through the partitioner (2d_finalized with
+   24 layers at B8 S512 under remat "none" for three steps, "full" and
+   "dots" for two, each held against "none", and "dots" at B4 S2048 for
+   two; 2d_attempt1 and 2d_attempt2 with two layers for two), against the
+   same loop unsharded on the card: losses, the step-0 gradient and
+   update, per step one flash forward launch per layer (two under remat)
+   and one backward call per layer for all eight devices, no gathering
+   fallback, no plan step holding a whole vocabulary dim; first-call
+   seconds (capture, completion, plan compile), plan steps and
+   collectives per step, wall, host and device-busy ms per step, peak
+   memory beside the plan's modeled peak; then ``compress_grads`` and the
+   numeric-fault window (two layers, float32, four steps each) against
+   the unsharded steps;
 8. partitioned Mamba2 and serving, in a process of their own: mamba2-130m's
    loss (B8 S2048, bf16, no gradient) as one program through the
    partitioner under 2d_finalized against the same loss unsharded (24 SSD
    calls per forward, each one call for all eight devices); and
    ``Engine(slots=8, max_len=1024)`` under ``set_mesh`` (the decode step
    one program, its position an int32 on the card, one plan for the run)
-   for qwen1.5-0.5b (24 layers, bf16), mamba2-130m (bf16 and float32) and
-   the two earlier Table-1 attempts (qwen, two layers), each against the
-   same ``Engine`` unsharded: logits per step, the unsharded step rerun on
-   the sharded step's input at a few steps, launches per step, no
-   gathering fallback and no plan step holding a whole vocabulary dim;
+   for qwen1.5-0.5b (24 layers, bf16), mamba2-130m (bf16 and float32),
+   the two earlier Table-1 attempts (qwen, two layers) and qwen with its
+   kv cache sharded on the sequence (``shard_kv_seq``: 2d_attempt1 with 8
+   slots, 2d_finalized with 1; no plan step holding a whole cache
+   sequence), each against the same ``Engine`` unsharded: logits per
+   step, the unsharded step rerun on the sharded step's input at a few
+   steps, launches per step, no gathering fallback and no plan step
+   holding a whole vocabulary dim;
    tokens/s, step wall, host and device-busy ms, the cache's shard and
    unshard ms, syncs per step and peak memory.
 
@@ -380,6 +390,103 @@ def decode_position_case(name, *, B, KR, gen, T=1024, D=64):
     return rec
 
 
+def decode_row_position_case(name, *, q_dtype, gen, devices=8, slots=8, KR=4, T=512, D=64):
+    """The decode at one position per batch row with each row's log-sum-exp
+    (``ops.flash_decode_partial``), at the fold of a sequence-sharded serve
+    step: ``devices`` x ``slots`` rows, ``KR`` kv heads and ``T`` keys per
+    device on ("data" 2, "model" 4), the rows of the devices holding keys T
+    to 2T - 1 at the position less T.  Against ``flash_decode_partial_ref``
+    at global positions 0, T - 1, T, T + 1 and 2T - 2 (crossing the shard
+    boundary; at 0 to T - 1 the second shard's rows see no key): output
+    within bf16_round, log-sum-exp within f32_chain, an empty row's output
+    0 and log-sum-exp -1e9, one launch per call.  Then timed at 2T - 2
+    beside the same launch with one shared position (the unsharded
+    decode's call), the plain version, SDPA over T keys and the bound."""
+    from repro_torch.core.compat import TOLERANCES
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import NEG_INF, flash_decode_partial_ref
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    B = devices * slots
+    second = ((torch.arange(B, device=dev) // slots) >= devices // 2).int()  # data coord 1
+    positions = (0, T - 1, T, T + 1, 2 * T - 2)
+    esz = torch.finfo(q_dtype).bits // 8
+    nbytes = 2 * B * KR * D * esz + 2 * B * T * KR * D * 2 + 4 * B + 4 * B * KR
+    copies = max(1, min(8, math.ceil(2 * L2_BYTES / nbytes)))
+    sets = [(torch.randn(B, 1, KR, 1, D, generator=gen, device=dev).to(q_dtype),
+             torch.randn(B, T, KR, D, generator=gen, device=dev).to(bf16),
+             torch.randn(B, T, KR, D, generator=gen, device=dev).to(bf16)) for _ in range(copies)]
+    errs, lse_errs = {}, {}
+    o_r, o_a = TOLERANCES["bf16_round"]
+    l_r, l_a = TOLERANCES["f32_chain"]
+    for p in positions:
+        rows = (p - T * second).to(torch.int32)
+        q, k, v = sets[0]
+        before = fa.launches
+        out, lse = ops.flash_decode_partial(q, k, v, rows, T)
+        torch.cuda.synchronize()
+        check(fa.launches == before + 1, f"{name} pos {p}: {fa.launches - before} launches")
+        want, want_lse = flash_decode_partial_ref(q, k, v, rows, T)
+        out, want = out.float(), want.float()
+        errs[p] = (out - want).abs().max().item()
+        lse_errs[p] = (lse - want_lse).abs().max().item()
+        empty = rows < 0
+        check(bool(torch.isfinite(out).all()) and not bool(torch.isnan(lse).any()),
+              f"{name} pos {p}: a NaN or non-finite output")
+        check(bool(((out - want).abs() <= o_a + o_r * want.abs()).all()),
+              f"{name} pos {p}: output off the plain version by {errs[p]} (bf16_round)")
+        check(bool(((lse - want_lse).abs() <= l_a + l_r * want_lse.abs()).all()),
+              f"{name} pos {p}: log-sum-exp off the plain version by {lse_errs[p]} (f32_chain)")
+        check(bool((out[empty] == 0).all()) and bool((lse[empty] == NEG_INF).all()),
+              f"{name} pos {p}: an empty row's output is not 0 or its log-sum-exp not -1e9")
+    last = 2 * T - 2
+    rows = (last - T * second).to(torch.int32)
+    shared = torch.tensor(T - 2, dtype=torch.int32, device=dev)
+
+    def run_kernel(i):
+        return ops.flash_decode_partial(*sets[i], rows, T)
+
+    def run_shared(i):
+        return ops.flash_decode(*sets[i], shared, T)
+
+    def run_plain(i):
+        return flash_decode_partial_ref(*sets[i], rows, T)
+
+    sdpa = [(q.reshape(B, KR, 1, D).to(bf16), k.transpose(1, 2).contiguous(),
+             v.transpose(1, 2).contiguous()) for q, k, v in sets]
+    keys = int(torch.clamp(rows + 1, max=T).sum())  # visible keys over all rows
+    t_ops = 4 * D * keys * KR / (PEAK_F32_FLOPS if q_dtype == torch.float32 else
+                                 PEAK_BF16_FLOPS) * 1e3
+    t_bytes = (2 * B * KR * D * esz + 2 * keys * KR * D * 2 + 4 * B + 4 * B * KR) / PEAK_BYTES * 1e3
+    pl = fa.plan(B, 1, KR, 1, T, D, q_dtype, bf16, causal=False, q_offset=0, kv_len=1,
+                 position_on_device=True)
+    rec = {
+        "case": name, "dtype": str(q_dtype).replace("torch.", ""), "kv_dtype": "bfloat16",
+        "variant": pl.variant, "splits": pl.splits,
+        "shape": dict(B=B, S=1, T=T, KR=KR, Gl=1, D=D), "positions": list(positions),
+        "max_abs_err_by_pos": errs, "lse_max_abs_err_by_pos": lse_errs,
+        "max_abs_err": max(errs.values()), "tol": "bf16_round",
+        "ms": time_ms(run_kernel, copies), "device_ms": device_ms(run_kernel, copies),
+        "shared_position_ms": time_ms(run_shared, copies),
+        "shared_position_device_ms": device_ms(run_shared, copies),
+        "plain_ms": time_ms(run_plain, copies),
+        "library_ms": time_ms(lambda i: F.scaled_dot_product_attention(*sdpa[i]), copies),
+        "library_device_ms": device_ms(lambda i: F.scaled_dot_product_attention(*sdpa[i]),
+                                       copies),
+        "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops > t_bytes else "bytes",
+    }
+    print(f"  {name:30s} {rec['dtype']:8s} {pl.variant}/{pl.splits} (a position per row, with "
+          f"lse) errs {', '.join(f'pos {p}: {e:.3g}' for p, e in errs.items())} (bf16_round), "
+          f"lse {max(lse_errs.values()):.3g} (f32_chain); at pos {last}: kernel "
+          f"{rec['ms']:.4f} ms (device {_ms(rec['device_ms'])})  shared position "
+          f"{rec['shared_position_ms']:.4f} ms (device {_ms(rec['shared_position_device_ms'])})"
+          f"  plain {rec['plain_ms']:.4f} ms  sdpa {rec['library_ms']:.4f} ms (device "
+          f"{_ms(rec['library_device_ms'])})  bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})",
+          flush=True)
+    return rec
+
+
 def kernel_phase(seed):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -429,6 +536,11 @@ def kernel_phase(seed):
     # devices' B4 KR4 in one launch)
     cases.append(decode_position_case("decode_devpos_8x16", B=8, KR=16, gen=gen))
     cases.append(decode_position_case("decode_devpos_fold_32x4", B=32, KR=4, gen=gen))
+    # a position per row with the log-sum-exp: the sequence-sharded serve
+    # step's fold (8 devices x 8 slots, KR 16/4, 1024/2 keys per device)
+    for dtype in (bf16, f32):
+        cases.append(decode_row_position_case("decode_rowpos_fold_64x4_t512", q_dtype=dtype,
+                                              gen=gen))
     return cases
 
 
@@ -1399,12 +1511,14 @@ def partition_phase_in_own_process(seed):
             f"out, n = chip_smoke.counted(lambda: chip_smoke.partition_phase({seed})); "
             f"train, m = chip_smoke.counted(lambda: chip_smoke.partition_train_phase({seed}, "
             "out['card'])); "
+            f"options, k = chip_smoke.counted(lambda: chip_smoke.partition_option_phase({seed}, "
+            "out['card'])); "
             "print(json.dumps({'phase': out, 'launches': n, 'train': train, "
-            "'train_launches': m}))")
+            "'train_launches': m, 'options': options, 'option_launches': k}))")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=1000)
     lines = proc.stdout.splitlines()
-    print("\n".join(lines[:-1]), flush=True)
+    print("\n".join(lines[:-1] if proc.returncode == 0 else lines), flush=True)
     check(proc.returncode == 0 and lines,
           f"partition phase failed ({proc.returncode}): {proc.stderr[-3000:]}")
     res = json.loads(lines[-1])
@@ -1415,9 +1529,12 @@ def partition_phase_in_own_process(seed):
     check(res["train_launches"]["flash_attention_bwd"] > 0
           and res["train_launches"]["ssd_scan"] == 0,
           f"the partitioned-training phase's launches: {res['train_launches']}")
+    check(res["option_launches"]["flash_attention_bwd"] > 0
+          and res["option_launches"]["ssd_scan"] == 0,
+          f"the partitioned options' launches: {res['option_launches']}")
     res["phase"]["launches"] = launched
-    res["phase"]["train"] = res["train"]
-    res["phase"]["train_launches"] = res["train_launches"]
+    for key in ("train", "train_launches", "options", "option_launches"):
+        res["phase"][key] = res[key]
     return res["phase"]
 
 
@@ -1502,9 +1619,15 @@ def partition_phase(seed):
 # layers one element of the value bias's gradient read 1.026 x coarse on
 # the card (the other leaves at most 0.728), so there each leaf is held in
 # norm only; at two layers the largest reading was 0.525
-PARTITION_TRAIN = (("2d_finalized", 24, 3, False), ("2d_attempt1", 2, 2, True),
-                   ("2d_attempt2", 2, 2, True))
-PARTITION_TRAIN_B, PARTITION_TRAIN_S = 8, 512
+# (strategy, layers, steps, coarse_grads, remat, B, S): remat "none", "full"
+# and "dots" at B8 S512 (each remat held against "none"), then "dots" at the
+# unsharded launch's B4 S2048, the registered config's default
+PARTITION_TRAIN = (("2d_finalized", 24, 3, False, "none", 8, 512),
+                   ("2d_finalized", 24, 2, False, "full", 8, 512),
+                   ("2d_finalized", 24, 2, False, "dots", 8, 512),
+                   ("2d_finalized", 24, 2, False, "dots", 4, 2048),
+                   ("2d_attempt1", 2, 2, True, "none", 8, 512),
+                   ("2d_attempt2", 2, 2, True, "none", 8, 512))
 # softmax ignores a shift shared by all keys, so the key bias's exact
 # gradient is 0: both runs' gradients of it are rounding noise, printed
 # beside the others and not held to a limit
@@ -1524,10 +1647,9 @@ def _err_over(got, want, kind):
     return ((got - want).abs() / (atol + rtol * want.abs())).max().item()
 
 
-def whole_vocab_steps(runner, args, V):
+def steps_holding(runner, args, holds):
     """Run ``runner``'s plan once more on ``args`` and return the plan steps
-    whose result holds a whole vocabulary dim (size ``V``) on a device: a
-    gathered (B,S,V) logits tensor or (V, M) table would."""
+    one of whose results (stacked shards: dim 0 is the device) ``holds``."""
     from torch.utils._pytree import tree_flatten
 
     from repro_torch.core import mesh_runtime as mr
@@ -1538,7 +1660,7 @@ def whole_vocab_steps(runner, args, V):
     def look(step, env):
         for w in step.writes:
             vals = env[w] if isinstance(env[w], list) else [env[w]]
-            if any(isinstance(t, torch.Tensor) and V in tuple(t.shape[1:]) for t in vals):
+            if any(isinstance(t, torch.Tensor) and holds(t) for t in vals):
                 found.append(step.op)
 
     flat, _ = tree_flatten(args)
@@ -1546,6 +1668,20 @@ def whole_vocab_steps(runner, args, V):
         plan.execute(*(mr.shard(a.to("cuda"), s) for a, s in zip(flat, plan.in_shardings)),
                      on_step=look)
     return found
+
+
+def whole_vocab_steps(runner, args, V):
+    """The plan steps whose result holds a whole vocabulary dim (size ``V``)
+    on a device: a gathered (B,S,V) logits tensor or (V, M) table would."""
+    return steps_holding(runner, args, lambda t: V in tuple(t.shape[1:]))
+
+
+def cache_gather_steps(runner, args, T, dh):
+    """The plan steps whose result holds a whole cache sequence (``T`` keys
+    of ``dh`` values) on a device: a gathered k or v cache, per layer or
+    stacked, would."""
+    return steps_holding(runner, args,
+                         lambda t: t.ndim >= 5 and t.shape[-3] == T and t.shape[-1] == dh)
 
 
 def partition_train_run(label, cfg, st, opt, state, pipe, steps, mesh, batch):
@@ -1602,9 +1738,11 @@ def partition_train_run(label, cfg, st, opt, state, pipe, steps, mesh, batch):
     return out
 
 
-def partition_train_case(strategy, layers, steps, coarse_grads, seed, card):
+def partition_train_case(strategy, layers, steps, coarse_grads, remat, B, S, seed, card,
+                         baselines):
     """qwen1.5-0.5b at its published widths (``layers`` deep; bf16 compute,
-    float32 masters, Adafactor, remat "none") trained by ``TrainLoop`` under
+    float32 masters, Adafactor, ``remat``, batch B x S) trained by
+    ``TrainLoop`` under
     ``set_mesh`` on ("data" 2, "model" 4) (the partitioned step) and without
     a mesh, from the same weights on the same batches with the same kernels.
     Gates: step 0's loss within bf16_chain and the losses within loss_curve
@@ -1619,7 +1757,13 @@ def partition_train_case(strategy, layers, steps, coarse_grads, seed, card):
     agreeing.  Per step one flash forward launch and one backward call per
     layer (all eight devices in one), no fallback that gathers (rope's slice
     and cat keep their sharding) and no plan step holding a whole
-    vocabulary dim."""
+    vocabulary dim.  Under remat "full" and "dots" the forward launches twice
+    per layer (the recompute).  ``baselines`` keeps the partitioned gradient
+    program's loss and gradient under remat "none" by (strategy, depth,
+    batch); a case under another remat with a baseline holds its loss and
+    each leaf's gradient (the key bias aside) against it in norm within
+    bf16_grad: the flash backward adds dq by atomics, so the card need not
+    be bit for bit."""
     from repro_torch.configs.base import get_strategy
     from repro_torch.core.compat import TOLERANCES, set_mesh
     from repro_torch.core.partitioner import spmd_partition
@@ -1630,9 +1774,10 @@ def partition_train_case(strategy, layers, steps, coarse_grads, seed, card):
                                         value_and_grad)
     from repro_torch.train.optimizer import get_optimizer
 
-    cfg = partition_train_config(layers)
+    cfg = partition_train_config(layers, remat)
     st, opt, mesh = get_strategy(strategy), get_optimizer("adafactor"), make_test_mesh()
-    B, S, L, V = PARTITION_TRAIN_B, PARTITION_TRAIN_S, cfg.num_layers, cfg.vocab_size
+    L, V = cfg.num_layers, cfg.vocab_size
+    fwd = L if remat == "none" else 2 * L  # forward launches per step: the recompute
     pipe = TokenPipeline(DataConfig(V, S, B, seed=seed, pattern="arithmetic"))
     batch = {k: torch.from_numpy(v).to("cuda").long() for k, v in pipe.batch_at(0).items()}
     with set_mesh(mesh):
@@ -1651,12 +1796,20 @@ def partition_train_case(strategy, layers, steps, coarse_grads, seed, card):
             tree_map(torch.Tensor.detach, state0["params"]), batch))
     (entry,) = grad_runner.plans.values()
     grad_first = dict(entry.build_s)
-    check(launched["flash_attention"] == L and launched["flash_attention_bwd"] == L,
-          f"{strategy}: the partitioned gradient launched {launched}, want {L} and {L}")
+    check(launched["flash_attention"] == fwd and launched["flash_attention_bwd"] == L,
+          f"{strategy}: the partitioned gradient launched {launched}, want {fwd} and {L}")
     loss_u, grads_u = value_and_grad(cfg, st, fresh()["params"], batch)
     grad = {"/".join(p): {"rel": _rel(g, u), "over_coarse": _err_over(g, u, "coarse"),
                           "norm": g.norm().item(), "norm_unsharded": u.norm().item()}
             for (p, g), u in zip(leaves_with_paths(grads_s), leaves(grads_u))}
+    vs_none, key = None, (strategy, L, B, S)
+    if remat == "none":
+        baselines[key] = (loss_s, grads_s)
+    elif key in baselines:
+        loss_n, grads_n = baselines[key]
+        vs_none = {"loss_rel": abs(loss_s.item() - loss_n.item()) / abs(loss_n.item()),
+                   "grad_rel": {"/".join(p): _rel(g, n) for (p, g), n in
+                                zip(leaves_with_paths(grads_s), leaves(grads_n))}}
     # the unsharded optimizer's step 0 on the partitioned gradient: what the
     # partitioned step's own update must give
     with torch.no_grad():
@@ -1696,7 +1849,9 @@ def partition_train_case(strategy, layers, steps, coarse_grads, seed, card):
     upd_max = max(gated, key=lambda n: upd[n]["rel"])
     params_max = max(gated, key=lambda n: upd[n]["over_coarse"])
     limit = TOLERANCES["bf16_grad"][0]
-    rec = {"strategy": strategy, "layers": L, "steps": steps, "B": B, "S": S, "card": card,
+    rec = {"strategy": strategy, "remat": remat, "layers": L, "steps": steps, "B": B, "S": S,
+           "card": card, "label": f"{strategy} {L}L remat {remat} B{B} S{S}",
+           "vs_remat_none": vs_none,
            "losses_sharded": sharded["losses"], "losses_unsharded": unsharded["losses"],
            "step0_loss_err_over_bf16_chain": _err_over(torch.tensor(sharded["losses"][0]),
                                                        torch.tensor(unsharded["losses"][0]),
@@ -1717,8 +1872,8 @@ def partition_train_case(strategy, layers, steps, coarse_grads, seed, card):
            **{f"sharded_{k}": v for k, v in sharded.items() if k not in ("losses", "label")},
            **{f"unsharded_{k}": v for k, v in unsharded.items()
               if k not in ("losses", "label")}}
-    want = {"flash_attention": L, "flash_attention_bwd": L, "ssd_scan": 0}
-    print(f"  {strategy}: {L} layers, B{B} S{S}, {steps} steps on ("
+    want = {"flash_attention": fwd, "flash_attention_bwd": L, "ssd_scan": 0}
+    print(f"  {strategy}: {L} layers, remat {remat}, B{B} S{S}, {steps} steps on ("
           f"{', '.join(f'{a} {n}' for a, n in zip(mesh.axis_names, mesh.shape))}); {card}",
           flush=True)
     print(f"    losses sharded {sharded['losses']} unsharded {unsharded['losses']}: step 0 "
@@ -1772,19 +1927,28 @@ def partition_train_case(strategy, layers, steps, coarse_grads, seed, card):
           f"gradient (err/coarse): {off}")
     check(update_rel_all <= limit and sign_agree >= 0.95,
           f"{strategy}: step 0's update off ({update_rel_all} in norm, 1-D signs {sign_agree})")
+    if vs_none is not None:
+        worst = max((n for n in vs_none["grad_rel"] if n != KEY_BIAS),
+                    key=lambda n: vs_none["grad_rel"][n])
+        print(f"    against the partitioned gradient under remat none: loss {vs_none['loss_rel']:.3e}"
+              f", gradient per leaf in norm at most {vs_none['grad_rel'][worst]:.3e} ({worst}; "
+              f"bf16_grad {limit}; key bias {vs_none['grad_rel'].get(KEY_BIAS, 0.0):.3e}, not "
+              "gated)", flush=True)
+        check(vs_none["loss_rel"] <= limit and vs_none["grad_rel"][worst] <= limit,
+              f"{strategy} remat {remat}: off the remat-none gradient: {vs_none}")
     return rec
 
 
-def partition_train_config(layers):
-    """qwen1.5-0.5b at its published widths, ``layers`` deep, with remat
-    "none" and the layer loop unrolled (what the partitioned step covers)."""
+def partition_train_config(layers, remat="none"):
+    """qwen1.5-0.5b at its published widths, ``layers`` deep, with ``remat``
+    and the layer loop unrolled."""
     from repro_torch.configs.registry import get_config
 
     cfg = get_config("qwen1.5-0.5b")
     check((cfg.d_model, cfg.num_heads, cfg.dh, cfg.d_ff, cfg.vocab_size, cfg.dtype,
            cfg.param_dtype) == (1024, 16, 64, 2816, 151936, "bfloat16", "float32"),
           f"unexpected config {cfg}")
-    return cfg.with_(num_layers=layers, remat="none", scan_layers=False)
+    return cfg.with_(num_layers=layers, remat=remat, scan_layers=False)
 
 
 def partition_train_phase(seed, card):
@@ -1793,11 +1957,118 @@ def partition_train_phase(seed, card):
     print("partition: qwen1.5-0.5b trained by TrainLoop under set_mesh (the train step as one "
           "program through spmd_partition(..., optimize=False)) against the same loop "
           "unsharded on the card", flush=True)
-    cases = []
-    for strategy, layers, steps, coarse_grads in PARTITION_TRAIN:
-        cases.append(partition_train_case(strategy, layers, steps, coarse_grads, seed, card))
+    cases, baselines = [], {}
+    for case in PARTITION_TRAIN:
+        cases.append(partition_train_case(*case, seed, card, baselines))
         torch.cuda.empty_cache()
+    del baselines
+    torch.cuda.empty_cache()
     return cases
+
+
+OPTION_STEPS = 4
+
+
+def partition_option_case(kind, seed, card):
+    """qwen1.5-0.5b at its published widths cut to two layers, float32
+    compute and masters, Adafactor, 2d_finalized, B8 S512: ``OPTION_STEPS``
+    steps of the partitioned step (``make_train_step`` under ``set_mesh``)
+    with ``kind`` "compress" (``compress_grads``: the error feedback an
+    input and an output of the program) or "fault" (a ``NumericFaultSpec``
+    with a gradient spike at step 1 and NaN at step 3: ``torch.where`` on
+    the step tensor), against the same steps unsharded on the card, in
+    tests/test_torch_train.py's classes: losses and grad norms within
+    f32_chain (before the NaN); compressed params and error feedback within
+    coarse; the fault run's params after step 2 within f32_chain, and step
+    3's loss, grad norm and every param NaN in both.  One plan for the run;
+    one forward launch and one backward call per layer per step."""
+    from repro_torch.configs.base import get_strategy
+    from repro_torch.core.compat import set_mesh
+    from repro_torch.core.tree import leaves, leaves_with_paths, tree_map
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.train.loop import (NumericFaultSpec, TrainConfig, init_state,
+                                        make_train_step)
+    from repro_torch.train.optimizer import get_optimizer
+
+    cfg = partition_train_config(2).with_(dtype="float32")
+    st, opt, mesh = get_strategy("2d_finalized"), get_optimizer("adafactor"), make_test_mesh()
+    tc = (TrainConfig(compress_grads=True) if kind == "compress" else
+          TrainConfig(numeric_fault=NumericFaultSpec(nan_at_step=3, grad_spike_at_step=1)))
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, 512, 8, seed=seed, pattern="arithmetic"))
+    batches = [{k: torch.from_numpy(v).to("cuda").long() for k, v in pipe.batch_at(i).items()}
+               for i in range(OPTION_STEPS)]
+    with set_mesh(mesh):
+        state0 = init_state(cfg, st, opt, tc, torch.Generator("cuda").manual_seed(seed), "cuda")
+    mods = _kernel_modules()
+    runs = {}
+    for tag, m in (("sharded", mesh), ("unsharded", None)):
+        state = {k: (v if k == "step" else tree_map(lambda t: t.detach().clone(), v))
+                 for k, v in state0.items()}
+        tree_map(lambda p: p.requires_grad_(True), state["params"])
+        with set_mesh(m):
+            step = make_train_step(cfg, st, opt, tc)
+        metrics, launches, snap = [], [], None
+        for i, batch in enumerate(batches):
+            for mod in mods.values():
+                mod.launches = 0
+            state, out = step(state, batch)
+            torch.cuda.synchronize()
+            launches.append({n: mod.launches for n, mod in mods.items()})
+            metrics.append((out["loss"].item(), out["grad_norm"].item()))
+            if i == 2:
+                snap = tree_map(lambda t: t.detach().clone(), state["params"])
+        runs[tag] = (state, metrics, launches, snap, getattr(step, "runner", None))
+    (state, ms, ls, snap, runner), (ustate, ums, uls, usnap, _) = runs["sharded"], runs["unsharded"]
+    last = OPTION_STEPS if kind == "compress" else 3
+    metric_over = max(max(_err_over(torch.tensor(a), torch.tensor(b), "f32_chain")
+                          for a, b in zip(m, u)) for m, u in zip(ms[:last], ums[:last]))
+    if kind == "compress":
+        params = {"/".join(p): _err_over(a, b, "coarse") for (p, a), b in
+                  zip(leaves_with_paths(state["params"]), leaves(ustate["params"]))}
+        ef = {"/".join(p): _err_over(a, b, "coarse") for (p, a), b in
+              zip(leaves_with_paths(state["ef"]), leaves(ustate["ef"]))}
+    else:
+        params = {"/".join(p): _err_over(a, b, "f32_chain") for (p, a), b in
+                  zip(leaves_with_paths(snap), leaves(usnap))}
+        ef = {}
+    nan_ok = kind != "fault" or all(
+        math.isnan(x[3][0]) and math.isnan(x[3][1]) for x in (ms, ums)) and all(
+        bool(torch.isnan(p).all()) for s_ in (state, ustate) for p in leaves(s_["params"]))
+    want = {"flash_attention": 2, "flash_attention_bwd": 2, "ssd_scan": 0}
+    rec = {"kind": kind, "card": card, "layers": 2, "dtype": "float32", "B": 8, "S": 512,
+           "metrics_sharded": ms, "metrics_unsharded": ums,
+           "metrics_err_over_f32_chain": metric_over,
+           "params_err_over_limit_max": max(params.values()),
+           "ef_err_over_coarse_max": max(ef.values()) if ef else None,
+           "nan_window_ok": nan_ok, "launches_per_step": ls,
+           "plans": len(runner.plans), "plan_misses": runner.cache_stats.misses,
+           "plan_hits": runner.cache_stats.hits, "fallback_gathers": list(runner.fallback_gathers)}
+    print(f"  {kind}: 2 layers float32, 2d_finalized, B8 S512, {OPTION_STEPS} steps; {card}\n"
+          f"    (loss, grad norm) sharded {ms}\n    unsharded {ums}\n    err/f32_chain "
+          f"{metric_over:.3f} (steps 0-{last - 1}); params err/"
+          f"{'coarse' if kind == 'compress' else 'f32_chain (after step 2)'} "
+          f"{rec['params_err_over_limit_max']:.3f}"
+          + (f"; error feedback err/coarse {rec['ef_err_over_coarse_max']:.3f}" if ef else
+             f"; NaN from step 3 in both: {nan_ok}")
+          + f"; plans {rec['plans']} ({rec['plan_misses']} built, {rec['plan_hits']} reused); "
+          f"launches per step {ls}", flush=True)
+    check(metric_over <= 1.0, f"{kind}: losses or grad norms off the unsharded step")
+    check(rec["params_err_over_limit_max"] <= 1.0 and (not ef or max(ef.values()) <= 1.0),
+          f"{kind}: params {params} or error feedback {ef} off the unsharded step")
+    check(nan_ok, f"{kind}: the NaN window did not poison both runs at step 3")
+    check(rec["plans"] == 1 and rec["plan_misses"] == 1 and not rec["fallback_gathers"],
+          f"{kind}: {rec['plans']} plans, fallbacks gathered {rec['fallback_gathers']}")
+    check(all(x == want for x in ls + uls), f"{kind}: launches {ls} / {uls}, want {want}")
+    del runner, state, ustate
+    torch.cuda.empty_cache()
+    return rec
+
+
+def partition_option_phase(seed, card):
+    print("partition: compress_grads and the numeric-fault window in the partitioned train "
+          "step, against the same steps unsharded on the card", flush=True)
+    return [partition_option_case(kind, seed, card) for kind in ("compress", "fault")]
 
 
 # ---------------------------------------------------------------------------------
@@ -1811,12 +2082,21 @@ SHARDED_LOSS_B, SHARDED_LOSS_S = 8, 2048
 # logits are read, not held; the float32 run holds the partitioned step
 # at every step), and the two earlier attempts of Table 1 at two layers
 # for a few steps
-SHARDED_SERVE = (("qwen1.5-0.5b", "2d_finalized", 24, "bfloat16", 64),
-                 ("mamba2-130m", "2d_finalized", 24, "bfloat16", 64),
-                 ("mamba2-130m", "2d_finalized", 24, "float32", 64),
-                 ("qwen1.5-0.5b", "2d_attempt1", 2, "bfloat16", 8),
-                 ("qwen1.5-0.5b", "2d_attempt2", 2, "bfloat16", 8))
-SERVE_SLOTS, SERVE_MAX_LEN = 8, 1024
+# (arch, strategy, layers, dtype, decode steps at least, shard_kv_seq, slots):
+# the last two are qwen with its kv cache sharded on the sequence over
+# "data" (the reference's shard_kv_seq).  Under 2d_attempt1 the batch is not
+# on "data"; under 2d_finalized it is, and the reference's own
+# first-dim-wins filter keeps it there unless the slots do not divide
+# "data" (the dry run turns shard_kv_seq on for a global batch below 16):
+# one slot, one request
+SHARDED_SERVE = (("qwen1.5-0.5b", "2d_finalized", 24, "bfloat16", 64, False, 8),
+                 ("mamba2-130m", "2d_finalized", 24, "bfloat16", 64, False, 8),
+                 ("mamba2-130m", "2d_finalized", 24, "float32", 64, False, 8),
+                 ("qwen1.5-0.5b", "2d_attempt1", 2, "bfloat16", 8, False, 8),
+                 ("qwen1.5-0.5b", "2d_attempt2", 2, "bfloat16", 8, False, 8),
+                 ("qwen1.5-0.5b", "2d_attempt1", 24, "bfloat16", 64, True, 8),
+                 ("qwen1.5-0.5b", "2d_finalized", 24, "bfloat16", 64, True, 1))
+SERVE_MAX_LEN = 1024
 TEACHER_STEPS = (0, 8, 32, 63)  # steps at which the unsharded step reruns the sharded input
 
 
@@ -1975,7 +2255,7 @@ def float64_step(cfg, st, params, token, cache, pos):
 
 
 def serve_run(cfg, st, params, mesh, prompts, new_tokens, teacher=None):
-    """``Engine(slots=8, max_len=1024)`` (under ``set_mesh(mesh)``: the
+    """``Engine(slots=len(prompts), max_len=1024)`` (under ``set_mesh(mesh)``: the
     partitioned step) serving ``prompts``: each decode step's last-position
     logits, wall ms (the device drained before; to the sampler's read of
     the logits) and kernel launches; tokens/s after the first step (whose
@@ -1989,8 +2269,9 @@ def serve_run(cfg, st, params, mesh, prompts, new_tokens, teacher=None):
     from repro_torch.serve.engine import Engine, Request
 
     mods = _kernel_modules()
+    slots = len(prompts)
     with set_mesh(mesh):
-        eng = Engine(cfg, st, params, batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN)
+        eng = Engine(cfg, st, params, batch_slots=slots, max_len=SERVE_MAX_LEN)
     seen, ms, launches, forced = [], [], [], []
     decode = eng._decode
 
@@ -1999,7 +2280,7 @@ def serve_run(cfg, st, params, mesh, prompts, new_tokens, teacher=None):
         if teacher is not None and step in teacher:
             # the unsharded step's cache: Mamba2's heads padded to the mesh
             # (zero states) cut off; a padded kv layout is not taken
-            whole = api.cache_shapes(cfg, st, SERVE_SLOTS, SERVE_MAX_LEN)
+            whole = api.cache_shapes(cfg, st, slots, SERVE_MAX_LEN)
             check(cfg.family == "ssm" or all(tuple(v.shape) == whole[k]
                                              for k, v in eng.cache.items()),
                   f"{cfg.name}: a padded kv layout under the mesh")
@@ -2061,7 +2342,7 @@ def _syncs_in(fn):
     return len(where), sorted(set(where))
 
 
-def sharded_serve_case(arch, strategy, layers, dtype, min_steps, seed, card):
+def sharded_serve_case(arch, strategy, layers, dtype, min_steps, kv_seq, slots, seed, card):
     """``Engine`` under ``set_mesh`` on ("data" 2, "model" 4) (the decode step
     one program through the partitioner: params by their specs, the token on
     "data", the cache by ``api.cache_specs``, the position an int32 on the
@@ -2077,7 +2358,11 @@ def sharded_serve_case(arch, strategy, layers, dtype, min_steps, seed, card):
     against the unsharded step on the same input (printed; for qwen held
     as the free run).  Readings: tokens/s, step wall,
     host and device-busy ms, the cache's shard and unshard ms per step,
-    syncs per step, peak memory."""
+    syncs per step, peak memory.  With ``kv_seq`` (``cfg.shard_kv_seq``) the
+    kv cache is sharded on its sequence over "data" (gate) and no plan step
+    holds a whole cache sequence (gate): each layer's decode is one launch
+    of partial decodes for all eight devices, combined with small
+    all-reduces."""
     from repro_torch.configs.base import get_strategy, spec_sharding
     from repro_torch.core import mesh_runtime as mr
     from repro_torch.core.compat import TOLERANCES, set_mesh
@@ -2088,12 +2373,13 @@ def sharded_serve_case(arch, strategy, layers, dtype, min_steps, seed, card):
     if layers != cfg.num_layers:
         cfg = cfg.with_(num_layers=layers)
         params = {**params, "layers": _first_layers(params["layers"], layers)}
+    cfg = cfg.with_(shard_kv_seq=kv_seq)
     st, mesh, L, V = get_strategy(strategy), make_test_mesh(), cfg.num_layers, cfg.vocab_size
     rng = np.random.default_rng(seed + 50)
     # one request per slot, prompts of 8-16 tokens: with 64 new tokens each
     # the run takes 72-80 decode steps, with 4 (the two-layer runs) 12-20
     prompts = [rng.integers(0, V, int(n)).tolist()
-               for n in rng.integers(8, 17, size=SERVE_SLOTS)]
+               for n in rng.integers(8, 17, size=slots)]
     new = 64 if min_steps > 8 else 4
     teacher = TEACHER_STEPS if min_steps > 8 else (0, 5)
     kernel = "flash_attention" if cfg.family == "dense" else None
@@ -2107,7 +2393,7 @@ def sharded_serve_case(arch, strategy, layers, dtype, min_steps, seed, card):
     check(sh["steps"] >= min_steps and eng.pos == eng_u_pos,
           f"{arch} {strategy}: {sh['steps']} steps (unsharded {eng_u_pos}), want {min_steps}+")
     # the step again, drained: host and wall ms, device busy, syncs
-    token = torch.zeros((SERVE_SLOTS, 1), dtype=torch.long, device="cuda")
+    token = torch.zeros((slots, 1), dtype=torch.long, device="cuda")
     eng._pos.fill_(eng.pos)
 
     def step():
@@ -2127,7 +2413,9 @@ def sharded_serve_case(arch, strategy, layers, dtype, min_steps, seed, card):
                                                     for k, v in stacked.items()], 1)
         del stacked
         holders = whole_vocab_steps(runner, (params, token, eng.cache, eng._pos), V)
-        whole = api.cache_shapes(cfg, st, SERVE_SLOTS, SERVE_MAX_LEN)
+        gathers = (cache_gather_steps(runner, (params, token, eng.cache, eng._pos),
+                                      SERVE_MAX_LEN, cfg.dh) if kv_seq else [])
+        whole = api.cache_shapes(cfg, st, slots, SERVE_MAX_LEN)
         cut = {k: v[tuple(slice(0, n) for n in whole[k])].clone() for k, v in eng.cache.items()}
         unsharded_step = lambda: api.decode_step(cfg, st, params, token, cut, eng._pos)  # noqa: E731
         un["host_ms"], un["drained_wall_ms"] = host_and_wall_ms(unsharded_step, calls=3)
@@ -2144,6 +2432,9 @@ def sharded_serve_case(arch, strategy, layers, dtype, min_steps, seed, card):
         norm_limit = CONSIST["ssm"][0] if dtype == "float32" else TOLERANCES["bf16_grad"][0]
     if L > 2 and dtype == "bfloat16" and cfg.family == "dense":  # planted faults
         sh["dropped_psum_rel_over_limit"] = dropped_psum_readings(runner, step)
+    # the planted faults are gated where they were calibrated (the
+    # 2d_finalized plan with the cache whole on its sequence); on the
+    # sequence-sharded plans they are read
     held, parted, worst = _logits_rule(seen_s, seen_u, kind, norm_limit)
     elementwise = _logits_rule(seen_s, seen_u, kind)
     rtol, atol = TOLERANCES["bf16_chain"]
@@ -2159,8 +2450,11 @@ def sharded_serve_case(arch, strategy, layers, dtype, min_steps, seed, card):
                    "ssd_scan": 0}
     bad = [i for i, l in enumerate(sh["launches_per_step"]) if l != want_launch]
     bad_u = [i for i, l in enumerate(un["launches_per_step"]) if l != want_launch]
+    seq_sharded = [tuple(sh.dims_mapping[2]) for sh in _plan_of(runner).plan.in_shardings
+                   if sh.rank == 5]
     rec = {"arch": arch, "strategy": strategy, "layers": L, "dtype": dtype, "card": card,
-           "slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN, "requests": len(prompts),
+           "shard_kv_seq": kv_seq, "cache_seq_axes": seq_sharded, "cache_gather_steps": gathers,
+           "slots": slots, "max_len": SERVE_MAX_LEN, "requests": len(prompts),
            "logits_rule": {"kind": kind, "norm_limit": norm_limit, "held": held,
                            "parted_at_step": parted, "worst_err_over_limit": worst},
            "logits_elementwise": dict(zip(("held", "parted_at_step", "worst_err_over_limit"),
@@ -2171,8 +2465,11 @@ def sharded_serve_case(arch, strategy, layers, dtype, min_steps, seed, card):
            "tokens_equal": sh["outs"] == un["outs"],
            "sharded_launches_per_step": {n: sorted({l[n] for l in sh["launches_per_step"]})
                                          for n in want_launch}}
-    print(f"  {arch} {strategy} {L} layers {dtype}: {sh['steps']} decode steps, {sh['tokens']} "
-          f"tokens; {card}", flush=True)
+    print(f"  {arch} {strategy} {L} layers {dtype}"
+          + (f", shard_kv_seq (cache sequence on {seq_sharded}; plan steps holding a whole "
+             f"cache sequence: {gathers})" if kv_seq else "")
+          + f", {slots} slots: {sh['steps']} decode steps, {sh['tokens']} tokens; {card}",
+          flush=True)
     rule = kind if norm_limit is None else f"{norm_limit} in norm"
     print(f"    logits vs unsharded ({rule} rule): held {held}, streams part at step {parted}, "
           f"worst err/limit before {worst:.3f}; per element: held {elementwise[0]} (parted at "
@@ -2203,6 +2500,9 @@ def sharded_serve_case(arch, strategy, layers, dtype, min_steps, seed, card):
     check(not sh["fallback_gathers"], f"{arch} {strategy}: fallbacks gathered: "
           f"{sh['fallback_gathers']}")
     check(not holders, f"{arch} {strategy}: plan steps held a whole vocabulary dim: {holders}")
+    check(not kv_seq or (not gathers and seq_sharded and all(a == ("data",) for a in seq_sharded)),
+          f"{arch} {strategy}: the kv cache not kept sharded on its sequence: {seq_sharded}, "
+          f"whole-sequence steps {gathers}")
     check(sh["done"] and all(bool(torch.isfinite(c.float()).all()) for c in eng.cache.values()),
           f"{arch} {strategy}: unfinished requests or a non-finite cache")
     check(sh["syncs_per_step"] < L, f"{arch} {strategy}: {sh['syncs_per_step']} syncs per step")
@@ -2226,7 +2526,7 @@ def sharded_serve_case(arch, strategy, layers, dtype, min_steps, seed, card):
     if "dropped_psum_rel_over_limit" in sh:
         print(f"    dropped psums (first, middle, last), logits' change in norm over bf16_grad: "
               f"{', '.join(f'{x:.2f}' for x in sh['dropped_psum_rel_over_limit'])}", flush=True)
-        check(min(sh["dropped_psum_rel_over_limit"]) > 1.0,
+        check(min(sh["dropped_psum_rel_over_limit"]) > 1.0 or kv_seq,
               f"{arch} {strategy}: a dropped psum went unseen by the bf16_grad limit")
     if cfg.family == "dense":
         limit = TOLERANCES["bf16_grad"][0]
@@ -2269,7 +2569,7 @@ def sharded_phases_in_own_process(seed, card):
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=900)
     lines = proc.stdout.splitlines()
-    print("\n".join(lines[:-1]), flush=True)
+    print("\n".join(lines[:-1] if proc.returncode == 0 else lines), flush=True)
     check(proc.returncode == 0 and lines,
           f"sharded phases failed ({proc.returncode}): {proc.stderr[-3000:]}")
     res = json.loads(lines[-1])
@@ -2433,11 +2733,13 @@ def main(argv=None):
     ssd_main = next(c for c in ssd_cases if c["case"] == "loss_8x2048_h24")
     ssd_fold = next(c for c in ssd_cases if c["case"] == "partitioned_loss_fold_32x2048_h6")
     devpos = {c["case"]: c for c in fa_cases if c["case"].startswith("decode_devpos")}
+    rowpos = {f"{c['case']} {c['dtype']}": c for c in fa_cases
+              if c["case"].startswith("decode_rowpos")}
     bwd_main = next(c for c in bwd_cases if c["case"] == "train_qwen_4x2048")
     bwd_fold = next(c for c in bwd_cases if c["case"] == "partitioned_train_fold_32x512_kr4")
     fa_fold = next(c for c in fa_cases if c["case"] == "partitioned_train_fold_32x512_kr4")
-    train_launches = {  # per step of each strategy's partitioned TrainLoop run
-        name: {c["strategy"]: [r["launches"][name] for r in c["sharded_steps"]]
+    train_launches = {  # per step of each case's partitioned TrainLoop run
+        name: {c["label"]: [r["launches"][name] for r in c["sharded_steps"]]
                for c in partition["train"]}
         for name in ("flash_attention", "flash_attention_bwd")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2458,8 +2760,12 @@ def main(argv=None):
         "partition_train_case": {"case": fa_fold["case"], **{k: fa_fold[k] for k in keys}},
         "decode_position_on_device": {n: {k: c[k] for k in keys + ("device_ms", "splits")}
                                       for n, c in devpos.items()},
+        "decode_position_per_row": {n: {k: c[k] for k in keys + (
+            "device_ms", "splits", "shared_position_ms", "shared_position_device_ms")}
+            for n, c in rowpos.items()},
         "partition_serve_launches_per_step": {
-            f"{c['arch']} {c['strategy']} {c['layers']}L {c['dtype']}":
+            f"{c['arch']} {c['strategy']} {c['layers']}L {c['dtype']}"
+            + (" shard_kv_seq" if c["shard_kv_seq"] else ""):
             c["sharded_launches_per_step"]["flash_attention"] for c in sharded["serve"]},
         "cases": fa_cases,
     }, {

@@ -70,6 +70,13 @@ def flash_flops(B, S, H, T, D, causal: bool) -> float:
     return f / 2 if causal else f
 
 
+def decode_combine_flops(B, S, H, D) -> float:
+    """A sequence-sharded decode's combine on each device: per q row the
+    weight e^(lse - M) (a subtract and an exp), then per output element a
+    multiply by the weight and, after the psums, a divide."""
+    return 2.0 * B * S * H + 2.0 * B * S * H * D
+
+
 def flash_bwd_flops(B, S, H, T, D, causal: bool) -> float:
     """2.5 times the forward's: five products of 2·B·H·S·T·D (S = qK^T
     recomputed, dP = dO V^T, dq = dS K, dk = dS^T q, dv = P^T dO), halved

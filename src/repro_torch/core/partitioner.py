@@ -24,7 +24,9 @@ devices' shards), with explicit collectives:
                      kernel launch for all devices (``flash_local``), and
                      so the differentiable pair ``flash_attention_fwd`` /
                      ``_bwd`` and the decode step's ``flash_decode`` at a
-                     tensor position (``LocalOp`` decisions, below);
+                     tensor position (``LocalOp`` decisions, below); a
+                     decode over a sequence-sharded cache keeps it sharded
+                     and combines the shards with small all-reduces;
 * SSD scan         — ``repro_torch::ssd_scan`` on batch-, head- and
                      head-dim-sharded operands, one call for all devices
                      with each device's A per folded row;
@@ -65,10 +67,10 @@ import torch
 import torch.fx
 from torch.utils._pytree import tree_flatten
 
-from ..analysis.graph_cost import flash_bwd_flops, flash_flops, ssd_flops
+from ..analysis.graph_cost import decode_combine_flops, flash_bwd_flops, flash_flops, ssd_flops
 from ..analysis.roofline import RooflineParams
 from ..kernels.ops import (flash_attention_bwd_op, flash_attention_fwd_op, flash_decode,
-                           flash_forward, ssd)
+                           flash_decode_partial, flash_forward, ssd)
 from . import mesh_runtime as mr
 from .annotate import ANNOTATE_OP, decode
 from .compat import capture
@@ -80,8 +82,8 @@ from .reshard import reshard_local, shard_shape
 from .rules import (BROADCAST, DOT, ELEMENTWISE, FACTORY, FLASH, FLASH_BWD, FLASH_DECODE,
                     FLASH_FWD, REDUCE, RESHAPE, SSD, TRANSPOSE, _SSD_DIMS, _bcast_map, _heads,
                     _heads_layout, _invert, _project, _reshape_dim_map, _ssd_dims,
-                    flash_heads, flash_layout, index_copy_maps, index_maps, insert_map,
-                    kwargs_of, lower, ssd_heads, ssd_layout)
+                    decode_layout, decode_seq_axes, flash_heads, flash_layout, index_copy_maps,
+                    index_maps, insert_map, kwargs_of, lower, ssd_heads, ssd_layout)
 from .sharding import Mesh, Sharding, merge_shardings, replicated
 
 
@@ -412,16 +414,55 @@ def decide_flash_decode(eqn, shardings, want, mesh: Mesh) -> LocalOp:
     """A decode step's attention at a tensor position: ``flash_targets`` (the
     0-d position replicated), one launch for every device, the stacked
     device dim folded into the batch as ``flash_local``; the kernel reads
-    the position (every device's copy is the same) on the device."""
+    the position (every device's copy is the same) on the device.
+
+    Where the cache is sharded on its sequence (``rules.decode_seq_axes``:
+    the reference's ``shard_kv_seq``), the cache stays sharded and the
+    batch gives up those axes: one launch for every device still, each
+    folded row at the position relative to its shard's first key
+    (``flash_decode_partial``; a row before its shard sees no key), and the
+    shards combined by their log-sum-exps (``combine_decode``): a pmax, then
+    psums of the weighted outputs and of the weights."""
+    seq = decode_seq_axes(shardings[1], eqn.in_avals[0])
     targets, osh = flash_targets(eqn, shardings, want, mesh)
     chunk = eqn.params["chunk"]
+    if seq:
+        bh = flash_heads(osh)
+        targets = [decode_layout(bh, seq, a.ndim) for a in eqn.in_avals]
+        osh = decode_layout(bh, seq, 5)
     B, S, KR, Gl, D = shard_shape(eqn.in_avals[0].shape, targets[0])
+    T = eqn.in_avals[1].shape[1]
+    flops = flash_flops(B, S, KR * Gl, shard_shape((T,), _sharding(mesh, [seq]))[0], D, False)
+    if not seq:
+        def fn(q, k, v, pos):
+            return flash_decode(_fold(q), _fold(k), _fold(v), pos[0], chunk).reshape(q.shape)
+
+        return LocalOp(targets, osh, fn, flops=flops)
 
     def fn(q, k, v, pos):
-        return flash_decode(_fold(q), _fold(k), _fold(v), pos[0], chunk).reshape(q.shape)
+        n, b = q.shape[:2]
+        # each device's rows at the position relative to its shard
+        rel = pos.long() - _offsets_like(targets[1], 1, T, pos)
+        rows = rel.to(torch.int32)[:, None].expand(n, b).reshape(n * b)
+        out, lse = flash_decode_partial(_fold(q), _fold(k), _fold(v), rows, chunk)
+        return combine_decode(out.reshape(q.shape), lse.reshape((n, b) + tuple(lse.shape[1:])),
+                              mesh, seq)
 
-    return LocalOp(targets, osh, fn,
-                   flops=flash_flops(B, S, KR * Gl, eqn.in_avals[1].shape[1], D, False))
+    return LocalOp(targets, osh, fn, collectives={"all-reduce": 3},
+                   flops=flops + decode_combine_flops(B, S, KR * Gl, D))
+
+
+def combine_decode(out, lse, mesh: Mesh, axes):
+    """The shards' partial decodes as one: out (n, B, S, KR, Gl, D) each
+    normalised over its own keys, lse (n, B, KR, S * Gl) their float32
+    log-sum-exps (-1e9 where a shard saw no key).  M = pmax(lse); each
+    shard weighs by w = e^(lse - M); the result, sum(w out) / sum(w) by two
+    psums over ``axes``, is rounded to out's dtype once."""
+    n, B, S, KR, Gl, D = out.shape
+    M = mr.pmax(lse, mesh, axes)
+    w = torch.exp(lse - M).reshape(n, B, KR, S, Gl).permute(0, 1, 3, 2, 4)[..., None]
+    num = mr.psum(w * out.float(), mesh, axes)
+    return (num / mr.psum(w, mesh, axes)).to(out.dtype)
 
 
 def decide_ssd(eqn, shardings, want, mesh: Mesh) -> LocalOp:

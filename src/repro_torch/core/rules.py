@@ -658,14 +658,40 @@ def flash_layout(bh: Sharding, rank: int) -> Sharding:
     return _project(bh, [0, None, 1] + [None] * (rank - 3), rank)
 
 
+def decode_seq_axes(k_sh: MaybeS, q_aval) -> Tuple[str, ...]:
+    """The mesh axes sharding a decode's cache on its sequence (dim 1 of
+    k), which the decode keeps; none where q holds more than one row
+    (S > 1: attention over a sharded T gathers it)."""
+    if k_sh is None or not k_sh.rank or q_aval.shape[1] != 1:
+        return ()
+    return tuple(k_sh.dims_mapping[1])
+
+
+def decode_layout(bh: Sharding, seq: Tuple[str, ...], rank: int) -> Sharding:
+    """``flash_layout`` with batch giving up the sequence's axes and a rank-4
+    k/v keeping them on its sequence dim."""
+    bh = Sharding(bh.mesh, tuple(tuple(a for a in d if a not in seq) for d in bh.dims_mapping))
+    out = flash_layout(bh, rank)
+    if rank != 4 or not seq:
+        return out
+    dims = list(out.dims_mapping)
+    dims[1] = tuple(seq)
+    return Sharding(out.mesh, tuple(dims))
+
+
 def rule_flash_attention(eqn, in_sh, out_sh, direction):
     """``flash_attention`` and ``flash_decode``: batch and kv heads shared by
-    q, k, v and the output; the decode's 0-d position stays replicated."""
+    q, k, v and the output; the decode's 0-d position stays replicated, and
+    a decode's cache sharded on its sequence keeps that sharding while the
+    batch gives those axes up (the reference's ``shard_kv_seq``, which XLA
+    partitions with small all-reduces of the softmax statistics)."""
     m = _merge_many([flash_heads(s) for s in list(in_sh) + list(out_sh)
                      if s is not None and s.rank])
     if m is None:
         return in_sh, out_sh
-    return [flash_layout(m, a.ndim) for a in eqn.in_avals], [flash_layout(m, 5)]
+    seq = decode_seq_axes(in_sh[1], eqn.in_avals[0]) if eqn.name == FLASH_DECODE else ()
+    return ([decode_layout(m, seq, a.ndim) for a in eqn.in_avals],
+            [decode_layout(m, seq, 5)])
 
 
 def _heads(s: Sharding, rank: int) -> Sharding:

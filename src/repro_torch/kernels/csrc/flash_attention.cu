@@ -68,7 +68,14 @@
 //    takes an even share of the keys visible from that position, and a
 //    split left with none (a short prefix cut into many splits) writes an
 //    empty partial (m = -1e9, l = 0, acc = 0), which the combine weighs by
-//    e^(-1e9 - M) = 0.
+//    e^(-1e9 - M) = 0.  The position is one int32 for the launch, or one per
+//    batch row (pos_stride 1): a sequence-sharded decode folds every
+//    device's rows into one launch, each row at the position relative to its
+//    shard's first key, so a row whose position lies before its shard sees
+//    no key at all and writes output 0.  Given an lse pointer, the launch
+//    also writes each row's log-sum-exp after the in-launch combine (-1e9
+//    for a row that saw no key), which the partitioner's combine across
+//    shards reads.
 // 3. flash_fwd (float32 q, R > 16): the first CUDA-core kernel, kept for
 //    float32 prefill, which no registered config runs (tensor cores would
 //    need TF32, which the float32 tolerance does not admit).  One block of
@@ -98,10 +105,11 @@ struct Params {
   long long os[4];  // o over (b, s, kr, g)
   int B, S, KR, Gl, T, R;  // R = S * Gl q rows per (b, kr)
   int causal, q_offset, kv_end;  // kv_end = min(kv_len, T)
-  int kv_len;            // as given (the decode adds *pos to it and to q_offset)
-  const int* pos;        // decode only: the device-side position base
+  int kv_len;            // as given (the decode adds pos[b * pos_stride] to it and to q_offset)
+  const int* pos;        // decode only: the device-side position base, per batch row
+  int pos_stride;        // 0: one position for every row; 1: one per batch row
   float scale;  // 1/sqrt(D), already rounded to q's dtype
-  float* lse;   // (B, KR, R) float32 m + log(l) per q row, or null (prefill only)
+  float* lse;   // (B, KR, R) float32 m + log(l) per q row, or null
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -652,9 +660,10 @@ flash_decode(const Params p, int splits, float* __restrict__ ws, int* __restrict
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int split = blockIdx.x, kr = blockIdx.y, b = blockIdx.z;
   const int R = p.R;
-  // the position, read on the device; this split's keys: an even share of
-  // the prefix it makes visible
-  const int base = __ldg(p.pos);
+  // the position of this batch row, read on the device; this split's keys:
+  // an even share of the prefix it makes visible (none where the position
+  // lies before the cache, as on a sequence shard past it)
+  const int base = __ldg(p.pos + (long long)b * p.pos_stride);
   const int q_offset = base + p.q_offset;
   const int kv_end = min(base + p.kv_len, p.T);
   const int kv_stop = max(0, p.causal ? min(kv_end, q_offset + (R - 1) / p.Gl + 1) : kv_end);
@@ -778,12 +787,18 @@ flash_decode(const Params p, int splits, float* __restrict__ ws, int* __restrict
     return reinterpret_cast<TQ*>(const_cast<char*>(
         row_ptr(p.o, p.os, b, r / p.Gl, kr, r % p.Gl, sizeof(TQ)))) + d;
   };
+  // a row that saw no key has l = 0: its log-sum-exp is -1e9, which a
+  // combine across sequence shards weighs by e^(-1e9 - M) = 0
+  auto write_lse = [&](int r, float m, float l) {
+    if (p.lse != nullptr) p.lse[((long long)b * p.KR + kr) * R + r] = l > 0.f ? m + logf(l) : kNegInf;
+  };
   if (splits == 1) {
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int idx = tid + kDecThreads * j;
       if (idx < R * D) *out_at(idx / D, idx % D) = from_f32<TQ>(acc[j] / fmaxf(sL[idx / D], 1e-20f));
     }
+    if (tid < R) write_lse(tid, sM[tid], sL[tid]);
     return;
   }
 
@@ -817,6 +832,7 @@ flash_decode(const Params p, int splits, float* __restrict__ ws, int* __restrict
       sW[i][tid] = w;
       den += w * __ldcg(parts + i * part_len + R * D + R + tid);
     }
+    write_lse(tid, M, den);
     sDen[tid] = fmaxf(den, 1e-20f);
   }
   __syncthreads();
@@ -908,12 +924,13 @@ cudaError_t run(const Params& p, int variant, int splits, float* ws, int* ticket
 // flash_decode (R <= 16) with ``splits`` kv splits, float32 scratch
 // ``workspace`` of B * KR * splits * R * (D + 2) values and ``tickets``, B * KR
 // int32 zeros (left at zero), both unused when splits == 1; it reads its
-// position from the device: ``pos`` (an int32 on the card, not null) is
-// added to q_offset and to kv_len.  The prefill variants take the host's
-// q_offset and kv_len as they are and ignore ``pos``.  ``lse``, when
-// not null, receives m + log(l) per q row as float32 (B, KR, S * Gl), row
-// r = s * Gl + g, for the backward (prefill variants only; the decode
-// refuses it).
+// position from the device: ``pos[b * pos_stride]`` (int32 on the card, not
+// null; ``pos_stride`` 0 for one position, 1 for one per batch row) is added
+// to q_offset and to kv_len.  The prefill variants take the host's q_offset
+// and kv_len as they are and ignore ``pos``.  ``lse``, when not null,
+// receives m + log(l) per q row as float32 (B, KR, S * Gl), row r = s * Gl +
+// g: for the backward (prefill), or for a combine across sequence shards
+// (decode; -1e9 for a row that saw no key).
 // Returns a cudaError_t value (0 on success); cudaErrorInvalidValue for a
 // combination the kernel does not take.
 extern "C" int flash_attention_fwd(
@@ -921,7 +938,7 @@ extern "C" int flash_attention_fwd(
     int q_dtype, int kv_dtype, int B, int S, int KR, int Gl, int T, int D,
     const long long* q_strides, const long long* k_strides,
     const long long* v_strides, const long long* o_strides,
-    int causal, int q_offset, int kv_len, const void* pos, float scale,
+    int causal, int q_offset, int kv_len, const void* pos, int pos_stride, float scale,
     int variant, int splits, void* workspace, void* tickets, void* lse, void* stream) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
@@ -932,9 +949,9 @@ extern "C" int flash_attention_fwd(
   p.kv_end = kv_len < T ? kv_len : T;
   p.kv_len = kv_len;
   p.pos = static_cast<const int*>(pos);
+  p.pos_stride = pos_stride;
   p.scale = scale;
   p.lse = static_cast<float*>(lse);
-  if (lse != nullptr && variant == kVariantDecode) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* ws = static_cast<float*>(workspace);
   int* tk = static_cast<int*>(tickets);

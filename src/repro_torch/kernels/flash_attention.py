@@ -11,7 +11,9 @@ rows per batch row and kv head):
 - ``decode_splitkv`` (R <= 16, every dtype pair): split-kv decode on the CUDA
   cores, its splits combined in the same launch, its position read on the
   device (``pos``: a decode loop's step never waits on the host, and one
-  captured graph serves every position);
+  captured graph serves every position), one for the call or one per batch
+  row (a sequence-sharded decode's fold), and with ``lse`` each row's
+  log-sum-exp beside its output (the partitioner's combine across shards);
 - ``prefill_f32`` (float32 q, R > 16): the CUDA-core kernel.
 
 The source's header says what bounds each on an H100 and what its design does
@@ -94,7 +96,7 @@ def _load():
         fn = lib.flash_attention_fwd
         ptr, i32, i64p = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
         fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32,
-                       i64p, i64p, i64p, i64p, i32, i32, i32, ptr, ctypes.c_float,
+                       i64p, i64p, i64p, i64p, i32, i32, i32, ptr, i32, ctypes.c_float,
                        i32, i32, ptr, ptr, ptr, ptr]
         fn.restype = ctypes.c_int
         _lib = lib
@@ -166,12 +168,15 @@ def flash_attention(
     """Launch the kernel.  q (B,S,KR,Gl,D), k/v (B,T,KR,D), any 16-byte
     aligned strides with a unit-stride head dim.  Writes ``out`` (same shape
     as q, q's dtype; a new contiguous tensor when None) and returns it.
-    With ``lse`` (contiguous float32 (B, KR, S * Gl)), a prefill also writes
-    each q row's log-sum-exp m + log(l) for the backward.  ``pos``, a 0-d
-    int32 tensor on q's device, is a decode's position on the device: the
-    kernel reads it and adds it to ``q_offset`` and ``kv_len`` (so a decode
-    step at position p passes q_offset 0 and kv_len 1), and its splits are
-    sized by T; the host never reads it.
+    With ``lse`` (contiguous float32 (B, KR, S * Gl)), the call also writes
+    each q row's log-sum-exp m + log(l): for the backward (prefill), or for
+    a combine across sequence shards (decode; -1e9 for a row that saw no
+    key).  ``pos``, an int32 tensor on q's device, one value or one per
+    batch row (contiguous (B,)), is a decode's position on the device: the
+    kernel reads the row's value and adds it to ``q_offset`` and ``kv_len``
+    (so a decode step at position p passes q_offset 0 and kv_len 1; a row
+    whose position is negative sees no key), and its splits are sized by T;
+    the host never reads it.
 
     The split-kv decode keeps one scratch buffer per device: calls that
     decode concurrently on two streams of one device are not supported."""
@@ -209,12 +214,13 @@ def flash_attention(
     strides = [_strides(t, name) for name, t in (("q", q), ("k", k), ("v", v), ("out", out))]
     pl = plan(B, S, KR, Gl, T, D, q_dtype, kv_dtype, causal=causal, q_offset=q_offset,
               kv_len=kv_len, position_on_device=pos is not None)
-    if lse is not None and pl.variant == "decode_splitkv":
-        raise ValueError("the decode variant writes no log-sum-exp")
     if pos is not None and (pl.variant != "decode_splitkv" or pos.device != dev
-                            or pos.dtype != torch.int32 or pos.numel() != 1):
+                            or pos.dtype != torch.int32
+                            or not (pos.numel() == 1 or (pos.shape == (B,)
+                                                         and pos.is_contiguous()))):
         raise ValueError(f"pos ({pos.dtype}, {tuple(pos.shape)} on {pos.device}) is a decode's "
-                         f"int32 position on {dev}; the {pl.variant} variant takes host ints")
+                         f"int32 position on {dev}, one or one per batch row ({B}); the "
+                         f"{pl.variant} variant takes host ints")
     if pl.variant == "decode_splitkv" and pos is None:
         pos = _zero(dev)
     ws = tickets = None
@@ -223,7 +229,7 @@ def flash_attention(
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPES[q_dtype], _DTYPES[kv_dtype], B, S, KR, Gl, T, D, *strides,
             int(causal), q_offset, kv_len, None if pos is None else pos.data_ptr(),
-            _scale(D, q_dtype),
+            int(pos is not None and pos.numel() > 1), _scale(D, q_dtype),
             VARIANTS[pl.variant], pl.splits,
             None if ws is None else ws.data_ptr(),
             None if tickets is None else tickets.data_ptr(),

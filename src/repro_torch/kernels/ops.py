@@ -14,6 +14,10 @@ padded layout q (B,S,KR,Gl,D), k/v (B,T,KR,D), as ``chunked_attention`` does.
 A decode step whose position is a tensor (``flash_decode``) is, under
 capture, the operator ``repro_torch::flash_decode``, whose position stays
 data (the kernel reads it on the device), so one graph serves every step.
+Its sibling ``repro_torch::flash_decode_partial`` (``flash_decode_partial``)
+takes one position per batch row and also returns each row's
+log-sum-exp: what a sequence-sharded cache's shards run before the
+partitioner combines them.
 The SSD scan is, under capture, ``repro_torch::ssd_scan`` (``ssd``).
 Attention that needs no gradient is, under graph capture
 (``core/compat.py::capture``), the custom operator
@@ -43,7 +47,7 @@ from . import flash_attention as fa
 from . import flash_attention_bwd as fab
 from . import ssd_scan as ssd_kernel
 from .ref import (attention_lse_ref, chunked_attention_ref, flash_attention_bwd_ref,
-                  ssd_scan_ref)
+                  flash_decode_partial_ref, ssd_scan_ref)
 
 
 def _route(t: torch.Tensor) -> str:
@@ -176,6 +180,48 @@ def flash_decode(q, k, v, pos, chunk: int):
     if _capturing(q):
         return flash_decode_op(q, k, v, pos, int(chunk))
     return _flash_decode(q, k, v, pos, chunk)
+
+
+def _flash_decode_partial(q, k, v, pos, chunk):
+    if _route(q) == "cuda":
+        B, S, KR, Gl, _ = q.shape
+        lse = torch.empty((B, KR, S * Gl), dtype=torch.float32, device=q.device)
+        out = fa.flash_attention(q, k, v, causal=False, q_offset=0, kv_len=1, pos=pos, lse=lse)
+        return out, lse
+    out, lse = flash_decode_partial_ref(q, k, v, pos, chunk)
+    return out.contiguous(), lse
+
+
+@torch.library.custom_op("repro_torch::flash_decode_partial", mutates_args=())
+def flash_decode_partial_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
+                            chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A decode step's attention at one position per batch row, with each
+    row's log-sum-exp, as an operator: q (B,S,KR,Gl,D), k/v (B,T,KR,D), pos
+    int32 (B,) (possibly negative: no key visible) -> (out (B,S,KR,Gl,D),
+    lse float32 (B,KR,S*Gl), -1e9 for a row that saw no key).  A
+    sequence-sharded decode runs it on every shard at once, each row at the
+    position relative to its shard, and combines the shards by their
+    log-sum-exps (``core/partitioner.py::decide_flash_decode``).  A CUDA
+    tensor goes to the kernel's decode, a CPU tensor to
+    ``flash_decode_partial_ref``.  It has no gradient."""
+    return _flash_decode_partial(q, k, v, pos, chunk)
+
+
+@flash_decode_partial_op.register_fake
+def _(q, k, v, pos, chunk):
+    if not is_fake(q):  # an eager call on the meta device: no kernel runs there
+        _route(q)
+    B, S, KR, Gl, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((B, KR, S * Gl), dtype=torch.float32))
+
+
+def flash_decode_partial(q, k, v, pos, chunk: int):
+    """``flash_decode_partial_op`` while a graph is being captured, else the
+    kernel (CUDA) or the plain version (CPU) called directly."""
+    if _capturing(q):
+        return flash_decode_partial_op(q, k, v, pos, int(chunk))
+    return _flash_decode_partial(q, k, v, pos, chunk)
 
 
 def _capturing(q) -> bool:

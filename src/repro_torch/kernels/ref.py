@@ -79,6 +79,48 @@ def chunked_attention_ref(
     return out.to(q.dtype)
 
 
+def flash_decode_partial_ref(q, k, v, pos, chunk: int):
+    """A decode step's attention at one position per batch row, with each
+    row's log-sum-exp: what the kernel's decode computes for a
+    sequence-sharded cache's fold.  q (B,S,KR,Gl,D) at position ``pos``
+    (int (B,), possibly negative: keys below pos + 1 visible, no causal
+    mask), k/v (B,T,KR,D).  The online softmax of ``chunked_attention_ref``
+    with a per-row key mask, and a masked key's p set to 0, so that a row
+    that sees no key gives output 0 and log-sum-exp -1e9 (a row that sees
+    one gives what ``chunked_attention_ref`` at q_offset pos, kv_len pos + 1
+    gives).  Returns (out in q's dtype, lse float32 (B, KR, S * Gl))."""
+    B, S, KR, Gl, D = q.shape
+    T = k.shape[1]
+    scale = torch.tensor(1.0 / math.sqrt(D), dtype=q.dtype, device=q.device)
+    chunk = min(chunk, T)
+    if T % chunk:
+        padded = -(-T // chunk) * chunk
+        k = F.pad(k, (0, 0, 0, 0, 0, padded - T))
+        v = F.pad(v, (0, 0, 0, 0, 0, padded - T))
+    qf = (q * scale).to(q.dtype).float()
+    stop = (pos.long() + 1).clamp_max(T).reshape(B, 1)
+    acc = torch.zeros((B, S, KR, Gl, D), dtype=torch.float32, device=q.device)
+    m = torch.full((B, S, KR, Gl), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, S, KR, Gl), dtype=torch.float32, device=q.device)
+    for idx in range(k.shape[1] // chunk):
+        kb = k[:, idx * chunk:(idx + 1) * chunk]
+        vb = v[:, idx * chunk:(idx + 1) * chunk]
+        s = torch.einsum("bsngd,btnd->bsngt", qf, kb.float())
+        k_pos = idx * chunk + torch.arange(chunk, device=q.device)
+        mask = (k_pos[None, :] < stop)[:, None, None, None, :]  # (B,1,1,1,chunk)
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), torch.zeros_like(s))
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bsngt,btnd->bsngd", p.to(kb.dtype).float(), vb.float())
+        m = m_new
+    out = (acc / torch.clamp_min(l[..., None], 1e-20)).to(q.dtype)
+    lse = torch.where(l > 0, m + torch.log(l), torch.full_like(l, NEG_INF))
+    return out, lse.permute(0, 2, 1, 3).reshape(B, KR, S * Gl)
+
+
 def attention_lse_ref(q, k, *, causal: bool):
     """Each q row's log-sum-exp of its scaled, masked scores in float32, as
     the forward kernel writes it for the backward: (B, KR, S * Gl), row

@@ -14,14 +14,13 @@ are float32 in either case (``dtype="float32"`` in their declaration).
 """
 from __future__ import annotations
 
-import functools
+import collections
 import math
 from typing import Any, Callable, Dict
 
 import torch
-from torch.utils.checkpoint import (
-    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
-)
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig, Strategy
 from ..core.sharding import pad_to_multiple
@@ -294,13 +293,43 @@ def num_stacked(params_stacked) -> int:
     return params_stacked.shape[0]
 
 
-def _save_dots(ctx, op, *args, **kwargs):
-    """``checkpoint_dots_with_no_batch_dims``: keep the outputs of matrix
-    products without batch dims (the 2-D ``mm``/``addmm`` that projections
-    and MLPs lower to), recompute everything else (attention among it)."""
-    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
-        return CheckpointPolicy.MUST_SAVE
-    return CheckpointPolicy.PREFER_RECOMPUTE
+# ``checkpoint_dots_with_no_batch_dims``: the products without batch dims,
+# the 2-D ``mm``/``addmm`` that projections and MLPs lower to
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+class _SaveDots(TorchDispatchMode):
+    """The forward of a "dots" checkpoint: every op runs, and the outputs of
+    the products without batch dims are kept, in order."""
+
+    def __init__(self, saved: collections.deque):
+        super().__init__()
+        self.saved = saved
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func in _DOTS:
+            self.saved.append(out.detach())
+        return out
+
+
+class _ReuseDots(TorchDispatchMode):
+    """The recompute of a "dots" checkpoint: every op runs again (attention
+    among them) except the kept products, whose outputs it hands back."""
+
+    def __init__(self, saved: collections.deque):
+        super().__init__()
+        self.saved = saved
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in _DOTS:
+            return self.saved.popleft()
+        return func(*args, **(kwargs or {}))
+
+
+def _dots_contexts():
+    saved = collections.deque()
+    return _SaveDots(saved), _ReuseDots(saved)
 
 
 def stack_layers(layer_fn, params_stacked, x, cfg: ModelConfig, extra=None):
@@ -310,7 +339,15 @@ def stack_layers(layer_fn, params_stacked, x, cfg: ModelConfig, extra=None):
     ``cfg.remat`` as the reference's ``jax.checkpoint`` does: "full"
     recomputes the whole layer in the backward, "dots" saves only the
     products without batch dims, "none" saves everything.  Remat changes
-    memory and launches, not values."""
+    memory and launches, not values.  The layers draw no random numbers, so
+    no generator state is saved for the recompute (under graph capture
+    there is no real generator to read).  "dots" keeps its products by its
+    own pair of dispatch modes (``_SaveDots``, ``_ReuseDots``), which act
+    the same eagerly and under graph capture: there the recompute is a
+    second copy of the layer's other ops in the graph (its flash forward
+    and annotations among them), where ``torch.utils.checkpoint``'s own
+    selective policy, seeing a proxy mode, would keep every output and
+    leave the recompute to a compiler."""
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat {cfg.remat!r}")
     remat = cfg.remat != "none" and torch.is_grad_enabled()
@@ -318,10 +355,10 @@ def stack_layers(layer_fn, params_stacked, x, cfg: ModelConfig, extra=None):
         if not remat:
             x = layer_fn(lp, x, extra)
         elif cfg.remat == "full":
-            x = checkpoint(layer_fn, lp, x, extra, use_reentrant=False)
+            x = checkpoint(layer_fn, lp, x, extra, use_reentrant=False, preserve_rng_state=False)
         else:
-            x = checkpoint(layer_fn, lp, x, extra, use_reentrant=False, context_fn=functools.partial(
-                create_selective_checkpoint_contexts, _save_dots))
+            x = checkpoint(layer_fn, lp, x, extra, use_reentrant=False, preserve_rng_state=False,
+                           context_fn=_dots_contexts)
     return x
 
 

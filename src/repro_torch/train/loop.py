@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig, Strategy
-from ..core.compat import get_abstract_mesh
+from ..core.compat import get_abstract_mesh, set_mesh
 from ..core.device import resolve_device
 from ..core.tree import leaves, leaves_with_paths, tree_from_paths, tree_map
 from ..models import api
@@ -141,13 +141,9 @@ def make_train_step(cfg: ModelConfig, st: Strategy, opt: Optimizer, tc: TrainCon
                 and _in_window(step, nf.grad_spike_at_step, nf.steps)):
             grads = tree_map(lambda g: g * nf.spike_factor, grads)
         if tc.compress_grads:
-            # half-precision gradient exchange with error feedback: quantize
-            # to bf16, remember the residual in float32
-            grads = tree_map(torch.add, grads, state["ef"])
-            q = tree_map(lambda g: g.to(torch.bfloat16), grads)
+            grads, new_ef = _compressed(grads, state["ef"])
             with torch.no_grad():
-                tree_map(lambda ef, g, qq: ef.copy_(g - qq.float()), state["ef"], grads, q)
-            grads = tree_map(lambda qq: qq.float(), q)
+                tree_map(torch.Tensor.copy_, state["ef"], new_ef)
         opt.update(grads, opt_state, params, step)
         gnorm = torch.zeros((), dtype=torch.float32, device=loss.device)
         for g in leaves(grads):  # the reference's leaf order
@@ -162,32 +158,57 @@ def sharded_value_and_grad(cfg: ModelConfig, st: Strategy, mesh):
     """The program ``(params, batch) -> (loss, grads)`` of the partitioned
     step: params annotated at entry by their declared specs filtered to
     ``mesh``, tokens and labels on ("data",), the gradient taken with
-    autograd inside the program."""
-    decls = api.param_tree(cfg, st)
+    autograd inside the program.  The program sets ``mesh`` as the ambient
+    mesh while it runs, so that the model's own annotations
+    (``Strategy.constrain``) apply wherever the step is called from."""
+    with set_mesh(mesh):
+        decls = api.param_tree(cfg, st)
 
     def program(params, batch):
-        params = annotate_tree(decls, params, mesh)
-        batch = {k: annotate_spec(v, ("data",), mesh) for k, v in batch.items()}
-        live = tree_map(lambda p: p.detach().requires_grad_(), params)
-        with torch.enable_grad():
-            return value_and_grad(cfg, st, live, batch)
+        with set_mesh(mesh):
+            params = annotate_tree(decls, params, mesh)
+            batch = {k: annotate_spec(v, ("data",), mesh) for k, v in batch.items()}
+            live = tree_map(lambda p: p.detach().requires_grad_(), params)
+            with torch.enable_grad():
+                return value_and_grad(cfg, st, live, batch)
 
     return program
 
 
 def _refuse_unpartitioned(cfg: ModelConfig, tc: TrainConfig):
-    why = []
-    if cfg.remat != "none":
-        why.append(f"remat {cfg.remat!r} (torch.utils.checkpoint inside a captured gradient; "
-                   "ROADMAP A6, remat under the partitioned step)")
     if tc.grad_accum > 1:
-        why.append(f"grad_accum {tc.grad_accum} (its microbatch loop is the scan of ROADMAP A9)")
-    if tc.compress_grads:
-        why.append("compress_grads (ROADMAP A6, the partitioned step's gradient exchange)")
-    if tc.numeric_fault is not None:
-        why.append("numeric_fault (ROADMAP A6, the partitioned step's fault window)")
-    if why:
-        raise NotImplementedError("the partitioned train step does not cover " + "; ".join(why))
+        raise NotImplementedError(
+            f"the partitioned train step does not cover grad_accum {tc.grad_accum} (its "
+            "microbatch loop is the scan of ROADMAP A9)")
+
+
+def _fault_factors(nf: Optional[NumericFaultSpec], step: torch.Tensor):
+    """The fault window as data: (poison, spike), each a 0-d float32 tensor
+    or None, from the 0-d int64 step by ``torch.where`` as the reference's
+    ``jnp.where`` (``poison`` NaN inside the NaN window, else 1; ``spike``
+    the spike factor inside its window, else 1), so that one program serves
+    every step."""
+    if nf is None:
+        return None, None
+
+    def where(at, inside):
+        hit = (step >= at) & (step < at + nf.steps)
+        one = torch.ones((), dtype=torch.float32, device=step.device)
+        return torch.where(hit, torch.full_like(one, inside), one)
+
+    return (where(nf.nan_at_step, float("nan")) if nf.nan_at_step >= 0 else None,
+            where(nf.grad_spike_at_step, nf.spike_factor) if nf.grad_spike_at_step >= 0
+            else None)
+
+
+def _compressed(grads, ef):
+    """The bf16 gradient exchange with float32 error feedback, in the
+    reference's order: add the feedback, round to bf16, keep the residual,
+    widen for the optimizer.  Returns (grads, new ef)."""
+    grads = tree_map(torch.add, grads, ef)
+    q = tree_map(lambda g: g.to(torch.bfloat16), grads)
+    new_ef = tree_map(lambda g, qq: g - qq.float(), grads, q)
+    return tree_map(lambda qq: qq.float(), q), new_ef
 
 
 def partitioned_train_step(cfg: ModelConfig, st: Strategy, opt: Optimizer, tc: TrainConfig,
@@ -195,34 +216,50 @@ def partitioned_train_step(cfg: ModelConfig, st: Strategy, opt: Optimizer, tc: T
     """The train step as one SPMD program on ``mesh`` (the simulated mesh
     of ``core/mesh_runtime.py``), through the port's partitioner.
 
-    The program takes (params, opt_state, step, batch) at global shapes,
-    annotates them at entry (params by ``tree_specs``, the state by
-    ``opt_state_specs``, tokens and labels on ("data",), as the reference's
-    ``launch/elastic.py::state_partition_specs`` places them), takes the
-    loss's gradient with autograd inside the program (attention's through
-    the flash operators) and applies ``opt.apply``; it returns (params',
-    opt_state', loss, grad_norm).  ``spmd_partition(..., optimize=False)``
-    captures, completes and plans it on the first call, on the device the
-    params are on; every later call runs the plan.  The step writes the
-    results into ``state``'s tensors.  The runner is ``step.runner``."""
+    The program takes (params, opt_state, step, batch[, ef]) at global
+    shapes, annotates them at entry (params and the error feedback ``ef`` by
+    ``tree_specs``, the state by ``opt_state_specs``, tokens and labels on
+    ("data",), as the reference's ``launch/elastic.py::state_partition_specs``
+    places them), takes the loss's gradient with autograd inside the
+    program (attention's through the flash operators; remat per
+    ``cfg.remat``, its recompute captured in the graph), applies the fault
+    window (``_fault_factors``: data, not a branch) and the bf16 exchange
+    (``_compressed``) where ``tc`` asks for them, and applies
+    ``opt.apply``; it returns (params', opt_state', loss, grad_norm[,
+    ef']).  ``spmd_partition(..., optimize=False)`` captures, completes and
+    plans it on the first call, on the device the params are on; every
+    later call runs the plan.  The step writes the results into
+    ``state``'s tensors.  The runner is ``step.runner``."""
     from ..core.partitioner import spmd_partition
 
     _refuse_unpartitioned(cfg, tc)
-    decls = api.param_tree(cfg, st)
+    with set_mesh(mesh):
+        decls = api.param_tree(cfg, st)
     pspecs = tree_specs(decls)
     ospecs = opt_state_specs(opt, pspecs, tree_shapes(decls, cfg.param_dtype))
 
     grad_program = sharded_value_and_grad(cfg, st, mesh)
 
-    def program(params, opt_state, step, batch):
+    def program(params, opt_state, step, batch, *ef):
         opt_state = tree_map(lambda t, spec: annotate_spec(t, spec, mesh), opt_state, ospecs)
         loss, grads = grad_program(params, batch)
         with torch.no_grad():
+            poison, spike = _fault_factors(tc.numeric_fault, step)
+            if poison is not None:
+                loss = loss * poison
+                grads = tree_map(lambda g: g * poison, grads)
+            if spike is not None:
+                grads = tree_map(lambda g: g * spike, grads)
+            new_ef = ()
+            if ef:
+                fed = tree_map(lambda t, spec: annotate_spec(t, spec, mesh), ef[0], pspecs)
+                grads, fed = _compressed(grads, fed)
+                new_ef = (fed,)
             new_params, new_opt = opt.apply(grads, opt_state, params, step)
             gnorm = torch.zeros((), dtype=torch.float32, device=loss.device)
             for g in leaves(grads):  # the reference's leaf order
                 gnorm = gnorm + g.float().square().sum()
-        return new_params, new_opt, loss, torch.sqrt(gnorm)
+        return (new_params, new_opt, loss, torch.sqrt(gnorm)) + new_ef
 
     runners = {}
 
@@ -234,12 +271,15 @@ def partitioned_train_step(cfg: ModelConfig, st: Strategy, opt: Optimizer, tc: T
             runner = runners[dev] = spmd_partition(program, mesh, optimize=False,
                                                    device=str(dev))
             step_fn.runner = runner
+        ef = (state["ef"],) if tc.compress_grads else ()
         with torch.no_grad():
-            new_params, new_opt, loss, gnorm = runner(
+            new_params, new_opt, loss, gnorm, *new_ef = runner(
                 tree_map(torch.Tensor.detach, params), opt_state,
-                torch.tensor(step, dtype=torch.int64), batch)
+                torch.tensor(step, dtype=torch.int64), batch, *ef)
             tree_map(lambda p, n: p.copy_(n), params, new_params)
             tree_map(lambda s, n: s.copy_(n), opt_state, new_opt)
+            if ef:
+                tree_map(lambda s, n: s.copy_(n), state["ef"], new_ef[0])
         state["step"] = step + 1
         return state, {"loss": loss, "grad_norm": gnorm}
 

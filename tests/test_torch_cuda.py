@@ -18,8 +18,8 @@ from repro_torch.kernels import flash_attention_bwd as fab
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as ssd_kernel
 from repro_torch.kernels.ref import (
-    attention_lse_ref, attention_ref, chunked_attention_ref, flash_attention_bwd_ref,
-    ssd_recurrence, ssd_scan_ref,
+    NEG_INF, attention_lse_ref, attention_ref, chunked_attention_ref, flash_attention_bwd_ref,
+    flash_decode_partial_ref, ssd_recurrence, ssd_scan_ref,
 )
 from repro_torch.models import api
 from repro_torch.models.layers import tree_init
@@ -824,3 +824,65 @@ def test_captured_decode_step_serves_two_positions_with_one_plan(cuda):
         for n in cache:
             assert_close(new[n], eager[n], "bf16_round", err_msg=n)
     assert len(runner.plans) == 1 and runner.fallback_gathers == []
+
+
+SHARD_POSITIONS = [0, 511, 512, 513, 1022]  # about a 512-key shard boundary
+
+
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+def test_decode_at_per_row_positions_matches_plain(cuda, q_dtype):
+    """The decode with one position per batch row and its log-sum-exp, at the
+    fold of a sequence-sharded serve step (8 devices x 8 slots, KR 4, 512
+    keys per device; the rows of the devices holding keys 512-1023 read the
+    position less 512): one launch each, the output within bf16_round of
+    ``flash_decode_partial_ref`` and the log-sum-exp within f32_chain; a row
+    whose position lies before its shard writes output 0 and log-sum-exp
+    -1e9, and no row is NaN."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    B, KR, T, D = 64, 4, 512, 64
+    q = torch.randn(B, 1, KR, 1, D, generator=g, device=cuda).to(q_dtype)
+    k, v = (torch.randn(B, T, KR, D, generator=g, device=cuda).bfloat16() for _ in range(2))
+    second = (torch.arange(B, device=cuda) // 8) >= 4  # devices (1, y) of the (2, 4) mesh
+    for p in SHARD_POSITIONS:
+        rows = (p - 512 * second.int()).to(torch.int32)
+        before = fa.launches
+        out, lse = ops.flash_decode_partial(q, k, v, rows, T)
+        torch.cuda.synchronize()
+        assert fa.launches == before + 1
+        assert bool(torch.isfinite(out.float()).all()) and not bool(torch.isnan(lse).any())
+        want, want_lse = flash_decode_partial_ref(q, k, v, rows, T)
+        assert_close(out, want, "bf16_round", err_msg=f"pos {p}")
+        assert_close(lse, want_lse, "f32_chain", err_msg=f"pos {p}")
+        empty = rows < 0
+        assert bool((out[empty] == 0).all()) and bool((lse[empty] == NEG_INF).all())
+
+
+def test_sequence_sharded_decode_op_on_cuda_is_one_launch(cuda):
+    """The decode op over k/v sharded on their sequence over "data"
+    (compiled plan, bf16, 8 slots, 1024 keys): one launch for all eight
+    devices, three all-reduces, the cache never gathered, and the result
+    within bf16_round of the whole-cache plain decode on either side of the
+    shard boundary."""
+    from repro_torch.core.partitioner import spmd_partition
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.layers import annotate_spec
+
+    mesh = make_test_mesh()
+
+    def fn(q, k, v, pos):
+        k = annotate_spec(k, (None, "data", "model", None), mesh)
+        v = annotate_spec(v, (None, "data", "model", None), mesh)
+        return ops.flash_decode(q, k, v, pos, k.shape[1])
+
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q = torch.randn(8, 1, 16, 1, 64, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(8, 1024, 16, 64, generator=g, device=cuda).bfloat16() for _ in range(2))
+    runner = spmd_partition(fn, mesh, optimize=False, device="cuda")
+    for p in SHARD_POSITIONS:
+        before = fa.launches
+        got = runner(q, k, v, torch.tensor(p, dtype=torch.int32, device=cuda))
+        torch.cuda.synchronize()
+        assert fa.launches == before + 1
+        assert runner.collectives == {"all-reduce": 3} and runner.fallbacks == []
+        want = chunked_attention_ref(q, k, v, causal=False, chunk=1024, q_offset=p, kv_len=p + 1)
+        assert_close(got, want, "bf16_round", err_msg=f"pos {p}")

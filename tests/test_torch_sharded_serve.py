@@ -54,11 +54,12 @@ MESH = make_test_mesh()
 STRATEGIES = ["2d_attempt1", "2d_attempt2", "2d_finalized"]
 REDUCE = {"qwen1.5-0.5b": 16, "mamba2-130m": 8}
 # logits of the float32 serve against the reference: tests/test_torch_serve.py's
-# classes, but "coarse" for qwen at this width too: its kv cache is bf16 and
-# attention rounds p to the cache's dtype before the PV product (as the
-# reference does), and at this width the port's unsharded engine, in this
-# tree as in its parent's, already reads 2.4e-4 off the reference from the
-# step after the first refill (f32_chain's limit there is about 1.1e-4)
+# classes, but "coarse" for qwen at this width too (ROADMAP R10): the
+# reference's float32 engine keeps its kv cache in bf16, so a k or v value
+# whose float32 results in the two frameworks straddle a bf16 rounding
+# boundary lands one bf16 ulp apart in the cache, and the logits of that step
+# part by up to 2.4e-4 where f32_chain's limit is about 1.1e-4
+# (test_float32_engine_parts_from_the_reference_only_at_bf16_cache_flips)
 FLOAT32_TOL = {"qwen1.5-0.5b": "coarse", "mamba2-130m": "coarse"}
 FLASH_DECODE = "repro_torch.flash_decode"
 
@@ -343,3 +344,144 @@ def test_mamba2_with_its_heads_on_the_model_axis_serves_as_the_reference():
     assert len(eng.runner.plans) == 1 and eng.runner.fallback_gathers == []
     _check_float32(jreqs, reqs, jseen, seen, "coarse")
     assert [r.out for r in reqs] == [r.out for r in ureqs]
+
+
+def _bf16_neighbours(a, b):
+    """Whether bf16 values ``a`` and ``b`` (as float32) are adjacent."""
+    bits = lambda x: x.view(torch.int32) >> 16
+    return bool(((bits(a) - bits(b)).abs() == 1).all())
+
+
+def test_float32_engine_parts_from_the_reference_only_at_bf16_cache_flips(monkeypatch):
+    """ROADMAP R10.  The reference's float32 engine (``src/repro/serve/
+    engine.py::Engine``) keeps its kv cache in bf16.  Run the port's decode
+    step from the reference's own state (cache, tokens, position) at every
+    step of the float32 qwen run: wherever the row it writes into the cache
+    equals the reference's bit for bit, its logits are within f32_chain;
+    where the logits part by more, the written rows differ, each differing
+    element by one bf16 ulp, and the port's float32 value before the cast
+    lies within f32 of the rounding boundary between the two (the two
+    frameworks' float32 projections agree; the cast flips).  The run has
+    such a step."""
+    import repro_torch.models.attention as attention
+
+    arch = "qwen1.5-0.5b"
+    jcfg, cfg = _configs(arch, "float32")
+    jst, st = jax_get_strategy("2d_finalized"), get_strategy("2d_finalized")
+    jeng = JaxEngine(jcfg, jst, jax.tree_util.tree_map(jnp.asarray, _weights(arch)),
+                     batch_slots=2, max_len=32)
+    steps, decode = [], jeng._decode
+
+    def record(p, tk, c, pos):
+        before = {k: torch.from_numpy(np.array(v.astype(jnp.float32))) for k, v in c.items()}
+        logits, c = decode(p, tk, c, pos)
+        steps.append((np.array(tk), before, pos, np.array(logits),
+                      {k: torch.from_numpy(np.array(v.astype(jnp.float32))) for k, v in c.items()}))
+        return logits, c
+
+    jeng._decode = record
+    jeng.generate([JaxRequest(prompt=p, max_new_tokens=4) for p in _prompts(jcfg.vocab_size)])
+    params = params_from_numpy(dict(_weights(arch)), cfg, "cpu", st)
+    rows, project = [], attention.project_qkv
+    monkeypatch.setattr(attention, "project_qkv", lambda *a, **k: (
+        lambda qkv: rows.append(qkv[1:]) or qkv)(project(*a, **k)))
+    rtol, atol = TOLERANCES["f32_chain"]
+    flipped = []
+    for i, (tk, before, pos, want, after) in enumerate(steps):
+        rows.clear()
+        cache = {k: v.to(torch.bfloat16) for k, v in before.items()}
+        logits, new = api.decode_step(cfg, st, params, torch.from_numpy(tk).long(), cache,
+                                      torch.tensor(pos, dtype=torch.int32))
+        got = logits.numpy()[..., :jcfg.vocab_size]
+        same = all(torch.equal(new[n][:, :, pos].float(), after[n][:, :, pos]) for n in "kv")
+        if same:
+            assert_close(got, want, "f32_chain", err_msg=f"step {i}")
+            continue
+        for layer, kv in enumerate(rows):
+            for n, row in zip("kv", kv):
+                mine, theirs = new[n][layer, :, pos].float(), after[n][layer, :, pos]
+                diff = mine != theirs
+                if diff.any():
+                    assert _bf16_neighbours(mine[diff], theirs[diff]), (i, layer, n)
+                    boundary = (mine[diff] + theirs[diff]) / 2
+                    assert_close(row[:, 0][diff], boundary, "f32", err_msg=f"step {i}")
+        if not np.allclose(got, want, rtol=rtol, atol=atol):
+            flipped.append(i)
+    assert flipped, "no step of the run parts from the reference beyond f32_chain"
+
+
+def _cache_gathers(runner, args, T, dh):
+    """The plan steps whose result holds a whole cache sequence (``T`` keys
+    of ``dh`` values) on a device: a gathered k or v cache would."""
+    from torch.utils._pytree import tree_flatten
+
+    from repro_torch.core import mesh_runtime as mr
+
+    (entry,) = runner.plans.values()
+    found = []
+
+    def look(step, env):
+        for w in step.writes:
+            vals = env[w] if isinstance(env[w], list) else [env[w]]
+            if any(isinstance(t, torch.Tensor) and t.ndim >= 5 and t.shape[-3] == T
+                   and t.shape[-1] == dh for t in vals):
+                found.append(step.op)
+
+    flat, _ = tree_flatten(args)
+    with torch.no_grad():
+        entry.plan.execute(*(mr.shard(a, s) for a, s in zip(flat, entry.plan.in_shardings)),
+                           on_step=look)
+    return found
+
+
+@pytest.mark.parametrize("cache", ["bfloat16", "float32"])
+@pytest.mark.parametrize("strategy,slots", [("2d_attempt1", 2), ("2d_finalized", 1)])
+def test_sequence_sharded_engine_matches_the_unsharded_engine(strategy, slots, cache,
+                                                              monkeypatch):
+    """float32 qwen with ``shard_kv_seq`` (max_len 16: two shards of 8 keys
+    on "data", which the run's positions 0-14 cross).  Under 2d_attempt1
+    the batch is not on "data"; under 2d_finalized it is, and the reference's
+    own first-dim-wins filter keeps it there unless the slots do not divide
+    "data" (the dry run's tiny-batch case), hence one slot.  The cache
+    stays sharded on its sequence: no plan step holds a whole cache
+    sequence, one plan serves the run, and each layer's decode combines
+    its shards with a pmax over "data" each step.  Tokens equal the port's
+    unsharded engine's; logits within f32_chain with a float32 cache, and
+    with the engine's bf16 cache within bf16_round: p is rounded to the
+    cache's dtype relative to each shard's max, not the row's (ROADMAP
+    Queue C)."""
+    from repro_torch.core import mesh_runtime as mr
+
+    _, cfg = _configs("qwen1.5-0.5b", "float32")
+    cfg, st = cfg.with_(shard_kv_seq=True), get_strategy(strategy)
+    pmax = []
+    real = mr._reduce
+    monkeypatch.setattr(mr, "_reduce", lambda x, mesh, axes, op: (
+        op == "max" and pmax.append(tuple(axes))) or real(x, mesh, axes, op))
+    runs = []
+    for mesh in (MESH, None):
+        with set_mesh(mesh):
+            V = padded_vocab(cfg, st)
+            tree = dict(_weights("qwen1.5-0.5b"))
+            emb = tree["embed"]["embedding"]
+            tree["embed"] = {"embedding": np.pad(emb, ((0, V - emb.shape[0]), (0, 0)))}
+            eng = Engine(cfg, st, params_from_numpy(tree, cfg, "cpu", st), batch_slots=slots,
+                         max_len=16)
+        eng.cache = {k: v.to(getattr(torch, cache)) for k, v in eng.cache.items()}
+        seen = _recorded(eng, cfg.vocab_size)
+        reqs = eng.generate([Request(prompt=p, max_new_tokens=4)
+                             for p in _prompts(cfg.vocab_size)])
+        runs.append((eng, reqs, seen))
+    (eng, reqs, seen), (_, ureqs, useen) = runs
+    assert eng.pos >= 9 and [r.out for r in reqs] == [r.out for r in ureqs]
+    for step, (got, want) in enumerate(zip(seen, useen)):
+        assert_close(got, want, "f32_chain" if cache == "float32" else "bf16_round",
+                     err_msg=f"step {step}")
+    runner = eng.runner
+    assert len(runner.plans) == 1 and runner.fallback_gathers == []
+    assert pmax == [("data",)] * (cfg.num_layers * len(seen))
+    (entry,) = runner.plans.values()
+    caches = [sh for sh in entry.plan.in_shardings if sh.rank == 5]
+    assert len(caches) == 2 and all(sh.dims_mapping[2] == ("data",) for sh in caches)
+    token = torch.zeros((slots, 1), dtype=torch.long)
+    assert _cache_gathers(runner, (eng.params, token, eng.cache, eng._pos), 16, cfg.dh) == []
