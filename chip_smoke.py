@@ -1647,41 +1647,18 @@ def _err_over(got, want, kind):
     return ((got - want).abs() / (atol + rtol * want.abs())).max().item()
 
 
-def steps_holding(runner, args, holds):
-    """Run ``runner``'s plan once more on ``args`` and return the plan steps
-    one of whose results (stacked shards: dim 0 is the device) ``holds``."""
-    from torch.utils._pytree import tree_flatten
-
-    from repro_torch.core import mesh_runtime as mr
-
-    (entry,) = runner.plans.values()
-    plan, found = entry.plan, []
-
-    def look(step, env):
-        for w in step.writes:
-            vals = env[w] if isinstance(env[w], list) else [env[w]]
-            if any(isinstance(t, torch.Tensor) and holds(t) for t in vals):
-                found.append(step.op)
-
-    flat, _ = tree_flatten(args)
-    with torch.no_grad():
-        plan.execute(*(mr.shard(a.to("cuda"), s) for a, s in zip(flat, plan.in_shardings)),
-                     on_step=look)
-    return found
-
-
 def whole_vocab_steps(runner, args, V):
     """The plan steps whose result holds a whole vocabulary dim (size ``V``)
     on a device: a gathered (B,S,V) logits tensor or (V, M) table would."""
-    return steps_holding(runner, args, lambda t: V in tuple(t.shape[1:]))
+    return _plan_of(runner).plan.steps_holding(args, lambda t: V in tuple(t.shape[1:]))
 
 
 def cache_gather_steps(runner, args, T, dh):
     """The plan steps whose result holds a whole cache sequence (``T`` keys
     of ``dh`` values) on a device: a gathered k or v cache, per layer or
     stacked, would."""
-    return steps_holding(runner, args,
-                         lambda t: t.ndim >= 5 and t.shape[-3] == T and t.shape[-1] == dh)
+    return _plan_of(runner).plan.steps_holding(
+        args, lambda t: t.ndim >= 5 and t.shape[-3] == T and t.shape[-1] == dh)
 
 
 def partition_train_run(label, cfg, st, opt, state, pipe, steps, mesh, batch):
@@ -1821,7 +1798,7 @@ def partition_train_case(strategy, layers, steps, coarse_grads, remat, B, S, see
     runner = sharded.pop("runner")
     state = fresh()
     holders = whole_vocab_steps(runner, (tree_map(torch.Tensor.detach, state["params"]),
-                                         state["opt"], torch.tensor(0), batch), V)
+                                         state["opt"], torch.tensor(0, device="cuda"), batch), V)
     del runner, state
     unsharded = partition_train_run("unsharded", cfg, st, opt, fresh(), pipe, steps, None,
                                     batch)
@@ -2098,6 +2075,7 @@ SHARDED_SERVE = (("qwen1.5-0.5b", "2d_finalized", 24, "bfloat16", 64, False, 8),
                  ("qwen1.5-0.5b", "2d_finalized", 24, "bfloat16", 64, True, 1))
 SERVE_MAX_LEN = 1024
 TEACHER_STEPS = (0, 8, 32, 63)  # steps at which the unsharded step reruns the sharded input
+BOUNDARY_POS = 700  # a decode position past the cache's half (sequence shards of 512 keys)
 
 
 def _plan_of(runner):
@@ -2184,26 +2162,122 @@ def sharded_loss_phase(seed, card):
 
 
 def dropped_psum_readings(runner, step):
-    """Planted faults, one at a time: the first, the middle and the last
-    standalone psum of the plan replaced by the local value; each reading
-    is the relative change of the step's logits in norm over bf16_grad's
-    limit (a gate at that limit must read each above 1)."""
+    """Planted faults in the served bf16 plan, one at a time: the first, the
+    middle and the last standalone psum replaced by the local value; each
+    reading is the relative change of the step's logits in norm over
+    bf16_grad's limit, beside the psum's site.  Read, not gated: the gate
+    is ``float32_twin_readings``."""
     from repro_torch.core import plan as plan_mod
     from repro_torch.core.compat import TOLERANCES
 
-    psums = [s for s in _plan_of(runner).plan.steps
-             if s.kind == "collective" and s.reduce_op == "add"]
+    plan = _plan_of(runner).plan
+    psums = [s for s in plan.steps if s.kind == "collective" and s.reduce_op == "add"]
+    planted = [psums[0], psums[len(psums) // 2], psums[-1]]
     with torch.no_grad():
         sound = step()[0].float()
         out = []
-        for fault in (psums[0], psums[len(psums) // 2], psums[-1]):
+        for fault in planted:
             run, fault.run = fault.run, plan_mod._alias_run
             try:
                 got = step()[0].float()
             finally:
                 fault.run = run
             out.append(((got - sound).norm() / sound.norm()).item() / TOLERANCES["bf16_grad"][0])
-    return out
+    return out, _psum_sites(plan, planted)
+
+
+def _psum_sites(plan, psums):
+    """Each standalone psum as "axes local-shape after <the op that made its
+    operand>": which reduction a planted fault drops."""
+    made = {w: st.op for st in plan.steps for w in st.writes}
+    return [f"{s.axes} {tuple(s.lshape)} after {made.get(s.reads[0], '?')}" for s in psums]
+
+
+def boundary_state(cfg, st, cache, pos, slots, seed):
+    """A decode input past the cache's half, so that both of its sequence
+    shards on "data" hold keys (the served run's positions all lie in the
+    first): the engine's cache after its run, its rows ``pos`` to
+    BOUNDARY_POS - 1 filled with seeded normal values at the served rows'
+    scale, a seeded token per slot, and the position BOUNDARY_POS (int32 on
+    the card)."""
+    from repro_torch.models import api
+
+    whole = api.cache_shapes(cfg, st, slots, SERVE_MAX_LEN)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 60)
+    out = {}
+    for k, v in cache.items():
+        v = v[tuple(slice(0, n) for n in whole[k])].clone()
+        fill = v[:, :, pos:BOUNDARY_POS]
+        fill.copy_(torch.randn(fill.shape, generator=gen, device="cuda")
+                   * v[:, :, :pos].float().std())
+        out[k] = v
+    token = torch.randint(0, cfg.vocab_size, (slots, 1), generator=gen, device="cuda")
+    return out, token, torch.tensor(BOUNDARY_POS, dtype=torch.int32, device="cuda")
+
+
+def float32_twin_readings(cfg, st, params, mesh, runner, state, kv_seq):
+    """The planted-fault gate.  The case's decode step again as a float32
+    program (the same weights widened, the boundary state's cache widened),
+    partitioned under ``mesh`` and unsharded.  In bf16 the partitioned
+    step's own rounding (1.6-2.4e-2 in norm at 24 layers) is as large as
+    what dropping one layer's norm psum does to the logits, so no bf16
+    limit parts the two; in float32 the sound step lies orders of magnitude
+    inside f32_chain's rtol in norm and a fault far outside.  Returns the
+    sound step's and each planted fault's (the first, middle and last
+    standalone psum of the plan; with ``kv_seq`` also the decode combine's
+    all-reduces, each device keeping its own shard's partial) relative
+    error in norm against the unsharded step over that limit, the psums'
+    sites, and whether the float32 plan has the served plan's collectives
+    and reshards (what makes it a stand-in for it)."""
+    from repro_torch.core import partitioner
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.compat import TOLERANCES, set_mesh
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import api
+
+    cfg32 = cfg.with_(dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    cache, token, pos = state
+    cache = {k: v.float() for k, v in cache.items()}
+    with set_mesh(mesh):
+        twin = partitioner.spmd_partition(api.partitionable_decode(cfg32, st, mesh), mesh,
+                                          optimize=False, device="cuda")
+    limit = TOLERANCES["f32_chain"][0]
+    with torch.no_grad():
+        want, _ = api.decode_step(cfg32, st, p32, token, {k: v.clone() for k, v in cache.items()},
+                                  pos)
+        want = want[:, -1].float()
+
+        def over():
+            got = twin(p32, token, cache, pos)[0][:, -1].float()
+            return ((got - want).norm() / want.norm()).item() / limit
+
+        sound = over()
+        plan, served = _plan_of(twin).plan, _plan_of(runner).plan
+        layout = lambda pl: ([(x.op, x.axes, x.reduce_op) for x in pl.steps  # noqa: E731
+                              if x.kind == "collective"],
+                             [tuple(y.op for y in x.program.steps) for x in pl.steps
+                              if x.kind == "reshard"])
+        psums = [x for x in plan.steps if x.kind == "collective" and x.reduce_op == "add"]
+        planted = dict(zip(("first psum", "middle psum", "last psum"),
+                           (psums[0], psums[len(psums) // 2], psums[-1])))
+        faults = {}
+        for name, fault in planted.items():
+            run, fault.run = fault.run, plan_mod._alias_run
+            try:
+                faults[name] = over()
+            finally:
+                fault.run = run
+        if kv_seq:
+            real = partitioner.combine_decode
+            partitioner.combine_decode = lambda out, lse, mesh, axes: real(out, lse, mesh, ())
+            try:
+                faults["combine's all-reduces"] = over()
+            finally:
+                partitioner.combine_decode = real
+    return {"limit": limit, "sound_over_limit": sound, "faults_over_limit": faults,
+            "planted_psums": dict(zip(planted, _psum_sites(plan, list(planted.values())))),
+            "same_collectives_as_served": layout(plan) == layout(served)}
 
 
 def _logits_rule(got, want, kind, norm_limit=None):
@@ -2352,11 +2426,13 @@ def sharded_serve_case(arch, strategy, layers, dtype, min_steps, kv_seq, slots, 
     SSD launch; no fallback that gathers and no plan step holding a whole
     vocabulary dim; the logits by tests/test_torch_serve.py's rule against
     the unsharded run (at two layers per element, bf16_chain; at 24 in
-    norm: qwen bf16 within bf16_grad, which three planted dropped psums
-    must break, Mamba2 float32 within CONSIST's limit; bf16 Mamba2
-    printed only), and at the steps of TEACHER_STEPS
+    norm: qwen bf16 within bf16_grad, Mamba2 float32 within CONSIST's
+    limit; bf16 Mamba2 printed only), and at the steps of TEACHER_STEPS
     against the unsharded step on the same input (printed; for qwen held
-    as the free run).  Readings: tokens/s, step wall,
+    as the free run).  For qwen at 24 layers, the planted-fault gate of
+    ``float32_twin_readings`` at BOUNDARY_POS (``boundary_state``; the bf16
+    step there and the bf16 plan's dropped psums are read).
+    Readings: tokens/s, step wall,
     host and device-busy ms, the cache's shard and unshard ms per step,
     syncs per step, peak memory.  With ``kv_seq`` (``cfg.shard_kv_seq``) the
     kv cache is sharded on its sequence over "data" (gate) and no plan step
@@ -2421,6 +2497,21 @@ def sharded_serve_case(arch, strategy, layers, dtype, min_steps, kv_seq, slots, 
         un["host_ms"], un["drained_wall_ms"] = host_and_wall_ms(unsharded_step, calls=3)
         un["device_busy_ms"] = device_ms(lambda i: unsharded_step(), 1, calls=1)
         un["syncs_per_step"], un["sync_sites"] = _syncs_in(unsharded_step)
+        twin = None
+        if L > 2 and cfg.family == "dense":
+            # the planted-fault gate, at an input both sequence shards hold
+            # keys of; the bf16 step there against the unsharded step is read
+            # (its random cache is no served state: 5.1e-2 in norm once on
+            # the card with the cache whole on its sequence)
+            b_cache, b_token, b_pos = state = boundary_state(cfg, st, eng.cache, eng.pos, slots,
+                                                             seed)
+            got = runner(params, b_token, b_cache, b_pos)[0][:, -1].float()
+            want, _ = api.decode_step(cfg, st, params, b_token,
+                                      {k: v.clone() for k, v in b_cache.items()}, b_pos)
+            want = want[:, -1].float()
+            sh["boundary_bf16_rel_err_norm"] = ((got - want).norm() / want.norm()).item()
+            twin = float32_twin_readings(cfg, st, params, mesh, runner, state, kv_seq)
+            del state, b_cache
     # bf16 at 24 layers: the partitioned products round each device's
     # partial sums to bf16 before their psums (as XLA's partitioner does),
     # 3-4 such products a layer, and the logits land a few bf16 ulps away
@@ -2430,11 +2521,9 @@ def sharded_serve_case(arch, strategy, layers, dtype, min_steps, kv_seq, slots, 
     norm_limit = None
     if L > 2:
         norm_limit = CONSIST["ssm"][0] if dtype == "float32" else TOLERANCES["bf16_grad"][0]
-    if L > 2 and dtype == "bfloat16" and cfg.family == "dense":  # planted faults
-        sh["dropped_psum_rel_over_limit"] = dropped_psum_readings(runner, step)
-    # the planted faults are gated where they were calibrated (the
-    # 2d_finalized plan with the cache whole on its sequence); on the
-    # sequence-sharded plans they are read
+    if twin is not None:
+        sh["dropped_psum_rel_over_limit"], sh["dropped_psum_sites"] = dropped_psum_readings(
+            runner, step)
     held, parted, worst = _logits_rule(seen_s, seen_u, kind, norm_limit)
     elementwise = _logits_rule(seen_s, seen_u, kind)
     rtol, atol = TOLERANCES["bf16_chain"]
@@ -2459,7 +2548,7 @@ def sharded_serve_case(arch, strategy, layers, dtype, min_steps, kv_seq, slots, 
                            "parted_at_step": parted, "worst_err_over_limit": worst},
            "logits_elementwise": dict(zip(("held", "parted_at_step", "worst_err_over_limit"),
                                           elementwise)),
-           "teacher_forced": tf, "whole_vocab_steps": holders,
+           "teacher_forced": tf, "whole_vocab_steps": holders, "float32_twin": twin,
            **{f"sharded_{k}": v for k, v in sh.items() if k not in ("outs", "launches_per_step")},
            **{f"unsharded_{k}": v for k, v in un.items() if k not in ("outs", "launches_per_step")},
            "tokens_equal": sh["outs"] == un["outs"],
@@ -2523,11 +2612,24 @@ def sharded_serve_case(arch, strategy, layers, dtype, min_steps, kv_seq, slots, 
     else:
         check(held, f"{arch} {strategy}: logits off the unsharded run at step {parted} "
               f"({worst:.3f} x {kind})")
-    if "dropped_psum_rel_over_limit" in sh:
-        print(f"    dropped psums (first, middle, last), logits' change in norm over bf16_grad: "
-              f"{', '.join(f'{x:.2f}' for x in sh['dropped_psum_rel_over_limit'])}", flush=True)
-        check(min(sh["dropped_psum_rel_over_limit"]) > 1.0 or kv_seq,
-              f"{arch} {strategy}: a dropped psum went unseen by the bf16_grad limit")
+    if twin is not None:
+        print(f"    bf16 plan, dropped psums (read): logits' change in norm over bf16_grad "
+              + "; ".join(f"{x:.2f} ({site})" for x, site in
+                          zip(sh["dropped_psum_rel_over_limit"], sh["dropped_psum_sites"])),
+              flush=True)
+        print(f"    at pos {BOUNDARY_POS}: the bf16 step against the unsharded step "
+              f"{sh['boundary_bf16_rel_err_norm']:.3e} in norm (read); the float32 twin (same "
+              f"collectives and reshards as the served plan: "
+              f"{twin['same_collectives_as_served']}): sharded vs unsharded in "
+              f"norm {twin['sound_over_limit']:.4f} x f32_chain's rtol; planted faults "
+              + "; ".join(f"{k} {v:.1f}" for k, v in twin["faults_over_limit"].items())
+              + f"; psum sites {json.dumps(twin['planted_psums'])}", flush=True)
+        check(twin["same_collectives_as_served"],
+              f"{arch} {strategy}: the float32 plan's collectives differ from the served plan's")
+        check(twin["sound_over_limit"] <= 1.0,
+              f"{arch} {strategy}: the float32 partitioned step off the unsharded step: {twin}")
+        check(min(twin["faults_over_limit"].values()) > 1.0,
+              f"{arch} {strategy}: a planted fault went unseen by the float32 limit: {twin}")
     if cfg.family == "dense":
         limit = TOLERANCES["bf16_grad"][0]
         check(all(r["rel_err_norm"] <= limit if L > 2 else r["err_over_bf16_chain"] <= 1.0

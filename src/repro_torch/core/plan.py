@@ -268,6 +268,27 @@ class PartitionPlan:
         return [env[k] if isinstance(k, (torch.fx.Node, ProxyVar)) else k
                 for k in self.out_keys]
 
+    def steps_holding(self, args, holds: Callable[[torch.Tensor], bool]) -> List[str]:
+        """Run the plan once on ``args`` (the program's global inputs, as a
+        tree in their order) and return the ops of the steps one of whose
+        results (stacked shards: dim 0 is the device) ``holds``: a check
+        that no step gathers what should stay sharded."""
+        from torch.utils._pytree import tree_flatten
+
+        found: List[str] = []
+
+        def look(step, env):
+            for w in step.writes:
+                vals = env[w] if isinstance(env[w], list) else [env[w]]
+                if any(isinstance(t, torch.Tensor) and holds(t) for t in vals):
+                    found.append(step.op)
+
+        flat, _ = tree_flatten(args)
+        with torch.no_grad():
+            self.execute(*(mr.shard(a, s) for a, s in zip(flat, self.in_shardings)),
+                         on_step=look)
+        return found
+
     def total_flops(self) -> float:
         """Modeled per-device FLOPs of one plan execution."""
         return sum(s.flops for s in self.steps)

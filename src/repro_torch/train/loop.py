@@ -117,10 +117,6 @@ def value_and_grad(cfg: ModelConfig, st: Strategy, params, batch, grad_accum: in
     return loss, tree_from_paths((path, g) for (path, _), g in zip(pairs, grads))
 
 
-def _in_window(step: int, at: int, width: int) -> bool:
-    return at <= step < at + width
-
-
 def make_train_step(cfg: ModelConfig, st: Strategy, opt: Optimizer, tc: TrainConfig):
     """Returns step(state, batch) -> (state, metrics); state = {"params",
     "opt", "step"[, "ef"]}, updated in place.  Under an ambient mesh, the
@@ -133,13 +129,8 @@ def make_train_step(cfg: ModelConfig, st: Strategy, opt: Optimizer, tc: TrainCon
     def step_fn(state, batch):
         params, opt_state, step = state["params"], state["opt"], state["step"]
         loss, grads = value_and_grad(cfg, st, params, batch, tc.grad_accum)
-        nf = tc.numeric_fault
-        if nf is not None and nf.nan_at_step >= 0 and _in_window(step, nf.nan_at_step, nf.steps):
-            loss = loss * float("nan")
-            grads = tree_map(lambda g: g * float("nan"), grads)
-        if (nf is not None and nf.grad_spike_at_step >= 0
-                and _in_window(step, nf.grad_spike_at_step, nf.steps)):
-            grads = tree_map(lambda g: g * nf.spike_factor, grads)
+        loss, grads = _with_faults(tc.numeric_fault, torch.tensor(step, device=loss.device),
+                                   loss, grads)
         if tc.compress_grads:
             grads, new_ef = _compressed(grads, state["ef"])
             with torch.no_grad():
@@ -182,23 +173,26 @@ def _refuse_unpartitioned(cfg: ModelConfig, tc: TrainConfig):
             "microbatch loop is the scan of ROADMAP A9)")
 
 
-def _fault_factors(nf: Optional[NumericFaultSpec], step: torch.Tensor):
-    """The fault window as data: (poison, spike), each a 0-d float32 tensor
-    or None, from the 0-d int64 step by ``torch.where`` as the reference's
-    ``jnp.where`` (``poison`` NaN inside the NaN window, else 1; ``spike``
-    the spike factor inside its window, else 1), so that one program serves
-    every step."""
+def _with_faults(nf: Optional[NumericFaultSpec], step: torch.Tensor, loss, grads):
+    """(loss, grads) under the fault window, as data: factors from the 0-d
+    int64 step by ``torch.where``, as the reference's ``jnp.where`` (NaN
+    inside the NaN window, the spike factor inside the spike window, else
+    1), so that one program serves every step.  Both train steps apply it."""
     if nf is None:
-        return None, None
+        return loss, grads
 
     def where(at, inside):
         hit = (step >= at) & (step < at + nf.steps)
         one = torch.ones((), dtype=torch.float32, device=step.device)
         return torch.where(hit, torch.full_like(one, inside), one)
 
-    return (where(nf.nan_at_step, float("nan")) if nf.nan_at_step >= 0 else None,
-            where(nf.grad_spike_at_step, nf.spike_factor) if nf.grad_spike_at_step >= 0
-            else None)
+    if nf.nan_at_step >= 0:
+        poison = where(nf.nan_at_step, float("nan"))
+        loss, grads = loss * poison, tree_map(lambda g: g * poison, grads)
+    if nf.grad_spike_at_step >= 0:
+        spike = where(nf.grad_spike_at_step, nf.spike_factor)
+        grads = tree_map(lambda g: g * spike, grads)
+    return loss, grads
 
 
 def _compressed(grads, ef):
@@ -223,7 +217,7 @@ def partitioned_train_step(cfg: ModelConfig, st: Strategy, opt: Optimizer, tc: T
     places them), takes the loss's gradient with autograd inside the
     program (attention's through the flash operators; remat per
     ``cfg.remat``, its recompute captured in the graph), applies the fault
-    window (``_fault_factors``: data, not a branch) and the bf16 exchange
+    window (``_with_faults``: data, not a branch) and the bf16 exchange
     (``_compressed``) where ``tc`` asks for them, and applies
     ``opt.apply``; it returns (params', opt_state', loss, grad_norm[,
     ef']).  ``spmd_partition(..., optimize=False)`` captures, completes and
@@ -244,12 +238,7 @@ def partitioned_train_step(cfg: ModelConfig, st: Strategy, opt: Optimizer, tc: T
         opt_state = tree_map(lambda t, spec: annotate_spec(t, spec, mesh), opt_state, ospecs)
         loss, grads = grad_program(params, batch)
         with torch.no_grad():
-            poison, spike = _fault_factors(tc.numeric_fault, step)
-            if poison is not None:
-                loss = loss * poison
-                grads = tree_map(lambda g: g * poison, grads)
-            if spike is not None:
-                grads = tree_map(lambda g: g * spike, grads)
+            loss, grads = _with_faults(tc.numeric_fault, step, loss, grads)
             new_ef = ()
             if ef:
                 fed = tree_map(lambda t, spec: annotate_spec(t, spec, mesh), ef[0], pspecs)

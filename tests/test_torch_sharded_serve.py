@@ -42,6 +42,7 @@ from repro.serve.engine import Engine as JaxEngine
 from repro.serve.engine import Request as JaxRequest
 from repro_torch.configs.base import get_strategy
 from repro_torch.configs.registry import get_config, reduced_config
+from repro_torch.core import mesh_runtime as mr
 from repro_torch.core.compat import TOLERANCES, assert_close, capture, set_mesh
 from repro_torch.core.partitioner import spmd_partition
 from repro_torch.launch.mesh import make_test_mesh
@@ -410,28 +411,56 @@ def test_float32_engine_parts_from_the_reference_only_at_bf16_cache_flips(monkey
     assert flipped, "no step of the run parts from the reference beyond f32_chain"
 
 
-def _cache_gathers(runner, args, T, dh):
-    """The plan steps whose result holds a whole cache sequence (``T`` keys
-    of ``dh`` values) on a device: a gathered k or v cache would."""
-    from torch.utils._pytree import tree_flatten
+def _sequence_sharded_run(cfg, st, slots, cache, mesh):
+    """The port's ``Engine`` (max_len 16) with its cache in ``cache``, under
+    ``mesh``: (engine, requests, recorded logits)."""
+    with set_mesh(mesh):
+        V = padded_vocab(cfg, st)
+        tree = dict(_weights("qwen1.5-0.5b"))
+        emb = tree["embed"]["embedding"]
+        tree["embed"] = {"embedding": np.pad(emb, ((0, V - emb.shape[0]), (0, 0)))}
+        eng = Engine(cfg, st, params_from_numpy(tree, cfg, "cpu", st), batch_slots=slots,
+                     max_len=16)
+    eng.cache = {k: v.to(getattr(torch, cache)) for k, v in eng.cache.items()}
+    seen = _recorded(eng, cfg.vocab_size)
+    reqs = eng.generate([Request(prompt=p, max_new_tokens=4) for p in _prompts(cfg.vocab_size)])
+    return eng, reqs, seen
 
-    from repro_torch.core import mesh_runtime as mr
 
-    (entry,) = runner.plans.values()
-    found = []
+@functools.lru_cache(maxsize=None)
+def _reference_sequence_sharded(slots, cache):
+    """The reference's ``Engine`` with ``shard_kv_seq`` unsharded on the
+    same weights and prompts, its cache in ``cache``: (outputs, logits)."""
+    jcfg, _ = _configs("qwen1.5-0.5b", "float32")
+    jcfg = jcfg.with_(shard_kv_seq=True)
+    jp = jax.tree_util.tree_map(jnp.asarray, _weights("qwen1.5-0.5b"))
+    eng = JaxEngine(jcfg, jax_get_strategy("2d_finalized"), jp, batch_slots=slots, max_len=16)
+    eng.cache = {k: v.astype(getattr(jnp, cache)) for k, v in eng.cache.items()}
+    seen = _recorded(eng, jcfg.vocab_size)
+    reqs = eng.generate([JaxRequest(prompt=p, max_new_tokens=4)
+                         for p in _prompts(jcfg.vocab_size)])
+    return [r.out for r in reqs], seen
 
-    def look(step, env):
-        for w in step.writes:
-            vals = env[w] if isinstance(env[w], list) else [env[w]]
-            if any(isinstance(t, torch.Tensor) and t.ndim >= 5 and t.shape[-3] == T
-                   and t.shape[-1] == dh for t in vals):
-                found.append(step.op)
 
-    flat, _ = tree_flatten(args)
-    with torch.no_grad():
-        entry.plan.execute(*(mr.shard(a, s) for a, s in zip(flat, entry.plan.in_shardings)),
-                           on_step=look)
-    return found
+def _over(seen, want, kind):
+    """The worst err / (atol + rtol |want|) over the steps of two runs."""
+    rtol, atol = TOLERANCES[kind]
+    return max(float((np.abs(g - w) / (atol + rtol * np.abs(w))).max())
+               for g, w in zip(seen, want))
+
+
+def _dropped_combine_psum(out, lse, mesh, axes):
+    """``combine_decode`` with its psum of the weighted outputs dropped: each
+    device keeps its own shard's weighted output."""
+    n, B, S, KR, Gl, D = out.shape
+    M = mr.pmax(lse, mesh, axes)
+    w = torch.exp(lse - M).reshape(n, B, KR, S, Gl).permute(0, 1, 3, 2, 4)[..., None]
+    return (w * out.float() / mr.psum(w, mesh, axes)).to(out.dtype)
+
+
+PLANTED = {"dropped combine psum": ("combine_decode", _dropped_combine_psum),
+           "shard offsets 0": ("_offsets_like", lambda sh, dim, size, like: torch.zeros(
+               (sh.mesh.size,) + (1,) * (like.ndim - 1), dtype=torch.long))}
 
 
 @pytest.mark.parametrize("cache", ["bfloat16", "float32"])
@@ -446,37 +475,29 @@ def test_sequence_sharded_engine_matches_the_unsharded_engine(strategy, slots, c
     stays sharded on its sequence: no plan step holds a whole cache
     sequence, one plan serves the run, and each layer's decode combines
     its shards with a pmax over "data" each step.  Tokens equal the port's
-    unsharded engine's; logits within f32_chain with a float32 cache, and
-    with the engine's bf16 cache within bf16_round: p is rounded to the
+    unsharded engine's and the reference's (``shard_kv_seq``, unsharded, the
+    same cache dtype); logits within f32_chain of both with a float32 cache,
+    and with the engine's bf16 cache within bf16_round: p is rounded to the
     cache's dtype relative to each shard's max, not the row's (ROADMAP
-    Queue C)."""
-    from repro_torch.core import mesh_runtime as mr
+    Queue C).  Each planted fault of the combine (the weighted outputs'
+    psum dropped; every shard at offset 0) must fail that limit against
+    the unsharded engine (readings printed under ``-s``)."""
+    from repro_torch.core import partitioner
 
     _, cfg = _configs("qwen1.5-0.5b", "float32")
     cfg, st = cfg.with_(shard_kv_seq=True), get_strategy(strategy)
+    kind = "f32_chain" if cache == "float32" else "bf16_round"
     pmax = []
     real = mr._reduce
     monkeypatch.setattr(mr, "_reduce", lambda x, mesh, axes, op: (
         op == "max" and pmax.append(tuple(axes))) or real(x, mesh, axes, op))
-    runs = []
-    for mesh in (MESH, None):
-        with set_mesh(mesh):
-            V = padded_vocab(cfg, st)
-            tree = dict(_weights("qwen1.5-0.5b"))
-            emb = tree["embed"]["embedding"]
-            tree["embed"] = {"embedding": np.pad(emb, ((0, V - emb.shape[0]), (0, 0)))}
-            eng = Engine(cfg, st, params_from_numpy(tree, cfg, "cpu", st), batch_slots=slots,
-                         max_len=16)
-        eng.cache = {k: v.to(getattr(torch, cache)) for k, v in eng.cache.items()}
-        seen = _recorded(eng, cfg.vocab_size)
-        reqs = eng.generate([Request(prompt=p, max_new_tokens=4)
-                             for p in _prompts(cfg.vocab_size)])
-        runs.append((eng, reqs, seen))
-    (eng, reqs, seen), (_, ureqs, useen) = runs
-    assert eng.pos >= 9 and [r.out for r in reqs] == [r.out for r in ureqs]
-    for step, (got, want) in enumerate(zip(seen, useen)):
-        assert_close(got, want, "f32_chain" if cache == "float32" else "bf16_round",
-                     err_msg=f"step {step}")
+    eng, reqs, seen = _sequence_sharded_run(cfg, st, slots, cache, MESH)
+    _, ureqs, useen = _sequence_sharded_run(cfg, st, slots, cache, None)
+    jouts, jseen = _reference_sequence_sharded(slots, cache)
+    assert eng.pos >= 9 and [r.out for r in reqs] == [r.out for r in ureqs] == jouts
+    for step, (got, want, ref) in enumerate(zip(seen, useen, jseen)):
+        assert_close(got, want, kind, err_msg=f"step {step}")
+        assert_close(got, ref, kind, err_msg=f"step {step}, against the reference")
     runner = eng.runner
     assert len(runner.plans) == 1 and runner.fallback_gathers == []
     assert pmax == [("data",)] * (cfg.num_layers * len(seen))
@@ -484,4 +505,17 @@ def test_sequence_sharded_engine_matches_the_unsharded_engine(strategy, slots, c
     caches = [sh for sh in entry.plan.in_shardings if sh.rank == 5]
     assert len(caches) == 2 and all(sh.dims_mapping[2] == ("data",) for sh in caches)
     token = torch.zeros((slots, 1), dtype=torch.long)
-    assert _cache_gathers(runner, (eng.params, token, eng.cache, eng._pos), 16, cfg.dh) == []
+    assert entry.plan.steps_holding((eng.params, token, eng.cache, eng._pos), lambda t: (
+        t.ndim >= 5 and t.shape[-3] == 16 and t.shape[-1] == cfg.dh)) == []
+    if cache == "float32":
+        return
+    readings = {"sound": _over(seen, useen, kind)}
+    for name, (attr, fault) in PLANTED.items():
+        with monkeypatch.context() as m:
+            m.setattr(partitioner, attr, fault)
+            readings[name] = _over(_sequence_sharded_run(cfg, st, slots, cache, MESH)[2],
+                                   useen, kind)
+    print(f"\n{strategy} {slots} slots, bf16 cache: logits against the unsharded engine, "
+          f"worst err/{kind}: " + ", ".join(f"{k} {v:.3f}" for k, v in readings.items()))
+    assert readings["sound"] <= 1.0 and all(v > 1.0 for k, v in readings.items()
+                                             if k != "sound"), readings

@@ -31,6 +31,7 @@ from repro.configs.base import ModelConfig as JaxModelConfig
 from repro.configs.base import get_strategy as jax_get_strategy
 from repro.models import api as jax_api
 from repro.models import layers as jax_layers
+from repro.train.loop import NumericFaultSpec as JaxNumericFaultSpec
 from repro.train.loop import TrainConfig as JaxTrainConfig
 from repro.train.loop import make_train_step as jax_make_train_step
 from repro.train.optimizer import get_optimizer as jax_get_optimizer
@@ -45,7 +46,7 @@ from repro_torch.kernels.ref import chunked_attention_ref
 from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models import api, layers
 from repro_torch.models.convert import params_from_numpy
-from repro_torch.train.loop import (TrainConfig, TrainLoop, make_train_step,
+from repro_torch.train.loop import (NumericFaultSpec, TrainConfig, TrainLoop, make_train_step,
                                     sharded_value_and_grad, value_and_grad)
 from repro_torch.train.optimizer import get_optimizer, opt_state_specs
 
@@ -245,6 +246,60 @@ def test_adafactor_step_under_the_mesh_matches_reference():
     for (path, s), w in zip(leaves_with_paths(state["opt"]),
                             jax.tree_util.tree_leaves(jstate["opt"])):
         assert_close(s, np.asarray(w), "f32_chain", err_msg=f"state {path}")
+
+
+OPTIONS = {"compress_grads": ({"compress_grads": True}, {"compress_grads": True}),
+           "numeric_fault": ({"numeric_fault": JaxNumericFaultSpec(nan_at_step=2,
+                                                                    grad_spike_at_step=1)},
+                             {"numeric_fault": NumericFaultSpec(nan_at_step=2,
+                                                                grad_spike_at_step=1)})}
+
+
+@pytest.mark.parametrize("option", sorted(OPTIONS))
+def test_step_options_under_the_mesh_match_reference(option):
+    """Three Adafactor steps of the partitioned step with ``compress_grads``
+    or the numeric-fault window (a gradient spike at step 1, NaN at step 2)
+    against the reference's ``make_train_step`` unsharded, from the same
+    weights and batches: losses and grad norms within f32_chain; with
+    compression the params and error feedback within coarse (bf16 rounding
+    is discontinuous, as in ``tests/test_torch_train.py``), under the fault
+    window the params within f32_chain until NaN reaches both, and every
+    param NaN after it."""
+    jkw, kw = OPTIONS[option]
+    jcfg, cfg, jst, st, np_tree, params, _ = _inputs("2d_finalized", "float32", seed=3)
+    jopt, opt = jax_get_optimizer("adafactor", lr=0.05), get_optimizer("adafactor", lr=0.05)
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, 16, 8, seed=4, pattern="arithmetic"))
+    jstep = jax.jit(jax_make_train_step(jcfg, jst, jopt, JaxTrainConfig(**jkw)))
+    jstate = _jax_state(jcfg, jst, jopt, np_tree)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    state = {"params": params, "opt": opt.init(params), "step": 0}
+    if option == "compress_grads":
+        jstate["ef"] = jax.tree_util.tree_map(jnp.zeros_like, jstate["params"])
+        state["ef"] = tree_map(torch.zeros_like, params)
+    with set_mesh(MESH):
+        step = make_train_step(cfg, st, opt, TrainConfig(**kw))
+    for i in range(3):
+        b = pipe.batch_at(i)
+        jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in b.items()})
+        state, m = step(state, {k: torch.from_numpy(v).long() for k, v in b.items()})
+        if option == "numeric_fault" and i == 2:
+            assert bool(torch.isnan(m["loss"])) and bool(np.isnan(jm["loss"]))
+            assert all(bool(torch.isnan(p).all()) for p in leaves(state["params"]))
+            assert all(np.isnan(np.asarray(w)).all()
+                       for w in jax.tree_util.tree_leaves(jstate["params"]))
+            continue
+        assert_close(m["loss"], np.asarray(jm["loss"]), "f32_chain", err_msg=f"step {i}")
+        assert_close(m["grad_norm"], np.asarray(jm["grad_norm"]), "f32_chain",
+                     err_msg=f"step {i}")
+        kind = "coarse" if option == "compress_grads" else "f32_chain"
+        parts = ("params", "ef") if option == "compress_grads" else ("params",)
+        for part in parts:
+            for (path, a), w in zip(leaves_with_paths(state[part]),
+                                    jax.tree_util.tree_leaves(jstate[part])):
+                assert_close(a, np.asarray(w), kind, err_msg=f"step {i} {part} {path}")
+    stats = step.runner.cache_stats
+    assert (stats.misses, stats.hits) == (1, 2) and step.runner.fallback_gathers == []
 
 
 def test_train_loop_under_the_mesh_matches_the_unsharded_loop():
