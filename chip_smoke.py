@@ -43,6 +43,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
    and, on signed
    inputs scaled by 10^3, its error against float64 beside the plain
    float32 version's;
+3b. ssd_scan_bwd: the SSD's backward kernel (seven launches per call) at
+   the Mamba2 training call (B8 S2048 H24), the partitioned train step's
+   fold (32 x 512, 6 heads, A per row), hd 32 with ds 16, S equal to the
+   chunk and inputs scaled by 10^3 (non-negative and signed), each of dx,
+   ddt, dB, dC and dA against the plain backward in float64 on the card
+   within f32_chain (or, where sums cancel, within 4x the plain float32
+   version's own error), with kernel, device and per-launch times, the
+   plain version's time and the bound (no PyTorch call computes it);
 4. qwen1.5-0.5b at full width (random weights from the seed): serve 16
    greedy requests behind ``Engine(slots=8, max_len=1024)``, every decode
    step launching the attention kernel once per layer; the forward against
@@ -54,9 +62,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
    against the CPU's plain path, per leaf, in float32 and bf16;
 5. mamba2-130m at full width: ``loss_fn`` of a batch of 8 x 2048 under
    inference mode (24 SSD launches, one per layer); serve 16 greedy
-   requests (the recurrent decode: no SSD launch); and the forward (the
+   requests (the recurrent decode: no SSD launch); the forward (the
    kernel) against 256 decode steps (the exact recurrence), with a planted
-   fault that the phase's limits must reject;
+   fault that the phase's limits must reject; training through
+   ``launch.train.main --arch mamba2-130m`` (B8 S2048, ten Adafactor
+   steps: every loss finite, step 0's loss equal to ``loss_fn`` without
+   autograd, per step 48 SSD forward calls with the "dots" recompute and
+   24 backward calls; ms per step, device busy and the SSD backward's share
+   of it, tokens/s, peak memory); and two full-width layers' float32
+   gradients through the kernels and through the plain path, each against
+   the plain path in float64 on the card;
 6. partition: the port's own partitioner on a simulated (2,4) mesh whose
    eight devices' shards all live on the card, by compiled plan
    (``spmd_partition(..., optimize=False)``: capture, sharding completion
@@ -90,7 +105,18 @@ Phases, each of which raises (and so exits non-zero) on failure:
    collectives per step, wall, host and device-busy ms per step, peak
    memory beside the plan's modeled peak; then ``compress_grads`` and the
    numeric-fault window (two layers, float32, four steps each) against
-   the unsharded steps;
+   the unsharded steps; then mamba2-130m's train step partitioned (the
+   three Table-1 strategies at two layers in float32, B8 S512, step 0's
+   loss and each gradient leaf held in norm to the unsharded step; 24
+   layers under 2d_finalized in float32, its loss held and its gradient
+   read beside the floor of the unsharded step's own two computations,
+   and two steps of ``TrainLoop`` under ``set_mesh`` read against the
+   unsharded loop; the same 24-layer step and two loop steps in float64,
+   the SSD on its plain route, held within f32_chain of the unsharded
+   ones, with planted dropped psums of the SSD gradient that must break
+   it; the 24-layer gradient in bf16, read only), the SSD and
+   its backward one call per layer for all eight devices, no gathering
+   fallback, no whole-vocabulary step;
 8. partitioned Mamba2 and serving, in a process of their own: mamba2-130m's
    loss (B8 S2048, bf16, no gradient) as one program through the
    partitioner under 2d_finalized against the same loss unsharded (24 SSD
@@ -832,6 +858,143 @@ def ssd_phase(seed):
 
 
 # ---------------------------------------------------------------------------------
+# ssd_scan backward kernel phase
+# ---------------------------------------------------------------------------------
+
+SSD_GRADS = ("dx", "ddt", "dB", "dC", "dA")
+
+
+def ssd_bwd_case(name, *, B, S, H, hd, ds, chunk, gen, per_row_a=False, scale_x=None):
+    """The backward kernel (seven launches per call) against the plain
+    backward run in float64 on the card, with the plain float32 version's
+    own distance from float64 beside it; kernel (events), device and
+    per-launch device times (profiler), the plain float32 version's time
+    and the bound (no PyTorch call computes this gradient).  Each of dx,
+    ddt, dB, dC and dA is held in norm within f32_chain's rtol and per
+    element within 4x the plain float32 version's largest error: on signed
+    inputs the plain float32 version itself lands up to 3x outside
+    f32_chain per element (near-zero sums of cancelling terms; measured on
+    the CPU at B2 S512 H3), so f32_chain per element would reject float32
+    itself.  ``scale_x``: "nonneg" takes x, B, C and dy non-negative and x
+    and dy times 10^3: every gradient but ddt is then a sum of terms of one
+    sign and is held per element within f32_chain; "signed" takes x times
+    10^3."""
+    from repro_torch.core.compat import TOLERANCES  # first: the core package loads graph_cost
+    from repro_torch.analysis.graph_cost import ssd_bwd_flops
+    from repro_torch.kernels import ssd_scan_bwd as ssd_bwd
+    from repro_torch.kernels.ref import ssd_scan_bwd_ref
+
+    dev = torch.device("cuda")
+    # x, dy and dx; dt and ddt; B, C and their gradients; A and dA
+    nbytes = 4 * (3 * B * S * H * hd + 2 * B * S * H + 4 * B * S * ds
+                  + 2 * H * (B if per_row_a else 1))
+    copies = max(1, min(4, math.ceil(2 * L2_BYTES / nbytes)))
+
+    def inputs():
+        x = torch.randn(B, S, H, hd, generator=gen, device=dev)
+        dt = torch.randn(B, S, H, generator=gen, device=dev).abs() * 0.5
+        Bm = torch.randn(B, S, ds, generator=gen, device=dev) * 0.2
+        Cm = torch.randn(B, S, ds, generator=gen, device=dev) * 0.2
+        A = -torch.randn(*((B, H) if per_row_a else (H,)), generator=gen, device=dev).abs()
+        dy = torch.randn(B, S, H, hd, generator=gen, device=dev)
+        if scale_x == "nonneg":
+            x, Bm, Cm, dy = x.abs() * 1e3, Bm.abs(), Cm.abs(), dy.abs() * 1e3
+        elif scale_x == "signed":
+            x = x * 1e3
+        return x, dt, Bm, Cm, A, dy
+
+    sets = [inputs() for _ in range(copies)]
+
+    def run_kernel(i):
+        return ssd_bwd.ssd_scan_bwd(*sets[i], chunk=chunk)
+
+    def run_plain(i):
+        return ssd_scan_bwd_ref(*sets[i], chunk)
+
+    got = run_kernel(0)
+    torch.cuda.synchronize()
+    exact = ssd_scan_bwd_ref(*(t.double() for t in sets[0]), chunk)
+    plain = run_plain(0)
+    tol = "f32_chain"
+    rtol, atol = TOLERANCES[tol]
+    errs = {}
+    for n, g, w, pl in zip(SSD_GRADS, got, exact, plain):
+        check(bool(torch.isfinite(g).all()), f"{name}: non-finite {n}")
+        err = (g.double() - w).abs()
+        plain_err = (pl.double() - w).abs().max().item()
+        errs[n] = {"max_abs_err": err.max().item(),
+                   "err_over_f32_chain": (err / (atol + rtol * w.abs())).max().item(),
+                   "rel_err_norm": (err.norm() / w.norm()).item(),
+                   "plain_f32_max_abs_err": plain_err,
+                   "plain_f32_err_over_f32_chain":
+                       ((pl.double() - w).abs() / (atol + rtol * w.abs())).max().item()}
+        e = errs[n]
+        if scale_x == "nonneg" and n != "ddt":
+            check(e["err_over_f32_chain"] <= 1.0,
+                  f"{name}: {n} kernel vs float64 plain err/f32_chain {e['err_over_f32_chain']}")
+        check(e["rel_err_norm"] <= rtol and e["max_abs_err"] <= 4 * plain_err,
+              f"{name}: {n} err {e['max_abs_err']} (plain float32 {plain_err}), in norm "
+              f"{e['rel_err_norm']}")
+    del exact, plain
+    # The card computes float32-accuracy products at 3xTF32 on its tensor
+    # cores (as the forward's bound counts them), so the bound by operations
+    # is 3 flops at the TF32 peak; the bound by float32 FMAs on the CUDA
+    # cores, where this kernel stands today, stays beside it on the printed line.
+    flops = ssd_bwd_flops(B, S, H, hd, ds, chunk)
+    t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    rec = {
+        "case": name, "dtype": "float32",
+        "shape": dict(B=B, S=S, H=H, hd=hd, ds=ds, Q=min(chunk, S),
+                      A=[B, H] if per_row_a else [H], scale_x=scale_x),
+        "max_abs_err": max(e["max_abs_err"] for e in errs.values()), "errors": errs, "tol": tol,
+        "against": "plain backward in float64",
+        "ms": time_ms(run_kernel, copies),
+        "dev_ms": device_ms(run_kernel, copies),
+        "plain_ms": time_ms(run_plain, copies),
+        "library_ms": None,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    }
+    # counted, not measured: on the printed line only
+    f32_fma_ms = max(flops / PEAK_F32_FLOPS * 1e3, t_bytes)
+    passes = device_ms(run_kernel, copies, by_name=True)
+    rec["pass_dev_ms"] = passes and {_variant(n): v["ms"] for n, v in passes.items()}
+    rec["launches_per_call"] = passes and sum(v["launches"] for v in passes.values())
+    check(not passes or rec["launches_per_call"] == len(SSD_BWD_LAUNCHES),
+          f"{name}: kernels per call in the trace {passes}, want {SSD_BWD_LAUNCHES}")
+    print(f"  {name:34s} err/f32_chain kernel (plain f32) " + ", ".join(
+        f"{n} {e['err_over_f32_chain']:.3f} ({e['plain_f32_err_over_f32_chain']:.3f})"
+        for n, e in errs.items()) + "; max abs err kernel / plain f32 " + ", ".join(
+        f"{n} {e['max_abs_err']:.3g}/{e['plain_f32_max_abs_err']:.3g}" for n, e in errs.items()) +
+        f"  kernel {rec['ms']:.4f} ms (device {_ms(rec['dev_ms'])})  plain {rec['plain_ms']:.4f} "
+        f"ms  bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, 3xTF32; f32 FMA {f32_fma_ms:.4f}; "
+        f"{flops:.4g} flop, "
+        f"{nbytes:.4g} bytes)", flush=True)
+    print(f"    per launch (device): " + ("not measured" if not passes else "  ".join(
+        f"{_variant(n)} {v['ms']:.4f} ms x{v['launches']}" for n, v in passes.items())),
+        flush=True)
+    return rec
+
+
+def ssd_bwd_phase(seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+    return [
+        # the Mamba2 training call, 24 per step
+        ssd_bwd_case("train_8x2048_h24", B=8, S=2048, H=24, hd=64, ds=128, chunk=128, gen=gen),
+        # the partitioned train step's call: eight devices' 4 rows of 6 heads
+        # folded, A per row (B8 S512 on ("data" 2, "model" 4))
+        ssd_bwd_case("partitioned_train_fold_32x512_h6", B=32, S=512, H=6, hd=64, ds=128,
+                     chunk=128, gen=gen, per_row_a=True),
+        ssd_bwd_case("hd32_ds16_2x1024", B=2, S=1024, H=4, hd=32, ds=16, chunk=128, gen=gen),
+        ssd_bwd_case("s_equals_q_4x128", B=4, S=128, H=24, hd=64, ds=128, chunk=128, gen=gen),
+        ssd_bwd_case("large_x_nonneg_2x512", B=2, S=512, H=3, hd=64, ds=128, chunk=128, gen=gen,
+                     scale_x="nonneg"),
+        ssd_bwd_case("large_x_signed_2x512", B=2, S=512, H=3, hd=64, ds=128, chunk=128, gen=gen,
+                     scale_x="signed"),
+    ]
+
+
+# ---------------------------------------------------------------------------------
 # model phases
 # ---------------------------------------------------------------------------------
 
@@ -848,10 +1011,10 @@ def counted(fn):
 
 
 def _kernel_modules():
-    from repro_torch.kernels import flash_attention, flash_attention_bwd, ssd_scan
+    from repro_torch.kernels import flash_attention, flash_attention_bwd, ssd_scan, ssd_scan_bwd
 
     return {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
-            "ssd_scan": ssd_scan}
+            "ssd_scan": ssd_scan, "ssd_scan_bwd": ssd_scan_bwd}
 
 
 def full_width_model(arch, seed, dtype=None):
@@ -1092,14 +1255,16 @@ TRAIN_STEPS = 10
 PROFILED_STEP = 6  # the step traced for device busy time (left out of the wall median)
 
 
-def train_phase(seed, B=4, S=2048):
-    """qwen1.5-0.5b at full width trained through ``launch.train.main`` (the
+def train_phase(seed, arch="qwen1.5-0.5b", B=4, S=2048):
+    """``arch`` at full width trained through ``launch.train.main`` (the
     port's entry point: float32 master weights, bf16 compute, remat "dots",
     Adafactor) for TRAIN_STEPS steps on the arithmetic pattern.  Checks:
     every loss finite; step 0's loss equal to ``api.loss_fn`` of the same
-    weights and batch without autograd; per step, 24 forward launches plus
-    24 recomputed in the backward (remat "dots" keeps only the 2-D
-    products) and 24 backward calls (three launches each).  Reads: ms per
+    weights and batch without autograd; per step, the layers' kernel
+    launched once per layer forward plus once more in the recompute (remat
+    "dots" keeps only the 2-D products) and its backward once per layer
+    (qwen: the flash forward and backward, three launches each backward
+    call; Mamba2: the SSD scan and its backward, seven).  Reads: ms per
     step (wall; device busy and the backward kernel's share of it from a
     trace of one step), tokens/s, peak memory."""
     from torch.autograd import DeviceType
@@ -1114,7 +1279,6 @@ def train_phase(seed, B=4, S=2048):
     from repro_torch.train.loop import TrainConfig, init_state
     from repro_torch.train.optimizer import get_optimizer
 
-    arch = "qwen1.5-0.5b"
     cfg, st = get_config(arch), get_strategy(default_strategy(arch))
     check(cfg.remat == "dots" and cfg.param_dtype == "float32", f"unexpected config {cfg}")
     params = init_state(cfg, st, get_optimizer("adafactor"), TrainConfig(),
@@ -1157,7 +1321,11 @@ def train_phase(seed, B=4, S=2048):
     assert_close(np.float32(losses[0]), np.float32(loss0), "f32",
                  err_msg="step 0's loss against api.loss_fn without autograd")
     L = cfg.num_layers
-    want = {"flash_attention": 2 * L, "flash_attention_bwd": L, "ssd_scan": 0}
+    fwd, bwd_kernel, bwd_variants = (("ssd_scan", "ssd_scan_bwd", SSD_BWD_LAUNCHES)
+                                     if cfg.family == "ssm" else
+                                     ("flash_attention", "flash_attention_bwd", BWD_LAUNCHES_BF16))
+    want = {name: 0 for name in mods}
+    want.update({fwd: 2 * L, bwd_kernel: L})
     for rec in steps:
         check(rec["launches"] == want, f"step {rec['step']} launches {rec['launches']} != {want}")
     wall = statistics.median(r["ms"] for r in steps[1:] if r["step"] != PROFILED_STEP)
@@ -1166,10 +1334,17 @@ def train_phase(seed, B=4, S=2048):
     for e in device:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values()) if device else None
-    bwd = {}  # the backward's launches in the traced step, by variant
+    # the backward kernel's launches in the traced step, by variant (the SSD
+    # backward's first two are the forward's passes: the forward's own
+    # launches of them are counted apart, by their number per step)
+    bwd = {}
     for n, ms in by_name.items():
-        if _variant(n) in BWD_LAUNCHES_BF16:
+        if _variant(n) in bwd_variants:
             bwd[_variant(n)] = bwd.get(_variant(n), 0.0) + ms
+    if cfg.family == "ssm":  # passes 1 and 2 run in 2L forward and L backward calls
+        for v in ("ssd_chunk_state", "ssd_state_pass"):
+            if v in bwd:
+                bwd[v] *= L / (3 * L)
     bwd_ms = sum(bwd.values()) if device else None
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     print(f"train {arch}: B={B} S={S}, {TRAIN_STEPS} steps, loss {losses[0]:.4f} -> "
@@ -1181,10 +1356,11 @@ def train_phase(seed, B=4, S=2048):
           f"; peak memory {peak:.2f} GiB", flush=True)
     for name, ms in top:
         print(f"  {ms:.4f} ms/step  {name[:90]}")
-    return {"B": B, "S": S, "losses": losses, "loss0_no_grad": loss0, "ms_per_step": wall,
-            "tokens_per_s": B * S / wall * 1e3, "device_busy_ms_per_step": busy,
-            "bwd_device_ms_per_step": bwd_ms, "bwd_device_ms_by_launch": bwd,
-            "device_ops_per_step": len(device), "peak_gib": peak, "steps": steps,
+    return {"arch": arch, "B": B, "S": S, "losses": losses, "loss0_no_grad": loss0,
+            "ms_per_step": wall, "tokens_per_s": B * S / wall * 1e3,
+            "device_busy_ms_per_step": busy, "bwd_device_ms_per_step": bwd_ms,
+            "bwd_device_ms_by_launch": bwd, "device_ops_per_step": len(device),
+            "peak_gib": peak, "steps": steps,
             "launches": {n: sum(r["launches"][n] for r in steps) for n in want},
             "top": [{"name": n[:120], "ms_per_step": ms} for n, ms in top]}
 
@@ -1215,7 +1391,7 @@ def two_layer_phase(seed, B=2, S=128):
         gpu = tree_map(lambda p: p.detach().cuda().requires_grad_(), cpu)
         (loss_g, grads_g), launches = counted(lambda: value_and_grad(
             cfg, st, gpu, {k: v.cuda() for k, v in batch.items()}))
-        want = {"flash_attention": 4, "flash_attention_bwd": 2, "ssd_scan": 0}
+        want = {"flash_attention": 4, "flash_attention_bwd": 2, "ssd_scan": 0, "ssd_scan_bwd": 0}
         check(launches == want, f"two-layer step launches {launches} != {want}")
         loss_c, grads_c = value_and_grad(cfg, st, cpu, batch)
         rel = {"/".join(path): ((g.cpu().double() - w.double()).norm() / w.double().norm()).item()
@@ -1231,9 +1407,82 @@ def two_layer_phase(seed, B=2, S=128):
     return out
 
 
-# ---------------------------------------------------------------------------------
-# partition phase: the port's own partitioner on a simulated (2,4) mesh
-# ---------------------------------------------------------------------------------
+def mamba_two_layer_phase(seed, B=2, S=256):
+    """mamba2-130m at full width cut to two layers, float32 compute and
+    masters: ``value_and_grad`` through the kernels (per layer the SSD
+    forward twice, with remat "dots"'s recompute, and its backward kernel
+    once) and through the plain path on the same card (``ops._route``
+    reading "cpu": the plain forward, which autograd differentiates), each
+    held against the plain path in float64 (the same weights widened) on a
+    batch of two chunks.  Per leaf, and for the loss: the kernel path's
+    error within f32_chain's rtol in norm and its largest element error
+    within 4x the plain float32 path's, as ``ssd_bwd_case`` holds the
+    kernel itself.  The weights are ``mamba2_published_init``'s, as the
+    partitioned float32 cases': from tree_init's, float32 itself lands up
+    to 1.3e-4 from float64 in norm (a leaf's gradient; from the published
+    init's 3.6e-5: ``tools/mamba2_conditioning.py --layers 2 --against
+    float64 --device cpu``, with and without ``--init published``)."""
+    from repro_torch.configs.base import get_strategy
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.compat import TOLERANCES
+    from repro_torch.core.tree import leaves_with_paths, tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.train.loop import TrainConfig, init_state, value_and_grad
+    from repro_torch.train.optimizer import get_optimizer
+
+    cfg = get_config("mamba2-130m").with_(num_layers=2, dtype="float32")
+    st = get_strategy("2d_finalized")
+    tokens = np.random.default_rng(seed + 5).integers(0, cfg.vocab_size, (B, S + 1))
+    batch = {"tokens": torch.from_numpy(tokens[:, :-1]).cuda(),
+             "labels": torch.from_numpy(tokens[:, 1:]).cuda()}
+    gen = torch.Generator("cuda").manual_seed(seed)
+    params = init_state(cfg, st, get_optimizer("sgd"), TrainConfig(), gen, "cuda")["params"]
+    mamba2_published_init(params, cfg.num_layers, gen)
+    (loss_k, grads_k), launches = counted(lambda: value_and_grad(cfg, st, params, batch))
+    want = {"flash_attention": 0, "flash_attention_bwd": 0, "ssd_scan": 4, "ssd_scan_bwd": 2}
+    check(launches == want, f"two-layer Mamba2 step launches {launches} != {want}")
+    route = ops._route
+    ops._route = lambda t: "cpu"  # the plain versions, on the card's tensors
+    try:
+        plain = {}
+        for dtype, widen in (("float32", torch.Tensor.clone), ("float64", torch.Tensor.double)):
+            plain[dtype], plain_launches = counted(lambda: value_and_grad(
+                cfg.with_(dtype=dtype), st,
+                tree_map(lambda p: widen(p.detach()).requires_grad_(), params), batch))
+            check(not any(plain_launches.values()), f"the plain path launched {plain_launches}")
+    finally:
+        ops._route = route
+    (loss_p, grads_p), (loss_x, grads_x) = plain["float32"], plain["float64"]
+    rtol = TOLERANCES["f32_chain"][0]
+    leaves = {"loss": (loss_k, loss_p, loss_x)}
+    leaves.update({"/".join(path): (k, p, x) for (path, k), (_, p), (_, x) in zip(
+        leaves_with_paths(grads_k), leaves_with_paths(grads_p), leaves_with_paths(grads_x))})
+    errs = {}
+    for n, (k, p, x) in leaves.items():
+        k, p, x = k.detach().double(), p.detach().double(), x.detach()
+        errs[n] = {"rel_err_norm": ((k - x).norm() / x.norm()).item(),
+                   "plain_f32_rel_err_norm": ((p - x).norm() / x.norm()).item(),
+                   "max_abs_err": (k - x).abs().max().item(),
+                   "plain_f32_max_abs_err": (p - x).abs().max().item()}
+    worst = max(errs, key=lambda n: errs[n]["rel_err_norm"])
+    over = {n: e["max_abs_err"] / (4 * e["plain_f32_max_abs_err"]) if e["plain_f32_max_abs_err"]
+            else (math.inf if e["max_abs_err"] else 0.0) for n, e in errs.items()}
+    worst_over = max(over, key=over.get)
+    print(f"two-layer Mamba2 step float32 B{B} S{S} against the plain path in float64: loss "
+          f"kernels {loss_k.item():.6f} plain float32 {loss_p.item():.6f} float64 "
+          f"{loss_x.item():.6f}; relative error in norm at most {errs[worst]['rel_err_norm']:.3e} "
+          f"({worst}; f32_chain {rtol}); largest element error at most "
+          f"{over[worst_over]:.3f} of 4x the plain float32 path's ({worst_over}); launches "
+          f"{launches}", flush=True)
+    print("  in norm kernels (plain float32): " + ", ".join(
+        f"{n} {e['rel_err_norm']:.2e} ({e['plain_f32_rel_err_norm']:.2e})"
+        for n, e in errs.items()), flush=True)
+    check(errs[worst]["rel_err_norm"] <= rtol,
+          f"Mamba2 two layers: {worst} off the float64 plain path by {errs[worst]}")
+    check(over[worst_over] <= 1.0, f"Mamba2 two layers: {worst_over}'s largest element error "
+          f"beyond 4x the plain float32 path's: {errs[worst_over]}")
+    return {"B": B, "S": S, "against": "plain path in float64", "class": "f32_chain",
+            "errors": errs, "launches": launches}
 
 
 def _swiglu(mesh):
@@ -1513,8 +1762,11 @@ def partition_phase_in_own_process(seed):
             "out['card'])); "
             f"options, k = chip_smoke.counted(lambda: chip_smoke.partition_option_phase({seed}, "
             "out['card'])); "
+            f"mamba, j = chip_smoke.counted(lambda: chip_smoke.partition_mamba_train_phase("
+            f"{seed}, out['card'])); "
             "print(json.dumps({'phase': out, 'launches': n, 'train': train, "
-            "'train_launches': m, 'options': options, 'option_launches': k}))")
+            "'train_launches': m, 'options': options, 'option_launches': k, "
+            "'mamba_train': mamba, 'mamba_train_launches': j}))")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=1000)
     lines = proc.stdout.splitlines()
@@ -1532,8 +1784,12 @@ def partition_phase_in_own_process(seed):
     check(res["option_launches"]["flash_attention_bwd"] > 0
           and res["option_launches"]["ssd_scan"] == 0,
           f"the partitioned options' launches: {res['option_launches']}")
+    check(res["mamba_train_launches"]["ssd_scan_bwd"] > 0
+          and res["mamba_train_launches"]["flash_attention"] == 0,
+          f"the partitioned Mamba2 training's launches: {res['mamba_train_launches']}")
     res["phase"]["launches"] = launched
-    for key in ("train", "train_launches", "options", "option_launches"):
+    for key in ("train", "train_launches", "options", "option_launches", "mamba_train",
+                "mamba_train_launches"):
         res["phase"][key] = res[key]
     return res["phase"]
 
@@ -1661,13 +1917,13 @@ def cache_gather_steps(runner, args, T, dh):
         args, lambda t: t.ndim >= 5 and t.shape[-3] == T and t.shape[-1] == dh)
 
 
-def partition_train_run(label, cfg, st, opt, state, pipe, steps, mesh, batch):
+def partition_train_run(label, cfg, st, opt, state, pipe, steps, mesh, batch, readings=True):
     """``TrainLoop.run`` for ``steps`` steps under ``mesh`` (None: unsharded)
     with the kernels' launches per step, wall ms per step (the host clock
     around the step, to its loss on the host), the params after step 0 and
-    the peak memory; then host and wall ms per step (device drained before
-    each), device-busy ms per step (profiler) and, partitioned, the plan's
-    readings."""
+    the peak memory; then, with ``readings``, host and wall ms per step
+    (device drained before each) and device-busy ms per step (profiler);
+    and, partitioned, the plan's readings."""
     from repro_torch.core.compat import set_mesh
     from repro_torch.core.tree import tree_map
     from repro_torch.train.loop import TrainConfig, TrainLoop
@@ -1699,10 +1955,12 @@ def partition_train_run(label, cfg, st, opt, state, pipe, steps, mesh, batch):
            "params_after_step0": snap["params"],
            "wall_ms_per_step": statistics.median(r["ms"] for r in recs[1:])}
     call = lambda: loop.step_fn(state, batch)  # noqa: E731 - more steps, after the comparison
-    out["host_ms_per_step"], out["drained_wall_ms_per_step"] = host_and_wall_ms(call, calls=3)
-    # one traced step: traced over two, no reading came back (device_ms
-    # wants each kernel's count to split evenly over the calls)
-    out["device_busy_ms_per_step"] = device_ms(lambda i: call(), 1, calls=1)
+    if readings:
+        out["host_ms_per_step"], out["drained_wall_ms_per_step"] = host_and_wall_ms(call,
+                                                                                    calls=3)
+        # one traced step: traced over two, no reading came back (device_ms
+        # wants each kernel's count to split evenly over the calls)
+        out["device_busy_ms_per_step"] = device_ms(lambda i: call(), 1, calls=1)
     runner = getattr(loop.step_fn, "runner", None)
     if runner is not None:
         (entry,) = runner.plans.values()
@@ -1849,7 +2107,7 @@ def partition_train_case(strategy, layers, steps, coarse_grads, remat, B, S, see
            **{f"sharded_{k}": v for k, v in sharded.items() if k not in ("losses", "label")},
            **{f"unsharded_{k}": v for k, v in unsharded.items()
               if k not in ("losses", "label")}}
-    want = {"flash_attention": fwd, "flash_attention_bwd": L, "ssd_scan": 0}
+    want = {"flash_attention": fwd, "flash_attention_bwd": L, "ssd_scan": 0, "ssd_scan_bwd": 0}
     print(f"  {strategy}: {L} layers, remat {remat}, B{B} S{S}, {steps} steps on ("
           f"{', '.join(f'{a} {n}' for a, n in zip(mesh.axis_names, mesh.shape))}); {card}",
           flush=True)
@@ -2012,7 +2270,7 @@ def partition_option_case(kind, seed, card):
     nan_ok = kind != "fault" or all(
         math.isnan(x[3][0]) and math.isnan(x[3][1]) for x in (ms, ums)) and all(
         bool(torch.isnan(p).all()) for s_ in (state, ustate) for p in leaves(s_["params"]))
-    want = {"flash_attention": 2, "flash_attention_bwd": 2, "ssd_scan": 0}
+    want = {"flash_attention": 2, "flash_attention_bwd": 2, "ssd_scan": 0, "ssd_scan_bwd": 0}
     rec = {"kind": kind, "card": card, "layers": 2, "dtype": "float32", "B": 8, "S": 512,
            "metrics_sharded": ms, "metrics_unsharded": ums,
            "metrics_err_over_f32_chain": metric_over,
@@ -2046,6 +2304,405 @@ def partition_option_phase(seed, card):
     print("partition: compress_grads and the numeric-fault window in the partitioned train "
           "step, against the same steps unsharded on the card", flush=True)
     return [partition_option_case(kind, seed, card) for kind in ("compress", "fault")]
+
+
+# ---------------------------------------------------------------------------------
+# Mamba2's train step partitioned
+# ---------------------------------------------------------------------------------
+
+# (strategy, layers, dtype, B, S, steps, gate): the three Table-1
+# strategies at two layers in float32, the loss and each gradient leaf
+# gated ("grads"); the finalized strategy at full depth in float32, its
+# loss gated and its gradient read beside the floor ("loss"; two steps of
+# the loop read), and in bf16, read only (None: random-weight bf16 Mamba2
+# is chaotic under the partitioned rounding schedule, R6; its gradient
+# alone, no loop).  The full-depth gradient and loop are gated in float64
+# (PARTITION_MAMBA_FLOAT64).
+#
+# Float32 does not determine this model's gradient at depth: a 1e-7
+# relative change of the tree_init weights moves a 24-layer gradient leaf
+# by up to 0.33 in norm (the gradient norms reach 1.6e4) and a two-layer
+# one by up to 1.5e-4, and of the published init's by 5.3e-2 and 5.8e-5
+# (tools/mamba2_conditioning.py on the CPU, full width, B2 S256).  The
+# float32 cases start
+# from Mamba2's published initialization (A in [1, 16], dt in [1e-3, 1e-1]
+# log-uniform; arXiv:2405.21060) with the output projection scaled by
+# 1/sqrt(L) (GPT-2's residual scaling), and read each gradient leaf beside
+# the floor the run measures: how far the unsharded step's own two float32
+# computations of the SSD, the kernels and the plain path, part on the same
+# weights.  On the card the floor is at most 4.0e-5 at two layers and
+# 0.35-0.39 at 24, where the partitioned step reads 1.0-1.4: there float32
+# cannot part a partitioning fault from rounding, and the float64 witness
+# below does.  A gated leaf is held to the larger of f32_chain's rtol and
+# 4x its floor; a dropped or doubled psum moves a two-layer leaf by order 1
+# (tests/test_torch_sharded_ssm.py).
+PARTITION_MAMBA_TRAIN = (("2d_finalized", 24, "float32", 8, 512, 2, "loss"),
+                         ("2d_finalized", 24, "bfloat16", 8, 512, 0, None),
+                         ("2d_finalized", 2, "float32", 8, 512, 0, "grads"),
+                         ("2d_attempt1", 2, "float32", 8, 512, 0, "grads"),
+                         ("2d_attempt2", 2, "float32", 8, 512, 0, "grads"))
+
+
+def mamba2_published_init(params, layers, gen):
+    """In place: A_log = log A with A uniform in [1, 16], dt_bias the
+    inverse softplus of dt log-uniform in [1e-3, 1e-1] (Mamba2's published
+    initialization), and the output projection scaled by 1/sqrt(layers)."""
+    mix = params["layers"]["mixer"]
+    with torch.no_grad():
+        shape, dev = mix["A_log"].shape, mix["A_log"].device
+        mix["A_log"].copy_(torch.log(1 + 15 * torch.rand(shape, generator=gen, device=dev)))
+        lo, hi = math.log(1e-3), math.log(1e-1)
+        dt = torch.exp(lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev))
+        mix["dt_bias"].copy_(dt + torch.log(-torch.expm1(-dt)))
+        mix["wo"].mul_(1 / math.sqrt(layers))
+
+
+def partition_mamba_train_case(strategy, layers, dtype, B, S, steps, gate, seed, card):
+    """mamba2-130m at its published widths (``layers`` deep; float32
+    masters, remat "dots", Adafactor, batch B x S): step 0's loss and
+    gradient by the step's own gradient program partitioned on ("data" 2,
+    "model" 4) against ``value_and_grad`` unsharded on the card, and, with
+    ``steps``, ``TrainLoop`` under ``set_mesh`` (the partitioned step)
+    against the same loop unsharded.  Float32 cases start from
+    ``mamba2_published_init``'s weights and read each gradient leaf beside
+    its floor (the unsharded gradient through the plain SSD, ``ops._route``
+    reading "cpu" on the card's tensors, against the unsharded one through
+    the kernels).  Gates: ``gate`` "loss", the loss within f32_chain's
+    rtol; "grads", also each gradient leaf in norm within the larger of
+    f32_chain's rtol and 4x its floor.  Always: per step (and
+    in the gradient program) the SSD forward launched twice per layer (the
+    "dots" recompute) and its backward once per layer, each one call for
+    all eight devices; no fallback that gathers a sharded dim; no plan step
+    holding a whole vocabulary dim; finite losses.  Reads: collectives,
+    plan steps, first-call seconds, wall, host and device-busy ms per step
+    and peak memory beside the plan's modeled peak x 8."""
+    from repro_torch.configs.base import get_strategy
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.compat import TOLERANCES, set_mesh
+    from repro_torch.core.partitioner import spmd_partition
+    from repro_torch.core.tree import leaves, leaves_with_paths, tree_map
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.train.loop import (TrainConfig, init_state, sharded_value_and_grad,
+                                        value_and_grad)
+    from repro_torch.train.optimizer import get_optimizer
+
+    cfg = get_config("mamba2-130m")
+    check((cfg.d_model, cfg.ssm_head_dim, cfg.ssm_state, cfg.vocab_size, cfg.remat,
+           cfg.param_dtype) == (768, 64, 128, 50280, "dots", "float32"), f"unexpected config {cfg}")
+    cfg = cfg.with_(num_layers=layers, dtype=dtype, scan_layers=False)
+    st, opt, mesh = get_strategy(strategy), get_optimizer("adafactor"), make_test_mesh()
+    L, V = cfg.num_layers, cfg.vocab_size
+    want = {"flash_attention": 0, "flash_attention_bwd": 0, "ssd_scan": 2 * L, "ssd_scan_bwd": L}
+    pipe = TokenPipeline(DataConfig(V, S, B, seed=seed, pattern="arithmetic"))
+    batch = {k: torch.from_numpy(v).to("cuda").long() for k, v in pipe.batch_at(0).items()}
+    gen = torch.Generator("cuda").manual_seed(seed)
+    with set_mesh(mesh):
+        state0 = init_state(cfg, st, opt, TrainConfig(), gen, "cuda")
+    if dtype == "float32":
+        mamba2_published_init(state0["params"], L, gen)
+
+    def fresh():
+        params = tree_map(lambda p: p.detach().clone().requires_grad_(), state0["params"])
+        return {"params": params, "opt": opt.init(params), "step": 0}
+
+    with set_mesh(mesh):
+        grad_runner = spmd_partition(sharded_value_and_grad(cfg, st, mesh), mesh,
+                                     optimize=False, device="cuda")
+        (loss_s, grads_s), launched = counted(lambda: grad_runner(
+            tree_map(torch.Tensor.detach, state0["params"]), batch))
+    grad_first = dict(_plan_of(grad_runner).build_s)
+    grad_fallback_gathers = list(grad_runner.fallback_gathers)
+    check(launched == want, f"{strategy} {dtype}: the partitioned gradient launched {launched}, "
+          f"want {want}")
+    loss_u, grads_u = value_and_grad(cfg, st, fresh()["params"], batch)
+    rel = {"/".join(p): _rel(g, u)
+           for (p, g), u in zip(leaves_with_paths(grads_s), leaves(grads_u))}
+    loss_rel = abs(loss_s.item() - loss_u.item()) / abs(loss_u.item())
+    worst = max(rel, key=rel.get)
+    limit = TOLERANCES["f32_chain"][0]
+    del grads_s
+    floor = None
+    if dtype == "float32":  # the unsharded step's own two float32 computations of the SSD
+        route = ops._route
+        ops._route = lambda t: "cpu"  # the plain versions, on the card's tensors
+        try:
+            _, grads_p = value_and_grad(cfg, st, fresh()["params"], batch)
+        finally:
+            ops._route = route
+        floor = {"/".join(p): _rel(g, u)
+                 for (p, g), u in zip(leaves_with_paths(grads_p), leaves(grads_u))}
+        del grads_p
+    del grads_u, grad_runner
+    torch.cuda.empty_cache()
+    # the larger of f32_chain's rtol and 4x the floor
+    over = {n: rel[n] / max(limit, 4 * floor[n]) for n in rel} if floor else None
+    rec = {"strategy": strategy, "layers": L, "dtype": dtype, "B": B, "S": S, "card": card,
+           "label": f"mamba2 {strategy} {L}L {dtype} B{B} S{S}", "gate": gate,
+           "init": "published" if floor else "tree_init",
+           "grad_loss_sharded": loss_s.item(), "grad_loss_unsharded": loss_u.item(),
+           "loss_rel_err": loss_rel, "grad_rel_err": rel, "grad_rel_err_max": [worst, rel[worst]],
+           "floor_rel_err": floor, "grad_err_over_limit": over,
+           "grad_program_first_call_s": grad_first, "grad_launches": launched,
+           "grad_fallback_gathers": grad_fallback_gathers}
+    print(f"  mamba2 {strategy}: {L} layers, {dtype}, B{B} S{S} on ("
+          f"{', '.join(f'{a} {n}' for a, n in zip(mesh.axis_names, mesh.shape))}), "
+          + ("Mamba2's published init" if floor else "tree_init weights") + f"; {card}",
+          flush=True)
+    print(f"    step-0 loss sharded {loss_s.item():.6f} unsharded {loss_u.item():.6f} (rel "
+          f"{loss_rel:.3e}; f32_chain {limit}" + ("; gated" if gate else "; read") +
+          f"); gradient per leaf in norm at most {rel[worst]:.3e} ({worst}; "
+          + ("gated at the larger of f32_chain's rtol and 4x the floor" if gate == "grads"
+             else "read, not gated") + f"); within f32_chain's rtol: "
+          f"{sum(r <= limit for r in rel.values())} of {len(rel)} leaves"
+          + (f"; at most {max(over.values()):.3f} of the larger of f32_chain's rtol and 4x the "
+             "floor" if over else ""), flush=True)
+    print("    sharded vs unsharded: " + ", ".join(f"{n} {r:.2e}" for n, r in rel.items()),
+          flush=True)
+    if floor:
+        print("    floor (unsharded, plain SSD vs kernels): " + ", ".join(
+            f"{n} {r:.2e}" for n, r in floor.items()), flush=True)
+    print(f"    gradient program: first call {json.dumps(grad_first)}, launches {launched}",
+          flush=True)
+    check(not grad_fallback_gathers, f"{strategy}: fallbacks gathered {grad_fallback_gathers}")
+    check(math.isfinite(loss_s.item()), f"{strategy}: non-finite loss")
+    if gate:
+        check(loss_rel <= limit, f"mamba2 {strategy} {L}L: the partitioned step-0 loss off the "
+              f"unsharded one by {loss_rel}")
+    if gate == "grads":
+        off = {n: v for n, v in over.items() if v > 1.0}
+        check(not off, f"mamba2 {strategy} {L}L: the partitioned step-0 gradient off the "
+              f"unsharded one: leaves over their limit {off}")
+    if not steps:
+        return rec
+    sharded = partition_train_run("sharded", cfg, st, opt, fresh(), pipe, steps, mesh, batch)
+    runner = sharded.pop("runner")
+    state = fresh()
+    holders = whole_vocab_steps(runner, (tree_map(torch.Tensor.detach, state["params"]),
+                                         state["opt"], torch.tensor(0, device="cuda"), batch), V)
+    del runner, state
+    sharded.pop("params_after_step0")
+    unsharded = partition_train_run("unsharded", cfg, st, opt, fresh(), pipe, steps, None, batch)
+    unsharded.pop("params_after_step0")
+    rec.update({"losses_sharded": sharded["losses"], "losses_unsharded": unsharded["losses"],
+                "whole_vocab_steps": holders,
+                **{f"sharded_{k}": v for k, v in sharded.items() if k not in ("losses", "label")},
+                **{f"unsharded_{k}": v for k, v in unsharded.items()
+                   if k not in ("losses", "label")}})
+    print(f"    losses sharded {sharded['losses']} unsharded {unsharded['losses']}", flush=True)
+    print(f"    launches per step sharded {[r['launches'] for r in sharded['steps']]}", flush=True)
+    print(f"    first step: {json.dumps(sharded['first_call_s'])}; plan {sharded['plan_steps']} "
+          f"steps; collectives per step {json.dumps(sharded['collectives_per_step'])}; fallbacks "
+          f"{json.dumps(sharded['fallbacks'])}", flush=True)
+    for tag, r in (("sharded", sharded), ("unsharded", unsharded)):
+        print(f"    {tag}: wall {r['wall_ms_per_step']:.1f} ms/step (steps 1-{steps - 1}); host "
+              f"{r['host_ms_per_step']:.1f} ms, drained wall {r['drained_wall_ms_per_step']:.1f} "
+              f"ms, device busy {_ms(r['device_busy_ms_per_step'])} per step; peak "
+              f"{r['peak_gib']:.3f} GiB"
+              + (f" (plan's modeled peak x8 {r['modeled_peak_x8_gib']:.3f})"
+                 if "modeled_peak_x8_gib" in r else ""), flush=True)
+    for r in sharded["steps"] + unsharded["steps"]:
+        check(r["launches"] == want, f"mamba2 {strategy}: step {r['step']} launched "
+              f"{r['launches']}, want {want}")
+    check(not sharded["fallback_gathers"],
+          f"mamba2 {strategy}: fallbacks gathered a sharded dim: {sharded['fallback_gathers']}")
+    check(not holders, f"mamba2 {strategy}: plan steps held a whole vocabulary dim: {holders}")
+    check(all(math.isfinite(x) for x in sharded["losses"] + unsharded["losses"]),
+          f"mamba2 {strategy}: non-finite loss")
+    if gate:
+        err = _err_over(torch.tensor(sharded["losses"][0]), torch.tensor(unsharded["losses"][0]),
+                        "f32_chain")
+        rec["step0_loss_err_over_f32_chain"] = err
+        check(err <= 1.0, f"mamba2 {strategy}: the loops' step-0 losses differ: {err}")
+    return rec
+
+
+# (strategy, layers, B, S, steps): the full-depth partitioned step in
+# float64, the witness that parts a partitioning fault from float32's
+# conditioning (above)
+PARTITION_MAMBA_FLOAT64 = ("2d_finalized", 24, 8, 512, 2)
+# the psums of decide_ssd_bwd's op a planted fault drops, by their shape, and
+# how many each layer's op runs under 2d_finalized
+SSD_BWD_PSUMS = {"dB, dC": (lambda t: t.ndim == 4, 2), "dA": (lambda t: t.ndim == 2, 1)}
+
+
+class SSDBwdPsumDropped:
+    """``core/mesh_runtime.py`` with the psums over ``axis`` that
+    ``decide_ssd_bwd``'s op runs for the gradients ``grad`` (a key of
+    SSD_BWD_PSUMS: dB's and dC's are (n, b, S, ds), dA's (n, H)) left out;
+    every other psum as it was."""
+
+    def __init__(self, grad, axis):
+        from repro_torch.core import mesh_runtime
+
+        self._mr, (self._which, self.per_layer), self._axis = (mesh_runtime,
+                                                                SSD_BWD_PSUMS[grad], axis)
+        self.dropped = 0
+
+    def __getattr__(self, name):
+        return getattr(self._mr, name)
+
+    def psum(self, x, mesh, axes):
+        caller = sys._getframe(1).f_code.co_qualname
+        if (caller.startswith("decide_ssd_bwd.") and self._axis in tuple(axes)
+                and self._which(x)):
+            self.dropped += 1
+            return x
+        return self._mr.psum(x, mesh, axes)
+
+
+def partition_mamba_float64_case(strategy, layers, B, S, steps, seed, card):
+    """The float64 witness: the same weights as the float32 full-depth case
+    (``mamba2_published_init``), widened to float64, and the model in
+    float64, the SSD and its gradient on their plain route (``ops._route``
+    reading "cpu" on the card's tensors: the kernels are float32 only).
+    Float64 carries the float32 rounding that this model amplifies to
+    order 1 at 24 layers (a 1e-7 weight change moved each leaf 0.074-0.083
+    on the card) 9 orders lower, so the partitioned step-0 loss and each
+    gradient leaf are gated within f32_chain's rtol in norm against the
+    same unsharded, and so is ``steps`` steps of ``TrainLoop`` (the
+    partitioned train step under ``set_mesh``, its own program): each
+    step's loss, and each param after step 0 (Adafactor's update is
+    float32 math).  Planted faults, each rerunning the partitioned gradient
+    program: dB's and dC's psums over "model" dropped, then dA's over
+    "data"; each must put a leaf beyond that limit.  Also gated: the plan
+    holds per layer two SSD forward steps and one backward step, no
+    fallback gathers a sharded dim, and no kernel launched."""
+    from repro_torch.configs.base import get_strategy
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import partitioner as part
+    from repro_torch.core.compat import TOLERANCES, set_mesh
+    from repro_torch.core.partitioner import spmd_partition
+    from repro_torch.core.tree import leaves, leaves_with_paths, tree_map
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.train.loop import (TrainConfig, init_state, sharded_value_and_grad,
+                                        value_and_grad)
+    from repro_torch.train.optimizer import get_optimizer
+
+    t0 = time.perf_counter()
+    cfg = get_config("mamba2-130m").with_(num_layers=layers, dtype="float32", scan_layers=False)
+    st, opt, mesh = get_strategy(strategy), get_optimizer("adafactor"), make_test_mesh()
+    L, V = cfg.num_layers, cfg.vocab_size
+    pipe = TokenPipeline(DataConfig(V, S, B, seed=seed, pattern="arithmetic"))
+    batch = {k: torch.from_numpy(v).to("cuda").long() for k, v in pipe.batch_at(0).items()}
+    gen = torch.Generator("cuda").manual_seed(seed)
+    with set_mesh(mesh):
+        state0 = init_state(cfg, st, opt, TrainConfig(), gen, "cuda")
+    mamba2_published_init(state0["params"], L, gen)  # the float32 case's weights
+    params0 = tree_map(lambda p: p.detach().double(), state0["params"])
+    del state0
+    cfg = cfg.with_(dtype="float64")
+    limit = TOLERANCES["f32_chain"][0]
+
+    def fresh():
+        params = tree_map(lambda p: p.clone().requires_grad_(), params0)
+        return {"params": params, "opt": opt.init(params), "step": 0}
+
+    route = ops._route
+    ops._route = lambda t: "cpu"  # the plain versions, on the card's tensors
+    try:
+        with set_mesh(mesh):
+            runner = spmd_partition(sharded_value_and_grad(cfg, st, mesh), mesh,
+                                    optimize=False, device="cuda")
+            (loss_s, grads_s), launched = counted(lambda: runner(params0, batch))
+        (entry,) = runner.plans.values()
+        ssd_steps = collections.Counter(s.op for s in entry.plan.steps
+                                        if s.op.startswith("repro_torch.ssd"))
+        loss_u, grads_u = value_and_grad(cfg, st, fresh()["params"], batch)
+        names = ["/".join(p) for p, _ in leaves_with_paths(grads_u)]
+        rel = {n: _rel(g, u) for n, g, u in zip(names, leaves(grads_s), leaves(grads_u))}
+        del grads_s
+        faults = {}
+        for grad, axis in (("dB, dC", "model"), ("dA", "data")):
+            planted = SSDBwdPsumDropped(grad, axis)
+            part.mr = planted
+            try:
+                _, grads_f = runner(params0, batch)
+            finally:
+                part.mr = planted._mr
+            check(planted.dropped == planted.per_layer * L,
+                  f"float64 witness: the planted fault dropped {planted.dropped} psums of {grad} "
+                  f"over {axis}, want {planted.per_layer} per layer")
+            faults[f"{grad} over {axis}"] = max(
+                _rel(g, u) for g, u in zip(leaves(grads_f), leaves(grads_u))) / limit
+            del grads_f
+        del grads_u
+        loops = {}
+        for label, m in (("sharded", mesh), ("unsharded", None)):
+            run = partition_train_run(label, cfg, st, opt, fresh(), pipe, steps, m, batch,
+                                      readings=False)
+            run.pop("runner", None)
+            loops[label] = run
+    finally:
+        ops._route = route
+    torch.cuda.empty_cache()
+    sh, un = loops["sharded"], loops["unsharded"]
+    loss_rel = abs(loss_s.item() - loss_u.item()) / abs(loss_u.item())
+    loop_loss_rel = [abs(a - b) / abs(b) for a, b in zip(sh["losses"], un["losses"])]
+    param_rel = {n: _rel(a, b) for n, a, b in zip(names, leaves(sh["params_after_step0"]),
+                                                    leaves(un["params_after_step0"]))}
+    worst = max(rel, key=rel.get)
+    worst_p = max(param_rel, key=param_rel.get)
+    rec = {"strategy": strategy, "layers": L, "dtype": "float64", "B": B, "S": S, "card": card,
+           "label": f"mamba2 {strategy} {L}L float64 B{B} S{S}", "route": "plain",
+           "grad_loss_sharded": loss_s.item(), "grad_loss_unsharded": loss_u.item(),
+           "loss_rel_err": loss_rel, "grad_rel_err": rel, "grad_rel_err_max": [worst, rel[worst]],
+           "planted_fault_over_limit": faults, "plan_ssd_steps": dict(ssd_steps),
+           "grad_launches": launched, "grad_fallback_gathers": list(runner.fallback_gathers),
+           "losses_sharded": sh["losses"], "losses_unsharded": un["losses"],
+           "loop_loss_rel_err": loop_loss_rel, "params_after_step0_rel_err": param_rel,
+           "loop_fallback_gathers": sh["fallback_gathers"],
+           "sharded_peak_gib": sh["peak_gib"], "unsharded_peak_gib": un["peak_gib"],
+           "seconds": time.perf_counter() - t0}
+    print(f"  mamba2 {strategy}: {L} layers, float64 (the float32 case's weights widened; the "
+          f"SSD and its gradient on the plain route), B{B} S{S} on ("
+          f"{', '.join(f'{a} {n}' for a, n in zip(mesh.axis_names, mesh.shape))}); {card}",
+          flush=True)
+    print(f"    step-0 loss sharded {loss_s.item():.12f} unsharded {loss_u.item():.12f} (rel "
+          f"{loss_rel:.3e}); gradient per leaf in norm at most {rel[worst]:.3e} ({worst}); "
+          f"gated at f32_chain's rtol {limit}", flush=True)
+    print("    sharded vs unsharded: " + ", ".join(f"{n} {r:.2e}" for n, r in rel.items()),
+          flush=True)
+    print("    planted faults, largest leaf error over the limit: " + ", ".join(
+        f"{n} dropped {r:.4g}" for n, r in faults.items()), flush=True)
+    print(f"    loop: losses sharded {sh['losses']} unsharded {un['losses']} (rel "
+          f"{', '.join(f'{r:.3e}' for r in loop_loss_rel)}); params after step 0 per leaf in "
+          f"norm at most {param_rel[worst_p]:.3e} ({worst_p}); plan SSD steps {dict(ssd_steps)}; "
+          f"peak sharded {sh['peak_gib']:.3f} GiB unsharded {un['peak_gib']:.3f} GiB; "
+          f"{rec['seconds']:.1f} s", flush=True)
+    want = {"repro_torch.ssd_scan": 2 * L, "repro_torch.ssd_scan_bwd": L}
+    check(dict(ssd_steps) == want, f"float64 witness: plan SSD steps {dict(ssd_steps)}, "
+          f"want {want}")
+    check(not any(launched.values()), f"float64 witness: the plain route launched {launched}")
+    check(not runner.fallback_gathers and not sh["fallback_gathers"],
+          f"float64 witness: fallbacks gathered {runner.fallback_gathers} "
+          f"{sh['fallback_gathers']}")
+    check(loss_rel <= limit and rel[worst] <= limit,
+          f"float64 witness: the partitioned step 0 off the unsharded one: loss {loss_rel}, "
+          f"{worst} {rel[worst]}")
+    check(max(loop_loss_rel) <= limit and param_rel[worst_p] <= limit,
+          f"float64 witness: the partitioned loop off the unsharded one: losses "
+          f"{loop_loss_rel}, {worst_p} after step 0 {param_rel[worst_p]}")
+    check(all(r > 1.0 for r in faults.values()),
+          f"float64 witness: a planted fault went unseen: {faults}")
+    return rec
+
+
+def partition_mamba_train_phase(seed, card):
+    print("partition: mamba2-130m's train step through spmd_partition(..., optimize=False) on "
+          "(data 2, model 4) against the same step unsharded on the card", flush=True)
+    # the float64 witness first: it launches no kernel, and its loop sets
+    # the launch counts to 0 at each step, which the kernel cases after it
+    # then count up again for this phase's own check
+    cases = [partition_mamba_float64_case(*PARTITION_MAMBA_FLOAT64, seed, card)]
+    torch.cuda.empty_cache()
+    for case in PARTITION_MAMBA_TRAIN:
+        cases.append(partition_mamba_train_case(*case, seed, card))
+        torch.cuda.empty_cache()
+    return cases
 
 
 # ---------------------------------------------------------------------------------
@@ -2150,7 +2807,7 @@ def sharded_loss_phase(seed, card):
               f"wall {r['wall_ms']:.1f} ms per forward; peak {r['peak_gib']:.3f} GiB"
               + (f" (plan's modeled peak x8 {r['modeled_peak_x8_gib']:.3f})"
                  if "modeled_peak_x8_gib" in r else ""), flush=True)
-    want = {"flash_attention": 0, "flash_attention_bwd": 0, "ssd_scan": L}
+    want = {"flash_attention": 0, "flash_attention_bwd": 0, "ssd_scan": L, "ssd_scan_bwd": 0}
     check(sh["launches"] == want and sh["launches_first"] == want and un["launches"] == want,
           f"SSD calls per forward: sharded {sh['launches']}, unsharded {un['launches']}; "
           f"want {want}")
@@ -2536,7 +3193,7 @@ def sharded_serve_case(arch, strategy, layers, dtype, min_steps, kv_seq, slots, 
             r.update(sharded_vs_float64=rel(got, exact), unsharded_vs_float64=rel(want, exact))
         tf.append(r)
     want_launch = {"flash_attention": L if kernel else 0, "flash_attention_bwd": 0,
-                   "ssd_scan": 0}
+                   "ssd_scan": 0, "ssd_scan_bwd": 0}
     bad = [i for i, l in enumerate(sh["launches_per_step"]) if l != want_launch]
     bad_u = [i for i, l in enumerate(un["launches_per_step"]) if l != want_launch]
     seq_sharded = [tuple(sh.dims_mapping[2]) for sh in _plan_of(runner).plan.in_shardings
@@ -2688,7 +3345,12 @@ VARIANT_OF = {"flash_bwd_prep": "bwd_prep", "flash_bwd_main": "bwd_main",
               "flash_bwd_dq_f32": "bwd_dq_f32", "flash_bwd_dkdv_f32": "bwd_dkdv_f32",
               "flash_wgmma": "prefill_wgmma", "flash_decode": "decode_splitkv",
               "flash_fwd": "prefill_f32", "ssd_chunk_state": "ssd_chunk_state",
-              "ssd_state_pass": "ssd_state_pass", "ssd_chunk_out": "ssd_chunk_out"}
+              "ssd_state_pass": "ssd_state_pass", "ssd_chunk_out": "ssd_chunk_out",
+              "ssd_bwd_dstate_local": "ssd_bwd_dstate_local",
+              "ssd_bwd_dstate_pass": "ssd_bwd_dstate_pass",
+              # before ssd_bwd_head, of which its name is an extension
+              "ssd_bwd_heads_sum": "ssd_bwd_heads_sum", "ssd_bwd_head": "ssd_bwd_head",
+              "ssd_bwd_da": "ssd_bwd_da"}
 # the kernels whose products run on wgmma (HGMMA in the SASS)
 HGMMA_VARIANTS = ("prefill_wgmma", "bwd_main")
 # the SSD passes whose products run on the tensor cores with mma.sync
@@ -2697,6 +3359,9 @@ HMMA_VARIANTS = ("ssd_chunk_state", "ssd_chunk_out")
 # the backward's launches per call
 BWD_LAUNCHES_BF16 = ("bwd_prep", "bwd_main", "bwd_dq_out")
 BWD_LAUNCHES_F32 = ("bwd_dq_f32", "bwd_dkdv_f32")
+# the SSD backward's launches per call: the forward's passes 1 and 2, then its own
+SSD_BWD_LAUNCHES = ("ssd_chunk_state", "ssd_state_pass", "ssd_bwd_dstate_local",
+                    "ssd_bwd_dstate_pass", "ssd_bwd_head", "ssd_bwd_heads_sum", "ssd_bwd_da")
 
 
 def _variant(symbol):
@@ -2795,6 +3460,7 @@ def main(argv=None):
     print(smi)
     print(f"env: torch {torch.__version__} cuda {torch.version.cuda} | "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
+    t0 = time.perf_counter()
     build = build_kernels()
 
     print("kernel: flash_attention (CUDA) vs plain PyTorch on the card", flush=True)
@@ -2804,6 +3470,8 @@ def main(argv=None):
     print("kernel: ssd_scan (CUDA) vs plain PyTorch on the card", flush=True)
     ssd_cases = ssd_phase(args.seed)
     ssd_cancel = ssd_cancelling_sums(torch.Generator(device="cuda").manual_seed(args.seed + 11))
+    print("kernel: ssd_scan_bwd (CUDA) vs the plain backward in float64 on the card", flush=True)
+    ssd_bwd_cases = ssd_bwd_phase(args.seed)
 
     cfg, st, params = full_width_model("qwen1.5-0.5b", args.seed)
     qwen_serve = serve_phase(cfg, st, params, args.seed, "flash_attention")
@@ -2822,13 +3490,20 @@ def main(argv=None):
     mamba_consistency = consistency_phase(cfg, st, params, args.seed, "ssd_scan")
     del params
     torch.cuda.empty_cache()
+    mamba_train = train_phase(args.seed, arch="mamba2-130m", B=8, S=2048)
+    torch.cuda.empty_cache()
+    mamba_two_layer = mamba_two_layer_phase(args.seed)
+    torch.cuda.empty_cache()
 
-    print("partition: the port's partitioner on a simulated (2,4) mesh, by compiled plan and "
-          "by the dynamic path, against the same functions unsharded on the card", flush=True)
+    print(f"partition (at {time.perf_counter() - t0:.0f} s): the port's partitioner on a "
+          "simulated (2,4) mesh, by compiled plan and by the dynamic path, against the same "
+          "functions unsharded on the card", flush=True)
     partition = partition_phase_in_own_process(args.seed)
-    print("partition: Mamba2's loss and serving of both families through the partitioner, "
-          "against the same paths unsharded on the card", flush=True)
+    print(f"partition (at {time.perf_counter() - t0:.0f} s): Mamba2's loss and serving of both "
+          "families through the partitioner, against the same paths unsharded on the card",
+          flush=True)
     sharded = sharded_phases_in_own_process(args.seed, partition["card"])
+    print(f"phases done at {time.perf_counter() - t0:.0f} s", flush=True)
 
     fa_main = next(c for c in fa_cases if c["case"] == "decode_8x16_pos1023")
     fa_prefill = next(c for c in fa_cases if c["case"] == "prefill_qwen_loss_2x2048")
@@ -2837,6 +3512,9 @@ def main(argv=None):
     devpos = {c["case"]: c for c in fa_cases if c["case"].startswith("decode_devpos")}
     rowpos = {f"{c['case']} {c['dtype']}": c for c in fa_cases
               if c["case"].startswith("decode_rowpos")}
+    ssd_bwd_main = next(c for c in ssd_bwd_cases if c["case"] == "train_8x2048_h24")
+    ssd_bwd_fold = next(c for c in ssd_bwd_cases
+                        if c["case"] == "partitioned_train_fold_32x512_h6")
     bwd_main = next(c for c in bwd_cases if c["case"] == "train_qwen_4x2048")
     bwd_fold = next(c for c in bwd_cases if c["case"] == "partitioned_train_fold_32x512_kr4")
     fa_fold = next(c for c in fa_cases if c["case"] == "partitioned_train_fold_32x512_kr4")
@@ -2891,10 +3569,25 @@ def main(argv=None):
         "partition_train_case": {"case": bwd_fold["case"], **{k: bwd_fold[k] for k in keys},
                                  "device_ms": bwd_fold["device_ms"]},
         "cases": bwd_cases,
+    }, {
+        "name": "ssd_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/models/ssm.py:76",
+        "launches": mamba_train["launches"]["ssd_scan_bwd"],
+        "launches_path": f"mamba2 train, {TRAIN_STEPS} steps",
+        **{k: ssd_bwd_main[k] for k in keys + ssd_keys}, "main_case": ssd_bwd_main["case"],
+        "errors": ssd_bwd_main["errors"],
+        "partition_train_launches_per_step": {
+            c["label"]: [r["launches"]["ssd_scan_bwd"] for r in c.get("sharded_steps", [])]
+            for c in partition["mamba_train"]},
+        "partition_train_case": {"case": ssd_bwd_fold["case"],
+                                 **{k: ssd_bwd_fold[k] for k in keys + ssd_keys}},
+        "cases": ssd_bwd_cases,
     }], "build": build, "qwen": {"serve": qwen_serve, "consistency": qwen_consistency,
                                  "loss": qwen_loss, "train": qwen_train,
                                  "two_layer_step": qwen_two_layer},
-        "mamba2": {"loss": mamba_loss, "serve": mamba_serve, "consistency": mamba_consistency},
+        "mamba2": {"loss": mamba_loss, "serve": mamba_serve, "consistency": mamba_consistency,
+                   "train": mamba_train, "two_layer_step": mamba_two_layer},
         "partition": partition, "sharded": sharded}
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps(record))

@@ -6,7 +6,8 @@ elementwise arithmetic at 1 flop per output element; reductions at 1 flop
 per input element; the flash-attention operators at 4·B·H·S·T·D (the
 forward's two products; ``flash_attention``, ``flash_decode`` and
 ``flash_attention_fwd``) and 2.5 times that (the backward's five), halved for
-a causal mask; the SSD scan as ``ssd_flops`` counts it.  Data movement (views, permutes,
+a causal mask; the SSD scan as ``ssd_flops`` counts it, its gradient as
+``ssd_bwd_flops``.  Data movement (views, permutes,
 copies, casts) counts nothing.  ``core/plan.py::plan_cost`` divides the
 total by the mesh size for the ideal per-device balance point.
 
@@ -20,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch.fx
 
-from ..core.rules import FLASH, FLASH_BWD, FLASH_DECODE, FLASH_FWD, REDUCE, SSD, lower
+from ..core.rules import FLASH, FLASH_BWD, FLASH_DECODE, FLASH_FWD, REDUCE, SSD, SSD_BWD, lower
 
 ELEMENTWISE_1FLOP = {"aten." + n for n in (
     "add", "sub", "rsub", "mul", "div", "maximum", "minimum", "neg", "abs", "exp", "log",
@@ -39,6 +40,9 @@ def eqn_flops(eqn) -> float:
         B, S, KR, Gl, D = eqn.in_avals[0].shape
         f = flash_bwd_flops if name == FLASH_BWD else flash_flops
         return f(B, S, KR * Gl, eqn.in_avals[1].shape[1], D, eqn.params["causal"])
+    if name == SSD_BWD:
+        Bb, S, H, hd = eqn.in_avals[0].shape
+        return ssd_bwd_flops(Bb, S, H, hd, eqn.in_avals[2].shape[-1], eqn.params["chunk"])
     if not eqn.out_avals:
         return 0.0
     out = eqn.out_avals[0].shape
@@ -95,6 +99,20 @@ def ssd_flops(Bb, S, H, hd, ds, chunk) -> float:
     causal = Q * (Q + 1) // 2
     return float(Bb * nc * 2 * ds * causal + Bb * H * (
         nc * 2 * hd * causal + (nc - 1) * (2 * Q * ds * hd + 2 * Q * hd * ds)))
+
+
+def ssd_bwd_flops(Bb, S, H, hd, ds, chunk) -> float:
+    """What the SSD's gradient needs, with Q = min(chunk, S) and nc = S / Q:
+    per (batch row, chunk) the causal halves of G = C B^T, dG B and dG^T C;
+    per (batch row, head) the causal halves of dW = dy x^T and W^T dy in
+    every chunk, and in all chunks but one five Q x hd x ds products (the
+    chunk state, each chunk's own gradient of the state entering it, dy
+    S_in for dC, x dS_next for dB and B dS_next^T for dx)."""
+    Q = min(chunk, S)
+    nc = S // Q
+    causal = Q * (Q + 1) // 2
+    return float(Bb * nc * 3 * 2 * ds * causal + Bb * H * (
+        nc * 2 * 2 * hd * causal + (nc - 1) * 5 * 2 * Q * hd * ds))
 
 
 def count_flops(graph: torch.fx.Graph) -> float:

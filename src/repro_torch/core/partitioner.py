@@ -29,7 +29,9 @@ devices' shards), with explicit collectives:
                      and combines the shards with small all-reduces;
 * SSD scan         — ``repro_torch::ssd_scan`` on batch-, head- and
                      head-dim-sharded operands, one call for all devices
-                     with each device's A per folded row;
+                     with each device's A per folded row, and its gradient
+                     ``repro_torch::ssd_scan_bwd`` the same way, its sums
+                     over heads, head dim and rows completed by psums;
 * cache write      — ``index_copy`` writes each device's rows, masked
                      where the written dim is sharded;
 * index ops        — embedding, its gradient, gather and scatter_add with
@@ -67,10 +69,11 @@ import torch
 import torch.fx
 from torch.utils._pytree import tree_flatten
 
-from ..analysis.graph_cost import decode_combine_flops, flash_bwd_flops, flash_flops, ssd_flops
+from ..analysis.graph_cost import (decode_combine_flops, flash_bwd_flops, flash_flops,
+                                   ssd_bwd_flops, ssd_flops)
 from ..analysis.roofline import RooflineParams
 from ..kernels.ops import (flash_attention_bwd_op, flash_attention_fwd_op, flash_decode,
-                           flash_decode_partial, flash_forward, ssd)
+                           flash_decode_partial, flash_forward, ssd, ssd_scan_bwd_op)
 from . import mesh_runtime as mr
 from .annotate import ANNOTATE_OP, decode
 from .compat import capture
@@ -80,10 +83,11 @@ from .halo import local_conv, sharded_conv_nd
 from .propagation import PropagationResult, propagate
 from .reshard import reshard_local, shard_shape
 from .rules import (BROADCAST, DOT, ELEMENTWISE, FACTORY, FLASH, FLASH_BWD, FLASH_DECODE,
-                    FLASH_FWD, REDUCE, RESHAPE, SSD, TRANSPOSE, _SSD_DIMS, _bcast_map, _heads,
-                    _heads_layout, _invert, _project, _reshape_dim_map, _ssd_dims,
+                    FLASH_FWD, REDUCE, RESHAPE, SSD, SSD_BWD, TRANSPOSE, _SSD_DIMS, _bcast_map,
+                    _heads, _heads_layout, _invert, _project, _reshape_dim_map, _ssd_dims,
                     decode_layout, decode_seq_axes, flash_heads, flash_layout, index_copy_maps,
-                    index_maps, insert_map, kwargs_of, lower, ssd_heads, ssd_layout)
+                    index_maps, insert_map, kwargs_of, lower, ssd_bwd_dims, ssd_heads,
+                    ssd_layout)
 from .sharding import Mesh, Sharding, merge_shardings, replicated
 
 
@@ -491,6 +495,46 @@ def decide_ssd(eqn, shardings, want, mesh: Mesh) -> LocalOp:
                    flops=ssd_flops(Bb, S, H, hd, eqn.in_avals[2].shape[-1], chunk))
 
 
+def decide_ssd_bwd(eqn, shardings, want, mesh: Mesh) -> LocalOp:
+    """One call of the SSD's backward (seven launches on the card) for every
+    device, laid out as ``decide_ssd``: batch, heads and head dim of dx's
+    completed sharding (else the merge of the operands'), the device dim
+    folded into the batch with A per row.  Each device's dB and dC are
+    sums over its heads and head-dim slice, ddt and dA sums over its
+    head-dim slice, and its dA (one per folded row) a sum over its rows;
+    the op completes them itself: dB and dC psum over the axes sharding
+    heads or the head dim, ddt over those sharding the head dim, and dA,
+    summed over each device's rows, over those sharding the batch or the
+    head dim."""
+    ins, outs = ssd_bwd_dims(eqn)
+    dx_want = want[0] if want else None
+    cands = [(dx_want, outs[0])] if dx_want is not None else list(zip(shardings, ins))
+    bhp = None
+    for s, d in cands:
+        m = ssd_heads(s, d)
+        bhp = m if bhp is None else (merge_shardings(bhp, m) or bhp)
+    batch, heads, hdim = (tuple(a) for a in bhp.dims_mapping)
+    chunk = eqn.params["chunk"]
+    targets = [ssd_layout(bhp, d) for d in ins]
+    Bb, S, H, hd = shard_shape(eqn.in_avals[0].shape, targets[0])
+    sums = {"dB": heads + hdim, "dC": heads + hdim, "ddt": hdim, "dA": batch + hdim}
+
+    def fn(x, dt, B, C, A, dy):
+        n, b = x.shape[:2]
+        Af = A[:, None, :].expand(n, b, A.shape[-1]).reshape(n * b, A.shape[-1])
+        dx, ddt, dB, dC, dA = ssd_scan_bwd_op(_fold(x), _fold(dt), _fold(B), _fold(C), Af,
+                                              _fold(dy), chunk)
+        dA = dA.reshape(n, b, -1).sum(1)
+        out = {"dB": dB.reshape(B.shape), "dC": dC.reshape(C.shape), "ddt": ddt.reshape(dt.shape),
+               "dA": dA}
+        out = {k: mr.psum(v, mesh, sums[k]) for k, v in out.items()}
+        return [dx.reshape(x.shape), out["ddt"], out["dB"], out["dC"], out["dA"]]
+
+    return LocalOp(targets, [ssd_layout(bhp, d) for d in outs], fn,
+                   collectives={"all-reduce": sum(1 for a in sums.values() if a)},
+                   flops=ssd_bwd_flops(Bb, S, H, hd, eqn.in_avals[2].shape[-1], chunk))
+
+
 def decide_index_copy(eqn, shardings, want, mesh: Mesh) -> Optional[LocalOp]:
     """The decode step's cache write, ``self.index_copy(d, index, source)``:
     where dim d is not sharded each device writes its shard's rows locally;
@@ -796,6 +840,7 @@ LOCAL_OPS = {
     FLASH_BWD: decide_flash_bwd,
     FLASH_DECODE: decide_flash_decode,
     SSD: decide_ssd,
+    SSD_BWD: decide_ssd_bwd,
     "aten.index_copy": decide_index_copy,
     "aten.unbind": decide_drop_dim,
     "aten.select": decide_drop_dim,

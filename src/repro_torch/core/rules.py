@@ -45,7 +45,10 @@ Where an aten graph differs from a jaxpr:
 * factory ops (``ones``, ``zeros``, ``arange``, ...) are created replicated,
   like the reference's ``iota``;
 * the SSD scan (``repro_torch::ssd_scan``) maps batch, heads and the head
-  dim between x, dt, B, C, A and y (S and the state dim replicated);
+  dim between x, dt, B, C, A and y (S and the state dim replicated), and
+  its gradient (``repro_torch::ssd_scan_bwd``) the same between the
+  forward's operands, dy and the five gradients (dB and dC keep only the
+  batch, dA only the heads: the partitioned op sums the rest);
   ``index_copy``, the decode step's cache write, keeps every dim of the
   cache, the written one too;
 * the flash-attention operators (``repro_torch::flash_attention``, its
@@ -75,6 +78,7 @@ FLASH_FWD = "repro_torch.flash_attention_fwd"
 FLASH_BWD = "repro_torch.flash_attention_bwd"
 FLASH_DECODE = "repro_torch.flash_decode"
 SSD = "repro_torch.ssd_scan"
+SSD_BWD = "repro_torch.ssd_scan_bwd"
 
 
 # ---------------------------------------------------------------------------------
@@ -751,6 +755,23 @@ def rule_ssd(eqn, in_sh, out_sh, direction):
     return [ssd_layout(m, d) for d in dims[:-1]], [ssd_layout(m, dims[-1])]
 
 
+def ssd_bwd_dims(eqn):
+    """The scan-layout dims of the gradient's operands (x, dt, B, C, A, dy)
+    and of its results (dx, ddt, dB, dC, dA)."""
+    return ([_ssd_dims(a, i) for i, a in enumerate(eqn.in_avals)],
+            [_ssd_dims(a, i) for i, a in enumerate(eqn.tuple_avals)])
+
+
+def rule_ssd_bwd(eqn, in_sh, out_sh, direction):
+    """Batch, heads and head dim shared by the operands and the gradients."""
+    ins, outs = ssd_bwd_dims(eqn)
+    m = _merge_many([ssd_heads(s, d) for s, d in zip(list(in_sh) + list(out_sh), ins + outs)
+                     if s is not None])
+    if m is None:
+        return in_sh, out_sh
+    return [ssd_layout(m, d) for d in ins], [ssd_layout(m, d) for d in outs]
+
+
 # ---------------------------------------------------------------------------------
 # ops of the captured training step: a dim dropped or inserted, index ops
 # ---------------------------------------------------------------------------------
@@ -905,6 +926,7 @@ _PARAMS = {
     FLASH_DECODE: lambda node, ins, out: {"causal": False,
                                           "chunk": int(kwargs_of(node)["chunk"])},
     SSD: lambda node, ins, out: {"chunk": int(kwargs_of(node)["chunk"])},
+    SSD_BWD: lambda node, ins, out: {"chunk": int(kwargs_of(node)["chunk"])},
 }
 for _n in REDUCE | ARGMINMAX:
     _PARAMS[_n] = _reduce_params
@@ -942,6 +964,8 @@ for name in (FLASH, FLASH_DECODE):
     PRIORITY[name] = 2
 RULES[SSD] = rule_ssd
 PRIORITY[SSD] = 2
+RULES[SSD_BWD] = rule_ssd_bwd
+PRIORITY[SSD_BWD] = 2
 for name in (FLASH_FWD, FLASH_BWD):
     RULES[name] = rule_flash_pair
     PRIORITY[name] = 2

@@ -668,3 +668,671 @@ extern "C" int ssd_scan_fwd(
     default: return cudaErrorInvalidValue;
   }
 }
+
+// ---------------------------------------------------------------------------------
+// The backward: dx, ddt, dB, dC and dA of the scan at the output gradient dy
+// ---------------------------------------------------------------------------------
+//
+// The JAX package differentiates its oracle (src/repro/models/ssm.py:76
+// ssd_scan_ref) with XLA's autodiff; its Pallas kernel has no gradient.  This
+// is the port's gradient, in plain float32 FMAs on the CUDA cores (each
+// product a sequential fmaf chain, as the plain float32 version sums), with
+// l taken from pass 1 (a compensated sum) and every sum that the tests
+// compare runs (dB, dC, dA, ddt) reduced in a fixed order: no atomics.  With
+// M = where(t >= s, exp(l_t - l_s), 0) (the exponent masked before the exp),
+// decay = exp(l_Q - l), S_in the state entering the chunk and dS_next the
+// gradient of the one leaving it, one call is seven launches:
+//
+// 1. ssd_chunk_state and ssd_state_pass (the forward's passes 1 and 2): l
+//    and S_in into the scratch the forward would use;
+// 2. ssd_bwd_dstate_local, one block per (chunk c >= 1, head, batch row):
+//    local[c] = (exp(l) dy)^T C, the gradient of S_in[c] from chunk c's own
+//    outputs, into the dstate scratch (Bb, nc, H, hd, ds);
+// 3. ssd_bwd_dstate_pass, in place and in reverse over the chunks:
+//    dS_next[c] = local[c+1] + exp(l_Q[c+1]) dS_next[c+1];
+// 4. ssd_bwd_head, one block per (chunk, head, batch row): B dS_next^T and
+//    C S_in^T (Q x hd), then dW = dy x^T and G = C B^T (Q x Q, in
+//    registers, G by halves), then W = M G dt and dG = dW M dt; it writes
+//      dx  = W^T dy + decay dt (B dS_next^T),
+//      ddt = sum_t dW M G + u + A da,   u_s = decay_s x_s . (B dS_next^T)_s,
+//    with da_u = sum_{t >= u} dl_t: a compensated reverse scan of
+//    q + rowsum(R) - colsum(R) (q_t = dy_t . y_inter_t, R = dW * W), plus a
+//    compensated prefix scan of v = dt u (exclusive), plus
+//    kappa = exp(l_Q) <dS_next, S_in>; and dG per head into the dG
+//    scratch (Bb, nc, H, Q, Q), and sum_u dt_u da_u into dA_part;
+// 5. ssd_bwd_heads_sum, one block per (chunk, batch row): over the heads in
+//    order, dC += (exp(l) dy) S_in and dB += (decay dt x) dS_next; then
+//    dG_tot = sum_h dG (in order), dC += dG_tot B and dB += dG_tot^T C;
+// 6. ssd_bwd_da: dA per head (A shared: over rows and chunks) or per (row,
+//    head), a tree sum of dA_part.
+//
+// What bounds it on an H100.  At the Mamba2 training call (Bb 8, S 2048,
+// H 24, hd 64, ds 128, Q 128) the function needs about 37.5 GFLOP (the
+// causal halves of G, dG_tot B and dG_tot^T C per (row, chunk); per (row,
+// head) the causal halves of dW and W^T dy in every chunk, and five
+// Q x hd x ds products in all chunks but one: the chunk state, local,
+// C-side and two dS_next products) against about 339 MB moved (x, dy, dx,
+// and dt, B, C with their gradients): 0.56 ms in float32 FMAs at 67 TFLOP/s
+// against 0.10 ms for the bytes.  Beyond the bound this first design pays
+// for the full Q x Q products (the causal half is masked, not skipped), for
+// C S_in^T and G once per head, for the dG scratch (201 MB written and read
+// at that shape) and for CUDA-core FMAs where the forward has 3xTF32 tensor
+// cores.
+//
+// Shared memory: every Q-row tile holds kMaxQ rows (rows past Q are zeros)
+// with a row stride of one float more than its width (1 mod 32: a warp
+// walking rows or columns hits 32 banks).  The 256 threads are a 16 x 16
+// tile; thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j of each
+// product.
+
+namespace {
+
+constexpr int kBT = 16;  // threads per side of the thread tile
+constexpr int kLdQ = kMaxQ + 1;
+
+struct BwdParams {
+  const float* x;
+  const float* dt;
+  const float* B;
+  const float* C;
+  const float* A;
+  const float* dy;
+  float* dx;
+  float* ddt;
+  float* dB;
+  float* dC;
+  float* dA;
+  const float* lsum;   // (Bb, nc, H, Q): l log2(e), from pass 1
+  const float* state;  // (Bb, nc, H, hd, ds): S_in for c >= 1, from pass 2
+  float* dstate;       // (Bb, nc, H, hd, ds): local[c], then dS_next[c]
+  float* dG;           // (Bb, nc, H, Q, Q): dW M dt per head
+  float* dA_part;      // (Bb, nc, H): sum_u dt_u da_u per chunk
+  long long as;        // A over b (0: every row reads the same A over h)
+  int S, H, Q, nc;
+};
+
+// acc[i][j] += sum_{k < K} a(ty + 16 i, k) b(k, tx + 16 j), a(m, k) at
+// a[m * am + k * ak] and b(k, n) at b[k * bk + n * bn] in shared memory:
+// one fmaf chain per output, k in order
+template <int RM, int RN>
+__device__ __forceinline__ void block_mm(float (&acc)[RM][RN], const float* a, int am, int ak,
+                                         const float* b, int bk, int bn, int K) {
+  const int ty = threadIdx.x / kBT, tx = threadIdx.x % kBT;
+  a += ty * am;
+  b += tx * bn;
+#pragma unroll 2
+  for (int k = 0; k < K; ++k) {
+    float av[RM], bv[RN];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) av[i] = a[kBT * i * am + k * ak];
+#pragma unroll
+    for (int j = 0; j < RN; ++j) bv[j] = b[k * bk + kBT * j * bn];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+template <int RM, int RN>
+__device__ __forceinline__ void zero(float (&acc)[RM][RN]) {
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
+}
+
+// rows [0, n) of a COLS-wide global tile (rows `stride` floats apart) into
+// shared rows `ld` floats apart, each row times scale[row] where scale is
+// given; rows [n, rows) zero
+template <int COLS>
+__device__ void load_rows(float* dst, int ld, const float* src, long long stride, int n,
+                          int rows, const float* scale) {
+  for (int i = threadIdx.x; i < rows * COLS; i += blockDim.x) {
+    const int r = i / COLS, c = i % COLS;
+    float v = 0.f;
+    if (r < n) v = scale ? scale[r] * src[r * stride + c] : src[r * stride + c];
+    dst[r * ld + c] = v;
+  }
+}
+
+// an (hd x ds) state of the scratch into shared rows `ld` apart, or zeros
+template <int HD, int DS>
+__device__ void load_state(float* dst, int ld, const float* src) {
+  for (int i = threadIdx.x; i < HD * DS; i += blockDim.x)
+    dst[(i / DS) * ld + i % DS] = src ? src[i] : 0.f;
+}
+
+// the sum over the 16 threads of a thread-tile row (lanes tx = 0..15 of a
+// half warp), as a tree; every lane gets it
+__device__ __forceinline__ float row_sum16(float v) {
+#pragma unroll
+  for (int off = kBT / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// the sum over the block's threads, as a tree in shared memory; every
+// thread gets it
+__device__ float block_sum(float v, float* sred) {
+  sred[threadIdx.x] = v;
+  __syncthreads();
+  for (int off = kThreads / 2; off > 0; off >>= 1) {
+    if (threadIdx.x < off) sred[threadIdx.x] += sred[threadIdx.x + off];
+    __syncthreads();
+  }
+  const float r = sred[0];
+  __syncthreads();
+  return r;
+}
+
+// out[j] = sum_{k <= j} in[j'] over the scan order (j' = j, or n - 1 - j
+// when rev), for j < n <= kMaxQ, by one warp: each partial sum a pair hi +
+// lo (two-sum), rounded once, as chunk_cumsum
+__device__ void warp_scan(const float* in, float* out, int n, bool rev) {
+  const int lane = threadIdx.x & 31;
+  constexpr int PER = kMaxQ / 32;
+  float vh[PER], vl[PER], rh = 0.f, rl = 0.f;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int j = lane * PER + k;
+    if (j < n) {
+      float s, r;
+      two_sum(rh, in[rev ? n - 1 - j : j], s, r);
+      rh = s;
+      rl += r;
+    }
+    vh[k] = rh;
+    vl[k] = rl;
+  }
+  float ih = rh, il = rl;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float nh = __shfl_up_sync(0xffffffffu, ih, off);
+    const float nl = __shfl_up_sync(0xffffffffu, il, off);
+    if (lane >= off) {
+      float s, r;
+      two_sum(nh, ih, s, r);
+      ih = s;
+      il += nl + r;
+    }
+  }
+  float eh = __shfl_up_sync(0xffffffffu, ih, 1), el = __shfl_up_sync(0xffffffffu, il, 1);
+  if (lane == 0) eh = el = 0.f;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int j = lane * PER + k;
+    if (j < n) {
+      float s, r;
+      two_sum(eh, vh[k], s, r);
+      out[rev ? n - 1 - j : j] = s + (r + (el + vl[k]));
+    }
+  }
+  __syncwarp();
+}
+
+// 2: local[c] = sum_t (exp(l_t) dy_t)^T C_t, an (hd x ds) product over the
+// chunk's rows, for c >= 1 (S_in[0] is zero: its gradient is never read)
+template <int HD, int DS>
+__host__ __device__ constexpr size_t local_smem_floats() {
+  return (size_t)kMaxQ * (HD + 1) + (size_t)kMaxQ * (DS + 1) + kMaxQ;
+}
+
+template <int HD, int DS>
+__global__ void __launch_bounds__(kThreads, 2) ssd_bwd_dstate_local(const BwdParams p) {
+  constexpr int LDX = HD + 1, LDS = DS + 1;
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  if (c == 0) return;
+  extern __shared__ float smem[];
+  float* sdy = smem;              // exp(l_t) dy[t][p]
+  float* sC = sdy + kMaxQ * LDX;  // C[t][d]
+  float* sel = sC + kMaxQ * LDS;  // exp(l_t)
+  const int Q = p.Q;
+  const long long t0 = (long long)b * p.S + (long long)c * Q;
+  const float* lg = p.lsum + (((long long)b * p.nc + c) * p.H + h) * Q;
+  for (int t = threadIdx.x; t < kMaxQ; t += kThreads) sel[t] = t < Q ? exp2f(lg[t]) : 0.f;
+  __syncthreads();
+  load_rows<HD>(sdy, LDX, p.dy + (t0 * p.H + h) * HD, (long long)p.H * HD, Q, kMaxQ, sel);
+  load_rows<DS>(sC, LDS, p.C + t0 * DS, DS, Q, kMaxQ, nullptr);
+  __syncthreads();
+  float acc[HD / kBT][DS / kBT];
+  zero(acc);
+  block_mm(acc, sdy, 1, LDX, sC, LDS, 1, Q);  // a(p, t) = sdy[t][p]; b(t, d) = C[t][d]
+  float* out = p.dstate + (((long long)b * p.nc + c) * p.H + h) * (HD * DS);
+  const int ty = threadIdx.x / kBT, tx = threadIdx.x % kBT;
+#pragma unroll
+  for (int i = 0; i < HD / kBT; ++i)
+#pragma unroll
+    for (int j = 0; j < DS / kBT; ++j) out[(ty + kBT * i) * DS + tx + kBT * j] = acc[i][j];
+}
+
+// 3: in place, in reverse: slot c <- dS_next[c] = G[c+1], where G[c] =
+// local[c] + exp(l_Q[c]) G[c+1] is the gradient of S_in[c] and G[nc] = 0.
+// One thread per state value of one (head, batch row).
+__global__ void __launch_bounds__(kThreads) ssd_bwd_dstate_pass(const BwdParams p, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long long step = (long long)p.H * n;
+  float* s = p.dstate + ((long long)b * p.nc * p.H + h) * n + i;
+  const long long lstep = (long long)p.H * p.Q;
+  const float* lq = p.lsum + ((long long)b * p.nc * p.H + h) * p.Q + p.Q - 1;
+  float run = 0.f;
+  for (int c = p.nc - 1; c >= 0; --c) {
+    const float local = c > 0 ? s[c * step] : 0.f;
+    s[c * step] = run;
+    run = fmaf(exp2f(lq[c * lstep]), run, local);
+  }
+}
+
+// 4: per (chunk, head, batch row).  Shared memory, in floats: B and C
+// (kMaxQ x (ds+1) each); then S_in and dS_next (hd x (ds+1) each) in stage 1,
+// x and dy (kMaxQ x (hd+1) each) in stage 2, in the same place; W (kMaxQ x
+// (kMaxQ+1)) over B, C and x once G and dW are in registers; then the
+// vectors.  hd 64, ds 128: 55,296 floats = 216 KB, one block per SM.
+template <int HD, int DS>
+struct HeadSmem {
+  static constexpr int LDX = HD + 1, LDS = DS + 1;
+  static constexpr size_t B = 0, C = (size_t)kMaxQ * LDS, R = 2 * (size_t)kMaxQ * LDS;
+  static constexpr size_t Sin = R, dSn = R + (size_t)HD * LDS;
+  static constexpr size_t x = R;
+  static constexpr size_t dy = R + (size_t)kMaxQ * LDX > (size_t)kMaxQ * kLdQ
+                                   ? R + (size_t)kMaxQ * LDX : (size_t)kMaxQ * kLdQ;
+  static constexpr size_t tiles = dy + (size_t)kMaxQ * LDX > R + 2 * (size_t)HD * LDS
+                                      ? dy + (size_t)kMaxQ * LDX : R + 2 * (size_t)HD * LDS;
+  // l, dt, decay, u, q, row sums of R, e, ddt, scans (2), 16 x kMaxQ column
+  // partials twice, and the block sum's kThreads
+  static constexpr size_t vec = tiles;
+  static constexpr size_t total = tiles + 10 * kMaxQ + 2 * kBT * kMaxQ + kThreads;
+};
+
+template <int HD, int DS>
+__global__ void __launch_bounds__(kThreads, 1) ssd_bwd_head(const BwdParams p) {
+  using L = HeadSmem<HD, DS>;
+  constexpr int LDX = L::LDX, LDS = L::LDS, RN = HD / kBT;
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, ty = tid / kBT, tx = tid % kBT;
+  const int Q = p.Q;
+  const bool first = c == 0, last = c == p.nc - 1;
+  const long long t0 = (long long)b * p.S + (long long)c * Q;
+
+  extern __shared__ float smem[];
+  float* sB = smem + L::B;
+  float* sC = smem + L::C;
+  float* sSin = smem + L::Sin;
+  float* sdSn = smem + L::dSn;
+  float* sx = smem + L::x;
+  float* sdy = smem + L::dy;
+  float* sW = smem;
+  float* sl = smem + L::vec;
+  float* sdt = sl + kMaxQ;
+  float* sdec = sdt + kMaxQ;
+  float* su = sdec + kMaxQ;
+  float* sq = su + kMaxQ;
+  float* srow = sq + kMaxQ;
+  float* se = srow + kMaxQ;
+  float* sddt = se + kMaxQ;
+  float* sscan_e = sddt + kMaxQ;
+  float* sscan_v = sscan_e + kMaxQ;
+  float* scolR = sscan_v + kMaxQ;  // [ty][s]
+  float* scolD = scolR + kBT * kMaxQ;
+  float* sred = scolD + kBT * kMaxQ;
+
+  const long long hq = ((long long)b * p.nc + c) * p.H + h;
+  const float* lg = p.lsum + hq * Q;
+  for (int t = tid; t < kMaxQ; t += kThreads) {
+    sl[t] = t < Q ? lg[t] : 0.f;
+    sdt[t] = t < Q ? p.dt[(t0 + t) * p.H + h] : 0.f;
+  }
+  __syncthreads();
+  const float lQ = sl[Q - 1], Ah = p.A[b * p.as + h];
+  for (int t = tid; t < kMaxQ; t += kThreads) sdec[t] = t < Q ? exp2f(lQ - sl[t]) : 0.f;
+
+  // stage 1: B, C, S_in and dS_next
+  load_rows<DS>(sB, LDS, p.B + t0 * DS, DS, Q, kMaxQ, nullptr);
+  load_rows<DS>(sC, LDS, p.C + t0 * DS, DS, Q, kMaxQ, nullptr);
+  load_state<HD, DS>(sSin, LDS, first ? nullptr : p.state + hq * (HD * DS));
+  load_state<HD, DS>(sdSn, LDS, last ? nullptr : p.dstate + hq * (HD * DS));
+  __syncthreads();
+  float part = 0.f;
+  for (int i = tid; i < HD * DS; i += kThreads)
+    part = fmaf(sSin[(i / DS) * LDS + i % DS], sdSn[(i / DS) * LDS + i % DS], part);
+  const float kappa = exp2f(lQ) * block_sum(part, sred);
+  {
+    float bds[kMaxQ / kBT][RN], cs[kMaxQ / kBT][RN];
+    zero(bds);
+    zero(cs);
+    if (!last) block_mm(bds, sB, LDS, 1, sdSn, 1, LDS, DS);  // (B dS_next^T)[s][p]
+    if (!first) block_mm(cs, sC, LDS, 1, sSin, 1, LDS, DS);  // (C S_in^T)[t][p]
+#pragma unroll
+    for (int i = 0; i < kMaxQ / kBT; ++i) {
+      const int s = ty + kBT * i;
+      const bool on = s < Q;
+      float ur = 0.f, qr = 0.f;
+#pragma unroll
+      for (int j = 0; j < RN; ++j) {
+        if (on) {
+          const long long at = ((t0 + s) * p.H + h) * HD + tx + kBT * j;
+          ur = fmaf(p.x[at], bds[i][j], ur);
+          qr = fmaf(p.dy[at], cs[i][j], qr);
+          p.dx[at] = sdec[s] * sdt[s] * bds[i][j];
+        }
+      }
+      ur = row_sum16(ur);
+      qr = row_sum16(qr);
+      if (tx == 0) {
+        su[s] = on ? sdec[s] * ur : 0.f;
+        sq[s] = on ? exp2f(sl[s]) * qr : 0.f;
+      }
+    }
+  }
+  __syncthreads();
+
+  // stage 2: x and dy in S_in's place; dW = dy x^T and G = C B^T
+  load_rows<HD>(sx, LDX, p.x + (t0 * p.H + h) * HD, (long long)p.H * HD, Q, kMaxQ, nullptr);
+  load_rows<HD>(sdy, LDX, p.dy + (t0 * p.H + h) * HD, (long long)p.H * HD, Q, kMaxQ, nullptr);
+  __syncthreads();
+  constexpr int MT = kMaxQ / kBT, HALF = MT / 2;
+  float dw[MT][MT], w[MT][MT];
+  zero(dw);
+  block_mm(dw, sdy, LDX, 1, sx, 1, LDX, HD);  // a(t, p) = dy[t][p]; b(p, s) = x[s][p]
+
+  // G = C B^T by halves of the thread's rows (G, dW and W in registers at
+  // once would spill), then per element: W = M G dt, dG = dW M dt (to the
+  // scratch), R = dW W by rows and columns, sum_t dW M G by columns
+  float colR[MT], colD[MT];
+#pragma unroll
+  for (int j = 0; j < MT; ++j) colR[j] = colD[j] = 0.f;
+  float* dGg = p.dG + hq * Q * Q;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float g[HALF][MT];
+    zero(g);
+    // a(t, d) = C[t][d] for rows ty + 16 i + 64 half; b(d, s) = B[s][d]
+    block_mm(g, sC + half * HALF * kBT * LDS, LDS, 1, sB, 1, LDS, DS);
+#pragma unroll
+    for (int ih = 0; ih < HALF; ++ih) {
+      const int i = half * HALF + ih, t = ty + kBT * i;
+      float rowr = 0.f;
+#pragma unroll
+      for (int j = 0; j < MT; ++j) {
+        const int s = tx + kBT * j;
+        const float m = (t < Q && s <= t) ? exp2f(sl[t] - sl[s]) : 0.f;
+        const float mg = m * g[ih][j];
+        w[i][j] = mg * sdt[s];
+        const float r = dw[i][j] * w[i][j];
+        rowr += r;
+        colR[j] += r;
+        colD[j] = fmaf(dw[i][j], mg, colD[j]);
+        if (t < Q && s < Q) dGg[t * Q + s] = dw[i][j] * m * sdt[s];
+      }
+      rowr = row_sum16(rowr);
+      if (tx == 0) srow[t] = rowr;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < MT; ++j) {
+    scolR[ty * kMaxQ + tx + kBT * j] = colR[j];
+    scolD[ty * kMaxQ + tx + kBT * j] = colD[j];
+  }
+  __syncthreads();  // W is in registers: B, C and x are free for it
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < MT; ++j) sW[(ty + kBT * i) * kLdQ + tx + kBT * j] = w[i][j];
+  // e = q + rowsum(R) - colsum(R) and sum_t dW M G + u, the column sums as
+  // trees over the 16 thread rows
+  if (tid < kMaxQ) {
+    float r[kBT], d[kBT];
+#pragma unroll
+    for (int k = 0; k < kBT; ++k) {
+      r[k] = scolR[k * kMaxQ + tid];
+      d[k] = scolD[k * kMaxQ + tid];
+    }
+#pragma unroll
+    for (int w = kBT / 2; w > 0; w >>= 1)
+#pragma unroll
+      for (int k = 0; k < w; ++k) {
+        r[k] += r[k + w];
+        d[k] += d[k + w];
+      }
+    se[tid] = sq[tid] + srow[tid] - r[0];
+    sddt[tid] = d[0] + su[tid];
+    sscan_v[tid] = sdt[tid] * su[tid];  // v, scanned in place below
+  }
+  __syncthreads();
+
+  // dx += W^T dy (the same thread wrote these dx values in stage 1)
+  {
+    float dxi[kMaxQ / kBT][RN];
+    zero(dxi);
+    block_mm(dxi, sW, 1, kLdQ, sdy, LDX, 1, Q);  // a(s, t) = W[t][s]; b(t, p) = dy[t][p]
+#pragma unroll
+    for (int i = 0; i < kMaxQ / kBT; ++i) {
+      const int s = ty + kBT * i;
+      if (s < Q) {
+#pragma unroll
+        for (int j = 0; j < RN; ++j) p.dx[((t0 + s) * p.H + h) * HD + tx + kBT * j] += dxi[i][j];
+      }
+    }
+  }
+
+  // da_u = sum_{t >= u} e_t + sum_{s < u} v_s + kappa
+  if (tid < 32) {
+    warp_scan(se, sscan_e, Q, true);
+    warp_scan(sscan_v, sscan_v, Q, false);
+  }
+  __syncthreads();
+  float contrib = 0.f;
+  if (tid < Q) {
+    const float da = sscan_e[tid] + ((tid > 0 ? sscan_v[tid - 1] : 0.f) + kappa);
+    p.ddt[(t0 + tid) * p.H + h] = fmaf(Ah, da, sddt[tid]);
+    contrib = sdt[tid] * da;
+  }
+  const float dA = block_sum(contrib, sred);
+  if (tid == 0) p.dA_part[hq] = dA;
+}
+
+// 5: per (chunk, batch row), over the heads.  Shared memory, in floats:
+// per head x and dy (kMaxQ x (hd+1) each, scaled at load) and S_in and
+// dS_next (hd x (ds+1) each); then dG_tot (kMaxQ x (kMaxQ+1)), B and C
+// (kMaxQ x (ds+1) each) in the same place; then l, dt and the two scales.
+// hd 64, ds 128: 50,048 floats = 196 KB, one block per SM.
+template <int HD, int DS>
+struct SumSmem {
+  static constexpr int LDX = HD + 1, LDS = DS + 1;
+  static constexpr size_t x = 0, dy = (size_t)kMaxQ * LDX, Sin = 2 * (size_t)kMaxQ * LDX,
+                          dSn = Sin + (size_t)HD * LDS;
+  static constexpr size_t stage1 = dSn + (size_t)HD * LDS;
+  static constexpr size_t G = 0, B = (size_t)kMaxQ * kLdQ, C = B + (size_t)kMaxQ * LDS;
+  static constexpr size_t stage2 = C + (size_t)kMaxQ * LDS;
+  static constexpr size_t vec = stage1 > stage2 ? stage1 : stage2;
+  static constexpr size_t total = vec + 4 * kMaxQ;
+};
+
+template <int HD, int DS>
+__global__ void __launch_bounds__(kThreads, 1) ssd_bwd_heads_sum(const BwdParams p) {
+  using L = SumSmem<HD, DS>;
+  constexpr int LDX = L::LDX, LDS = L::LDS, RN = DS / kBT;
+  const int c = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, ty = tid / kBT, tx = tid % kBT;
+  const int Q = p.Q;
+  const bool first = c == 0, last = c == p.nc - 1;
+  const long long t0 = (long long)b * p.S + (long long)c * Q;
+
+  extern __shared__ float smem[];
+  float* sx = smem + L::x;
+  float* sdy = smem + L::dy;
+  float* sSin = smem + L::Sin;
+  float* sdSn = smem + L::dSn;
+  float* sG = smem + L::G;
+  float* sB = smem + L::B;
+  float* sC = smem + L::C;
+  float* sl = smem + L::vec;
+  float* sdt = sl + kMaxQ;
+  float* sel = sdt + kMaxQ;  // exp(l)
+  float* sxs = sel + kMaxQ;  // decay dt
+
+  float accC[kMaxQ / kBT][RN], accB[kMaxQ / kBT][RN];
+  zero(accC);
+  zero(accB);
+  for (int h = 0; h < p.H; ++h) {
+    const long long hq = ((long long)b * p.nc + c) * p.H + h;
+    for (int t = tid; t < kMaxQ; t += kThreads) {
+      sl[t] = t < Q ? p.lsum[hq * Q + t] : 0.f;
+      sdt[t] = t < Q ? p.dt[(t0 + t) * p.H + h] : 0.f;
+    }
+    __syncthreads();
+    const float lQ = sl[Q - 1];
+    for (int t = tid; t < kMaxQ; t += kThreads) {
+      sel[t] = t < Q ? exp2f(sl[t]) : 0.f;
+      sxs[t] = t < Q ? exp2f(lQ - sl[t]) * sdt[t] : 0.f;
+    }
+    __syncthreads();
+    if (!first) {
+      load_rows<HD>(sdy, LDX, p.dy + (t0 * p.H + h) * HD, (long long)p.H * HD, Q, kMaxQ, sel);
+      load_state<HD, DS>(sSin, LDS, p.state + hq * (HD * DS));
+    }
+    if (!last) {
+      load_rows<HD>(sx, LDX, p.x + (t0 * p.H + h) * HD, (long long)p.H * HD, Q, kMaxQ, sxs);
+      load_state<HD, DS>(sdSn, LDS, p.dstate + hq * (HD * DS));
+    }
+    __syncthreads();
+    // a(t, p) = scaled dy[t][p], b(p, d) = S_in[p][d]; the same with x, dS_next
+    if (!first) block_mm(accC, sdy, LDX, 1, sSin, LDS, 1, HD);
+    if (!last) block_mm(accB, sx, LDX, 1, sdSn, LDS, 1, HD);
+    __syncthreads();
+  }
+  // dG_tot, summed over the heads in order
+  const float* dGb = p.dG + ((long long)b * p.nc + c) * p.H * Q * Q;
+  for (int i = tid; i < kMaxQ * kMaxQ; i += kThreads) {
+    const int t = i / kMaxQ, s = i % kMaxQ;
+    float v = 0.f;
+    if (t < Q && s <= t)
+      for (int h = 0; h < p.H; ++h) v += dGb[(long long)h * Q * Q + t * Q + s];
+    sG[t * kLdQ + s] = v;
+  }
+  load_rows<DS>(sB, LDS, p.B + t0 * DS, DS, Q, kMaxQ, nullptr);
+  load_rows<DS>(sC, LDS, p.C + t0 * DS, DS, Q, kMaxQ, nullptr);
+  __syncthreads();
+  block_mm(accC, sG, kLdQ, 1, sB, LDS, 1, Q);  // a(t, s) = dG[t][s]; b(s, d) = B[s][d]
+  block_mm(accB, sG, 1, kLdQ, sC, LDS, 1, Q);  // a(s, t) = dG[t][s]; b(t, d) = C[t][d]
+#pragma unroll
+  for (int i = 0; i < kMaxQ / kBT; ++i) {
+    const int t = ty + kBT * i;
+    if (t < Q) {
+#pragma unroll
+      for (int j = 0; j < RN; ++j) {
+        p.dC[(t0 + t) * DS + tx + kBT * j] = accC[i][j];
+        p.dB[(t0 + t) * DS + tx + kBT * j] = accB[i][j];
+      }
+    }
+  }
+}
+
+// 6: dA[h] (A shared: per_row 0) or dA[r][h] (A per row), a tree sum of
+// the partials of its rows and chunks
+__global__ void __launch_bounds__(kThreads) ssd_bwd_da(const BwdParams p, int Bb, int per_row) {
+  __shared__ float sred[kThreads];
+  const int h = blockIdx.x, r = blockIdx.y;
+  const int n = per_row ? p.nc : Bb * p.nc;
+  float v = 0.f;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const long long bc = per_row ? (long long)r * p.nc + i : i;  // (row, chunk)
+    v += p.dA_part[bc * p.H + h];
+  }
+  v = block_sum(v, sred);
+  if (threadIdx.x == 0) p.dA[per_row ? (long long)r * p.H + h : h] = v;
+}
+
+bool grid_is(const int* g, int x, int y, int z) { return g[0] == x && g[1] == y && g[2] == z; }
+
+template <int HD, int DS>
+cudaError_t launch_bwd(const Params& fp, const BwdParams& p, int Bb, int per_row,
+                       const int* grid, cudaStream_t stream) {
+  const int n4 = HD * DS / 4, n = HD * DS;
+  const dim3 g[7] = {dim3(grid[0], grid[1], grid[2]), dim3(grid[3], grid[4], grid[5]),
+                     dim3(grid[6], grid[7], grid[8]), dim3(grid[9], grid[10], grid[11]),
+                     dim3(grid[12], grid[13], grid[14]), dim3(grid[15], grid[16], grid[17]),
+                     dim3(grid[18], grid[19], grid[20])};
+  if (!grid_is(grid, p.nc, p.H, Bb) || !grid_is(grid + 3, (n4 + kThreads - 1) / kThreads, p.H, Bb)
+      || !grid_is(grid + 6, p.nc, p.H, Bb)
+      || !grid_is(grid + 9, (n + kThreads - 1) / kThreads, p.H, Bb)
+      || !grid_is(grid + 12, p.nc, p.H, Bb) || !grid_is(grid + 15, p.nc, Bb, 1)
+      || !grid_is(grid + 18, p.H, per_row ? Bb : 1, 1))
+    return cudaErrorInvalidConfiguration;
+  const size_t smem1 = state_smem_floats<HD, DS>(p.Q) * sizeof(float);
+  const size_t smemL = local_smem_floats<HD, DS>() * sizeof(float);
+  const size_t smemH = HeadSmem<HD, DS>::total * sizeof(float);
+  const size_t smemS = SumSmem<HD, DS>::total * sizeof(float);
+  if (smem1 > kMaxSmem || smemL > kMaxSmem || smemH > kMaxSmem || smemS > kMaxSmem)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_chunk_state<HD, DS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_bwd_dstate_local<HD, DS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smemL);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_bwd_head<HD, DS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smemH);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_bwd_heads_sum<HD, DS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smemS);
+  if (err != cudaSuccess) return err;
+  ssd_chunk_state<HD, DS><<<g[0], kThreads, smem1, stream>>>(fp);
+  ssd_state_pass<<<g[1], kThreads, 0, stream>>>(fp, n4);
+  ssd_bwd_dstate_local<HD, DS><<<g[2], kThreads, smemL, stream>>>(p);
+  ssd_bwd_dstate_pass<<<g[3], kThreads, 0, stream>>>(p, n);
+  ssd_bwd_head<HD, DS><<<g[4], kThreads, smemH, stream>>>(p);
+  ssd_bwd_heads_sum<HD, DS><<<g[5], kThreads, smemS, stream>>>(p);
+  ssd_bwd_da<<<g[6], kThreads, 0, stream>>>(p, Bb, per_row);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_bwd_ds(const Params& fp, const BwdParams& p, int Bb, int ds, int per_row,
+                          const int* grid, cudaStream_t stream) {
+  switch (ds) {
+    case 16: return launch_bwd<HD, 16>(fp, p, Bb, per_row, grid, stream);
+    case 128: return launch_bwd<HD, 128>(fp, p, Bb, per_row, grid, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// The backward.  float32, every tensor contiguous: x, dy and dx (Bb,S,H,hd),
+// dt and ddt (Bb,S,H), B, C, dB and dC (Bb,S,ds), A and dA (H,) or (Bb,H)
+// (per_row_a 1; A read at A[b * a_stride + h]).  hd in {32, 64}, ds in
+// {16, 128}, 1 <= Q <= 128 and S % Q == 0.  Scratch from the caller,
+// contiguous float32: lsum (Bb, S/Q, H, Q), state and dstate (Bb, S/Q, H, hd,
+// ds), dG (Bb, S/Q, H, Q, Q) and dA_part (Bb, S/Q, H).  grid holds the seven
+// launches' grids, three numbers each (kernels/ssd_scan_bwd.py::plan).
+// Launches seven kernels on `stream`; returns a cudaError_t value (0 on
+// success).
+extern "C" int ssd_scan_bwd(
+    const float* x, const float* dt, const float* B, const float* C, const float* A,
+    const float* dy, float* dx, float* ddt, float* dB, float* dC, float* dA, float* lsum,
+    float* state, float* dstate, float* dG, float* dA_part, int Bb, int S, int H, int hd,
+    int ds, int Q, long long a_stride, int per_row_a, const int* grid, void* stream) {
+  if (Q < 1 || Q > kMaxQ || S % Q != 0 || Bb < 1 || H < 1 || Bb > 65535 || H > 65535)
+    return cudaErrorInvalidValue;
+  Params fp = {};
+  fp.x = x; fp.dt = dt; fp.B = B; fp.C = C; fp.A = A;
+  fp.lsum = lsum; fp.state = state; fp.as = a_stride;
+  fp.xs[0] = (long long)S * H * hd; fp.xs[1] = (long long)H * hd; fp.xs[2] = hd;
+  fp.dts[0] = (long long)S * H; fp.dts[1] = H;
+  fp.bs[0] = fp.cs[0] = (long long)S * ds; fp.bs[1] = fp.cs[1] = ds;
+  fp.Q = Q; fp.H = H; fp.nc = S / Q; fp.head_group = 1;
+  fp.vec = aligned16(x, fp.xs, 3) && aligned16(B, fp.bs, 2) && aligned16(C, fp.cs, 2);
+  BwdParams p;
+  p.x = x; p.dt = dt; p.B = B; p.C = C; p.A = A; p.dy = dy;
+  p.dx = dx; p.ddt = ddt; p.dB = dB; p.dC = dC; p.dA = dA;
+  p.lsum = lsum; p.state = state; p.dstate = dstate; p.dG = dG; p.dA_part = dA_part;
+  p.as = a_stride; p.S = S; p.H = H; p.Q = Q; p.nc = S / Q;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 32: return launch_bwd_ds<32>(fp, p, Bb, ds, per_row_a, grid, st);
+    case 64: return launch_bwd_ds<64>(fp, p, Bb, ds, per_row_a, grid, st);
+    default: return cudaErrorInvalidValue;
+  }
+}

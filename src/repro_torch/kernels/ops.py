@@ -18,7 +18,12 @@ Its sibling ``repro_torch::flash_decode_partial`` (``flash_decode_partial``)
 takes one position per batch row and also returns each row's
 log-sum-exp: what a sequence-sharded cache's shards run before the
 partitioner combines them.
-The SSD scan is, under capture, ``repro_torch::ssd_scan`` (``ssd``).
+The SSD scan is, under capture, ``repro_torch::ssd_scan`` (``ssd``), whose
+registered gradient is the operator ``repro_torch::ssd_scan_bwd``: a CUDA
+tensor goes to the backward kernel, a CPU tensor to ``ssd_scan_bwd_ref``.
+Run eagerly, an SSD that needs a gradient goes on the card through
+``ssd_scan_bwd.ssd_scan_train`` (the forward kernel, then the backward
+kernel); on the CPU autograd differentiates the plain version.
 Attention that needs no gradient is, under graph capture
 (``core/compat.py::capture``), the custom operator
 ``repro_torch::flash_attention`` (``flash_attention_op``), which the capture
@@ -46,8 +51,9 @@ from torch.fx.experimental.proxy_tensor import get_proxy_mode
 from . import flash_attention as fa
 from . import flash_attention_bwd as fab
 from . import ssd_scan as ssd_kernel
+from . import ssd_scan_bwd as ssd_bwd_kernel
 from .ref import (attention_lse_ref, chunked_attention_ref, flash_attention_bwd_ref,
-                  flash_decode_partial_ref, ssd_scan_ref)
+                  flash_decode_partial_ref, ssd_scan_bwd_ref, ssd_scan_ref)
 
 
 def _route(t: torch.Tensor) -> str:
@@ -294,6 +300,8 @@ def attention(q, k, v, *, causal: bool = True, block_k: int = 128):
 
 def _ssd(x, dt, B, C, A, chunk):
     if _route(x) == "cuda":
+        if _needs_grad(x, dt, B, C, A):
+            return ssd_bwd_kernel.ssd_scan_train(x, dt, B, C, A, chunk=chunk)
         return ssd_kernel.ssd_scan(x, dt, B, C, A, chunk=chunk)
     return ssd_scan_ref(x, dt, B, C, A, chunk)
 
@@ -303,9 +311,9 @@ def ssd_scan_op(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor, C: torch.Ten
                 A: torch.Tensor, chunk: int) -> torch.Tensor:
     """The SSD scan as an operator: x (Bb,S,H,hd), dt (Bb,S,H), B/C (Bb,S,ds),
     A (H,) -> y (Bb,S,H,hd) float32.  A CUDA tensor goes to the kernel, a CPU
-    tensor to the plain version.  It has no gradient (the kernel has no
-    backward yet, ROADMAP A8)."""
-    return _ssd(x, dt, B, C, A, chunk)
+    tensor to the plain version.  Its gradient is ``ssd_scan_bwd_op``."""
+    with torch.no_grad():  # the registered gradient differentiates it
+        return _ssd(x, dt, B, C, A, chunk)
 
 
 @ssd_scan_op.register_fake
@@ -315,16 +323,49 @@ def _(x, dt, B, C, A, chunk):
     return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
+@torch.library.custom_op("repro_torch::ssd_scan_bwd", mutates_args=())
+def ssd_scan_bwd_op(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                    A: torch.Tensor, dy: torch.Tensor, chunk: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                               torch.Tensor]:
+    """The gradient of ``ssd_scan_op`` as an operator: (dx, ddt, dB, dC, dA)
+    from the forward's inputs and the output's gradient, dA in A's shape.  A
+    CUDA tensor goes to the backward kernel, a CPU tensor to its plain
+    version."""
+    if _route(x) == "cuda":
+        return ssd_bwd_kernel.ssd_scan_bwd(x, dt, B, C, A, dy, chunk=chunk)
+    return tuple(t.contiguous() for t in ssd_scan_bwd_ref(x, dt, B, C, A, dy, chunk))
+
+
+@ssd_scan_bwd_op.register_fake
+def _(x, dt, B, C, A, dy, chunk):
+    if not is_fake(x):
+        _route(x)
+    return tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
+                 for t in (x, dt, B, C, A))
+
+
+def _ssd_setup(ctx, inputs, output):
+    *tensors, chunk = inputs
+    ctx.save_for_backward(*tensors)
+    ctx.chunk = chunk
+
+
+def _ssd_backward(ctx, dy):
+    return (*ssd_scan_bwd_op(*ctx.saved_tensors, dy, ctx.chunk), None)
+
+
+ssd_scan_op.register_autograd(_ssd_backward, setup_context=_ssd_setup)
+
+
 def ssd(x, dt, B, C, A, *, chunk: int = 128):
     """Mamba2 SSD: x (Bb,S,H,hd), dt (Bb,S,H), B/C (Bb,S,ds), A (H,) negative
     -> y (Bb,S,H,hd), with chunks of min(chunk, S) rows.  Under graph capture
     the operator ``repro_torch::ssd_scan`` (one node, which the partitioner
-    shards on batch, heads and head dim: ``core/partitioner.py::decide_ssd``);
-    else the kernel (CUDA) or the plain version (CPU) called directly."""
+    shards on batch, heads and head dim: ``core/partitioner.py::decide_ssd``;
+    its gradient one ``repro_torch::ssd_scan_bwd`` node, ``decide_ssd_bwd``);
+    else the kernels (CUDA: with a gradient, ``ssd_scan_train``) or the
+    plain version (CPU) called directly."""
     if _capturing(x):
-        if _needs_grad(x, dt, B, C, A):
-            raise NotImplementedError(
-                "the SSD scan under capture has no gradient: its backward kernel is not "
-                "ported yet (ROADMAP A8)")
         return ssd_scan_op(x, dt, B, C, A, int(chunk))
     return _ssd(x, dt, B, C, A, chunk)

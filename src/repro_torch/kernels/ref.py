@@ -188,9 +188,11 @@ def ssd_scan_ref(x, dt, B, C, A, chunk: int):
     # intra-chunk: y[t] += sum_{s<=t} exp(l_t - l_s) dt_s (C_t . B_s) x_s
     G = torch.einsum("bnqd,bnsd->bnqs", Cc, Bc)  # (B,nc,Q,Q)
     diff = l[:, :, :, None, :] - l[:, :, None, :, :]  # (B,nc,Q,Q,Hp) t,s
-    mask = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-    # a select, not a product: exp(diff) is inf above the diagonal
-    W = torch.where(mask[None, None, :, :, None], torch.exp(diff), 0.0)
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()[None, None, :, :, None]
+    # a select, not a product: exp(diff) is inf above the diagonal.  The
+    # exponent is masked too, so that autograd's product of the select's
+    # zero gradient with exp there is 0, not 0 * inf
+    W = torch.where(mask, torch.exp(torch.where(mask, diff, 0.0)), 0.0)
     W = W * G[..., None] * dtc[:, :, None, :, :]  # (B,nc,Q,Q,Hp) [t,s]
     y_intra = torch.einsum("bnqsh,bnshp->bnqhp", W, xc)
 
@@ -210,6 +212,98 @@ def ssd_scan_ref(x, dt, B, C, A, chunk: int):
 
     y_inter = torch.einsum("bnqd,bnhpd->bnqhp", Cc, S_prev) * torch.exp(l)[..., None]
     return (y_intra + y_inter).reshape(Bb, S, Hp, hd)
+
+
+def ssd_scan_bwd_ref(x, dt, B, C, A, dy, chunk: int):
+    """The backward kernel's formulas in plain PyTorch: (dx, ddt, dB, dC, dA)
+    of ``ssd_scan_ref`` at the output gradient ``dy``, step by step in the
+    order of the kernel's passes (``csrc/ssd_scan.cu``, backward).  A (H,)
+    gives dA (H,), summed over rows; A (Bb,H) gives dA (Bb,H).
+
+    Per (row, head, chunk), l the within-chunk cumulative sum of dt A, lQ
+    its last value, decay = exp(lQ - l), S_in the state entering the chunk:
+    1. l and S_in, as the forward computes them;
+    2. each chunk's gradient of its own S_in, sum_t exp(l_t) dy_t^T C_t;
+    3. in reverse over the chunks, dS_next[c] (the gradient of the state
+       leaving chunk c) = local[c+1] + exp(lQ[c+1]) dS_next[c+1];
+    4. per head, from dW = dy x^T and G = C B^T on the causal half (the
+       exponent masked before the exp):
+       dx = W^T dy + decay dt (B dS_next^T); dG = dW M dt; and the
+       pieces of dl: q_t = dy_t . y_inter_t, R = dW * W (row sums add to
+       dl, column sums subtract), v = dt u with u = decay (x . B dS_next^T)
+       (dl_s -= v_s, dl_Q += sum v), kappa = exp(lQ) <dS_next, S_in>
+       (into dl_Q); da_u = sum_{t >= u} dl_t, that is the reverse cumsum
+       of q + rowR - colR, plus the exclusive prefix sum of v, plus kappa;
+       ddt = sum_t dW M G + u + A da, and dA = sum dt da;
+    5. over the heads: dC = sum_h exp(l) (dy S_in) + (sum_h dG) B and
+       dB = sum_h decay dt (x dS_next) + (sum_h dG)^T C."""
+    Bb, S, H, hd = x.shape
+    ds = B.shape[-1]
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"sequence {S} is not a multiple of the chunk {Q}")
+    nc = S // Q
+    xc, dyc = x.reshape(Bb, nc, Q, H, hd), dy.reshape(Bb, nc, Q, H, hd)
+    dtc = dt.reshape(Bb, nc, Q, H)
+    Bc, Cc = B.reshape(Bb, nc, Q, ds), C.reshape(Bb, nc, Q, ds)
+    Ab = A[None, None, None, :] if A.ndim == 1 else A[:, None, None, :]
+
+    # 1. l and the states entering each chunk
+    l = torch.cumsum(dtc * Ab, dim=2)  # (Bb,nc,Q,H)
+    lQ = l[:, :, -1]  # (Bb,nc,H)
+    decay = torch.exp(lQ[:, :, None] - l)
+    Sc = torch.einsum("bnsh,bnsd,bnshp->bnhpd", decay * dtc, Bc, xc)
+    s = torch.zeros((Bb, H, hd, ds), dtype=x.dtype, device=x.device)
+    S_in = []
+    for n in range(nc):
+        S_in.append(s)
+        s = torch.exp(lQ[:, n])[..., None, None] * s + Sc[:, n]
+    S_in = torch.stack(S_in, dim=1)  # (Bb,nc,H,hd,ds)
+
+    # 2. each chunk's own gradient of the state entering it
+    el = torch.exp(l)
+    local = torch.einsum("bnth,bnthp,bntd->bnhpd", el, dyc, Cc)
+
+    # 3. the gradient of the state leaving each chunk, in reverse
+    run = torch.zeros_like(s)
+    dSn = [None] * nc
+    for n in reversed(range(nc)):
+        dSn[n] = run
+        run = local[:, n] + torch.exp(lQ[:, n])[..., None, None] * run
+    dSn = torch.stack(dSn, dim=1)  # (Bb,nc,H,hd,ds)
+
+    # 4. per head
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()[None, None, :, :, None]
+    diff = l[:, :, :, None, :] - l[:, :, None, :, :]  # (Bb,nc,Q,Q,H) [t,s]
+    M = torch.where(mask, torch.exp(torch.where(mask, diff, 0.0)), 0.0)
+    G = torch.einsum("bntd,bnsd->bnts", Cc, Bc)[..., None]
+    dW = torch.einsum("bnthp,bnshp->bntsh", dyc, xc)
+    MG = M * G
+    W = MG * dtc[:, :, None]
+    dG = dW * M * dtc[:, :, None]
+    R = dW * W
+    BdS = torch.einsum("bnsd,bnhpd->bnshp", Bc, dSn)
+    CS = torch.einsum("bntd,bnhpd->bnthp", Cc, S_in)
+    dx = torch.einsum("bntsh,bnthp->bnshp", W, dyc) + (decay * dtc)[..., None] * BdS
+    u = decay * (xc * BdS).sum(-1)  # (Bb,nc,Q,H)
+    q = el * (dyc * CS).sum(-1)
+    kappa = torch.exp(lQ) * (dSn * S_in).sum((-1, -2))  # (Bb,nc,H)
+    v = dtc * u
+    dl = q + R.sum(3) - R.sum(2)
+    da = (dl.flip(2).cumsum(2).flip(2) + (v.cumsum(2) - v) + kappa[:, :, None])
+    ddt = (dW * MG).sum(2) + u + Ab * da
+    dA = (dtc * da).sum((1, 2))  # (Bb,H)
+    if A.ndim == 1:
+        dA = dA.sum(0)
+
+    # 5. the head sums
+    dGs = dG.sum(-1)
+    dC = (torch.einsum("bnth,bnthp,bnhpd->bntd", el, dyc, S_in)
+          + torch.einsum("bnts,bnsd->bntd", dGs, Bc))
+    dB = (torch.einsum("bnsh,bnshp,bnhpd->bnsd", decay * dtc, xc, dSn)
+          + torch.einsum("bnts,bntd->bnsd", dGs, Cc))
+    return (dx.reshape(x.shape), ddt.reshape(dt.shape), dB.reshape(B.shape),
+            dC.reshape(C.shape), dA)
 
 
 def ssd_recurrence(x, dt, B, C, A):

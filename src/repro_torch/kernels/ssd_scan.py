@@ -4,8 +4,11 @@ The CUDA source replaces the JAX package's Pallas TPU kernel
 ``kernels/ssd_scan.py::ssd_scan`` and, on the model path, the oracle
 ``models/ssm.py::ssd_scan_ref`` that the reference's Mamba2 calls; the
 source's header says what bounds it on an H100 and what its design does
-about that.  Forward only: there is no backward kernel, so inputs that
-require grad while grad is enabled raise rather than being detached.
+about that.  This wrapper is the forward alone: called directly with inputs
+that require grad while grad is enabled, it raises rather than detaching
+them.  The gradient is ``ssd_scan_bwd.py``'s kernel (entry point
+``ssd_scan_bwd`` of the same source), which ``ssd_scan_bwd.ssd_scan_train``
+pairs with this forward.
 
 One call is three kernel launches on PyTorch's current stream, in the plain
 version's order: ``ssd_chunk_state`` (the chunk-local states),
@@ -141,8 +144,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor, C: torch.Tensor
         if t.dtype != torch.float32:
             raise TypeError(f"{name} is {t.dtype}; the kernel takes float32 only")
     if torch.is_grad_enabled() and any(t.requires_grad for _, t in tensors):
-        raise RuntimeError("ssd_scan has no backward kernel yet: call it under "
-                           "torch.no_grad() or torch.inference_mode()")
+        raise RuntimeError("ssd_scan is the forward alone and would detach its inputs: "
+                           "take the backward kernel through ssd_scan_bwd.ssd_scan_train, or "
+                           "call it under torch.no_grad() or torch.inference_mode()")
     if A.stride(-1) != 1:
         raise ValueError(f"A must have a unit-stride last dim, got {A.stride()}")
     a_stride = A.stride(0) if A.ndim == 2 and Bb > 1 else 0

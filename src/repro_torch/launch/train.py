@@ -5,6 +5,13 @@ init a (reduced) model from a seed and train it.  Runs on CUDA unless
     PYTHONPATH=src python -m repro_torch.launch.train --reduce 16 --steps 5 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --reduce 1 --batch 4 --seq 2048 \\
         --steps 10 --data-pattern arithmetic
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m --reduce 1 \\
+        --batch 8 --seq 2048 --steps 10 --data-pattern arithmetic
+
+The last trains mamba2-130m at its published widths (bf16 compute, float32
+master weights, remat "dots", Adafactor); its SSD's gradient is the backward
+kernel.  ``--arch mamba2-130m --reduce 8 --batch 2 --seq 64 --device cpu``
+is a small CPU run.
 
 ``--ckpt-dir`` raises until checkpoints are ported (ROADMAP A14).
 """

@@ -130,11 +130,17 @@ def at_use(w, cfg: ModelConfig):
     return w.to(getattr(torch, cfg.dtype))
 
 
+def widen(x):
+    """x at the reference's float32 rounding points: float32, or its own
+    dtype where that is wider (float64, which a float64 model keeps)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def rms_norm(x, scale, eps=1e-6):
-    xf = x.float()
+    xf = widen(x)
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * scale.float()).to(x.dtype)
+    return (y * widen(scale)).to(x.dtype)
 
 
 def rope(q, positions, dh, base=10000.0):
@@ -229,7 +235,7 @@ def unembed_logits(cfg: ModelConfig, st: Strategy, p: Params, x):
 def softmax_xent(cfg: ModelConfig, st: Strategy, logits, labels):
     """Mean cross entropy in float32, padded vocab masked (§4.1)."""
     V = logits.shape[-1]
-    logits = logits.float()
+    logits = widen(logits)
     if V > cfg.vocab_size:
         mask = torch.arange(V, device=logits.device) < cfg.vocab_size
         logits = torch.where(mask, logits, torch.full_like(logits, -1e9))
@@ -257,9 +263,9 @@ def streamed_xent(cfg: ModelConfig, st: Strategy, x, embedding, labels):
         if mask is not None:
             logits = torch.where(mask, logits, torch.full_like(logits, -1e4))
         mx = logits.amax(dim=-1, keepdim=True).detach()  # the reference's stop_gradient
-        z = (logits - mx).float()
-        lse = torch.log(torch.exp(z).sum(dim=-1)) + mx[..., 0].float()
-        picked = logits.float().gather(-1, lc[..., None])[..., 0]
+        z = widen(logits - mx)
+        lse = torch.log(torch.exp(z).sum(dim=-1)) + widen(mx[..., 0])
+        picked = widen(logits).gather(-1, lc[..., None])[..., 0]
         total = total + (lse - picked).sum()
     return total / (B * S)
 

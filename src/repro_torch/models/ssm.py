@@ -3,16 +3,22 @@ forward and the recurrent decode step, as the JAX package's ``models/ssm.py``.
 
 ``ssm_forward`` runs the SSD through ``kernels/ops.py::ssd`` (the
 hand-written CUDA kernel for CUDA tensors, the step-for-step plain version
-for CPU tensors) where the reference calls ``ssd_scan_ref``.
+for CPU tensors) where the reference calls ``ssd_scan_ref``; under autograd
+its gradient is the backward kernel on the card (``ssd_scan_bwd.py``) and
+autograd through the plain version on the CPU, where the reference takes
+XLA's autodiff.
 ``ssm_decode`` is the exact recurrence, one token at a time, with no scan.
 
 Rounding points follow the reference: the projections and the causal conv
-in ``cfg.dtype``; B, C, dt, A, D, the scan and the gated norm's statistics
-in float32.  The conv is spelled as the reference's K shifted products and
+in ``cfg.dtype`` (each matrix cast at use, so that float32 master weights
+train as the reference's do); B, C, dt, A, D, the scan and the gated norm's statistics
+in float32 (``layers.widen``: a float64 model keeps float64 there, which the
+partitioned step's float64 check in ``chip_smoke.py`` runs).  The conv is spelled as the reference's K shifted products and
 adds, rounding after each, not as ``conv1d`` (which would also bring cuDNN's
 TF32 on the card); ``jax.nn.softplus`` is ``logaddexp(x, 0)``.  With no mesh
-``Hp == H`` and ``_pad_heads`` returns its input; it pads as the reference
-does once the sharded strategies arrive (ROADMAP A6).
+``Hp == H`` and ``_pad_heads`` returns its input; under a mesh it pads the
+heads to the axis that shards them, as the reference does, and the padded
+heads' dt is masked to 0.
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig, Strategy
 from ..core.sharding import pad_to_multiple
 from ..kernels import ops
-from .layers import Params, pspec, silu
+from .layers import Params, at_use, pspec, silu, widen
 
 
 def ssm_dims(cfg: ModelConfig, st: Strategy):
@@ -90,22 +96,23 @@ def _gated_norm(cfg, p, y, z, H, Hp):
     with ``norm``, in the reference's rounding points."""
     dt_ = getattr(torch, cfg.dtype)
     y = y.to(dt_) * silu(z)
-    norm = _pad_heads(p["norm"].float(), H, Hp, 0)
-    var = y.float().square().mean(dim=-1, keepdim=True)
-    return (y.float() * torch.rsqrt(var + 1e-6) * norm).to(dt_)
+    norm = _pad_heads(widen(p["norm"]), H, Hp, 0)
+    var = widen(y).square().mean(dim=-1, keepdim=True)
+    return (widen(y) * torch.rsqrt(var + 1e-6) * norm).to(dt_)
 
 
 def _inputs(cfg, st, p, x, head_axis):
     """The projections of x and the per-head constants, padded to Hp."""
     d_in, hd, H, Hp = ssm_dims(cfg, st)
-    z = _pad_heads(_heads_proj(x, p["wz"]), H, Hp, head_axis)
-    xr = _pad_heads(_heads_proj(x, p["wx"]), H, Hp, head_axis)
-    Bm = (x @ p["wB"]).float()
-    Cm = (x @ p["wC"]).float()
-    dt_raw = _pad_heads((x @ p["wdt"]).float() + p["dt_bias"].float(), H, Hp, head_axis)
-    conv_w = _pad_heads(p["conv_w"], H, Hp, 1)
-    A = _pad_heads(-torch.exp(p["A_log"].float()), H, Hp, 0)
-    D = _pad_heads(p["D"].float(), H, Hp, 0)
+    z = _pad_heads(_heads_proj(x, at_use(p["wz"], cfg)), H, Hp, head_axis)
+    xr = _pad_heads(_heads_proj(x, at_use(p["wx"], cfg)), H, Hp, head_axis)
+    Bm = widen(x @ at_use(p["wB"], cfg))
+    Cm = widen(x @ at_use(p["wC"], cfg))
+    dt_raw = _pad_heads(widen(x @ at_use(p["wdt"], cfg)) + widen(p["dt_bias"]), H, Hp,
+                        head_axis)
+    conv_w = _pad_heads(at_use(p["conv_w"], cfg), H, Hp, 1)
+    A = _pad_heads(-torch.exp(widen(p["A_log"])), H, Hp, 0)
+    D = _pad_heads(widen(p["D"]), H, Hp, 0)
     dt = _softplus(dt_raw) * (torch.arange(Hp, device=x.device) < H)  # mask padded heads
     return z, xr, Bm, Cm, dt, conv_w, A, D
 
@@ -118,11 +125,11 @@ def ssm_forward(cfg: ModelConfig, st: Strategy, p: Params, x, chunk: int = 128):
     xr = st.constrain(xr, "batch", "seq", "heads", None)
 
     xr = silu(_causal_conv(xr, conv_w))
-    y = ops.ssd(xr.float(), dt, Bm, Cm, A, chunk=chunk)
-    y = y + D[None, None, :, None] * xr.float()
+    y = ops.ssd(widen(xr), dt, Bm, Cm, A, chunk=chunk)
+    y = y + D[None, None, :, None] * widen(xr)
     y = st.constrain(_gated_norm(cfg, p, y, z, H, Hp), "batch", "seq", "heads", None)
 
-    wo = _pad_heads(p["wo"], H, Hp, 0)  # zero rows: mask padded heads
+    wo = _pad_heads(at_use(p["wo"], cfg), H, Hp, 0)  # zero rows: mask padded heads
     out = y.flatten(2) @ wo.flatten(0, 1)
     return st.constrain(out, "batch", "seq", "embed")
 
@@ -162,6 +169,6 @@ def ssm_decode(cfg: ModelConfig, st: Strategy, p: Params, x, state):
     ] * Bm[:, None, None, :]
     y = torch.einsum("bhpd,bd->bhp", s, Cm) + D[None, :, None] * xr.float()
     y = _gated_norm(cfg, p, y, z, H, Hp)
-    wo = _pad_heads(p["wo"], H, Hp, 0)
+    wo = _pad_heads(at_use(p["wo"], cfg), H, Hp, 0)
     out = (y.flatten(1) @ wo.flatten(0, 1))[:, None]
     return out, {"s": s, "conv": new_conv}

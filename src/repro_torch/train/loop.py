@@ -27,8 +27,9 @@ Not ported yet, and refused where asked for: numerics guards
 (``TrainConfig.guard``: ``core/plan.py``'s GuardConfig and the skip/rewind
 epilogue, ROADMAP A9), checkpoint/restart (``TrainConfig.ckpt_dir``:
 ``train/checkpoint.py``, ROADMAP A14) and the ``obs`` metrics and control
-events (ROADMAP A15).  The dense family trains; Mamba2's waits for a
-backward of the SSD kernel (ROADMAP A8).
+events (ROADMAP A15).  The dense family and Mamba2 train (attention's and
+the SSD's gradients are kernels on the card: ``kernels/ops.py``); the
+families with no model yet raise (ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -80,10 +81,7 @@ def _require_trainable(cfg: ModelConfig, tc: TrainConfig):
         raise NotImplementedError(
             "TrainConfig.guard needs core/plan.py's GuardConfig and the skip/rewind "
             "epilogue, which are not ported yet (ROADMAP A9)")
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family!r} family needs a backward of its "
-            "kernel, which is not ported yet (ROADMAP A8)")
+    api.family_module(cfg)  # the families with no model yet raise, naming their item
 
 
 def value_and_grad(cfg: ModelConfig, st: Strategy, params, batch, grad_accum: int = 1):
@@ -215,7 +213,8 @@ def partitioned_train_step(cfg: ModelConfig, st: Strategy, opt: Optimizer, tc: T
     ``tree_specs``, the state by ``opt_state_specs``, tokens and labels on
     ("data",), as the reference's ``launch/elastic.py::state_partition_specs``
     places them), takes the loss's gradient with autograd inside the
-    program (attention's through the flash operators; remat per
+    program (attention's through the flash operators, the SSD's through
+    ``repro_torch::ssd_scan`` and its gradient operator; remat per
     ``cfg.remat``, its recompute captured in the graph), applies the fault
     window (``_with_faults``: data, not a branch) and the bf16 exchange
     (``_compressed``) where ``tc`` asks for them, and applies

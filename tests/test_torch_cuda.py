@@ -1,5 +1,5 @@
-"""The port on the card: the CUDA flash-attention (forward and backward)
-and SSD-scan kernels against their plain PyTorch versions, and the serving,
+"""The port on the card: the CUDA flash-attention and SSD-scan kernels
+(forward and backward) against their plain PyTorch versions, and the serving,
 forward and training paths on CUDA against the same paths on the CPU.  Every test here needs an NVIDIA GPU and skips without one; the file
 imports no JAX, so it runs where only the port is installed:
 
@@ -17,9 +17,10 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_attention_bwd as fab
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as ssd_kernel
+from repro_torch.kernels import ssd_scan_bwd as ssd_bwd_kernel
 from repro_torch.kernels.ref import (
     NEG_INF, attention_lse_ref, attention_ref, chunked_attention_ref, flash_attention_bwd_ref,
-    flash_decode_partial_ref, ssd_recurrence, ssd_scan_ref,
+    flash_decode_partial_ref, ssd_recurrence, ssd_scan_bwd_ref, ssd_scan_ref,
 )
 from repro_torch.models import api
 from repro_torch.models.layers import tree_init
@@ -886,3 +887,164 @@ def test_sequence_sharded_decode_op_on_cuda_is_one_launch(cuda):
         assert runner.collectives == {"all-reduce": 3} and runner.fallbacks == []
         want = chunked_attention_ref(q, k, v, causal=False, chunk=1024, q_offset=p, kv_len=p + 1)
         assert_close(got, want, "bf16_round", err_msg=f"pos {p}")
+
+
+# ---------------------------------------------------------------------------------
+# the SSD's backward kernel and Mamba2 training on the card
+# ---------------------------------------------------------------------------------
+
+# (B, S, H, hd, ds, chunk): the Mamba2 training call at one row, several
+# chunks at both widths, one chunk (S = Q), ragged Q (36, 100), and hd 32
+# with ds 16
+SSD_BWD_CASES = [
+    (1, 2048, 24, 64, 128, 128),
+    (2, 512, 3, 64, 128, 128),
+    (2, 256, 2, 32, 16, 64),
+    (1, 128, 2, 64, 128, 128),
+    (2, 144, 3, 64, 128, 36),
+    (1, 100, 2, 32, 128, 128),
+    (2, 192, 2, 64, 16, 48),
+]
+SSD_GRADS = ("dx", "ddt", "dB", "dC", "dA")
+
+
+def _ssd_bwd_inputs(cuda, B, S, H, hd, ds, seed=0, per_row=False):
+    x, dt, Bm, Cm, A = _ssd_inputs(cuda, B, S, H, hd, ds, seed=seed)
+    g = torch.Generator(device=cuda).manual_seed(seed + 100)
+    if per_row:
+        A = -torch.rand(B, H, generator=g, device=cuda) - 0.05
+    return x, dt, Bm, Cm, A, torch.randn(B, S, H, hd, generator=g, device=cuda)
+
+
+def _assert_bwd_close(got, args, chunk):
+    """Each gradient against the plain backward run in float64: in norm
+    within f32_chain's rtol, and per element within 4x the plain float32
+    version's own largest error (on signed inputs float32 itself lands up
+    to 3x outside f32_chain per element, at near-zero sums of cancelling
+    terms)."""
+    want = ssd_scan_bwd_ref(*(t.double() for t in args), chunk)
+    plain = ssd_scan_bwd_ref(*args, chunk)
+    for name, g, w, p in zip(SSD_GRADS, got, want, plain):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        err = (g.double() - w).abs()
+        assert (err.norm() / w.norm()).item() <= TOLERANCES["f32_chain"][0], name
+        assert err.max().item() <= 4 * (p.double() - w).abs().max().item(), name
+
+
+@pytest.mark.parametrize("B,S,H,hd,ds,chunk", SSD_BWD_CASES)
+def test_ssd_backward_kernel_matches_float64_plain(cuda, B, S, H, hd, ds, chunk):
+    """dx, ddt, dB, dC and dA against the plain backward in float64
+    (``_assert_bwd_close``): float32 FMA chains, and sums over heads, rows
+    and chunks in a fixed order; one wrapper call per launch count."""
+    args = _ssd_bwd_inputs(cuda, B, S, H, hd, ds)
+    before = ssd_bwd_kernel.launches
+    got = ssd_bwd_kernel.ssd_scan_bwd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_bwd_kernel.launches == before + 1
+    _assert_bwd_close(got, args, chunk)
+
+
+def test_ssd_backward_kernel_with_a_per_row_matches_plain(cuda):
+    """A (Bb, H), as a partitioned call folds each device's heads into the
+    batch: dA comes per row."""
+    args = _ssd_bwd_inputs(cuda, 4, 512, 6, 64, 128, seed=1, per_row=True)
+    got = ssd_bwd_kernel.ssd_scan_bwd(*args, chunk=128)
+    assert got[4].shape == (4, 6)
+    _assert_bwd_close(got, args, 128)
+
+
+def test_ssd_backward_kernel_takes_strided_views_and_repeats_bit_for_bit(cuda):
+    """Head slices of wider x, dt, dy and A, and column slices of one B|C
+    tensor; a second call gives the same bits (no atomics)."""
+    x, dt, Bm, Cm, A, dy = _ssd_bwd_inputs(cuda, 2, 256, 6, 64, 128, seed=2)
+    BC = torch.cat([Bm, Cm], dim=-1)
+    views = (x[:, :, 1:4], dt[:, :, 1:4], BC[..., :128], BC[..., 128:], A[1:4], dy[:, :, 1:4])
+    first, second = (ssd_bwd_kernel.ssd_scan_bwd(*views) for _ in range(2))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    _assert_bwd_close(first, [v.contiguous() for v in views], 128)
+
+
+def test_ssd_backward_kernel_keeps_float32_accuracy_at_large_x(cuda):
+    """x and dy scaled by 10^3 and x, B, C and dy taken non-negative: every
+    gradient but ddt is then a sum of terms of one sign, held to f32_chain
+    against float64; ddt adds A da to sums of the other sign, and is held,
+    with the signed case (x * 10^3) on all five, to 4x the plain float32
+    version's own largest error against float64."""
+    x, dt, Bm, Cm, A, dy = _ssd_bwd_inputs(cuda, 2, 512, 3, 64, 128, seed=3)
+    pos = (x.abs() * 1e3, dt, Bm.abs(), Cm.abs(), A, dy.abs() * 1e3)
+    got = ssd_bwd_kernel.ssd_scan_bwd(*pos)
+    want = ssd_scan_bwd_ref(*(t.double() for t in pos), 128)
+    plain = ssd_scan_bwd_ref(*pos, 128)
+    for name, g, w, p in zip(SSD_GRADS, got, want, plain):
+        if name != "ddt":
+            assert_close(g, w, "f32_chain", err_msg=name)
+        kernel_err = (g.double() - w).abs().max().item()
+        plain_err = (p.double() - w).abs().max().item()
+        assert kernel_err <= 4 * plain_err, (name, kernel_err, plain_err)
+    signed = (x * 1e3, dt, Bm, Cm, A, dy)
+    got = ssd_bwd_kernel.ssd_scan_bwd(*signed)
+    want = ssd_scan_bwd_ref(*(t.double() for t in signed), 128)
+    plain = ssd_scan_bwd_ref(*signed, 128)
+    for name, g, w, p in zip(SSD_GRADS, got, want, plain):
+        kernel_err = (g.double() - w).abs().max().item()
+        plain_err = (p.double() - w).abs().max().item()
+        assert 0 < plain_err and kernel_err <= 4 * plain_err, (name, kernel_err, plain_err)
+
+
+def test_ssd_gradient_through_the_kernels_matches_autograd_of_the_plain_version(cuda):
+    """loss.backward() through ops.ssd on CUDA tensors that require grad (the
+    forward kernel, then the backward kernel: one call each) against
+    autograd through the plain forward in float64."""
+    x, dt, Bm, Cm, A, dy = _ssd_bwd_inputs(cuda, 2, 384, 3, 64, 128, seed=4)
+    leaves = [t.clone().requires_grad_() for t in (x, dt, Bm, Cm, A)]
+    before = (ssd_kernel.launches, ssd_bwd_kernel.launches)
+    (ops.ssd(*leaves, chunk=128) * dy).sum().backward()
+    torch.cuda.synchronize()
+    assert (ssd_kernel.launches, ssd_bwd_kernel.launches) == (before[0] + 1, before[1] + 1)
+    ref = [t.double().requires_grad_() for t in (x, dt, Bm, Cm, A)]
+    (ssd_scan_ref(*ref, 128) * dy.double()).sum().backward()
+    for name, t, r in zip(SSD_GRADS, leaves, ref):
+        rel = ((t.grad.double() - r.grad).norm() / r.grad.norm()).item()
+        assert rel <= TOLERANCES["f32_chain"][0], (name, rel)
+
+
+def test_ssd_gradient_the_kernel_does_not_cover_raises(cuda):
+    """hd 48 is outside the kernels' widths: a call that needs the gradient
+    raises before any launch, the direct backward too, and the forward
+    wrapper called alone with such inputs refuses to detach them."""
+    x, dt, Bm, Cm, A, dy = _ssd_bwd_inputs(cuda, 1, 128, 2, 64, 128)
+    x48 = x[..., :48].contiguous().requires_grad_()
+    before = (ssd_kernel.launches, ssd_bwd_kernel.launches)
+    with pytest.raises(ValueError, match="hd, ds"):
+        ops.ssd(x48, dt, Bm, Cm, A)
+    with pytest.raises(ValueError, match="hd, ds"):
+        ssd_bwd_kernel.ssd_scan_bwd(x48.detach(), dt, Bm, Cm, A, dy[..., :48].contiguous())
+    with pytest.raises(RuntimeError, match="backward"):
+        ssd_kernel.ssd_scan(x.clone().requires_grad_(), dt, Bm, Cm, A)
+    assert (ssd_kernel.launches, ssd_bwd_kernel.launches) == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba2_loss_backward_on_cuda_matches_cpu(cuda, dtype):
+    """The reduced Mamba2 (three layers, d96), float32 master weights, one
+    batch: every parameter's gradient on the card (the SSD's through its
+    backward kernel, one call per layer) against the CPU's (autograd
+    through the plain version), per leaf in norm; bf16 within bf16_grad,
+    since random-weight bf16 Mamba2 amplifies rounding (R6)."""
+    cfg = reduced_config(get_config("mamba2-130m"), 8).with_(dtype=dtype, remat="none")
+    st = get_strategy("2d_finalized")
+    cpu = _train_params(cfg, st)
+    gpu = tree_map(lambda p: p.detach().to(cuda).requires_grad_(), cpu)
+    batch = {k: torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 256)))
+             for k in ("tokens", "labels")}
+    ssd_bwd_kernel.launches = 0
+    api.loss_fn(cfg, st, gpu, {k: v.to(cuda) for k, v in batch.items()}).backward()
+    assert ssd_bwd_kernel.launches == cfg.num_layers
+    api.loss_fn(cfg, st, cpu, batch).backward()
+    rtol = TOLERANCES["f32_chain" if dtype == "float32" else "bf16_grad"][0]
+    for (path, g), (_, w) in zip(leaves_with_paths(tree_map(lambda p: p.grad, gpu)),
+                                 leaves_with_paths(tree_map(lambda p: p.grad, cpu))):
+        rel = ((g.cpu().double() - w.double()).norm() / w.double().norm()).item()
+        assert rel <= rtol, f"{path}: relative error {rel}"

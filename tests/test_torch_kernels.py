@@ -22,6 +22,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_attention_bwd as fab
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as ssd_kernel
+from repro_torch.kernels import ssd_scan_bwd as ssd_bwd_kernel
 from repro_torch.kernels.ref import (
     attention_lse_ref, attention_ref, chunked_attention_ref, flash_attention_bwd_ref,
 )
@@ -222,6 +223,34 @@ def test_ssd_plan_sizes_the_scratch(Bb, S, H, hd, ds, chunk):
     slices, h, b = pl.scan_grid
     assert (h, b) == (H, Bb)
     assert (slices - 1) * 4 * ssd_kernel.STATE_THREADS < hd * ds <= slices * 4 * ssd_kernel.STATE_THREADS
+
+
+@pytest.mark.parametrize("per_row_a", [False, True])
+@pytest.mark.parametrize("Bb,S,H,hd,ds,chunk", SSD_PLAN_SHAPES)
+def test_ssd_bwd_plan_grids_and_scratch(Bb, S, H, hd, ds, chunk, per_row_a):
+    """The backward's seven grids, in launch order: the forward's
+    chunk-state pass (one block per chunk, head and row) and state pass
+    (four state values per thread, as the forward's with 256 threads), one
+    block per (chunk, head, row) for the local state gradients, one thread
+    per state value for their reverse pass, one block per (chunk, head, row)
+    for the per-head gradients, one per (chunk, row) for the head sums, one
+    per head (per row too where A is per row) for dA; and the float32
+    scratch: l, the states and their gradients, dG per (chunk, head) and
+    dA's partials."""
+    pl = ssd_bwd_kernel.plan(Bb, S, H, hd, ds, chunk, per_row_a)
+    Q, nc = pl.chunk, pl.chunks
+    assert Q == min(chunk, S) and nc * Q == S
+    fwd = ssd_kernel.plan(Bb, S, H, hd, ds, chunk, sms=H100_SMS)
+    state, scan, local, dpass, head, heads_sum, da = pl.grids
+    assert state == fwd.state_grid == local == head == (nc, H, Bb)
+    assert scan[1:] == dpass[1:] == (H, Bb)
+    n = ssd_bwd_kernel.THREADS
+    assert (scan[0] - 1) * 4 * n < hd * ds <= scan[0] * 4 * n
+    assert (dpass[0] - 1) * n < hd * ds <= dpass[0] * n
+    assert heads_sum == (nc, Bb, 1) and da == (H, Bb if per_row_a else 1, 1)
+    assert pl.scratch == {"lsum": fwd.lsum_shape, "state": fwd.state_shape,
+                          "dstate": fwd.state_shape, "dG": (Bb, nc, H, Q, Q),
+                          "dA_part": (Bb, nc, H)}
 
 
 def test_ssd_plan_scratch_at_the_loss_shape():
