@@ -43,7 +43,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
    and, on signed
    inputs scaled by 10^3, its error against float64 beside the plain
    float32 version's;
-3b. ssd_scan_bwd: the SSD's backward kernel (seven launches per call) at
+3b. ssd_scan_bwd: the SSD's backward kernel (six launches per call) at
    the Mamba2 training call (B8 S2048 H24), the partitioned train step's
    fold (32 x 512, 6 heads, A per row), hd 32 with ds 16, S equal to the
    chunk and inputs scaled by 10^3 (non-negative and signed), each of dx,
@@ -865,7 +865,7 @@ SSD_GRADS = ("dx", "ddt", "dB", "dC", "dA")
 
 
 def ssd_bwd_case(name, *, B, S, H, hd, ds, chunk, gen, per_row_a=False, scale_x=None):
-    """The backward kernel (seven launches per call) against the plain
+    """The backward kernel (six launches per call) against the plain
     backward run in float64 on the card, with the plain float32 version's
     own distance from float64 beside it; kernel (events), device and
     per-launch device times (profiler), the plain float32 version's time
@@ -937,9 +937,8 @@ def ssd_bwd_case(name, *, B, S, H, hd, ds, chunk, gen, per_row_a=False, scale_x=
               f"{e['rel_err_norm']}")
     del exact, plain
     # The card computes float32-accuracy products at 3xTF32 on its tensor
-    # cores (as the forward's bound counts them), so the bound by operations
-    # is 3 flops at the TF32 peak; the bound by float32 FMAs on the CUDA
-    # cores, where this kernel stands today, stays beside it on the printed line.
+    # cores (as the kernel does), so the bound by operations is 3 flops at
+    # the TF32 peak.
     flops = ssd_bwd_flops(B, S, H, hd, ds, chunk)
     t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     rec = {
@@ -955,8 +954,6 @@ def ssd_bwd_case(name, *, B, S, H, hd, ds, chunk, gen, per_row_a=False, scale_x=
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
     }
-    # counted, not measured: on the printed line only
-    f32_fma_ms = max(flops / PEAK_F32_FLOPS * 1e3, t_bytes)
     passes = device_ms(run_kernel, copies, by_name=True)
     rec["pass_dev_ms"] = passes and {_variant(n): v["ms"] for n, v in passes.items()}
     rec["launches_per_call"] = passes and sum(v["launches"] for v in passes.values())
@@ -967,8 +964,7 @@ def ssd_bwd_case(name, *, B, S, H, hd, ds, chunk, gen, per_row_a=False, scale_x=
         for n, e in errs.items()) + "; max abs err kernel / plain f32 " + ", ".join(
         f"{n} {e['max_abs_err']:.3g}/{e['plain_f32_max_abs_err']:.3g}" for n, e in errs.items()) +
         f"  kernel {rec['ms']:.4f} ms (device {_ms(rec['dev_ms'])})  plain {rec['plain_ms']:.4f} "
-        f"ms  bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, 3xTF32; f32 FMA {f32_fma_ms:.4f}; "
-        f"{flops:.4g} flop, "
+        f"ms  bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, 3xTF32; {flops:.4g} flop, "
         f"{nbytes:.4g} bytes)", flush=True)
     print(f"    per launch (device): " + ("not measured" if not passes else "  ".join(
         f"{_variant(n)} {v['ms']:.4f} ms x{v['launches']}" for n, v in passes.items())),
@@ -1264,7 +1260,7 @@ def train_phase(seed, arch="qwen1.5-0.5b", B=4, S=2048):
     launched once per layer forward plus once more in the recompute (remat
     "dots" keeps only the 2-D products) and its backward once per layer
     (qwen: the flash forward and backward, three launches each backward
-    call; Mamba2: the SSD scan and its backward, seven).  Reads: ms per
+    call; Mamba2: the SSD scan and its backward, six).  Reads: ms per
     step (wall; device busy and the backward kernel's share of it from a
     trace of one step), tokens/s, peak memory."""
     from torch.autograd import DeviceType
@@ -1334,17 +1330,11 @@ def train_phase(seed, arch="qwen1.5-0.5b", B=4, S=2048):
     for e in device:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values()) if device else None
-    # the backward kernel's launches in the traced step, by variant (the SSD
-    # backward's first two are the forward's passes: the forward's own
-    # launches of them are counted apart, by their number per step)
+    # the backward kernel's launches in the traced step, by variant
     bwd = {}
     for n, ms in by_name.items():
         if _variant(n) in bwd_variants:
             bwd[_variant(n)] = bwd.get(_variant(n), 0.0) + ms
-    if cfg.family == "ssm":  # passes 1 and 2 run in 2L forward and L backward calls
-        for v in ("ssd_chunk_state", "ssd_state_pass"):
-            if v in bwd:
-                bwd[v] *= L / (3 * L)
     bwd_ms = sum(bwd.values()) if device else None
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     print(f"train {arch}: B={B} S={S}, {TRAIN_STEPS} steps, loss {losses[0]:.4f} -> "
@@ -3346,22 +3336,22 @@ VARIANT_OF = {"flash_bwd_prep": "bwd_prep", "flash_bwd_main": "bwd_main",
               "flash_wgmma": "prefill_wgmma", "flash_decode": "decode_splitkv",
               "flash_fwd": "prefill_f32", "ssd_chunk_state": "ssd_chunk_state",
               "ssd_state_pass": "ssd_state_pass", "ssd_chunk_out": "ssd_chunk_out",
-              "ssd_bwd_dstate_local": "ssd_bwd_dstate_local",
-              "ssd_bwd_dstate_pass": "ssd_bwd_dstate_pass",
-              # before ssd_bwd_head, of which its name is an extension
-              "ssd_bwd_heads_sum": "ssd_bwd_heads_sum", "ssd_bwd_head": "ssd_bwd_head",
-              "ssd_bwd_da": "ssd_bwd_da"}
+              "ssd_bwd_chunk_local": "ssd_bwd_chunk_local", "ssd_bwd_scans": "ssd_bwd_scans",
+              "ssd_bwd_inter": "ssd_bwd_inter", "ssd_bwd_intra": "ssd_bwd_intra",
+              "ssd_bwd_dbc": "ssd_bwd_dbc", "ssd_bwd_da": "ssd_bwd_da"}
 # the kernels whose products run on wgmma (HGMMA in the SASS)
 HGMMA_VARIANTS = ("prefill_wgmma", "bwd_main")
-# the SSD passes whose products run on the tensor cores with mma.sync
-# (ssd_state_pass only moves the states: no product)
-HMMA_VARIANTS = ("ssd_chunk_state", "ssd_chunk_out")
+# the SSD launches whose products run on the tensor cores with mma.sync
+# (ssd_state_pass and ssd_bwd_scans only move the states, ssd_bwd_da sums:
+# no product)
+HMMA_VARIANTS = ("ssd_chunk_state", "ssd_chunk_out", "ssd_bwd_chunk_local", "ssd_bwd_inter",
+                 "ssd_bwd_intra", "ssd_bwd_dbc")
 # the backward's launches per call
 BWD_LAUNCHES_BF16 = ("bwd_prep", "bwd_main", "bwd_dq_out")
 BWD_LAUNCHES_F32 = ("bwd_dq_f32", "bwd_dkdv_f32")
-# the SSD backward's launches per call: the forward's passes 1 and 2, then its own
-SSD_BWD_LAUNCHES = ("ssd_chunk_state", "ssd_state_pass", "ssd_bwd_dstate_local",
-                    "ssd_bwd_dstate_pass", "ssd_bwd_head", "ssd_bwd_heads_sum", "ssd_bwd_da")
+# the SSD backward's launches per call
+SSD_BWD_LAUNCHES = ("ssd_bwd_chunk_local", "ssd_bwd_scans", "ssd_bwd_inter", "ssd_bwd_intra",
+                    "ssd_bwd_dbc", "ssd_bwd_da")
 
 
 def _variant(symbol):

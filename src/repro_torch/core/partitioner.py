@@ -496,7 +496,7 @@ def decide_ssd(eqn, shardings, want, mesh: Mesh) -> LocalOp:
 
 
 def decide_ssd_bwd(eqn, shardings, want, mesh: Mesh) -> LocalOp:
-    """One call of the SSD's backward (seven launches on the card) for every
+    """One call of the SSD's backward (six launches on the card) for every
     device, laid out as ``decide_ssd``: batch, heads and head dim of dx's
     completed sharding (else the merge of the operands'), the device dim
     folded into the batch with A per row.  Each device's dB and dC are

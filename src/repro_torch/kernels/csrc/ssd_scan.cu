@@ -104,6 +104,8 @@ struct Params {
   float* y;
   float* lsum;       // (Bb, nc, H, Q): l log2(e) within each chunk
   float* state;      // (Bb, nc, H, hd, ds): S_c, then S_in
+  const float* dy;   // the backward's: the output gradient, in x's strides
+  float* dstate;     // the backward's (Bb, nc, H, hd, ds): local[c], then dS_next
   long long xs[3];   // element strides of x over (b, s, h); the last dim is unit
   long long dts[2];  // dt over (b, s)
   long long bs[2];   // B over (b, s)
@@ -137,25 +139,36 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// rows [0, R) x columns [0, C) of a shared tile, rows `ld` floats apart:
+// element (r, c) = src[r * stride + c] by cp.async for r < nr and c < ncol,
+// else 0.  C is a multiple of 4; `vec` moves 16 bytes at a time where the
+// four columns are all in (src and stride then 16-byte aligned).
+__device__ __forceinline__ void load_block(float* dst, int ld, const float* src,
+                                           long long stride, int nr, int R, int ncol, int C,
+                                           bool vec) {
+  const int C4 = C / 4;
+  for (int i = threadIdx.x; i < R * C4; i += blockDim.x) {
+    const int r = i / C4, c = (i % C4) * 4;
+    float* d = dst + r * ld + c;
+    const float* s = src + r * stride + c;
+    if (vec && r < nr && c + 4 <= ncol) {
+      cp_async16(d, s);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (r < nr && c + e < ncol) cp_async4(d + e, s + e);
+        else d[e] = 0.f;
+      }
+    }
+  }
+}
+
 // rows [0, n) of an (n x COLS) tile, global rows `stride` floats apart, into
 // shared rows `ld` floats apart by cp.async; rows [n, n_pad) are zeroed
 template <int COLS>
-__device__ void load_tile(float* dst, int ld, const float* src, long long stride, int n,
-                          int n_pad, bool vec) {
-  if (vec) {
-    constexpr int C4 = COLS / 4;
-    for (int i = threadIdx.x; i < n * C4; i += blockDim.x) {
-      const int t = i / C4, q = (i % C4) * 4;
-      cp_async16(dst + t * ld + q, src + t * stride + q);
-    }
-  } else {
-    for (int i = threadIdx.x; i < n * COLS; i += blockDim.x) {
-      const int t = i / COLS, q = i % COLS;
-      cp_async4(dst + t * ld + q, src + t * stride + q);
-    }
-  }
-  for (int i = threadIdx.x; i < (n_pad - n) * COLS; i += blockDim.x)
-    dst[(n + i / COLS) * ld + i % COLS] = 0.f;
+__device__ __forceinline__ void load_tile(float* dst, int ld, const float* src,
+                                          long long stride, int n, int n_pad, bool vec) {
+  load_block(dst, ld, src, stride, n, n_pad, COLS, COLS, vec);
 }
 
 // hi = a rounded to TF32, lo = the rest a - hi rounded to TF32: what
@@ -288,30 +301,36 @@ __host__ __device__ constexpr size_t state_smem_floats(int Q) {
 
 // pass 1: l, and S_c = (exp(l_Q - l) dt x)^T B, an (hd x ds) product over
 // the chunk's rows.  Warps tile it as (hd / 16) x (the rest) m16 x n8 tiles.
-template <int HD, int DS>
-__global__ void __launch_bounds__(kThreads, 2) ssd_chunk_state(const Params p) {
+// LOCAL (the backward's ssd_bwd_chunk_local) takes the same product to
+// local[c] = (exp(l) dy)^T C, the gradient of S_in[c] from chunk c's own
+// outputs, for c >= 1, into the dstate scratch, and does not write l.
+template <int HD, int DS, bool LOCAL>
+__device__ __forceinline__ void chunk_state(const Params& p, int c, int h, int b) {
   constexpr int LDX = HD + 8, LDB = DS + 8;  // 8 mod 32: fragments walk rows by k
   constexpr int MT = HD / 16;                // m tiles (state rows p)
   constexpr int WN = kWarps / MT;            // warps along n
   constexpr int NT = DS / 8;                 // n tiles (state columns d)
   constexpr int NPW = NT / WN > 0 ? NT / WN : 1;
   const int Q = p.Q, Kp = pad8(Q);
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x;
+  if (LOCAL && c == 0) return;  // S_in[0] is zero: its gradient is never read
 
   extern __shared__ __align__(16) float smem[];
-  float* sx = smem;             // x[s][p]
-  float* sB = sx + Kp * LDX;    // B[s][d]
+  float* sx = smem;             // x[s][p] (LOCAL: dy[t][p])
+  float* sB = sx + Kp * LDX;    // B[s][d] (LOCAL: C[t][d])
   float* sdt = sB + Kp * LDB;
   float* sl = sdt + kMaxQ;
-  float* sdec = sl + kMaxQ;     // exp(l_Q - l_s) dt_s, 0 past Q
+  float* sdec = sl + kMaxQ;     // exp(l_Q - l_s) dt_s (LOCAL: exp(l_t)), 0 past Q
 
-  const bool last = c == p.nc - 1;  // its state is never read
+  const bool last = !LOCAL && c == p.nc - 1;  // its state is never read
   const long long t0 = (long long)c * Q;
   if (!last) {
-    load_tile<HD>(sx, LDX, p.x + b * p.xs[0] + t0 * p.xs[1] + h * p.xs[2], p.xs[1], Q, Kp,
-                  p.vec);
-    load_tile<DS>(sB, LDB, p.B + b * p.bs[0] + t0 * p.bs[1], p.bs[1], Q, Kp, p.vec);
+    load_tile<HD>(sx, LDX, (LOCAL ? p.dy : p.x) + b * p.xs[0] + t0 * p.xs[1] + h * p.xs[2],
+                  p.xs[1], Q, Kp, p.vec);
+    if (LOCAL)
+      load_tile<DS>(sB, LDB, p.C + b * p.cs[0] + t0 * p.cs[1], p.cs[1], Q, Kp, p.vec);
+    else
+      load_tile<DS>(sB, LDB, p.B + b * p.bs[0] + t0 * p.bs[1], p.bs[1], Q, Kp, p.vec);
     cp_async_commit();
   }
   for (int t = tid; t < Q; t += kThreads) sdt[t] = p.dt[b * p.dts[0] + (t0 + t) * p.dts[1] + h];
@@ -322,8 +341,8 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_chunk_state(const Params p) {
     const float lQ = sl[Q - 1];
     for (int t = tid; t < Kp; t += 32) {
       if (t < Q) {
-        lg[t] = sl[t];
-        sdec[t] = exp2f(lQ - sl[t]) * sdt[t];
+        if (!LOCAL) lg[t] = sl[t];
+        sdec[t] = LOCAL ? exp2f(sl[t]) : exp2f(lQ - sl[t]) * sdt[t];
       } else {
         sdec[t] = 0.f;
       }
@@ -356,7 +375,7 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_chunk_state(const Params p) {
       mma3(acc[j], ah, al, bh, bl);
     }
   }
-  float* sg = p.state + (((long long)b * p.nc + c) * p.H + h) * (HD * DS);
+  float* sg = (LOCAL ? p.dstate : p.state) + (((long long)b * p.nc + c) * p.H + h) * (HD * DS);
 #pragma unroll
   for (int j = 0; j < NPW; ++j) {
     const int d = 8 * (n0 + j) + 2 * tig;
@@ -366,6 +385,11 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_chunk_state(const Params p) {
   }
 }
 
+template <int HD, int DS>
+__global__ void __launch_bounds__(kThreads, 2) ssd_chunk_state(const Params p) {
+  chunk_state<HD, DS, false>(p, blockIdx.x, blockIdx.y, blockIdx.z);
+}
+
 // pass 2: in place, S_in[c] = exp(l_Q[c-1]) S_in[c-1] + S_{c-1} for c >= 1
 // (S_in[0] = 0 is never read and not written).  One thread per four
 // consecutive state values of one (batch row, head).  It reads kStateBatch
@@ -373,40 +397,50 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_chunk_state(const Params p) {
 // writes each slot only after reading it.
 constexpr int kStateBatch = 8;
 
-__global__ void __launch_bounds__(kThreads, 4) ssd_state_pass(const Params p, int n4) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;  // float4 within hd * ds
-  const int last = p.nc - 1;                          // local states to read
-  if (i >= n4 || last == 0) return;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const long long step = (long long)p.H * n4;  // float4s from one chunk to the next
-  float4* s = reinterpret_cast<float4*>(p.state) + ((long long)b * p.nc * p.H + h) * n4 + i;
-  const long long lstep = (long long)p.H * p.Q;
-  const float* lq = p.lsum + ((long long)b * p.nc * p.H + h) * p.Q + p.Q - 1;
+// The walk of one thread's four state values over the chunks, in place:
+// step r reads the slot of chunk c(r) and adds it to the running sum scaled
+// by exp(l_Q[c(r)]); the slot of c(r + 1) then takes the sum.  Forwards c(r)
+// = r and the slots become S_in; in reverse (the backward's dS_next[c] =
+// local[c+1] + exp(l_Q[c+1]) dS_next[c+1]) c(r) = nc - 1 - r.  s and lq
+// point at chunk 0 of the slots and of l_Q, step and lstep apart.
+__device__ __forceinline__ void scan_chunks(float4* s, const float* lq, long long step,
+                                            long long lstep, int nc, bool rev) {
+  const int last = nc - 1;  // chunks whose slot is read
+  auto at = [&](int r) { return (long long)(rev ? last - r : r); };
   float4 run = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int c0 = 0; c0 < last; c0 += kStateBatch) {
+  for (int r0 = 0; r0 < last; r0 += kStateBatch) {
     float4 v[kStateBatch];
     float lQ[kStateBatch];
 #pragma unroll
     for (int k = 0; k < kStateBatch; ++k) {
-      if (c0 + k < last) {
-        v[k] = s[(c0 + k) * step];
-        lQ[k] = lq[(c0 + k) * lstep];
+      if (r0 + k < last) {
+        v[k] = s[at(r0 + k) * step];
+        lQ[k] = lq[at(r0 + k) * lstep];
       }
     }
-    if (c0 > 0) s[c0 * step] = run;  // S_in[c0], its slot read just above
+    if (r0 > 0) s[at(r0) * step] = run;  // its slot read just above
 #pragma unroll
     for (int k = 0; k < kStateBatch; ++k) {
-      if (c0 + k < last) {
+      if (r0 + k < last) {
         const float e = exp2f(lQ[k]);
         run.x = fmaf(e, run.x, v[k].x);
         run.y = fmaf(e, run.y, v[k].y);
         run.z = fmaf(e, run.z, v[k].z);
         run.w = fmaf(e, run.w, v[k].w);
-        if (k + 1 < kStateBatch && c0 + k + 1 < last) s[(c0 + k + 1) * step] = run;
+        if (k + 1 < kStateBatch && r0 + k + 1 < last) s[at(r0 + k + 1) * step] = run;
       }
     }
   }
-  s[last * step] = run;  // S_in[nc - 1]
+  s[at(last) * step] = run;
+}
+
+__global__ void __launch_bounds__(kThreads, 4) ssd_state_pass(const Params p, int n4) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;  // float4 within hd * ds
+  if (i >= n4 || p.nc == 1) return;
+  const int h = blockIdx.y, b = blockIdx.z;
+  float4* s = reinterpret_cast<float4*>(p.state) + ((long long)b * p.nc * p.H + h) * n4 + i;
+  const float* lq = p.lsum + ((long long)b * p.nc * p.H + h) * p.Q + p.Q - 1;
+  scan_chunks(s, lq, (long long)p.H * n4, (long long)p.H * p.Q, p.nc, false);
 }
 
 template <int HD, int DS>
@@ -652,7 +686,7 @@ extern "C" int ssd_scan_fwd(
   if (Q < 1 || Q > kMaxQ || S % Q != 0 || Bb < 1 || H < 1 || Bb > 65535 || H > 65535
       || head_group < 1)
     return cudaErrorInvalidValue;
-  Params p;
+  Params p = {};
   p.x = x; p.dt = dt; p.B = B; p.C = C; p.A = A; p.y = y;
   p.lsum = lsum; p.state = state; p.as = a_stride;
   for (int i = 0; i < 3; ++i) { p.xs[i] = x_strides[i]; p.ys[i] = y_strides[i]; }
@@ -669,66 +703,96 @@ extern "C" int ssd_scan_fwd(
   }
 }
 
+
 // ---------------------------------------------------------------------------------
 // The backward: dx, ddt, dB, dC and dA of the scan at the output gradient dy
 // ---------------------------------------------------------------------------------
 //
 // The JAX package differentiates its oracle (src/repro/models/ssm.py:76
 // ssd_scan_ref) with XLA's autodiff; its Pallas kernel has no gradient.  This
-// is the port's gradient, in plain float32 FMAs on the CUDA cores (each
-// product a sequential fmaf chain, as the plain float32 version sums), with
-// l taken from pass 1 (a compensated sum) and every sum that the tests
-// compare runs (dB, dC, dA, ddt) reduced in a fixed order: no atomics.  With
-// M = where(t >= s, exp(l_t - l_s), 0) (the exponent masked before the exp),
-// decay = exp(l_Q - l), S_in the state entering the chunk and dS_next the
-// gradient of the one leaving it, one call is seven launches:
+// is the port's gradient.  With M = where(t >= s, exp(l_t - l_s), 0) (the
+// exponent masked before the exp), decay = exp(l_Q - l), S_in the state
+// entering a chunk and dS_next the gradient of the one leaving it, one call
+// is six launches, each a block per (chunk, head or head group, batch row)
+// unless it says otherwise:
 //
-// 1. ssd_chunk_state and ssd_state_pass (the forward's passes 1 and 2): l
-//    and S_in into the scratch the forward would use;
-// 2. ssd_bwd_dstate_local, one block per (chunk c >= 1, head, batch row):
+// 1. ssd_bwd_chunk_local: the forward's pass 1 (l into the l scratch, S_c
+//    into the state scratch) in blocks [0, nc), and in blocks [nc, 2 nc)
 //    local[c] = (exp(l) dy)^T C, the gradient of S_in[c] from chunk c's own
-//    outputs, into the dstate scratch (Bb, nc, H, hd, ds);
-// 3. ssd_bwd_dstate_pass, in place and in reverse over the chunks:
-//    dS_next[c] = local[c+1] + exp(l_Q[c+1]) dS_next[c+1];
-// 4. ssd_bwd_head, one block per (chunk, head, batch row): B dS_next^T and
-//    C S_in^T (Q x hd), then dW = dy x^T and G = C B^T (Q x Q, in
-//    registers, G by halves), then W = M G dt and dG = dW M dt; it writes
-//      dx  = W^T dy + decay dt (B dS_next^T),
-//      ddt = sum_t dW M G + u + A da,   u_s = decay_s x_s . (B dS_next^T)_s,
+//    outputs, into the dstate scratch (Bb, nc, H, hd, ds): the same
+//    hd x ds product on the tensor cores, l computed again the same way;
+// 2. ssd_bwd_scans, four state values per thread: the forward's pass 2
+//    (S_in) and, in its second half of blocks, the reverse walk
+//    dS_next[c] = local[c+1] + exp(l_Q[c+1]) dS_next[c+1], both reading
+//    kStateBatch chunks at once (scan_chunks);
+// 3. ssd_bwd_inter, per head group: B and C loaded once, then per head
+//    C S_in^T and B dS_next^T (Q x hd), giving q_t = exp(l_t) dy_t .
+//    (C S_in^T)_t, u_s = decay_s x_s . (B dS_next^T)_s, dx = decay dt
+//    (B dS_next^T), and kappa = exp(l_Q) <dS_next, S_in>;
+// 4. ssd_bwd_intra, per head group: G^T = B C^T once for the group, then
+//    per head, on the causal tiles only, dW^T = x dy^T, W = M G dt,
+//    dG = dW M dt summed over the group's heads, R = dW W by rows and
+//    columns, sum_t dW M G, and dx += W^T dy; then
+//      ddt = sum_t dW M G + u + A da,
 //    with da_u = sum_{t >= u} dl_t: a compensated reverse scan of
-//    q + rowsum(R) - colsum(R) (q_t = dy_t . y_inter_t, R = dW * W), plus a
-//    compensated prefix scan of v = dt u (exclusive), plus
-//    kappa = exp(l_Q) <dS_next, S_in>; and dG per head into the dG
-//    scratch (Bb, nc, H, Q, Q), and sum_u dt_u da_u into dA_part;
-// 5. ssd_bwd_heads_sum, one block per (chunk, batch row): over the heads in
-//    order, dC += (exp(l) dy) S_in and dB += (decay dt x) dS_next; then
-//    dG_tot = sum_h dG (in order), dC += dG_tot B and dB += dG_tot^T C;
-// 6. ssd_bwd_da: dA per head (A shared: over rows and chunks) or per (row,
-//    head), a tree sum of dA_part.
+//    q + rowsum(R) - colsum(R), plus a compensated prefix scan of v = dt u
+//    (exclusive), plus kappa; sum_u dt_u da_u into dA_part; and the group's
+//    dG^T into the dG scratch (Bb, nc, groups, Q, Q);
+// 5. ssd_bwd_dbc, per (chunk, batch row, which of dC and dB, 64 columns of
+//    ds): one GEMM each with K = H hd + Q,
+//      dC = [exp(l) dy for every head | dG] [S_in ; B],
+//      dB = [decay dt x for every head | dG^T] [dS_next ; C],
+//    K walked in order through a three-stage cp.async ring, dG summed over
+//    the groups as its tiles arrive (in group order), and the k steps that
+//    the causal mask leaves zero skipped;
+// 6. ssd_bwd_da, per head (per (row, head) where A is per row): dA, a sum of
+//    dA_part in a fixed order.
+// No float atomics: every sum over heads, rows and chunks runs in a fixed
+// order, so a second call repeats the first bit for bit.  Every product is
+// 3xTF32 on mma.sync (mma3, a fresh accumulator per k step), l a compensated
+// sum rounded once (chunk_cumsum), and the two scans of da compensated
+// (warp_scan).
 //
 // What bounds it on an H100.  At the Mamba2 training call (Bb 8, S 2048,
 // H 24, hd 64, ds 128, Q 128) the function needs about 37.5 GFLOP (the
-// causal halves of G, dG_tot B and dG_tot^T C per (row, chunk); per (row,
-// head) the causal halves of dW and W^T dy in every chunk, and five
-// Q x hd x ds products in all chunks but one: the chunk state, local,
-// C-side and two dS_next products) against about 339 MB moved (x, dy, dx,
-// and dt, B, C with their gradients): 0.56 ms in float32 FMAs at 67 TFLOP/s
-// against 0.10 ms for the bytes.  Beyond the bound this first design pays
-// for the full Q x Q products (the causal half is masked, not skipped), for
-// C S_in^T and G once per head, for the dG scratch (201 MB written and read
-// at that shape) and for CUDA-core FMAs where the forward has 3xTF32 tensor
-// cores.
+// causal halves of G, dG B and dG^T C per (row, chunk); per (row, head) the
+// causal halves of dW and W^T dy in every chunk, and five Q x hd x ds
+// products in all chunks but one: the chunk state, local, C S_in^T and the
+// two dS_next products), against about 339 MB moved (x, dy, dx, and dt, B,
+// C with their gradients): 0.227 ms at 3xTF32 (three TF32 products each, at
+// 495 TFLOP/s) against 0.10 ms for the bytes.  Beyond the bound it pays for
+// the state and dstate scratches (100.7 MB each at that shape: written by
+// pass 1, read and written by the scans, read by ssd_bwd_inter and
+// ssd_bwd_dbc, about 1 GB in all), for mma.sync, which runs well below
+// wgmma's rate, and for the splits of 3xTF32 on the CUDA cores.  So every
+// product runs on the tensor cores, the Q x Q products run on their causal
+// 16 x 8 tiles only, G is formed once per head group, and dG is summed over
+// the group inside the block: 25 MB of dG scratch at that shape, where one
+// per head would be 201 MB.  Measured there on an H100 80GB HBM3 at 700 W
+// (tools/bwd_compare.py --ssd): 1.75 ms on the device, ssd_bwd_inter,
+// ssd_bwd_intra and ssd_bwd_dbc about 0.41 ms each, ssd_bwd_chunk_local
+// 0.36 and ssd_bwd_scans 0.14 (near the bytes' rate).  The product passes run
+// at about 30 TFLOP/s of 3xTF32 work, as the forward's do: mma.sync and the
+// splits bound them.  ssd_bwd_intra loses more to the causal shape: warp 0
+// owns 16 of the 72 causal tiles and its sub-partition partner 2, so most of
+// a head runs one warp per sub-partition.
 //
-// Shared memory: every Q-row tile holds kMaxQ rows (rows past Q are zeros)
-// with a row stride of one float more than its width (1 mod 32: a warp
-// walking rows or columns hits 32 banks).  The 256 threads are a 16 x 16
-// tile; thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j of each
-// product.
+// Shared memory, in floats, at hd 64, ds 128 (rows padded to conflict-free
+// strides, 4 mod 32 where fragments walk rows by g, 8 mod 32 where they walk
+// them by k):
+//   ssd_bwd_chunk_local: as pass 1 (105.5 KB, two blocks per SM);
+//   ssd_bwd_inter: C and B kMaxQ x (ds+4), S_in and dS_next hd x (ds+4)
+//     (198 KB, one block per SM);
+//   ssd_bwd_intra: the warps' accumulator fragments of G^T and of the
+//     group's dG^T sums (72 causal tiles of 128 each; C at the start), two
+//     head buffers of x and dy kMaxQ x (hd+4) each with l, dt, u and q (B
+//     in the second at the start), and the per-position vectors (219 KB,
+//     one block per SM);
+//   ssd_bwd_dbc: three stages of an A tile (kMaxQ x 36 or 32 x 136), a B
+//     tile 32 x 72, and l and dt, then the groups' dG sum in an A tile's
+//     place (102 KB, two blocks per SM).
 
 namespace {
-
-constexpr int kBT = 16;  // threads per side of the thread tile
-constexpr int kLdQ = kMaxQ + 1;
 
 struct BwdParams {
   const float* x;
@@ -743,86 +807,34 @@ struct BwdParams {
   float* dC;
   float* dA;
   const float* lsum;   // (Bb, nc, H, Q): l log2(e), from pass 1
-  const float* state;  // (Bb, nc, H, hd, ds): S_in for c >= 1, from pass 2
-  float* dstate;       // (Bb, nc, H, hd, ds): local[c], then dS_next[c]
-  float* dG;           // (Bb, nc, H, Q, Q): dW M dt per head
+  const float* state;  // (Bb, nc, H, hd, ds): S_in for c >= 1
+  const float* dstate; // (Bb, nc, H, hd, ds): dS_next for c < nc - 1
+  float* dG;           // (Bb, nc, groups, Q, Q): dG^T[s][t] summed over a group's heads
+  float* u;            // (Bb, nc, H, Q)
+  float* q;            // (Bb, nc, H, Q)
+  float* kappa;        // (Bb, nc, H)
   float* dA_part;      // (Bb, nc, H): sum_u dt_u da_u per chunk
   long long as;        // A over b (0: every row reads the same A over h)
-  int S, H, Q, nc;
+  int S, H, Q, nc, head_group, groups;
 };
 
-// acc[i][j] += sum_{k < K} a(ty + 16 i, k) b(k, tx + 16 j), a(m, k) at
-// a[m * am + k * ak] and b(k, n) at b[k * bk + n * bn] in shared memory:
-// one fmaf chain per output, k in order
-template <int RM, int RN>
-__device__ __forceinline__ void block_mm(float (&acc)[RM][RN], const float* a, int am, int ak,
-                                         const float* b, int bk, int bn, int K) {
-  const int ty = threadIdx.x / kBT, tx = threadIdx.x % kBT;
-  a += ty * am;
-  b += tx * bn;
-#pragma unroll 2
-  for (int k = 0; k < K; ++k) {
-    float av[RM], bv[RN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) av[i] = a[kBT * i * am + k * ak];
-#pragma unroll
-    for (int j = 0; j < RN; ++j) bv[j] = b[k * bk + kBT * j * bn];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-template <int RM, int RN>
-__device__ __forceinline__ void zero(float (&acc)[RM][RN]) {
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
-}
-
-// rows [0, n) of a COLS-wide global tile (rows `stride` floats apart) into
-// shared rows `ld` floats apart, each row times scale[row] where scale is
-// given; rows [n, rows) zero
-template <int COLS>
-__device__ void load_rows(float* dst, int ld, const float* src, long long stride, int n,
-                          int rows, const float* scale) {
-  for (int i = threadIdx.x; i < rows * COLS; i += blockDim.x) {
-    const int r = i / COLS, c = i % COLS;
-    float v = 0.f;
-    if (r < n) v = scale ? scale[r] * src[r * stride + c] : src[r * stride + c];
-    dst[r * ld + c] = v;
-  }
-}
-
-// an (hd x ds) state of the scratch into shared rows `ld` apart, or zeros
-template <int HD, int DS>
-__device__ void load_state(float* dst, int ld, const float* src) {
-  for (int i = threadIdx.x; i < HD * DS; i += blockDim.x)
-    dst[(i / DS) * ld + i % DS] = src ? src[i] : 0.f;
-}
-
-// the sum over the 16 threads of a thread-tile row (lanes tx = 0..15 of a
-// half warp), as a tree; every lane gets it
-__device__ __forceinline__ float row_sum16(float v) {
-#pragma unroll
-  for (int off = kBT / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// the sum over the block's threads, as a tree in shared memory; every
-// thread gets it
+// the sum over the block's threads in a fixed order (a shuffle tree in each
+// warp, then the warps' sums in order); every thread gets it
 __device__ float block_sum(float v, float* sred) {
-  sred[threadIdx.x] = v;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  if ((threadIdx.x & 31) == 0) sred[threadIdx.x >> 5] = v;
   __syncthreads();
-  for (int off = kThreads / 2; off > 0; off >>= 1) {
-    if (threadIdx.x < off) sred[threadIdx.x] += sred[threadIdx.x + off];
-    __syncthreads();
-  }
-  const float r = sred[0];
+  float r = 0.f;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) r += sred[w];
   __syncthreads();
   return r;
+}
+
+// the sum over the four lanes of a fragment row (tig = 0..3); every lane gets it
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // out[j] = sum_{k <= j} in[j'] over the scan order (j' = j, or n - 1 - j
@@ -870,369 +882,664 @@ __device__ void warp_scan(const float* in, float* out, int n, bool rev) {
   __syncwarp();
 }
 
-// 2: local[c] = sum_t (exp(l_t) dy_t)^T C_t, an (hd x ds) product over the
-// chunk's rows, for c >= 1 (S_in[0] is zero: its gradient is never read)
+// 1: the forward's pass 1 in blocks [0, nc), local[c] in blocks [nc, 2 nc)
 template <int HD, int DS>
-__host__ __device__ constexpr size_t local_smem_floats() {
-  return (size_t)kMaxQ * (HD + 1) + (size_t)kMaxQ * (DS + 1) + kMaxQ;
+__global__ void __launch_bounds__(kThreads, 2) ssd_bwd_chunk_local(const Params p) {
+  if ((int)blockIdx.x < p.nc) chunk_state<HD, DS, false>(p, blockIdx.x, blockIdx.y, blockIdx.z);
+  else chunk_state<HD, DS, true>(p, blockIdx.x - p.nc, blockIdx.y, blockIdx.z);
 }
 
-template <int HD, int DS>
-__global__ void __launch_bounds__(kThreads, 2) ssd_bwd_dstate_local(const BwdParams p) {
-  constexpr int LDX = HD + 1, LDS = DS + 1;
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  if (c == 0) return;
-  extern __shared__ float smem[];
-  float* sdy = smem;              // exp(l_t) dy[t][p]
-  float* sC = sdy + kMaxQ * LDX;  // C[t][d]
-  float* sel = sC + kMaxQ * LDS;  // exp(l_t)
-  const int Q = p.Q;
-  const long long t0 = (long long)b * p.S + (long long)c * Q;
-  const float* lg = p.lsum + (((long long)b * p.nc + c) * p.H + h) * Q;
-  for (int t = threadIdx.x; t < kMaxQ; t += kThreads) sel[t] = t < Q ? exp2f(lg[t]) : 0.f;
-  __syncthreads();
-  load_rows<HD>(sdy, LDX, p.dy + (t0 * p.H + h) * HD, (long long)p.H * HD, Q, kMaxQ, sel);
-  load_rows<DS>(sC, LDS, p.C + t0 * DS, DS, Q, kMaxQ, nullptr);
-  __syncthreads();
-  float acc[HD / kBT][DS / kBT];
-  zero(acc);
-  block_mm(acc, sdy, 1, LDX, sC, LDS, 1, Q);  // a(p, t) = sdy[t][p]; b(t, d) = C[t][d]
-  float* out = p.dstate + (((long long)b * p.nc + c) * p.H + h) * (HD * DS);
-  const int ty = threadIdx.x / kBT, tx = threadIdx.x % kBT;
-#pragma unroll
-  for (int i = 0; i < HD / kBT; ++i)
-#pragma unroll
-    for (int j = 0; j < DS / kBT; ++j) out[(ty + kBT * i) * DS + tx + kBT * j] = acc[i][j];
-}
-
-// 3: in place, in reverse: slot c <- dS_next[c] = G[c+1], where G[c] =
-// local[c] + exp(l_Q[c]) G[c+1] is the gradient of S_in[c] and G[nc] = 0.
-// One thread per state value of one (head, batch row).
-__global__ void __launch_bounds__(kThreads) ssd_bwd_dstate_pass(const BwdParams p, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+// 2: S_in forwards in blocks [0, gridDim.x / 2), dS_next in reverse in the rest
+__global__ void __launch_bounds__(kThreads, 4) ssd_bwd_scans(const Params p, int n4) {
+  const int half = gridDim.x / 2;
+  const bool rev = (int)blockIdx.x >= half;
+  const int i = ((int)blockIdx.x - (rev ? half : 0)) * blockDim.x + threadIdx.x;
+  if (i >= n4 || p.nc == 1) return;
   const int h = blockIdx.y, b = blockIdx.z;
-  const long long step = (long long)p.H * n;
-  float* s = p.dstate + ((long long)b * p.nc * p.H + h) * n + i;
-  const long long lstep = (long long)p.H * p.Q;
+  float4* s = reinterpret_cast<float4*>(rev ? p.dstate : p.state)
+              + ((long long)b * p.nc * p.H + h) * n4 + i;
   const float* lq = p.lsum + ((long long)b * p.nc * p.H + h) * p.Q + p.Q - 1;
-  float run = 0.f;
-  for (int c = p.nc - 1; c >= 0; --c) {
-    const float local = c > 0 ? s[c * step] : 0.f;
-    s[c * step] = run;
-    run = fmaf(exp2f(lq[c * lstep]), run, local);
-  }
+  scan_chunks(s, lq, (long long)p.H * n4, (long long)p.H * p.Q, p.nc, rev);
 }
 
-// 4: per (chunk, head, batch row).  Shared memory, in floats: B and C
-// (kMaxQ x (ds+1) each); then S_in and dS_next (hd x (ds+1) each) in stage 1,
-// x and dy (kMaxQ x (hd+1) each) in stage 2, in the same place; W (kMaxQ x
-// (kMaxQ+1)) over B, C and x once G and dW are in registers; then the
-// vectors.  hd 64, ds 128: 55,296 floats = 216 KB, one block per SM.
+// 3: per head group.  Warp w owns rows 16 w.. of C S_in^T and B dS_next^T.
 template <int HD, int DS>
-struct HeadSmem {
-  static constexpr int LDX = HD + 1, LDS = DS + 1;
-  static constexpr size_t B = 0, C = (size_t)kMaxQ * LDS, R = 2 * (size_t)kMaxQ * LDS;
-  static constexpr size_t Sin = R, dSn = R + (size_t)HD * LDS;
-  static constexpr size_t x = R;
-  static constexpr size_t dy = R + (size_t)kMaxQ * LDX > (size_t)kMaxQ * kLdQ
-                                   ? R + (size_t)kMaxQ * LDX : (size_t)kMaxQ * kLdQ;
-  static constexpr size_t tiles = dy + (size_t)kMaxQ * LDX > R + 2 * (size_t)HD * LDS
-                                      ? dy + (size_t)kMaxQ * LDX : R + 2 * (size_t)HD * LDS;
-  // l, dt, decay, u, q, row sums of R, e, ddt, scans (2), 16 x kMaxQ column
-  // partials twice, and the block sum's kThreads
-  static constexpr size_t vec = tiles;
-  static constexpr size_t total = tiles + 10 * kMaxQ + 2 * kBT * kMaxQ + kThreads;
+struct InterSmem {
+  static constexpr int LD = DS + 4;  // 4 mod 32: rows walked by g
+  static constexpr size_t C = 0, B = (size_t)kMaxQ * LD, Sin = 2 * (size_t)kMaxQ * LD,
+                          dSn = Sin + (size_t)HD * LD, red = dSn + (size_t)HD * LD,
+                          total = red + kWarps;
 };
 
 template <int HD, int DS>
-__global__ void __launch_bounds__(kThreads, 1) ssd_bwd_head(const BwdParams p) {
-  using L = HeadSmem<HD, DS>;
-  constexpr int LDX = L::LDX, LDS = L::LDS, RN = HD / kBT;
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, ty = tid / kBT, tx = tid % kBT;
-  const int Q = p.Q;
-  const bool first = c == 0, last = c == p.nc - 1;
-  const long long t0 = (long long)b * p.S + (long long)c * Q;
+__global__ void __launch_bounds__(kThreads, 1) ssd_bwd_inter(const BwdParams p) {
+  using L = InterSmem<HD, DS>;
+  constexpr int LD = L::LD, NTP = HD / 8;
+  const int c = blockIdx.x, h0 = blockIdx.y * p.head_group, b = blockIdx.z;
+  const int nh = min(p.head_group, p.H - h0);
+  const int Q = p.Q, Qp = pad16(Q), tid = threadIdx.x;
+  const bool first = c == 0, last = c == p.nc - 1;  // S_in = 0; dS_next = 0
+  const long long row0 = (long long)b * p.S + (long long)c * Q;
 
-  extern __shared__ float smem[];
-  float* sB = smem + L::B;
+  extern __shared__ __align__(16) float smem[];
   float* sC = smem + L::C;
-  float* sSin = smem + L::Sin;
-  float* sdSn = smem + L::dSn;
-  float* sx = smem + L::x;
-  float* sdy = smem + L::dy;
-  float* sW = smem;
-  float* sl = smem + L::vec;
-  float* sdt = sl + kMaxQ;
-  float* sdec = sdt + kMaxQ;
-  float* su = sdec + kMaxQ;
-  float* sq = su + kMaxQ;
-  float* srow = sq + kMaxQ;
-  float* se = srow + kMaxQ;
-  float* sddt = se + kMaxQ;
-  float* sscan_e = sddt + kMaxQ;
-  float* sscan_v = sscan_e + kMaxQ;
-  float* scolR = sscan_v + kMaxQ;  // [ty][s]
-  float* scolD = scolR + kBT * kMaxQ;
-  float* sred = scolD + kBT * kMaxQ;
+  float* sB = smem + L::B;
+  float* sS = smem + L::Sin;
+  float* sD = smem + L::dSn;
+  float* sred = smem + L::red;
 
-  const long long hq = ((long long)b * p.nc + c) * p.H + h;
-  const float* lg = p.lsum + hq * Q;
-  for (int t = tid; t < kMaxQ; t += kThreads) {
-    sl[t] = t < Q ? lg[t] : 0.f;
-    sdt[t] = t < Q ? p.dt[(t0 + t) * p.H + h] : 0.f;
-  }
-  __syncthreads();
-  const float lQ = sl[Q - 1], Ah = p.A[b * p.as + h];
-  for (int t = tid; t < kMaxQ; t += kThreads) sdec[t] = t < Q ? exp2f(lQ - sl[t]) : 0.f;
+  auto load_states = [&](int h) {
+    const long long hq = ((long long)b * p.nc + c) * p.H + h;
+    if (!first) load_tile<DS>(sS, LD, p.state + hq * (HD * DS), DS, HD, HD, true);
+    if (!last) load_tile<DS>(sD, LD, p.dstate + hq * (HD * DS), DS, HD, HD, true);
+    cp_async_commit();
+  };
+  if (!first) load_tile<DS>(sC, LD, p.C + row0 * DS, DS, Q, Qp, true);
+  if (!last) load_tile<DS>(sB, LD, p.B + row0 * DS, DS, Q, Qp, true);
+  load_states(h0);
 
-  // stage 1: B, C, S_in and dS_next
-  load_rows<DS>(sB, LDS, p.B + t0 * DS, DS, Q, kMaxQ, nullptr);
-  load_rows<DS>(sC, LDS, p.C + t0 * DS, DS, Q, kMaxQ, nullptr);
-  load_state<HD, DS>(sSin, LDS, first ? nullptr : p.state + hq * (HD * DS));
-  load_state<HD, DS>(sdSn, LDS, last ? nullptr : p.dstate + hq * (HD * DS));
-  __syncthreads();
-  float part = 0.f;
-  for (int i = tid; i < HD * DS; i += kThreads)
-    part = fmaf(sSin[(i / DS) * LDS + i % DS], sdSn[(i / DS) * LDS + i % DS], part);
-  const float kappa = exp2f(lQ) * block_sum(part, sred);
-  {
-    float bds[kMaxQ / kBT][RN], cs[kMaxQ / kBT][RN];
-    zero(bds);
-    zero(cs);
-    if (!last) block_mm(bds, sB, LDS, 1, sdSn, 1, LDS, DS);  // (B dS_next^T)[s][p]
-    if (!first) block_mm(cs, sC, LDS, 1, sSin, 1, LDS, DS);  // (C S_in^T)[t][p]
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tig = lane & 3;
+  const int r0 = 16 * warp, ta = r0 + g, tb = ta + 8;
+  const bool active = r0 < Q;
+  for (int i = 0; i < nh; ++i) {
+    const int h = h0 + i;
+    const long long hq = ((long long)b * p.nc + c) * p.H + h;
+    const float* lg = p.lsum + hq * Q;
+    const float lQ = lg[Q - 1];
+    const float la = ta < Q ? lg[ta] : 0.f, lb = tb < Q ? lg[tb] : 0.f;
+    const float dta = ta < Q ? p.dt[(row0 + ta) * p.H + h] : 0.f;
+    const float dtb = tb < Q ? p.dt[(row0 + tb) * p.H + h] : 0.f;
+    // dy and x at this thread's accumulator positions, read ahead of the products
+    float2 ya[NTP], yb[NTP], xa[NTP], xb[NTP];
+    const float2 z2 = make_float2(0.f, 0.f);
 #pragma unroll
-    for (int i = 0; i < kMaxQ / kBT; ++i) {
-      const int s = ty + kBT * i;
-      const bool on = s < Q;
-      float ur = 0.f, qr = 0.f;
+    for (int n = 0; n < NTP; ++n) {
+      const long long oa = ((row0 + ta) * p.H + h) * HD + 8 * n + 2 * tig;
+      const long long ob = ((row0 + tb) * p.H + h) * HD + 8 * n + 2 * tig;
+      ya[n] = !first && ta < Q ? *reinterpret_cast<const float2*>(p.dy + oa) : z2;
+      yb[n] = !first && tb < Q ? *reinterpret_cast<const float2*>(p.dy + ob) : z2;
+      xa[n] = !last && ta < Q ? *reinterpret_cast<const float2*>(p.x + oa) : z2;
+      xb[n] = !last && tb < Q ? *reinterpret_cast<const float2*>(p.x + ob) : z2;
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    float kap = 0.f;
+    if (!first && !last) {
+      float part = 0.f;
+      for (int e = tid; e < HD * DS; e += kThreads)
+        part = fmaf(sS[(e / DS) * LD + e % DS], sD[(e / DS) * LD + e % DS], part);
+      kap = exp2f(lQ) * block_sum(part, sred);
+    }
+    float qa = 0.f, qb = 0.f;
+    float bd[NTP][4];
 #pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        if (on) {
-          const long long at = ((t0 + s) * p.H + h) * HD + tx + kBT * j;
-          ur = fmaf(p.x[at], bds[i][j], ur);
-          qr = fmaf(p.dy[at], cs[i][j], qr);
-          p.dx[at] = sdec[s] * sdt[s] * bds[i][j];
+    for (int n = 0; n < NTP; ++n) bd[n][0] = bd[n][1] = bd[n][2] = bd[n][3] = 0.f;
+    if (active && !first) {  // C S_in^T, then q
+      float cs[NTP][4];
+#pragma unroll
+      for (int n = 0; n < NTP; ++n) cs[n][0] = cs[n][1] = cs[n][2] = cs[n][3] = 0.f;
+#pragma unroll 2
+      for (int k = 0; k < DS; k += 8) {
+        uint32_t ah[4], al[4];
+        load_a(sC, LD, r0, k, g, tig, ah, al);
+#pragma unroll
+        for (int n = 0; n < NTP; ++n) {
+          uint32_t bh[2], bl[2];
+          load_b_nmajor(sS, LD, 8 * n, k, g, tig, bh, bl);  // S_in^T(d, p) = S_in[p][d]
+          mma3(cs[n], ah, al, bh, bl);
         }
       }
-      ur = row_sum16(ur);
-      qr = row_sum16(qr);
-      if (tx == 0) {
-        su[s] = on ? sdec[s] * ur : 0.f;
-        sq[s] = on ? exp2f(sl[s]) * qr : 0.f;
+#pragma unroll
+      for (int n = 0; n < NTP; ++n) {
+        qa = fmaf(ya[n].y, cs[n][1], fmaf(ya[n].x, cs[n][0], qa));
+        qb = fmaf(yb[n].y, cs[n][3], fmaf(yb[n].x, cs[n][2], qb));
+      }
+    }
+    if (active && !last) {  // B dS_next^T
+#pragma unroll 2
+      for (int k = 0; k < DS; k += 8) {
+        uint32_t ah[4], al[4];
+        load_a(sB, LD, r0, k, g, tig, ah, al);
+#pragma unroll
+        for (int n = 0; n < NTP; ++n) {
+          uint32_t bh[2], bl[2];
+          load_b_nmajor(sD, LD, 8 * n, k, g, tig, bh, bl);
+          mma3(bd[n], ah, al, bh, bl);
+        }
+      }
+    }
+    __syncthreads();  // the states are read: the next head's take their place
+    if (i + 1 < nh) load_states(h + 1);
+    if (tid == 0) p.kappa[hq] = kap;
+    if (active) {
+      float ua = 0.f, ub = 0.f;
+#pragma unroll
+      for (int n = 0; n < NTP; ++n) {
+        ua = fmaf(xa[n].y, bd[n][1], fmaf(xa[n].x, bd[n][0], ua));
+        ub = fmaf(xb[n].y, bd[n][3], fmaf(xb[n].x, bd[n][2], ub));
+      }
+      qa = quad_sum(qa);
+      qb = quad_sum(qb);
+      ua = quad_sum(ua);
+      ub = quad_sum(ub);
+      const float deca = exp2f(lQ - la), decb = exp2f(lQ - lb);
+      if (tig == 0) {
+        if (ta < Q) {
+          p.q[hq * Q + ta] = exp2f(la) * qa;
+          p.u[hq * Q + ta] = deca * ua;
+        }
+        if (tb < Q) {
+          p.q[hq * Q + tb] = exp2f(lb) * qb;
+          p.u[hq * Q + tb] = decb * ub;
+        }
+      }
+      // dx = decay dt (B dS_next^T); ssd_bwd_intra adds W^T dy
+      const float sa = deca * dta, sb = decb * dtb;
+#pragma unroll
+      for (int n = 0; n < NTP; ++n) {
+        const long long oa = ((row0 + ta) * p.H + h) * HD + 8 * n + 2 * tig;
+        const long long ob = ((row0 + tb) * p.H + h) * HD + 8 * n + 2 * tig;
+        if (ta < Q)
+          *reinterpret_cast<float2*>(p.dx + oa) = make_float2(sa * bd[n][0], sa * bd[n][1]);
+        if (tb < Q)
+          *reinterpret_cast<float2*>(p.dx + ob) = make_float2(sb * bd[n][2], sb * bd[n][3]);
       }
     }
   }
-  __syncthreads();
-
-  // stage 2: x and dy in S_in's place; dW = dy x^T and G = C B^T
-  load_rows<HD>(sx, LDX, p.x + (t0 * p.H + h) * HD, (long long)p.H * HD, Q, kMaxQ, nullptr);
-  load_rows<HD>(sdy, LDX, p.dy + (t0 * p.H + h) * HD, (long long)p.H * HD, Q, kMaxQ, nullptr);
-  __syncthreads();
-  constexpr int MT = kMaxQ / kBT, HALF = MT / 2;
-  float dw[MT][MT], w[MT][MT];
-  zero(dw);
-  block_mm(dw, sdy, LDX, 1, sx, 1, LDX, HD);  // a(t, p) = dy[t][p]; b(p, s) = x[s][p]
-
-  // G = C B^T by halves of the thread's rows (G, dW and W in registers at
-  // once would spill), then per element: W = M G dt, dG = dW M dt (to the
-  // scratch), R = dW W by rows and columns, sum_t dW M G by columns
-  float colR[MT], colD[MT];
-#pragma unroll
-  for (int j = 0; j < MT; ++j) colR[j] = colD[j] = 0.f;
-  float* dGg = p.dG + hq * Q * Q;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    float g[HALF][MT];
-    zero(g);
-    // a(t, d) = C[t][d] for rows ty + 16 i + 64 half; b(d, s) = B[s][d]
-    block_mm(g, sC + half * HALF * kBT * LDS, LDS, 1, sB, 1, LDS, DS);
-#pragma unroll
-    for (int ih = 0; ih < HALF; ++ih) {
-      const int i = half * HALF + ih, t = ty + kBT * i;
-      float rowr = 0.f;
-#pragma unroll
-      for (int j = 0; j < MT; ++j) {
-        const int s = tx + kBT * j;
-        const float m = (t < Q && s <= t) ? exp2f(sl[t] - sl[s]) : 0.f;
-        const float mg = m * g[ih][j];
-        w[i][j] = mg * sdt[s];
-        const float r = dw[i][j] * w[i][j];
-        rowr += r;
-        colR[j] += r;
-        colD[j] = fmaf(dw[i][j], mg, colD[j]);
-        if (t < Q && s < Q) dGg[t * Q + s] = dw[i][j] * m * sdt[s];
-      }
-      rowr = row_sum16(rowr);
-      if (tx == 0) srow[t] = rowr;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < MT; ++j) {
-    scolR[ty * kMaxQ + tx + kBT * j] = colR[j];
-    scolD[ty * kMaxQ + tx + kBT * j] = colD[j];
-  }
-  __syncthreads();  // W is in registers: B, C and x are free for it
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < MT; ++j) sW[(ty + kBT * i) * kLdQ + tx + kBT * j] = w[i][j];
-  // e = q + rowsum(R) - colsum(R) and sum_t dW M G + u, the column sums as
-  // trees over the 16 thread rows
-  if (tid < kMaxQ) {
-    float r[kBT], d[kBT];
-#pragma unroll
-    for (int k = 0; k < kBT; ++k) {
-      r[k] = scolR[k * kMaxQ + tid];
-      d[k] = scolD[k * kMaxQ + tid];
-    }
-#pragma unroll
-    for (int w = kBT / 2; w > 0; w >>= 1)
-#pragma unroll
-      for (int k = 0; k < w; ++k) {
-        r[k] += r[k + w];
-        d[k] += d[k + w];
-      }
-    se[tid] = sq[tid] + srow[tid] - r[0];
-    sddt[tid] = d[0] + su[tid];
-    sscan_v[tid] = sdt[tid] * su[tid];  // v, scanned in place below
-  }
-  __syncthreads();
-
-  // dx += W^T dy (the same thread wrote these dx values in stage 1)
-  {
-    float dxi[kMaxQ / kBT][RN];
-    zero(dxi);
-    block_mm(dxi, sW, 1, kLdQ, sdy, LDX, 1, Q);  // a(s, t) = W[t][s]; b(t, p) = dy[t][p]
-#pragma unroll
-    for (int i = 0; i < kMaxQ / kBT; ++i) {
-      const int s = ty + kBT * i;
-      if (s < Q) {
-#pragma unroll
-        for (int j = 0; j < RN; ++j) p.dx[((t0 + s) * p.H + h) * HD + tx + kBT * j] += dxi[i][j];
-      }
-    }
-  }
-
-  // da_u = sum_{t >= u} e_t + sum_{s < u} v_s + kappa
-  if (tid < 32) {
-    warp_scan(se, sscan_e, Q, true);
-    warp_scan(sscan_v, sscan_v, Q, false);
-  }
-  __syncthreads();
-  float contrib = 0.f;
-  if (tid < Q) {
-    const float da = sscan_e[tid] + ((tid > 0 ? sscan_v[tid - 1] : 0.f) + kappa);
-    p.ddt[(t0 + tid) * p.H + h] = fmaf(Ah, da, sddt[tid]);
-    contrib = sdt[tid] * da;
-  }
-  const float dA = block_sum(contrib, sred);
-  if (tid == 0) p.dA_part[hq] = dA;
 }
 
-// 5: per (chunk, batch row), over the heads.  Shared memory, in floats:
-// per head x and dy (kMaxQ x (hd+1) each, scaled at load) and S_in and
-// dS_next (hd x (ds+1) each); then dG_tot (kMaxQ x (kMaxQ+1)), B and C
-// (kMaxQ x (ds+1) each) in the same place; then l, dt and the two scales.
-// hd 64, ds 128: 50,048 floats = 196 KB, one block per SM.
+// 4: per head group.  Warp w owns the 16 rows s of m tile mt(w) and the
+// causal columns t >= 16 mt; warps w and w + 4 share a sub-partition of the
+// SM and take m tiles mt and 7 - mt, so the causal work is even across
+// sub-partitions.  Tiles are 16 rows s by 8 columns t in the accumulator
+// layout: a warp's tile jj covers columns 8 (2 mt + jj)...
 template <int HD, int DS>
-struct SumSmem {
-  static constexpr int LDX = HD + 1, LDS = DS + 1;
-  static constexpr size_t x = 0, dy = (size_t)kMaxQ * LDX, Sin = 2 * (size_t)kMaxQ * LDX,
-                          dSn = Sin + (size_t)HD * LDS;
-  static constexpr size_t stage1 = dSn + (size_t)HD * LDS;
-  static constexpr size_t G = 0, B = (size_t)kMaxQ * kLdQ, C = B + (size_t)kMaxQ * LDS;
-  static constexpr size_t stage2 = C + (size_t)kMaxQ * LDS;
-  static constexpr size_t vec = stage1 > stage2 ? stage1 : stage2;
-  static constexpr size_t total = vec + 4 * kMaxQ;
+struct IntraSmem {
+  static constexpr int LDX = HD + 4, LDC = DS + 4;  // 4 mod 32: rows walked by g
+  // the causal tiles of a 128-row chunk, sum over mt of 16 - 2 mt, 128
+  // floats each (32 lanes x 4): dG^T summed over the group's heads, then G^T
+  static constexpr size_t frag = 72 * 128;
+  static constexpr size_t cs = (size_t)kMaxQ * LDC;
+  static constexpr size_t D = 2 * frag > cs ? 2 * frag : cs;  // C in its place at the start
+  // a head buffer: x, dy, then l, dt, u and q
+  static constexpr size_t head = 2 * (size_t)kMaxQ * LDX + 4 * kMaxQ;
+  static constexpr size_t buf0 = D, buf1 = D + head;  // B in buffer 1 at the start
+  static constexpr size_t vec = buf1 + (head > cs ? head : cs);
+  // row sums of R by m tile, column sums of R and of dW M G, e, its scan,
+  // ddt's part and v, then the block sum's
+  static constexpr size_t total = vec + kWarps * kMaxQ + 6 * kMaxQ + kWarps;
 };
 
 template <int HD, int DS>
-__global__ void __launch_bounds__(kThreads, 1) ssd_bwd_heads_sum(const BwdParams p) {
-  using L = SumSmem<HD, DS>;
-  constexpr int LDX = L::LDX, LDS = L::LDS, RN = DS / kBT;
-  const int c = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, ty = tid / kBT, tx = tid % kBT;
-  const int Q = p.Q;
-  const bool first = c == 0, last = c == p.nc - 1;
-  const long long t0 = (long long)b * p.S + (long long)c * Q;
+__global__ void __launch_bounds__(kThreads, 1) ssd_bwd_intra(const BwdParams p) {
+  using L = IntraSmem<HD, DS>;
+  constexpr int LDX = L::LDX, LDC = L::LDC, NTP = HD / 8, NTT = kMaxQ / 8;
+  const int c = blockIdx.x, grp = blockIdx.y, h0 = grp * p.head_group, b = blockIdx.z;
+  const int nh = min(p.head_group, p.H - h0);
+  const int Q = p.Q, Qp = pad16(Q), NTq = pad8(Q) / 8, tid = threadIdx.x;
+  const long long row0 = (long long)b * p.S + (long long)c * Q;
 
-  extern __shared__ float smem[];
-  float* sx = smem + L::x;
-  float* sdy = smem + L::dy;
-  float* sSin = smem + L::Sin;
-  float* sdSn = smem + L::dSn;
-  float* sG = smem + L::G;
-  float* sB = smem + L::B;
-  float* sC = smem + L::C;
-  float* sl = smem + L::vec;
-  float* sdt = sl + kMaxQ;
-  float* sel = sdt + kMaxQ;  // exp(l)
-  float* sxs = sel + kMaxQ;  // decay dt
+  extern __shared__ __align__(16) float smem[];
+  float* srowR = smem + L::vec;  // [mt][t]: sum over the m tile's rows s of R[t][s]
+  float* scolR = srowR + kWarps * kMaxQ;
+  float* scolD = scolR + kMaxQ;
+  float* se = scolD + kMaxQ;
+  float* sscan = se + kMaxQ;
+  float* sdd = sscan + kMaxQ;
+  float* sv = sdd + kMaxQ;
+  float* sred = sv + kMaxQ;
 
-  float accC[kMaxQ / kBT][RN], accB[kMaxQ / kBT][RN];
-  zero(accC);
-  zero(accB);
-  for (int h = 0; h < p.H; ++h) {
+  // x[s][p], dy[t][p], l, dt, u and q of head h0 + i into buffer i % 2;
+  // padded rows are zeros
+  auto load_head = [&](int i) {
+    const int h = h0 + i;
+    float* sx = smem + ((i & 1) ? L::buf1 : L::buf0);
+    float* sdy = sx + kMaxQ * LDX;
+    float* sl = sdy + kMaxQ * LDX;
+    float* sdt = sl + kMaxQ;
+    float* su = sdt + kMaxQ;
+    float* sq = su + kMaxQ;
+    const long long xo = (row0 * p.H + h) * HD;
+    load_tile<HD>(sx, LDX, p.x + xo, (long long)p.H * HD, Q, Qp, true);
+    load_tile<HD>(sdy, LDX, p.dy + xo, (long long)p.H * HD, Q, Qp, true);
     const long long hq = ((long long)b * p.nc + c) * p.H + h;
-    for (int t = tid; t < kMaxQ; t += kThreads) {
-      sl[t] = t < Q ? p.lsum[hq * Q + t] : 0.f;
-      sdt[t] = t < Q ? p.dt[(t0 + t) * p.H + h] : 0.f;
-    }
-    __syncthreads();
-    const float lQ = sl[Q - 1];
-    for (int t = tid; t < kMaxQ; t += kThreads) {
-      sel[t] = t < Q ? exp2f(sl[t]) : 0.f;
-      sxs[t] = t < Q ? exp2f(lQ - sl[t]) * sdt[t] : 0.f;
-    }
-    __syncthreads();
-    if (!first) {
-      load_rows<HD>(sdy, LDX, p.dy + (t0 * p.H + h) * HD, (long long)p.H * HD, Q, kMaxQ, sel);
-      load_state<HD, DS>(sSin, LDS, p.state + hq * (HD * DS));
-    }
-    if (!last) {
-      load_rows<HD>(sx, LDX, p.x + (t0 * p.H + h) * HD, (long long)p.H * HD, Q, kMaxQ, sxs);
-      load_state<HD, DS>(sdSn, LDS, p.dstate + hq * (HD * DS));
-    }
-    __syncthreads();
-    // a(t, p) = scaled dy[t][p], b(p, d) = S_in[p][d]; the same with x, dS_next
-    if (!first) block_mm(accC, sdy, LDX, 1, sSin, LDS, 1, HD);
-    if (!last) block_mm(accB, sx, LDX, 1, sdSn, LDS, 1, HD);
-    __syncthreads();
-  }
-  // dG_tot, summed over the heads in order
-  const float* dGb = p.dG + ((long long)b * p.nc + c) * p.H * Q * Q;
-  for (int i = tid; i < kMaxQ * kMaxQ; i += kThreads) {
-    const int t = i / kMaxQ, s = i % kMaxQ;
-    float v = 0.f;
-    if (t < Q && s <= t)
-      for (int h = 0; h < p.H; ++h) v += dGb[(long long)h * Q * Q + t * Q + s];
-    sG[t * kLdQ + s] = v;
-  }
-  load_rows<DS>(sB, LDS, p.B + t0 * DS, DS, Q, kMaxQ, nullptr);
-  load_rows<DS>(sC, LDS, p.C + t0 * DS, DS, Q, kMaxQ, nullptr);
-  __syncthreads();
-  block_mm(accC, sG, kLdQ, 1, sB, LDS, 1, Q);  // a(t, s) = dG[t][s]; b(s, d) = B[s][d]
-  block_mm(accB, sG, 1, kLdQ, sC, LDS, 1, Q);  // a(s, t) = dG[t][s]; b(t, d) = C[t][d]
-#pragma unroll
-  for (int i = 0; i < kMaxQ / kBT; ++i) {
-    const int t = ty + kBT * i;
-    if (t < Q) {
-#pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        p.dC[(t0 + t) * DS + tx + kBT * j] = accC[i][j];
-        p.dB[(t0 + t) * DS + tx + kBT * j] = accB[i][j];
+    for (int t = tid; t < Qp; t += kThreads) {
+      if (t < Q) {
+        cp_async4(sl + t, p.lsum + hq * Q + t);
+        cp_async4(sdt + t, p.dt + (row0 + t) * p.H + h);
+        cp_async4(su + t, p.u + hq * Q + t);
+        cp_async4(sq + t, p.q + hq * Q + t);
+      } else {
+        sl[t] = sdt[t] = su[t] = sq[t] = 0.f;
       }
+    }
+    cp_async_commit();
+  };
+
+  load_tile<DS>(smem, LDC, p.C + row0 * DS, DS, Q, Qp, true);
+  load_tile<DS>(smem + L::buf1, LDC, p.B + row0 * DS, DS, Q, Qp, true);
+  cp_async_commit();
+  load_head(0);
+  cp_async_wait<1>();  // C and B; head 0 may still be in flight
+  __syncthreads();
+
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tig = lane & 3;
+  const int mt = warp < 4 ? warp : 11 - warp;
+  const int r0 = 16 * mt, j0 = 2 * mt;  // rows s r0.., first column tile
+  const bool active = r0 < Q;
+  const int sa = r0 + g, sb = sa + 8;
+  // this lane's accumulator fragments of the warp's tiles, tile jj at
+  // + 128 jj: the dG^T sums, and G^T
+  float* frag = smem + (size_t)(mt * (17 - mt)) * 128 + lane * 4;
+  float* gfrag = frag + L::frag;
+
+  // G^T (rows s, columns t >= r0) in the accumulator layout
+  float gacc[NTT][4];
+#pragma unroll
+  for (int j = 0; j < NTT; ++j) gacc[j][0] = gacc[j][1] = gacc[j][2] = gacc[j][3] = 0.f;
+  if (active) {
+    const float* sB = smem + L::buf1;
+#pragma unroll 2
+    for (int k = 0; k < DS; k += 8) {
+      uint32_t ah[4], al[4];
+      load_a(sB, LDC, r0, k, g, tig, ah, al);  // B[s][d]
+#pragma unroll
+      for (int jj = 0; jj < NTT; ++jj) {
+        if (j0 + jj < NTq) {
+          uint32_t bh[2], bl[2];
+          load_b_nmajor(smem, LDC, 8 * (j0 + jj), k, g, tig, bh, bl);  // C^T(d, t) = C[t][d]
+          mma3(gacc[jj], ah, al, bh, bl);
+        }
+      }
+    }
+  }
+  __syncthreads();  // B and C are read: C's place takes G^T and the dG^T sums, B's head buffer 1
+  if (active) {
+#pragma unroll
+    for (int jj = 0; jj < NTT; ++jj) {
+      if (j0 + jj < NTq) {
+        *reinterpret_cast<float4*>(gfrag + 128 * jj) =
+            make_float4(gacc[jj][0], gacc[jj][1], gacc[jj][2], gacc[jj][3]);
+        *reinterpret_cast<float4*>(frag + 128 * jj) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  }
+
+  for (int i = 0; i < nh; ++i) {
+    if (i + 1 < nh) {
+      load_head(i + 1);  // in flight during this head's products
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int h = h0 + i;
+    const long long hq = ((long long)b * p.nc + c) * p.H + h;
+    const float* sx = smem + ((i & 1) ? L::buf1 : L::buf0);
+    const float* sdy = sx + kMaxQ * LDX;
+    const float* sl = sdy + kMaxQ * LDX;
+    const float* sdt = sl + kMaxQ;
+    const float* su = sdt + kMaxQ;
+    const float* sq = su + kMaxQ;
+    // read ahead of the products: kappa and A for da, and dx as
+    // ssd_bwd_inter wrote it, decay dt (B dS_next^T)
+    const float kappa = p.kappa[hq], Ah = p.A[b * p.as + h];
+    float* dxg = p.dx + (row0 * p.H + h) * HD + 2 * tig;  // + t H HD + 8 n
+    const long long xrow = (long long)p.H * HD;
+    float2 dxi[NTP][2];
+#pragma unroll
+    for (int n = 0; n < NTP; ++n) {
+      dxi[n][0] = active && sa < Q ? *reinterpret_cast<const float2*>(dxg + sa * xrow + 8 * n)
+                                   : make_float2(0.f, 0.f);
+      dxi[n][1] = active && sb < Q ? *reinterpret_cast<const float2*>(dxg + sb * xrow + 8 * n)
+                                   : make_float2(0.f, 0.f);
+    }
+    if (active) {
+      float dxa[NTP][4];
+#pragma unroll
+      for (int n = 0; n < NTP; ++n) dxa[n][0] = dxa[n][1] = dxa[n][2] = dxa[n][3] = 0.f;
+      float cra = 0.f, crb = 0.f, cda = 0.f, cdb = 0.f;  // column sums of R, dW M G at sa, sb
+      const float lsa = sl[sa], lsb = sl[sb], dsa = sdt[sa], dsb = sdt[sb];
+      // two tiles at a time, ja and jb: one split of x's A fragment per k
+      // step serves both product chains.  No branch inside: where a warp's
+      // tiles are odd in number (Q not a multiple of 16) the pair's second
+      // tile repeats its first with every contribution selected to zero,
+      // so ptxas can interleave the two tiles' chains.  G^T is in shared
+      // memory, so the loop needs no register array of constant index.
+#pragma unroll 1
+      for (int ja = j0; ja < NTq; ja += 2) {
+        const bool live_b = ja + 1 < NTq;
+        const int jb = live_b ? ja + 1 : ja;
+        float dw[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};  // dW^T[s][t] = x_s . dy_t
+#pragma unroll
+        for (int k = 0; k < HD; k += 8) {
+          uint32_t ah[4], al[4], bh[2], bl[2];
+          load_a(sx, LDX, r0, k, g, tig, ah, al);
+          load_b_nmajor(sdy, LDX, 8 * ja, k, g, tig, bh, bl);  // dy^T(p, t) = dy[t][p]
+          mma3(dw[0], ah, al, bh, bl);
+          load_b_nmajor(sdy, LDX, 8 * jb, k, g, tig, bh, bl);
+          mma3(dw[1], ah, al, bh, bl);
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int j = u ? jb : ja, jj = j - j0;
+          const bool live = u == 0 || live_b;
+          const int t0 = 8 * j + 2 * tig, t1 = t0 + 1;
+          const float l0 = sl[t0], l1 = sl[t1];
+          const float m0 = live && t0 >= sa && t0 < Q ? exp2f(l0 - lsa) : 0.f;
+          const float m1 = live && t1 >= sa && t1 < Q ? exp2f(l1 - lsa) : 0.f;
+          const float m2 = live && t0 >= sb && t0 < Q ? exp2f(l0 - lsb) : 0.f;
+          const float m3 = live && t1 >= sb && t1 < Q ? exp2f(l1 - lsb) : 0.f;
+          const float4 gv = *reinterpret_cast<const float4*>(gfrag + 128 * jj);
+          const float mg0 = m0 * gv.x, mg1 = m1 * gv.y, mg2 = m2 * gv.z, mg3 = m3 * gv.w;
+          const float w0 = mg0 * dsa, w1 = mg1 * dsa, w2 = mg2 * dsb, w3 = mg3 * dsb;
+          const float q0 = dw[u][0] * w0, q1 = dw[u][1] * w1;
+          const float q2 = dw[u][2] * w2, q3 = dw[u][3] * w3;
+          cra += q0 + q1;
+          crb += q2 + q3;
+          cda = fmaf(dw[u][1], mg1, fmaf(dw[u][0], mg0, cda));
+          cdb = fmaf(dw[u][3], mg3, fmaf(dw[u][2], mg2, cdb));
+          // R's sums over this warp's 16 rows s, for columns t0 and t1
+          float c0 = q0 + q2, c1 = q1 + q3;
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1) {
+            c0 += __shfl_xor_sync(0xffffffffu, c0, off);
+            c1 += __shfl_xor_sync(0xffffffffu, c1, off);
+          }
+          if (g == 0 && live) {
+            srowR[mt * kMaxQ + t0] = c0;
+            srowR[mt * kMaxQ + t1] = c1;
+          }
+          // dG^T, summed over the group's heads in head order
+          float4* f = reinterpret_cast<float4*>(frag + 128 * jj);
+          float4 acc = *f;
+          acc.x += dw[u][0] * m0 * dsa;
+          acc.y += dw[u][1] * m1 * dsa;
+          acc.z += dw[u][2] * m2 * dsb;
+          acc.w += dw[u][3] * m3 * dsb;
+          *f = acc;
+          // dx += W^T dy: this tile is the A fragment of k step j, slots
+          // tig <- column t0 and tig + 4 <- t1, and dy's rows t0, t1 its B
+          // fragment, which leaves the sum over t unchanged
+          uint32_t wh[4], wl[4];
+          split(w0, wh[0], wl[0]);
+          split(w2, wh[1], wl[1]);
+          split(w1, wh[2], wl[2]);
+          split(w3, wh[3], wl[3]);
+#pragma unroll
+          for (int n = 0; n < NTP; ++n) {
+            uint32_t bh[2], bl[2];
+            split(sdy[t0 * LDX + 8 * n + g], bh[0], bl[0]);
+            split(sdy[t1 * LDX + 8 * n + g], bh[1], bl[1]);
+            mma3(dxa[n], wh, wl, bh, bl);
+          }
+        }
+      }
+      cra = quad_sum(cra);
+      crb = quad_sum(crb);
+      cda = quad_sum(cda);
+      cdb = quad_sum(cdb);
+      if (tig == 0) {
+        scolR[sa] = cra;
+        scolR[sb] = crb;
+        scolD[sa] = cda;
+        scolD[sb] = cdb;
+      }
+#pragma unroll
+      for (int n = 0; n < NTP; ++n) {
+        if (sa < Q)
+          *reinterpret_cast<float2*>(dxg + sa * xrow + 8 * n) =
+              make_float2(dxi[n][0].x + dxa[n][0], dxi[n][0].y + dxa[n][1]);
+        if (sb < Q)
+          *reinterpret_cast<float2*>(dxg + sb * xrow + 8 * n) =
+              make_float2(dxi[n][1].x + dxa[n][2], dxi[n][1].y + dxa[n][3]);
+      }
+    }
+    __syncthreads();
+    // e = q + rowsum(R) - colsum(R), and sum_t dW M G + u
+    if (tid < Q) {
+      float rr = 0.f;
+      for (int m = 0; m <= tid / 16; ++m) rr += srowR[m * kMaxQ + tid];
+      se[tid] = sq[tid] + rr - scolR[tid];
+      sdd[tid] = scolD[tid] + su[tid];
+      sv[tid] = sdt[tid] * su[tid];  // v, scanned in place below
+    }
+    __syncthreads();
+    // da_u = sum_{t >= u} e_t + sum_{s < u} v_s + kappa, the two scans by
+    // two warps at once
+    if (warp == 0) warp_scan(se, sscan, Q, true);
+    else if (warp == 1) warp_scan(sv, sv, Q, false);
+    __syncthreads();
+    float contrib = 0.f;
+    if (tid < Q) {
+      const float da = sscan[tid] + ((tid > 0 ? sv[tid - 1] : 0.f) + kappa);
+      p.ddt[(row0 + tid) * p.H + h] = fmaf(Ah, da, sdd[tid]);
+      contrib = sdt[tid] * da;
+    }
+    const float dA = block_sum(contrib, sred);  // ends in a sync: the buffer is free
+    if (tid == 0) p.dA_part[hq] = dA;
+  }
+
+  // the group's dG^T into the scratch, zeros left of the warp's tiles
+  if (active) {
+    float* dg = p.dG + (((long long)b * p.nc + c) * p.groups + grp) * Q * Q;
+#pragma unroll
+    for (int jj = 0; jj < NTT; ++jj) {
+      const int t0 = 8 * (j0 + jj) + 2 * tig, t1 = t0 + 1;
+      if (j0 + jj < NTq) {
+        const float4 v = *reinterpret_cast<const float4*>(frag + 128 * jj);
+        if (sa < Q && t0 < Q) dg[sa * Q + t0] = v.x;
+        if (sa < Q && t1 < Q) dg[sa * Q + t1] = v.y;
+        if (sb < Q && t0 < Q) dg[sb * Q + t0] = v.z;
+        if (sb < Q && t1 < Q) dg[sb * Q + t1] = v.w;
+      }
+    }
+    for (int e = lane; e < 16 * r0; e += 32) {
+      const int s = r0 + e / r0, t = e % r0;
+      if (s < Q) dg[s * Q + t] = 0.f;
     }
   }
 }
 
-// 6: dA[h] (A shared: per_row 0) or dA[r][h] (A per row), a tree sum of
-// the partials of its rows and chunks
+// 5: one GEMM per (chunk, batch row, which of dC and dB, DT columns of ds)
+template <int DS>
+struct DbcShape {
+  static constexpr int DT = DS < 64 ? DS : 64;          // columns d per block
+  static constexpr int WN = DT / 32 > 0 ? DT / 32 : 1;  // warps along d
+  static constexpr int NTW = DT / 8 / WN;               // n tiles per warp
+  static constexpr int WM = kWarps / WN;                // warps along the rows
+  static constexpr int MTW = kMaxQ / 16 / WM;           // m tiles per warp
+  static constexpr int KT = 32;                         // k per stage
+  static constexpr int LDA = KT + 4;                    // A [m][k]: 4 mod 32
+  static constexpr int LDK = kMaxQ + 8;                 // A [k][m]: 8 mod 32
+  static constexpr int LDB = DT + 8;                    // B [k][n]: 8 or 24 mod 32
+  static constexpr size_t A = (size_t)kMaxQ * LDA > (size_t)KT * LDK ? (size_t)kMaxQ * LDA
+                                                                     : (size_t)KT * LDK;
+  static constexpr size_t stage = A + (size_t)KT * LDB + 2 * kMaxQ;  // A, B, l, dt
+  static constexpr int kStages = 3;
+  static constexpr size_t sum = kStages * stage;  // the groups' dG tiles summed
+  static constexpr size_t total = sum + A;
+};
+
+template <int HD, int DS>
+__global__ void __launch_bounds__(kThreads, 2) ssd_bwd_dbc(const BwdParams p) {
+  using L = DbcShape<DS>;
+  constexpr int KT = L::KT, MTW = L::MTW, NTW = L::NTW;
+  const int c = blockIdx.x, b = blockIdx.y, which = blockIdx.z & 1;  // 0: dC, 1: dB
+  const int d0 = (blockIdx.z >> 1) * L::DT;
+  const int Q = p.Q, Qp = pad16(Q), tid = threadIdx.x;
+  const long long row0 = (long long)b * p.S + (long long)c * Q;
+  // the heads' part: dy S_in (S_in = 0 entering the first chunk), x dS_next
+  // (dS_next = 0 leaving the last)
+  const bool heads = which == 0 ? c > 0 : c < p.nc - 1;
+  const int kt_head = heads ? p.H * HD / KT : 0, kt_dg = (Q + KT - 1) / KT;
+  const int nkt = kt_head + p.groups * kt_dg;
+  const bool vecQ = Q % 4 == 0;
+
+  extern __shared__ __align__(16) float smem[];
+  auto load = [&](int kt) {
+    float* sA = smem + (kt % L::kStages) * L::stage;
+    float* sBt = sA + L::A;
+    float* sl = sBt + KT * L::LDB;
+    float* sdt = sl + kMaxQ;
+    if (kt < kt_head) {
+      const int h = kt * KT / HD, p0 = kt * KT % HD;
+      const long long hq = ((long long)b * p.nc + c) * p.H + h;
+      // A(t, (h, p)) = dy[t][h][p] (or x), scaled at the fragment by exp(l_t)
+      // (or decay_t dt_t); B((h, p), d) = S_in[h][p][d] (or dS_next)
+      load_tile<KT>(sA, L::LDA, (which == 0 ? p.dy : p.x) + (row0 * p.H + h) * HD + p0,
+                    (long long)p.H * HD, Q, Qp, true);
+      load_tile<L::DT>(sBt, L::LDB, (which == 0 ? p.state : p.dstate) + (hq * HD + p0) * DS + d0,
+                       DS, KT, KT, true);
+      for (int t = tid; t < Qp; t += kThreads) {
+        if (t < Q) {
+          cp_async4(sl + t, p.lsum + hq * Q + t);
+          cp_async4(sdt + t, p.dt + (row0 + t) * p.H + h);
+        } else {
+          sl[t] = sdt[t] = 0.f;
+        }
+      }
+    } else {  // k tile kd / groups of the dG part, group kd % groups; B with the last group
+      const int kd = kt - kt_head, grp = kd % p.groups, k0 = (kd / p.groups) * KT;
+      const int nk = min(KT, Q - k0);
+      const bool with_b = grp == p.groups - 1;
+      const float* dg = p.dG + (((long long)b * p.nc + c) * p.groups + grp) * Q * Q;
+      if (which == 0) {  // A(t, s) = dG^T[s][t], k-major; B(s, d) = B[s][d]
+        load_block(sA, L::LDK, dg + (long long)k0 * Q, Q, nk, KT, Q, Qp, vecQ);
+        if (with_b) load_tile<L::DT>(sBt, L::LDB, p.B + (row0 + k0) * DS + d0, DS, nk, KT, true);
+      } else {           // A(s, t) = dG^T[s][t]; B(t, d) = C[t][d]
+        load_block(sA, L::LDA, dg + k0, Q, Q, Qp, nk, KT, vecQ);
+        if (with_b) load_tile<L::DT>(sBt, L::LDB, p.C + (row0 + k0) * DS + d0, DS, nk, KT, true);
+      }
+    }
+  };
+
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tig = lane & 3;
+  const int wm = warp / L::WN, wn = warp % L::WN;
+  float acc[MTW][NTW][4];
+#pragma unroll
+  for (int mi = 0; mi < MTW; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NTW; ++ni)
+      acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < L::kStages - 1; ++s) {
+    if (s < nkt) load(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nkt; ++kt) {
+    cp_async_wait<L::kStages - 2>();
+    __syncthreads();  // stage kt is in; every warp is done with stage kt - 1
+    if (kt + L::kStages - 1 < nkt) load(kt + L::kStages - 1);
+    cp_async_commit();
+    const float* sA = smem + (kt % L::kStages) * L::stage;
+    const float* sBt = sA + L::A;
+    const float* sl = sBt + KT * L::LDB;
+    const float* sdt = sl + kMaxQ;
+    const bool head = kt < kt_head;
+    const int kd = kt - kt_head, grp = head ? 0 : kd % p.groups;
+    const int kd0 = head ? 0 : (kd / p.groups) * KT;  // s (dC) or t (dB) of column 0
+    const float* a = sA;
+    if (!head && p.groups > 1) {
+      // the groups' dG tiles summed in group order, each thread its own
+      // float4s, before one product with B
+      const int rows = which == 0 ? KT : Qp, c4 = (which == 0 ? Qp : KT) / 4;
+      const int ld = which == 0 ? L::LDK : L::LDA;
+      float* sum = smem + L::sum;
+      for (int i = tid; i < rows * c4; i += kThreads) {
+        const int off = (i / c4) * ld + (i % c4) * 4;
+        const float4 v = *reinterpret_cast<const float4*>(sA + off);
+        float4* sp = reinterpret_cast<float4*>(sum + off);
+        if (grp == 0) {
+          *sp = v;
+        } else {
+          const float4 w = *sp;
+          *sp = make_float4(w.x + v.x, w.y + v.y, w.z + v.z, w.w + v.w);
+        }
+      }
+      if (grp < p.groups - 1) continue;
+      __syncthreads();  // every thread's part of the sum is in
+      a = sum;
+    }
+    float sc[MTW][2];  // the heads' row scales
+#pragma unroll
+    for (int mi = 0; mi < MTW; ++mi) {
+      const int ra = 16 * (wm * MTW + mi) + g, rb = ra + 8;
+      sc[mi][0] = sc[mi][1] = 1.f;
+      if (head && ra < Qp) {
+        const float lQ = sl[Q - 1];
+        sc[mi][0] = which == 0 ? exp2f(sl[ra]) : exp2f(lQ - sl[ra]) * sdt[ra];
+        sc[mi][1] = which == 0 ? exp2f(sl[rb]) : exp2f(lQ - sl[rb]) * sdt[rb];
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < KT; kk += 8) {
+      // the m tiles that this k step reaches: the causal mask zeroes dG^T[s][t] for t < s
+      bool on[MTW];
+      bool any = false;
+#pragma unroll
+      for (int mi = 0; mi < MTW; ++mi) {
+        const int m0 = 16 * (wm * MTW + mi), k = kd0 + kk;
+        on[mi] = m0 < Qp && (head || (which == 0 ? k <= m0 + 15 : k + 7 >= m0));
+        any = any || on[mi];
+      }
+      if (!any) continue;
+      uint32_t bh[NTW][2], bl[NTW][2];
+#pragma unroll
+      for (int ni = 0; ni < NTW; ++ni) {
+        const float* bp = sBt + (kk + tig) * L::LDB + 8 * (wn * NTW + ni) + g;
+        split(bp[0], bh[ni][0], bl[ni][0]);
+        split(bp[4 * L::LDB], bh[ni][1], bl[ni][1]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < MTW; ++mi) {
+        if (!on[mi]) continue;
+        const int m0 = 16 * (wm * MTW + mi);
+        uint32_t ah[4], al[4];
+        if (head) {
+          const float* ap = a + (m0 + g) * L::LDA + kk + tig;
+          split(ap[0] * sc[mi][0], ah[0], al[0]);
+          split(ap[8 * L::LDA] * sc[mi][1], ah[1], al[1]);
+          split(ap[4] * sc[mi][0], ah[2], al[2]);
+          split(ap[8 * L::LDA + 4] * sc[mi][1], ah[3], al[3]);
+        } else if (which == 1) {
+          load_a(a, L::LDA, m0, kk, g, tig, ah, al);
+        } else {
+          const float* ap = a + (kk + tig) * L::LDK + m0 + g;  // A(m, k) = a[k][m]
+          split(ap[0], ah[0], al[0]);
+          split(ap[8], ah[1], al[1]);
+          split(ap[4 * L::LDK], ah[2], al[2]);
+          split(ap[4 * L::LDK + 8], ah[3], al[3]);
+        }
+#pragma unroll
+        for (int ni = 0; ni < NTW; ++ni) mma3(acc[mi][ni], ah, al, bh[ni], bl[ni]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  float* out = which == 0 ? p.dC : p.dB;
+#pragma unroll
+  for (int mi = 0; mi < MTW; ++mi) {
+    const int ra = 16 * (wm * MTW + mi) + g, rb = ra + 8;
+#pragma unroll
+    for (int ni = 0; ni < NTW; ++ni) {
+      const int d = d0 + 8 * (wn * NTW + ni) + 2 * tig;
+      if (ra < Q)
+        *reinterpret_cast<float2*>(out + (row0 + ra) * DS + d) =
+            make_float2(acc[mi][ni][0], acc[mi][ni][1]);
+      if (rb < Q)
+        *reinterpret_cast<float2*>(out + (row0 + rb) * DS + d) =
+            make_float2(acc[mi][ni][2], acc[mi][ni][3]);
+    }
+  }
+}
+
+// 6: dA[h] (A shared: per_row 0) or dA[r][h] (A per row), a sum of the
+// partials of its rows and chunks in a fixed order
 __global__ void __launch_bounds__(kThreads) ssd_bwd_da(const BwdParams p, int Bb, int per_row) {
-  __shared__ float sred[kThreads];
+  __shared__ float sred[kWarps];
   const int h = blockIdx.x, r = blockIdx.y;
   const int n = per_row ? p.nc : Bb * p.nc;
   float v = 0.f;
@@ -1246,45 +1553,41 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_da(const BwdParams p, int Bb
 
 bool grid_is(const int* g, int x, int y, int z) { return g[0] == x && g[1] == y && g[2] == z; }
 
+template <typename K>
+cudaError_t set_smem(K kernel, size_t bytes) {
+  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 template <int HD, int DS>
 cudaError_t launch_bwd(const Params& fp, const BwdParams& p, int Bb, int per_row,
                        const int* grid, cudaStream_t stream) {
-  const int n4 = HD * DS / 4, n = HD * DS;
-  const dim3 g[7] = {dim3(grid[0], grid[1], grid[2]), dim3(grid[3], grid[4], grid[5]),
-                     dim3(grid[6], grid[7], grid[8]), dim3(grid[9], grid[10], grid[11]),
-                     dim3(grid[12], grid[13], grid[14]), dim3(grid[15], grid[16], grid[17]),
-                     dim3(grid[18], grid[19], grid[20])};
-  if (!grid_is(grid, p.nc, p.H, Bb) || !grid_is(grid + 3, (n4 + kThreads - 1) / kThreads, p.H, Bb)
-      || !grid_is(grid + 6, p.nc, p.H, Bb)
-      || !grid_is(grid + 9, (n + kThreads - 1) / kThreads, p.H, Bb)
-      || !grid_is(grid + 12, p.nc, p.H, Bb) || !grid_is(grid + 15, p.nc, Bb, 1)
-      || !grid_is(grid + 18, p.H, per_row ? Bb : 1, 1))
+  const int n4 = HD * DS / 4, scan_blocks = (n4 + kThreads - 1) / kThreads;
+  const int groups = (p.H + p.head_group - 1) / p.head_group;
+  if (p.groups != groups || !grid_is(grid, 2 * p.nc, p.H, Bb)
+      || !grid_is(grid + 3, 2 * scan_blocks, p.H, Bb) || !grid_is(grid + 6, p.nc, groups, Bb)
+      || !grid_is(grid + 9, p.nc, groups, Bb)
+      || !grid_is(grid + 12, p.nc, Bb, 2 * DS / DbcShape<DS>::DT)
+      || !grid_is(grid + 15, p.H, per_row ? Bb : 1, 1))
     return cudaErrorInvalidConfiguration;
+  const dim3 g[6] = {dim3(grid[0], grid[1], grid[2]), dim3(grid[3], grid[4], grid[5]),
+                     dim3(grid[6], grid[7], grid[8]), dim3(grid[9], grid[10], grid[11]),
+                     dim3(grid[12], grid[13], grid[14]), dim3(grid[15], grid[16], grid[17])};
   const size_t smem1 = state_smem_floats<HD, DS>(p.Q) * sizeof(float);
-  const size_t smemL = local_smem_floats<HD, DS>() * sizeof(float);
-  const size_t smemH = HeadSmem<HD, DS>::total * sizeof(float);
-  const size_t smemS = SumSmem<HD, DS>::total * sizeof(float);
-  if (smem1 > kMaxSmem || smemL > kMaxSmem || smemH > kMaxSmem || smemS > kMaxSmem)
-    return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_chunk_state<HD, DS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ssd_bwd_dstate_local<HD, DS>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smemL);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ssd_bwd_head<HD, DS>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smemH);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ssd_bwd_heads_sum<HD, DS>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smemS);
+  const size_t smemI = InterSmem<HD, DS>::total * sizeof(float);
+  const size_t smemH = IntraSmem<HD, DS>::total * sizeof(float);
+  const size_t smemD = DbcShape<DS>::total * sizeof(float);
+  cudaError_t err = set_smem(ssd_bwd_chunk_local<HD, DS>, smem1);
+  if (err == cudaSuccess) err = set_smem(ssd_bwd_inter<HD, DS>, smemI);
+  if (err == cudaSuccess) err = set_smem(ssd_bwd_intra<HD, DS>, smemH);
+  if (err == cudaSuccess) err = set_smem(ssd_bwd_dbc<HD, DS>, smemD);
   if (err != cudaSuccess) return err;
-  ssd_chunk_state<HD, DS><<<g[0], kThreads, smem1, stream>>>(fp);
-  ssd_state_pass<<<g[1], kThreads, 0, stream>>>(fp, n4);
-  ssd_bwd_dstate_local<HD, DS><<<g[2], kThreads, smemL, stream>>>(p);
-  ssd_bwd_dstate_pass<<<g[3], kThreads, 0, stream>>>(p, n);
-  ssd_bwd_head<HD, DS><<<g[4], kThreads, smemH, stream>>>(p);
-  ssd_bwd_heads_sum<HD, DS><<<g[5], kThreads, smemS, stream>>>(p);
-  ssd_bwd_da<<<g[6], kThreads, 0, stream>>>(p, Bb, per_row);
+  ssd_bwd_chunk_local<HD, DS><<<g[0], kThreads, smem1, stream>>>(fp);
+  ssd_bwd_scans<<<g[1], kThreads, 0, stream>>>(fp, n4);
+  ssd_bwd_inter<HD, DS><<<g[2], kThreads, smemI, stream>>>(p);
+  ssd_bwd_intra<HD, DS><<<g[3], kThreads, smemH, stream>>>(p);
+  ssd_bwd_dbc<HD, DS><<<g[4], kThreads, smemD, stream>>>(p);
+  ssd_bwd_da<<<g[5], kThreads, 0, stream>>>(p, Bb, per_row);
   return cudaGetLastError();
 }
 
@@ -1303,32 +1606,39 @@ cudaError_t launch_bwd_ds(const Params& fp, const BwdParams& p, int Bb, int ds, 
 // The backward.  float32, every tensor contiguous: x, dy and dx (Bb,S,H,hd),
 // dt and ddt (Bb,S,H), B, C, dB and dC (Bb,S,ds), A and dA (H,) or (Bb,H)
 // (per_row_a 1; A read at A[b * a_stride + h]).  hd in {32, 64}, ds in
-// {16, 128}, 1 <= Q <= 128 and S % Q == 0.  Scratch from the caller,
-// contiguous float32: lsum (Bb, S/Q, H, Q), state and dstate (Bb, S/Q, H, hd,
-// ds), dG (Bb, S/Q, H, Q, Q) and dA_part (Bb, S/Q, H).  grid holds the seven
+// {16, 128}, 1 <= Q <= 128 and S % Q == 0; heads are taken head_group at a
+// time.  Scratch from the caller, contiguous float32: lsum (Bb, S/Q, H, Q),
+// state and dstate (Bb, S/Q, H, hd, ds), dG (Bb, S/Q, groups, Q, Q), u and q
+// (Bb, S/Q, H, Q), kappa and dA_part (Bb, S/Q, H).  grid holds the six
 // launches' grids, three numbers each (kernels/ssd_scan_bwd.py::plan).
-// Launches seven kernels on `stream`; returns a cudaError_t value (0 on
-// success).
+// Launches six kernels on `stream`; returns a cudaError_t value (0 on
+// success; cudaErrorInvalidConfiguration for grids that do not cover the
+// work).
 extern "C" int ssd_scan_bwd(
     const float* x, const float* dt, const float* B, const float* C, const float* A,
     const float* dy, float* dx, float* ddt, float* dB, float* dC, float* dA, float* lsum,
-    float* state, float* dstate, float* dG, float* dA_part, int Bb, int S, int H, int hd,
-    int ds, int Q, long long a_stride, int per_row_a, const int* grid, void* stream) {
-  if (Q < 1 || Q > kMaxQ || S % Q != 0 || Bb < 1 || H < 1 || Bb > 65535 || H > 65535)
+    float* state, float* dstate, float* dG, float* u, float* q, float* kappa, float* dA_part,
+    int Bb, int S, int H, int hd, int ds, int Q, int head_group, long long a_stride,
+    int per_row_a, const int* grid, void* stream) {
+  if (Q < 1 || Q > kMaxQ || S % Q != 0 || Bb < 1 || H < 1 || Bb > 65535 || H > 65535
+      || head_group < 1)
     return cudaErrorInvalidValue;
   Params fp = {};
-  fp.x = x; fp.dt = dt; fp.B = B; fp.C = C; fp.A = A;
-  fp.lsum = lsum; fp.state = state; fp.as = a_stride;
+  fp.x = x; fp.dt = dt; fp.B = B; fp.C = C; fp.A = A; fp.dy = dy;
+  fp.lsum = lsum; fp.state = state; fp.dstate = dstate; fp.as = a_stride;
   fp.xs[0] = (long long)S * H * hd; fp.xs[1] = (long long)H * hd; fp.xs[2] = hd;
   fp.dts[0] = (long long)S * H; fp.dts[1] = H;
   fp.bs[0] = fp.cs[0] = (long long)S * ds; fp.bs[1] = fp.cs[1] = ds;
-  fp.Q = Q; fp.H = H; fp.nc = S / Q; fp.head_group = 1;
-  fp.vec = aligned16(x, fp.xs, 3) && aligned16(B, fp.bs, 2) && aligned16(C, fp.cs, 2);
+  fp.Q = Q; fp.H = H; fp.nc = S / Q;
+  fp.vec = aligned16(x, fp.xs, 3) && aligned16(dy, fp.xs, 3) && aligned16(B, fp.bs, 2)
+           && aligned16(C, fp.cs, 2);
   BwdParams p;
   p.x = x; p.dt = dt; p.B = B; p.C = C; p.A = A; p.dy = dy;
   p.dx = dx; p.ddt = ddt; p.dB = dB; p.dC = dC; p.dA = dA;
-  p.lsum = lsum; p.state = state; p.dstate = dstate; p.dG = dG; p.dA_part = dA_part;
+  p.lsum = lsum; p.state = state; p.dstate = dstate; p.dG = dG;
+  p.u = u; p.q = q; p.kappa = kappa; p.dA_part = dA_part;
   p.as = a_stride; p.S = S; p.H = H; p.Q = Q; p.nc = S / Q;
+  p.head_group = head_group; p.groups = (H + head_group - 1) / head_group;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 32: return launch_bwd_ds<32>(fp, p, Bb, ds, per_row_a, grid, st);

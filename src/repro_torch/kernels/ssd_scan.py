@@ -62,22 +62,15 @@ def plan(Bb: int, S: int, H: int, hd: int, ds: int, chunk: int = MAX_CHUNK, *,
     wrapper launches these grids, and the launch refuses grids that do not
     cover the work).  Every head group computes G = C B^T once per (batch
     row, chunk) for all of its heads; the groups cover the H heads once, the
-    last one short where the group does not divide H.  The group is the one of at most HEAD_GROUP heads with the
-    least modelled time of ssd_chunk_out: its waves of one block per SM
-    (the block holds about 200 KB of shared memory) times a block's work,
-    where G and the C and B loads count as one more head; ties go to the
-    larger group."""
+    last one short where the group does not divide H.  The group is
+    ``head_group``'s for ssd_chunk_out, whose block holds about 200 KB of
+    shared memory, one block per SM."""
     Q = min(int(chunk), S)
     if not 1 <= Q <= MAX_CHUNK or S % Q:
         raise ValueError(f"sequence {S} is not a multiple of the chunk {Q} (1 <= chunk <= "
                          f"{MAX_CHUNK}); callers pad")
     nc = S // Q
-    best = None
-    for g in range(1, min(HEAD_GROUP, H) + 1):
-        cost = -(-nc * -(-H // g) * Bb // sms) * (g + 1)
-        if best is None or cost <= best[0]:
-            best = (cost, g)
-    hg = best[1]
+    hg = head_group(nc, H, Bb, sms)
     lsum_shape, state_shape = (Bb, nc, H, Q), (Bb, nc, H, hd, ds)
     return Plan(
         chunk=Q, chunks=nc, head_group=hg,
@@ -87,6 +80,20 @@ def plan(Bb: int, S: int, H: int, hd: int, ds: int, chunk: int = MAX_CHUNK, *,
         lsum_shape=lsum_shape, state_shape=state_shape,
         scratch_bytes=4 * (Bb * nc * H * Q + Bb * nc * H * hd * ds),
     )
+
+
+def head_group(nc: int, H: int, Bb: int, sms: int) -> int:
+    """The heads per block of a launch with one block per (chunk, head group,
+    batch row) and one block per SM, each block computing G = C B^T once
+    for its group: the group of at most HEAD_GROUP heads with the least
+    modelled time, its waves times a block's work, where G and the C and B
+    loads count as one more head; ties go to the larger group."""
+    best = None
+    for g in range(1, min(HEAD_GROUP, H) + 1):
+        cost = -(-nc * -(-H // g) * Bb // sms) * (g + 1)
+        if best is None or cost <= best[0]:
+            best = (cost, g)
+    return best[1]
 
 
 def multiprocessors(device: torch.device) -> int:

@@ -8,16 +8,21 @@ gradient is this kernel, whose formulas ``kernels/ref.py::ssd_scan_bwd_ref``
 spells out step by step.  ``ssd_scan_train`` is the training path's SSD:
 its forward is ``ssd_scan.ssd_scan``, its backward this kernel.
 
-One call is seven launches on PyTorch's current stream (the source's header
-says what each does): the forward's ``ssd_chunk_state`` and
-``ssd_state_pass`` (l and the states entering each chunk, rebuilt rather
-than kept from the forward), ``ssd_bwd_dstate_local``,
-``ssd_bwd_dstate_pass``, ``ssd_bwd_head``, ``ssd_bwd_heads_sum`` and
+One call is six launches on PyTorch's current stream (the source's header
+says what each does), all products in 3xTF32 on the tensor cores:
+``ssd_bwd_chunk_local`` (l and the chunk states, rebuilt rather than kept
+from the forward, and each chunk's own gradient of the state entering it),
+``ssd_bwd_scans`` (the states entering each chunk, and in reverse the
+gradients of those leaving it), ``ssd_bwd_inter`` and ``ssd_bwd_intra``
+(per head group: what crosses chunks, then the causal half within the
+chunk, G = C B^T once per group and dG summed over the group's heads),
+``ssd_bwd_dbc`` (dB and dC, one GEMM each over every head and group) and
 ``ssd_bwd_da``.  ``plan`` gives their grids, which the launch takes as they
-are (it refuses grids that do not cover the work), and the scratch the
-wrapper allocates.  The library is the forward's (``ssd_scan.build``).
-``launches`` counts wrapper calls that launched the kernels (one per call,
-not seven), so a run can show that its gradient went through them.
+are (it refuses grids that do not cover the work), the head group and the
+scratch the wrapper allocates.  The library is the forward's
+(``ssd_scan.build``).  ``launches`` counts wrapper calls that launched the
+kernels (one per call, not six), so a run can show that its gradient went
+through them.
 """
 from __future__ import annotations
 
@@ -31,44 +36,53 @@ from . import ssd_scan as ssd
 launches = 0  # calls that launched the kernels since the last reset (callers set it to 0)
 
 THREADS = 256  # threads per block of every launch
+DBC_COLUMNS = 64  # columns of ds per ssd_bwd_dbc block, at most
 _lib = None
 
 
 class Plan(NamedTuple):
     chunk: int          # Q
     chunks: int         # nc = S / Q
-    grids: tuple        # seven (x, y, z) grids, in launch order
+    head_group: int     # heads per ssd_bwd_inter and ssd_bwd_intra block
+    grids: tuple        # six (x, y, z) grids, in launch order
     scratch: dict       # name -> shape of the float32 scratch
 
 
 def plan(Bb: int, S: int, H: int, hd: int, ds: int, chunk: int = ssd.MAX_CHUNK,
-         per_row_a: bool = False) -> Plan:
-    """The seven launches' grids and the float32 scratch of a call (pure
-    Python): the forward's chunk-state and state passes (``ssd_scan.plan``'s
-    grids, the state pass with blocks of THREADS threads), then one block
-    per (chunk, head, batch row) for the local state gradients, one thread
-    per state value of each (head, row) for their reverse pass, one block
-    per (chunk, head, row) for the per-head gradients, one per (chunk, row)
-    for the sums over heads, and one per head (per (head, row) where A is
-    per row) for dA."""
+         per_row_a: bool = False, *, sms: int) -> Plan:
+    """The six launches' grids, the head group and the float32 scratch of a
+    call on a card with ``sms`` streaming multiprocessors (pure Python):
+    blocks per (chunk, head, row) for the chunk states and, in a second
+    half, the local state gradients; four state values per thread of each
+    (head, row), twice over, for the forward and the reverse scan; one block
+    per (chunk, head group, row) for the cross-chunk and the within-chunk
+    per-head passes; one per (chunk, row, dC or dB, DBC_COLUMNS columns of
+    ds) for the head sums; one per head (per (head, row) where A is per row)
+    for dA.  The head group is the forward's choice
+    (``ssd_scan.head_group``: both per-group passes hold one block per SM);
+    the groups cover the H heads once, the last one short where the group
+    does not divide H, and the dG scratch holds one Q x Q sum per group."""
     Q = min(int(chunk), S)
     if not 1 <= Q <= ssd.MAX_CHUNK or S % Q:
         raise ValueError(f"sequence {S} is not a multiple of the chunk {Q} (1 <= chunk <= "
                          f"{ssd.MAX_CHUNK}); callers pad")
     nc = S // Q
-    per_head = (nc, H, Bb)
+    hg = ssd.head_group(nc, H, Bb, sms)
+    groups = -(-H // hg)
+    per_group = (nc, groups, Bb)
     grids = (
-        per_head,
-        (-(-hd * ds // (4 * THREADS)), H, Bb),
-        per_head,
-        (-(-hd * ds // THREADS), H, Bb),
-        per_head,
-        (nc, Bb, 1),
+        (2 * nc, H, Bb),
+        (2 * -(-hd * ds // (4 * THREADS)), H, Bb),
+        per_group,
+        per_group,
+        (nc, Bb, 2 * (ds // min(ds, DBC_COLUMNS))),
         (H, Bb if per_row_a else 1, 1),
     )
     scratch = {"lsum": (Bb, nc, H, Q), "state": (Bb, nc, H, hd, ds),
-               "dstate": (Bb, nc, H, hd, ds), "dG": (Bb, nc, H, Q, Q), "dA_part": (Bb, nc, H)}
-    return Plan(chunk=Q, chunks=nc, grids=grids, scratch=scratch)
+               "dstate": (Bb, nc, H, hd, ds), "dG": (Bb, nc, groups, Q, Q),
+               "u": (Bb, nc, H, Q), "q": (Bb, nc, H, Q), "kappa": (Bb, nc, H),
+               "dA_part": (Bb, nc, H)}
+    return Plan(chunk=Q, chunks=nc, head_group=hg, grids=grids, scratch=scratch)
 
 
 def build():
@@ -82,7 +96,7 @@ def _load():
         lib = ctypes.CDLL(str(build()))
         fn = lib.ssd_scan_bwd
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([ptr] * 16 + [i32] * 6 + [ctypes.c_longlong, i32, ctypes.POINTER(i32),
+        fn.argtypes = ([ptr] * 19 + [i32] * 7 + [ctypes.c_longlong, i32, ctypes.POINTER(i32),
                                                  ptr])
         fn.restype = ctypes.c_int
         _lib = lib
@@ -116,19 +130,21 @@ def ssd_scan_bwd(x, dt, B, C, A, dy, *, chunk: int = ssd.MAX_CHUNK):
             raise TypeError(f"{name} is {t.dtype}; the kernel takes float32 only")
     x, dt, B, C, A, dy = (t.contiguous() for t in (x, dt, B, C, A, dy))
     per_row = A.ndim == 2
-    pl = plan(Bb, S, H, hd, ds, chunk, per_row)
     dev = x.device
+    pl = plan(Bb, S, H, hd, ds, chunk, per_row, sms=ssd.multiprocessors(dev))
     outs = [torch.empty(t.shape, dtype=torch.float32, device=dev) for t in (x, dt, B, C, A)]
     scratch = {n: torch.empty(shape, dtype=torch.float32, device=dev)
                for n, shape in pl.scratch.items()}
-    grid = (ctypes.c_int * 21)(*(n for g in pl.grids for n in g))
+    grid = (ctypes.c_int * 18)(*(n for g in pl.grids for n in g))
     lib = _load()
     with torch.cuda.device(dev):  # the runtime launches on its current device
         err = lib.ssd_scan_bwd(
             *(t.data_ptr() for t in (x, dt, B, C, A, dy)), *(t.data_ptr() for t in outs),
-            *(scratch[n].data_ptr() for n in ("lsum", "state", "dstate", "dG", "dA_part")),
-            Bb, S, H, hd, ds, pl.chunk, A.stride(0) if per_row and Bb > 1 else 0, int(per_row),
-            grid, torch.cuda.current_stream(dev).cuda_stream)
+            *(scratch[n].data_ptr() for n in ("lsum", "state", "dstate", "dG", "u", "q", "kappa",
+                                              "dA_part")),
+            Bb, S, H, hd, ds, pl.chunk, pl.head_group,
+            A.stride(0) if per_row and Bb > 1 else 0, int(per_row), grid,
+            torch.cuda.current_stream(dev).cuda_stream)
     launches += 1
     if err != 0:
         raise RuntimeError(f"ssd_scan_bwd launch failed: cudaError {err}")

@@ -935,7 +935,7 @@ def _assert_bwd_close(got, args, chunk):
 @pytest.mark.parametrize("B,S,H,hd,ds,chunk", SSD_BWD_CASES)
 def test_ssd_backward_kernel_matches_float64_plain(cuda, B, S, H, hd, ds, chunk):
     """dx, ddt, dB, dC and dA against the plain backward in float64
-    (``_assert_bwd_close``): float32 FMA chains, and sums over heads, rows
+    (``_assert_bwd_close``): 3xTF32 products, and sums over heads, rows
     and chunks in a fixed order; one wrapper call per launch count."""
     args = _ssd_bwd_inputs(cuda, B, S, H, hd, ds)
     before = ssd_bwd_kernel.launches
@@ -952,6 +952,24 @@ def test_ssd_backward_kernel_with_a_per_row_matches_plain(cuda):
     got = ssd_bwd_kernel.ssd_scan_bwd(*args, chunk=128)
     assert got[4].shape == (4, 6)
     _assert_bwd_close(got, args, 128)
+
+
+@pytest.mark.parametrize("B,S,H,hd,ds,chunk,per_row", [
+    (1, 2048, 20, 64, 128, 128, False),  # the training widths at H 20: groups of 3, then 2
+    (3, 576, 7, 64, 128, 36, True),      # Q 36: groups of 4, then 3
+    (3, 500, 5, 32, 16, 50, True),       # Q 50, not a multiple of 4: groups of 2, then 1
+])
+def test_ssd_backward_kernel_with_a_short_last_head_group(cuda, B, S, H, hd, ds, chunk, per_row):
+    """Head counts that the backward's head group does not divide, so that
+    its last group is short: at the training widths, and with A per row at
+    chunks that are no multiple of 16 (padded causal tiles; at Q 50 the dG
+    scratch's rows are no multiple of 16 bytes)."""
+    pl = ssd_bwd_kernel.plan(B, S, H, hd, ds, chunk, per_row,
+                             sms=ssd_kernel.multiprocessors(cuda))
+    assert H % pl.head_group, pl
+    args = _ssd_bwd_inputs(cuda, B, S, H, hd, ds, seed=6, per_row=per_row)
+    got = ssd_bwd_kernel.ssd_scan_bwd(*args, chunk=chunk)
+    _assert_bwd_close(got, args, chunk)
 
 
 def test_ssd_backward_kernel_takes_strided_views_and_repeats_bit_for_bit(cuda):

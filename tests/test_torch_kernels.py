@@ -228,29 +228,53 @@ def test_ssd_plan_sizes_the_scratch(Bb, S, H, hd, ds, chunk):
 @pytest.mark.parametrize("per_row_a", [False, True])
 @pytest.mark.parametrize("Bb,S,H,hd,ds,chunk", SSD_PLAN_SHAPES)
 def test_ssd_bwd_plan_grids_and_scratch(Bb, S, H, hd, ds, chunk, per_row_a):
-    """The backward's seven grids, in launch order: the forward's
-    chunk-state pass (one block per chunk, head and row) and state pass
-    (four state values per thread, as the forward's with 256 threads), one
-    block per (chunk, head, row) for the local state gradients, one thread
-    per state value for their reverse pass, one block per (chunk, head, row)
-    for the per-head gradients, one per (chunk, row) for the head sums, one
+    """The backward's six grids, in launch order: the chunk states and the
+    local state gradients (one block per chunk, head and row, each), the
+    two scans (four state values per thread, as the forward's state pass
+    with 256 threads, each), the cross-chunk and within-chunk passes (one
+    block per chunk, head group and row: the forward's head group), the dC
+    and dB GEMMs (one block per chunk, row, and 64 columns of ds, each), one
     per head (per row too where A is per row) for dA; and the float32
-    scratch: l, the states and their gradients, dG per (chunk, head) and
-    dA's partials."""
-    pl = ssd_bwd_kernel.plan(Bb, S, H, hd, ds, chunk, per_row_a)
+    scratch: l, the states and their gradients, dG per (chunk, head group),
+    u and q per position, kappa and dA's partials per (chunk, head)."""
+    pl = ssd_bwd_kernel.plan(Bb, S, H, hd, ds, chunk, per_row_a, sms=H100_SMS)
     Q, nc = pl.chunk, pl.chunks
     assert Q == min(chunk, S) and nc * Q == S
     fwd = ssd_kernel.plan(Bb, S, H, hd, ds, chunk, sms=H100_SMS)
-    state, scan, local, dpass, head, heads_sum, da = pl.grids
-    assert state == fwd.state_grid == local == head == (nc, H, Bb)
-    assert scan[1:] == dpass[1:] == (H, Bb)
+    local, scans, inter, intra, dbc, da = pl.grids
+    assert local == (2 * nc, H, Bb) and fwd.state_grid == (nc, H, Bb)
+    assert pl.head_group == fwd.head_group
+    assert inter == intra == fwd.out_grid == (nc, -(-H // pl.head_group), Bb)
     n = ssd_bwd_kernel.THREADS
-    assert (scan[0] - 1) * 4 * n < hd * ds <= scan[0] * 4 * n
-    assert (dpass[0] - 1) * n < hd * ds <= dpass[0] * n
-    assert heads_sum == (nc, Bb, 1) and da == (H, Bb if per_row_a else 1, 1)
+    assert scans[1:] == (H, Bb) and scans[0] % 2 == 0
+    assert (scans[0] // 2 - 1) * 4 * n < hd * ds <= scans[0] // 2 * 4 * n
+    assert dbc == (nc, Bb, 2 * max(1, ds // 64)) and da == (H, Bb if per_row_a else 1, 1)
+    groups = intra[1]
     assert pl.scratch == {"lsum": fwd.lsum_shape, "state": fwd.state_shape,
-                          "dstate": fwd.state_shape, "dG": (Bb, nc, H, Q, Q),
+                          "dstate": fwd.state_shape, "dG": (Bb, nc, groups, Q, Q),
+                          "u": fwd.lsum_shape, "q": fwd.lsum_shape, "kappa": (Bb, nc, H),
                           "dA_part": (Bb, nc, H)}
+
+
+@pytest.mark.parametrize("Bb,S,H,chunk,head_group,groups", [
+    (8, 2048, 24, 128, 8, 3),  # the Mamba2 training call: three groups of 8
+    (32, 512, 6, 128, 6, 1),   # the partitioned train step's fold: one group
+    (8, 2048, 20, 128, 7, 3),  # H 20: the last group is one head short
+    (1, 2048, 20, 128, 3, 7),  # one row: smaller groups fill more SMs
+    (2, 144, 3, 48, 1, 3),
+    (2, 2048, 5, 128, 2, 3),
+])
+def test_ssd_bwd_plan_head_groups_cover_the_heads_once(Bb, S, H, chunk, head_group, groups):
+    """The per-group passes' head groups cover the H heads once, the last
+    one short where the group does not divide H, and the dG scratch holds
+    one Q x Q sum per group: at the training call 25.2 MB (groups of 8)
+    where one per head would be 201 MB."""
+    pl = ssd_bwd_kernel.plan(Bb, S, H, 64, 128, chunk, sms=H100_SMS)
+    assert (pl.head_group, pl.grids[3][1]) == (head_group, groups)
+    assert head_group * (groups - 1) < H <= head_group * groups
+    assert pl.scratch["dG"] == (Bb, pl.chunks, groups, pl.chunk, pl.chunk)
+    if (Bb, S, H) == (8, 2048, 24):
+        assert 4 * math.prod(pl.scratch["dG"]) == 25_165_824
 
 
 def test_ssd_plan_scratch_at_the_loss_shape():
