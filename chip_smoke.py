@@ -132,7 +132,25 @@ Phases, each of which raises (and so exits non-zero) on failure:
    steps, launches per step, no gathering fallback and no plan step
    holding a whole vocabulary dim;
    tokens/s, step wall, host and device-busy ms, the cache's shard and
-   unshard ms, syncs per step and peak memory.
+   unshard ms, syncs per step and peak memory;
+9. the whole-program plan optimizer and the plan verifier, in the same
+   process, priced by a profile measured in this run: three 24-layer paths
+   at full width (qwen1.5-0.5b's partitioned train step, 2d_finalized,
+   remat "none", B8 S512, bf16; its sequence-sharded decode step behind
+   ``Engine(8 slots, max_len 1024)``, 2d_attempt1; mamba2-130m's
+   partitioned train step, float32, B8 S512), each captured and completed
+   once and its plan compiled unoptimized and optimized, run in turns
+   (unoptimized, optimized, optimized, unoptimized): outputs bit-equal
+   where the plan repeats itself, the same kernel launches, the verifier
+   passing, no fallback gather and no step holding a whole vocabulary (or
+   cache sequence); steps, collective launches, wire bytes and the
+   optimizer's passes before and after, its and the verifier's seconds,
+   host and device-busy ms and peak memory beside the plan's modeled peak;
+   then a guard drill at two layers: ``TrainLoop`` under ``set_mesh`` with
+   a plan profile skipping a NaN-poisoned step with the params kept bit
+   for bit, ``Engine`` with and without a plan profile serving the same
+   tokens, and the guarded partitioned loss raising ``NumericsFault`` on a
+   NaN token embedding.
 
 Every path runs with the kernels' launch counts set to 0 just before it and
 read just after.  The last two lines of output are the kernels' JSON record
@@ -173,15 +191,18 @@ def _ms(x):
     return "not measured" if x is None else f"{x:.4f} ms"
 
 
-def device_ms(fn, copies, calls=10, by_name=False):
+def device_ms(fn, copies, calls=10, by_name=False, warm=True):
     """Device time of one call: the kernels' own durations in a torch.profiler
     trace of ``calls`` calls, without the host's time between launches (None
     when no trace holds every call's device events); with ``by_name``, a
-    dict by kernel name of its time and its launches per call."""
+    dict by kernel name of its time and its launches per call.  ``warm``
+    calls ``fn`` once before the trace (leave it off where the caller just
+    did)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn(0)
+    if warm:
+        fn(0)
     torch.cuda.synchronize()
     for _ in range(3):  # a trace now and then comes back without some device events
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1543,8 +1564,8 @@ def measured_roofline(mesh):
     """A ``RooflineParams`` for ``PlanCost`` from this card and this run: a
     bf16 GEMM rate and an HBM copy rate (CUDA events), the link rate from
     the H100 SXM data sheet (NVLink 4: 900 GB/s both ways, 450 GB/s each
-    way), the launch cost of one small psum on the simulated mesh (host wall
-    per call, synchronised), and no overlap (one stream runs the simulated
+    way), the launch cost of one small psum over the mesh's last axis on the
+    simulated mesh (host wall per call, synchronised), and no overlap (one stream runs the simulated
     collectives and the products in series)."""
     from repro_torch.analysis.roofline import RooflineParams
     from repro_torch.core import mesh_runtime as mr
@@ -1559,12 +1580,13 @@ def measured_roofline(mesh):
     copy_ms = time_ms(lambda i: y.copy_(x), 1)
     del x, y
     z = torch.randn(mesh.size, 256, device="cuda")
+    axis = mesh.axis_names[-1]
     for _ in range(10):
-        mr.psum(z, mesh, ("y",))
+        mr.psum(z, mesh, (axis,))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(200):
-        mr.psum(z, mesh, ("y",))
+        mr.psum(z, mesh, (axis,))
     torch.cuda.synchronize()
     psum_s = (time.perf_counter() - t0) / 200
     rec = {"bf16_gemm_tflops": 2 * n**3 / gemm_ms / 1e9, "hbm_copy_gbs": 2 * 4 * 2**28 / copy_ms / 1e6,
@@ -3300,12 +3322,343 @@ def sharded_serve_phase(seed, card):
     return [sharded_serve_case(*case, seed, card) for case in SHARDED_SERVE]
 
 
+# ---------------------------------------------------------------------------------
+# the whole-program optimizer, the verifier and the guards on the card
+# ---------------------------------------------------------------------------------
+
+PLAN_OPT_B, PLAN_OPT_S = 8, 512  # the two train steps' batch
+GUARD_STEPS, GUARD_NAN_AT = 8, 4  # the guard drill's TrainLoop
+
+
+def _plan_shape(plan):
+    """Steps by kind, collective launches, modeled wire bytes and the
+    modeled per-device peak of one plan."""
+    from repro_torch.core.plan_opt import whole_collective_launches, whole_wire_bytes
+
+    return {"steps": len(plan.steps),
+            "by_kind": dict(collections.Counter(s.kind for s in plan.steps)),
+            "collective_launches": whole_collective_launches(plan),
+            "wire_bytes": whole_wire_bytes(plan), "peak_x8_gib": plan.peak_bytes * 8 / 2**30}
+
+
+def _tensors(out):
+    from torch.utils._pytree import tree_flatten
+
+    return [t for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)]
+
+
+def plan_opt_case(label, runner, args, mesh, profile, card, repeats, V, kv_seq=None):
+    """One path's plan, captured and completed once (``runner.plans``' entry),
+    compiled unoptimized (the entry's own plan) and optimized
+    (``plan_opt.optimize_plan`` under ``profile``), both verified; then the
+    path run in turns (unoptimized, optimized, optimized, unoptimized) on
+    the same inputs ``args`` (per turn one call, timed on the host with the
+    device drained before it, then one traced call).  Gates: every output
+    leaf of the optimized
+    plan equal to the unoptimized plan's bit for bit where the unoptimized
+    plan repeats itself bit for bit (every leaf, where ``repeats``); a leaf
+    that does not repeat (the flash backward adds dq by atomics) within 4x
+    the larger of the two plans' own run-to-run differences in norm; the
+    same kernel launches in every turn; the verifier passing on both; no
+    fallback gather and no optimized plan step holding a whole vocabulary
+    dim (``V``) or, with ``kv_seq`` (the cache's length and head dim), a
+    whole cache sequence.  Reads: steps, launches and wire bytes before and
+    after, the OptReport's passes, the seconds of ``optimize_plan`` and
+    ``verify_plan``, and per turn host, device-busy ms and peak memory."""
+    from repro_torch.core.plan import compile_plan
+    from repro_torch.core.plan_opt import optimize_plan
+    from repro_torch.core.plan_verify import verify_plan
+
+    entry = _plan_of(runner)
+    raw = entry.plan
+    t0 = time.perf_counter()
+    plan = compile_plan(entry.captured, entry.prop, mesh, optimize=False, verify=False,
+                        profile=profile)
+    t1 = time.perf_counter()
+    optimize_plan(plan)
+    t2 = time.perf_counter()
+    verify_plan(raw)
+    t3 = time.perf_counter()
+    verify_plan(plan)
+    t4 = time.perf_counter()
+    seconds = {"build": t1 - t0, "optimize_plan": t2 - t1, "verify_plan_unoptimized": t3 - t2,
+               "verify_plan_optimized": t4 - t3}
+    plans = {"unoptimized": raw, "optimized": plan}
+    turns, outs = [], {"unoptimized": [], "optimized": []}
+    mods = _kernel_modules()
+    for name in ("unoptimized", "optimized", "optimized", "unoptimized"):
+        entry.plan = plans[name]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for mod in mods.values():
+            mod.launches = 0
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            out = runner(*args)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            host, wall = (t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3
+            launched = {n: mod.launches for n, mod in mods.items()}
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            busy = device_ms(lambda i: runner(*args), 1, calls=1, warm=False)
+        outs[name].append(_tensors(out))
+        del out
+        turns.append({"plan": name, "launches": launched, "host_ms": host, "wall_ms": wall,
+                      "device_busy_ms": busy, "peak_gib": peak,
+                      "modeled_peak_x8_gib": plans[name].peak_bytes * mesh.size / 2**30})
+    entry.plan = plan
+    with torch.no_grad():
+        holders = whole_vocab_steps(runner, args, V)
+        gathers = cache_gather_steps(runner, args, *kv_seq) if kv_seq else []
+    fallback_gathers = list(runner.fallback_gathers)
+    entry.plan = raw
+    (u1, u2), (o1, o2) = outs["unoptimized"], outs["optimized"]
+    unequal, noisy = [], []
+    for i, (a, b, c, d) in enumerate(zip(u1, u2, o1, o2)):
+        if torch.equal(a, b):
+            if not (torch.equal(c, a) and torch.equal(d, a)):
+                unequal.append(i)
+        else:
+            floor = max(_rel(b, a), _rel(d, c))
+            noisy.append({"leaf": i, "rel": _rel(c, a), "floor": floor})
+    del outs, u1, u2, o1, o2
+    rep = plan.opt_report.as_dict()
+    before, after = _plan_shape(raw), _plan_shape(plan)
+    print(f"  {label}; {card}", flush=True)
+    print(f"    plan before: {json.dumps(before)}", flush=True)
+    print(f"    plan after:  {json.dumps(after)}", flush=True)
+    print(f"    OptReport: {rep['steps_before']} -> {rep['steps_after']} steps, launches "
+          f"{rep['collectives_before']} -> {rep['collectives_after']}, wire bytes "
+          f"{rep['wire_bytes_before']:.0f} -> {rep['wire_bytes_after']:.0f}, fused buckets "
+          f"{rep['fused_buckets']}, modeled launch s saved {rep['launch_s_saved']:.3e}, "
+          f"overlap ratio {rep['overlap']['ratio']:.4f}", flush=True)
+    for p in rep["passes"]:
+        print(f"      {p['name']}: removed {p['removed_steps']}, wire bytes saved "
+              f"{p['wire_bytes_saved']:.0f}, fused {p['fused_buckets']} buckets of "
+              f"{p['fused_members']} members, moved {p['moved_steps']}", flush=True)
+    print(f"    seconds: {json.dumps({k: round(v, 3) for k, v in seconds.items()})}; first "
+          f"call (capture, completion, plan): {json.dumps(entry.build_s)}", flush=True)
+    for t in turns:
+        print(f"    {t['plan']}: host {t['host_ms']:.1f} ms, wall {t['wall_ms']:.1f} ms, device "
+              f"busy {_ms(t['device_busy_ms'])} per call; peak {t['peak_gib']:.3f} GiB (plan's "
+              f"modeled peak x8 {t['modeled_peak_x8_gib']:.3f}); launches {t['launches']}",
+              flush=True)
+    print(f"    outputs: {len(unequal)} leaves unequal where the unoptimized plan "
+          f"repeats; {len(noisy)} leaves that do not repeat"
+          + (f", optimized against unoptimized at most {max(n['rel'] for n in noisy):.3e} "
+             f"in norm, own floor at least {min(n['floor'] for n in noisy):.3e}"
+             if noisy else ""), flush=True)
+    check(not unequal, f"{label}: optimized outputs differ from unoptimized at leaves {unequal}")
+    check(not (repeats and noisy), f"{label}: the plans do not repeat bit for bit: {noisy[:4]}")
+    off = [n for n in noisy if n["rel"] > 4 * n["floor"]]
+    check(not off, f"{label}: optimized off unoptimized beyond 4x their floor: {off[:4]}")
+    check(all(t["launches"] == turns[0]["launches"] for t in turns),
+          f"{label}: kernel launches differ across turns: {[t['launches'] for t in turns]}")
+    check(not fallback_gathers, f"{label}: fallbacks gathered: {fallback_gathers}")
+    check(not holders, f"{label}: optimized plan steps held a whole vocabulary dim: {holders}")
+    check(not gathers, f"{label}: optimized plan steps held a whole cache sequence: {gathers}")
+    check(after["steps"] < before["steps"] and after["collective_launches"]
+          <= before["collective_launches"], f"{label}: the optimizer removed nothing")
+    return {"label": label, "card": card, "before": before, "after": after, "opt_report": rep,
+            "seconds": seconds, "turns": turns, "unequal_leaves": unequal,
+            "nonrepeating_leaves": noisy, "whole_vocab_steps": holders,
+            "cache_gather_steps": gathers}
+
+
+def _train_runner(cfg, st, mesh, seed, published_mamba=False):
+    """The partitioned train step of ``cfg`` built through ``make_train_step``
+    under ``set_mesh`` and run once (its plan captured, completed and
+    compiled unoptimized); returns the runner and the step's inputs."""
+    from repro_torch.core.compat import set_mesh
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.train.loop import TrainConfig, init_state, make_train_step
+    from repro_torch.train.optimizer import get_optimizer
+
+    opt = get_optimizer("adafactor")
+    gen = torch.Generator("cuda").manual_seed(seed)
+    with set_mesh(mesh):
+        state = init_state(cfg, st, opt, TrainConfig(), gen, "cuda")
+        step = make_train_step(cfg, st, opt, TrainConfig())
+    if published_mamba:
+        mamba2_published_init(state["params"], cfg.num_layers, gen)
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, PLAN_OPT_S, PLAN_OPT_B, seed=seed,
+                                    pattern="arithmetic"))
+    batch = {k: torch.from_numpy(v).to("cuda").long() for k, v in pipe.batch_at(0).items()}
+    step(state, batch)
+    args = (tree_map(torch.Tensor.detach, state["params"]), state["opt"],
+            torch.tensor(state["step"], dtype=torch.int64), batch)
+    return step.runner, args
+
+
+def guard_drill(seed, card, profile, mesh):
+    """At two layers (qwen1.5-0.5b's published widths, bf16 compute,
+    2d_finalized, B8 S512): ``TrainLoop`` under ``set_mesh`` with
+    ``plan_profile`` (its plan optimized and verified),
+    ``GuardConfig(rewind_after=3)`` and NaN poisoning step 4 over eight
+    steps: step 4 skipped, the params after it equal those before it bit for
+    bit, seven finite losses, the counters; ``Engine`` under ``set_mesh``
+    with and without ``plan_profile`` serving the same tokens; and
+    ``spmd_partition(api.partitionable_loss, guard=GuardConfig())`` raising
+    ``NumericsFault`` naming a non-finite leaf on a NaN token embedding
+    (clean first)."""
+    from repro_torch.configs.base import get_strategy
+    from repro_torch.core.compat import set_mesh
+    from repro_torch.core.partitioner import spmd_partition
+    from repro_torch.core.plan import GuardConfig, NumericsFault
+    from repro_torch.core.tree import leaves, tree_map
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models import api
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.train.loop import NumericFaultSpec, TrainConfig, TrainLoop, init_state
+    from repro_torch.train.optimizer import get_optimizer
+
+    cfg = partition_train_config(2)
+    st, opt = get_strategy("2d_finalized"), get_optimizer("adafactor")
+    V = cfg.vocab_size
+    tc = TrainConfig(steps=GUARD_NAN_AT, log_every=10**9, guard=GuardConfig(rewind_after=3),
+                     numeric_fault=NumericFaultSpec(nan_at_step=GUARD_NAN_AT))
+    pipe = TokenPipeline(DataConfig(V, PLAN_OPT_S, PLAN_OPT_B, seed=seed, pattern="arithmetic"))
+    events = []
+    with set_mesh(mesh):
+        state = init_state(cfg, st, opt, tc, torch.Generator("cuda").manual_seed(seed), "cuda")
+        loop = TrainLoop(cfg, st, opt, tc, pipe, device="cuda", plan_profile=profile,
+                         hooks={"numerics_fault": lambda s, f, c: events.append(
+                             (s, c, [x["leaf"] for x in f][:3]))})
+        state, first = loop.run(initial_state=state)
+        before = [p.detach().clone() for p in leaves(state["params"])]
+        tc.steps = GUARD_NAN_AT + 1
+        state, poisoned = loop.run(initial_state=state)
+        kept = all(torch.equal(p, q) for p, q in zip(leaves(state["params"]), before))
+        tc.steps = GUARD_STEPS
+        state, rest = loop.run(initial_state=state)
+    plan = _plan_of(loop.step_fn.runner).plan
+    losses = first + poisoned + rest
+    print(f"  guard drill: qwen 2 layers, TrainLoop under set_mesh with plan_profile, NaN at "
+          f"step {GUARD_NAN_AT}: losses {losses}; skipped {loop.skipped_steps}; counters "
+          f"{loop.guard_counters}; params kept bit for bit {kept}; hook {events}; plan "
+          f"{len(plan.steps)} steps, OptReport {plan.opt_report is not None}", flush=True)
+    check(loop.skipped_steps == [GUARD_NAN_AT] and kept and not poisoned
+          and len(losses) == GUARD_STEPS - 1 and all(math.isfinite(x) for x in losses)
+          and loop.guard_counters == {"faults": 1, "skips": 1, "rewinds": 0}
+          and plan.opt_report is not None, "the guard drill did not skip the poisoned step")
+    # the same two-layer Engine with and without a plan profile
+    served = {}
+    scfg, _, params = full_width_model("qwen1.5-0.5b", seed)
+    scfg = scfg.with_(num_layers=2)
+    params = {**params, "layers": _first_layers(params["layers"], 2)}
+    rng = np.random.default_rng(seed + 70)
+    prompts = [rng.integers(0, V, 8).tolist() for _ in range(8)]
+    for tag, prof in (("unoptimized", None), ("optimized", profile)):
+        with set_mesh(mesh):
+            eng = Engine(scfg, st, params, batch_slots=8, max_len=64, plan_profile=prof)
+        reqs = [Request(prompt=p, max_new_tokens=4) for p in prompts]
+        with torch.no_grad():
+            eng.generate(reqs)
+        served[tag] = [r.out for r in reqs]
+        check((_plan_of(eng.runner).plan.opt_report is not None) == (prof is not None),
+              f"Engine plan_profile {tag}")
+    print(f"  Engine at two layers with and without plan_profile served the same tokens: "
+          f"{served['optimized'] == served['unoptimized']}", flush=True)
+    check(served["optimized"] == served["unoptimized"], f"Engine tokens differ: {served}")
+    # the guarded partitioned loss on a NaN token embedding
+    runner = spmd_partition(api.partitionable_loss(cfg, st, mesh), mesh, guard=GuardConfig(),
+                            profile=profile, device="cuda")
+    batch = {k: torch.from_numpy(v).to("cuda").long() for k, v in pipe.batch_at(0).items()}
+    p = tree_map(lambda t: t.detach().clone(), state["params"])
+    clean = runner(p, batch).item()
+    p["embed"]["embedding"][batch["tokens"][0, 0]] = float("nan")
+    try:
+        runner(p, batch)
+        raised = None
+    except NumericsFault as e:
+        raised = e
+    print(f"  guarded partitioned loss: clean {clean:.6f}; NaN token embedding -> "
+          f"{raised!s}", flush=True)
+    check(raised is not None and any(f["kind"] == "nonfinite" for f in raised.faults),
+          "the guarded loss did not raise NumericsFault on a NaN embedding")
+    return {"losses": losses, "skipped_steps": loop.skipped_steps,
+            "guard_counters": loop.guard_counters, "params_kept": kept, "hook": events,
+            "engine_tokens_equal": True, "clean_loss": clean, "fault": str(raised)}
+
+
+def plan_opt_phase(seed, card):
+    """The whole-program optimizer and verifier on three 24-layer paths at
+    full width on the simulated ("data" 2, "model" 4) mesh, priced by a
+    profile measured in this run (``measured_roofline``): qwen1.5-0.5b's
+    partitioned train step (2d_finalized, remat "none", B8 S512, bf16),
+    its sequence-sharded decode step (``Engine(8 slots, max_len 1024)``,
+    2d_attempt1, ``shard_kv_seq``) and mamba2-130m's partitioned train step
+    (float32, B8 S512), each by ``plan_opt_case``; then ``guard_drill``."""
+    from repro_torch.configs.base import get_strategy
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.compat import set_mesh
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.serve.engine import Engine, Request
+
+    t0 = time.perf_counter()
+    mesh = make_test_mesh()
+    profile, prof_rec = measured_roofline(mesh)
+    from repro_torch.analysis.roofline import fusion_bucket_bytes
+
+    cap = fusion_bucket_bytes(profile)
+    print(f"plan_opt: the whole-program optimizer and verifier on the card, fusion bucket cap "
+          f"{cap / 2**20:.1f} MiB (this run's profile); {card}", flush=True)
+    cases = []
+    print(f"  profile measured at {time.perf_counter() - t0:.0f} s", flush=True)
+    cfg = partition_train_config(24)
+    runner, args = _train_runner(cfg, get_strategy("2d_finalized"), mesh, seed)
+    cases.append(plan_opt_case("qwen1.5-0.5b train step, 24 layers, 2d_finalized, remat none, "
+                               f"B{PLAN_OPT_B} S{PLAN_OPT_S}, bf16", runner, args, mesh,
+                               profile, card, repeats=False, V=cfg.vocab_size))
+    del runner, args
+    torch.cuda.empty_cache()
+    print(f"  at {time.perf_counter() - t0:.0f} s", flush=True)
+
+    cfg, _, params = full_width_model("qwen1.5-0.5b", seed)
+    cfg = cfg.with_(shard_kv_seq=True)
+    st = get_strategy("2d_attempt1")
+    with set_mesh(mesh):
+        eng = Engine(cfg, st, params, batch_slots=8, max_len=SERVE_MAX_LEN)
+    rng = np.random.default_rng(seed + 60)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, 8).tolist(), max_new_tokens=2)
+            for _ in range(8)]
+    with torch.no_grad():
+        eng.generate(reqs)
+    eng._pos.fill_(eng.pos)
+    args = (params, torch.zeros((8, 1), dtype=torch.long, device="cuda"), eng.cache, eng._pos)
+    cases.append(plan_opt_case("qwen1.5-0.5b decode step, 24 layers, 2d_attempt1, shard_kv_seq, "
+                               "Engine(8 slots, max_len 1024), bf16", eng.runner, args, mesh,
+                               profile, card, repeats=True, V=cfg.vocab_size,
+                               kv_seq=(SERVE_MAX_LEN, cfg.dh)))
+    del eng, args, params
+    torch.cuda.empty_cache()
+    print(f"  at {time.perf_counter() - t0:.0f} s", flush=True)
+
+    cfg = get_config("mamba2-130m").with_(num_layers=24, dtype="float32", scan_layers=False)
+    runner, args = _train_runner(cfg, get_strategy("2d_finalized"), mesh, seed,
+                                 published_mamba=True)
+    cases.append(plan_opt_case(f"mamba2-130m train step, 24 layers, 2d_finalized, float32, "
+                               f"B{PLAN_OPT_B} S{PLAN_OPT_S}", runner, args, mesh, profile,
+                               card, repeats=True, V=cfg.vocab_size))
+    del runner, args
+    torch.cuda.empty_cache()
+    print(f"  at {time.perf_counter() - t0:.0f} s", flush=True)
+    drill = guard_drill(seed, card, profile, mesh)
+    seconds = time.perf_counter() - t0
+    print(f"plan_opt: {seconds:.1f} s", flush=True)
+    return {"profile": prof_rec, "fusion_bucket_bytes": cap, "cases": cases, "guard": drill,
+            "seconds": seconds}
+
+
 def sharded_phases_in_own_process(seed, card):
-    """``sharded_loss_phase`` and ``sharded_serve_phase`` in a fresh process
-    (whole profiler traces, as ``partition_phase_in_own_process``), each
-    with the kernels' launch counts set to 0 before and read after: the SSD
-    launches in the loss and not in serving; the flash kernel in qwen's
-    serving."""
+    """``sharded_loss_phase``, ``sharded_serve_phase`` and ``plan_opt_phase``
+    in a fresh process (whole profiler traces, as
+    ``partition_phase_in_own_process``), the first two with the kernels'
+    launch counts set to 0 before and read after (the SSD launches in the
+    loss and not in serving; the flash kernel in qwen's serving), the last
+    with them set and read around every call it compares."""
     code = (f"import sys, json; sys.path.insert(0, {str(ROOT)!r}); import torch, chip_smoke; "
             "torch.backends.cuda.matmul.allow_tf32 = False; "
             "torch.backends.cudnn.allow_tf32 = False; "
@@ -3313,10 +3666,11 @@ def sharded_phases_in_own_process(seed, card):
             f"{card!r})); "
             f"serve, m = chip_smoke.counted(lambda: chip_smoke.sharded_serve_phase({seed}, "
             f"{card!r})); "
+            f"plan_opt = chip_smoke.plan_opt_phase({seed}, {card!r}); "
             "print(json.dumps({'loss': loss, 'loss_launches': n, 'serve': serve, "
-            "'serve_launches': m}))")
+            "'serve_launches': m, 'plan_opt': plan_opt}))")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                          timeout=900)
+                          timeout=1000)
     lines = proc.stdout.splitlines()
     print("\n".join(lines[:-1] if proc.returncode == 0 else lines), flush=True)
     check(proc.returncode == 0 and lines,
@@ -3493,7 +3847,8 @@ def main(argv=None):
           "families through the partitioner, against the same paths unsharded on the card",
           flush=True)
     sharded = sharded_phases_in_own_process(args.seed, partition["card"])
-    print(f"phases done at {time.perf_counter() - t0:.0f} s", flush=True)
+    print(f"phases done at {time.perf_counter() - t0:.0f} s (plan_opt "
+          f"{sharded['plan_opt']['seconds']:.0f} s of them)", flush=True)
 
     fa_main = next(c for c in fa_cases if c["case"] == "decode_8x16_pos1023")
     fa_prefill = next(c for c in fa_cases if c["case"] == "prefill_qwen_loss_2x2048")

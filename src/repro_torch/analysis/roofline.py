@@ -99,3 +99,19 @@ def collective_time_s(kind: str, group_size: int, in_bytes: float,
     wire time."""
     return params.collective_launch_s + collective_wire_bytes(
         kind, group_size, in_bytes) / params.ici_bw
+
+
+def fusion_bucket_bytes(params: RooflineParams) -> float:
+    """Bucket-size cap for collective fusion (``core/plan_opt.py``).
+
+    Fusing k members saves (k-1) launch costs but adds one extra HBM round
+    trip of the bucket (concatenate before, split after): about 2·B/hbm_bw
+    seconds for a B-byte bucket.  The copy stops paying for one saved launch
+    at B = collective_launch_s · hbm_bw / 2.  There is no default machine:
+    with no ``params`` this raises, as ``PlanCost`` does."""
+    if params is None:
+        raise ValueError(
+            "fusion_bucket_bytes: no machine profile (RooflineParams) to size fusion "
+            "buckets with: the port has no default constants; pass profile= to "
+            "compile_plan / lower_plan / spmd_partition, or bucket_bytes= to optimize_plan")
+    return params.collective_launch_s * params.hbm_bw / 2.0

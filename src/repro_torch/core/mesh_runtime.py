@@ -164,20 +164,38 @@ def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str, split_dim: int,
     return g.permute(perm).reshape([mesh.size] + out)
 
 
+_COMBINE = {"sum": torch.add, "max": torch.maximum, "min": torch.minimum}
+
+
 def _reduce(x: torch.Tensor, mesh: Mesh, axes: Iterable[str], op: str) -> torch.Tensor:
+    """The group's reduction on every member, in a fixed order: the members
+    combined one by one by elementwise ops, in row-major order over the
+    reduced mesh axes (the order of ``torch.sum`` over leading dims on the
+    CPU).  An element's result then does not depend on the tensor's layout
+    or size, so a fused collective (a flattened concatenation of several
+    tensors) equals its members' collectives bit for bit.  Sums of 16-bit
+    floats are added in float32 and rounded once, and integer sums widen to
+    int64, as ``torch.sum`` does."""
     axes = (axes,) if isinstance(axes, str) else tuple(axes)
     if not axes:
         return x
     _record("all-reduce")
     g = _grid(x, mesh)
-    ks = [mesh.axis_names.index(a) for a in axes]
+    out_dtype = g.dtype
     if op == "sum":
-        r = g.sum(dim=ks, keepdim=True)
-    elif op == "max":
-        r = g.amax(dim=ks, keepdim=True)
-    else:
-        r = g.amin(dim=ks, keepdim=True)
-    return _stacked(r.expand(g.shape), mesh)
+        if not g.is_floating_point():
+            g = g.to(torch.int64)
+            out_dtype = torch.int64
+        elif g.dtype.itemsize < 4:
+            g = g.float()
+    members = [g]
+    for k in sorted(mesh.axis_names.index(a) for a in axes):
+        members = [m for part in members for m in part.split(1, dim=k)]
+    combine = _COMBINE[op]
+    r = members[0]
+    for m in members[1:]:
+        r = combine(r, m)
+    return _stacked(r.to(out_dtype).expand(g.shape), mesh)
 
 
 def psum(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:

@@ -69,8 +69,7 @@ import torch
 import torch.fx
 from torch.utils._pytree import tree_flatten
 
-from ..analysis.graph_cost import (decode_combine_flops, flash_bwd_flops, flash_flops,
-                                   ssd_bwd_flops, ssd_flops)
+from ..analysis import graph_cost  # a module import: graph_cost imports core.rules
 from ..analysis.roofline import RooflineParams
 from ..kernels.ops import (flash_attention_bwd_op, flash_attention_fwd_op, flash_decode,
                            flash_decode_partial, flash_forward, ssd, ssd_scan_bwd_op)
@@ -410,7 +409,7 @@ def decide_flash(eqn, shardings, want, mesh: Mesh) -> LocalOp:
     params = eqn.params
     B, S, KR, Gl, D = shard_shape(eqn.in_avals[0].shape, targets[0])
     return LocalOp(targets, osh, lambda q, k, v: flash_local(q, k, v, params),
-                   flops=flash_flops(B, S, KR * Gl, eqn.in_avals[1].shape[1], D,
+                   flops=graph_cost.flash_flops(B, S, KR * Gl, eqn.in_avals[1].shape[1], D,
                                      params["causal"]))
 
 
@@ -436,7 +435,8 @@ def decide_flash_decode(eqn, shardings, want, mesh: Mesh) -> LocalOp:
         osh = decode_layout(bh, seq, 5)
     B, S, KR, Gl, D = shard_shape(eqn.in_avals[0].shape, targets[0])
     T = eqn.in_avals[1].shape[1]
-    flops = flash_flops(B, S, KR * Gl, shard_shape((T,), _sharding(mesh, [seq]))[0], D, False)
+    flops = graph_cost.flash_flops(B, S, KR * Gl, shard_shape((T,), _sharding(mesh, [seq]))[0],
+                                   D, False)
     if not seq:
         def fn(q, k, v, pos):
             return flash_decode(_fold(q), _fold(k), _fold(v), pos[0], chunk).reshape(q.shape)
@@ -453,7 +453,7 @@ def decide_flash_decode(eqn, shardings, want, mesh: Mesh) -> LocalOp:
                               mesh, seq)
 
     return LocalOp(targets, osh, fn, collectives={"all-reduce": 3},
-                   flops=flops + decode_combine_flops(B, S, KR * Gl, D))
+                   flops=flops + graph_cost.decode_combine_flops(B, S, KR * Gl, D))
 
 
 def combine_decode(out, lse, mesh: Mesh, axes):
@@ -492,7 +492,7 @@ def decide_ssd(eqn, shardings, want, mesh: Mesh) -> LocalOp:
         return y.reshape(x.shape)
 
     return LocalOp(targets, ssd_layout(bhp, _SSD_DIMS[4]), fn,
-                   flops=ssd_flops(Bb, S, H, hd, eqn.in_avals[2].shape[-1], chunk))
+                   flops=graph_cost.ssd_flops(Bb, S, H, hd, eqn.in_avals[2].shape[-1], chunk))
 
 
 def decide_ssd_bwd(eqn, shardings, want, mesh: Mesh) -> LocalOp:
@@ -532,7 +532,7 @@ def decide_ssd_bwd(eqn, shardings, want, mesh: Mesh) -> LocalOp:
 
     return LocalOp(targets, [ssd_layout(bhp, d) for d in outs], fn,
                    collectives={"all-reduce": sum(1 for a in sums.values() if a)},
-                   flops=ssd_bwd_flops(Bb, S, H, hd, eqn.in_avals[2].shape[-1], chunk))
+                   flops=graph_cost.ssd_bwd_flops(Bb, S, H, hd, eqn.in_avals[2].shape[-1], chunk))
 
 
 def decide_index_copy(eqn, shardings, want, mesh: Mesh) -> Optional[LocalOp]:
@@ -575,8 +575,8 @@ def decide_flash_fwd(eqn, shardings, want, mesh: Mesh) -> LocalOp:
         out, lse = flash_attention_fwd_op(_fold(q), _fold(k), _fold(v), causal, chunk)
         return [out.reshape(q.shape), lse.reshape(tuple(q.shape[:2]) + tuple(lse.shape[1:]))]
 
-    return LocalOp(targets, outs, fn, flops=flash_flops(B, S, KR * Gl, eqn.in_avals[1].shape[1],
-                                                         D, causal))
+    return LocalOp(targets, outs, fn, flops=graph_cost.flash_flops(
+        B, S, KR * Gl, eqn.in_avals[1].shape[1], D, causal))
 
 
 def decide_flash_bwd(eqn, shardings, want, mesh: Mesh) -> LocalOp:
@@ -590,7 +590,7 @@ def decide_flash_bwd(eqn, shardings, want, mesh: Mesh) -> LocalOp:
                                             causal)
         return [dq.reshape(q.shape), dk.reshape(k.shape), dv.reshape(v.shape)]
 
-    return LocalOp(targets, outs, fn, flops=flash_bwd_flops(
+    return LocalOp(targets, outs, fn, flops=graph_cost.flash_bwd_flops(
         B, S, KR * Gl, eqn.in_avals[1].shape[1], D, causal))
 
 
@@ -1230,16 +1230,21 @@ def spmd_partition(fn, mesh: Mesh, compile_plans: bool = True, optimize: bool = 
     The keywords are the reference's.  ``compile_plans=True`` (the default)
     executes the cached plan: steady-state calls capture, propagate and
     decide nothing.  ``compile_plans=False`` is the dynamic path
-    (``SpmdPartitioner``), which decides every op anew on each call.
-    ``optimize=True`` (the reference's default: the whole-program optimizer)
-    and ``verify=True`` (the plan verifier) apply to compiled plans and
-    raise until ROADMAP A9 ports them, so callers pass ``optimize=False``;
-    ``verify=None`` runs no verifier.  ``profile`` takes a
-    ``RooflineParams``, which the plan's ``PlanCost`` prices time with; a
-    fitted profile (A15), ``autoshard`` (A11), ``guard`` (A9) and ``trace``
-    (A15) raise naming their item.  ``process_cache=False`` opts this
-    runner out of the process-level cache.  ``device`` is "cuda" unless the
-    caller asks for "cpu" (no fallback from one to the other).
+    (``SpmdPartitioner``), which decides every op anew on each call.  On
+    compiled plans: ``optimize=True`` (the default) runs the whole-program
+    optimizer (``plan_opt.py``), which prices its passes with ``profile``
+    (a ``RooflineParams``); the port has no default constants, so
+    ``optimize=True`` without a profile raises ``ValueError``.
+    ``verify`` runs the static verifier (``plan_verify.py``): None (the
+    default) and True verify, False does not.  ``guard`` (a
+    ``plan.GuardConfig``) appends the numerics-sentinel epilogue; the
+    runner strips the guard vector from the outputs and raises
+    ``plan.NumericsFault``, naming the leaves, when a guarded output is
+    non-finite or above ``guard.max_abs``; it needs ``compile_plans=True``.
+    A fitted profile (A15), ``autoshard`` (A11) and ``trace`` (A15) raise
+    naming their item.  ``process_cache=False`` opts this runner out of
+    the process-level cache.  ``device`` is "cuda" unless the caller asks
+    for "cpu" (no fallback from one to the other).
 
     The runner exposes ``cache_stats`` (hits/misses), ``plans`` (cache key →
     entry: the captured graph, the completed shardings, compiled,
@@ -1251,17 +1256,17 @@ def spmd_partition(fn, mesh: Mesh, compile_plans: bool = True, optimize: bool = 
     """
     if autoshard is not None:
         _refuse("autoshard", "A11", "the autoshard search")
-    if guard is not None:
-        _refuse("guard", "A9", "the plan guard epilogue")
     if trace is not None:
         _refuse("trace", "A15", "plan-step tracing (obs/trace.py)")
     if profile is not None and not isinstance(profile, RooflineParams):
         _refuse("profile", "A15", "a fitted machine profile (obs/profile.py)")
-    if compile_plans and optimize:
-        _refuse("optimize", "A9", "the whole-program optimizer (core/plan_opt.py); pass "
-                "optimize=False")
-    if compile_plans and verify:
-        _refuse("verify", "A9", "the plan verifier (core/plan_verify.py)")
+    if guard is not None and not compile_plans:
+        raise ValueError("spmd_partition: guard= requires compile_plans=True")
+    if compile_plans and optimize and profile is None:
+        raise ValueError(
+            "spmd_partition(optimize=True) prices the plan optimizer's passes with a machine "
+            "profile and the port has no default constants: pass profile=RooflineParams(...) "
+            "or optimize=False")
     dev = resolve_device(device)
     mkey = mesh.structural_key()
     cache: Dict[tuple, _CacheEntry] = {}
@@ -1274,7 +1279,7 @@ def spmd_partition(fn, mesh: Mesh, compile_plans: bool = True, optimize: bool = 
         pkey: Optional[tuple] = None
         if process_cache:
             pkey = (captured.digest(), mkey, tuple(_aval_key(a) for a in flat), compile_plans,
-                    profile.digest() if profile is not None else None)
+                    optimize, verify, guard, profile.digest() if profile is not None else None)
             entry = _PROCESS_CACHE.get(pkey)
             if entry is not None:
                 _PROCESS_STATS.record_hit()
@@ -1286,7 +1291,8 @@ def spmd_partition(fn, mesh: Mesh, compile_plans: bool = True, optimize: bool = 
         if compile_plans:
             from .plan import compile_plan
 
-            plan = compile_plan(captured, prop, mesh, optimize=False, profile=profile)
+            plan = compile_plan(captured, prop, mesh, optimize=optimize, verify=verify,
+                                guard=guard, profile=profile)
         entry = _CacheEntry(captured, prop, plan, {
             "capture_s": t1 - t0, "completion_s": t2 - t1,
             "plan_compile_s": time.perf_counter() - t2})
@@ -1325,9 +1331,19 @@ def spmd_partition(fn, mesh: Mesh, compile_plans: bool = True, optimize: bool = 
         runner.fallbacks = list(fallbacks)
         runner.fallback_gathers = list(gathered)
         runner.collectives = dict(log)
-        return captured.unflatten([mr.unshard(o, s) if s is not None else o
-                                   for o, s in zip(outs, shs)])
+        outs = [mr.unshard(o, s) if s is not None else o for o, s in zip(outs, shs)]
+        if plan is not None and plan.guard is not None:
+            from .plan import NumericsFault, guard_faults
 
+            gi = plan.guard
+            gvec = outs.pop(gi.out_index)
+            runner.calls += 1
+            faults = guard_faults(gi.config, gvec.cpu().numpy(), gi.leaves)
+            if faults:
+                raise NumericsFault(runner.calls - 1, faults)
+        return captured.unflatten(outs)
+
+    runner.calls = 0
     runner.cache_stats = stats
     runner.plans = cache
     runner.fallbacks = []

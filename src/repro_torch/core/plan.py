@@ -22,7 +22,7 @@ them once and lowers the graph into a :class:`PartitionPlan`: a flat list of
 
 Every step declares its dataflow (``reads`` / ``writes`` env keys) and its
 runner reads operands through those tuples, as the reference's do, so the
-whole-program optimizer (``plan_opt``, ROADMAP A9) can rewire them.
+whole-program optimizer (``plan_opt.py``) can rewire them.
 Executing a plan is a straight walk of the step list over the simulated
 mesh's stacked shards, with a dict environment: no capture, no propagation,
 no per-op classification, no reshard search.
@@ -35,10 +35,14 @@ FLOPs against the ideal balance point (``analysis/graph_cost.py``), and a
 per-device live-memory peak from a liveness walk.  No device is touched, so
 a full-size program can be priced on a mesh far larger than the card.
 
-Not in this slice: the whole-program optimizer and the verifier (A9:
-``optimize=True`` and ``verify=True`` raise), call steps for scan bodies
-(A9, with the scan node), the guard epilogue (A9) and state-reshard plans
-(A14).
+``compile_plan`` then appends the numerics-sentinel epilogue where asked
+(``guard=``: :func:`append_guard_steps`), runs the whole-program optimizer
+(``optimize=True``: ``plan_opt.optimize_plan``, priced by the ``profile``
+it is given; without one it raises, as the port has no default constants)
+and the static verifier (``plan_verify.verify_plan``; ``verify=None``, the
+default, runs it).  Not here yet: call steps for scan bodies with the scan
+node (ROADMAP A9b), state-reshard plans (A14), and a fitted machine profile
+to stand in for the reference's default constants (A15).
 """
 from __future__ import annotations
 
@@ -50,7 +54,7 @@ import torch
 import torch.fx
 
 from ..analysis.graph_cost import count_flops
-from ..analysis.roofline import RooflineParams, collective_wire_bytes, overlap_time_s
+from ..analysis.roofline import RooflineParams, overlap_time_s
 from . import mesh_runtime as mr
 from .annotate import ANNOTATE_OP, decode
 from .collective_planner import (PlanError, ReshardProgram, _candidate_gather_all,
@@ -71,12 +75,6 @@ from .rules import (BROADCAST, DOT, ELEMENTWISE, REDUCE, RESHAPE, TRANSPOSE, _bc
 from .sharding import Mesh, Sharding, replicated
 
 Env = Dict[object, object]
-
-
-def _refuse(what: str, item: str, module: str):
-    raise NotImplementedError(
-        f"{what} needs {module}, which is not ported yet (ROADMAP {item}); pass "
-        f"{what.split('=')[0]}=False")
 
 
 # ---------------------------------------------------------------------------------
@@ -111,8 +109,17 @@ class PlanStep:
       * ``compute``    — a local op on stacked shards (einsum, elementwise,
                          reduce, the flash-attention kernel, …);
       * ``reshard``    — replay of one :class:`ReshardProgram`;
-      * ``collective`` — a standalone trailing collective (psum/pmax/pmin)
-                         split out of its producing op.
+      * ``collective`` — a standalone trailing collective (psum/pmax/pmin,
+                         or a ppermute) split out of its producing op;
+      * ``fused``      — a fusion-pass product (``plan_opt.fuse_collectives``):
+                         one launch over the concatenation of several
+                         members' buffers.
+
+    A compute step that runs collectives inside itself records them in
+    ``collectives`` (kind -> count, as ``PlanStats`` counts them): a
+    ``LocalOp``'s (the decode combine's pmax and psums, the SSD gradient's
+    psums, ``logsumexp``'s, the index ops') and a product's reduce-scatter.
+    The verifier's accounting and the optimizer's launch counts read them.
     """
 
     kind: str
@@ -129,10 +136,19 @@ class PlanStep:
     # -- cost-model annotations (lower_for_cost / PlanCost) ---------------------
     flops: float = 0.0  # per-device local FLOPs of this step
     wbytes: Tuple[float, ...] = ()  # local bytes of each write (memory model)
+    collectives: Dict[str, int] = dataclasses.field(default_factory=dict)  # run inside
+    call: Dict = dataclasses.field(default_factory=dict)  # ppermute steps: {"perm": ...}
+    wire_bytes: float = 0.0  # fused steps: modeled wire bytes of their one launch
 
     @property
     def in_bytes(self) -> float:
         return _nbytes_of(self.lshape, self.dbytes)
+
+
+def is_env_key(k) -> bool:
+    """An env key a step can write: a graph node or a :class:`ProxyVar`
+    (an output may also be a plain value)."""
+    return isinstance(k, (torch.fx.Node, ProxyVar))
 
 
 def _nbytes_of(shape: Tuple[int, ...], dbytes: int) -> float:
@@ -201,6 +217,16 @@ class PlanStats:
             self.count(s.op.replace("_", "-"))
         self.reshard_bytes += prog.cost_bytes
 
+    def remove_program(self, prog: Optional[ReshardProgram]) -> None:
+        """Revert :meth:`add_program` for a reshard an optimizer pass removed
+        (CSE, dead-reshard elimination).  ``baseline_bytes`` and
+        ``legacy_bytes`` keep it: the reference schedules had no optimizer."""
+        if prog is None or prog.is_identity:
+            return
+        for s in prog.steps:
+            self.count(s.op.replace("_", "-"), -1)
+        self.reshard_bytes -= prog.cost_bytes
+
     def as_dict(self) -> Dict:
         return {
             "collectives": dict(self.collectives),
@@ -227,7 +253,10 @@ class PartitionPlan:
     :class:`ProxyVar` the epilogue reshard step writes otherwise, or the
     output itself when it is not a tensor node.  ``fallbacks`` names the ops
     that took the fallback, and ``fallback_gathers`` those of them that
-    gathered a sharded dim, in graph order.
+    gathered a sharded dim, in graph order.  ``outvars`` are the graph's
+    outputs (the guard epilogue reads their shapes); ``guard`` describes the
+    guard vector a guarded plan appends to its outputs, and ``opt_report``
+    what the optimizer did.
     """
 
     graph: torch.fx.Graph
@@ -244,12 +273,21 @@ class PartitionPlan:
     fallback_gathers: List[str] = dataclasses.field(default_factory=list)
     peak_bytes: float = 0.0  # modeled per-device live-memory peak
     params: Optional[RooflineParams] = None
+    outvars: List[object] = dataclasses.field(default_factory=list)
+    guard: Optional["GuardInfo"] = None
+    opt_report: Optional[object] = None  # plan_opt.OptReport after optimization
     # per step, the env keys no later step reads and no output names: run
     # eagerly, a value lives until its key leaves the env
     dead: List[Tuple[object, ...]] = dataclasses.field(init=False)
 
     def __post_init__(self):
+        self.relive()
+
+    def relive(self) -> None:
+        """Recompute ``dead`` and ``stats.steps`` after the step list changed
+        (the guard epilogue, the optimizer's passes)."""
         self.dead = _dead_after(self.steps, self.out_keys)
+        self.stats.steps = len(self.steps)
 
     def execute(self, *args, on_step: Optional[Callable[[PlanStep, Env], None]] = None):
         """Run the plan on the stacked local shards of its inputs; returns the
@@ -265,7 +303,7 @@ class PartitionPlan:
                 on_step(step, env)
             for k in dead:
                 del env[k]
-        return [env[k] if isinstance(k, (torch.fx.Node, ProxyVar)) else k
+        return [env[k] if is_env_key(k) else k
                 for k in self.out_keys]
 
     def steps_holding(self, args, holds: Callable[[torch.Tensor], bool]) -> List[str]:
@@ -302,12 +340,151 @@ def _dead_after(steps: List[PlanStep], out_keys) -> List[Tuple[object, ...]]:
         for k in (*step.reads, *step.writes):
             last[k] = i
     for k in out_keys:
-        if isinstance(k, (torch.fx.Node, ProxyVar)):
+        if is_env_key(k):
             last.pop(k, None)
     dead: List[List[object]] = [[] for _ in steps]
     for k, i in last.items():
         dead[i].append(k)
     return [tuple(d) for d in dead]
+
+
+# ---------------------------------------------------------------------------------
+# runtime numerics sentinels: the guard epilogue as plan steps
+# ---------------------------------------------------------------------------------
+#
+# A guarded plan appends a non-finite / abs-max check over selected outputs
+# as plan steps: one stat step per guarded tensor, one pack step, and one
+# pmax over every mesh axis, priced and fused and scheduled like any other
+# collective.  The guard vector becomes an extra plan output (replicated,
+# shape (2k,): per leaf [non-finite count, abs max]); the runner turns a
+# tripped guard into a NumericsFault naming the leaves (``guard_faults``).
+# Under pmax the non-finite count becomes the largest per-device count, > 0
+# iff any shard anywhere held a non-finite value, so one launch carries both.
+
+
+@dataclasses.dataclass(frozen=True)
+class GuardConfig:
+    """Which tensors the numerics sentinel watches, and its thresholds.
+
+    Plan level (``append_guard_steps`` / ``spmd_partition(guard=)``):
+    ``outputs`` picks plan output indices (None: all), ``names`` labels
+    them.  Train level (``train/loop.py::make_train_step``): ``grads``,
+    ``loss`` and ``moments`` select state leaves; ``max_grad_norm`` bounds
+    the global gradient norm.  ``rewind_after`` consecutive faulted steps
+    escalate from a skipped batch to a ``NumericsFault`` (the rewind to a
+    checkpoint is ROADMAP A14).
+    """
+
+    outputs: Optional[Tuple[int, ...]] = None
+    names: Optional[Tuple[str, ...]] = None
+    max_abs: float = float("inf")
+    grads: bool = True
+    loss: bool = True
+    moments: bool = False
+    max_grad_norm: float = float("inf")
+    rewind_after: int = 3
+
+
+@dataclasses.dataclass
+class GuardInfo:
+    """Which leaves the guard vector's rows describe, and where the vector
+    lands in the plan's outputs."""
+
+    leaves: Tuple[str, ...]
+    config: GuardConfig
+    out_index: int
+
+
+class NumericsFault(RuntimeError):
+    """A numerics sentinel tripped.  ``faults`` holds one dict per leaf
+    (``leaf``, ``kind``: nonfinite / absmax / norm, ``value``);
+    ``consecutive`` counts back-to-back faulted steps."""
+
+    def __init__(self, step: int, faults, consecutive: int = 1):
+        self.step = int(step)
+        self.faults = tuple(faults)
+        self.consecutive = int(consecutive)
+        leaves = ", ".join(f"{f['leaf']}[{f['kind']}={f['value']:.3g}]"
+                           for f in self.faults) or "<none>"
+        super().__init__(f"numerics fault at step {self.step} "
+                         f"({self.consecutive} consecutive): {leaves}")
+
+
+def guard_faults(config: GuardConfig, stats, leaves) -> List[Dict]:
+    """Decode a guard vector ((2k,): [non-finite, abs max] per leaf, already
+    reduced across devices) into per-leaf fault records (empty: clean)."""
+    a = np.asarray(stats, dtype=np.float64).reshape(len(leaves), 2)
+    faults: List[Dict] = []
+    for name, (nonfin, amax) in zip(leaves, a):
+        if nonfin > 0 or not np.isfinite(amax):
+            faults.append({"leaf": name, "kind": "nonfinite", "value": float(nonfin)})
+        elif amax > config.max_abs:
+            faults.append({"leaf": name, "kind": "absmax", "value": float(amax)})
+    return faults
+
+
+def _guard_stat_run(env, reads, writes):
+    x = env[reads[0]]
+    flat = x.reshape(x.shape[0], -1)
+    nonfin = (~torch.isfinite(flat)).sum(1).float()
+    amax = (flat.float().abs().amax(1) if flat.shape[1]
+            else torch.zeros(flat.shape[0], device=x.device))
+    env[writes[0]] = torch.stack([nonfin, amax], 1)
+
+
+def _guard_pack_run(env, reads, writes):
+    env[writes[0]] = torch.cat([env[r] for r in reads], 1)
+
+
+def append_guard_steps(plan: PartitionPlan, guard: GuardConfig,
+                       cost_only: bool = False) -> PartitionPlan:
+    """Append the numerics-sentinel epilogue to ``plan`` (in place), before
+    the optimizer runs, so that its pmax is fused and scheduled like any
+    other collective.  Adds one output (the guard vector) and records
+    :class:`GuardInfo`; ``guard.outputs`` selects the outputs (None: every
+    tensor output)."""
+    n_out = len(plan.out_keys)
+    sel = guard.outputs if guard.outputs is not None else tuple(range(n_out))
+    entries = []
+    for pos, i in enumerate(sel):
+        if not 0 <= i < n_out:
+            raise ValueError(f"guard output index {i} out of range 0..{n_out - 1}")
+        k = plan.out_keys[i]
+        if not is_env_key(k) or i >= len(plan.outvars):
+            continue  # a non-tensor output, or an earlier guard's vector
+        a = aval(plan.outvars[i])
+        name = (guard.names[pos] if guard.names is not None and pos < len(guard.names)
+                else f"out[{i}]")
+        lshape = shard_shape(tuple(a.shape), plan.out_shardings[i])
+        entries.append((name, k, lshape, a.dtype.itemsize, str(a.dtype)))
+    if not entries:
+        return plan
+    run = (lambda fn: _cost_only_run) if cost_only else (lambda fn: fn)
+    stat_keys = []
+    for name, k, lshape, db, dt in entries:
+        p = ProxyVar(f"guard:{name}")
+        # two reduction passes over the local shard (non-finite count, abs max)
+        plan.steps.append(PlanStep(
+            "compute", (k,), (p,), run(_guard_stat_run), op="guard-stat", lshape=lshape,
+            dbytes=db, dtype=dt, flops=2.0 * float(np.prod(lshape or (1,))), wbytes=(8.0,)))
+        stat_keys.append(p)
+    k2 = 2 * len(entries)
+    packed, gout = ProxyVar("guard:pack"), ProxyVar("guard:out")
+    plan.steps.append(PlanStep("compute", tuple(stat_keys), (packed,), run(_guard_pack_run),
+                               op="guard-pack", lshape=(k2,), dbytes=4, dtype="float32",
+                               wbytes=(4.0 * k2,)))
+    axes = tuple(plan.mesh.axis_names)
+    plan.steps.append(PlanStep("collective", (packed,), (gout,),
+                               run(_collective_run(plan.mesh, axes, "max")), op="all-reduce",
+                               axes=axes, reduce_op="max", lshape=(k2,), dbytes=4,
+                               dtype="float32", wbytes=(4.0 * k2,)))
+    plan.stats.count("all-reduce", len(axes))
+    plan.out_keys.append(gout)
+    plan.out_shardings.append(replicated(plan.mesh, 1))
+    plan.guard = GuardInfo(leaves=tuple(e[0] for e in entries), config=guard,
+                           out_index=len(plan.out_keys) - 1)
+    plan.relive()
+    return plan
 
 
 # ---------------------------------------------------------------------------------
@@ -406,9 +583,11 @@ class PlanBuilder:
             lshape=lshape, dbytes=dbytes, dtype=dtype, wbytes=(_nbytes_of(lshape, dbytes),),
         ))
 
-    def emit_compute(self, reads, write, fn, op: str, flops: float = 0.0, wbytes=()):
+    def emit_compute(self, reads, write, fn, op: str, flops: float = 0.0, wbytes=(),
+                     collectives=None):
         self.emit(PlanStep("compute", tuple(reads), (write,), _compute_run(fn), op=op,
-                           flops=flops, wbytes=tuple(wbytes)))
+                           flops=flops, wbytes=tuple(wbytes),
+                           collectives=dict(collectives or {})))
 
     def reshard_operand(self, v, tgt: Sharding):
         """Reshard node ``v`` to ``tgt`` by a reshard step; returns the env key
@@ -470,7 +649,8 @@ class PlanBuilder:
         plan = PartitionPlan(
             self.captured.graph, self.mesh, self.steps, invars,
             [self.sh[v] for v in invars], out_shardings, out_keys, self.stats, consts,
-            const_bytes, self.fallbacks, self.fallback_gathers)
+            const_bytes, self.fallbacks, self.fallback_gathers,
+            outvars=list(self.captured.outvars))
         plan.peak_bytes = plan_peak_bytes(plan)
         return plan
 
@@ -556,7 +736,9 @@ class PlanBuilder:
         self.emit_compute((lk, rk), mid,
                           lambda x, y, p=exec_plan, t=out.dtype: execute_einsum(p, x, y, t)[0],
                           eqn.name, flops=2.0 * float(np.prod(zshape or (1,))) * k_local,
-                          wbytes=(_nbytes_of(zshape, odb),))
+                          wbytes=(_nbytes_of(zshape, odb),),
+                          collectives={"reduce-scatter": len(eplan.scatter)} if eplan.scatter
+                          else None)
         cur = mid
         if eplan.reduce_axes:
             nxt = out_key if eplan.out_program is None else ProxyVar("dot.psum")
@@ -712,7 +894,8 @@ class PlanBuilder:
             list(zip(eqn.tuple_avals, d.out))
         wbytes = sum(_nbytes_of(shard_shape(a.shape, sh), a.dtype.itemsize)
                      for a, sh in outs if a is not None)
-        self.emit_compute(keys, node, d.fn, eqn.name, flops=d.flops, wbytes=(wbytes,))
+        self.emit_compute(keys, node, d.fn, eqn.name, flops=d.flops, wbytes=(wbytes,),
+                          collectives=d.collectives)
         return True
 
     def _fallback(self, eqn) -> None:
@@ -760,26 +943,44 @@ class PlanBuilder:
 
 def compile_plan(captured, prop: PropagationResult, mesh: Mesh, optimize: bool = True,
                  cost_only: bool = False, verify: Optional[bool] = None,
+                 guard: Optional[GuardConfig] = None,
                  profile: Optional[RooflineParams] = None) -> PartitionPlan:
     """Lower a captured graph under its completed shardings into a
     :class:`PartitionPlan`.
 
-    ``optimize=True`` (the reference's default: the whole-program optimizer
-    ``plan_opt``) and ``verify=True`` (the static verifier ``plan_verify``)
-    raise until ROADMAP A9 ports them; ``verify=None`` runs no verifier.
-    ``cost_only=True`` replaces every step's runner with a raising stub: the
-    plan prices but never runs.  ``profile`` attaches the
-    :class:`RooflineParams` that :class:`PlanCost` prices time with.
+    ``optimize=True`` runs the whole-program optimizer
+    (``plan_opt.optimize_plan``: reshard CSE, dead-reshard elimination,
+    alias sinking, collective fusion, overlap scheduling).  It prices its
+    choices with ``profile`` (a :class:`RooflineParams`); the port has no
+    default constants, so without one it raises ``ValueError``.  ``guard``
+    (a :class:`GuardConfig`) appends the numerics-sentinel epilogue before
+    the optimizer runs.  ``verify`` runs the static verifier
+    (``plan_verify.verify_plan``) on the finished plan: ``None`` (the
+    default) and ``True`` run it, ``False`` does not.  ``cost_only=True``
+    replaces every step's runner with a raising stub: the plan prices but
+    never runs.  The plans of scan bodies are ROADMAP A9b.
     """
-    if optimize:
-        _refuse("optimize=True", "A9", "the whole-program optimizer (core/plan_opt.py)")
-    if verify:
-        _refuse("verify=True", "A9", "the plan verifier (core/plan_verify.py)")
+    if optimize and profile is None:
+        raise ValueError(
+            "compile_plan(optimize=True) prices the optimizer's passes with a machine "
+            "profile and the port has no default constants: pass profile=RooflineParams(...) "
+            "or optimize=False")
     t0 = search_telemetry()
     plan = PlanBuilder(captured, prop, mesh, cost_only=cost_only).build()
     plan.params = profile
+    if guard is not None:
+        append_guard_steps(plan, guard, cost_only=cost_only)
+        plan.peak_bytes = plan_peak_bytes(plan)
+    if optimize:
+        from .plan_opt import optimize_plan
+
+        optimize_plan(plan)
     t1 = search_telemetry()
     plan.stats.lattice = {k: t1[k] - t0[k] for k in t1}
+    from .plan_verify import verify_enabled, verify_plan
+
+    if verify_enabled(verify):
+        verify_plan(plan)
     return plan
 
 
@@ -815,32 +1016,6 @@ def plan_peak_bytes(plan: PartitionPlan) -> float:
             if last_read.get(k, -1) <= i:
                 live -= alive.pop(k)
     return peak
-
-
-def plan_wire_bytes(plan: PartitionPlan) -> float:
-    """Modeled wire bytes of one execution: every reshard step's program and
-    every collective step's AllReduce, priced per axis (as
-    ``einsum_rules.compile_einsum`` prices each psum axis)."""
-    total = 0.0
-    for s in plan.steps:
-        if s.kind == "reshard" and s.program is not None:
-            total += s.program.cost_bytes
-        elif s.kind == "collective":
-            total += sum(collective_wire_bytes("all-reduce", plan.mesh.axis_size(a), s.in_bytes)
-                         for a in s.axes)
-    return total
-
-
-def plan_collective_launches(plan: PartitionPlan) -> int:
-    """Collective launches of one execution: each reshard program step that
-    moves data, and each collective step (one launch over all its axes)."""
-    n = 0
-    for s in plan.steps:
-        if s.kind == "reshard" and s.program is not None:
-            n += sum(1 for ps in s.program.steps if ps.op != "dynamic_slice")
-        elif s.kind == "collective":
-            n += 1
-    return n
 
 
 @dataclasses.dataclass
@@ -902,10 +1077,15 @@ class PlanCost:
 
 
 def plan_cost(plan: PartitionPlan) -> PlanCost:
-    """Price an already-lowered plan under the roofline cost model."""
+    """Price an already-lowered plan under the roofline cost model: wire
+    bytes and launches as ``plan_opt.whole_wire_bytes`` and
+    ``whole_collective_launches`` count them (a compute step's recorded
+    collectives launch, R9's reduce-scatter excepted)."""
+    from .plan_opt import whole_collective_launches, whole_wire_bytes
+
     return PlanCost(
-        wire_bytes=plan_wire_bytes(plan),
-        launches=plan_collective_launches(plan),
+        wire_bytes=whole_wire_bytes(plan),
+        launches=whole_collective_launches(plan),
         flops_per_device=plan.total_flops(),
         ideal_flops_per_device=count_flops(plan.graph) / max(plan.mesh.size, 1),
         peak_bytes=plan.peak_bytes,
@@ -915,7 +1095,7 @@ def plan_cost(plan: PartitionPlan) -> PlanCost:
 
 
 def lower_plan(captured, in_shardings, mesh: Mesh, optimize: bool = True,
-               verify: Optional[bool] = None,
+               verify: Optional[bool] = None, guard: Optional[GuardConfig] = None,
                profile: Optional[RooflineParams] = None) -> PartitionPlan:
     """Cost-only lowering that returns the :class:`PartitionPlan` itself
     (step runners are raising stubs: the plan prices, it does not run).
@@ -928,12 +1108,12 @@ def lower_plan(captured, in_shardings, mesh: Mesh, optimize: bool = True,
     """
     prop = propagate(captured, mesh, in_shardings=list(in_shardings or []))
     return compile_plan(captured, prop.result(), mesh, optimize=optimize, cost_only=True,
-                        verify=verify, profile=profile)
+                        verify=verify, guard=guard, profile=profile)
 
 
 def lower_for_cost(captured, in_shardings, mesh: Mesh, optimize: bool = True,
-                   verify: Optional[bool] = None,
+                   verify: Optional[bool] = None, guard: Optional[GuardConfig] = None,
                    profile: Optional[RooflineParams] = None) -> PlanCost:
     """:func:`lower_plan`, priced: no execution, no device."""
     return plan_cost(lower_plan(captured, in_shardings, mesh, optimize=optimize,
-                                verify=verify, profile=profile))
+                                verify=verify, guard=guard, profile=profile))

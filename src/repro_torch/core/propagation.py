@@ -13,7 +13,7 @@ iterative, priority-based propagation:
   except on their declared ``unspecified_dims`` (partial specification, §3.5).
 
 ``make_fx`` inlines calls, so the graph has no sub-programs to recurse into;
-a control-flow node (the torch scan node) raises naming ROADMAP A9.
+a control-flow node (the torch scan node) raises naming ROADMAP A9b.
 
 The result maps every tensor node of the graph to a ``Sharding``; the
 partitioner (partitioner.py) runs the graph on local shards under it.

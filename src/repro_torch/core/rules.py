@@ -155,7 +155,7 @@ def lower(node) -> Eqn:
     if name.startswith("higher_order."):
         raise NotImplementedError(
             f"{name}: control-flow operators (the torch scan node) are not "
-            "partitioned yet (ROADMAP A9)")
+            "partitioned yet (ROADMAP A9b)")
     invars = _tensor_args(list(node.args) + list(node.kwargs.values()))
     in_avals = [aval(v) for v in invars]
     out = aval(node)

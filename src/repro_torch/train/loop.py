@@ -1,6 +1,6 @@
 """Training loop: step builder, gradient accumulation, gradient compression,
-numeric-fault injection and a straggler watchdog (port of the JAX package's
-``train/loop.py``).
+numeric-fault injection, numerics guards and a straggler watchdog (port of
+the JAX package's ``train/loop.py``).
 
 ``make_train_step`` builds the step:
   loss (compute dtype) -> gradients of the float32 master weights ->
@@ -18,18 +18,32 @@ builds the step as one partitioned program instead
 step, batch) -> (params', opt_state', loss, grad_norm)``, its inputs
 annotated at entry (params by their declared specs, the optimizer state by
 ``opt_state_specs``, the batch on "data") and the gradient taken inside it,
-runs through ``spmd_partition(..., optimize=False)``: capture, completion
-and the plan on the first call, the plan alone on every later one.  The
-step writes the results back into the state's tensors, so callers see the
-same in-place contract.
+runs through ``spmd_partition``: capture, completion and the plan on the
+first call, the plan alone on every later one.  With a ``plan_profile`` (a
+``RooflineParams``) the plan is optimized and verified
+(``spmd_partition(..., optimize=True, verify=True, profile=plan_profile)``);
+``None`` keeps the unoptimized (verified) plan, standing in for the
+reference's default constants until a ``MachineProfile`` fitted on the card
+(ROADMAP A15) can price the optimizer.  The step writes the results back
+into the state's tensors, so callers see the same in-place contract.
 
-Not ported yet, and refused where asked for: numerics guards
-(``TrainConfig.guard``: ``core/plan.py``'s GuardConfig and the skip/rewind
-epilogue, ROADMAP A9), checkpoint/restart (``TrainConfig.ckpt_dir``:
-``train/checkpoint.py``, ROADMAP A14) and the ``obs`` metrics and control
-events (ROADMAP A15).  The dense family and Mamba2 train (attention's and
-the SSD's gradients are kernels on the card: ``kernels/ops.py``); the
-families with no model yet raise (ROADMAP A12).
+**Numerics guards** (``TrainConfig.guard``, a ``core/plan.py::GuardConfig``):
+both steps compute a non-finite / abs-max sentinel over the guarded tensors
+(loss, gradients, optionally the optimizer's moments) and a fault flag; on a
+fault a ``torch.where`` keeps the old params, optimizer state and error
+feedback (inside the captured program on the partitioned step) while the
+step counter still advances, so the data moves past the poisoned batch.
+``TrainLoop`` decodes the leaves (``plan.guard_faults``), counts faults and
+skips, calls the ``numerics_fault`` hook, and raises ``NumericsFault`` after
+``guard.rewind_after`` consecutive faults.
+
+Not ported yet, and refused where asked for: checkpoint/restart and the
+rewind to a checkpoint (``TrainConfig.ckpt_dir``: ``train/checkpoint.py``,
+ROADMAP A14), the ``obs`` metrics and control events (A15; the loop calls
+its hooks only) and ``grad_accum`` > 1 under a mesh (its microbatch loop is
+the scan of A9b).  The dense family and Mamba2 train (attention's and the
+SSD's gradients are kernels on the card: ``kernels/ops.py``); the families
+with no model yet raise (ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -42,6 +56,7 @@ import torch
 
 from ..configs.base import ModelConfig, Strategy
 from ..core.compat import get_abstract_mesh, set_mesh
+from ..core.plan import GuardConfig, NumericsFault, guard_faults
 from ..core.device import resolve_device
 from ..core.tree import leaves, leaves_with_paths, tree_from_paths, tree_map
 from ..models import api
@@ -72,15 +87,11 @@ class TrainConfig:
     log_every: int = 10
     straggler_factor: float = 3.0
     fail_at_step: int = -1  # fault-injection for tests
-    guard: Optional[Any] = None  # numerics sentinels (ROADMAP A9)
+    guard: Optional[GuardConfig] = None  # numerics sentinels
     numeric_fault: Optional[NumericFaultSpec] = None
 
 
 def _require_trainable(cfg: ModelConfig, tc: TrainConfig):
-    if tc.guard is not None:
-        raise NotImplementedError(
-            "TrainConfig.guard needs core/plan.py's GuardConfig and the skip/rewind "
-            "epilogue, which are not ported yet (ROADMAP A9)")
     api.family_module(cfg)  # the families with no model yet raise, naming their item
 
 
@@ -115,32 +126,96 @@ def value_and_grad(cfg: ModelConfig, st: Strategy, params, batch, grad_accum: in
     return loss, tree_from_paths((path, g) for (path, _), g in zip(pairs, grads))
 
 
-def make_train_step(cfg: ModelConfig, st: Strategy, opt: Optimizer, tc: TrainConfig):
+def make_train_step(cfg: ModelConfig, st: Strategy, opt: Optimizer, tc: TrainConfig,
+                    plan_profile=None):
     """Returns step(state, batch) -> (state, metrics); state = {"params",
     "opt", "step"[, "ef"]}, updated in place.  Under an ambient mesh, the
-    partitioned step (``partitioned_train_step``)."""
+    partitioned step (``partitioned_train_step``, its plan optimized with
+    ``plan_profile`` where one is given)."""
     _require_trainable(cfg, tc)
     mesh = get_abstract_mesh()
     if mesh is not None:
-        return partitioned_train_step(cfg, st, opt, tc, mesh)
+        return partitioned_train_step(cfg, st, opt, tc, mesh, plan_profile=plan_profile)
 
     def step_fn(state, batch):
         params, opt_state, step = state["params"], state["opt"], state["step"]
         loss, grads = value_and_grad(cfg, st, params, batch, tc.grad_accum)
-        loss, grads = _with_faults(tc.numeric_fault, torch.tensor(step, device=loss.device),
-                                   loss, grads)
+        t = torch.tensor(step, device=loss.device)
+        loss, grads = _with_faults(tc.numeric_fault, t, loss, grads)
+        new_ef = None
         if tc.compress_grads:
             grads, new_ef = _compressed(grads, state["ef"])
-            with torch.no_grad():
-                tree_map(torch.Tensor.copy_, state["ef"], new_ef)
-        opt.update(grads, opt_state, params, step)
-        gnorm = torch.zeros((), dtype=torch.float32, device=loss.device)
-        for g in leaves(grads):  # the reference's leaf order
-            gnorm = gnorm + g.float().square().sum()
+        gnorm = _grad_norm(grads, loss.device)
+        metrics = {"loss": loss, "grad_norm": torch.sqrt(gnorm)}
+        with torch.no_grad():
+            if tc.guard is None:
+                if new_ef is not None:
+                    tree_map(torch.Tensor.copy_, state["ef"], new_ef)
+                opt.update(grads, opt_state, params, step)
+            else:
+                new_params, new_opt = opt.apply(grads, opt_state, params, t)
+                metrics.update(_guarded(tc.guard, loss, grads, new_opt, metrics["grad_norm"]))
+                keep = _keep(metrics["fault"])
+                tree_map(lambda o, n: o.copy_(keep(o, n)), params, new_params)
+                tree_map(lambda o, n: o.copy_(keep(o, n)), opt_state, new_opt)
+                if new_ef is not None:
+                    tree_map(lambda o, n: o.copy_(keep(o, n)), state["ef"], new_ef)
         state["step"] = step + 1
-        return state, {"loss": loss, "grad_norm": torch.sqrt(gnorm)}
+        return state, metrics
 
     return step_fn
+
+
+def _grad_norm(grads, device):
+    """The squared global gradient norm, summed in the reference's leaf order."""
+    gnorm = torch.zeros((), dtype=torch.float32, device=device)
+    for g in leaves(grads):
+        gnorm = gnorm + g.float().square().sum()
+    return gnorm
+
+
+def _guard_stat(x):
+    """The sentinel of one tensor: [non-finite count, abs max] in float32."""
+    x = x.float()
+    nonfin = (~torch.isfinite(x)).sum().float()
+    amax = x.abs().amax() if x.numel() else torch.zeros((), device=x.device)
+    return torch.stack([nonfin, amax])
+
+
+def _guard_tensors(gc: GuardConfig, loss, grads, opt_state):
+    """``(name, tensor)`` in one fixed order, shared by both steps and by the
+    host's decoder (``guard_leaf_names``)."""
+    out = []
+    if gc.loss:
+        out.append(("loss", loss))
+    if gc.grads:
+        out.extend(("grads/" + "/".join(p), g) for p, g in leaves_with_paths(grads))
+    if gc.moments:
+        out.extend(("opt/" + "/".join(p), m) for p, m in leaves_with_paths(opt_state))
+    return out
+
+
+def guard_leaf_names(gc: GuardConfig, state) -> tuple:
+    """The leaves the step's guard vector describes, in its order, for
+    ``plan.guard_faults`` on the host."""
+    return tuple(name for name, _ in _guard_tensors(gc, None, state["params"], state["opt"]))
+
+
+def _guarded(gc: GuardConfig, loss, grads, new_opt, grad_norm):
+    """The ``guard`` vector ((2k,): [non-finite, abs max] per leaf) and the
+    ``fault`` flag (a 0-d bool), as the reference's step computes them."""
+    gvec = torch.stack([_guard_stat(x) for _, x in _guard_tensors(gc, loss, grads, new_opt)])
+    fault = (gvec[:, 0] > 0).any() | (~torch.isfinite(gvec[:, 1])).any()
+    if np.isfinite(gc.max_abs):
+        fault = fault | (gvec[:, 1] > gc.max_abs).any()
+    if np.isfinite(gc.max_grad_norm):
+        fault = fault | ~torch.isfinite(grad_norm) | (grad_norm > gc.max_grad_norm)
+    return {"guard": gvec.reshape(-1), "fault": fault}
+
+
+def _keep(fault):
+    """On a fault keep the old value: the poisoned update never lands."""
+    return lambda old, new: torch.where(fault, old, new)
 
 
 def sharded_value_and_grad(cfg: ModelConfig, st: Strategy, mesh):
@@ -168,7 +243,7 @@ def _refuse_unpartitioned(cfg: ModelConfig, tc: TrainConfig):
     if tc.grad_accum > 1:
         raise NotImplementedError(
             f"the partitioned train step does not cover grad_accum {tc.grad_accum} (its "
-            "microbatch loop is the scan of ROADMAP A9)")
+            "microbatch loop is the scan of ROADMAP A9b)")
 
 
 def _with_faults(nf: Optional[NumericFaultSpec], step: torch.Tensor, loss, grads):
@@ -204,7 +279,7 @@ def _compressed(grads, ef):
 
 
 def partitioned_train_step(cfg: ModelConfig, st: Strategy, opt: Optimizer, tc: TrainConfig,
-                           mesh):
+                           mesh, plan_profile=None):
     """The train step as one SPMD program on ``mesh`` (the simulated mesh
     of ``core/mesh_runtime.py``), through the port's partitioner.
 
@@ -217,12 +292,14 @@ def partitioned_train_step(cfg: ModelConfig, st: Strategy, opt: Optimizer, tc: T
     ``repro_torch::ssd_scan`` and its gradient operator; remat per
     ``cfg.remat``, its recompute captured in the graph), applies the fault
     window (``_with_faults``: data, not a branch) and the bf16 exchange
-    (``_compressed``) where ``tc`` asks for them, and applies
-    ``opt.apply``; it returns (params', opt_state', loss, grad_norm[,
-    ef']).  ``spmd_partition(..., optimize=False)`` captures, completes and
-    plans it on the first call, on the device the params are on; every
-    later call runs the plan.  The step writes the results into
-    ``state``'s tensors.  The runner is ``step.runner``."""
+    (``_compressed``) where ``tc`` asks for them, applies ``opt.apply`` and,
+    with ``tc.guard``, the sentinel and the keep of the old state on a
+    fault; it returns (params', opt_state', loss, grad_norm[, ef'][, guard,
+    fault]).  ``spmd_partition`` captures, completes and plans it on the
+    first call, on the device the params are on, optimized and verified
+    with ``plan_profile`` (unoptimized with None); every later call runs
+    the plan.  The step writes the results into ``state``'s tensors.  The
+    runner is ``step.runner``."""
     from ..core.partitioner import spmd_partition
 
     _refuse_unpartitioned(cfg, tc)
@@ -232,6 +309,7 @@ def partitioned_train_step(cfg: ModelConfig, st: Strategy, opt: Optimizer, tc: T
     ospecs = opt_state_specs(opt, pspecs, tree_shapes(decls, cfg.param_dtype))
 
     grad_program = sharded_value_and_grad(cfg, st, mesh)
+    gc = tc.guard
 
     def program(params, opt_state, step, batch, *ef):
         opt_state = tree_map(lambda t, spec: annotate_spec(t, spec, mesh), opt_state, ospecs)
@@ -244,32 +322,44 @@ def partitioned_train_step(cfg: ModelConfig, st: Strategy, opt: Optimizer, tc: T
                 grads, fed = _compressed(grads, fed)
                 new_ef = (fed,)
             new_params, new_opt = opt.apply(grads, opt_state, params, step)
-            gnorm = torch.zeros((), dtype=torch.float32, device=loss.device)
-            for g in leaves(grads):  # the reference's leaf order
-                gnorm = gnorm + g.float().square().sum()
-        return (new_params, new_opt, loss, torch.sqrt(gnorm)) + new_ef
+            gnorm = torch.sqrt(_grad_norm(grads, loss.device))
+            guard = ()
+            if gc is not None:
+                g = _guarded(gc, loss, grads, new_opt, gnorm)
+                keep = _keep(g["fault"])
+                new_params = tree_map(keep, params, new_params)
+                new_opt = tree_map(keep, opt_state, new_opt)
+                if ef:
+                    new_ef = (tree_map(keep, ef[0], new_ef[0]),)
+                guard = (g["guard"], g["fault"])
+        return (new_params, new_opt, loss, gnorm) + new_ef + guard
 
     runners = {}
+    optimize = plan_profile is not None
 
     def step_fn(state, batch):
         params, opt_state, step = state["params"], state["opt"], state["step"]
         dev = leaves(params)[0].device
         runner = runners.get(dev)
         if runner is None:
-            runner = runners[dev] = spmd_partition(program, mesh, optimize=False,
+            runner = runners[dev] = spmd_partition(program, mesh, optimize=optimize,
+                                                   verify=True, profile=plan_profile,
                                                    device=str(dev))
             step_fn.runner = runner
         ef = (state["ef"],) if tc.compress_grads else ()
         with torch.no_grad():
-            new_params, new_opt, loss, gnorm, *new_ef = runner(
+            new_params, new_opt, loss, gnorm, *rest = runner(
                 tree_map(torch.Tensor.detach, params), opt_state,
                 torch.tensor(step, dtype=torch.int64), batch, *ef)
             tree_map(lambda p, n: p.copy_(n), params, new_params)
             tree_map(lambda s, n: s.copy_(n), opt_state, new_opt)
             if ef:
-                tree_map(lambda s, n: s.copy_(n), state["ef"], new_ef[0])
+                tree_map(lambda s, n: s.copy_(n), state["ef"], rest[0])
         state["step"] = step + 1
-        return state, {"loss": loss, "grad_norm": gnorm}
+        metrics = {"loss": loss, "grad_norm": gnorm}
+        if gc is not None:
+            metrics["guard"], metrics["fault"] = rest[-2:]
+        return state, metrics
 
     step_fn.runner = None
     return step_fn
@@ -291,13 +381,15 @@ def init_state(cfg: ModelConfig, st: Strategy, opt: Optimizer, tc: TrainConfig,
 
 
 class TrainLoop:
-    """Drives training with a straggler watchdog.  ``step_times`` (seconds)
-    and ``tokens_per_s`` hold each finished step's wall time (host clock
-    around the step, ending when its loss reaches the host) and
-    throughput."""
+    """Drives training with a straggler watchdog and the numerics guards'
+    skip and escalation.  ``step_times`` (seconds) and ``tokens_per_s`` hold
+    each finished step's wall time (host clock around the step, ending when
+    its loss reaches the host) and throughput; ``guard_counters`` (faults,
+    skips, rewinds) and ``skipped_steps`` what the guards did.
+    ``plan_profile`` is ``make_train_step``'s (under a mesh only)."""
 
     def __init__(self, cfg, st, opt, tc: TrainConfig, pipeline, gen=None, step_fn=None,
-                 hooks=None, device="cuda"):
+                 hooks=None, device="cuda", plan_profile=None):
         if tc.ckpt_dir:
             raise NotImplementedError(
                 "TrainConfig.ckpt_dir needs train/checkpoint.py, which is not ported yet "
@@ -306,10 +398,14 @@ class TrainLoop:
         self.pipeline = pipeline
         self.hooks = hooks or {}
         self.device = resolve_device(device)
-        self.step_fn = step_fn or make_train_step(cfg, st, opt, tc)
+        self.step_fn = step_fn or make_train_step(cfg, st, opt, tc, plan_profile=plan_profile)
         self.gen = gen if gen is not None else torch.Generator(self.device).manual_seed(0)
         self.step_times = []
         self.tokens_per_s = []
+        self.guard_counters = {"faults": 0, "skips": 0, "rewinds": 0}
+        self.skipped_steps: list = []
+        self.guard_leaves: Optional[tuple] = None
+        self._consecutive_faults = 0
 
     def swap_plan(self, step_fn) -> None:
         """Replace the step function without restarting the process (the
@@ -340,6 +436,13 @@ class TrainLoop:
             state, metrics = self.step_fn(state, batch)
             loss = float(metrics["loss"])
             dt = time.perf_counter() - t0
+            gc = self.tc.guard
+            if gc is not None and bool(metrics["fault"]):
+                # the step already kept the old state; decode the leaves,
+                # count, and escalate after K consecutive faults
+                self._on_fault(gc, step, state, metrics)
+                continue
+            self._consecutive_faults = 0
             self.step_times.append(dt)
             self.tokens_per_s.append(tokens / dt)
             losses.append(loss)
@@ -352,3 +455,26 @@ class TrainLoop:
             if "log" in self.hooks and step % self.tc.log_every == 0:
                 self.hooks["log"](f"step {step} loss {loss:.4f} ({dt * 1e3:.0f} ms)")
         return state, losses
+
+    def _on_fault(self, gc: GuardConfig, step: int, state, metrics) -> None:
+        """Host side of a faulted step: per-leaf provenance, counters, the
+        ``numerics_fault`` hook, and ``NumericsFault`` once ``rewind_after``
+        consecutive steps faulted (the rewind itself is ROADMAP A14)."""
+        if self.guard_leaves is None:
+            self.guard_leaves = guard_leaf_names(gc, state)
+        faults = guard_faults(gc, metrics["guard"].cpu().numpy(), self.guard_leaves)
+        if not faults:  # a norm-only trip (grad_norm > max_grad_norm)
+            faults = ({"leaf": "grad_norm", "kind": "norm",
+                       "value": float(metrics["grad_norm"])},)
+        self.guard_counters["faults"] += 1
+        self._consecutive_faults += 1
+        if "numerics_fault" in self.hooks:
+            self.hooks["numerics_fault"](step, faults, self._consecutive_faults)
+        if self._consecutive_faults >= gc.rewind_after:
+            raise NumericsFault(step, faults, self._consecutive_faults)
+        self.guard_counters["skips"] += 1
+        self.skipped_steps.append(step)
+        if "log" in self.hooks:
+            self.hooks["log"](f"step {step} numerics fault -> skipped "
+                              f"({self._consecutive_faults} consecutive): "
+                              + ", ".join(f"{f['leaf']}[{f['kind']}]" for f in faults[:4]))

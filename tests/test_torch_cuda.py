@@ -1066,3 +1066,50 @@ def test_mamba2_loss_backward_on_cuda_matches_cpu(cuda, dtype):
                                  leaves_with_paths(tree_map(lambda p: p.grad, cpu))):
         rel = ((g.cpu().double() - w.double()).norm() / w.double().norm()).item()
         assert rel <= rtol, f"{path}: relative error {rel}"
+
+
+def test_optimized_gradient_plan_on_cuda_equals_unoptimized(cuda):
+    """mamba2-130m at reduced width (d128, 4 heads on "model") cut to two
+    layers in float32: the partitioned train step's gradient program,
+    captured and completed once, its plan compiled unoptimized and optimized
+    (``plan_opt``, priced by a pinned profile), each run on the card on the
+    same inputs: loss and every gradient leaf equal bit for bit (the SSD's
+    kernels and the fixed-order collectives repeat bit for bit), and the
+    same SSD forward and backward launches per call."""
+    from repro_torch.analysis.roofline import RooflineParams
+    from repro_torch.core.compat import set_mesh
+    from repro_torch.core.partitioner import spmd_partition
+    from repro_torch.core.plan import compile_plan
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.train.loop import sharded_value_and_grad
+
+    cfg = reduced_config(get_config("mamba2-130m"), 8).with_(
+        dtype="float32", num_layers=2, d_model=128, scan_layers=False)
+    st, mesh = get_strategy("2d_finalized"), make_test_mesh()
+    with set_mesh(mesh):
+        params = tree_init(api.param_tree(cfg, st), torch.Generator("cuda").manual_seed(5),
+                           dtype="float32", device="cuda")
+        runner = spmd_partition(sharded_value_and_grad(cfg, st, mesh), mesh, optimize=False)
+    tok = torch.from_numpy(np.random.default_rng(6).integers(0, cfg.vocab_size, (8, 65)))
+    batch = {"tokens": tok[:, :-1].cuda(), "labels": tok[:, 1:].cuda()}
+    params = tree_map(torch.Tensor.detach, params)
+
+    def run():
+        for mod in (ssd_kernel, ssd_bwd_kernel):
+            mod.launches = 0
+        loss, grads = runner(params, batch)
+        return [loss] + leaves(grads), (ssd_kernel.launches, ssd_bwd_kernel.launches)
+
+    want, want_launches = run()
+    again, _ = run()
+    assert all(torch.equal(a, b) for a, b in zip(want, again)), "the unoptimized plan repeats"
+    (entry,) = runner.plans.values()
+    with set_mesh(mesh):
+        entry.plan = compile_plan(entry.captured, entry.prop, mesh, optimize=True,
+                                  profile=RooflineParams(peak_flops=1e15, hbm_bw=3e12,
+                                                         ici_bw=4.5e11, collective_launch_s=2e-5,
+                                                         overlap_efficiency=0.0))
+    got, got_launches = run()
+    assert got_launches == want_launches and want_launches[1] == cfg.num_layers
+    assert all(torch.equal(a, b) for a, b in zip(want, got))
+    assert entry.plan.opt_report.steps_after < entry.plan.opt_report.steps_before

@@ -351,8 +351,22 @@ def test_runner_and_process_caches():
     ({"compile_plans": False, "profile": object()}, "A15"),
 ])
 def test_unported_options_raise_naming_their_item(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        spmd_partition(lambda x: x, MESH, device="cpu", **kw)
+    """A11 and A15 still raise naming their items.  A9's options are ported:
+    ``optimize=True`` (the default) needs a machine profile, ``guard=`` a
+    compiled plan, and ``verify=True`` runs."""
+    if item != "A9":
+        with pytest.raises(NotImplementedError, match=item):
+            spmd_partition(lambda x: x, MESH, device="cpu", **kw)
+    elif "guard" in kw:
+        with pytest.raises(ValueError, match="compile_plans=True"):
+            spmd_partition(lambda x: x, MESH, device="cpu", **kw)
+    elif kw.get("optimize", True):
+        with pytest.raises(ValueError, match="profile="):
+            spmd_partition(lambda x: x, MESH, device="cpu", **kw)
+    else:
+        x = torch.arange(8.0)
+        assert_close(spmd_partition(lambda x: x * 2, MESH, device="cpu", **kw)(x), x * 2,
+                     "exact")
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):

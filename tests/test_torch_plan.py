@@ -446,11 +446,18 @@ def test_fallback_keeps_unmodified_dims():
 @pytest.mark.parametrize("kw", [{}, {"compile_plans": True, "optimize": True},
                                 {"optimize": False, "verify": True}])
 def test_compile_plan_refuses_the_optimizer_and_verifier(kw):
+    """The optimizer refuses to run without a machine profile (the port has
+    no default constants); the verifier runs, and with a profile so does
+    the optimizer."""
     cap = capture(lambda x: x * 2, torch.ones(4))
     prop = pt.propagate(cap, MESH).result()
     kw.pop("compile_plans", None)
-    with pytest.raises(NotImplementedError, match="A9"):
-        plan_mod.compile_plan(cap, prop, MESH, **kw)
+    if kw.get("optimize", True):
+        with pytest.raises(ValueError, match="profile="):
+            plan_mod.compile_plan(cap, prop, MESH, **kw)
+        kw["profile"] = RooflineParams(**PROFILE)
+    plan = plan_mod.compile_plan(cap, prop, MESH, **kw)
+    assert (plan.opt_report is not None) == kw.get("optimize", True)
 
 
 # ---------------------------------------------------------------------------------

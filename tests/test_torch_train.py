@@ -29,6 +29,7 @@ from repro.train.optimizer import get_optimizer as jax_get_optimizer
 from repro_torch.configs.base import ModelConfig, get_strategy
 from repro_torch.configs.registry import get_config, reduced_config
 from repro_torch.core.compat import TOLERANCES, assert_close
+from repro_torch.core.plan import GuardConfig
 from repro_torch.core.tree import leaves, leaves_with_paths, tree_map
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.kernels import ops
@@ -344,8 +345,8 @@ def test_master_weights_leave_serving_outputs_unchanged():
 def test_unported_settings_raise_and_name_their_roadmap_items():
     _, cfg = _tiny("float32")
     opt = get_optimizer("sgd")
-    with pytest.raises(NotImplementedError, match="A9"):
-        make_train_step(cfg, ST, opt, TrainConfig(guard=object()))
+    # the numerics guards are ported (tests/test_torch_guard.py)
+    assert callable(make_train_step(cfg, ST, opt, TrainConfig(guard=GuardConfig())))
     pipe = TokenPipeline(DataConfig(cfg.vocab_size, 16, 4))
     with pytest.raises(NotImplementedError, match="A14"):
         TrainLoop(cfg, ST, opt, TrainConfig(ckpt_dir="ck"), pipe, device="cpu")
