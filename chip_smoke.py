@@ -11,7 +11,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    variant and the HGMMA and HMMA counts of each instantiation's SASS (no
    spill, HGMMA in every instantiation of the bf16 prefill and of the bf16
    backward's bwd_main, and HMMA in every instantiation of the SSD's two
-   product passes, or the phase fails);
+   product passes, or the phase fails); and the scan node with this torch
+   (a small loop captured with its gradient, against the eager loop);
 2. flash_attention: the CUDA kernel against its plain PyTorch version on the
    card at the shapes of the Pallas kernel's contract, the qwen loss's own
    prefill, the partitioned layer's and train step's folded prefills, GQA,
@@ -107,14 +108,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
    numeric-fault window (two layers, float32, four steps each) against
    the unsharded steps; then mamba2-130m's train step partitioned (the
    three Table-1 strategies at two layers in float32, B8 S512, step 0's
-   loss and each gradient leaf held in norm to the unsharded step; 24
-   layers under 2d_finalized in float32, its loss held and its gradient
-   read beside the floor of the unsharded step's own two computations,
-   and two steps of ``TrainLoop`` under ``set_mesh`` read against the
-   unsharded loop; the same 24-layer step and two loop steps in float64,
+   loss and each gradient leaf held in norm to the unsharded step; eight
+   layers under 2d_finalized in float32 (cut from 24: scan_phase runs 24), its loss held
+   and its gradient read beside the floor of the unsharded step's own two
+   computations, and two steps of ``TrainLoop`` under ``set_mesh`` read
+   against the unsharded loop; the same eight-layer step and two loop steps in float64,
    the SSD on its plain route, held within f32_chain of the unsharded
    ones, with planted dropped psums of the SSD gradient that must break
-   it; the 24-layer gradient in bf16, read only), the SSD and
+   it; a four-layer gradient in bf16, read only), the SSD and
    its backward one call per layer for all eight devices, no gathering
    fallback, no whole-vocabulary step;
 8. partitioned Mamba2 and serving, in a process of their own: mamba2-130m's
@@ -123,8 +124,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    calls per forward, each one call for all eight devices); and
    ``Engine(slots=8, max_len=1024)`` under ``set_mesh`` (the decode step
    one program, its position an int32 on the card, one plan for the run)
-   for qwen1.5-0.5b (24 layers, bf16), mamba2-130m (bf16 and float32),
-   the two earlier Table-1 attempts (qwen, two layers) and qwen with its
+   for qwen1.5-0.5b (eight layers, cut from 24: scan_phase serves 24; bf16), mamba2-130m
+   (eight layers, bf16 and float32), the two earlier Table-1 attempts
+   (qwen, two layers) and qwen (eight layers) with its
    kv cache sharded on the sequence (``shard_kv_seq``: 2d_attempt1 with 8
    slots, 2d_finalized with 1; no plan step holding a whole cache
    sequence), each against the same ``Engine`` unsharded: logits per
@@ -134,8 +136,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    tokens/s, step wall, host and device-busy ms, the cache's shard and
    unshard ms, syncs per step and peak memory;
 9. the whole-program plan optimizer and the plan verifier, in the same
-   process, priced by a profile measured in this run: three 24-layer paths
-   at full width (qwen1.5-0.5b's partitioned train step, 2d_finalized,
+   process, priced by a profile measured in this run: three paths at full
+   width and two layers (qwen1.5-0.5b's partitioned train step, 2d_finalized,
    remat "none", B8 S512, bf16; its sequence-sharded decode step behind
    ``Engine(8 slots, max_len 1024)``, 2d_attempt1; mamba2-130m's
    partitioned train step, float32, B8 S512), each captured and completed
@@ -151,6 +153,25 @@ Phases, each of which raises (and so exits non-zero) on failure:
    for bit, ``Engine`` with and without a plan profile serving the same
    tokens, and the guarded partitioned loss raising ``NumericsFault`` on a
    NaN token embedding.
+
+10. the scan node, in the same process, priced by a profile measured in
+   this run: each path captured with the layer loop scanned (one scan node
+   whose body plan runs once per trip) and unrolled, run in turns
+   (scanned, unrolled, unrolled, scanned) with unoptimized plans, and the
+   scanned plan once more optimized: qwen1.5-0.5b's partitioned train step (24 layers,
+   2d_finalized, B8 S512, bf16) under remat "none" and "dots" (loss within
+   f32_chain, each gradient leaf within bf16_grad in norm, flash launches
+   equal, a planted dropped psum in the reverse body beyond the limit),
+   mamba2-130m's (float32, "dots"; SSD launches equal; in float64 on the
+   plain route within 1e-8), qwen's with ``grad_accum`` 2 against the
+   unsharded ``grad_accum`` 2 step (nested body plans), and ``Engine`` for
+   qwen (2d_attempt1, ``shard_kv_seq``, bf16; the float32 twin's planted
+   faults inside the body) and Mamba2 (float32): tokens equal, no more
+   plan steps holding a whole stacked cache than the unrolled plan; every
+   plan verified, the optimized scanned plan equal to the unoptimized one
+   where that repeats itself, no fallback gather; plan steps (top level and
+   body), first-call seconds, host ms, device busy and peak beside the
+   plan's modeled peak.
 
 Every path runs with the kernels' launch counts set to 0 just before it and
 read just after.  The last two lines of output are the kernels' JSON record
@@ -1050,7 +1071,9 @@ def full_width_model(arch, seed, dtype=None):
                cfg.ssm_state, cfg.ssm_conv, cfg.vocab_size, cfg.dtype)
         want = ("ssm", 24, 768, 2, 64, 128, 4, 50280, "bfloat16")
     check(got == want, f"unexpected config {cfg}")
-    cfg = cfg.with_(dtype=dtype or cfg.dtype)
+    # the layer loop unrolled, as the phases before the scan node measured
+    # it (scan_phase sets it either way)
+    cfg = cfg.with_(dtype=dtype or cfg.dtype, scan_layers=False)
     st = get_strategy(default_strategy(arch))
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = tree_init(api.param_tree(cfg, st), gen, dtype=cfg.dtype, device="cuda")
@@ -2348,8 +2371,11 @@ def partition_option_phase(seed, card):
 # below does.  A gated leaf is held to the larger of f32_chain's rtol and
 # 4x its floor; a dropped or doubled psum moves a two-layer leaf by order 1
 # (tests/test_torch_sharded_ssm.py).
-PARTITION_MAMBA_TRAIN = (("2d_finalized", 24, "float32", 8, 512, 2, "loss"),
-                         ("2d_finalized", 24, "bfloat16", 8, 512, 0, None),
+# the float32, bf16 and float64 (PARTITION_MAMBA_FLOAT64) cases at eight and
+# four layers: scan_phase runs the 24-layer step, float32 and float64, and
+# the script's time limit holds the rest
+PARTITION_MAMBA_TRAIN = (("2d_finalized", 8, "float32", 8, 512, 2, "loss"),
+                         ("2d_finalized", 4, "bfloat16", 8, 512, 0, None),  # read only
                          ("2d_finalized", 2, "float32", 8, 512, 0, "grads"),
                          ("2d_attempt1", 2, "float32", 8, 512, 0, "grads"),
                          ("2d_attempt2", 2, "float32", 8, 512, 0, "grads"))
@@ -2533,7 +2559,7 @@ def partition_mamba_train_case(strategy, layers, dtype, B, S, steps, gate, seed,
 # (strategy, layers, B, S, steps): the full-depth partitioned step in
 # float64, the witness that parts a partitioning fault from float32's
 # conditioning (above)
-PARTITION_MAMBA_FLOAT64 = ("2d_finalized", 24, 8, 512, 2)
+PARTITION_MAMBA_FLOAT64 = ("2d_finalized", 8, 8, 512, 2)
 # the psums of decide_ssd_bwd's op a planted fault drops, by their shape, and
 # how many each layer's op runs under 2d_finalized
 SSD_BWD_PSUMS = {"dB, dC": (lambda t: t.ndim == 4, 2), "dA": (lambda t: t.ndim == 2, 1)}
@@ -2735,13 +2761,16 @@ SHARDED_LOSS_B, SHARDED_LOSS_S = 8, 2048
 # first-dim-wins filter keeps it there unless the slots do not divide
 # "data" (the dry run turns shard_kv_seq on for a global batch below 16):
 # one slot, one request
-SHARDED_SERVE = (("qwen1.5-0.5b", "2d_finalized", 24, "bfloat16", 64, False, 8),
-                 ("mamba2-130m", "2d_finalized", 24, "bfloat16", 64, False, 8),
-                 ("mamba2-130m", "2d_finalized", 24, "float32", 64, False, 8),
+# the deep cases at eight layers (cut from 24): scan_phase serves qwen
+# (2d_attempt1, shard_kv_seq) and Mamba2 (float32) at 24 layers, and the
+# script's time limit holds the rest
+SHARDED_SERVE = (("qwen1.5-0.5b", "2d_finalized", 8, "bfloat16", 64, False, 8),
+                 ("mamba2-130m", "2d_finalized", 8, "bfloat16", 64, False, 8),
+                 ("mamba2-130m", "2d_finalized", 8, "float32", 64, False, 8),
                  ("qwen1.5-0.5b", "2d_attempt1", 2, "bfloat16", 8, False, 8),
                  ("qwen1.5-0.5b", "2d_attempt2", 2, "bfloat16", 8, False, 8),
-                 ("qwen1.5-0.5b", "2d_attempt1", 24, "bfloat16", 64, True, 8),
-                 ("qwen1.5-0.5b", "2d_finalized", 24, "bfloat16", 64, True, 1))
+                 ("qwen1.5-0.5b", "2d_attempt1", 8, "bfloat16", 64, True, 8),
+                 ("qwen1.5-0.5b", "2d_finalized", 8, "bfloat16", 64, True, 1))
 SERVE_MAX_LEN = 1024
 TEACHER_STEPS = (0, 8, 32, 63)  # steps at which the unsharded step reruns the sharded input
 BOUNDARY_POS = 700  # a decode position past the cache's half (sequence shards of 512 keys)
@@ -2858,7 +2887,7 @@ def dropped_psum_readings(runner, step):
 def _psum_sites(plan, psums):
     """Each standalone psum as "axes local-shape after <the op that made its
     operand>": which reduction a planted fault drops."""
-    made = {w: st.op for st in plan.steps for w in st.writes}
+    made = {w: st.op for st in _all_steps(plan) for w in st.writes}
     return [f"{s.axes} {tuple(s.lshape)} after {made.get(s.reads[0], '?')}" for s in psums]
 
 
@@ -2893,7 +2922,7 @@ def float32_twin_readings(cfg, st, params, mesh, runner, state, kv_seq):
     limit parts the two; in float32 the sound step lies orders of magnitude
     inside f32_chain's rtol in norm and a fault far outside.  Returns the
     sound step's and each planted fault's (the first, middle and last
-    standalone psum of the plan; with ``kv_seq`` also the decode combine's
+    standalone psum of the plan, scan body plans included; with ``kv_seq`` also the decode combine's
     all-reduces, each device keeping its own shard's partial) relative
     error in norm against the unsharded step over that limit, the psums'
     sites, and whether the float32 plan has the served plan's collectives
@@ -2923,11 +2952,11 @@ def float32_twin_readings(cfg, st, params, mesh, runner, state, kv_seq):
 
         sound = over()
         plan, served = _plan_of(twin).plan, _plan_of(runner).plan
-        layout = lambda pl: ([(x.op, x.axes, x.reduce_op) for x in pl.steps  # noqa: E731
+        layout = lambda pl: ([(x.op, x.axes, x.reduce_op) for x in _all_steps(pl)  # noqa: E731
                               if x.kind == "collective"],
-                             [tuple(y.op for y in x.program.steps) for x in pl.steps
+                             [tuple(y.op for y in x.program.steps) for x in _all_steps(pl)
                               if x.kind == "reshard"])
-        psums = [x for x in plan.steps if x.kind == "collective" and x.reduce_op == "add"]
+        psums = [x for x in _all_steps(plan) if x.kind == "collective" and x.reduce_op == "add"]
         planted = dict(zip(("first psum", "middle psum", "last psum"),
                            (psums[0], psums[len(psums) // 2], psums[-1])))
         faults = {}
@@ -3327,6 +3356,9 @@ def sharded_serve_phase(seed, card):
 # ---------------------------------------------------------------------------------
 
 PLAN_OPT_B, PLAN_OPT_S = 8, 512  # the two train steps' batch
+# the depth of plan_opt_phase's three paths: cut from 24 when scan_phase
+# took the 24-layer train steps' optimized and unoptimized plans over
+PLAN_OPT_LAYERS = 2
 GUARD_STEPS, GUARD_NAN_AT = 8, 4  # the guard drill's TrainLoop
 
 
@@ -3584,8 +3616,8 @@ def guard_drill(seed, card, profile, mesh):
 
 
 def plan_opt_phase(seed, card):
-    """The whole-program optimizer and verifier on three 24-layer paths at
-    full width on the simulated ("data" 2, "model" 4) mesh, priced by a
+    """The whole-program optimizer and verifier on three paths at full width
+    and ``PLAN_OPT_LAYERS`` deep on the simulated ("data" 2, "model" 4) mesh, priced by a
     profile measured in this run (``measured_roofline``): qwen1.5-0.5b's
     partitioned train step (2d_finalized, remat "none", B8 S512, bf16),
     its sequence-sharded decode step (``Engine(8 slots, max_len 1024)``,
@@ -3607,9 +3639,10 @@ def plan_opt_phase(seed, card):
           f"{cap / 2**20:.1f} MiB (this run's profile); {card}", flush=True)
     cases = []
     print(f"  profile measured at {time.perf_counter() - t0:.0f} s", flush=True)
-    cfg = partition_train_config(24)
+    cfg = partition_train_config(PLAN_OPT_LAYERS)
     runner, args = _train_runner(cfg, get_strategy("2d_finalized"), mesh, seed)
-    cases.append(plan_opt_case("qwen1.5-0.5b train step, 24 layers, 2d_finalized, remat none, "
+    cases.append(plan_opt_case(f"qwen1.5-0.5b train step, {PLAN_OPT_LAYERS} layers, 2d_finalized, "
+                               "remat none, "
                                f"B{PLAN_OPT_B} S{PLAN_OPT_S}, bf16", runner, args, mesh,
                                profile, card, repeats=False, V=cfg.vocab_size))
     del runner, args
@@ -3617,7 +3650,8 @@ def plan_opt_phase(seed, card):
     print(f"  at {time.perf_counter() - t0:.0f} s", flush=True)
 
     cfg, _, params = full_width_model("qwen1.5-0.5b", seed)
-    cfg = cfg.with_(shard_kv_seq=True)
+    cfg = cfg.with_(shard_kv_seq=True, num_layers=PLAN_OPT_LAYERS)
+    params = {**params, "layers": _first_layers(params["layers"], PLAN_OPT_LAYERS)}
     st = get_strategy("2d_attempt1")
     with set_mesh(mesh):
         eng = Engine(cfg, st, params, batch_slots=8, max_len=SERVE_MAX_LEN)
@@ -3628,7 +3662,8 @@ def plan_opt_phase(seed, card):
         eng.generate(reqs)
     eng._pos.fill_(eng.pos)
     args = (params, torch.zeros((8, 1), dtype=torch.long, device="cuda"), eng.cache, eng._pos)
-    cases.append(plan_opt_case("qwen1.5-0.5b decode step, 24 layers, 2d_attempt1, shard_kv_seq, "
+    cases.append(plan_opt_case(f"qwen1.5-0.5b decode step, {PLAN_OPT_LAYERS} layers, 2d_attempt1, "
+                               "shard_kv_seq, "
                                "Engine(8 slots, max_len 1024), bf16", eng.runner, args, mesh,
                                profile, card, repeats=True, V=cfg.vocab_size,
                                kv_seq=(SERVE_MAX_LEN, cfg.dh)))
@@ -3636,10 +3671,12 @@ def plan_opt_phase(seed, card):
     torch.cuda.empty_cache()
     print(f"  at {time.perf_counter() - t0:.0f} s", flush=True)
 
-    cfg = get_config("mamba2-130m").with_(num_layers=24, dtype="float32", scan_layers=False)
+    cfg = get_config("mamba2-130m").with_(num_layers=PLAN_OPT_LAYERS, dtype="float32",
+                                          scan_layers=False)
     runner, args = _train_runner(cfg, get_strategy("2d_finalized"), mesh, seed,
                                  published_mamba=True)
-    cases.append(plan_opt_case(f"mamba2-130m train step, 24 layers, 2d_finalized, float32, "
+    cases.append(plan_opt_case(f"mamba2-130m train step, {PLAN_OPT_LAYERS} layers, 2d_finalized, "
+                               "float32, "
                                f"B{PLAN_OPT_B} S{PLAN_OPT_S}", runner, args, mesh, profile,
                                card, repeats=True, V=cfg.vocab_size))
     del runner, args
@@ -3652,9 +3689,543 @@ def plan_opt_phase(seed, card):
             "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------------
+# the scan node: each path captured scanned and unrolled
+# ---------------------------------------------------------------------------------
+
+SCAN_B, SCAN_S = 8, 512  # the train steps' batch
+SCAN_TURNS = ("scanned", "unrolled", "unrolled", "scanned")
+SCAN_SERVE_PROMPTS, SCAN_SERVE_NEW = 8, 4  # prompts of 8 tokens, new tokens each
+
+
+def _plan_parts(plan):
+    """A plan's top-level steps, each scan body plan's steps (nested ones
+    too) and how deep the bodies nest."""
+    def depth(p):
+        return max((1 + depth(s.inner) for s in p.steps if s.inner is not None), default=0)
+
+    return {"top_steps": len(plan.steps), "body_steps": [len(b.steps) for b in plan.body_plans()],
+            "depth": depth(plan)}
+
+
+def _all_steps(plan):
+    """The steps of a plan and of every scan body plan under it, each once."""
+    return list(plan.steps) + [s for b in plan.body_plans() for s in b.steps]
+
+
+def scan_turns(runners, args, mesh, profile):
+    """``runners`` {"scanned", "unrolled"}, each built by a first call on
+    ``args``, with unoptimized plans: one call per turn in the order
+    scanned, unrolled, unrolled, scanned (kernel launches, host ms with the
+    device drained before the call, wall ms, peak memory; device busy from
+    one traced call after each plan's first turn); both plans verified;
+    then the scanned plan compiled again optimized under ``profile``
+    (verified) and run once, its outputs against its unoptimized ones bit
+    for bit where the unoptimized plan repeats itself, and its launches
+    against theirs.  (The unrolled plans' optimizer is ``plan_opt_phase``'s,
+    at two layers: at 24 it would take this phase's budget.)  Returns the
+    turns, the readings per runner and each runner's first outputs."""
+    from repro_torch.core.plan import compile_plan
+    from repro_torch.core.plan_verify import verify_plan
+
+    mods = _kernel_modules()
+    outs, turns = {"scanned": [], "unrolled": []}, []
+    for name in SCAN_TURNS:
+        run = runners[name]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for mod in mods.values():
+            mod.launches = 0
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            out = run(*args)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            launched = {n: mod.launches for n, mod in mods.items()}
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            busy = (device_ms(lambda i: run(*args), 1, calls=1, warm=False)
+                    if not outs[name] else None)
+        outs[name].append(_tensors(out))
+        del out
+        turns.append({"plan": name, "launches": launched, "host_ms": (t1 - t0) * 1e3,
+                      "wall_ms": wall, "device_busy_ms": busy, "peak_gib": peak})
+    readings = {}
+    for name, run in runners.items():
+        from repro_torch.core.plan_opt import whole_collective_launches, whole_wire_bytes
+
+        entry = _plan_of(run)
+        raw = entry.plan
+        first, again = outs[name]
+        repeats = [torch.equal(a, b) for a, b in zip(first, again)]
+        mine = [t for t in turns if t["plan"] == name]
+        t0 = time.perf_counter()
+        checked = [verify_plan(raw).plans]
+        readings[name] = {
+            "plan": _plan_parts(raw), "first_call_s": dict(entry.build_s),
+            "launches_collective": whole_collective_launches(raw),
+            "wire_bytes": whole_wire_bytes(raw), "verify_s": time.perf_counter() - t0,
+            "verified_plans": checked, "leaves": len(first), "leaves_repeating": sum(repeats),
+            "host_ms": [t["host_ms"] for t in mine],
+            "device_busy_ms": [t["device_busy_ms"] for t in mine if t["device_busy_ms"]],
+            "peak_gib": [t["peak_gib"] for t in mine],
+            "modeled_peak_x8_gib": raw.peak_bytes * mesh.size / 2**30,
+            "fallback_gathers": list(run.fallback_gathers)}
+        check(not run.fallback_gathers, f"{name}: fallbacks gathered {run.fallback_gathers}")
+        if name != "scanned":
+            continue
+        t0 = time.perf_counter()
+        opt = compile_plan(entry.captured, entry.prop, mesh, optimize=True, verify=False,
+                           profile=profile)
+        t1 = time.perf_counter()
+        checked.append(verify_plan(opt).plans)
+        entry.plan = opt
+        try:
+            with torch.no_grad():
+                got, launched = counted(lambda: _tensors(run(*args)))
+        finally:
+            entry.plan = raw
+        unequal = [i for i, (a, r, c) in enumerate(zip(first, repeats, got))
+                   if r and not torch.equal(a, c)]
+        rep = opt.opt_report.as_dict()
+        readings[name].update({
+            "plan_optimized": _plan_parts(opt), "optimize_s": t1 - t0,
+            "hoisted_reshards": rep["hoisted_reshards"], "opt_report": rep,
+            # buckets fused inside body plans, at trip count (the report is
+            # the outer plan's own passes)
+            "body_fused_buckets": sum(s.call["trips"] * s.inner.opt_report.fused_buckets
+                                      for s in opt.steps if s.inner is not None),
+            "launches_optimized": launched, "optimized_unequal_leaves": unequal})
+        check(not unequal, f"{name}: the optimized plan's outputs differ from the unoptimized "
+              f"plan's at leaves {unequal}")
+        check(launched == mine[0]["launches"], f"{name}: the optimized plan launched {launched}, "
+              f"the unoptimized {mine[0]['launches']}")
+    del outs["scanned"][1:], outs["unrolled"][1:]
+    check(all(t["launches"] == turns[0]["launches"] for t in turns),
+          f"scanned and unrolled launches differ: {[t['launches'] for t in turns]}")
+    return turns, readings, {n: o[0] for n, o in outs.items()}
+
+
+def _scan_print(label, card, readings, vs):
+    print(f"  {label}; {card}", flush=True)
+    for name in ("scanned", "unrolled"):
+        r = readings[name]
+        print(f"    {name}: plan {json.dumps(r['plan'])}; first call "
+              f"{json.dumps({k: round(v, 2) for k, v in r['first_call_s'].items()})}; host ms per "
+              f"call {', '.join(f'{x:.1f}' for x in r['host_ms'])}; device busy "
+              f"{', '.join(_ms(x) for x in r['device_busy_ms'])}; peak "
+              f"{', '.join(f'{x:.3f}' for x in r['peak_gib'])} GiB (plan's modeled peak x8 "
+              f"{r['modeled_peak_x8_gib']:.3f}); collective launches {r['launches_collective']}"
+              f", wire bytes {r['wire_bytes']:.0f} at trip count; leaves repeating "
+              f"{r['leaves_repeating']} of {r['leaves']}; verified {r['verified_plans']} plans "
+              f"in {r['verify_s']:.2f} s", flush=True)
+        if "opt_report" not in r:
+            continue
+        rep = r["opt_report"]
+        passes = ", ".join(f"{p['name']} -{p['removed_steps']}"
+                           + (f" ({p['fused_buckets']} buckets)" if p["fused_buckets"] else "")
+                           + (f" ({p['hoisted_reshards']} hoisted)" if p["hoisted_reshards"]
+                              else "")
+                           for p in rep["passes"])
+        print(f"      optimized: plan {json.dumps(r['plan_optimized'])} in {r['optimize_s']:.2f} "
+              f"s; launches {r['launches_optimized']}; OptReport: collective launches "
+              f"{rep['collectives_before']} -> {rep['collectives_after']}, wire bytes "
+              f"{rep['wire_bytes_before']:.0f} -> {rep['wire_bytes_after']:.0f}; passes "
+              f"{passes}; buckets fused in body plans at trip count {r['body_fused_buckets']}",
+              flush=True)
+    print(f"    scanned against unrolled: {json.dumps(vs)}", flush=True)
+
+
+def _scan_vs(first, names, kind_loss, limit_grad, skip=()):
+    """Scanned against unrolled on a gradient program's outputs (the loss,
+    then the gradient leaves ``names``): bit-equal or not, the largest
+    element difference, the loss's err over ``kind_loss`` and each leaf's
+    relative error in norm (``skip`` printed, not gated)."""
+    s, u = first["scanned"], first["unrolled"]
+    rel = {n: _rel(a, b) for n, a, b in zip(names, s[1:], u[1:])}
+    gated = [n for n in rel if n not in skip]
+    worst = max(gated, key=rel.get)
+    return {"bit_equal": all(torch.equal(a, b) for a, b in zip(s, u)),
+            "max_abs_diff": max((a.double() - b.double()).abs().max().item() for a, b in zip(s, u)),
+            "loss_err_over_limit": _err_over(s[0], u[0], kind_loss),
+            "grad_rel_max": [worst, rel[worst]], "grad_over_limit": rel[worst] / limit_grad,
+            "skipped": {n: rel[n] for n in skip if n in rel}}
+
+
+def _body_psum_fault(run, args, first, names, limit):
+    """The planted fault inside a scan body: the reverse body's largest
+    standalone psum over "data" (a weight gradient's sum over the batch;
+    the largest of any axes where none is over "data") replaced by the
+    local value, the scanned plan run once; the largest leaf error over
+    ``limit`` against the unrolled run, and the psum's site."""
+    from repro_torch.core import plan as plan_mod
+
+    plan = _plan_of(run).plan
+    body = plan.body_plans()[-1]
+    psums = [s for s in body.steps if s.kind == "collective" and s.reduce_op == "add"]
+    check(psums, "the reverse scan body holds no standalone psum to drop")
+    fault = max([s for s in psums if "data" in s.axes] or psums, key=lambda s: s.in_bytes)
+    saved, fault.run = fault.run, plan_mod._alias_run
+    try:
+        with torch.no_grad():
+            got = _tensors(run(*args))
+    finally:
+        fault.run = saved
+    rel = max(_rel(a, b) for a, b in zip(got[1:], first["unrolled"][1:]))
+    return {"site": _psum_sites(body, [fault])[0], "grad_over_limit": rel / limit}
+
+
+def _grad_runners(cfgs, st, mesh, params, batch):
+    """The gradient program of each config (``sharded_value_and_grad``)
+    partitioned with an unoptimized plan and built by a first call."""
+    from repro_torch.core.compat import set_mesh
+    from repro_torch.core.partitioner import spmd_partition
+    from repro_torch.train.loop import sharded_value_and_grad
+
+    runners = {}
+    for name, cfg in cfgs.items():
+        with set_mesh(mesh):
+            runners[name] = spmd_partition(sharded_value_and_grad(cfg, st, mesh), mesh,
+                                           optimize=False, device="cuda")
+        with torch.no_grad():
+            runners[name](params, batch)
+        torch.cuda.synchronize()
+    return runners
+
+
+def scan_train_case(remat, seed, card, mesh, profile):
+    """qwen1.5-0.5b's partitioned train step at its published widths, 24
+    layers, 2d_finalized, B8 S512, bf16 compute with float32 masters,
+    ``remat``: its gradient program (``sharded_value_and_grad``) captured
+    with the layer loop scanned and unrolled, by ``scan_turns``.  Gates:
+    the loss within f32_chain and each gradient leaf in norm within
+    bf16_grad (the key bias, whose gradient is 0, read only) of the
+    unrolled run; flash launches per call equal (24 + 24 under "none", 48 +
+    24 under "dots"); the planted dropped psum in the reverse body beyond
+    that limit; the verifier on every plan; optimized equal to unoptimized
+    where the unoptimized plan repeats itself; no fallback gather."""
+    from repro_torch.configs.base import get_strategy
+    from repro_torch.core.compat import TOLERANCES, set_mesh
+    from repro_torch.core.tree import leaves_with_paths, tree_map
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.train.loop import TrainConfig, init_state
+    from repro_torch.train.optimizer import get_optimizer
+
+    t0 = time.perf_counter()
+    cfg = partition_train_config(24, remat)
+    st, L = get_strategy("2d_finalized"), cfg.num_layers
+    with set_mesh(mesh):
+        state = init_state(cfg, st, get_optimizer("adafactor"), TrainConfig(),
+                           torch.Generator("cuda").manual_seed(seed), "cuda")
+    params = tree_map(torch.Tensor.detach, state["params"])
+    del state
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, SCAN_S, SCAN_B, seed=seed,
+                                    pattern="arithmetic"))
+    batch = {k: torch.from_numpy(v).to("cuda").long() for k, v in pipe.batch_at(0).items()}
+    runners = _grad_runners({"scanned": cfg.with_(scan_layers=True), "unrolled": cfg}, st, mesh,
+                            params, batch)
+    turns, readings, first = scan_turns(runners, (params, batch), mesh, profile)
+    names = ["/".join(p) for p, _ in leaves_with_paths(params)]
+    limit = TOLERANCES["bf16_grad"][0]
+    vs = _scan_vs(first, names, "f32_chain", limit, skip=(KEY_BIAS,))
+    vs["planted"] = _body_psum_fault(runners["scanned"], (params, batch), first, names, limit)
+    del first, runners
+    label = f"qwen1.5-0.5b train step, 24 layers, 2d_finalized, remat {remat}, B{SCAN_B} S{SCAN_S}"
+    _scan_print(label, card, readings, vs)
+    want = {"flash_attention": L if remat == "none" else 2 * L, "flash_attention_bwd": L,
+            "ssd_scan": 0, "ssd_scan_bwd": 0}
+    check(turns[0]["launches"] == want, f"{label}: launched {turns[0]['launches']}, want {want}")
+    check(vs["loss_err_over_limit"] <= 1.0 and vs["grad_over_limit"] <= 1.0,
+          f"{label}: scanned off unrolled: {vs}")
+    check(vs["planted"]["grad_over_limit"] > 1.0, f"{label}: the planted fault went unseen: "
+          f"{vs['planted']}")
+    seconds = time.perf_counter() - t0
+    print(f"    {seconds:.1f} s", flush=True)
+    return {"label": label, "card": card, "turns": turns, "readings": readings, "vs": vs,
+            "seconds": seconds}
+
+
+def scan_mamba_case(seed, card, mesh, profile):
+    """mamba2-130m's partitioned train step, 24 layers, 2d_finalized, B8
+    S512, remat "dots", from ``mamba2_published_init``'s weights: its
+    gradient program scanned and unrolled in float32 by ``scan_turns`` (the
+    SSD launches equal, 48 + 24 per call; bit-equality read), then both in
+    float64 with the SSD and its gradient on the plain route (the gate of
+    ``partition_mamba_float64_case``): the loss and each gradient leaf in
+    norm within 1e-8 of the unrolled run."""
+    from repro_torch.configs.base import get_strategy
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.compat import TOLERANCES, set_mesh
+    from repro_torch.core.tree import leaves_with_paths, tree_map
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.train.loop import TrainConfig, init_state
+    from repro_torch.train.optimizer import get_optimizer
+
+    t0 = time.perf_counter()
+    cfg = get_config("mamba2-130m").with_(num_layers=24, dtype="float32", scan_layers=False)
+    st, L = get_strategy("2d_finalized"), cfg.num_layers
+    gen = torch.Generator("cuda").manual_seed(seed)
+    with set_mesh(mesh):
+        state = init_state(cfg, st, get_optimizer("adafactor"), TrainConfig(), gen, "cuda")
+    mamba2_published_init(state["params"], L, gen)
+    params = tree_map(torch.Tensor.detach, state["params"])
+    del state
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, SCAN_S, SCAN_B, seed=seed,
+                                    pattern="arithmetic"))
+    batch = {k: torch.from_numpy(v).to("cuda").long() for k, v in pipe.batch_at(0).items()}
+    names = ["/".join(p) for p, _ in leaves_with_paths(params)]
+    runners = _grad_runners({"scanned": cfg.with_(scan_layers=True), "unrolled": cfg}, st, mesh,
+                            params, batch)
+    turns, readings, first = scan_turns(runners, (params, batch), mesh, profile)
+    vs = _scan_vs(first, names, "f32_chain", TOLERANCES["f32_chain"][0])
+    del first, runners
+    torch.cuda.empty_cache()
+    p64 = tree_map(torch.Tensor.double, params)
+    cfg64 = cfg.with_(dtype="float64")
+    route = ops._route
+    ops._route = lambda t: "cpu"  # the plain versions, on the card's tensors
+    try:
+        runners = _grad_runners({"scanned": cfg64.with_(scan_layers=True), "unrolled": cfg64},
+                                st, mesh, p64, batch)
+        with torch.no_grad():
+            (s64, u64), launched = counted(lambda: [_tensors(r(p64, batch))
+                                                    for r in runners.values()])
+    finally:
+        ops._route = route
+    rel64 = {n: _rel(a, b) for n, a, b in zip(["loss"] + names, s64, u64)}
+    worst = max(rel64, key=rel64.get)
+    vs["float64"] = {"bit_equal": all(torch.equal(a, b) for a, b in zip(s64, u64)),
+                     "rel_max": [worst, rel64[worst]],
+                     "top_steps": [len(_plan_of(r).plan.steps) for r in runners.values()]}
+    del s64, u64, runners, p64
+    label = f"mamba2-130m train step, 24 layers, 2d_finalized, float32, dots, B{SCAN_B} S{SCAN_S}"
+    _scan_print(label, card, readings, vs)
+    want = {"flash_attention": 0, "flash_attention_bwd": 0, "ssd_scan": 2 * L, "ssd_scan_bwd": L}
+    check(turns[0]["launches"] == want, f"{label}: launched {turns[0]['launches']}, want {want}")
+    check(not any(launched.values()), f"{label}: the float64 plain route launched {launched}")
+    check(rel64[worst] <= 1e-8, f"{label}: float64 scanned off unrolled: {vs['float64']}")
+    seconds = time.perf_counter() - t0
+    print(f"    {seconds:.1f} s", flush=True)
+    return {"label": label, "card": card, "turns": turns, "readings": readings, "vs": vs,
+            "seconds": seconds}
+
+
+def scan_grad_accum_case(seed, card, mesh):
+    """qwen1.5-0.5b's partitioned train step with ``grad_accum=2``
+    (microbatches of 4), 24 layers, 2d_finalized, B8 S512, remat "none",
+    the layer loop scanned: the microbatch loop one scan whose body holds
+    the layers' scan and its reverse scan.  Its gradient program against
+    ``value_and_grad(grad_accum=2)`` unsharded on the card, as
+    ``partition_train_case`` holds the partitioned step's: the loss within
+    bf16_chain, each gradient leaf (the key bias read only) in norm within
+    bf16_grad; per call two flash launches forward and two backward per
+    layer; body plans two deep; no fallback gather (``TrainLoop`` with
+    ``grad_accum`` 2 under the mesh runs in tests/test_torch_scan.py
+    against the reference)."""
+    from repro_torch.configs.base import get_strategy
+    from repro_torch.core.compat import TOLERANCES, set_mesh
+    from repro_torch.core.partitioner import spmd_partition
+    from repro_torch.core.plan_verify import verify_plan
+    from repro_torch.core.tree import leaves, leaves_with_paths, tree_map
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.train.loop import (TrainConfig, init_state, sharded_value_and_grad,
+                                        value_and_grad)
+    from repro_torch.train.optimizer import get_optimizer
+
+    t0 = time.perf_counter()
+    cfg = partition_train_config(24, "none").with_(scan_layers=True)
+    st, L, opt = get_strategy("2d_finalized"), cfg.num_layers, get_optimizer("adafactor")
+    with set_mesh(mesh):
+        state0 = init_state(cfg, st, opt, TrainConfig(),
+                            torch.Generator("cuda").manual_seed(seed), "cuda")
+    params = tree_map(torch.Tensor.detach, state0["params"])
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, SCAN_S, SCAN_B, seed=seed,
+                                    pattern="arithmetic"))
+    batch = {k: torch.from_numpy(v).to("cuda").long() for k, v in pipe.batch_at(0).items()}
+    with set_mesh(mesh):
+        runner = spmd_partition(sharded_value_and_grad(cfg, st, mesh, grad_accum=2), mesh,
+                                optimize=False, device="cuda")
+    with torch.no_grad():
+        (loss_s, grads_s), launched = counted(lambda: runner(params, batch))
+        torch.cuda.synchronize()
+        host, wall = host_and_wall_ms(lambda: runner(params, batch), calls=3)
+        busy = device_ms(lambda i: runner(params, batch), 1, calls=1)
+    entry = _plan_of(runner)
+    plan, fallback_gathers, first = entry.plan, list(runner.fallback_gathers), dict(entry.build_s)
+    live = tree_map(lambda p: p.clone().requires_grad_(), params)
+    loss_u, grads_u = value_and_grad(cfg, st, live, batch, grad_accum=2)
+    del live
+    names = ["/".join(p) for p, _ in leaves_with_paths(params)]
+    rel = {n: _rel(g, u) for n, g, u in zip(names, leaves(grads_s), leaves(grads_u))}
+    gated = [n for n in rel if n != KEY_BIAS]
+    worst = max(gated, key=rel.get)
+    loss_over = _err_over(loss_s, loss_u, "bf16_chain")
+    verified = verify_plan(plan).plans
+    parts = _plan_parts(plan)
+    del grads_s, grads_u, runner, entry, plan
+    torch.cuda.empty_cache()
+    label = f"qwen1.5-0.5b train step, grad_accum 2, 24 layers, 2d_finalized, B{SCAN_B} S{SCAN_S}"
+    limit = TOLERANCES["bf16_grad"][0]
+    rec = {"label": label, "card": card, "plan": parts, "first_call_s": first,
+           "verified_plans": verified, "launches": launched, "host_ms": host, "wall_ms": wall,
+           "device_busy_ms": busy, "loss_sharded": loss_s.item(), "loss_unsharded": loss_u.item(),
+           "loss_err_over_bf16_chain": loss_over, "grad_rel_max": [worst, rel[worst]],
+           "key_bias_rel": rel.get(KEY_BIAS), "fallback_gathers": fallback_gathers}
+    print(f"  {label}; {card}", flush=True)
+    print(f"    plan {json.dumps(parts)} (nested body plans), {verified} plans verified; first "
+          f"call {json.dumps({k: round(v, 2) for k, v in first.items()})}; "
+          f"launches {launched}; host {host:.1f} ms, wall {wall:.1f} ms, device busy "
+          f"{_ms(busy)} per call; loss sharded {loss_s.item():.6f} unsharded "
+          f"{loss_u.item():.6f} (err/bf16_chain {loss_over:.3f}); gradient per leaf in norm at "
+          f"most {rel[worst]:.3e} ({worst}; bf16_grad {limit})", flush=True)
+    want = {"flash_attention": 2 * L, "flash_attention_bwd": 2 * L, "ssd_scan": 0,
+            "ssd_scan_bwd": 0}
+    check(launched == want, f"{label}: launched {launched}, want {want}")
+    check(parts["depth"] == 2, f"{label}: body plans nest {parts['depth']} deep, want 2")
+    check(loss_over <= 1.0 and rel[worst] <= limit, f"{label}: off the unsharded step: {rec}")
+    check(not fallback_gathers, f"{label}: fallbacks gathered {fallback_gathers}")
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"    {rec['seconds']:.1f} s", flush=True)
+    return rec
+
+
+def _stacked_cache_writes(runner, args, L, dh):
+    """How many whole stacked caches (stacked shards holding the layer dim
+    and the head dim) each op's plan steps write in one call, scan bodies
+    included; a getitem (the scan's ys taken out of its results) and an
+    alias or unchanged annotation write no new tensor and are left out."""
+    from torch.utils._pytree import tree_flatten
+
+    from repro_torch.core import mesh_runtime as mr
+
+    plan = _plan_of(runner).plan
+    n = collections.Counter()
+
+    def look(step, env):
+        if step.op in ("getitem", "alias", "annotate"):
+            return
+        for w in step.writes:
+            vals = env[w] if isinstance(env[w], list) else [env[w]]
+            n[step.op] += sum(1 for t in vals if isinstance(t, torch.Tensor) and t.ndim >= 6
+                              and t.shape[1] == L and t.shape[-1] == dh)
+
+    with torch.no_grad():
+        plan.execute(*(mr.shard(a, s) for a, s in zip(tree_flatten(args)[0], plan.in_shardings)),
+                     on_step=look)
+    return +n
+
+
+def scan_serve_case(arch, strategy, dtype, kv_seq, seed, card, mesh):
+    """``Engine(8 slots, max_len 1024)`` under ``set_mesh`` serving 8
+    prompts of 8 tokens, 4 new each, with the decode step's layer loop
+    scanned and unrolled (each its own engine, the same weights): tokens
+    equal; per engine host and wall ms of one decode call (device drained
+    before), device busy (one traced call), peak, plan steps, the whole
+    stacked caches the plan's steps write (no more scanned than unrolled).
+    With ``kv_seq`` (qwen), the planted-fault gate on the scanned plan's
+    float32 twin (``float32_twin_readings``, its psums taken from the
+    body plan)."""
+    from repro_torch.configs.base import get_strategy
+
+    t0 = time.perf_counter()
+    cfg, _, params = full_width_model(arch, seed, dtype=dtype)
+    cfg = cfg.with_(shard_kv_seq=kv_seq)
+    st = get_strategy(strategy)
+    rng = np.random.default_rng(seed + 70)
+    prompts = [rng.integers(0, cfg.vocab_size, 8).tolist() for _ in range(SCAN_SERVE_PROMPTS)]
+    runs, twin = {}, None
+    for name, scan in (("scanned", True), ("unrolled", False)):
+        c = cfg.with_(scan_layers=scan)
+        eng, rec, _, _ = serve_run(c, st, params, mesh, prompts, SCAN_SERVE_NEW)
+        args = (params, torch.zeros((len(prompts), 1), dtype=torch.long, device="cuda"),
+                eng.cache, eng._pos)
+        with torch.no_grad():
+            host, wall = host_and_wall_ms(lambda: eng.runner(*args), calls=3)
+            busy = device_ms(lambda i: eng.runner(*args), 1, calls=1)
+            holders = _stacked_cache_writes(eng.runner, args, cfg.num_layers,
+                                            args[2][next(iter(args[2]))].shape[-1])
+        entry = _plan_of(eng.runner)
+        runs[name] = {"outs": rec["outs"], "host_ms": host, "wall_ms": wall,
+                      "device_busy_ms": busy, "peak_gib": rec["peak_gib"],
+                      "step_wall_ms_median": rec["step_wall_ms_median"],
+                      "launches_per_step": rec["launches_per_step"][-1],
+                      "plan": _plan_parts(entry.plan), "first_call_s": dict(entry.build_s),
+                      "stacked_cache_writes": holders,
+                      "fallback_gathers": list(eng.runner.fallback_gathers)}
+        if kv_seq and scan:
+            state = boundary_state(c, st, eng.cache, eng.pos, len(prompts), seed)
+            twin = float32_twin_readings(c, st, params, mesh, eng.runner, state, kv_seq)
+        del eng, args
+        torch.cuda.empty_cache()
+    s, u = runs["scanned"], runs["unrolled"]
+    label = (f"{arch} Engine under {strategy}{', shard_kv_seq' if kv_seq else ''}, "
+             f"{cfg.num_layers} layers, {dtype or cfg.dtype}, {len(prompts)} slots")
+    print(f"  {label}; {card}", flush=True)
+    for name, r in runs.items():
+        print(f"    {name}: plan {json.dumps(r['plan'])}; first call "
+              f"{json.dumps({k: round(v, 2) for k, v in r['first_call_s'].items()})}; host "
+              f"{r['host_ms']:.1f} ms, wall {r['wall_ms']:.1f} ms, device busy "
+              f"{_ms(r['device_busy_ms'])} per decode call; served step wall "
+              f"{r['step_wall_ms_median']:.1f} ms; peak {r['peak_gib']:.3f} GiB; launches per "
+              f"step {r['launches_per_step']}; whole stacked caches written "
+              f"{dict(r['stacked_cache_writes'])}", flush=True)
+    if twin is not None:
+        print(f"    float32 twin of the scanned plan: sound {twin['sound_over_limit']:.4f} of "
+              f"f32_chain's rtol; planted faults "
+              f"{json.dumps({k: round(v, 2) for k, v in twin['faults_over_limit'].items()})} at "
+              f"{json.dumps(twin['planted_psums'])}", flush=True)
+    check(s["outs"] == u["outs"], f"{label}: scanned tokens {s['outs']} unrolled {u['outs']}")
+    check(s["launches_per_step"] == u["launches_per_step"],
+          f"{label}: launches {s['launches_per_step']} against {u['launches_per_step']}")
+    check(sum(s["stacked_cache_writes"].values()) <= sum(u["stacked_cache_writes"].values()),
+          f"{label}: the scanned plan writes whole stacked caches "
+          f"{dict(s['stacked_cache_writes'])}, the unrolled {dict(u['stacked_cache_writes'])}")
+    check(not s["fallback_gathers"] and not u["fallback_gathers"], f"{label}: fallbacks gathered")
+    if twin is not None:
+        check(twin["sound_over_limit"] <= 1.0 and all(
+            v > 1.0 for v in twin["faults_over_limit"].values()),
+            f"{label}: the float32 twin's planted-fault gate failed: {twin}")
+    seconds = time.perf_counter() - t0
+    print(f"    {seconds:.1f} s", flush=True)
+    return {"label": label, "card": card, "runs": {k: {**v, "stacked_cache_writes": dict(
+        v["stacked_cache_writes"])} for k, v in runs.items()}, "twin": twin, "seconds": seconds}
+
+
+def scan_phase(seed, card):
+    """The scan node on the card (``core/scan.py``): each path captured with
+    the layer loop scanned and unrolled, on the simulated ("data" 2,
+    "model" 4) mesh, priced by a profile measured in this run: qwen's
+    partitioned train step under remat "none" and "dots" and Mamba2's
+    (``scan_train_case``, ``scan_mamba_case``), qwen's with ``grad_accum``
+    2 (``scan_grad_accum_case``), and ``Engine`` for qwen with
+    ``shard_kv_seq`` and Mamba2 in float32 (``scan_serve_case``)."""
+    from repro_torch.launch.mesh import make_test_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_test_mesh()
+    profile, prof_rec = measured_roofline(mesh)
+    print(f"scan: the scan node, each path scanned and unrolled on the card; {card}", flush=True)
+    cases = []
+    for remat in ("none", "dots"):
+        cases.append(scan_train_case(remat, seed, card, mesh, profile))
+        torch.cuda.empty_cache()
+    cases.append(scan_mamba_case(seed, card, mesh, profile))
+    torch.cuda.empty_cache()
+    cases.append(scan_grad_accum_case(seed, card, mesh))
+    torch.cuda.empty_cache()
+    cases.append(scan_serve_case("qwen1.5-0.5b", "2d_attempt1", None, True, seed, card, mesh))
+    cases.append(scan_serve_case("mamba2-130m", "2d_finalized", "float32", False, seed, card,
+                                 mesh))
+    seconds = time.perf_counter() - t0
+    print(f"scan: {seconds:.1f} s", flush=True)
+    return {"profile": prof_rec, "cases": cases, "seconds": seconds}
+
+
 def sharded_phases_in_own_process(seed, card):
-    """``sharded_loss_phase``, ``sharded_serve_phase`` and ``plan_opt_phase``
-    in a fresh process (whole profiler traces, as
+    """``sharded_loss_phase``, ``sharded_serve_phase``, ``plan_opt_phase`` and
+    ``scan_phase`` in a fresh process (whole profiler traces, as
     ``partition_phase_in_own_process``), the first two with the kernels'
     launch counts set to 0 before and read after (the SSD launches in the
     loss and not in serving; the flash kernel in qwen's serving), the last
@@ -3667,10 +4238,11 @@ def sharded_phases_in_own_process(seed, card):
             f"serve, m = chip_smoke.counted(lambda: chip_smoke.sharded_serve_phase({seed}, "
             f"{card!r})); "
             f"plan_opt = chip_smoke.plan_opt_phase({seed}, {card!r}); "
+            f"scan = chip_smoke.scan_phase({seed}, {card!r}); "
             "print(json.dumps({'loss': loss, 'loss_launches': n, 'serve': serve, "
-            "'serve_launches': m, 'plan_opt': plan_opt}))")
+            "'serve_launches': m, 'plan_opt': plan_opt, 'scan': scan}))")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                          timeout=1000)
+                          timeout=1100)
     lines = proc.stdout.splitlines()
     print("\n".join(lines[:-1] if proc.returncode == 0 else lines), flush=True)
     check(proc.returncode == 0 and lines,
@@ -3789,6 +4361,34 @@ def build_kernels():
     return report
 
 
+def scan_node_check():
+    """The scan node (``core/scan.py``) with this torch, early: a small loop
+    on the card captured with its gradient (one ``scan_fwd`` node and its
+    reverse ``scan``), the captured graph run against the eager loop."""
+    from repro_torch.core.compat import capture
+    from repro_torch.core.scan import scan
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    W, x0 = torch.randn(4, 64, 64, generator=gen, device="cuda"), torch.randn(8, 64, device="cuda")
+
+    def prog(W, x0):
+        W, x0 = W.detach().requires_grad_(), x0.detach().requires_grad_()
+        with torch.enable_grad():
+            h, ys = scan(lambda c, w: (torch.tanh(c @ w), c.sum()), x0, W)
+            loss = h.sum() + ys.sum()
+            return (loss,) + torch.autograd.grad(loss, [W, x0])
+
+    cap = capture(prog, W, x0)
+    nodes = collections.Counter(str(n.target) for n in cap.graph.nodes if n.op == "call_function")
+    err = max(_err_over(a, b, "f32") for a, b in zip(cap.gm(W, x0), prog(W, x0)))
+    print(f"  scan node under capture on torch {torch.__version__}: "
+          f"{nodes['repro_torch.scan_fwd.default']} scan_fwd and "
+          f"{nodes['repro_torch.scan.default']} scan nodes, err/f32 {err:.3f} against the "
+          "eager loop", flush=True)
+    check(nodes["repro_torch.scan_fwd.default"] == 1 and nodes["repro_torch.scan.default"] == 1
+          and err <= 1.0, f"the scan node: {dict(nodes)}, err/f32 {err}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3806,6 +4406,7 @@ def main(argv=None):
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
     build = build_kernels()
+    scan_node_check()
 
     print("kernel: flash_attention (CUDA) vs plain PyTorch on the card", flush=True)
     fa_cases = kernel_phase(args.seed)
@@ -3848,7 +4449,8 @@ def main(argv=None):
           flush=True)
     sharded = sharded_phases_in_own_process(args.seed, partition["card"])
     print(f"phases done at {time.perf_counter() - t0:.0f} s (plan_opt "
-          f"{sharded['plan_opt']['seconds']:.0f} s of them)", flush=True)
+          f"{sharded['plan_opt']['seconds']:.0f} s, scan {sharded['scan']['seconds']:.0f} s of "
+          "them)", flush=True)
 
     fa_main = next(c for c in fa_cases if c["case"] == "decode_8x16_pos1023")
     fa_prefill = next(c for c in fa_cases if c["case"] == "prefill_qwen_loss_2x2048")
@@ -3867,10 +4469,21 @@ def main(argv=None):
         name: {c["label"]: [r["launches"][name] for r in c["sharded_steps"]]
                for c in partition["train"]}
         for name in ("flash_attention", "flash_attention_bwd")}
+    def scanned_launches(c, name):
+        if "turns" in c:
+            return c["turns"][0]["launches"][name]
+        if "launches" in c:
+            return c["launches"][name]
+        return c["runs"]["scanned"]["launches_per_step"][name]
+
+    scan_launches = {  # per call (per decode step for the engines) of the scanned plans
+        name: {c["label"]: scanned_launches(c, name) for c in sharded["scan"]["cases"]}
+        for name in ("flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     ssd_keys = ("dev_ms", "pass_dev_ms", "launches_per_call")
     record = {"kernels": [{
         "name": "flash_attention", "route": "cuda",
+        "scan_launches_per_call": scan_launches["flash_attention"],
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:81",
         "launches": qwen_serve["launches"]["flash_attention"], "launches_path": "qwen serve",
@@ -3895,6 +4508,7 @@ def main(argv=None):
         "cases": fa_cases,
     }, {
         "name": "ssd_scan", "route": "cuda",
+        "scan_launches_per_call": scan_launches["ssd_scan"],
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:70",
         "launches": mamba_loss["launches"]["ssd_scan"], "launches_path": "mamba2 loss",
@@ -3904,6 +4518,7 @@ def main(argv=None):
         "cancelling_sums": ssd_cancel, "cases": ssd_cases,
     }, {
         "name": "flash_attention_bwd", "route": "cuda",
+        "scan_launches_per_call": scan_launches["flash_attention_bwd"],
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/models/attention.py:132",
         "launches": qwen_train["launches"]["flash_attention_bwd"],
@@ -3916,6 +4531,7 @@ def main(argv=None):
         "cases": bwd_cases,
     }, {
         "name": "ssd_scan_bwd", "route": "cuda",
+        "scan_launches_per_call": scan_launches["ssd_scan_bwd"],
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/models/ssm.py:76",
         "launches": mamba_train["launches"]["ssd_scan_bwd"],

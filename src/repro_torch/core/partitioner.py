@@ -41,7 +41,14 @@ devices' shards), with explicit collectives:
 * stack / unbind / select and their gradients — the dim they insert,
                      remove or slice replicated, the others kept;
 * factories        — replicated, a sharded constant fill at its local shape;
-* annotate         — explicit resharding to the user's annotation.
+* annotate         — explicit resharding to the user's annotation;
+* scan             — the body (``core/scan.py``) partitioned under its
+                     completed shardings (``Propagation.sub``), each operand
+                     resharded to the body's input sharding (an x's with its
+                     leading scan dim unsharded), the body run once per trip
+                     on the stacked shards' trip slices, the carry kept in
+                     its carry-in sharding, the ys stacked on an unsharded
+                     leading dim (``scan_body_shardings``).
 
 An op with no handler takes ``_fallback``: gather every operand, run the op
 on the global values, reshard to the propagated sharding — GSPMD semantics,
@@ -79,9 +86,9 @@ from .compat import capture
 from .device import resolve_device
 from .einsum_rules import partitioned_einsum
 from .halo import local_conv, sharded_conv_nd
-from .propagation import PropagationResult, propagate
+from .propagation import PropagationResult, add0, drop0, propagate
 from .reshard import reshard_local, shard_shape
-from .rules import (BROADCAST, DOT, ELEMENTWISE, FACTORY, FLASH, FLASH_BWD, FLASH_DECODE,
+from .rules import (BROADCAST, DOT, ELEMENTWISE, FACTORY, FLASH, FLASH_BWD, FLASH_DECODE, SCANS,
                     FLASH_FWD, REDUCE, RESHAPE, SSD, SSD_BWD, TRANSPOSE, _SSD_DIMS, _bcast_map,
                     _heads, _heads_layout, _invert, _project, _reshape_dim_map, _ssd_dims,
                     decode_layout, decode_seq_axes, flash_heads, flash_layout, index_copy_maps,
@@ -857,6 +864,37 @@ LOCAL_OPS = {
 
 
 # ---------------------------------------------------------------------------------
+# scan: the body under its completed shardings
+# ---------------------------------------------------------------------------------
+
+
+def scan_body_shardings(eqn, prop: PropagationResult, shardings, mesh: Mesh):
+    """(each outer operand's target sharding, the body propagation with
+    every body input's sharding filled in), from the body's completion
+    that ``prop`` keeps for the node (``prop.sub``): an operand goes in the
+    sharding the body's completion gave its input (an x's with the leading
+    scan dim unsharded put back); where the completion left the input open,
+    the operand keeps its own (an x's leading dim unsharded)."""
+    nc, nk = eqn.params["num_consts"], eqn.params["num_carry"]
+    body, inner = eqn.params["body"], prop.sub[eqn.node]
+    env = dict(inner.env)
+    targets = []
+    for i, (s, bv) in enumerate(zip(shardings, body.invars)):
+        stacked = i >= nc + nk
+        declared = inner.get(bv)
+        if declared is None:
+            declared = (drop0(s) if stacked else s) or replicated(mesh, 0)
+            env[bv] = declared
+        targets.append(add0(declared) if stacked else declared)
+    return targets, PropagationResult(inner.graph, mesh, env, inner.sub)
+
+
+def trip_order(eqn):
+    L = eqn.params["length"]
+    return range(L - 1, -1, -1) if eqn.params["reverse"] else range(L)
+
+
+# ---------------------------------------------------------------------------------
 # fallback analysis: which dims does a formatting op actually modify?
 # ---------------------------------------------------------------------------------
 #
@@ -998,6 +1036,8 @@ class SpmdPartitioner:
             self._addmm(eqn)
         elif name in ELEMENTWISE and eqn.out_avals:
             self._elementwise(eqn)
+        elif name in SCANS:
+            self._scan(eqn)
         elif name in LOCAL_OPS and self._local(eqn):
             pass
         elif name in REDUCE:
@@ -1108,6 +1148,31 @@ class SpmdPartitioner:
         vals = [self._to(*self.read(v), t) for v, t in zip(eqn.invars, d.targets)]
         self.write(eqn.node, d.fn(*vals), d.out)
         return True
+
+    def _scan(self, eqn):
+        """The body partitioned anew on every trip (``scan_body_shardings``);
+        the ys written into their slots of stacked buffers."""
+        nc, nk = eqn.params["num_consts"], eqn.params["num_carry"]
+        body, L = eqn.params["body"], eqn.params["length"]
+        targets, inner = scan_body_shardings(eqn, self.prop,
+                                             [self.shardings[v] for v in eqn.invars], self.mesh)
+        vals = [self._to(*self.read(v), t) for v, t in zip(eqn.invars, targets)]
+        consts, carry, xs = vals[:nc], vals[nc:nc + nk], vals[nc + nk:]
+        cin = targets[nc:nc + nk]
+        bufs, ysh = None, []
+        for n, t in enumerate(trip_order(eqn)):
+            part = SpmdPartitioner(inner, self.mesh)
+            outs, shs = part.run(body, *consts, *carry, *(x[:, t] for x in xs))
+            if not n:
+                self.fallbacks += part.fallbacks
+                self.fallback_gathers += part.fallback_gathers
+            carry = [self._to(o, s, c) for o, s, c in zip(outs[:nk], shs[:nk], cin)]
+            if bufs is None:
+                bufs = [y.new_empty((y.shape[0], L) + tuple(y.shape[1:])) for y in outs[nk:]]
+                ysh = [add0(s) for s in shs[nk:]]
+            for b, y in zip(bufs, outs[nk:]):
+                b[:, t] = y
+        self.write(eqn.node, carry + bufs, list(cin) + ysh)
 
     def _fallback(self, eqn):
         """Gather → op → reshard to the propagated sharding (§4.5).

@@ -40,12 +40,19 @@ a full-size program can be priced on a mesh far larger than the card.
 (``optimize=True``: ``plan_opt.optimize_plan``, priced by the ``profile``
 it is given; without one it raises, as the port has no default constants)
 and the static verifier (``plan_verify.verify_plan``; ``verify=None``, the
-default, runs it).  Not here yet: call steps for scan bodies with the scan
-node (ROADMAP A9b), state-reshard plans (A14), and a fitted machine profile
-to stand in for the reference's default constants (A15).
+default, runs it).  A scan node (``core/scan.py``) lowers to one call step
+(``op="scan"``) whose body plan is exposed as ``PlanStep.inner`` with its
+call metadata (``call``: ``trips``, ``num_consts``, ``num_carry``), as the
+reference's: the body is planned once under its completed shardings and
+run once per trip; ``PlanStats``, ``PlanCost`` and ``plan_peak_bytes``
+count it at trip count (the body's live peak as the step's
+``transient_bytes``).  Not here yet: state-reshard plans (A14), and a fitted
+machine profile to stand in for the reference's default constants (A15).
 """
 from __future__ import annotations
 
+import collections
+import contextvars
 import dataclasses
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -67,11 +74,12 @@ from .partitioner import (COLLECTIVE, LOCAL_OPS, REDUCE_OP, _want, align, broadc
                           dot_spec, elementwise_local, elementwise_targets,
                           fallback_global, fallback_keep_sharding, fallback_local,
                           gathers, group_size, local_reduce,
-                          local_reshape_ok, reduce_decision, transpose_sharding)
-from .propagation import PropagationResult, propagate
+                          local_reshape_ok, reduce_decision, scan_body_shardings,
+                          transpose_sharding, trip_order)
+from .propagation import PropagationResult, add0, propagate
 from .reshard import shard_shape
-from .rules import (BROADCAST, DOT, ELEMENTWISE, REDUCE, RESHAPE, TRANSPOSE, _bcast_map, _invert,
-                    _project, aval, lower)
+from .rules import (BROADCAST, DOT, ELEMENTWISE, REDUCE, RESHAPE, SCANS, TRANSPOSE, _bcast_map,
+                    _invert, _project, aval, lower)
 from .sharding import Mesh, Sharding, replicated
 
 Env = Dict[object, object]
@@ -120,6 +128,12 @@ class PlanStep:
     ``LocalOp``'s (the decode combine's pmax and psums, the SSD gradient's
     psums, ``logsumexp``'s, the index ops') and a product's reduce-scatter.
     The verifier's accounting and the optimizer's launch counts read them.
+
+    A scan's call step (``op="scan"``) exposes its body plan as ``inner``
+    and its call metadata as ``call`` (``trips``, ``num_consts``,
+    ``num_carry``), so that the optimizer can hoist loop-invariant reshards
+    out of the body and every count can price the body at trip count; its
+    ``transient_bytes`` is the body's live peak.
     """
 
     kind: str
@@ -137,8 +151,10 @@ class PlanStep:
     flops: float = 0.0  # per-device local FLOPs of this step
     wbytes: Tuple[float, ...] = ()  # local bytes of each write (memory model)
     collectives: Dict[str, int] = dataclasses.field(default_factory=dict)  # run inside
-    call: Dict = dataclasses.field(default_factory=dict)  # ppermute steps: {"perm": ...}
+    call: Dict = dataclasses.field(default_factory=dict)  # ppermute: {"perm"}; scan: trips..
     wire_bytes: float = 0.0  # fused steps: modeled wire bytes of their one launch
+    transient_bytes: float = 0.0  # scan steps: the body plan's live peak
+    inner: Optional["PartitionPlan"] = None  # scan steps: the body plan
 
     @property
     def in_bytes(self) -> float:
@@ -182,6 +198,37 @@ def _collective_run(mesh: Mesh, axes: Tuple[str, ...], reduce_op: str):
     return run
 
 
+# the ``on_step`` of the plan execution in progress, which scan steps hand on
+# to their body plans' executions
+_ON_STEP: contextvars.ContextVar = contextvars.ContextVar("repro_torch_on_step", default=None)
+
+
+def _scan_run(inner: "PartitionPlan", nc: int, nk: int, order):
+    """A scan's call step: the body plan once per trip on the trip's slice
+    of each stacked x (stacked shards: dim 0 is the device, dim 1 the scan),
+    each trip's ys written into their slots of buffers allocated at the
+    first trip, trip-major so that a slot is contiguous and one
+    ``_foreach_copy_`` writes a trip's ys (a launch per dtype, not one per
+    y: a forward scan's residuals are dozens of ys); writes the final carry
+    and the ys (views, device dim first) as one list."""
+    L = len(order)
+
+    def run(env, reads, writes):
+        vals = [env[k] for k in reads]
+        consts, carry, xs = vals[:nc], vals[nc:nc + nk], vals[nc + nk:]
+        hook, bufs = _ON_STEP.get(), None
+        for t in order:
+            outs = inner.execute(*consts, *carry, *(x[:, t] for x in xs), on_step=hook)
+            carry, ys = outs[:nk], outs[nk:]
+            if bufs is None:
+                bufs = [y.new_empty((L,) + tuple(y.shape)) for y in ys]
+            if ys:
+                torch._foreach_copy_([b[t] for b in bufs], list(ys))
+        env[writes[0]] = list(carry) + [b.movedim(0, 1) for b in bufs or ()]
+
+    return run
+
+
 def _cost_only_run(env, reads, writes):  # pragma: no cover - guard rail
     raise RuntimeError("cost-only plan executed: this plan was lowered by lower_plan / "
                        "lower_for_cost and carries no runnables")
@@ -216,6 +263,16 @@ class PlanStats:
         for s in prog.steps:
             self.count(s.op.replace("_", "-"))
         self.reshard_bytes += prog.cost_bytes
+
+    def add_inner(self, inner: "PlanStats", trips: int, sign: int = 1) -> None:
+        """Count a body plan's collectives and bytes ``trips`` times (with
+        ``sign`` -1, take them off again)."""
+        for kind, n in inner.collectives.items():
+            self.count(kind, sign * trips * n)
+        self.reshard_bytes += sign * trips * inner.reshard_bytes
+        self.baseline_bytes += sign * trips * inner.baseline_bytes
+        self.legacy_bytes += sign * trips * inner.legacy_bytes
+        self.eqns += sign * inner.eqns
 
     def remove_program(self, prog: Optional[ReshardProgram]) -> None:
         """Revert :meth:`add_program` for a reshard an optimizer pass removed
@@ -294,15 +351,19 @@ class PartitionPlan:
         outputs' stacked shards (under ``out_shardings``).  Each value is
         dropped after its last reader, as ``plan_peak_bytes`` models.
         ``on_step(step, env)``, if given, sees each step's results before
-        its dead values are dropped."""
+        its dead values are dropped, the steps of scan bodies too."""
         env: Env = dict(self.consts)
         env.update(zip(self.invars, args))
-        for step, dead in zip(self.steps, self.dead):
-            step.run(env, step.reads, step.writes)
-            if on_step is not None:
-                on_step(step, env)
-            for k in dead:
-                del env[k]
+        token = _ON_STEP.set(on_step)
+        try:
+            for step, dead in zip(self.steps, self.dead):
+                step.run(env, step.reads, step.writes)
+                if on_step is not None:
+                    on_step(step, env)
+                for k in dead:
+                    del env[k]
+        finally:
+            _ON_STEP.reset(token)
         return [env[k] if is_env_key(k) else k
                 for k in self.out_keys]
 
@@ -328,8 +389,30 @@ class PartitionPlan:
         return found
 
     def total_flops(self) -> float:
-        """Modeled per-device FLOPs of one plan execution."""
+        """Modeled per-device FLOPs of one plan execution (a scan step's
+        are its body's at trip count)."""
         return sum(s.flops for s in self.steps)
+
+    def op_counts(self) -> "collections.Counter":
+        """How many steps of each op one execution runs: a scan body's at
+        its trip count (the call step itself counts once, as ``scan``)."""
+        n: collections.Counter = collections.Counter()
+        for s in self.steps:
+            n[s.op] += 1
+            if s.inner is not None:
+                for op, k in s.inner.op_counts().items():
+                    n[op] += s.call["trips"] * k
+        return n
+
+    def body_plans(self) -> List["PartitionPlan"]:
+        """Every scan body plan under this plan, nested ones too, outermost
+        first."""
+        out = []
+        for s in self.steps:
+            if s.inner is not None:
+                out.append(s.inner)
+                out.extend(s.inner.body_plans())
+        return out
 
 
 def _dead_after(steps: List[PlanStep], out_keys) -> List[Tuple[object, ...]]:
@@ -669,6 +752,8 @@ class PlanBuilder:
             self._addmm(eqn)
         elif name in ELEMENTWISE and eqn.out_avals:
             self._elementwise(eqn)
+        elif name in SCANS:
+            self._scan(eqn)
         elif name in LOCAL_OPS and self._local(eqn):
             pass
         elif name in REDUCE:
@@ -898,6 +983,36 @@ class PlanBuilder:
                           collectives=d.collectives)
         return True
 
+    def _scan(self, eqn) -> None:
+        """One call step over the body plan (the reference's ``_scan``): the
+        operands resharded to the body's input shardings
+        (``scan_body_shardings``), the body planned once, a carry that would
+        leave the body in another sharding than it enters with resharded at
+        the body's end, the ys stacked on an unsharded leading dim; the body
+        counted at trip count."""
+        node, p = eqn.node, eqn.params
+        nc, nk, L = p["num_consts"], p["num_carry"], p["length"]
+        if L < 1:
+            raise NotImplementedError(f"scan of length {L}: nothing to plan")
+        targets, inner_res = scan_body_shardings(eqn, self.prop,
+                                                 [self.sh[v] for v in eqn.invars], self.mesh)
+        keys = [self.reshard_operand(v, t) for v, t in zip(eqn.invars, targets)]
+        inner = PlanBuilder(p["body"], inner_res, self.mesh, cost_only=self.cost_only).build()
+        for i in range(nk):
+            _keep_carry_sharding(inner, i, inner.in_shardings[nc + i], self.cost_only)
+        outs = [inner.in_shardings[nc + i] for i in range(nk)] + [
+            add0(s) for s in inner.out_shardings[nk:]]
+        self.sh[node] = outs
+        self.stats.add_inner(inner.stats, L)
+        avals = list(eqn.tuple_avals)
+        wbytes = sum(_nbytes_of(shard_shape(a.shape, sh), a.dtype.itemsize)
+                     for a, sh in zip(avals, outs) if a is not None)
+        self.emit(PlanStep("compute", tuple(keys), (node,),
+                           _scan_run(inner, nc, nk, tuple(trip_order(eqn))), op="scan",
+                           flops=L * inner.total_flops(), wbytes=(wbytes,),
+                           transient_bytes=inner.peak_bytes, inner=inner,
+                           call={"trips": int(L), "num_consts": nc, "num_carry": nk}))
+
     def _fallback(self, eqn) -> None:
         """Gather → op → reshard (§4.5), gathering only the dims the op
         modifies where the op's touched dims are known."""
@@ -936,6 +1051,30 @@ class PlanBuilder:
             self.emit_reshard(mid, node, prog, lshape, db, str(out.dtype))
 
 
+def _keep_carry_sharding(plan: PartitionPlan, i: int, want: Sharding,
+                        cost_only: bool = False) -> None:
+    """Make a body plan's output ``i`` leave in ``want``: a carry must leave
+    the body in the sharding it enters with, or the next trip misreads it.
+    Appends a reshard step where the body leaves it otherwise."""
+    cur = plan.out_shardings[i]
+    if cur.dims_mapping == want.dims_mapping:
+        return
+    a = aval(plan.outvars[i])
+    lshape, db = shard_shape(a.shape, cur), a.dtype.itemsize
+    prog = plan_reshard(cur, want, lshape, db)
+    plan.stats.add_program(prog)
+    key = ProxyVar(f"carry:{cur}->{want}")
+    out_bytes = _nbytes_of(shard_shape(a.shape, want), db)
+    plan.steps.append(PlanStep("reshard", (plan.out_keys[i],), (key,),
+                               _cost_only_run if cost_only else _reshard_run(prog),
+                               op="reshard", program=prog, lshape=lshape, dbytes=db,
+                               dtype=str(a.dtype), wbytes=(out_bytes,)))
+    plan.out_keys[i] = key
+    plan.out_shardings[i] = want
+    plan.relive()
+    plan.peak_bytes = plan_peak_bytes(plan)
+
+
 # ---------------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------------
@@ -958,7 +1097,8 @@ def compile_plan(captured, prop: PropagationResult, mesh: Mesh, optimize: bool =
     (``plan_verify.verify_plan``) on the finished plan: ``None`` (the
     default) and ``True`` run it, ``False`` does not.  ``cost_only=True``
     replaces every step's runner with a raising stub: the plan prices but
-    never runs.  The plans of scan bodies are ROADMAP A9b.
+    never runs.  A scan's body plan is built, optimized and verified with
+    its plan (``PlanStep.inner``).
     """
     if optimize and profile is None:
         raise ValueError(
@@ -989,7 +1129,8 @@ def plan_peak_bytes(plan: PartitionPlan) -> float:
 
     Inputs and constants are resident for the whole plan; intermediates are
     allocated at their producing step (each step's ``wbytes``) and freed
-    after their last reader; outputs stay live to the end.
+    after their last reader; outputs stay live to the end.  A scan step adds
+    its body plan's peak as a transient while it runs.
     """
     resident = plan.const_bytes
     pinned = set()
@@ -1011,7 +1152,7 @@ def plan_peak_bytes(plan: PartitionPlan) -> float:
                 continue
             alive[id(w)] = b
             live += b
-        peak = max(peak, live)
+        peak = max(peak, live + step.transient_bytes)
         for k in list(alive):
             if last_read.get(k, -1) <= i:
                 live -= alive.pop(k)

@@ -9,11 +9,19 @@ profile the pipeline raises: the port has no default constants.
 
 Passes, in pipeline order (the reference's names and order):
 
-1. **pjit inlining** (:func:`inline_pjit`) and 2. **scan-invariant hoisting**
-   (:func:`hoist_scan_invariants`) report zero here.  ``make_fx`` inlines
-   every nested call, so a captured graph has no call boundary to dissolve,
-   and the scan node with its body plans is ROADMAP A9b; both passes keep
-   their place so that the report has the reference's schema.
+1. **pjit inlining** (:func:`inline_pjit`) reports zero: ``make_fx``
+   inlines every nested call as it captures, so a captured graph has no
+   call boundary to dissolve; the pass keeps its place so that the report
+   has the reference's schema.
+2. **scan-invariant hoisting** (:func:`hoist_scan_invariants`): where a
+   scan body's only use of a const is one reshard (the per-trip gather of a
+   loop-invariant value), the reshard moves before the scan, runs once,
+   and the body reads the resharded const.
+
+Before the passes run on a plan they run on each of its scan body plans
+(``PlanStep.inner``), innermost first; every count here prices a body at
+its trip count, and a body plan's edits move its plan's ``PlanStats`` by
+trip count too.
 3. **reshard CSE** (:func:`reshard_cse`): identical (source value, target
    sharding) reshards across consumers run once; later readers read the
    first result.  A source resolves through free aliases to its root, and
@@ -67,7 +75,7 @@ from ..analysis.roofline import (RooflineParams, collective_wire_bytes, fusion_b
                                  overlap_time_s)
 from . import mesh_runtime as mr
 from .partitioner import COLLECTIVE
-from .plan import (PartitionPlan, PlanStep, _alias_run, _cost_only_run, is_env_key,
+from .plan import (PartitionPlan, PlanStep, ProxyVar, _alias_run, _cost_only_run, is_env_key,
                    plan_peak_bytes)
 
 __all__ = [
@@ -192,8 +200,7 @@ def count_collective_launches(steps: List[PlanStep]) -> int:
 
 
 def whole_wire_bytes(plan: PartitionPlan) -> float:
-    """Modeled wire bytes of one execution (the plans of scan bodies, at trip
-    count, are ROADMAP A9b)."""
+    """Modeled wire bytes of one execution, scan bodies at trip count."""
     mesh = plan.mesh
     total = 0.0
     for s in plan.steps:
@@ -203,12 +210,18 @@ def whole_wire_bytes(plan: PartitionPlan) -> float:
             total += _collective_step_wire_bytes(mesh, s)
         elif s.kind == "fused":
             total += s.wire_bytes
+        if s.inner is not None:
+            total += s.call["trips"] * whole_wire_bytes(s.inner)
     return total
 
 
 def whole_collective_launches(plan: PartitionPlan) -> int:
-    """Collective launches of one execution."""
-    return count_collective_launches(plan.steps)
+    """Collective launches of one execution, scan bodies at trip count."""
+    total = count_collective_launches(plan.steps)
+    for s in plan.steps:
+        if s.inner is not None:
+            total += s.call["trips"] * whole_collective_launches(s.inner)
+    return total
 
 
 def _psum_wire_bytes(mesh, axes, in_bytes: float) -> float:
@@ -225,19 +238,108 @@ def _collective_step_wire_bytes(mesh, step: PlanStep) -> float:
 
 
 # ---------------------------------------------------------------------------------
-# passes 1 and 2: no call boundary, no scan node yet
+# pass 1: no call boundary to inline
 # ---------------------------------------------------------------------------------
 
 
 def inline_pjit(plan: PartitionPlan) -> PassReport:
     """Reports zero: ``make_fx`` inlines nested calls as it captures, so a
-    captured graph has no call step to splice."""
+    captured graph has no call step to splice (a scan's body is a loop, not
+    a call, and stays a body plan)."""
     return PassReport("inline-pjit")
 
 
+# ---------------------------------------------------------------------------------
+# pass 2: loop-invariant reshard hoisting out of scan bodies
+# ---------------------------------------------------------------------------------
+
+
 def hoist_scan_invariants(plan: PartitionPlan) -> PassReport:
-    """Reports zero: the scan node and its body plans are ROADMAP A9b."""
-    return PassReport("scan-hoist")
+    """Lift reshards of loop-invariant scan inputs out of the body.
+
+    A scan const is bound once and read on every trip; where the body's
+    only use of a const input (through free aliases) is one reshard step,
+    replaying that collective every trip is waste: the reshard moves into
+    this plan just before the scan, the scan reads the resharded value, and
+    the body's readers of the reshard read the input instead.  Carries and
+    xs change every trip and are never hoisted.  The body plan is edited in
+    place (the scan's run closure holds the same object); its report and
+    peak are brought up to date (:func:`_refresh_inner_report`)."""
+    rep = PassReport("scan-hoist")
+    launch_s = _params(plan).collective_launch_s
+    out: List[PlanStep] = []
+    for step in plan.steps:
+        if step.op != "scan" or step.inner is None:
+            out.append(step)
+            continue
+        inner = step.inner
+        nc, trips = int(step.call["num_consts"]), int(step.call["trips"])
+        canon: Dict[int, object] = {}
+        for s in inner.steps:
+            if _is_free_alias(s):
+                _canon_insert(canon, s)
+        out_ids = {id(k) for k in inner.out_keys if is_env_key(k)}
+        new_reads = list(step.reads)
+        drop: set = set()
+        for i in range(nc):
+            bv = inner.invars[i]
+            chain = {id(bv)} | {w for w, root in canon.items() if root is bv}
+            if chain & out_ids:
+                continue
+            cands = [j for j, s in enumerate(inner.steps)
+                     if s.kind == "reshard" and s.program is not None and id(s.reads[0]) in chain]
+            if len(cands) != 1:
+                continue
+            j = cands[0]
+            rs = inner.steps[j]
+            if id(rs.writes[0]) in out_ids:
+                continue
+            # every other reader of the const's chain must be a chain alias
+            if any(j2 != j and any(id(r) in chain for r in s2.reads)
+                   and not (_is_free_alias(s2) and id(s2.writes[0]) in chain)
+                   for j2, s2 in enumerate(inner.steps)):
+                continue
+            proxy = ProxyVar("hoist.const")
+            out.append(dataclasses.replace(rs, reads=(new_reads[i],), writes=(proxy,)))
+            new_reads[i] = proxy
+            w, src = rs.writes[0], rs.reads[0]
+            for s2 in inner.steps:
+                if any(r is w for r in s2.reads):
+                    s2.reads = tuple(src if r is w else r for r in s2.reads)
+            inner.in_shardings[i] = rs.program.dst
+            inner.stats.remove_program(rs.program)
+            plan.stats.add_program(rs.program)
+            for _ in range(trips):
+                plan.stats.remove_program(rs.program)
+            drop.add(j)
+            rep.hoisted_reshards += 1
+            rep.wire_bytes_saved += max(trips - 1, 0) * rs.program.cost_bytes
+            rep.launch_s_saved += max(trips - 1, 0) * launch_s * _program_launches(rs.program)
+        if drop:
+            inner.steps[:] = [s for j, s in enumerate(inner.steps) if j not in drop]
+            step.reads = tuple(new_reads)
+            _refresh_inner_report(inner)
+            step.transient_bytes = inner.peak_bytes
+        out.append(step)
+    if rep.hoisted_reshards:
+        plan.steps[:] = out
+    return rep
+
+
+def _refresh_inner_report(inner: PartitionPlan) -> None:
+    """Bring a body plan up to date after an outer pass edited its steps:
+    its dead lists, step count and peak, and, where it was optimized, its
+    overlap schedule and its report's after-side counts (the verifier checks
+    every body plan's report against its steps)."""
+    rep = inner.opt_report
+    if rep is not None:
+        sched = schedule_overlap(inner)
+        rep.steps_after = len(inner.steps)
+        rep.collectives_after = whole_collective_launches(inner)
+        rep.wire_bytes_after = whole_wire_bytes(inner)
+        rep.overlap = dict(sched.detail, ratio=sched.overlap_ratio)
+    inner.relive()
+    inner.peak_bytes = plan_peak_bytes(inner)
 
 
 # ---------------------------------------------------------------------------------
@@ -611,13 +713,18 @@ def fuse_collectives(plan: PartitionPlan, bucket_bytes: Optional[float] = None) 
 def step_features(step: PlanStep, mesh) -> Tuple[float, float, float]:
     """(flops, wire bytes, launches) of one step: the machine-independent
     features every time model here is linear in.  A compute step's own
-    collectives count as launches."""
+    collectives count as launches; a scan step holds its body's at trip
+    count (its schedule is opaque here)."""
     if step.kind == "reshard" and step.program is not None:
         return 0.0, step.program.cost_bytes, float(_program_launches(step.program))
     if step.kind == "collective":
         return 0.0, _collective_step_wire_bytes(mesh, step), 1.0
     if step.kind == "fused":
         return 0.0, step.wire_bytes, 1.0
+    if step.inner is not None:
+        trips = step.call["trips"]
+        return (step.flops, trips * whole_wire_bytes(step.inner),
+                float(trips * whole_collective_launches(step.inner)))
     return step.flops, 0.0, float(_hidden_launches(step))
 
 
@@ -710,14 +817,16 @@ def schedule_overlap(plan: PartitionPlan) -> PassReport:
 
 def step_class(step: PlanStep) -> str:
     """Step taxonomy: ``reshard``, ``collective`` (psum family),
-    ``ppermute``, ``fused``, ``guard`` (the sentinel's stat and pack steps)
-    and ``compute``."""
+    ``ppermute``, ``fused``, ``call:scan`` (an opaque body plan), ``guard``
+    (the sentinel's stat and pack steps) and ``compute``."""
     if step.kind == "reshard":
         return "reshard"
     if step.kind == "collective":
         return "ppermute" if step.op == "ppermute" else "collective"
     if step.kind == "fused":
         return "fused"
+    if step.inner is not None:
+        return f"call:{step.op}"
     if (step.op or "").startswith("guard"):
         return "guard"
     return "compute"
@@ -770,12 +879,23 @@ def modeled_timeline(plan: PartitionPlan) -> List[Dict]:
 def optimize_plan(plan: PartitionPlan, bucket_bytes: Optional[float] = None) -> PartitionPlan:
     """Run the pass pipeline (inline, hoist, CSE, DCE, alias sinking, fusion,
     overlap scheduling) on ``plan`` in place and attach an
-    :class:`OptReport`.  ``bucket_bytes`` overrides the fusion cap; every
-    other price is the plan's profile, without which this raises."""
+    :class:`OptReport`: first on each scan body plan (innermost first, each
+    with its own report; this plan's ``PlanStats`` follow the body's at
+    trip count), then on this plan.  ``bucket_bytes`` overrides the fusion
+    cap; every other price is the plan's profile, without which this
+    raises."""
     _params(plan)
     steps_before = len(plan.steps)
     coll_before = whole_collective_launches(plan)
     bytes_before = whole_wire_bytes(plan)
+    for step in plan.steps:
+        if step.inner is not None:
+            inner, trips = step.inner, step.call["trips"]
+            plan.stats.add_inner(inner.stats, trips, sign=-1)
+            inner.params = plan.params
+            optimize_plan(inner, bucket_bytes)
+            plan.stats.add_inner(inner.stats, trips)
+            step.transient_bytes = inner.peak_bytes
     reports = [
         inline_pjit(plan),
         hoist_scan_invariants(plan),

@@ -25,11 +25,18 @@ collectives each compute step records that it runs inside itself);
 ``stats.steps`` the step count; ``opt_report.wire_bytes_after`` and
 ``plan.peak_bytes`` equal to fresh recomputations.
 
-Failures raise :class:`PlanVerifyError` with every violation found.  The
-checks of scan body plans are ROADMAP A9b; ``verify_state_reshard`` (the
-elastic restore's plans) is A14.  The simulation of a program is cached per
-(program, local shape, element size): a train plan holds thousands of
-reshards of a few hundred distinct programs.
+**Scan bodies.**  Every check recurses into each scan step's body plan
+(``PlanStep.inner``), with the step's path in the message: the body's own
+dataflow, specs and accounting, its stats against its own recount (the
+outer plan's recount counts the body at trip count, as ``PlanStats``
+does), a non-negative trip count, and the step's ``transient_bytes``
+equal to the body's peak.
+
+Failures raise :class:`PlanVerifyError` with every violation found.
+``verify_state_reshard`` (the elastic restore's plans) is ROADMAP A14.
+The simulation of a program is cached per (program, local shape, element
+size): a train plan holds thousands of reshards of a few hundred distinct
+programs.
 """
 from __future__ import annotations
 
@@ -117,9 +124,13 @@ def _check_perm(perm, axis_size: int, where: str, out: List[str]) -> None:
 
 
 def _recount(plan) -> Dict[str, int]:
-    """``PlanStats.collectives`` as the step list implies it."""
+    """``PlanStats.collectives`` as the step list implies it (scan bodies at
+    trip count)."""
     n: Dict[str, int] = collections.Counter()
     for s in plan.steps:
+        if s.inner is not None:
+            for kind, k in _recount(s.inner).items():
+                n[kind] += s.call.get("trips", 1) * k
         if s.kind == "reshard" and s.program is not None:
             for ps in s.program.steps:
                 n[ps.op.replace("_", "-")] += 1
@@ -135,46 +146,53 @@ def _recount(plan) -> Dict[str, int]:
     return n
 
 
-def _accounting_checks(plan, out: List[str]) -> None:
+def _accounting_checks(plan, out: List[str], path: str = "") -> None:
     from .plan import plan_peak_bytes
     from .plan_opt import whole_wire_bytes
 
     stats = {k: v for k, v in plan.stats.collectives.items() if v}
     for kind, v in stats.items():
         if v < 0:
-            out.append(f"stats: negative planned-collective count {kind}={v} "
+            out.append(f"{path}stats: negative planned-collective count {kind}={v} "
                        "(double removal in an optimizer pass)")
     recount = {k: v for k, v in _recount(plan).items() if v}
     for kind in sorted(set(stats) | set(recount)):
         if stats.get(kind, 0) != recount.get(kind, 0):
-            out.append(f"stats: planned-collective count {kind}={stats.get(kind, 0)} but the "
-                       f"step list runs {recount.get(kind, 0)} (a dropped or doubled step, or "
+            out.append(f"{path}stats: planned-collective count {kind}={stats.get(kind, 0)} but "
+                       f"the step list runs {recount.get(kind, 0)} (a dropped or doubled step, or "
                        "a compute step's recorded collectives changed)")
     if plan.stats.steps != len(plan.steps):
-        out.append(f"stats: steps={plan.stats.steps} but the plan has {len(plan.steps)}")
+        out.append(f"{path}stats: steps={plan.stats.steps} but the plan has {len(plan.steps)}")
     rep = plan.opt_report
     if rep is not None:
         try:
             recomputed = whole_wire_bytes(plan)
         except Exception as e:  # an unpriceable step (e.g. a bogus axis) is its own finding
-            out.append(f"accounting: whole-program bytes not recomputable ({e})")
+            out.append(f"{path}accounting: whole-program bytes not recomputable ({e})")
         else:
             if not _close(recomputed, rep.wire_bytes_after):
-                out.append(f"accounting: opt_report.wire_bytes_after {rep.wire_bytes_after:.1f}"
-                           f" != recomputed whole-program bytes {recomputed:.1f} (steps "
-                           "mutated after optimization?)")
+                out.append(f"{path}accounting: opt_report.wire_bytes_after "
+                           f"{rep.wire_bytes_after:.1f} != recomputed whole-program bytes "
+                           f"{recomputed:.1f} (steps mutated after optimization?)")
     if plan.peak_bytes:
         try:
             peak = plan_peak_bytes(plan)
         except Exception as e:
-            out.append(f"accounting: liveness peak not recomputable ({e})")
+            out.append(f"{path}accounting: liveness peak not recomputable ({e})")
         else:
             if not _close(peak, plan.peak_bytes):
-                out.append(f"accounting: plan.peak_bytes {plan.peak_bytes:.1f} != recomputed "
-                           f"liveness peak {peak:.1f}")
+                out.append(f"{path}accounting: plan.peak_bytes {plan.peak_bytes:.1f} != "
+                           f"recomputed liveness peak {peak:.1f}")
+    for i, s in enumerate(plan.steps):
+        if s.inner is not None:
+            where = f"{path}step[{i}] (scan)"
+            if not _close(s.transient_bytes, s.inner.peak_bytes):
+                out.append(f"{where}: transient_bytes {s.transient_bytes:.1f} != the body "
+                           f"plan's peak {s.inner.peak_bytes:.1f}")
+            _accounting_checks(s.inner, out, f"{where}.inner.")
 
 
-def _verify_body(plan, report: VerifyReport) -> None:
+def _verify_body(plan, report: VerifyReport, path: str = "") -> None:
     report.plans += 1
     out = report.violations
     mesh = plan.mesh
@@ -184,7 +202,7 @@ def _verify_body(plan, report: VerifyReport) -> None:
                                   for v, s in zip(plan.invars, plan.in_shardings)}
     for i, step in enumerate(plan.steps):
         report.steps += 1
-        where = f"step[{i}] ({step.kind}:{step.op or '?'})"
+        where = f"{path}step[{i}] ({step.kind}:{step.op or '?'})"
         # -- dataflow ---------------------------------------------------------
         for r in step.reads:
             if id(r) not in defined:
@@ -204,6 +222,12 @@ def _verify_body(plan, report: VerifyReport) -> None:
             out.append(f"{where}: negative write bytes {step.wbytes}")
         if any(k < 0 for k in step.collectives.values()):
             out.append(f"{where}: negative recorded collectives {step.collectives}")
+        if step.transient_bytes < 0:
+            out.append(f"{where}: negative transient_bytes {step.transient_bytes}")
+        if step.inner is not None:
+            if step.call.get("trips", 1) < 0:
+                out.append(f"{where}: negative trip count {step.call.get('trips')}")
+            _verify_body(step.inner, report, f"{where}.inner.")
         # -- kind-specific spec checks ---------------------------------------
         if step.kind == "reshard" and step.program is not None:
             prog = step.program
@@ -255,15 +279,15 @@ def _verify_body(plan, report: VerifyReport) -> None:
         if not is_env_key(k):
             continue
         if id(k) not in defined:
-            out.append(f"out_keys[{idx}]: {k!r} is never produced")
+            out.append(f"{path}out_keys[{idx}]: {k!r} is never produced")
         known = known_sh.get(id(k))
         if idx < len(plan.out_shardings) and plan.out_shardings[idx] is not None:
             want = plan.out_shardings[idx].dims_mapping
             if known is not None and known != want:
-                out.append(f"out_keys[{idx}]: layout {known} disagrees with out_shardings "
+                out.append(f"{path}out_keys[{idx}]: layout {known} disagrees with out_shardings "
                            f"{want}")
     if len(plan.out_keys) != len(plan.out_shardings):
-        out.append(f"out_keys/out_shardings length mismatch ({len(plan.out_keys)} vs "
+        out.append(f"{path}out_keys/out_shardings length mismatch ({len(plan.out_keys)} vs "
                    f"{len(plan.out_shardings)})")
 
 

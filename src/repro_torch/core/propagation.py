@@ -12,8 +12,15 @@ iterative, priority-based propagation:
 * user annotations (``repro_torch::annotate`` nodes) are preserved verbatim,
   except on their declared ``unspecified_dims`` (partial specification, §3.5).
 
-``make_fx`` inlines calls, so the graph has no sub-programs to recurse into;
-a control-flow node (the torch scan node) raises naming ROADMAP A9b.
+``make_fx`` inlines calls; the one sub-program a graph holds is the body of
+a scan node (``core/scan.py``), which propagates by the reference's
+``_apply_scan``: an inner propagation over the body, seeded with its own
+annotations, the outer operands' shardings (an x's without its leading
+scan dim) and the outer results' (a y's likewise), run to a fixed point of
+the carry (carry-out refines carry-in and back), and reflected out, the
+stacked xs and ys with their leading dim unsharded.  The inner
+propagations are kept per scan node (``PropagationResult.sub``), for the
+partitioner to partition the body under them.
 
 The result maps every tensor node of the graph to a ``Sharding``; the
 partitioner (partitioner.py) runs the graph on local shards under it.
@@ -26,7 +33,7 @@ from typing import Dict, List, Optional
 import torch.fx
 
 from .annotate import ANNOTATE_OP, decode
-from .rules import MAX_PRIORITY, PRIORITY, RULES, aval, lower
+from .rules import MAX_PRIORITY, PRIORITY, RULES, SCANS, aval, lower
 from .sharding import Mesh, Sharding, merge_shardings
 
 MaybeS = Optional[Sharding]
@@ -41,6 +48,7 @@ class Propagation:
         self.env: Dict[torch.fx.Node, Sharding] = {}
         self.locked: Dict[torch.fx.Node, frozenset] = {}  # locked dims per node
         self.changed = False
+        self.sub: Dict[torch.fx.Node, "Propagation"] = {}  # scan node -> its body's
         self.invars = [n for n in graph.nodes if n.op == "placeholder"]
         out = next(n for n in graph.nodes if n.op == "output")
         outs = out.args[0]
@@ -137,6 +145,9 @@ class Propagation:
             self.refine(eqn.node, self.get(x))
             self.refine(x, self.get(eqn.node))
             return
+        if eqn.name in SCANS:
+            self._apply_scan(eqn)
+            return
         rule = RULES.get(eqn.name)
         if rule is None or not (eqn.out_avals or eqn.tuple_outs):
             return
@@ -149,6 +160,44 @@ class Propagation:
             self.refine(v, s)
         for o, s in zip(outs, new_out):
             self.refine(o, s)
+
+    # -- scan -----------------------------------------------------------------------
+    def inner(self, eqn) -> "Propagation":
+        """The scan body's propagation for this node, seeded with the body's
+        annotations on first use."""
+        p = self.sub.get(eqn.node)
+        if p is None:
+            p = self.sub[eqn.node] = Propagation(eqn.params["body"].graph, self.mesh)
+            p.seed_annotations()
+        return p
+
+    def _apply_scan(self, eqn) -> None:
+        nc, nk = eqn.params["num_consts"], eqn.params["num_carry"]
+        inner = self.inner(eqn)
+        body_in, body_out = inner.invars, inner.outvars
+        consts, init, xs = eqn.invars[:nc], eqn.invars[nc:nc + nk], eqn.invars[nc + nk:]
+        outs = list(eqn.tuple_outs)
+        final, ys = outs[:nk], outs[nk:]
+        for _ in range(4):  # the carry's fixed point, bounded
+            before = {v: s.dims_mapping for v, s in inner.env.items()}
+            inner.seed_io([self.get(v) for v in consts] + [self.get(v) for v in init]
+                          + [drop0(self.get(v)) for v in xs],
+                          [self.get(v) for v in final] + [drop0(self.get(v)) for v in ys])
+            inner.run(max_rounds=4)
+            for i in range(nk):
+                cin, cout = body_in[nc + i], body_out[i]
+                inner.refine(cin, inner.get(cout))
+                inner.refine(cout, inner.get(cin))
+            if {v: s.dims_mapping for v, s in inner.env.items()} == before:
+                break
+        for ov, iv in zip(consts + init, body_in[:nc + nk]):
+            self.refine(ov, inner.get(iv))
+        for ov, iv in zip(xs, body_in[nc + nk:]):
+            self.refine(ov, add0(inner.get(iv)))
+        for ov, iv in zip(final, body_out[:nk]):
+            self.refine(ov, inner.get(iv))
+        for ov, iv in zip(ys, body_out[nk:]):
+            self.refine(ov, add0(inner.get(iv)))
 
     # -- the sweeps ---------------------------------------------------------------
     def run(self, max_rounds: int = 32) -> Dict[torch.fx.Node, Sharding]:
@@ -172,20 +221,39 @@ class Propagation:
     def _prio(eqn) -> int:
         if eqn.node.target is ANNOTATE_OP:
             return 0
+        if eqn.name in SCANS:
+            return 2
         return PRIORITY.get(eqn.name, MAX_PRIORITY)
 
     def result(self) -> "PropagationResult":
         """Freeze this propagation into a :class:`PropagationResult`."""
-        return PropagationResult(self.graph, self.mesh, dict(self.env))
+        return PropagationResult(self.graph, self.mesh, dict(self.env),
+                                 {n: p.result() for n, p in self.sub.items()})
+
+
+def drop0(s: MaybeS) -> MaybeS:
+    """A stacked value's sharding without its leading (scan) dim."""
+    if s is None or s.rank == 0:
+        return None
+    return Sharding(s.mesh, s.dims_mapping[1:])
+
+
+def add0(s: MaybeS) -> MaybeS:
+    """A trip's sharding with the leading scan dim, unsharded, put back."""
+    if s is None:
+        return None
+    return Sharding(s.mesh, ((),) + s.dims_mapping)
 
 
 @dataclasses.dataclass(frozen=True)
 class PropagationResult:
-    """Immutable view of a finished propagation: the partitioner's input."""
+    """Immutable view of a finished propagation: the partitioner's input.
+    ``sub`` holds each scan node's body propagation."""
 
     graph: torch.fx.Graph
     mesh: Mesh
     env: Dict[torch.fx.Node, Sharding]
+    sub: Dict[torch.fx.Node, "PropagationResult"] = dataclasses.field(default_factory=dict)
 
     def get(self, v) -> MaybeS:
         if not isinstance(v, torch.fx.Node):

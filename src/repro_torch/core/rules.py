@@ -79,6 +79,9 @@ FLASH_BWD = "repro_torch.flash_attention_bwd"
 FLASH_DECODE = "repro_torch.flash_decode"
 SSD = "repro_torch.ssd_scan"
 SSD_BWD = "repro_torch.ssd_scan_bwd"
+SCAN = "repro_torch.scan"
+SCAN_FWD = "repro_torch.scan_fwd"
+SCANS = (SCAN, SCAN_FWD)
 
 
 # ---------------------------------------------------------------------------------
@@ -150,12 +153,16 @@ def _tensor_args(args) -> list:
 
 
 def lower(node) -> Eqn:
-    """The equation view of a ``call_function`` node."""
+    """The equation view of a ``call_function`` node.  A scan node
+    (``repro_torch::scan`` or ``scan_fwd``, ``core/scan.py``) gets the
+    reference's params from its registry entry: ``num_consts``,
+    ``num_carry``, ``length``, ``reverse`` and the ``body`` (a
+    ``compat.Captured``); its invars are the consts, the init and the xs."""
     name = op_name(node)
     if name.startswith("higher_order."):
         raise NotImplementedError(
-            f"{name}: control-flow operators (the torch scan node) are not "
-            "partitioned yet (ROADMAP A9b)")
+            f"{name}: torch's control-flow operators are not partitioned; loops are "
+            "repro_torch.core.scan.scan")
     invars = _tensor_args(list(node.args) + list(node.kwargs.values()))
     in_avals = [aval(v) for v in invars]
     out = aval(node)
@@ -170,6 +177,12 @@ def lower(node) -> Eqn:
         for u in node.users:
             if u.target is operator.getitem:
                 tuple_outs[u.args[1]] = u
+    if name in SCANS:
+        from .scan import body_of
+
+        body = body_of(node.args[0])
+        params = {"num_consts": body.num_consts, "num_carry": body.num_carry,
+                  "length": body.length, "reverse": body.reverse, "body": body.captured}
     fn = _PARAMS.get(name)
     if fn is not None and (out is not None or tuple_avals):
         params = fn(node, in_avals, out if out is not None else tuple_avals)

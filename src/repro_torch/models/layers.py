@@ -1,5 +1,6 @@
 """Shared model layers: param declarations, norms, MLPs, embeddings, RoPE and
-the layer loop.
+the layer loop (``stack_layers``, a scan under capture where
+``cfg.scan_layers``, ``core/scan.py``).
 
 Layers are plain functions over explicit param trees (nested dicts of
 tensors), mirroring the JAX package.  Rounding points follow it exactly:
@@ -23,6 +24,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig, Strategy
+from ..core.scan import scan_or_loop
 from ..core.sharding import pad_to_multiple
 
 Params = Dict[str, Any]
@@ -248,25 +250,34 @@ def streamed_xent(cfg: ModelConfig, st: Strategy, x, embedding, labels):
     """The loss per chunk of ``cfg.xent_chunk`` positions, with logits in the
     compute dtype: the (B,S,V) float32 logits never exist at once.  The
     max-subtracted log-sum-exp is float32 over the compute-dtype logits, and
-    the chunks' sums add up in order, as the JAX package's scan does."""
+    the chunks' sums add up in order, as the JAX package's scan does: the
+    chunk loop is ``scan_or_loop`` over the chunks (one scan node under
+    capture with ``cfg.scan_layers``)."""
     B, S, M = x.shape
     Q = cfg.xent_chunk
     if S % Q:
         raise ValueError(f"sequence {S} is not a multiple of xent_chunk {Q}")
     V = embedding.shape[0]
-    mask = (torch.arange(V, device=x.device) < cfg.vocab_size) if V > cfg.vocab_size else None
     emb = embedding.to(x.dtype)
-    total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for n in range(S // Q):
-        xc, lc = x[:, n * Q:(n + 1) * Q], labels[:, n * Q:(n + 1) * Q]
+    consts = (emb,)
+    if V > cfg.vocab_size:
+        consts += (torch.arange(V, device=x.device) < cfg.vocab_size,)
+
+    def body(total, chunk, emb, *mask):
+        xc, lc = chunk
         logits = st.constrain(xc @ emb.t(), "batch", "seq", "vocab")
-        if mask is not None:
-            logits = torch.where(mask, logits, torch.full_like(logits, -1e4))
+        if mask:
+            logits = torch.where(mask[0], logits, torch.full_like(logits, -1e4))
         mx = logits.amax(dim=-1, keepdim=True).detach()  # the reference's stop_gradient
         z = widen(logits - mx)
         lse = torch.log(torch.exp(z).sum(dim=-1)) + widen(mx[..., 0])
         picked = widen(logits).gather(-1, lc[..., None])[..., 0]
-        total = total + (lse - picked).sum()
+        return total + (lse - picked).sum(), None
+
+    n = S // Q
+    chunks = (x.reshape(B, n, Q, M).movedim(1, 0), labels.reshape(B, n, Q).movedim(1, 0))
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    total, _ = scan_or_loop(body, total, chunks, cfg, consts=consts)
     return total / (B * S)
 
 
@@ -280,23 +291,6 @@ def layer_slice(params_stacked, i: int) -> Params:
     if isinstance(params_stacked, dict):
         return {k: layer_slice(v, i) for k, v in params_stacked.items()}
     return params_stacked[i]
-
-
-def layer_slices(params_stacked, n: int):
-    """The ``n`` layers' param trees as views, from one ``unbind`` per leaf.
-    Under autograd one unbind is one backward node that stacks the layers'
-    gradients, where ``n`` selects would each add a gradient the size of the
-    whole stack (n^2 / 2 stacks of traffic in the backward)."""
-    if isinstance(params_stacked, dict):
-        per_key = {k: layer_slices(v, n) for k, v in params_stacked.items()}
-        return [{k: per_key[k][i] for k in per_key} for i in range(n)]
-    return params_stacked.unbind(0)
-
-
-def num_stacked(params_stacked) -> int:
-    while isinstance(params_stacked, dict):
-        params_stacked = next(iter(params_stacked.values()))
-    return params_stacked.shape[0]
 
 
 # ``checkpoint_dots_with_no_batch_dims``: the products without batch dims,
@@ -339,32 +333,37 @@ def _dots_contexts():
 
 
 def stack_layers(layer_fn, params_stacked, x, cfg: ModelConfig, extra=None):
-    """Run a stack of identical layers as a Python loop (the JAX package's
-    ``scan_layers=False`` semantics).  ``params_stacked`` leaves have leading
-    dim L.  Where autograd records, each layer is rematerialized per
-    ``cfg.remat`` as the reference's ``jax.checkpoint`` does: "full"
-    recomputes the whole layer in the backward, "dots" saves only the
-    products without batch dims, "none" saves everything.  Remat changes
-    memory and launches, not values.  The layers draw no random numbers, so
-    no generator state is saved for the recompute (under graph capture
-    there is no real generator to read).  "dots" keeps its products by its
-    own pair of dispatch modes (``_SaveDots``, ``_ReuseDots``), which act
-    the same eagerly and under graph capture: there the recompute is a
-    second copy of the layer's other ops in the graph (its flash forward
-    and annotations among them), where ``torch.utils.checkpoint``'s own
+    """Run a stack of identical layers, as the JAX package's ``stack_layers``:
+    ``scan_or_loop`` over the layers (one scan node under graph capture with
+    ``cfg.scan_layers``, the body one layer; else, and always outside
+    capture, a Python loop, the layers' params sliced by one ``unbind`` per
+    leaf).  ``params_stacked`` leaves have leading dim L; ``extra`` is every
+    layer's loop-invariant input (the positions), the scan's const.  Where
+    autograd records, each layer is rematerialized per ``cfg.remat`` as the
+    reference's ``jax.checkpoint`` of the body does: "full" recomputes the
+    whole layer in the backward, "dots" saves only the products without
+    batch dims, "none" saves everything.  Remat changes memory and launches,
+    not values.  The layers draw no random numbers, so no generator state
+    is saved for the recompute (under graph capture there is no real
+    generator to read).  "dots" keeps its products by its own pair of
+    dispatch modes (``_SaveDots``, ``_ReuseDots``), which act the same
+    eagerly and under graph capture: there the recompute is a second copy
+    of the layer's other ops in the graph (its flash forward and
+    annotations among them), where ``torch.utils.checkpoint``'s own
     selective policy, seeing a proxy mode, would keep every output and
     leave the recompute to a compiler."""
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat {cfg.remat!r}")
-    remat = cfg.remat != "none" and torch.is_grad_enabled()
-    for lp in layer_slices(params_stacked, num_stacked(params_stacked)):
-        if not remat:
-            x = layer_fn(lp, x, extra)
-        elif cfg.remat == "full":
-            x = checkpoint(layer_fn, lp, x, extra, use_reentrant=False, preserve_rng_state=False)
-        else:
-            x = checkpoint(layer_fn, lp, x, extra, use_reentrant=False, preserve_rng_state=False,
-                           context_fn=_dots_contexts)
+
+    def body(carry, lp, *consts):
+        extra = consts[0] if consts else None
+        if cfg.remat == "none" or not torch.is_grad_enabled():
+            return layer_fn(lp, carry, extra), None
+        ctx = {} if cfg.remat == "full" else {"context_fn": _dots_contexts}
+        return checkpoint(layer_fn, lp, carry, extra, use_reentrant=False,
+                          preserve_rng_state=False, **ctx), None
+
+    x, _ = scan_or_loop(body, x, params_stacked, cfg, consts=() if extra is None else (extra,))
     return x
 
 

@@ -4,12 +4,11 @@ runs the SSD kernel once per layer; the decode step is recurrent and runs
 none."""
 from __future__ import annotations
 
-import torch
-
 from ..configs.base import ModelConfig, Strategy
+from ..core.scan import scan_or_loop
 from .layers import (
-    Params, embed_lookup, embed_params, layer_slice, pspec, rms_norm, softmax_xent,
-    stack_layers, stacked, unembed_logits,
+    Params, embed_lookup, embed_params, pspec, rms_norm, softmax_xent, stack_layers, stacked,
+    unembed_logits,
 )
 from .ssm import ssm_decode, ssm_forward, ssm_params, ssm_state_shapes
 
@@ -55,17 +54,18 @@ def cache_shapes(cfg: ModelConfig, st: Strategy, batch: int, max_len: int):
 
 def decode_step(cfg: ModelConfig, st: Strategy, params: Params, token, cache, pos: int):
     """One decode step.  token (B,1) int; cache {"s": (L,B,Hp,hd,ds),
-    "conv": (L,B,K-1,Hp,hd)}.  Returns the logits and a new cache, stacked
-    from the layers' new states as the reference's scan stacks them."""
+    "conv": (L,B,K-1,Hp,hd)}.  Returns the logits and a new cache, the
+    layers' new states as the ys of ``scan_or_loop`` over (layer params,
+    layer states), as the reference's."""
     x = embed_lookup(cfg, st, params["embed"], token)
-    s, conv = [], []
-    for i in range(cache["s"].shape[0]):
-        lp = layer_slice(params["layers"], i)
+
+    def body(x, layer):
+        lp, s, conv = layer
         h = rms_norm(x, lp["ln"])
-        h, new = ssm_decode(cfg, st, lp["mixer"], h, {"s": cache["s"][i], "conv": cache["conv"][i]})
-        x = x + h
-        s.append(new["s"])
-        conv.append(new["conv"])
+        h, new = ssm_decode(cfg, st, lp["mixer"], h, {"s": s, "conv": conv})
+        return x + h, (new["s"], new["conv"])
+
+    x, (s, conv) = scan_or_loop(body, x, (params["layers"], cache["s"], cache["conv"]), cfg)
     x = rms_norm(x, params["final_ln"])
     logits = unembed_logits(cfg, st, params["embed"], x)
-    return logits, {"s": torch.stack(s), "conv": torch.stack(conv)}
+    return logits, {"s": s, "conv": conv}

@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ModelConfig, Strategy
+from ..core.scan import scan
 from ..kernels import ops
 from . import attention as attn
 from .layers import (
@@ -137,22 +138,34 @@ def cache_shapes(cfg: ModelConfig, st: Strategy, batch: int, max_len: int):
 def decode_step(cfg: ModelConfig, st: Strategy, params: Params, token, cache, pos):
     """One decode step.  token (B,1) int; cache {"k","v"}: (L,B,T,KR,D); pos
     an int or a 0-d int32 tensor (kept on the device: the engine's).  Run
-    eagerly, the cache is updated in place at ``pos`` and returned; under
-    graph capture the step returns a new cache, stacked from the layers'
-    new caches as the reference's scan stacks them."""
+    eagerly, the cache is updated in place at ``pos`` and returned, layer by
+    layer.  Under graph capture the step returns a new cache: with
+    ``cfg.scan_layers`` the layer loop is a scan over (layer params, layer
+    caches) whose ys are the layers' new caches, as the reference's; else
+    the layers' new caches stacked."""
     _require_dense(cfg)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=token.device)
     x = embed_lookup(cfg, st, params["embed"], token)
-    ks, vs = [], []
-    for i in range(cache["k"].shape[0]):
-        x, ck, cv = decode_layer(
-            cfg, st, layer_slice(params["layers"], i), x,
-            cache["k"][i], cache["v"][i], pos,
-        )
-        ks.append(ck)
-        vs.append(cv)
+    if cfg.scan_layers and ops._capturing(x):
+        def body(x, layer, pos):
+            lp, ck, cv = layer
+            x, ck, cv = decode_layer(cfg, st, lp, x, ck, cv, pos)
+            return x, (ck, cv)
+
+        x, (k, v) = scan(body, x, (params["layers"], cache["k"], cache["v"]), consts=(pos,),
+                         unroll=cfg.scan_unroll)
+        cache = {"k": k, "v": v}
+    else:
+        ks, vs = [], []
+        for i in range(cache["k"].shape[0]):
+            x, ck, cv = decode_layer(
+                cfg, st, layer_slice(params["layers"], i), x,
+                cache["k"][i], cache["v"][i], pos,
+            )
+            ks.append(ck)
+            vs.append(cv)
+        if ops._capturing(x):
+            cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
     x = rms_norm(x, params["final_ln"])
     logits = unembed_logits(cfg, st, params["embed"], x)
-    if ops._capturing(x):
-        cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
     return logits, cache

@@ -6,8 +6,11 @@ the JAX package's ``train/loop.py``).
   loss (compute dtype) -> gradients of the float32 master weights ->
   [bf16 exchange + float32 error feedback] -> optimizer update.
 PyTorch runs it eagerly; the update lands in place (the reference donates
-its state to ``jit``).  Gradient accumulation loops over microbatches and
-sums their gradients in float32; remat is the model config's
+its state to ``jit``).  Gradient accumulation is the reference's
+microbatch loop: ``scan_or_loop`` over the microbatches with the gradient
+inside the body, the float32 gradients summed in order (one scan node
+under capture with ``cfg.scan_layers``, holding the layer stack's scan and
+its reverse scan); remat is the model config's
 (``models/layers.py::stack_layers``).  ``TrainLoop.run`` records per-step
 wall times and tokens per second and flags straggler steps (> k x median)
 through a hook.
@@ -39,9 +42,8 @@ skips, calls the ``numerics_fault`` hook, and raises ``NumericsFault`` after
 
 Not ported yet, and refused where asked for: checkpoint/restart and the
 rewind to a checkpoint (``TrainConfig.ckpt_dir``: ``train/checkpoint.py``,
-ROADMAP A14), the ``obs`` metrics and control events (A15; the loop calls
-its hooks only) and ``grad_accum`` > 1 under a mesh (its microbatch loop is
-the scan of A9b).  The dense family and Mamba2 train (attention's and the
+ROADMAP A14) and the ``obs`` metrics and control events (A15; the loop
+calls its hooks only).  The dense family and Mamba2 train (attention's and the
 SSD's gradients are kernels on the card: ``kernels/ops.py``); the families
 with no model yet raise (ROADMAP A12).
 """
@@ -57,6 +59,7 @@ import torch
 from ..configs.base import ModelConfig, Strategy
 from ..core.compat import get_abstract_mesh, set_mesh
 from ..core.plan import GuardConfig, NumericsFault, guard_faults
+from ..core.scan import scan_or_loop
 from ..core.device import resolve_device
 from ..core.tree import leaves, leaves_with_paths, tree_from_paths, tree_map
 from ..models import api
@@ -98,29 +101,35 @@ def _require_trainable(cfg: ModelConfig, tc: TrainConfig):
 def value_and_grad(cfg: ModelConfig, st: Strategy, params, batch, grad_accum: int = 1):
     """(loss, grads) of ``api.loss_fn``: with ``grad_accum`` > 1 the batch is
     split into that many microbatches along its first dim, whose losses and
-    float32 gradients are summed in order and divided by their count."""
+    float32 gradients are summed in order (``scan_or_loop`` over the
+    microbatches, the params its consts, the gradient taken inside the
+    body, as the reference's ``grads_of``) and divided by their count."""
     pairs = leaves_with_paths(params)
     flat = [leaf for _, leaf in pairs]
 
-    def one(mb):
-        loss = api.loss_fn(cfg, st, params, mb)
-        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    def one(leaves, mb):
+        tree = tree_from_paths((path, leaf) for (path, _), leaf in zip(pairs, leaves))
+        loss = api.loss_fn(cfg, st, tree, mb)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         return loss.detach(), [torch.zeros_like(p) if g is None else g
-                               for p, g in zip(flat, grads)]
+                               for p, g in zip(leaves, grads)]
 
     if grad_accum <= 1:
-        loss, grads = one(batch)
+        loss, grads = one(flat, batch)
     else:
         B = batch["tokens"].shape[0]
         if B % grad_accum:
             raise ValueError(f"batch {B} is not a multiple of grad_accum {grad_accum}")
         mbs = {k: v.reshape((grad_accum, B // grad_accum) + v.shape[1:]) for k, v in batch.items()}
-        loss = torch.zeros((), dtype=torch.float32, device=flat[0].device)
-        grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in flat]
-        for i in range(grad_accum):
-            l, g = one({k: v[i] for k, v in mbs.items()})
-            loss = loss + l
-            grads = [a + b for a, b in zip(grads, g)]
+
+        def micro(carry, mb, *leaves):
+            loss_sum, g_sum = carry
+            l, g = one(list(leaves), mb)
+            return (loss_sum + l, [a + b for a, b in zip(g_sum, g)]), None
+
+        zero = (torch.zeros((), dtype=torch.float32, device=flat[0].device),
+                [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in flat])
+        (loss, grads), _ = scan_or_loop(micro, zero, mbs, cfg, consts=tuple(flat))
         inv = 1.0 / grad_accum
         loss, grads = loss * inv, [g * inv for g in grads]
     return loss, tree_from_paths((path, g) for (path, _), g in zip(pairs, grads))
@@ -218,13 +227,14 @@ def _keep(fault):
     return lambda old, new: torch.where(fault, old, new)
 
 
-def sharded_value_and_grad(cfg: ModelConfig, st: Strategy, mesh):
+def sharded_value_and_grad(cfg: ModelConfig, st: Strategy, mesh, grad_accum: int = 1):
     """The program ``(params, batch) -> (loss, grads)`` of the partitioned
     step: params annotated at entry by their declared specs filtered to
     ``mesh``, tokens and labels on ("data",), the gradient taken with
-    autograd inside the program.  The program sets ``mesh`` as the ambient
-    mesh while it runs, so that the model's own annotations
-    (``Strategy.constrain``) apply wherever the step is called from."""
+    autograd inside the program (``value_and_grad``, with ``grad_accum``
+    microbatches).  The program sets ``mesh`` as the ambient mesh while it
+    runs, so that the model's own annotations (``Strategy.constrain``)
+    apply wherever the step is called from."""
     with set_mesh(mesh):
         decls = api.param_tree(cfg, st)
 
@@ -234,16 +244,9 @@ def sharded_value_and_grad(cfg: ModelConfig, st: Strategy, mesh):
             batch = {k: annotate_spec(v, ("data",), mesh) for k, v in batch.items()}
             live = tree_map(lambda p: p.detach().requires_grad_(), params)
             with torch.enable_grad():
-                return value_and_grad(cfg, st, live, batch)
+                return value_and_grad(cfg, st, live, batch, grad_accum)
 
     return program
-
-
-def _refuse_unpartitioned(cfg: ModelConfig, tc: TrainConfig):
-    if tc.grad_accum > 1:
-        raise NotImplementedError(
-            f"the partitioned train step does not cover grad_accum {tc.grad_accum} (its "
-            "microbatch loop is the scan of ROADMAP A9b)")
 
 
 def _with_faults(nf: Optional[NumericFaultSpec], step: torch.Tensor, loss, grads):
@@ -302,13 +305,12 @@ def partitioned_train_step(cfg: ModelConfig, st: Strategy, opt: Optimizer, tc: T
     runner is ``step.runner``."""
     from ..core.partitioner import spmd_partition
 
-    _refuse_unpartitioned(cfg, tc)
     with set_mesh(mesh):
         decls = api.param_tree(cfg, st)
     pspecs = tree_specs(decls)
     ospecs = opt_state_specs(opt, pspecs, tree_shapes(decls, cfg.param_dtype))
 
-    grad_program = sharded_value_and_grad(cfg, st, mesh)
+    grad_program = sharded_value_and_grad(cfg, st, mesh, tc.grad_accum)
     gc = tc.guard
 
     def program(params, opt_state, step, batch, *ef):

@@ -1113,3 +1113,99 @@ def test_optimized_gradient_plan_on_cuda_equals_unoptimized(cuda):
     assert got_launches == want_launches and want_launches[1] == cfg.num_layers
     assert all(torch.equal(a, b) for a, b in zip(want, got))
     assert entry.plan.opt_report.steps_after < entry.plan.opt_report.steps_before
+
+
+def test_scan_node_on_cuda_under_capture(cuda):
+    """The scan node (``core/scan.py``) on CUDA tensors with the card's
+    torch: captured with a gradient recorded through it (one ``scan_fwd``
+    node, its gradient one reverse ``scan`` node), the graph run on the card
+    equal to the eager loop within f32 (values and the gradients of the
+    consts, the carry and the xs), and the same program partitioned on the
+    simulated mesh (a scan call step with its body plan) equal to it
+    within f32_chain, compiled and dynamic."""
+    import collections
+
+    from repro_torch.core import Mesh, annotate, mesh_split
+    from repro_torch.core.compat import capture
+    from repro_torch.core.partitioner import spmd_partition
+    from repro_torch.core.scan import scan
+
+    mesh = Mesh.create((2, 4), ("x", "y"))
+    g = torch.Generator(device=cuda).manual_seed(11)
+    W, x0, c = (torch.randn(s, generator=g, device=cuda) for s in ((3, 16, 16), (8, 16), (16,)))
+
+    def body(carry, w, c):
+        w = annotate(w, mesh_split(2, mesh, [-1, "y"]))
+        h = torch.tanh(carry @ w + c)
+        return h, h.sum(-1)
+
+    def prog(W, x0, c):
+        W, x0, c = (t.detach().requires_grad_() for t in (W, x0, c))
+        with torch.enable_grad():
+            h, ys = scan(body, annotate(x0, mesh_split(2, mesh, ["x", -1])), W, consts=(c,))
+            loss = h.sum() + (ys * ys).sum()
+            return (loss, ys) + torch.autograd.grad(loss, [W, x0, c])
+
+    want = prog(W, x0, c)
+    cap = capture(prog, W, x0, c)
+    ops_ = collections.Counter(str(n.target) for n in cap.graph.nodes if n.op == "call_function")
+    assert (ops_["repro_torch.scan_fwd.default"], ops_["repro_torch.scan.default"]) == (1, 1)
+    for a, b in zip(cap.gm(W, x0, c), want):
+        assert a.is_cuda
+        assert_close(a, b, "f32")
+    for compiled in (True, False):
+        runner = spmd_partition(prog, mesh, compile_plans=compiled, optimize=False)
+        for a, b in zip(runner(W, x0, c), want):
+            assert_close(a, b, "f32_chain")
+        if compiled:
+            (entry,) = runner.plans.values()
+            assert [s.op for s in entry.plan.steps].count("scan") == 2
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "mamba2-130m"])
+def test_scanned_gradient_program_on_cuda_equals_unrolled(cuda, arch):
+    """The partitioned train step's gradient program at reduced width (d128,
+    4 heads on "model") cut to two layers, float32, remat "dots", with the
+    layer loop scanned and unrolled, on the card: the same kernel launches
+    per call (qwen: 4 flash forward, 2 backward; Mamba2: 4 SSD forward, 2
+    backward, all eight devices in each) and the same values: Mamba2 bit for
+    bit (its kernels repeat bit for bit), qwen within f32_chain (the flash
+    backward sums dq in another order run to run)."""
+    from repro_torch.core.compat import set_mesh
+    from repro_torch.core.partitioner import spmd_partition
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.train.loop import sharded_value_and_grad
+
+    cfg = reduced_config(get_config(arch), 8).with_(dtype="float32", num_layers=2, remat="dots")
+    if arch == "mamba2-130m":
+        cfg = cfg.with_(d_model=128)
+    st, mesh = get_strategy("2d_finalized"), make_test_mesh()
+    with set_mesh(mesh):
+        params = tree_init(api.param_tree(cfg, st), torch.Generator("cuda").manual_seed(5),
+                           dtype="float32", device="cuda")
+    tok = torch.from_numpy(np.random.default_rng(6).integers(0, cfg.vocab_size, (8, 65)))
+    batch = {"tokens": tok[:, :-1].cuda(), "labels": tok[:, 1:].cuda()}
+    params = tree_map(torch.Tensor.detach, params)
+    mods = (fa, fab, ssd_kernel, ssd_bwd_kernel)
+    runs = []
+    for scan_layers in (True, False):
+        c = cfg.with_(scan_layers=scan_layers)
+        with set_mesh(mesh):
+            runner = spmd_partition(sharded_value_and_grad(c, st, mesh), mesh, optimize=False)
+        runner(params, batch)
+        for mod in mods:
+            mod.launches = 0
+        loss, grads = runner(params, batch)
+        torch.cuda.synchronize()
+        runs.append(([loss] + leaves(grads), tuple(mod.launches for mod in mods)))
+        if scan_layers:
+            (entry,) = runner.plans.values()
+            assert len(entry.plan.body_plans()) == 2 and runner.fallback_gathers == []
+    (scanned, launched_s), (unrolled, launched_u) = runs
+    want = (4, 2, 0, 0) if arch == "qwen1.5-0.5b" else (0, 0, 4, 2)
+    assert launched_s == launched_u == want
+    for a, b in zip(scanned, unrolled):
+        if arch == "mamba2-130m":
+            assert torch.equal(a, b)
+        else:
+            assert_close(a, b, "f32_chain")

@@ -17,8 +17,8 @@ package's (``tests/test_plan_opt.py``'s programs and cases).
   of qwen (2d_finalized) and Mamba2 (float32) optimized equal them
   unoptimized bit for bit, with the same kernel operator steps.
 
-The reference's two inline tests (R1: its pjit pass does not fire on jax
-0.9.0) and its scan-hoist tests wait for the torch scan node (ROADMAP A9b).
+The reference's two inline tests stay out (R1: its pjit pass does not fire
+on jax 0.9.0); its scan-hoist tests are in tests/test_torch_scan.py.
 """
 import collections
 

@@ -10,8 +10,9 @@ permutation, an axis not in the mesh, negative costs and counters, a
 cost-bytes mismatch and a wire-accounting mismatch.  The port adds a check
 the reference's plans do not need: the collectives a compute step runs
 inside itself (a ``LocalOp``'s) are recorded on the step, and a plan whose
-record was dropped no longer matches its ``PlanStats``.  The scan-body and
-state-reshard cases wait for ROADMAP A9b and A14.
+record was dropped no longer matches its ``PlanStats``.  The scan-body
+cases are in tests/test_torch_scan.py; the state-reshard cases wait for
+ROADMAP A14.
 """
 import dataclasses
 

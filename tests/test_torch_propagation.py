@@ -219,22 +219,35 @@ def test_einsum_and_bias_chain_completion():
 
 
 def test_scan_node_waits_for_a9():
-    """The reference completes through ``lax.scan`` (its carry fixed point,
-    tests/test_propagation.py::test_scan_carry_fixed_point); the port's torch
-    scan node arrives with ROADMAP A9 and until then is refused by name."""
-    from torch._higher_order_ops.scan import scan
+    """A scan captured by the port (``core/scan.py``: one ``repro_torch::scan``
+    node) completes through its body as the reference's ``lax.scan`` does
+    (tests/test_propagation.py::test_scan_carry_fixed_point): the carry's
+    fixed point keeps x's ("x", -1) on the result, and the stacked weights
+    take the body's annotation with their leading (scan) dim unsharded."""
+    from repro_torch.core.scan import scan
 
     def f(x, ws):
+        x = annotate(x, mesh_split(2, MESH, ["x", -1]))
+
         def body(c, w):
-            return torch.tanh(c @ w), c.sum(0)
+            w = annotate(w, mesh_split(2, MESH, [-1, "y"]))
+            return torch.tanh(c @ w), None
+
         return scan(body, x, ws)[0]
 
-    try:
-        cap = capture(f, torch.ones(8, 16), torch.ones(3, 16, 16))
-    except Exception as e:  # this torch cannot capture the scan node at all
-        pytest.fail(f"capture of a scan failed: {e!r}")
-    with pytest.raises(NotImplementedError, match="A9"):
-        propagate(cap, MESH)
+    def g(x, ws):
+        x = jannotate(x, jsplit(2, JMESH, ["x", -1]))
+
+        def body(c, w):
+            w = jannotate(w, jsplit(2, JMESH, [-1, "y"]))
+            return jnp.tanh(c @ w), ()
+
+        return jax.lax.scan(body, x, ws)[0]
+
+    (ins, outs, _), prop = check_parity(f, g, (8, 16), (3, 16, 16))
+    assert ins[1] == ((), (), ("y",)) and outs[0][0] == ("x",)
+    (node,) = [n for n in prop.graph.nodes if str(n.target) == "repro_torch.scan.default"]
+    assert node in prop.sub  # the body's own completion, kept for the partitioner
 
 
 def test_gspmd_jit_numeric():

@@ -67,7 +67,10 @@ FLASH_DECODE = "repro_torch.flash_decode"
 
 def _configs(arch, dtype):
     jcfg = jax_reduced_config(jax_get_config(arch), REDUCE[arch]).with_(dtype=dtype)
-    return jcfg, reduced_config(get_config(arch), REDUCE[arch]).with_(dtype=dtype)
+    # the port's layer loop unrolled: the plan-step counts below are of the
+    # unrolled plan (tests/test_torch_scan.py serves the scanned one)
+    return jcfg, reduced_config(get_config(arch), REDUCE[arch]).with_(dtype=dtype,
+                                                                      scan_layers=False)
 
 
 @functools.lru_cache(maxsize=None)
@@ -273,7 +276,8 @@ def test_full_width_qwen_decode_step_prices_on_meta_tensors():
     layers, d1024, 16 heads, B8, a 1,024-row cache; bf16 params as the
     reference's dry-run serves them) on meta tensors under 2d_finalized:
     its plan steps, collectives by kind and modeled per-device peak, with
-    one decode operator per layer and no fallback that gathers."""
+    one decode operator per layer (the layer loop is one scan: its body
+    plan's steps count once per trip) and no fallback that gathers."""
     from repro_torch.core.plan import lower_plan
     from repro_torch.models.layers import tree_shapes
 
@@ -285,9 +289,10 @@ def test_full_width_qwen_decode_step_prices_on_meta_tensors():
         pos = torch.empty((), dtype=torch.int32, device="meta")
         cap = capture(api.partitionable_decode(cfg, st, MESH), params, token, cache, pos)
     plan = lower_plan(cap, None, MESH, optimize=False)
-    kinds = collections.Counter(s.op for s in plan.steps if s.kind == "collective")
-    kinds.update(step.op for s in plan.steps if s.kind == "reshard" for step in s.program.steps)
-    assert collections.Counter(s.op for s in plan.steps)[FLASH_DECODE] == cfg.num_layers
+    steps = list(plan.steps) + [s for b in plan.body_plans() for s in b.steps]
+    kinds = collections.Counter(s.op for s in steps if s.kind == "collective")
+    kinds.update(step.op for s in steps if s.kind == "reshard" for step in s.program.steps)
+    assert plan.op_counts()[FLASH_DECODE] == cfg.num_layers
     assert plan.fallback_gathers == []
     assert plan.peak_bytes > 0
     print(f"\nqwen1.5-0.5b decode step, B8 T1024, 2d_finalized on (2,4): {len(plan.steps)} plan "

@@ -202,7 +202,8 @@ def test_partitioned_mamba2_loss_matches_reference(strategy, reduce, dtype):
     psum.  No fallback gathers a sharded dim, and the captured graph holds
     exactly one SSD operator per layer."""
     np_tree, batch = _weights(reduce)
-    cfg = reduced_config(get_config("mamba2-130m"), reduce).with_(dtype=dtype)
+    # the layer loop unrolled: the SSD operators are counted in the graph
+    cfg = reduced_config(get_config("mamba2-130m"), reduce).with_(dtype=dtype, scan_layers=False)
     st = get_strategy(strategy)
     params = padded_params(np_tree, cfg, st, MESH)
     tb = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
@@ -373,7 +374,7 @@ def test_partitioned_mamba2_train_step_matches_reference(strategy):
     nothing), and the plan holds per layer two SSD forward steps (remat
     "dots", the config's default, recomputes it) and one backward step."""
     np_tree, batch, jloss, jnorm, jparams = _reference_step()
-    cfg = reduced_config(get_config("mamba2-130m"), 8).with_(**TRAIN_FIELDS)
+    cfg = reduced_config(get_config("mamba2-130m"), 8).with_(scan_layers=False, **TRAIN_FIELDS)
     st = get_strategy(strategy)
     params = tree_map(lambda p: p.requires_grad_(True), padded_params(np_tree, cfg, st, MESH))
     opt = get_optimizer("adafactor", lr=0.05)
@@ -473,7 +474,7 @@ def test_partitioned_mamba2_step_options_match_the_unsharded_step(option):
     values 3.7e-3 apart after step 2); under the window NaN in every param
     of both after step 2; one plan for the run."""
     np_tree, _, _, _, _ = _reference_step()
-    cfg = reduced_config(get_config("mamba2-130m"), 8).with_(**TRAIN_FIELDS)
+    cfg = reduced_config(get_config("mamba2-130m"), 8).with_(scan_layers=False, **TRAIN_FIELDS)
     st, opt = get_strategy("2d_finalized"), get_optimizer("adafactor", lr=0.05)
     tc = (TrainConfig(compress_grads=True) if option == "compress_grads" else
           TrainConfig(numeric_fault=NumericFaultSpec(nan_at_step=2, grad_spike_at_step=1)))

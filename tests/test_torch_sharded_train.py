@@ -324,24 +324,21 @@ def test_train_loop_under_the_mesh_matches_the_unsharded_loop():
     assert (stats.misses, stats.hits) == (1, 2)
 
 
-@pytest.mark.parametrize("kw,item", [({"remat": "dots"}, "remat"), ({"grad_accum": 2}, "A9"),
+@pytest.mark.parametrize("kw,item", [({"remat": "dots"}, "remat"),
+                                     ({"grad_accum": 2}, "grad_accum"),
                                      ({"compress_grads": True}, "compress_grads")])
 def test_the_partitioned_step_refuses_what_it_does_not_cover(kw, item):
-    """Of the settings the partitioned step once refused, only grad_accum > 1
-    still is (its microbatch loop is A9's scan); remat and compress_grads
-    build a partitioned step (tests/test_torch_sharded_options.py runs
-    them)."""
+    """Every setting the partitioned step once refused now builds it: remat
+    and compress_grads (tests/test_torch_sharded_options.py runs them) and,
+    since the scan node, grad_accum > 1 (its microbatch loop a scan:
+    tests/test_torch_scan.py runs it against the reference)."""
     cfg_kw = {k: v for k, v in kw.items() if k == "remat"}
     tc_kw = {k: v for k, v in kw.items() if k != "remat"}
     cfg = ModelConfig(**CFG_FIELDS).with_(**cfg_kw)
     make = lambda: make_train_step(cfg, get_strategy("2d_finalized"),
                                    get_optimizer("adafactor"), TrainConfig(**tc_kw))
     with set_mesh(MESH):
-        if item == "A9":
-            with pytest.raises(NotImplementedError, match=item):
-                make()
-        else:
-            assert make().runner is None  # built; it captures at its first call
+        assert make().runner is None, item  # built; it captures at its first call
 
 
 def _trim(spec):

@@ -301,6 +301,7 @@ def test_captured_gradient_holds_one_ssd_bwd_node_per_layer(remat):
     so its graph holds two SSD forward nodes per layer.  The cost model
     prices each gradient node (``analysis/graph_cost.py::ssd_bwd_flops``)."""
     _, cfg = _cfgs("float32", remat=remat)
+    cfg = cfg.with_(scan_layers=False)  # the layers unrolled: their nodes are counted in the graph
     _, tb = _batch(cfg)
     flat = tree_map(torch.Tensor.detach, _port_params(cfg))
 
