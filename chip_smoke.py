@@ -96,8 +96,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    trained by ``TrainLoop`` under ``set_mesh`` on ("data" 2, "model" 4),
    the whole step one program through the partitioner (2d_finalized with
    24 layers at B8 S512 under remat "none" for three steps, "full" and
-   "dots" for two, each held against "none", and "dots" at B4 S2048 for
-   two; 2d_attempt1 and 2d_attempt2 with two layers for two), against the
+   "dots" for two, each held against "none", and "dots" at B4 S2048 with
+   eight layers (cut from 24 for the script's time limit) for two;
+   2d_attempt1 and 2d_attempt2 with two layers for two), against the
    same loop unsharded on the card: losses, the step-0 gradient and
    update, per step one flash forward launch per layer (two under remat)
    and one backward call per layer for all eight devices, no gathering
@@ -109,7 +110,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the unsharded steps; then mamba2-130m's train step partitioned (the
    three Table-1 strategies at two layers in float32, B8 S512, step 0's
    loss and each gradient leaf held in norm to the unsharded step; eight
-   layers under 2d_finalized in float32 (cut from 24: scan_phase runs 24), its loss held
+   layers under 2d_finalized in float32 (cut from 24 for the time limit), its loss held
    and its gradient read beside the floor of the unsharded step's own two
    computations, and two steps of ``TrainLoop`` under ``set_mesh`` read
    against the unsharded loop; the same eight-layer step and two loop steps in float64,
@@ -124,7 +125,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
    calls per forward, each one call for all eight devices); and
    ``Engine(slots=8, max_len=1024)`` under ``set_mesh`` (the decode step
    one program, its position an int32 on the card, one plan for the run)
-   for qwen1.5-0.5b (eight layers, cut from 24: scan_phase serves 24; bf16), mamba2-130m
+   for qwen1.5-0.5b (eight layers, cut from 24 for the time limit; bf16), mamba2-130m
    (eight layers, bf16 and float32), the two earlier Table-1 attempts
    (qwen, two layers) and qwen (eight layers) with its
    kv cache sharded on the sequence (``shard_kv_seq``: 2d_attempt1 with 8
@@ -158,20 +159,39 @@ Phases, each of which raises (and so exits non-zero) on failure:
    this run: each path captured with the layer loop scanned (one scan node
    whose body plan runs once per trip) and unrolled, run in turns
    (scanned, unrolled, unrolled, scanned) with unoptimized plans, and the
-   scanned plan once more optimized: qwen1.5-0.5b's partitioned train step (24 layers,
-   2d_finalized, B8 S512, bf16) under remat "none" and "dots" (loss within
+   scanned plan once more optimized: qwen1.5-0.5b's partitioned train step
+   (2d_finalized, B8 S512, bf16) under remat "none" and "dots" (eight
+   layers each; ``SCAN_LAYERS``, cut for the script's time limit) (loss within
    f32_chain, each gradient leaf within bf16_grad in norm, flash launches
    equal, a planted dropped psum in the reverse body beyond the limit),
-   mamba2-130m's (float32, "dots"; SSD launches equal; in float64 on the
-   plain route within 1e-8), qwen's with ``grad_accum`` 2 against the
-   unsharded ``grad_accum`` 2 step (nested body plans), and ``Engine`` for
-   qwen (2d_attempt1, ``shard_kv_seq``, bf16; the float32 twin's planted
+   mamba2-130m's (eight layers, float32, "dots"; SSD launches equal; in
+   float64 on the plain route within 1e-8), qwen's (eight layers) with
+   ``grad_accum`` 2 against the
+   unsharded ``grad_accum`` 2 step (nested body plans), and ``Engine`` (eight
+   layers) for qwen (2d_attempt1, ``shard_kv_seq``, bf16; the float32 twin's planted
    faults inside the body) and Mamba2 (float32): tokens equal, no more
    plan steps holding a whole stacked cache than the unrolled plan; every
    plan verified, the optimized scanned plan equal to the unoptimized one
    where that repeats itself, no fallback gather; plan steps (top level and
    body), first-call seconds, host ms, device busy and peak beside the
-   plan's modeled peak.
+   plan's modeled peak;
+11. GSPMD §3.3 pipelining, in a process of its own: the gradient of
+   ``api.partitionable_pipelined_loss`` (the layer stack stage-stacked,
+   one stage body vmapped over four stages, a 7-tick shifting-buffer
+   scan, B8 S512 in four microbatches) through the partitioner on a
+   simulated ("stage" 4, "model" 2) mesh, 2d_finalized, remat "none", for
+   qwen1.5-0.5b at 24 layers in float32 and bf16 and mamba2-130m at eight
+   in float32, against the unpipelined partitioned gradient on the same
+   mesh and the unsharded one: losses and gradient leaves within their
+   classes, 42 + 42 flash (Mamba2: 14 + 14 SSD) calls a call, each one
+   launch for every stage and device, one ppermute a tick each way (14 a
+   call) moving one stage row, no gathering fallback (scan bodies'
+   included), no other collective over "stage" in a tick body than the
+   hop and the row sum's psum, every plan verified, and a planted
+   wrong-direction ppermute that must fail by 10x;
+   first-call seconds, plan steps, host ms, device busy and peak beside the
+   plan's modeled peak; with a kernel case at its folded shape in 2 and
+   2b.
 
 Every path runs with the kernels' launch counts set to 0 just before it and
 read just after.  The last two lines of output are the kernels' JSON record
@@ -581,6 +601,11 @@ def kernel_phase(seed):
     cases.append(kernel_case("partitioned_train_fold_32x512_kr4", B=32, S=512, T=512, KR=4,
                              Gl=1, D=64, dtype=bf16, causal=True, chunk=512, layout="model",
                              gen=gen))
+    # the pipelined step's forward (pipeline_phase): 8 devices x the stage's
+    # microbatch 2, S512, KR 16 / 2 on "model", every stage in one launch
+    cases.append(kernel_case("pipeline_fold_16x512_kr8", B=16, S=512, T=512, KR=8, Gl=1,
+                             D=64, dtype=bf16, causal=True, chunk=512, layout="model",
+                             gen=gen))
     cases.append(kernel_case("prefill_d32_1x8x2048", B=1, S=2048, T=2048, KR=8, Gl=1, D=32,
                              dtype=bf16, causal=True, chunk=1024, layout="model", gen=gen))
     cases.append(kernel_case("prefill_ragged_1000", B=2, S=1000, T=1000, KR=16, Gl=1, D=64,
@@ -734,6 +759,10 @@ def bwd_phase(seed):
         # (B8 on "data" 2), S512, KR 16 / 4 on "model"; 24 per step
         bwd_case("partitioned_train_fold_32x512_kr4", B=32, S=512, KR=4, Gl=1, D=64,
                  dtype=bf16, causal=True, gen=gen),
+        # the pipelined step's call, folded: 8 devices x the stage's microbatch
+        # 2, S512, KR 16 / 2 on "model"; 42 per call (6 layers x 7 ticks)
+        bwd_case("pipeline_fold_16x512_kr8", B=16, S=512, KR=8, Gl=1, D=64, dtype=bf16,
+                 causal=True, gen=gen),
     ]
 
 
@@ -1912,11 +1941,12 @@ def partition_phase(seed):
 # norm only; at two layers the largest reading was 0.525
 # (strategy, layers, steps, coarse_grads, remat, B, S): remat "none", "full"
 # and "dots" at B8 S512 (each remat held against "none"), then "dots" at the
-# unsharded launch's B4 S2048, the registered config's default
+# unsharded launch's B4 S2048, the registered config's default, cut to eight
+# layers for the script's time limit
 PARTITION_TRAIN = (("2d_finalized", 24, 3, False, "none", 8, 512),
                    ("2d_finalized", 24, 2, False, "full", 8, 512),
                    ("2d_finalized", 24, 2, False, "dots", 8, 512),
-                   ("2d_finalized", 24, 2, False, "dots", 4, 2048),
+                   ("2d_finalized", 8, 2, False, "dots", 4, 2048),
                    ("2d_attempt1", 2, 2, True, "none", 8, 512),
                    ("2d_attempt2", 2, 2, True, "none", 8, 512))
 # softmax ignores a shift shared by all keys, so the key bias's exact
@@ -2372,8 +2402,8 @@ def partition_option_phase(seed, card):
 # 4x its floor; a dropped or doubled psum moves a two-layer leaf by order 1
 # (tests/test_torch_sharded_ssm.py).
 # the float32, bf16 and float64 (PARTITION_MAMBA_FLOAT64) cases at eight and
-# four layers: scan_phase runs the 24-layer step, float32 and float64, and
-# the script's time limit holds the rest
+# four layers: scan_phase runs the step scanned and unrolled (at eight
+# layers, float32 and float64), and the script's time limit holds the rest
 PARTITION_MAMBA_TRAIN = (("2d_finalized", 8, "float32", 8, 512, 2, "loss"),
                          ("2d_finalized", 4, "bfloat16", 8, 512, 0, None),  # read only
                          ("2d_finalized", 2, "float32", 8, 512, 0, "grads"),
@@ -2761,9 +2791,9 @@ SHARDED_LOSS_B, SHARDED_LOSS_S = 8, 2048
 # first-dim-wins filter keeps it there unless the slots do not divide
 # "data" (the dry run turns shard_kv_seq on for a global batch below 16):
 # one slot, one request
-# the deep cases at eight layers (cut from 24): scan_phase serves qwen
-# (2d_attempt1, shard_kv_seq) and Mamba2 (float32) at 24 layers, and the
-# script's time limit holds the rest
+# the deep cases at eight layers (cut from 24 for the script's time limit;
+# scan_phase serves qwen (2d_attempt1, shard_kv_seq) and Mamba2 (float32)
+# at eight too)
 SHARDED_SERVE = (("qwen1.5-0.5b", "2d_finalized", 8, "bfloat16", 64, False, 8),
                  ("mamba2-130m", "2d_finalized", 8, "bfloat16", 64, False, 8),
                  ("mamba2-130m", "2d_finalized", 8, "float32", 64, False, 8),
@@ -3695,6 +3725,9 @@ def plan_opt_phase(seed, card):
 
 SCAN_B, SCAN_S = 8, 512  # the train steps' batch
 SCAN_TURNS = ("scanned", "unrolled", "unrolled", "scanned")
+# the paths' layers, cut from the published 24 to eight for the script's
+# time limit (the pipeline phase and the partition phase run 24)
+SCAN_LAYERS = {"none": 8, "dots": 8, "mamba2": 8, "grad_accum": 8, "serve": 8}
 SCAN_SERVE_PROMPTS, SCAN_SERVE_NEW = 8, 4  # prompts of 8 tokens, new tokens each
 
 
@@ -3895,14 +3928,15 @@ def _grad_runners(cfgs, st, mesh, params, batch):
 
 
 def scan_train_case(remat, seed, card, mesh, profile):
-    """qwen1.5-0.5b's partitioned train step at its published widths, 24
-    layers, 2d_finalized, B8 S512, bf16 compute with float32 masters,
+    """qwen1.5-0.5b's partitioned train step at its published widths,
+    ``SCAN_LAYERS[remat]`` layers, 2d_finalized, B8 S512, bf16 compute with
+    float32 masters,
     ``remat``: its gradient program (``sharded_value_and_grad``) captured
     with the layer loop scanned and unrolled, by ``scan_turns``.  Gates:
     the loss within f32_chain and each gradient leaf in norm within
     bf16_grad (the key bias, whose gradient is 0, read only) of the
-    unrolled run; flash launches per call equal (24 + 24 under "none", 48 +
-    24 under "dots"); the planted dropped psum in the reverse body beyond
+    unrolled run; flash launches per call equal (L + L under "none", 2L +
+    L under "dots"); the planted dropped psum in the reverse body beyond
     that limit; the verifier on every plan; optimized equal to unoptimized
     where the unoptimized plan repeats itself; no fallback gather."""
     from repro_torch.configs.base import get_strategy
@@ -3913,7 +3947,7 @@ def scan_train_case(remat, seed, card, mesh, profile):
     from repro_torch.train.optimizer import get_optimizer
 
     t0 = time.perf_counter()
-    cfg = partition_train_config(24, remat)
+    cfg = partition_train_config(SCAN_LAYERS[remat], remat)
     st, L = get_strategy("2d_finalized"), cfg.num_layers
     with set_mesh(mesh):
         state = init_state(cfg, st, get_optimizer("adafactor"), TrainConfig(),
@@ -3931,7 +3965,7 @@ def scan_train_case(remat, seed, card, mesh, profile):
     vs = _scan_vs(first, names, "f32_chain", limit, skip=(KEY_BIAS,))
     vs["planted"] = _body_psum_fault(runners["scanned"], (params, batch), first, names, limit)
     del first, runners
-    label = f"qwen1.5-0.5b train step, 24 layers, 2d_finalized, remat {remat}, B{SCAN_B} S{SCAN_S}"
+    label = f"qwen1.5-0.5b train step, {L} layers, 2d_finalized, remat {remat}, B{SCAN_B} S{SCAN_S}"
     _scan_print(label, card, readings, vs)
     want = {"flash_attention": L if remat == "none" else 2 * L, "flash_attention_bwd": L,
             "ssd_scan": 0, "ssd_scan_bwd": 0}
@@ -3947,10 +3981,11 @@ def scan_train_case(remat, seed, card, mesh, profile):
 
 
 def scan_mamba_case(seed, card, mesh, profile):
-    """mamba2-130m's partitioned train step, 24 layers, 2d_finalized, B8
-    S512, remat "dots", from ``mamba2_published_init``'s weights: its
-    gradient program scanned and unrolled in float32 by ``scan_turns`` (the
-    SSD launches equal, 48 + 24 per call; bit-equality read), then both in
+    """mamba2-130m's partitioned train step, ``SCAN_LAYERS["mamba2"]``
+    layers, 2d_finalized, B8 S512, remat "dots", from
+    ``mamba2_published_init``'s weights: its gradient program scanned and
+    unrolled in float32 by ``scan_turns`` (the SSD launches equal, 2L + L
+    per call; bit-equality read), then both in
     float64 with the SSD and its gradient on the plain route (the gate of
     ``partition_mamba_float64_case``): the loss and each gradient leaf in
     norm within 1e-8 of the unrolled run."""
@@ -3964,7 +3999,8 @@ def scan_mamba_case(seed, card, mesh, profile):
     from repro_torch.train.optimizer import get_optimizer
 
     t0 = time.perf_counter()
-    cfg = get_config("mamba2-130m").with_(num_layers=24, dtype="float32", scan_layers=False)
+    cfg = get_config("mamba2-130m").with_(num_layers=SCAN_LAYERS["mamba2"], dtype="float32",
+                                          scan_layers=False)
     st, L = get_strategy("2d_finalized"), cfg.num_layers
     gen = torch.Generator("cuda").manual_seed(seed)
     with set_mesh(mesh):
@@ -4000,7 +4036,7 @@ def scan_mamba_case(seed, card, mesh, profile):
                      "rel_max": [worst, rel64[worst]],
                      "top_steps": [len(_plan_of(r).plan.steps) for r in runners.values()]}
     del s64, u64, runners, p64
-    label = f"mamba2-130m train step, 24 layers, 2d_finalized, float32, dots, B{SCAN_B} S{SCAN_S}"
+    label = f"mamba2-130m train step, {L} layers, 2d_finalized, float32, dots, B{SCAN_B} S{SCAN_S}"
     _scan_print(label, card, readings, vs)
     want = {"flash_attention": 0, "flash_attention_bwd": 0, "ssd_scan": 2 * L, "ssd_scan_bwd": L}
     check(turns[0]["launches"] == want, f"{label}: launched {turns[0]['launches']}, want {want}")
@@ -4014,7 +4050,8 @@ def scan_mamba_case(seed, card, mesh, profile):
 
 def scan_grad_accum_case(seed, card, mesh):
     """qwen1.5-0.5b's partitioned train step with ``grad_accum=2``
-    (microbatches of 4), 24 layers, 2d_finalized, B8 S512, remat "none",
+    (microbatches of 4), ``SCAN_LAYERS["grad_accum"]`` layers, 2d_finalized,
+    B8 S512, remat "none",
     the layer loop scanned: the microbatch loop one scan whose body holds
     the layers' scan and its reverse scan.  Its gradient program against
     ``value_and_grad(grad_accum=2)`` unsharded on the card, as
@@ -4035,7 +4072,7 @@ def scan_grad_accum_case(seed, card, mesh):
     from repro_torch.train.optimizer import get_optimizer
 
     t0 = time.perf_counter()
-    cfg = partition_train_config(24, "none").with_(scan_layers=True)
+    cfg = partition_train_config(SCAN_LAYERS["grad_accum"], "none").with_(scan_layers=True)
     st, L, opt = get_strategy("2d_finalized"), cfg.num_layers, get_optimizer("adafactor")
     with set_mesh(mesh):
         state0 = init_state(cfg, st, opt, TrainConfig(),
@@ -4066,7 +4103,7 @@ def scan_grad_accum_case(seed, card, mesh):
     parts = _plan_parts(plan)
     del grads_s, grads_u, runner, entry, plan
     torch.cuda.empty_cache()
-    label = f"qwen1.5-0.5b train step, grad_accum 2, 24 layers, 2d_finalized, B{SCAN_B} S{SCAN_S}"
+    label = f"qwen1.5-0.5b train step, grad_accum 2, {L} layers, 2d_finalized, B{SCAN_B} S{SCAN_S}"
     limit = TOLERANCES["bf16_grad"][0]
     rec = {"label": label, "card": card, "plan": parts, "first_call_s": first,
            "verified_plans": verified, "launches": launched, "host_ms": host, "wall_ms": wall,
@@ -4131,7 +4168,8 @@ def scan_serve_case(arch, strategy, dtype, kv_seq, seed, card, mesh):
 
     t0 = time.perf_counter()
     cfg, _, params = full_width_model(arch, seed, dtype=dtype)
-    cfg = cfg.with_(shard_kv_seq=kv_seq)
+    cfg = cfg.with_(shard_kv_seq=kv_seq, num_layers=SCAN_LAYERS["serve"])
+    params = {**params, "layers": _first_layers(params["layers"], cfg.num_layers)}
     st = get_strategy(strategy)
     rng = np.random.default_rng(seed + 70)
     prompts = [rng.integers(0, cfg.vocab_size, 8).tolist() for _ in range(SCAN_SERVE_PROMPTS)]
@@ -4221,6 +4259,391 @@ def scan_phase(seed, card):
     seconds = time.perf_counter() - t0
     print(f"scan: {seconds:.1f} s", flush=True)
     return {"profile": prof_rec, "cases": cases, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------------
+# GSPMD §3.3 pipelining (pipeline/stages.py) on a simulated ("stage" 4, "model" 2) mesh
+# ---------------------------------------------------------------------------------
+
+PIPE_B, PIPE_S = 8, 512  # the partitioned train steps' batch
+PIPE_STAGES, PIPE_MICRO = 4, 4  # 7 ticks
+# (arch, layers, dtypes): qwen at full depth (6 layers a stage); Mamba2 cut to
+# eight layers (two a stage) for the script's time limit, in float32 only
+# (bf16 Mamba2 with random weights is chaotic under rounding, ROADMAP R6)
+PIPE_CASES = (("qwen1.5-0.5b", 24, ("float32", "bfloat16")), ("mamba2-130m", 8, ("float32",)))
+
+
+# device time by kind of kernel, by substrings of the kernels' names
+KERNEL_KINDS = (("flash", ("flash_",)), ("ssd", ("ssd_",)),
+                ("gemm", ("gemm", "nvjet", "xmma", "cutlass")),
+                ("copy", ("copy", "Copy", "memcpy", "Memcpy", "memset")),
+                ("elementwise", ("elementwise",)), ("reduce", ("reduce",)))
+
+
+def _pipe_config(arch, layers, dtype):
+    """``arch`` at its published widths, ``layers`` deep, remat "none", the
+    unpipelined program's layer loop scanned."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(arch)
+    if arch == "qwen1.5-0.5b":
+        got = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.dh, cfg.d_ff, cfg.vocab_size)
+        want = (1024, 16, 16, 64, 2816, 151936)
+    else:
+        got = (cfg.d_model, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_expand, cfg.vocab_size)
+        want = (768, 64, 128, 2, 50280)
+    check(got == want, f"unexpected config {cfg}")
+    return cfg.with_(num_layers=layers, dtype=dtype, remat="none", scan_layers=True)
+
+
+def _pipe_value_and_grad(program):
+    """(loss, gradient leaves in ``leaves`` order) of ``program(params, batch)``,
+    the gradient taken inside the program."""
+    from repro_torch.core.tree import leaves, tree_map
+
+    def vg(params, batch):
+        live = tree_map(lambda p: p.detach().requires_grad_(), params)
+        with torch.enable_grad():
+            loss = program(live, batch)
+            return loss, list(torch.autograd.grad(loss, leaves(live)))
+
+    return vg
+
+
+def _tick_scans(plan):
+    """The tick scans of a pipelined gradient plan: (forward, reverse), each
+    a call step whose body holds a ppermute."""
+    found = [s for s in plan.steps if s.op == "scan" and s.inner is not None
+             and any(t.op in ("ppermute", "fused-ppermute") for t in s.inner.steps)]
+    check(len(found) == 2, f"the plan holds {len(found)} tick scans, want 2")
+    return found
+
+
+def _stage_collectives(plan, axis="stage"):
+    """The collectives over ``axis`` that a plan's own steps launch: its
+    collective and fused steps, and the gathers and all-to-alls of its
+    reshard steps (a reshard's slices move nothing)."""
+    found = []
+    for s in plan.steps:
+        if s.kind in ("collective", "fused") and axis in s.axes:
+            found.append(s.op)
+        elif s.kind == "reshard":
+            found += [c.describe() for c in s.program.steps
+                      if c.axis == axis and c.op != "dynamic_slice"]
+    return sorted(found)
+
+
+def _fold_shapes():
+    """Wrap the kernels' wrappers to record the shape of each call's first
+    operand (the folded batch); returns the record and the restore."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import ssd_scan as ssd_kernel
+    from repro_torch.kernels import ssd_scan_bwd as ssd_bwd_kernel
+
+    seen, saved = {}, []
+    for mod, name in ((fa, "flash_attention"), (fab, "flash_attention_bwd"),
+                      (ssd_kernel, "ssd_scan"), (ssd_bwd_kernel, "ssd_scan_bwd")):
+        fn = getattr(mod, name)
+
+        def watched(*args, fn=fn, name=name, **kw):
+            seen.setdefault(name, tuple(args[0].shape))
+            return fn(*args, **kw)
+
+        setattr(mod, name, watched)
+        saved.append((mod, name, fn))
+
+    def restore():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+    return seen, restore
+
+
+def _pipe_run(run, args, mesh=None):
+    """One call for its outputs (launches counted, fold shapes recorded, host
+    ms with the device drained before, peak memory above the inputs), then
+    one traced call for device busy."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    seen, restore = _fold_shapes()
+    try:
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            out, launched = counted(lambda: run(*args))
+            host = (time.perf_counter() - t0) * 1e3
+    finally:
+        restore()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    with torch.no_grad():
+        by_name = device_ms(lambda i: run(*args), 1, calls=1, warm=False, by_name=True)
+    busy = sum(v["ms"] for v in by_name.values()) if by_name else None
+    top = sorted(by_name.items(), key=lambda kv: -kv[1]["ms"])[:8] if by_name else []
+    kinds = collections.Counter()
+    for n, v in (by_name or {}).items():
+        kind = next((k for k, keys in KERNEL_KINDS if any(w in n for w in keys)), "other")
+        kinds[kind] += v["ms"]
+    return out, {"launches": launched, "folds": seen, "host_ms_drained_wall": host,
+                 "device_busy_ms": busy, "peak_gib": peak, "device_ms_by_kind": dict(kinds),
+                 "top_kernels": [[n[:60], v["ms"], v["launches"]] for n, v in top]}
+
+
+def _mirror_fault(runner, args, mesh):
+    """The planted fault: the pipelined plan compiled again with the forward
+    tick body's ppermute sending each boundary row the wrong way (the
+    reverse body's perm), run once; returns its outputs."""
+    from repro_torch.core import mesh_runtime as mr
+    from repro_torch.core import plan as plan_mod
+
+    entry = _plan_of(runner)
+    bad = plan_mod.compile_plan(entry.captured, entry.prop, mesh, optimize=False, verify=False)
+    fwd, rev = _tick_scans(bad)
+    (pp,) = [t for t in fwd.inner.steps if t.op == "ppermute"]
+    (rp,) = [t for t in rev.inner.steps if t.op == "ppermute"]
+    perm, axis = rp.call["perm"], pp.axes[0]
+    pp.run = plan_mod._compute_run(lambda b: mr.ppermute(b, mesh, axis, perm))
+    pp.call = {"perm": perm}
+    raw, entry.plan = entry.plan, bad
+    try:
+        with torch.no_grad():
+            return _tensors(runner(*args))
+    finally:
+        entry.plan = raw
+
+
+def pipeline_case(arch, layers, dtype, seed, card, mesh):
+    """``arch`` at its published widths, ``layers`` deep, in ``dtype``
+    (float32 masters), B8 S512 in four microbatches: the gradient of
+    ``api.partitionable_pipelined_loss`` (the layer stack pipelined over
+    the four "stage" rows, 2d_finalized filtered to the mesh, the batch on
+    "stage" outside the pipelined region: ``pipeline.stage_batch``) through
+    ``spmd_partition``, against the unpipelined partitioned gradient
+    (``sharded_value_and_grad`` on the same mesh) and against the unsharded
+    ``value_and_grad``.  Gates: the losses within f32_chain (bf16:
+    bf16_chain) of each other, each gradient leaf in norm within
+    f32_chain's rtol (bf16: bf16_grad; Mamba2 float32: the larger of that
+    and 4x its floor, the unsharded gradient through the plain SSD against
+    the kernels', as ``partition_mamba_train_case``); per call 7 x the
+    stage's layers forward and backward kernel calls, one launch each for
+    every stage and device; one ppermute over "stage" in the forward tick
+    body, perm ((0,1),(1,2),(2,3)), one in the reverse body with the
+    mirror perm, 14 ppermute launches a call, each moving one stage row of
+    the local buffer; no fallback gather (scan bodies' included); over
+    "stage" in each tick body only the hop and the row sum's psum, no
+    reshard gathering the stage dim; every plan and body plan
+    verified; in float32 the planted wrong-direction ppermute off by at
+    least 10x f32_chain.  Reads: first-call seconds, plan steps, host ms
+    and device busy per call beside the unpipelined step's, peak beside
+    the plan's modeled peak x 8, the kernels' fold shapes."""
+    from repro_torch.configs.base import get_strategy
+    from repro_torch.core.compat import TOLERANCES, set_mesh
+    from repro_torch.core.partitioner import spmd_partition
+    from repro_torch.core.plan_opt import _collective_step_wire_bytes
+    from repro_torch.core.plan_verify import verify_plan
+    from repro_torch.core.reshard import shard_shape
+    from repro_torch.core.tree import leaves, leaves_with_paths, tree_map
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.models.layers import tree_init
+    from repro_torch.pipeline import (PipelineDecision, plan_ppermute_bytes, stage_batch,
+                                      stage_stack_params)
+    from repro_torch.train.loop import sharded_value_and_grad, value_and_grad
+
+    t0 = time.perf_counter()
+    cfg = _pipe_config(arch, layers, dtype)
+    # the batch on "stage" outside the pipelined region (and in the
+    # unpipelined step): with it replicated there, every "stage" row would
+    # hold the whole batch's logits, and the unpipelined step would compute
+    # every layer four times over: at float32 neither fits the card
+    st, L = get_strategy("2d_finalized"), cfg.num_layers
+    outer = stage_batch(st, "stage")
+    decision = PipelineDecision("stage", PIPE_STAGES, PIPE_MICRO)
+    ticks, per_stage = decision.ticks, L // PIPE_STAGES
+    gen = torch.Generator("cuda").manual_seed(seed)
+    with set_mesh(mesh):
+        params = tree_init(api.param_tree(cfg, st), gen, dtype=cfg.param_dtype, device="cuda")
+    if arch == "mamba2-130m":
+        mamba2_published_init(params, L, gen)
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, PIPE_S, PIPE_B, seed=seed,
+                                    pattern="arithmetic"))
+    batch = {k: torch.from_numpy(v).to("cuda").long() for k, v in pipe.batch_at(0).items()}
+    staged = {**params, "layers": stage_stack_params(params["layers"], PIPE_STAGES)}
+    names = ["/".join(p) for p, _ in leaves_with_paths(params)]
+    with set_mesh(mesh):
+        runners = {
+            "pipelined": spmd_partition(_pipe_value_and_grad(
+                api.partitionable_pipelined_loss(cfg, st, mesh, decision)),
+                mesh, optimize=False, device="cuda"),
+            "unpipelined": spmd_partition(sharded_value_and_grad(cfg, outer, mesh), mesh,
+                                          optimize=False, device="cuda")}
+    args = {"pipelined": (staged, batch), "unpipelined": (params, batch)}
+    outs, reads = {}, {}
+    for name, run in runners.items():
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            run(*args[name])  # the first call: capture, completion, the plan
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t1
+        out, reads[name] = _pipe_run(run, args[name])
+        loss, grads = out
+        outs[name] = [loss] + [g.reshape(p.shape) for g, p in zip(
+            grads if name == "pipelined" else leaves(grads), leaves(params))]
+        del out, loss, grads
+        entry = _plan_of(run)
+        reads[name].update({
+            "first_call_s": first, "build_s": dict(entry.build_s), "plan": _plan_parts(entry.plan),
+            "modeled_peak_x8_gib": entry.plan.peak_bytes * mesh.size / 2**30,
+            "verified_plans": verify_plan(entry.plan).plans,
+            "fallback_gathers": list(run.fallback_gathers)})
+        torch.cuda.empty_cache()
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    with torch.enable_grad():
+        loss, grads = value_and_grad(cfg, st, live, batch)
+    outs["unsharded"] = [loss.detach()] + [g.detach() for g in leaves(grads)]
+    del live, loss, grads
+    floor = {}
+    if arch == "mamba2-130m":  # the float32 gradient's own floor, as partition_mamba_train_case
+        live = tree_map(lambda p: p.detach().requires_grad_(), params)
+        route, ops._route = ops._route, lambda t: "cpu"
+        try:
+            with torch.enable_grad():
+                _, plain = value_and_grad(cfg, st, live, batch)
+        finally:
+            ops._route = route
+        floor = {n: _rel(a, b) for n, a, b in zip(names, leaves(plain), outs["unsharded"][1:])}
+        del live, plain
+
+    # the plan: one ppermute a tick each way, 14 launches, a stage row each
+    plan = _plan_of(runners["pipelined"]).plan
+    fwd, rev = _tick_scans(plan)
+    pf = [t for t in fwd.inner.steps if t.op == "ppermute"]
+    pr = [t for t in rev.inner.steps if t.op == "ppermute"]
+    perm = tuple((i, i + 1) for i in range(PIPE_STAGES - 1))
+    nc = fwd.call["num_consts"]
+    buf = shard_shape((PIPE_STAGES, PIPE_B // PIPE_MICRO, PIPE_S, cfg.d_model),
+                      fwd.inner.in_shardings[nc])
+    pbytes, plaunch = plan_ppermute_bytes(plan)
+    struct = {
+        "ticks": [fwd.call["trips"], rev.call["trips"]],
+        "ppermutes_per_tick": [len(pf), len(pr)],
+        "axes": [list(t.axes) for t in pf + pr], "perms": [list(t.call["perm"]) for t in pf + pr],
+        "ppermute_launches_per_call": plaunch, "ppermute_wire_bytes_per_call": pbytes,
+        "wire_bytes_per_tick": [_collective_step_wire_bytes(mesh, t) for t in pf + pr],
+        "local_buffer": list(buf), "stage_row_bytes": float(np.prod(buf[1:])) * pf[0].dbytes,
+        "stage_collectives": [_stage_collectives(fwd.inner), _stage_collectives(rev.inner)]}
+    row_lshape = (1,) + tuple(buf[1:])
+    limit = TOLERANCES["f32_chain" if dtype == "float32" else "bf16_grad"][0]
+    kind = "f32_chain" if dtype == "float32" else "bf16_chain"
+    vs = {}
+    for a, b in (("pipelined", "unpipelined"), ("pipelined", "unsharded"),
+                 ("unpipelined", "unsharded")):
+        rel = {n: _rel(x, y) for n, x, y in zip(names, outs[a][1:], outs[b][1:])}
+        gated = {n: r for n, r in rel.items() if n != KEY_BIAS}
+        limits = {n: max(limit, 4 * floor[n]) if floor else limit for n in gated}
+        worst = max(gated, key=lambda n: gated[n] / limits[n])
+        vs[f"{a} vs {b}"] = {"loss_err_over_limit": _err_over(outs[a][0], outs[b][0], kind),
+                             "grad_rel_worst": [worst, gated[worst], limits[worst]],
+                             "grad_over_limit": gated[worst] / limits[worst],
+                             "key_bias_rel": rel.get(KEY_BIAS)}
+    planted = None
+    if dtype == "float32":
+        bad = _mirror_fault(runners["pipelined"], args["pipelined"], mesh)
+        planted = {"loss_err_over_f32_chain": _err_over(bad[0], outs["unpipelined"][0],
+                                                        "f32_chain")}
+        del bad
+    del runners, outs
+    torch.cuda.empty_cache()
+
+    label = f"{arch} {L}L {dtype}, pipelined {PIPE_STAGES} stages x {PIPE_MICRO} microbatches"
+    rp, ru = reads["pipelined"], reads["unpipelined"]
+    print(f"  {label}, B{PIPE_B} S{PIPE_S}; {card}", flush=True)
+    for name, r in reads.items():
+        print(f"    {name}: first call {r['first_call_s']:.1f} s "
+              f"({json.dumps({k: round(v, 2) for k, v in r['build_s'].items()})}); plan "
+              f"{json.dumps(r['plan'])}; launches {json.dumps(r['launches'])}; folds "
+              f"{json.dumps(r['folds'])}; host {r['host_ms_drained_wall']:.1f} ms a call (drained "
+              f"wall); device busy {_ms(r['device_busy_ms'])}; peak {r['peak_gib']:.3f} GiB "
+              "(plan's "
+              f"modeled peak x8 {r['modeled_peak_x8_gib']:.3f}); verified {r['verified_plans']} "
+              f"plans", flush=True)
+        print("      device ms by kind: " + json.dumps(
+            {k: round(v, 2) for k, v in r["device_ms_by_kind"].items()}) + "; by kernel "
+              "(launches): " + "; ".join(f"{n} {ms:.2f} ({k})" for n, ms, k in r["top_kernels"]),
+              flush=True)
+    print(f"    plan: {json.dumps(struct)}", flush=True)
+    print(f"    vs: {json.dumps(vs)}" + (f"; planted {json.dumps(planted)}" if planted else "")
+          + (f"; floor max {max(floor.values()):.3e}" if floor else ""), flush=True)
+
+    mods = ("flash_attention", "flash_attention_bwd") if arch == "qwen1.5-0.5b" \
+        else ("ssd_scan", "ssd_scan_bwd")
+    want = {k: 0 for k in ("flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")}
+    want.update({m: ticks * per_stage for m in mods})
+    check(rp["launches"] == want, f"{label}: launched {rp['launches']}, want {want}")
+    want_u = dict(want, **{m: L for m in mods})
+    check(ru["launches"] == want_u,
+          f"{label}: unpipelined launched {ru['launches']}, want {want_u}")
+    check(struct["ticks"] == [ticks, ticks] and struct["ppermutes_per_tick"] == [1, 1],
+          f"{label}: tick scans {struct}")
+    check(struct["axes"] == [["stage"], ["stage"]], f"{label}: ppermute axes {struct['axes']}")
+    check(pf[0].call["perm"] == perm and pr[0].call["perm"] == tuple((j, i) for i, j in perm),
+          f"{label}: perms {struct['perms']}")
+    check(plaunch == 2 * ticks, f"{label}: {plaunch} ppermute launches a call, want {2 * ticks}")
+    check(tuple(pf[0].lshape) == row_lshape and pf[0].in_bytes == struct["wire_bytes_per_tick"][0],
+          f"{label}: the forward ppermute moves {pf[0].lshape}, one stage row is {row_lshape}")
+    check(not rp["fallback_gathers"] and not ru["fallback_gathers"],
+          f"{label}: fallbacks gathered {rp['fallback_gathers']} {ru['fallback_gathers']}")
+    # nothing else in a tick moves data over "stage": no reshard gathers the
+    # stage dim, only the shift's hop and the row sum's psum cross stages
+    check(struct["stage_collectives"] == [["all-reduce", "ppermute"]] * 2,
+          f"{label}: collectives over \"stage\" in the tick bodies "
+          f"{struct['stage_collectives']}, want the hop and the row sum's psum")
+    for pair, v in vs.items():
+        check(v["loss_err_over_limit"] <= 1.0 and v["grad_over_limit"] <= 1.0,
+              f"{label}: {pair} off: {v}")
+    if planted is not None:
+        check(planted["loss_err_over_f32_chain"] >= 10.0,
+              f"{label}: the planted wrong-direction ppermute went unseen: {planted}")
+    seconds = time.perf_counter() - t0
+    print(f"    {seconds:.1f} s", flush=True)
+    return {"label": label, "card": card, "reads": reads, "plan": struct, "vs": vs,
+            "planted": planted, "floor": floor or None, "seconds": seconds}
+
+
+def pipeline_phase(seed, card):
+    """GSPMD §3.3 pipelining on the card (``pipeline_case``): qwen1.5-0.5b
+    at 24 layers in float32 and bf16, mamba2-130m at eight layers in
+    float32, each pipelined over four stages on a simulated ("stage" 4,
+    "model" 2) mesh."""
+    from repro_torch.core.sharding import Mesh
+
+    t0 = time.perf_counter()
+    mesh = Mesh.create((PIPE_STAGES, 2), ("stage", "model"))
+    print(f"pipeline: the stage-stacked pipeline through the partitioner; {card}", flush=True)
+    cases = []
+    for arch, layers, dtypes in PIPE_CASES:
+        for dtype in dtypes:
+            cases.append(pipeline_case(arch, layers, dtype, seed, card, mesh))
+            torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    print(f"pipeline: {seconds:.1f} s", flush=True)
+    return {"cases": cases, "seconds": seconds}
+
+
+def pipeline_phase_in_own_process(seed, card, timeout=300):
+    """``pipeline_phase`` in a fresh process, with its own time limit."""
+    code = (f"import sys, json; sys.path.insert(0, {str(ROOT)!r}); import torch, chip_smoke; "
+            "torch.backends.cuda.matmul.allow_tf32 = False; "
+            "torch.backends.cudnn.allow_tf32 = False; "
+            f"print(json.dumps(chip_smoke.pipeline_phase({seed}, {card!r})))")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=timeout)
+    lines = proc.stdout.splitlines()
+    print("\n".join(lines[:-1] if proc.returncode == 0 else lines), flush=True)
+    check(proc.returncode == 0 and lines,
+          f"the pipeline phase failed ({proc.returncode}): {proc.stderr[-3000:]}")
+    return json.loads(lines[-1])
 
 
 def sharded_phases_in_own_process(seed, card):
@@ -4448,9 +4871,13 @@ def main(argv=None):
           "families through the partitioner, against the same paths unsharded on the card",
           flush=True)
     sharded = sharded_phases_in_own_process(args.seed, partition["card"])
+    print(f"pipeline (at {time.perf_counter() - t0:.0f} s): GSPMD §3.3 pipelining through the "
+          "partitioner on a simulated (\"stage\" 4, \"model\" 2) mesh, against the unpipelined "
+          "and the unsharded steps", flush=True)
+    pipeline = pipeline_phase_in_own_process(args.seed, partition["card"])
     print(f"phases done at {time.perf_counter() - t0:.0f} s (plan_opt "
-          f"{sharded['plan_opt']['seconds']:.0f} s, scan {sharded['scan']['seconds']:.0f} s of "
-          "them)", flush=True)
+          f"{sharded['plan_opt']['seconds']:.0f} s, scan {sharded['scan']['seconds']:.0f} s, "
+          f"pipeline {pipeline['seconds']:.0f} s of them)", flush=True)
 
     fa_main = next(c for c in fa_cases if c["case"] == "decode_8x16_pos1023")
     fa_prefill = next(c for c in fa_cases if c["case"] == "prefill_qwen_loss_2x2048")
@@ -4465,6 +4892,11 @@ def main(argv=None):
     bwd_main = next(c for c in bwd_cases if c["case"] == "train_qwen_4x2048")
     bwd_fold = next(c for c in bwd_cases if c["case"] == "partitioned_train_fold_32x512_kr4")
     fa_fold = next(c for c in fa_cases if c["case"] == "partitioned_train_fold_32x512_kr4")
+    fa_pipe = next(c for c in fa_cases if c["case"] == "pipeline_fold_16x512_kr8")
+    bwd_pipe = next(c for c in bwd_cases if c["case"] == "pipeline_fold_16x512_kr8")
+    pipe_launches = {  # per call of each pipelined gradient program
+        name: {c["label"]: c["reads"]["pipelined"]["launches"][name] for c in pipeline["cases"]}
+        for name in ("flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")}
     train_launches = {  # per step of each case's partitioned TrainLoop run
         name: {c["label"]: [r["launches"][name] for r in c["sharded_steps"]]
                for c in partition["train"]}
@@ -4496,6 +4928,8 @@ def main(argv=None):
             for c in partition["cases"] if "compiled_flash_launches_per_call" in c},
         "partition_train_launches_per_step": train_launches["flash_attention"],
         "partition_train_case": {"case": fa_fold["case"], **{k: fa_fold[k] for k in keys}},
+        "pipeline_launches_per_call": pipe_launches["flash_attention"],
+        "pipeline_case": {"case": fa_pipe["case"], **{k: fa_pipe[k] for k in keys}},
         "decode_position_on_device": {n: {k: c[k] for k in keys + ("device_ms", "splits")}
                                       for n, c in devpos.items()},
         "decode_position_per_row": {n: {k: c[k] for k in keys + (
@@ -4513,6 +4947,7 @@ def main(argv=None):
         "replaces": "src/repro/kernels/ssd_scan.py:70",
         "launches": mamba_loss["launches"]["ssd_scan"], "launches_path": "mamba2 loss",
         **{k: ssd_main[k] for k in keys + ssd_keys}, "main_case": ssd_main["case"],
+        "pipeline_launches_per_call": pipe_launches["ssd_scan"],
         "partition_loss_launches_per_forward": sharded["loss"]["sharded"]["launches"]["ssd_scan"],
         "partition_loss_case": {"case": ssd_fold["case"], **{k: ssd_fold[k] for k in keys + ssd_keys}},
         "cancelling_sums": ssd_cancel, "cases": ssd_cases,
@@ -4528,6 +4963,9 @@ def main(argv=None):
         "partition_train_launches_per_step": train_launches["flash_attention_bwd"],
         "partition_train_case": {"case": bwd_fold["case"], **{k: bwd_fold[k] for k in keys},
                                  "device_ms": bwd_fold["device_ms"]},
+        "pipeline_launches_per_call": pipe_launches["flash_attention_bwd"],
+        "pipeline_case": {"case": bwd_pipe["case"], **{k: bwd_pipe[k] for k in keys},
+                          "device_ms": bwd_pipe["device_ms"]},
         "cases": bwd_cases,
     }, {
         "name": "ssd_scan_bwd", "route": "cuda",
@@ -4538,6 +4976,7 @@ def main(argv=None):
         "launches_path": f"mamba2 train, {TRAIN_STEPS} steps",
         **{k: ssd_bwd_main[k] for k in keys + ssd_keys}, "main_case": ssd_bwd_main["case"],
         "errors": ssd_bwd_main["errors"],
+        "pipeline_launches_per_call": pipe_launches["ssd_scan_bwd"],
         "partition_train_launches_per_step": {
             c["label"]: [r["launches"]["ssd_scan_bwd"] for r in c.get("sharded_steps", [])]
             for c in partition["mamba_train"]},
@@ -4549,7 +4988,7 @@ def main(argv=None):
                                  "two_layer_step": qwen_two_layer},
         "mamba2": {"loss": mamba_loss, "serve": mamba_serve, "consistency": mamba_consistency,
                    "train": mamba_train, "two_layer_step": mamba_two_layer},
-        "partition": partition, "sharded": sharded}
+        "partition": partition, "sharded": sharded, "pipeline": pipeline}
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,7 +8,10 @@
 * its gradient is the same annotation — the paper defines the gradient of
   XlaSharding to be itself, so backward graphs are annotated automatically;
 * its output never aliases its input (it returns a copy), as a functional
-  graph requires.
+  graph requires;
+* it vmaps: a batched annotation inserts an unsharded, unspecified dim at
+  the vmapped position (what lets the §3.3 pipeline vmap a layer that
+  annotates its activations).
 
 A ``Sharding`` cannot be an operator argument, so the node carries the mesh
 (shape, device order, and its axis names joined by ",") and the dims mapping
@@ -50,6 +53,27 @@ def _backward(ctx, grad):
 
 
 _annotate.register_autograd(_backward, setup_context=_setup)
+
+
+def _batch_rule(info, in_dims, x, mesh_shape, axis_names, devices, dims_mapping,
+                unspecified_dims):
+    """The reference's ``_batch_rule``: a vmapped annotation inserts an
+    unsharded dim at the vmapped position and marks it unspecified, so that
+    completion may give it the stage axis (the §3.3 pipeline vmaps one
+    stage body over the stage dim)."""
+    d = in_dims[0]
+    if d is None:
+        return _annotate(x, mesh_shape, axis_names, devices, dims_mapping,
+                         unspecified_dims), None
+    rank, entries = dims_mapping.split(":", 1)
+    dims = entries.split("|")[: int(rank)] if int(rank) else []
+    dims.insert(d, "")
+    shifted = [u + 1 if u >= d else u for u in unspecified_dims] + [d]
+    return _annotate(x, mesh_shape, axis_names, devices, f"{int(rank) + 1}:" + "|".join(dims),
+                     shifted), d
+
+
+torch.library.register_vmap("repro_torch::annotate", _batch_rule)
 
 # the node target that capture records for an annotation
 ANNOTATE_OP = torch.ops.repro_torch.annotate.default

@@ -41,7 +41,8 @@ devices' shards), with explicit collectives:
 * stack / unbind / select and their gradients — the dim they insert,
                      remove or slice replicated, the others kept;
 * factories        — replicated, a sharded constant fill at its local shape;
-* annotate         — explicit resharding to the user's annotation;
+* annotate         — explicit resharding to the user's annotation (its
+                     unspecified dims as completion left them);
 * scan             — the body (``core/scan.py``) partitioned under its
                      completed shardings (``Propagation.sub``), each operand
                      resharded to the body's input sharding (an x's with its
@@ -52,8 +53,12 @@ devices' shards), with explicit collectives:
 
 An op with no handler takes ``_fallback``: gather every operand, run the op
 on the global values, reshard to the propagated sharding — GSPMD semantics,
-exactly as in the reference.  The partitioner records the op names that
-took it (``fallbacks``), so a run shows where the reference would gather.
+exactly as in the reference.  The §3.3 stage shift
+(``repro_torch::stage_shift``) takes it here, as in the reference's
+dynamic partitioner, which has no handler for it either: its ppermute
+lowering is the compiled plan's (``plan.py::PlanBuilder._stage_shift``).
+The partitioner records the op names that took it (``fallbacks``), so a
+run shows where the reference would gather.
 
 The decisions and local computations of every handler are module-level
 functions shared with the compiled-plan path (``core/plan.py``): this path
@@ -79,7 +84,7 @@ from torch.utils._pytree import tree_flatten
 from ..analysis import graph_cost  # a module import: graph_cost imports core.rules
 from ..analysis.roofline import RooflineParams
 from ..kernels.ops import (flash_attention_bwd_op, flash_attention_fwd_op, flash_decode,
-                           flash_decode_partial, flash_forward, ssd, ssd_scan_bwd_op)
+                           a_per_row, flash_decode_partial, flash_forward, ssd, ssd_scan_bwd_op)
 from . import mesh_runtime as mr
 from .annotate import ANNOTATE_OP, decode
 from .compat import capture
@@ -264,6 +269,27 @@ def local_reshape_ok(in_shape, out_shape, sh: Sharding, want: Sharding) -> bool:
     return True
 
 
+def reshape_carried(in_shape, out_shape, sh: Sharding, want: Sharding) -> Optional[Sharding]:
+    """Where a reshape of each shard and then slices alone reach ``want``, the
+    sharding the local reshape gives (every sharded input dim's axes on the
+    output dim that heads its factor block, ``want`` adding axes after
+    them); None otherwise, and the reshape gathers."""
+    i2o, o2i = _reshape_dim_map(in_shape, out_shape)
+    pairs = set(i2o.items()) | {(i, j) for j, i in o2i.items()}
+    dims = [()] * len(out_shape)
+    for i, axes in enumerate(sh.dims_mapping):
+        if not axes:
+            continue
+        q = next((q for p, q in sorted(pairs) if p == i), None)
+        if q is None or out_shape[q] % group_size(sh.mesh, axes):
+            return None
+        dims[q] = axes
+    if any(w[:len(m)] != m for m, w in zip(dims, want.dims_mapping)):
+        return None
+    mid = Sharding(sh.mesh, tuple(dims))
+    return mid if local_reshape_ok(in_shape, out_shape, sh, mid) else None
+
+
 def conv_target(eqn, ls: Sharding, mesh: Mesh) -> Optional[Sharding]:
     """The input layout the convolution runs in exactly (one axis per sharded
     spatial dim, where the output divides; feature sharding only without
@@ -302,6 +328,18 @@ def conv_halo_local(lv, rv, mesh: Mesh, ls: Sharding, strides, padding):
     sharded = [(d, ls.dims_mapping[d][0]) for d in range(2, ls.rank) if ls.dims_mapping[d]]
     return sharded_conv_nd(lv, rv, mesh=mesh, sharded=sharded,
                            window_strides=strides, padding=padding)
+
+
+def annotation_target(node, prop) -> Sharding:
+    """The sharding an annotation node holds its value in: its own, with
+    any unspecified dim (§3.5 partial specification, e.g. the dim a vmapped
+    annotation inserts) as completion left it."""
+    tgt, unspec = decode(*node.args[1:])
+    done = prop.get(node)
+    if not unspec or done is None:
+        return tgt
+    return Sharding(tgt.mesh, tuple(done.dims_mapping[d] if d in unspec else tgt.dims_mapping[d]
+                                    for d in range(tgt.rank)))
 
 
 def conv_bias(out, bv):
@@ -481,7 +519,8 @@ def decide_ssd(eqn, shardings, want, mesh: Mesh) -> LocalOp:
     device: batch, heads and head dim of the completed output sharding (else
     the merge of the operands'), S and the state dim gathered; the stacked
     device dim folded into the batch, with each device's A repeated over its
-    rows, which the kernel reads per row (A (n·B, H))."""
+    rows (or its per-row A merged), which the kernel reads per row (A (n·B,
+    H), ``ops.a_per_row``)."""
     dims = [_ssd_dims(a, i) for i, a in enumerate(eqn.in_avals)]
     cands = [(want, _SSD_DIMS[4])] if want is not None else list(zip(shardings, dims))
     bhp = None
@@ -493,9 +532,8 @@ def decide_ssd(eqn, shardings, want, mesh: Mesh) -> LocalOp:
     Bb, S, H, hd = shard_shape(eqn.in_avals[0].shape, targets[0])
 
     def fn(x, dt, B, C, A):
-        n, b = x.shape[:2]
-        A = A[:, None, :].expand(n, b, A.shape[-1]).reshape(n * b, A.shape[-1])
-        y = ssd(_fold(x), _fold(dt), _fold(B), _fold(C), A, chunk=chunk)
+        y = ssd(_fold(x), _fold(dt), _fold(B), _fold(C), a_per_row(A, *x.shape[:2]),
+                chunk=chunk)
         return y.reshape(x.shape)
 
     return LocalOp(targets, ssd_layout(bhp, _SSD_DIMS[4]), fn,
@@ -512,7 +550,8 @@ def decide_ssd_bwd(eqn, shardings, want, mesh: Mesh) -> LocalOp:
     the op completes them itself: dB and dC psum over the axes sharding
     heads or the head dim, ddt over those sharding the head dim, and dA,
     summed over each device's rows, over those sharding the batch or the
-    head dim."""
+    head dim.  Where A has a row of heads per batch row (B, H), so has dA:
+    it is not summed over rows, and psums over the head-dim axes only."""
     ins, outs = ssd_bwd_dims(eqn)
     dx_want = want[0] if want else None
     cands = [(dx_want, outs[0])] if dx_want is not None else list(zip(shardings, ins))
@@ -524,14 +563,15 @@ def decide_ssd_bwd(eqn, shardings, want, mesh: Mesh) -> LocalOp:
     chunk = eqn.params["chunk"]
     targets = [ssd_layout(bhp, d) for d in ins]
     Bb, S, H, hd = shard_shape(eqn.in_avals[0].shape, targets[0])
-    sums = {"dB": heads + hdim, "dC": heads + hdim, "ddt": hdim, "dA": batch + hdim}
+    per_row = eqn.in_avals[4].ndim == 2
+    sums = {"dB": heads + hdim, "dC": heads + hdim, "ddt": hdim,
+            "dA": hdim if per_row else batch + hdim}
 
     def fn(x, dt, B, C, A, dy):
         n, b = x.shape[:2]
-        Af = A[:, None, :].expand(n, b, A.shape[-1]).reshape(n * b, A.shape[-1])
-        dx, ddt, dB, dC, dA = ssd_scan_bwd_op(_fold(x), _fold(dt), _fold(B), _fold(C), Af,
-                                              _fold(dy), chunk)
-        dA = dA.reshape(n, b, -1).sum(1)
+        dx, ddt, dB, dC, dA = ssd_scan_bwd_op(_fold(x), _fold(dt), _fold(B), _fold(C),
+                                              a_per_row(A, n, b), _fold(dy), chunk)
+        dA = dA.reshape(A.shape) if per_row else dA.reshape(n, b, -1).sum(1)
         out = {"dB": dB.reshape(B.shape), "dC": dC.reshape(C.shape), "ddt": ddt.reshape(dt.shape),
                "dA": dA}
         out = {k: mr.psum(v, mesh, sums[k]) for k, v in out.items()}
@@ -1024,7 +1064,7 @@ class SpmdPartitioner:
         node = eqn.node
         if node.target is ANNOTATE_OP:
             val, sh = self.read(node.args[0])
-            tgt, _ = decode(*node.args[1:])
+            tgt = annotation_target(node, self.prop)
             self.write(node, self._to(val, sh, tgt), tgt)
         elif name == "getitem":
             vals, shs = self.read(node.args[0])
@@ -1105,6 +1145,11 @@ class SpmdPartitioner:
         if want is not None and local_reshape_ok(eqn.in_avals[0].shape, gshape, sh, want):
             out = val.reshape((val.shape[0],) + shard_shape(tuple(gshape), want))
             self.write(eqn.node, out, want)
+            return
+        mid = reshape_carried(eqn.in_avals[0].shape, gshape, sh, want) if want is not None else None
+        if mid is not None:  # reshape each shard, then slice
+            out = val.reshape((val.shape[0],) + shard_shape(tuple(gshape), mid))
+            self.write(eqn.node, self._to(out, mid, want), want)
             return
         # fallback: gather, reshape, re-slice
         val = self._to(val, sh, replicated(self.mesh, sh.rank))

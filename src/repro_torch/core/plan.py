@@ -16,9 +16,16 @@ them once and lowers the graph into a :class:`PartitionPlan`: a flat list of
 * the ReduceScatter-vs-AllReduce choice for partial sums
   (``einsum_rules.compile_einsum``), with trailing AllReduces emitted as
   first-class ``collective`` steps;
+* the §3.3 stage shift (``core/shift.py``, ``_stage_shift``): a local
+  concatenate, or a boundary row, a first-class ``ppermute`` collective
+  step (``call["perm"]``) and a stitch;
 * the output epilogue: outputs whose completed sharding differs from the
   one the body leaves them in get a reshard step that writes a
   :class:`ProxyVar`, and ``out_keys`` names what execution returns.
+
+An annotation holds its value in its own sharding, except on its
+unspecified dims, which keep what completion gave them (a vmapped
+annotation's inserted dim, ``partitioner.annotation_target``).
 
 Every step declares its dataflow (``reads`` / ``writes`` env keys) and its
 runner reads operands through those tuples, as the reference's do, so the
@@ -63,23 +70,24 @@ import torch.fx
 from ..analysis.graph_cost import count_flops
 from ..analysis.roofline import RooflineParams, overlap_time_s
 from . import mesh_runtime as mr
-from .annotate import ANNOTATE_OP, decode
+from .annotate import ANNOTATE_OP
 from .collective_planner import (PlanError, ReshardProgram, _candidate_gather_all,
                                  _candidate_legacy, execute_program, plan_reshard,
                                  search_telemetry, simulate)
 from .einsum_rules import compile_einsum, execute_einsum
-from .partitioner import (COLLECTIVE, LOCAL_OPS, REDUCE_OP, _want, align, broadcast_local,
-                          broadcast_sharding,
+from .partitioner import (COLLECTIVE, LOCAL_OPS, REDUCE_OP, _want, align, annotation_target,
+                          broadcast_local, broadcast_sharding,
                           conv_bias, conv_feature_local, conv_halo_local, conv_target,
                           dot_spec, elementwise_local, elementwise_targets,
                           fallback_global, fallback_keep_sharding, fallback_local,
                           gathers, group_size, local_reduce,
-                          local_reshape_ok, reduce_decision, scan_body_shardings,
+                          local_reshape_ok, reduce_decision, reshape_carried, scan_body_shardings,
                           transpose_sharding, trip_order)
 from .propagation import PropagationResult, add0, propagate
 from .reshard import shard_shape
-from .rules import (BROADCAST, DOT, ELEMENTWISE, REDUCE, RESHAPE, SCANS, TRANSPOSE, _bcast_map,
-                    _invert, _project, aval, lower)
+from .rules import (BROADCAST, DOT, ELEMENTWISE, REDUCE, RESHAPE, SCANS, STAGE_SHIFT, TRANSPOSE,
+                    _bcast_map, _invert, _project, aval, lower)
+from .shift import shift_local
 from .sharding import Mesh, Sharding, replicated
 
 Env = Dict[object, object]
@@ -754,6 +762,8 @@ class PlanBuilder:
             self._elementwise(eqn)
         elif name in SCANS:
             self._scan(eqn)
+        elif name == STAGE_SHIFT:
+            self._stage_shift(eqn)
         elif name in LOCAL_OPS and self._local(eqn):
             pass
         elif name in REDUCE:
@@ -775,7 +785,7 @@ class PlanBuilder:
     def _annotate(self, eqn) -> None:
         node = eqn.node
         iv = node.args[0]
-        tgt, _ = decode(*node.args[1:])
+        tgt = annotation_target(node, self.prop)
         cur = self.sh[iv]
         self.sh[node] = tgt
         if cur.dims_mapping == tgt.dims_mapping:
@@ -908,6 +918,18 @@ class PlanBuilder:
             self.sh[node] = want
             self.emit_compute((iv,), node, lambda x: x.reshape((x.shape[0],) + local), eqn.name)
             return
+        mid = reshape_carried(eqn.in_avals[0].shape, gshape, sh, want) if want is not None else None
+        if mid is not None:
+            # reshape each shard, then slice what ``want`` adds (a
+            # stage-folded batch split back keeps its stage sharding)
+            local, dbytes = shard_shape(gshape, mid), self._dbytes(iv)
+            self.sh[node] = want
+            key = ProxyVar("reshape.local")
+            self.emit_compute((iv,), key, lambda x: x.reshape((x.shape[0],) + local), eqn.name)
+            prog = plan_reshard(mid, want, local, dbytes)
+            self._account(prog, local, dbytes)
+            self.emit_reshard(key, node, prog, local, dbytes, self._dtype(iv))
+            return
         # gather, reshape globally, re-slice
         key = self.reshard_operand(iv, replicated(self.mesh, sh.rank))
         osh = want or replicated(self.mesh, len(gshape))
@@ -989,7 +1011,7 @@ class PlanBuilder:
         (``scan_body_shardings``), the body planned once, a carry that would
         leave the body in another sharding than it enters with resharded at
         the body's end, the ys stacked on an unsharded leading dim; the body
-        counted at trip count."""
+        counted at trip count, its fallbacks listed with the plan's."""
         node, p = eqn.node, eqn.params
         nc, nk, L = p["num_consts"], p["num_carry"], p["length"]
         if L < 1:
@@ -998,6 +1020,8 @@ class PlanBuilder:
                                                  [self.sh[v] for v in eqn.invars], self.mesh)
         keys = [self.reshard_operand(v, t) for v, t in zip(eqn.invars, targets)]
         inner = PlanBuilder(p["body"], inner_res, self.mesh, cost_only=self.cost_only).build()
+        self.fallbacks += inner.fallbacks  # the body's, as the dynamic path reports them
+        self.fallback_gathers += inner.fallback_gathers
         for i in range(nk):
             _keep_carry_sharding(inner, i, inner.in_shardings[nc + i], self.cost_only)
         outs = [inner.in_shardings[nc + i] for i in range(nk)] + [
@@ -1012,6 +1036,67 @@ class PlanBuilder:
                            flops=L * inner.total_flops(), wbytes=(wbytes,),
                            transient_bytes=inner.peak_bytes, inner=inner,
                            call={"trips": int(L), "num_consts": nc, "num_carry": nk}))
+
+    def _stage_shift(self, eqn) -> None:
+        """§3.3 shifting buffer (the reference's ``_stage_shift``): ``out[0]=x,
+        out[s]=state[s-1]``, or the mirror image under ``reverse``.
+
+        * stage dim replicated: one local concatenate, no communication;
+        * stage dim on one mesh axis: three steps: the boundary stage row
+          (the last local row, the first under ``reverse``), a ppermute of
+          it one position along the axis (a first-class ``collective``
+          step, which the optimizer prices, schedules and fuses), and the
+          stitch of the received row in front of the remaining local rows,
+          where the edge device takes the injected row instead;
+        * stage dim on stacked axes: the stage dim gathered first (correct;
+          the pipeline never emits this layout)."""
+        node, mesh = eqn.node, self.mesh
+        sv, xv = eqn.invars
+        reverse = eqn.params["reverse"]
+        s = self.sh[sv]
+        axes = s.dims_mapping[0]
+        n = group_size(mesh, axes) if axes else 1
+        sk = sv
+        if n > 1 and len(axes) > 1:
+            s = Sharding(mesh, ((),) + s.dims_mapping[1:])
+            sk = self.reshard_operand(sv, s)
+            axes, n = (), 1
+        # the injected row agrees with the state's trailing dims and is
+        # replicated along the stage axis (it enters on one edge device)
+        xk = self.reshard_operand(xv, Sharding(mesh, s.dims_mapping[1:]))
+        self.sh[node] = s
+        lshape = shard_shape(eqn.in_avals[0].shape, s)
+        dbytes, dtype = self._dbytes(sv), self._dtype(sv)
+        out_bytes = _nbytes_of(lshape, dbytes)
+        flops = float(np.prod(lshape or (1,)))
+        if n <= 1:
+            self.emit_compute((sk, xk), node, lambda st, x: shift_local(st, x, reverse, dim=1),
+                              "stage_shift", flops=flops, wbytes=(out_bytes,))
+            return
+        ax = axes[0]
+        bshape = (1,) + tuple(lshape[1:])
+        bbytes = _nbytes_of(bshape, dbytes)
+        boundary, recv = ProxyVar("shift.boundary"), ProxyVar("shift.recv")
+        self.emit(PlanStep("compute", (sk,), (boundary,),
+                           _compute_run(lambda st: st[:, :1] if reverse else st[:, -1:]),
+                           op="shift-boundary", lshape=lshape, dbytes=dbytes, dtype=dtype,
+                           wbytes=(bbytes,)))
+        perm = (tuple((i + 1, i) for i in range(n - 1)) if reverse
+                else tuple((i, i + 1) for i in range(n - 1)))
+        self.stats.count("collective-permute")
+        self.emit(PlanStep("collective", (boundary,), (recv,),
+                           _compute_run(lambda b: mr.ppermute(b, mesh, ax, perm)), op="ppermute",
+                           axes=(ax,), lshape=bshape, dbytes=dbytes, dtype=dtype,
+                           wbytes=(bbytes,), call={"perm": perm}))
+        edge = tuple(bool(i == (n - 1 if reverse else 0)) for i in mr.axis_index(mesh, ax))
+
+        def stitch(recv, st, x):
+            at_edge = mr._on_device(edge, torch.bool, x.device).reshape((-1,) + (1,) * (x.ndim - 1))
+            return shift_local(st, torch.where(at_edge, x, recv[:, 0]), reverse, dim=1)
+
+        self.emit(PlanStep("compute", (recv, sk, xk), (node,), _compute_run(stitch),
+                           op="shift-stitch", lshape=lshape, dbytes=dbytes, dtype=dtype,
+                           flops=flops, wbytes=(out_bytes,)))
 
     def _fallback(self, eqn) -> None:
         """Gather → op → reshard (§4.5), gathering only the dims the op

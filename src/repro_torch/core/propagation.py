@@ -49,6 +49,10 @@ class Propagation:
         self.locked: Dict[torch.fx.Node, frozenset] = {}  # locked dims per node
         self.changed = False
         self.sub: Dict[torch.fx.Node, "Propagation"] = {}  # scan node -> its body's
+        # scan node -> the outer shardings its body last reached a fixed point
+        # under, reflected out with no change: a visit under the same ones
+        # would change nothing, so it is skipped
+        self.settled: Dict[torch.fx.Node, tuple] = {}
         self.invars = [n for n in graph.nodes if n.op == "placeholder"]
         out = next(n for n in graph.nodes if n.op == "output")
         outs = out.args[0]
@@ -171,13 +175,22 @@ class Propagation:
             p.seed_annotations()
         return p
 
+    def _outer_key(self, eqn) -> tuple:
+        return tuple(None if s is None else s.dims_mapping
+                     for s in [self.get(v) for v in eqn.invars]
+                     + [self.get(o) for o in eqn.tuple_outs])
+
     def _apply_scan(self, eqn) -> None:
+        key = self._outer_key(eqn)
+        if self.settled.get(eqn.node) == key:
+            return
         nc, nk = eqn.params["num_consts"], eqn.params["num_carry"]
         inner = self.inner(eqn)
         body_in, body_out = inner.invars, inner.outvars
         consts, init, xs = eqn.invars[:nc], eqn.invars[nc:nc + nk], eqn.invars[nc + nk:]
         outs = list(eqn.tuple_outs)
         final, ys = outs[:nk], outs[nk:]
+        converged = False
         for _ in range(4):  # the carry's fixed point, bounded
             before = {v: s.dims_mapping for v, s in inner.env.items()}
             inner.seed_io([self.get(v) for v in consts] + [self.get(v) for v in init]
@@ -189,6 +202,7 @@ class Propagation:
                 inner.refine(cin, inner.get(cout))
                 inner.refine(cout, inner.get(cin))
             if {v: s.dims_mapping for v, s in inner.env.items()} == before:
+                converged = True
                 break
         for ov, iv in zip(consts + init, body_in[:nc + nk]):
             self.refine(ov, inner.get(iv))
@@ -198,6 +212,10 @@ class Propagation:
             self.refine(ov, inner.get(iv))
         for ov, iv in zip(ys, body_out[nk:]):
             self.refine(ov, add0(inner.get(iv)))
+        if converged and self._outer_key(eqn) == key:
+            self.settled[eqn.node] = key
+        else:
+            self.settled.pop(eqn.node, None)
 
     # -- the sweeps ---------------------------------------------------------------
     def run(self, max_rounds: int = 32) -> Dict[torch.fx.Node, Sharding]:

@@ -32,6 +32,9 @@ Where an aten graph differs from a jaxpr:
   ``alias``/``detach``/``clone`` are elementwise, as the reference's ``copy``;
 * ops that return a tuple (``unbind``, the flash operator pair) map each
   result to the ``getitem`` node that reads it (``Eqn.tuple_outs``);
+* ``repro_torch::stage_shift`` (``core/shift.py``) passes every dim's
+  sharding through, the stage dim's included, and aligns the injected row
+  with the state's trailing dims (the reference's ``rule_stage_shift``);
 * the ops a captured training step adds: ``stack``, ``unbind``, ``select``,
   ``select_backward`` and ``slice_backward`` keep the sharding of the dims
   they do not touch; ``logsumexp`` is a reduction; ``embedding``,
@@ -79,6 +82,7 @@ FLASH_BWD = "repro_torch.flash_attention_bwd"
 FLASH_DECODE = "repro_torch.flash_decode"
 SSD = "repro_torch.ssd_scan"
 SSD_BWD = "repro_torch.ssd_scan_bwd"
+STAGE_SHIFT = "repro_torch.stage_shift"
 SCAN = "repro_torch.scan"
 SCAN_FWD = "repro_torch.scan_fwd"
 SCANS = (SCAN, SCAN_FWD)
@@ -738,10 +742,11 @@ def rule_flash_pair(eqn, in_sh, out_sh, direction):
 # ---------------------------------------------------------------------------------
 
 # each operand's dims as dims of the scan's (batch, heads, head dim) layout:
-# x and y (B,S,H,hd), dt (B,S,H), B and C (B,S,ds), A (H,).  The sequence and
-# the state dim ds stay replicated; hd may be sharded, since the scan is
-# separable over it.
-_SSD_DIMS = {4: (0, None, 1, 2), 3: (0, None, 1), 1: (1,)}
+# x and y (B,S,H,hd), dt (B,S,H), B and C (B,S,ds), A (H,), or (B,H) with a
+# row of heads per batch row (a vmapped call's fold, ``kernels/ops.py``).
+# The sequence and the state dim ds stay replicated; hd may be sharded,
+# since the scan is separable over it.
+_SSD_DIMS = {4: (0, None, 1, 2), 3: (0, None, 1), 2: (0, 1), 1: (1,)}
 
 
 def _ssd_dims(a, i: int):
@@ -940,9 +945,29 @@ _PARAMS = {
                                           "chunk": int(kwargs_of(node)["chunk"])},
     SSD: lambda node, ins, out: {"chunk": int(kwargs_of(node)["chunk"])},
     SSD_BWD: lambda node, ins, out: {"chunk": int(kwargs_of(node)["chunk"])},
+    STAGE_SHIFT: lambda node, ins, out: {"reverse": bool(kwargs_of(node)["reverse"])},
 }
 for _n in REDUCE | ARGMINMAX:
     _PARAMS[_n] = _reduce_params
+
+def rule_stage_shift(eqn, in_sh, out_sh, direction):
+    """§3.3 shifting buffer (``repro_torch::stage_shift``): the shift moves
+    data *along* the stage dim, so every dim's sharding passes straight
+    through (the stage dim's included: each slot moves globally, landing on
+    the neighbour shard by a ppermute at partition time).  The injected row
+    ``x`` (one rank lower) aligns with the state's trailing dims."""
+    s_state, s_x = in_sh
+    (s_out,) = out_sh
+    cands = [s for s in (s_state, s_out) if s is not None]
+    if s_x is not None:
+        # the injected row lifted to the state's rank with an unsharded stage
+        # dim; the merge fails (None) where x uses the stage axis: left alone
+        cands.append(Sharding(s_x.mesh, ((),) + s_x.dims_mapping))
+    m = _merge_many(cands)
+    if m is None:
+        return in_sh, out_sh
+    return [m, Sharding(m.mesh, m.dims_mapping[1:])], [m]
+
 
 RULES = {}
 PRIORITY = {}
@@ -990,5 +1015,8 @@ for name, rule in (("aten.unbind", rule_drop_dim), ("aten.select", rule_drop_dim
                    *((n, rule_index) for n in INDEX)):
     RULES[name] = rule
     PRIORITY[name] = 1
+
+RULES[STAGE_SHIFT] = rule_stage_shift
+PRIORITY[STAGE_SHIFT] = 1
 
 MAX_PRIORITY = 3

@@ -24,9 +24,12 @@ loop is one operator node:
 * ``repro_torch::scan_fwd``, where a gradient is being recorded through
   the loop: the body's forward and backward are captured as one graph and
   split.  The forward body is the ancestors of the body's outputs (and the
-  ``getitem``s of its tuple results); the reverse body is the rest; the
-  residuals are the forward values the rest reads, emitted as extra
-  stacked ``y``s of the forward scan.  The registered gradient of
+  ``getitem``s of its tuple results); the reverse body is the rest that
+  the gradients read; the residuals are the forward values it reads, emitted as extra
+  stacked ``y``s of the forward scan, except those computed from the
+  consts alone (a layer's params sliced out of a stage-stacked const,
+  their casts), which the reverse body computes again rather than reading
+  one stacked copy per trip.  The registered gradient of
   ``scan_fwd`` is a ``repro_torch::scan`` over the reverse body with the
   opposite direction: its carry the cotangents of the carry and the sums of
   the consts' gradients, its ``x``s the residuals, the forward's ``x``s and
@@ -285,17 +288,48 @@ def _split_joint(joint: torch.fx.GraphModule, n_in: Tuple[int, int, int], n_cot:
     for n in g.nodes:  # a tuple result's reads go with it
         if n.op == "call_function" and n.target is operator.getitem and n.args[0] in fwd:
             fwd.add(n)
-    rest = [n for n in g.nodes if n.op == "call_function" and n not in fwd]
+    # the reverse body's nodes: what the gradients read outside the forward
+    # (the joint may hold dead nodes, such as a vmap rule's unfold of a
+    # result only the forward returns; they would run, and keep their
+    # operands as residuals, every trip)
+    need: set = set()
+    stack = [a for a in grads if isinstance(a, torch.fx.Node)]
+    while stack:
+        n = stack.pop()
+        if n in need or n in fwd or n.op != "call_function":
+            continue
+        need.add(n)
+        stack.extend(n.all_input_nodes)
+    rest = [n for n in g.nodes if n in need]
     k_set = set(k_ph)
+    # forward values computed from the consts alone (a layer's params sliced
+    # out of a stage-stacked const, their casts, factories): the reverse
+    # body computes them again from its own consts rather than reading
+    # them stacked trip by trip
+    const_only: Dict[torch.fx.Node, bool] = {p: True for p in c_ph}
+    for n in g.nodes:
+        if n.op == "get_attr":
+            const_only[n] = True
+        elif n.op == "call_function":
+            const_only[n] = all(const_only.get(a, False) for a in n.all_input_nodes)
 
     residuals: List[torch.fx.Node] = []
+    again: set = set()
     seen = set()
 
     def note(a):
         if (isinstance(a, torch.fx.Node) and a not in seen
                 and ((a in fwd and a.op != "get_attr") or a in k_set)):
             seen.add(a)
-            residuals.append(a)
+            if a in fwd and const_only.get(a, False):
+                stack = [a]
+                while stack:
+                    n = stack.pop()
+                    if n not in again and n.op == "call_function":
+                        again.add(n)
+                        stack.extend(n.all_input_nodes)
+            else:
+                residuals.append(a)
 
     for n in rest:
         for a in n.all_input_nodes:
@@ -333,7 +367,7 @@ def _split_joint(joint: torch.fx.GraphModule, n_in: Tuple[int, int, int], n_cot:
         benv[p] = _copy_placeholder(bg, p, f"x_{i}")
     for i, p in enumerate(cot_ph[n_dc:]):
         benv[p] = _copy_placeholder(bg, p, f"dy_{i}")
-    rest_set = set(rest)
+    rest_set = set(rest) | again
     for n in g.nodes:
         if n in rest_set or (n.op == "get_attr" and n not in benv
                              and any(u in rest_set for u in n.users)):

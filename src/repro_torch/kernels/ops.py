@@ -38,10 +38,15 @@ tensor to the plain versions (``chunked_attention_ref`` and
 ``attention_lse_ref``; ``flash_attention_bwd_ref``).  Run eagerly, the same
 calls go to the kernels or the plain versions directly (``flash_forward``,
 ``flash_attention_train``): an operator's dispatch costs host time on every
-call, and serving makes one call per layer per decode step.
+call, and serving makes one call per layer per decode step.  Under
+``torch.func.vmap`` (the §3.3 pipeline's stage body, inside
+``as_operators``) the operators fold the vmapped dim into the batch and
+make one call for every slice (their vmap rules, at the end).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional, Tuple
 
 import torch
@@ -63,7 +68,15 @@ def _route(t: torch.Tensor) -> str:
 
 
 def _needs_grad(*tensors) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    """Whether autograd records through the call.  Inside ``as_operators``
+    the caller says (a tensor batched by ``torch.func.vmap`` reports no
+    ``requires_grad``)."""
+    if not torch.is_grad_enabled():
+        return False
+    grad = _OPERATORS.get()
+    if grad is not None:
+        return grad
+    return any(t.requires_grad for t in tensors)
 
 
 def _flash_forward(q, k, v, causal, q_offset, kv_len, chunk):
@@ -236,11 +249,39 @@ def _capturing(q) -> bool:
     return isinstance(q, FakeTensor) or get_proxy_mode() is not None
 
 
+# inside ``as_operators``: whether autograd records through the calls
+_OPERATORS: contextvars.ContextVar = contextvars.ContextVar("repro_torch_operators",
+                                                            default=None)
+
+
+@contextlib.contextmanager
+def as_operators(grad: bool):
+    """Inside the block, attention and the SSD go through their operators
+    eagerly too, as under capture, and ``grad`` says whether autograd
+    records through them.  A ``torch.func.vmap`` of a layer needs this: the
+    operators' vmap rules fold the vmapped dim into the batch and make one
+    call, where the kernels' wrappers cannot take a batched tensor, and a
+    batched tensor does not report ``requires_grad`` (the §3.3 pipeline
+    vmaps one stage body over the stage dim)."""
+    token = _OPERATORS.set(bool(grad))
+    try:
+        yield
+    finally:
+        _OPERATORS.reset(token)
+
+
+def _operator_route(q) -> bool:
+    """Whether a call goes through its operator: under capture, or inside
+    ``as_operators``."""
+    return _OPERATORS.get() is not None or _capturing(q)
+
+
 def flash_forward(q, k, v, causal: bool, q_offset: int, kv_len: Optional[int], chunk: int):
     """The forward with no gradient: the operator while a graph is being
-    captured (fake tensors, or a proxy mode on the stack), else the kernel
-    (CUDA) or the plain version (CPU) called directly."""
-    if _capturing(q):
+    captured (fake tensors, or a proxy mode on the stack) or inside
+    ``as_operators``, else the kernel (CUDA) or the plain version (CPU)
+    called directly."""
+    if _operator_route(q):
         return flash_attention_op(q, k, v, bool(causal), int(q_offset),
                                   None if kv_len is None else int(kv_len), int(chunk))
     return _flash_forward(q, k, v, causal, q_offset, kv_len, chunk)
@@ -255,7 +296,7 @@ def attention_model_layout(
     package's); the kernel tiles kv itself."""
     if not _needs_grad(q, k, v):
         return flash_forward(q, k, v, causal, q_offset, kv_len, chunk)
-    if _capturing(q):
+    if _operator_route(q):
         if q.device.type == "cuda":
             fab.check_trainable(q, k, v, q_offset=q_offset, kv_len=kv_len)
         elif q_offset != 0 or kv_len not in (None, k.shape[1]):
@@ -365,7 +406,95 @@ def ssd(x, dt, B, C, A, *, chunk: int = 128):
     shards on batch, heads and head dim: ``core/partitioner.py::decide_ssd``;
     its gradient one ``repro_torch::ssd_scan_bwd`` node, ``decide_ssd_bwd``);
     else the kernels (CUDA: with a gradient, ``ssd_scan_train``) or the
-    plain version (CPU) called directly."""
-    if _capturing(x):
+    plain version (CPU) called directly; inside ``as_operators`` the
+    operator too."""
+    if _operator_route(x):
         return ssd_scan_op(x, dt, B, C, A, int(chunk))
     return _ssd(x, dt, B, C, A, chunk)
+
+
+# ---------------------------------------------------------------------------------
+# vmap rules: one call for every vmapped slice
+# ---------------------------------------------------------------------------------
+#
+# A ``torch.func.vmap`` of a layer (the §3.3 pipeline's stage body, vmapped
+# over the stage dim) reaches these operators with a batched dim.  Each rule
+# moves that dim first (an operand that is not batched is expanded), folds
+# it into the batch dim, makes one call and unfolds the results: one kernel
+# launch for every stage, not one per stage.  The fold is a view whose
+# vmapped dim is the major dim of the merged batch, so a stage-sharded dim
+# stays sharded through it (``rules.rule_reshape``).
+
+
+def _lead(t, d, n: int):
+    """``t`` with its vmapped dim ``d`` first; unbatched, expanded to ``n``."""
+    if d is None:
+        return t.expand((n,) + tuple(t.shape))
+    return t if d == 0 else t.movedim(d, 0)
+
+
+def _merge(t):
+    return t.reshape((-1,) + tuple(t.shape[2:]))
+
+
+def _folded(info, in_dims, *tensors):
+    """The operands with the vmapped dim folded into their batch dim."""
+    return [_merge(_lead(t, d, info.batch_size)) for t, d in zip(tensors, in_dims)]
+
+
+def _unfold(t, n: int):
+    return t.reshape((n, -1) + tuple(t.shape[1:]))
+
+
+def a_per_row(A, n: int, rows: int):
+    """The SSD's A for a call whose batch folds ``n`` slices of ``rows``
+    rows (a vmapped call, or the partitioner's stacked devices): A (n, H),
+    one row of heads per slice, repeated over its rows, or A (n, rows, H)
+    merged; returns A (n·rows, H), which the kernel reads per row."""
+    if A.ndim == 2:
+        return A[:, None, :].expand(n, rows, A.shape[-1]).reshape(n * rows, A.shape[-1])
+    return _merge(A)
+
+
+def _flash_vmap(info, in_dims, q, k, v, causal, q_offset, kv_len, chunk):
+    n = info.batch_size
+    out = flash_attention_op(*_folded(info, in_dims[:3], q, k, v), causal, q_offset, kv_len,
+                             chunk)
+    return _unfold(out, n), 0
+
+
+def _flash_fwd_vmap(info, in_dims, q, k, v, causal, chunk):
+    n = info.batch_size
+    out, lse = flash_attention_fwd_op(*_folded(info, in_dims[:3], q, k, v), causal, chunk)
+    return (_unfold(out, n), _unfold(lse, n)), (0, 0)
+
+
+def _flash_bwd_vmap(info, in_dims, q, k, v, out, lse, dout, causal):
+    n = info.batch_size
+    grads = flash_attention_bwd_op(*_folded(info, in_dims[:6], q, k, v, out, lse, dout), causal)
+    return tuple(_unfold(g, n) for g in grads), (0, 0, 0)
+
+
+def _ssd_vmap(info, in_dims, x, dt, B, C, A, chunk):
+    n = info.batch_size
+    xf, dtf, Bf, Cf = _folded(info, in_dims[:4], x, dt, B, C)
+    Af = a_per_row(_lead(A, in_dims[4], n), n, xf.shape[0] // n)
+    return _unfold(ssd_scan_op(xf, dtf, Bf, Cf, Af, chunk), n), 0
+
+
+def _ssd_bwd_vmap(info, in_dims, x, dt, B, C, A, dy, chunk):
+    n = info.batch_size
+    xf, dtf, Bf, Cf, dyf = _folded(info, in_dims[:4] + in_dims[5:6], x, dt, B, C, dy)
+    rows = xf.shape[0] // n
+    A = _lead(A, in_dims[4], n)
+    dx, ddt, dB, dC, dA = ssd_scan_bwd_op(xf, dtf, Bf, Cf, a_per_row(A, n, rows), dyf, chunk)
+    dA = dA.reshape(n, rows, -1)
+    if A.ndim == 2:  # each slice's A was one row of heads: its gradient sums the rows
+        dA = dA.sum(1)
+    return tuple(_unfold(g, n) for g in (dx, ddt, dB, dC)) + (dA,), (0,) * 5
+
+
+for _name, _rule in (("flash_attention", _flash_vmap), ("flash_attention_fwd", _flash_fwd_vmap),
+                     ("flash_attention_bwd", _flash_bwd_vmap), ("ssd_scan", _ssd_vmap),
+                     ("ssd_scan_bwd", _ssd_bwd_vmap)):
+    torch.library.register_vmap(f"repro_torch::{_name}", _rule)

@@ -1209,3 +1209,89 @@ def test_scanned_gradient_program_on_cuda_equals_unrolled(cuda, arch):
             assert torch.equal(a, b)
         else:
             assert_close(a, b, "f32_chain")
+
+
+# -- the kernel operators' vmap rules (the §3.3 pipeline's stage body) ---------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vmapped_flash_operators_fold_the_stages_into_one_launch(cuda, dtype):
+    n, B, S, KR, Gl, D = 4, 2, 256, 2, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(n, B, S, KR, Gl, D, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(n, B, S, KR, D, generator=g, device=cuda).to(dtype) for _ in range(2))
+    do = torch.randn(n, B, S, KR, Gl, D, generator=g, device=cuda).to(dtype)
+    before = fa.launches
+    out = torch.func.vmap(lambda a, b, c: ops.flash_attention_op(a, b, c, True, 0, None, 128))(
+        q, k, v)
+    out2, lse = torch.func.vmap(lambda a, b, c: ops.flash_attention_fwd_op(a, b, c, True, 128))(
+        q, k, v)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 2  # one launch per vmapped call, for every stage
+    before = fab.launches
+    grads = torch.func.vmap(lambda *t: ops.flash_attention_bwd_op(*t, True))(
+        q, k, v, out2, lse, do)
+    torch.cuda.synchronize()
+    assert fab.launches == before + 1
+    for s in range(n):
+        want = chunked_attention_ref(q[s], k[s], v[s], causal=True, chunk=128)
+        assert_close(out[s], want, TOL[dtype])
+        assert_close(out2[s], want, TOL[dtype])
+        assert_close(lse[s], attention_lse_ref(q[s], k[s], causal=True), "f32_chain")
+        for name, got, w in zip("qkv", grads, flash_attention_bwd_ref(
+                q[s], k[s], v[s], out2[s], lse[s], do[s], causal=True)):
+            assert_close(got[s], w, BWD_TOL[dtype], err_msg=f"stage {s} d{name}")
+
+
+@pytest.mark.parametrize("a_per_row", [False, True])
+def test_vmapped_ssd_operators_fold_the_stages_into_one_launch(cuda, a_per_row):
+    n, B, S, H, hd, ds = 3, 2, 256, 4, 64, 128
+    stages = [_ssd_inputs(cuda, B, S, H, hd, ds, seed=s) for s in range(n)]
+    x, dt, Bm, Cm, A = (torch.stack(t) for t in zip(*stages))
+    if a_per_row:
+        A = A[:, None, :].expand(n, B, H).contiguous()
+    dy = torch.randn(x.shape, generator=torch.Generator(device=cuda).manual_seed(9), device=cuda)
+    before = ssd_kernel.launches, ssd_bwd_kernel.launches
+    y = torch.func.vmap(lambda *t: ops.ssd_scan_op(*t, 128))(x, dt, Bm, Cm, A)
+    grads = torch.func.vmap(lambda *t: ops.ssd_scan_bwd_op(*t, 128))(x, dt, Bm, Cm, A, dy)
+    torch.cuda.synchronize()
+    assert (ssd_kernel.launches, ssd_bwd_kernel.launches) == (before[0] + 1, before[1] + 1)
+    assert tuple(grads[4].shape) == tuple(A.shape)
+    for s in range(n):
+        assert_close(y[s], ssd_scan_ref(x[s], dt[s], Bm[s], Cm[s], A[s], 128), "f32_chain")
+        # against the float64 plain backward, in norm (the backward kernel's gate)
+        want = ssd_scan_bwd_ref(*(t[s].double() for t in (x, dt, Bm, Cm, A, dy)), 128)
+        for name, got, w in zip(("dx", "ddt", "dB", "dC", "dA"), grads, want):
+            rel = ((got[s].double() - w).norm() / w.norm()).item()
+            assert rel <= TOLERANCES["f32_chain"][0], f"stage {s} {name}: {rel}"
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "mamba2-130m"])
+def test_pipelined_loss_launches_one_kernel_call_per_layer_and_tick(cuda, arch):
+    """``pipelined_loss_fn`` eagerly on the card (2 stages, 2 microbatches, 4
+    layers, float32): one forward and one backward kernel call per layer of
+    a stage and tick, for every stage at once (3 ticks of 2 layers), and
+    the loss within f32_chain of the unpipelined ``loss_fn``."""
+    from repro_torch.pipeline import PipelineDecision, pipelined_loss_fn, stage_stack_params
+
+    over = {"d_model": 128} if arch == "mamba2-130m" else {}
+    cfg = reduced_config(get_config(arch), 8).with_(num_layers=4, dtype="float32",
+                                                    remat="none", **over)
+    st = get_strategy("2d_finalized")
+    params = tree_init(api.param_tree(cfg, st), torch.Generator("cuda").manual_seed(3),
+                       dtype="float32", device="cuda")
+    tok = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab_size, (4, 257)))
+    batch = {"tokens": tok[:, :-1].cuda(), "labels": tok[:, 1:].cuda()}
+    staged = tree_map(lambda p: p.detach().requires_grad_(),
+                      {**params, "layers": stage_stack_params(params["layers"], 2)})
+    mods = (fa, fab) if arch == "qwen1.5-0.5b" else (ssd_kernel, ssd_bwd_kernel)
+    for mod in mods:
+        mod.launches = 0
+    loss = pipelined_loss_fn(cfg, st, staged, batch, PipelineDecision("stage", 2, 2))
+    grads = torch.autograd.grad(loss, leaves(staged))
+    torch.cuda.synchronize()
+    assert tuple(mod.launches for mod in mods) == (6, 6)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    with torch.no_grad():
+        want = api.loss_fn(cfg.with_(scan_layers=False), st, params, batch)
+    assert_close(loss.detach(), want, "f32_chain")

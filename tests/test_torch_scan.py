@@ -511,3 +511,27 @@ def test_scanned_engine_matches_reference():
     assert plan.op_counts()["repro_torch.flash_decode"] == eng.cfg.num_layers
     assert not any(s.op == "aten.stack" for s in plan.steps)
     serve_t._check_float32(jreqs, reqs, jseen, seen, "coarse")
+
+
+def test_compiled_scan_plan_lists_its_body_fallbacks():
+    """A scan body's fallbacks are the plan's, as the dynamic path lists
+    them: a softmax over a sharded dim inside the body gathers it."""
+    mesh = Mesh.create((4,), ("x",))
+
+    def f(xs):
+        xs = annotate(xs, mesh_split(3, mesh, [-1, "x", -1]))
+
+        def body(c, x):
+            y = torch.softmax(x, dim=0)
+            return c + y.sum(0), y
+
+        return scan(body, torch.zeros(4), xs)
+
+    xs = torch.tensor(np.random.default_rng(5).standard_normal((3, 8, 4)).astype(np.float32))
+    compiled = spmd_partition(f, mesh, optimize=False, device="cpu")
+    dynamic = spmd_partition(f, mesh, compile_plans=False, device="cpu")
+    got, want = compiled(xs), dynamic(xs)
+    for a, b in zip(got, want):
+        assert_close(a, b, "exact")
+    assert compiled.fallback_gathers == dynamic.fallback_gathers == ["aten._softmax"]
+    assert compiled.fallbacks == dynamic.fallbacks
