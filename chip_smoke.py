@@ -191,7 +191,28 @@ Phases, each of which raises (and so exits non-zero) on failure:
    wrong-direction ppermute that must fail by 10x;
    first-call seconds, plan steps, host ms, device busy and peak beside the
    plan's modeled peak; with a kernel case at its folded shape in 2 and
-   2b.
+   2b;
+12. checkpoints, in a process of their own, in a temporary directory under
+   ``build/`` (the free space printed first, the directory removed at the
+   end): qwen1.5-0.5b at full width trained through ``launch.train.main``
+   (B4 S2048, Adafactor, six steps, ``--ckpt-every 3``) uninterrupted,
+   crashed at step 4 (``step_00000003`` alone left) and restarted (step 3
+   restored at cursor 3, steps 3-5 run): run 2's step 3 restored onto the
+   card and saved again with every leaf's crc32 and bytes unchanged, run 3's
+   losses within bf16_chain and its final params per leaf in norm within
+   bf16_grad of run 1's (whether bit-equal printed: the flash backward's dq
+   atomics), flash launches per step as in 4, the verify CLI passing; then
+   qwen (24 layers scanned, full width, B8 S512) trained two steps by
+   ``TrainLoop`` under ``set_mesh`` of ("data" 2, "model" 4) saving each
+   step, its manifest's specs the state's partition specs on that mesh,
+   restored by ``restore_resharded`` onto ("data" 4, "model" 2) and
+   ``derive_mesh(4, 4)`` (full and sliced reads) and onto (4, 2) all
+   replicated: bit-equal, verified, wire bytes, launches and resharded
+   leaves equal to the pure plan's, then one step on each mesh against the
+   unsharded step (loss within bf16_chain, the update within bf16_grad);
+   a flipped and a truncated payload in the largest sharded leaf fall back
+   to step 1 bit-equal, and the verify CLI fails; save, restore and verify
+   seconds and GB/s, sliced-read I/O counts, ``reshard_s``, peak memory.
 
 Every path runs with the kernels' launch counts set to 0 just before it and
 read just after.  The last two lines of output are the kernels' JSON record
@@ -202,8 +223,10 @@ import collections
 import concurrent.futures
 import json
 import math
+import os
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -4677,6 +4700,573 @@ def sharded_phases_in_own_process(seed, card):
     return res
 
 
+# ---------------------------------------------------------------------------------
+# checkpoints: crash and restart through the entry point, and a cross-mesh
+# restore through the partitioner
+# ---------------------------------------------------------------------------------
+
+CKPT_ARGV = ("--arch", "qwen1.5-0.5b", "--reduce", "1", "--batch", "4", "--seq", "2048",
+             "--steps", "6", "--ckpt-every", "3", "--data-pattern", "arithmetic")
+CKPT_FAIL_AT = 4
+CKPT_RESHARD_B, CKPT_RESHARD_S = 8, 512
+
+
+def _meta_state(cfg, st, opt):
+    """The train state's structure on the meta device (shapes and dtypes,
+    no memory): a restore target."""
+    from repro_torch.models import api
+    from repro_torch.models.layers import tree_shapes
+
+    shapes = tree_shapes(api.param_tree(cfg, st), cfg.param_dtype)
+    return {"params": shapes, "opt": opt.init(shapes), "step": 0}
+
+
+def checkpoint_reshard_config():
+    """qwen1.5-0.5b at its published widths, 24 layers, the layer loop
+    scanned, remat "none", 2d_finalized, Adafactor."""
+    from repro_torch.configs.base import get_strategy
+    from repro_torch.train.optimizer import get_optimizer
+
+    cfg = partition_train_config(24, "none").with_(scan_layers=True)
+    return cfg, get_strategy("2d_finalized"), get_optimizer("adafactor")
+
+
+def checkpoint_restores():
+    """The restores of ``checkpoint_reshard_case``: (label, mesh, target
+    specs: the state's own or all replicated).  Named axes keep their
+    meaning on the new mesh, so the state's own specs move no leaf that
+    (2,4) kept sharded (the tiles are cut anew as the leaves are read); the
+    replicated target gathers every sharded leaf."""
+    from repro_torch.launch.elastic import derive_mesh
+    from repro_torch.core.sharding import Mesh
+
+    m1 = Mesh.create((4, 2), ("data", "model"))
+    return (("M1", m1, "own"), ("M2", derive_mesh(n_devices=4, model_parallel=4), "own"),
+            ("M1 replicated", m1, "replicated"))
+
+
+def checkpoint_plan_prediction(profile=None):
+    """Pure planning, no tensors: the checkpoint of ``checkpoint_reshard_config``'s
+    train state saved on ("data" 2, "model" 4) (its leaves, bytes and the
+    specs the loop records, from meta shapes) and ``restore_resharded``'s
+    plan for each of ``checkpoint_restores``: wire bytes, launches,
+    resharded leaves.  The same on the CPU (``tools/ckpt_plan.py``) and on
+    the card."""
+    from repro_torch.core.plan import dtype_bytes
+    from repro_torch.launch.elastic import specs_by_key, state_partition_specs
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.loop import TrainConfig, checkpoint_specs
+
+    cfg, st, opt = checkpoint_reshard_config()
+    tc = TrainConfig()
+    meta = _meta_state(cfg, st, opt)
+    specs = checkpoint_specs(cfg, st, opt, tc, meta, make_test_mesh())
+    table = []
+    for key, leaf in ckpt._flatten_with_paths(meta):
+        shape = list(getattr(leaf, "shape", ()))
+        dtype = "int32" if isinstance(leaf, int) else str(leaf.dtype).replace("torch.", "")
+        table.append({"key": key, "shape": shape, "dtype": dtype,
+                      "spec": [list(a) for a in specs[key].dims_mapping]})
+    manifest = {"leaves": table}
+    nbytes = sum(int(np.prod(l["shape"], dtype=np.int64)) * dtype_bytes(l["dtype"])
+                 for l in table)
+    target = specs_by_key(state_partition_specs(cfg, st, opt, tc))
+    keys = [(l["key"], None) for l in table]
+    out = {"leaves": len(table), "bytes": nbytes,
+           "sharded_leaves": sum(1 for l in table if any(l["spec"])), "meshes": {}}
+    for name, mesh, specs in checkpoint_restores():
+        rep = ckpt.plan_restore_reshard(manifest, keys, mesh, target if specs == "own" else None,
+                                        profile=profile).report()
+        out["meshes"][name] = {"shape": list(mesh.shape), **{
+            k: rep[k] for k in ("wire_bytes", "launches", "resharded_leaves", "leaves",
+                                "gather_all_bytes", "ratio_vs_gather_all", "reshard_s",
+                                "collectives")}}
+    return out
+
+
+def _timed(mod, name, log):
+    """Wrap ``mod.name`` so that each call's seconds (the card drained before
+    and after) and the bytes under the step directory it returns (a save)
+    land in ``log``; returns the original."""
+    fn = getattr(mod, name)
+
+    def wrapped(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        rec = {"s": time.perf_counter() - t0}
+        if isinstance(out, str) and os.path.isdir(out):
+            rec["bytes"] = sum(os.path.getsize(os.path.join(out, f)) for f in os.listdir(out))
+        log.append(rec)
+        return out
+
+    setattr(mod, name, wrapped)
+    return fn
+
+
+def _gbs(rec, nbytes=None):
+    b = rec.get("bytes", nbytes)
+    return None if not b else b / rec["s"] / 1e9
+
+
+def _verify_cli(d):
+    """``python -m repro_torch.train.checkpoint verify d``: (exit code,
+    seconds, output)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.train.checkpoint", "verify", d],
+                          capture_output=True, text=True, env=env, timeout=300)
+    return proc.returncode, time.perf_counter() - t0, proc.stdout
+
+
+def _same_state(got, want):
+    """The keys of ``got`` whose values differ from ``want``'s (tensors bit
+    for bit, numbers by value)."""
+    from repro_torch.core.tree import leaves, leaves_with_paths
+
+    off = []
+    for (path, a), b in zip(leaves_with_paths(got), leaves(want)):
+        if isinstance(a, torch.Tensor):
+            same = (isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+                    and torch.equal(a.detach(), b.detach().to(a.device)))
+        else:
+            same = a == b
+        if not same:
+            off.append("/".join(path))
+    return off
+
+
+def checkpoint_restart_case(seed, card, root):
+    """Crash and restart through ``launch.train.main``: qwen1.5-0.5b at full
+    width (B4 S2048, Adafactor, remat "dots", six steps, a checkpoint every
+    three), uninterrupted (run 1), then crashed at step 4 (run 2: exactly
+    ``step_00000003`` left, no ``.tmp-``), then restarted (run 3: restores
+    step 3 at cursor 3, runs steps 3-5, saves step 6).  Gates: run 2's step
+    3 restored onto the card and saved again has every leaf's crc32 of run
+    2's manifest, and the restored tensors equal the files (exact); run 3's
+    losses within bf16_chain of run 1's steps 3-5 and its step-6 params per
+    leaf in norm within bf16_grad of run 1's (the key bias, whose exact
+    gradient is 0 and whose update is rounding, printed; the flash backward's dq
+    atomics change the sum order run to run, so neither need be bit-equal;
+    whether it is is printed); per step 48 flash forward launches (remat)
+    and 24 backward calls; the verify CLI passes run 3's directory."""
+    from repro_torch.configs.base import get_strategy
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.compat import TOLERANCES
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import get_optimizer
+
+    cfg, st, opt = get_config("qwen1.5-0.5b"), get_strategy("2d_finalized"), get_optimizer(
+        "adafactor")
+    L = cfg.num_layers
+    mods = _kernel_modules()
+    want = {name: 0 for name in mods}
+    want.update(flash_attention=2 * L, flash_attention_bwd=L)
+    saves, restores = [], []
+    save0, restore0 = _timed(ckpt, "save", saves), _timed(ckpt, "restore", restores)
+
+    def run(tag, d, *extra):
+        recs, logs, clock = [], [], {}
+
+        def fault(step):
+            for mod in mods.values():
+                mod.launches = 0
+            clock["t0"] = time.perf_counter()
+
+        def metrics(step, loss):
+            recs.append({"step": step, "loss": loss,
+                         "ms": (time.perf_counter() - clock["t0"]) * 1e3,
+                         "launches": {n: mod.launches for n, mod in mods.items()}})
+
+        def log(msg):
+            logs.append(msg)
+            print(f"    [{tag}] {msg}", flush=True)
+
+        err, losses, n_saves = None, None, len(saves)
+        t0 = time.perf_counter()
+        try:
+            losses = launch_train.main(list(CKPT_ARGV) + ["--seed", str(seed), "--ckpt-dir", d,
+                                                          *extra],
+                                       hooks={"fault": fault, "metrics": metrics, "log": log})
+        except RuntimeError as e:
+            err = str(e)
+        for r in recs:
+            check(r["launches"] == want, f"{tag}: step {r['step']} launched {r['launches']}, "
+                  f"want {want}")
+        return {"losses": losses, "error": err, "logs": logs, "steps": recs,
+                "seconds": time.perf_counter() - t0, "saves": saves[n_saves:]}
+
+    try:
+        d1, d2, dfid = (os.path.join(root, n) for n in ("run1", "run2", "resave"))
+        run1 = run("run 1", d1)
+        check(run1["error"] is None and len(run1["losses"]) == 6
+              and all(math.isfinite(x) for x in run1["losses"]), f"run 1: {run1}")
+        check(ckpt.intact_steps(d1) == [3, 6], f"run 1 saved {ckpt.intact_steps(d1)}")
+        shutil.rmtree(os.path.join(d1, "step_00000003"))  # disk: only step 6 is compared
+        run2 = run("run 2", d2, "--fail-at-step", str(CKPT_FAIL_AT))
+        check(run2["error"] == f"injected failure at step {CKPT_FAIL_AT}",
+              f"run 2 did not fail as injected: {run2['error']}")
+        check(sorted(os.listdir(d2)) == ["step_00000003"], f"run 2 left {os.listdir(d2)}")
+
+        # restore fidelity: run 2's step 3 onto the card, saved again
+        meta = _meta_state(cfg, st, opt)
+        restored, man = ckpt.restore(d2, meta, step=3, device="cuda")
+        fid_restore = restores[-1]
+        ckpt.save(dfid, 3, restored, extra=man["extra"])
+        fid_save = saves[-1]
+        again = {l["key"]: l["checksum"] for l in ckpt._load_manifest(dfid, 3)["leaves"]}
+        crc_off = [l["key"] for l in man["leaves"] if again.get(l["key"]) != l["checksum"]]
+        file_off = []
+        for l in man["leaves"]:
+            arr = np.load(os.path.join(d2, "step_00000003", l["file"]))
+            got = restored
+            for k in l["key"].split("/"):
+                got = got[k]
+            if isinstance(got, torch.Tensor):
+                same = (not got.requires_grad and got.device.type == "cuda"
+                        and np.array_equal(got.cpu().numpy(), arr))
+            else:
+                same = got == int(arr)
+            if not same:
+                file_off.append(l["key"])
+        nbytes = fid_save["bytes"]
+        del restored
+        shutil.rmtree(dfid)
+        torch.cuda.empty_cache()
+        check(not crc_off and not file_off and man["restore_report"]["missing"] == []
+              and man["restore_report"]["unused"] == [],
+              f"restore fidelity: crc32 off {crc_off}, tensors off the files {file_off}")
+
+        run3 = run("run 3", d2)
+        check(run3["error"] is None and "restored checkpoint step=3 cursor=3" in run3["logs"],
+              f"run 3 did not restore step 3 at cursor 3: {run3['logs'][:3]} {run3['error']}")
+        check([r["step"] for r in run3["steps"]] == [3, 4, 5] and ckpt.intact_steps(d2) == [3, 6],
+              f"run 3 ran {[r['step'] for r in run3['steps']]}, saved {ckpt.intact_steps(d2)}")
+        loss_over = _err_over(torch.tensor(run3["losses"]), torch.tensor(run1["losses"][3:]),
+                              "bf16_chain")
+        m1, m3 = ckpt._load_manifest(d1, 6), ckpt._load_manifest(d2, 6)
+        params_rel, crc_equal = {}, True
+        for a, b in zip(m1["leaves"], m3["leaves"]):
+            crc_equal &= a["checksum"] == b["checksum"]
+            if a["key"].startswith("params/"):
+                x = torch.from_numpy(np.load(os.path.join(d1, "step_00000006", a["file"]))).cuda()
+                y = torch.from_numpy(np.load(os.path.join(d2, "step_00000006", b["file"]))).cuda()
+                params_rel[a["key"]] = _rel(y, x)
+        rc, verify_s, verify_out = _verify_cli(d2)
+    finally:
+        ckpt.save, ckpt.restore = save0, restore0
+    limit = TOLERANCES["bf16_grad"][0]
+    worst = max((k for k in params_rel if k != "params/" + KEY_BIAS), key=params_rel.get)
+    rec = {"losses_run1": run1["losses"], "losses_run3": run3["losses"],
+           "loss_err_over_bf16_chain": loss_over,
+           "losses_bit_equal": run3["losses"] == run1["losses"][3:],
+           "params_rel_by_leaf": params_rel, "params_rel_max": [worst, params_rel[worst]],
+           "state_bit_equal": crc_equal, "checkpoint_bytes": nbytes,
+           "save_s": [r["s"] for r in run1["saves"] + run2["saves"] + run3["saves"]],
+           "save_gbs": [_gbs(r) for r in run1["saves"] + run2["saves"] + run3["saves"]],
+           "restore_s": {"fidelity": fid_restore["s"], "run3": restores[-1]["s"]},
+           "restore_gbs": {"fidelity": _gbs(fid_restore, nbytes),
+                           "run3": _gbs(restores[-1], nbytes)},
+           "resave_s": fid_save["s"], "verify_s": verify_s, "verify_rc": rc,
+           "verify_gbs": 2 * nbytes / verify_s / 1e9,
+           "run_seconds": [run1["seconds"], run2["seconds"], run3["seconds"]],
+           "launches_per_step": want}
+    print(f"  restart: {nbytes / 1e9:.3f} GB a checkpoint ({len(m1['leaves'])} leaves); run 3's "
+          f"losses {run3['losses']} against run 1's {run1['losses'][3:]}: err/limit "
+          f"{loss_over:.3f} (bf16_chain), bit-equal {rec['losses_bit_equal']}; step-6 params "
+          f"per leaf in norm at most {params_rel[worst]:.3e} ({worst}; bf16_grad {limit}; the "
+          f"key bias, whose exact gradient is 0, {params_rel['params/' + KEY_BIAS]:.3e}, not "
+          f"gated), every leaf's crc32 equal {crc_equal}; {card}", flush=True)
+    print(f"    save s {[round(x, 3) for x in rec['save_s']]} (GB/s "
+          f"{[round(x, 2) for x in rec['save_gbs']]}); restore s fidelity "
+          f"{fid_restore['s']:.3f}, run 3 {restores[-1]['s']:.3f}; resave {fid_save['s']:.3f}; "
+          f"verify CLI {verify_s:.3f} s on two steps (exit {rc}); runs "
+          f"{[round(x, 1) for x in rec['run_seconds']]} s", flush=True)
+    check(rc == 0, f"verify CLI on run 3's directory: exit {rc}: {verify_out[-2000:]}")
+    check(loss_over <= 1.0, f"run 3's losses off run 1's: {loss_over}")
+    check(params_rel[worst] <= limit, f"run 3's params off run 1's: {worst} {params_rel[worst]}")
+    return rec
+
+
+def checkpoint_reshard_case(seed, card, root):
+    """The partitioned state saved on ("data" 2, "model" 4) by ``TrainLoop``
+    under ``set_mesh`` (qwen1.5-0.5b, 24 layers scanned, full width, remat
+    "none", 2d_finalized, B8 S512, Adafactor; two steps, a checkpoint after
+    each), restored by ``restore_resharded`` onto ("data" 4, "model" 2) and
+    ``derive_mesh(4, 4)`` = ("data" 1, "model" 4) under the state's own
+    specs, full and sliced reads, and onto ("data" 4, "model" 2) all
+    replicated (every sharded leaf gathered), then trained one step on each
+    mesh against the same step unsharded.
+    Gates: the manifest's specs are the state's partition specs projected
+    onto (2,4); every restore bit-equal to the saved state, verified, at
+    most the gather-all bytes, with wire bytes, launches and resharded
+    leaves equal to the pure plan's (``checkpoint_plan_prediction``); the
+    step on each mesh: loss within bf16_chain of the unsharded step's, the
+    update over leaves of two or more dims in norm within bf16_grad and 95 %
+    of the 1-D update's signs agreeing, 24 flash forward launches and 24
+    backward calls, no gathering fallback; a flipped payload byte in the
+    largest sharded leaf raises ``CheckpointCorruptError`` naming it on a
+    pinned restore and falls back to step 1 (bit-equal) without one, and so
+    does a truncated file under sliced reads; the verify CLI fails."""
+    from repro_torch.core.compat import TOLERANCES, set_mesh
+    from repro_torch.core.plan_verify import verify_state_reshard
+    from repro_torch.core.sharding import project_dims_mapping
+    from repro_torch.core.tree import leaves_with_paths, tree_map
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.elastic import specs_by_key, state_partition_specs
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.loop import TrainConfig, TrainLoop, init_state
+
+    cfg, st, opt = checkpoint_reshard_config()
+    L, V = cfg.num_layers, cfg.vocab_size
+    mesh = make_test_mesh()
+    profile, _ = measured_roofline(mesh)
+    predicted = checkpoint_plan_prediction(profile)
+    d = os.path.join(root, "partitioned")
+    pipe = TokenPipeline(DataConfig(V, CKPT_RESHARD_S, CKPT_RESHARD_B, seed=seed,
+                                    pattern="arithmetic"))
+    mods = _kernel_modules()
+    want = {name: 0 for name in mods}
+    want.update(flash_attention=L, flash_attention_bwd=L)
+    target = specs_by_key(state_partition_specs(cfg, st, opt, TrainConfig()))
+    meta = _meta_state(cfg, st, opt)
+    saves = []
+    save0 = _timed(ckpt, "save", saves)
+    try:
+        with set_mesh(mesh):
+            state = init_state(cfg, st, opt, TrainConfig(),
+                               torch.Generator("cuda").manual_seed(seed), "cuda")
+            snap = {}
+
+            def metrics(step, loss):
+                if step == 0:  # the state saved as step 1
+                    snap["state"] = {"params": tree_map(lambda p: p.detach().clone(),
+                                                        state["params"]),
+                                     "opt": tree_map(torch.Tensor.clone, state["opt"]),
+                                     "step": 1}
+
+            loop = TrainLoop(cfg, st, opt, TrainConfig(steps=2, ckpt_dir=d, ckpt_every=1,
+                                                       log_every=10**9), pipe, device="cuda",
+                             hooks={"metrics": metrics})
+            t0 = time.perf_counter()
+            saved, losses = loop.run(initial_state=state, start_step=0)
+            train_s = time.perf_counter() - t0
+        (entry,) = loop.step_fn.runner.plans.values()
+        first_call = dict(entry.build_s)
+        del loop, entry
+    finally:
+        ckpt.save = save0
+    check(ckpt.intact_steps(d) == [1, 2], f"saved steps {ckpt.intact_steps(d)}")
+    man = ckpt._load_manifest(d, 2)
+    spec_off = []
+    for l in man["leaves"]:
+        dm = ckpt._dims_mapping(target[l["key"]], len(l["shape"]))
+        want_spec = project_dims_mapping(mesh, [tuple(a) for a in dm], l["shape"])
+        if l["spec"] != [list(a) for a in want_spec.dims_mapping]:
+            spec_off.append((l["key"], l["spec"]))
+    check(not spec_off and man["mesh"] == {"shape": [2, 4], "axes": ["data", "model"]},
+          f"the manifest's specs: {spec_off}, mesh {man['mesh']}")
+    nbytes = sum(os.path.getsize(os.path.join(d, "step_00000002", f))
+                 for f in os.listdir(os.path.join(d, "step_00000002")))
+    print(f"  reshard: saved {losses} at steps 1, 2 on (data 2, model 4): {len(man['leaves'])} "
+          f"leaves, {nbytes / 1e9:.3f} GB a step; predicted {json.dumps(predicted)}", flush=True)
+
+    keys = [(l["key"], None) for l in man["leaves"]]
+    base_state = sum(t.numel() * t.element_size() for _, t in leaves_with_paths(saved)
+                     if isinstance(t, torch.Tensor))
+    restores, trained = {}, {}
+    for name, new, own in checkpoint_restores():
+        pred, specs = predicted["meshes"][name], target if own == "own" else None
+        kept = None
+        for sharded_io in (False, True) if own == "own" else (False,):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            tree, _, rep = ckpt.restore_resharded(d, meta, new, specs, step=2,
+                                                  sharded_io=sharded_io, device="cuda",
+                                                  profile=profile)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - before
+            off = _same_state(tree, saved)
+            plan = ckpt.plan_restore_reshard(man, keys, new, specs)
+            got = {k: rep[k] for k in ("wire_bytes", "launches", "resharded_leaves")}
+            label = f"{name} {'sliced' if sharded_io else 'full'}"
+            restores[label] = {"s": secs, "gbs": nbytes / secs / 1e9, "peak_gib": peak / 2**30,
+                               "state_gib": base_state / 2**30, "report": rep,
+                               "bit_equal": not off}
+            print(f"    restore onto {name} {tuple(new.shape)} ({'sliced' if sharded_io else 'full'}"
+                  f" reads): {secs:.3f} s ({nbytes / secs / 1e9:.2f} GB/s), peak "
+                  f"{peak / 2**30:.3f} GiB above {base_state / 2**30:.3f} GiB of state; "
+                  f"{json.dumps({k: rep[k] for k in rep if k not in ('missing', 'unused')})}",
+                  flush=True)
+            check(not off, f"{label}: restored leaves off the saved state: {off}")
+            check(verify_state_reshard(plan).ok, f"{label}: the reshard plan did not verify")
+            check(rep["ratio_vs_gather_all"] <= 1.0, f"{label}: {rep['ratio_vs_gather_all']}")
+            check(got == {k: pred[k] for k in got}, f"{label}: plan {got} != predicted {pred}")
+            if sharded_io or own != "own":
+                del tree
+            else:
+                kept = tree
+        if kept is not None:
+            trained[name] = checkpoint_train_on(cfg, st, opt, pipe, new, kept, want)
+        del kept
+        torch.cuda.empty_cache()
+
+    # planted faults on step 2's largest sharded leaf
+    big = max((l for l in man["leaves"] if any(l["spec"])),
+              key=lambda l: int(np.prod(l["shape"], dtype=np.int64)))
+    path = os.path.join(d, "step_00000002", big["file"])
+    offset = ckpt._npy_header(path)[3]
+    with open(path, "r+b") as f:
+        f.seek(offset + (os.path.getsize(path) - offset) // 2)
+        b = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([b[0] ^ 0xFF]))
+    new, faults = checkpoint_restores()[0][1], {}
+    try:
+        ckpt.restore_resharded(d, meta, new, target, step=2, device="cuda")
+        faults["pinned"] = "no error"
+    except ckpt.CheckpointCorruptError as e:
+        faults["pinned"] = e.key
+    tree, _, rep = ckpt.restore_resharded(d, meta, new, target, device="cuda")
+    faults["flipped"] = {"step": rep["step"], "fell_back_from": rep["fell_back_from"],
+                         "off": _same_state(tree, snap["state"])}
+    del tree
+    with open(path, "r+b") as f:
+        f.truncate(os.path.getsize(path) // 2)
+    tree, _, rep = ckpt.restore_resharded(d, meta, new, target, sharded_io=True, device="cuda")
+    faults["truncated"] = {"step": rep["step"], "fell_back_from": rep["fell_back_from"],
+                           "off": _same_state(tree, snap["state"])}
+    del tree
+    rc, verify_s, verify_out = _verify_cli(d)
+    faults["verify_rc"] = rc
+    print(f"    planted faults in {big['key']}: {json.dumps(faults)}; verify CLI {verify_s:.3f} s",
+          flush=True)
+    check(faults["pinned"] == big["key"], f"the flipped byte: {faults['pinned']}")
+    for kind in ("flipped", "truncated"):
+        check(faults[kind] == {"step": 1, "fell_back_from": [2], "off": []},
+              f"the {kind} leaf's fallback: {faults[kind]}")
+    check(rc != 0, "the verify CLI passed a corrupt directory")
+    return {"losses": losses, "train_s": train_s, "first_call_s": first_call,
+            "save_s": [r["s"] for r in saves], "save_gbs": [_gbs(r) for r in saves],
+            "checkpoint_bytes": nbytes, "predicted": predicted, "restores": restores,
+            "train_on": trained, "faults": faults, "largest_sharded_leaf": big["key"],
+            "verify_corrupt_s": verify_s, "card": card}
+
+
+def checkpoint_train_on(cfg, st, opt, pipe, mesh, restored, want):
+    """One ``TrainLoop`` step (step 2) under ``mesh`` from the restored
+    state against the same step unsharded from a copy of it."""
+    from repro_torch.core.compat import TOLERANCES, set_mesh
+    from repro_torch.core.tree import leaves, leaves_with_paths, tree_map
+    from repro_torch.train.loop import TrainConfig, TrainLoop
+
+    mods = _kernel_modules()
+    copy = lambda s: {"params": tree_map(lambda p: p.detach().clone().requires_grad_(),  # noqa
+                                         s["params"]),
+                      "opt": tree_map(torch.Tensor.clone, s["opt"]), "step": s["step"]}
+    twin, before = copy(restored), tree_map(lambda p: p.detach().clone(), restored["params"])
+    runs = {}
+    for tag, m, state in (("sharded", mesh, restored), ("unsharded", None, twin)):
+        counts = {}
+
+        def fault(step):
+            for mod in mods.values():
+                mod.launches = 0
+
+        def metrics(step, loss):
+            counts.update({n: mod.launches for n, mod in mods.items()})
+
+        t0 = time.perf_counter()
+        with set_mesh(m):
+            loop = TrainLoop(cfg, st, opt, TrainConfig(steps=3, log_every=10**9), pipe,
+                             device="cuda", hooks={"fault": fault, "metrics": metrics})
+            after, (loss,) = loop.run(initial_state=state, start_step=2)
+        runs[tag] = {"loss": loss, "params": after["params"], "launches": counts,
+                     "seconds": time.perf_counter() - t0,
+                     "runner": getattr(loop.step_fn, "runner", None)}
+    runner = runs["sharded"].pop("runner")
+    (entry,) = runner.plans.values()
+    two, one, sign_agree = [], [], 1.0
+    for (path, p), q, p0 in zip(leaves_with_paths(runs["sharded"]["params"]),
+                                leaves(runs["unsharded"]["params"]), leaves(before)):
+        du, dq = (p.detach() - p0).flatten(), (q.detach() - p0).flatten()
+        if p.ndim >= 2:
+            two.append(du)
+            one.append(dq)
+        else:
+            sign_agree = min(sign_agree, (du.sign() == dq.sign()).float().mean().item())
+    update_rel = _rel(torch.cat(two), torch.cat(one))
+    loss_over = _err_over(torch.tensor(runs["sharded"]["loss"]),
+                          torch.tensor(runs["unsharded"]["loss"]), "bf16_chain")
+    limit = TOLERANCES["bf16_grad"][0]
+    rec = {"shape": list(mesh.shape), "loss_sharded": runs["sharded"]["loss"],
+           "loss_unsharded": runs["unsharded"]["loss"], "loss_err_over_bf16_chain": loss_over,
+           "update_rel_2d": update_rel, "sign_agreement_1d": sign_agree,
+           "first_call_s": dict(entry.build_s), "plan_steps": len(entry.plan.steps),
+           "launches": runs["sharded"]["launches"],
+           "fallback_gathers": list(runner.fallback_gathers),
+           "seconds": {t: r["seconds"] for t, r in runs.items()}}
+    print(f"    train on {tuple(mesh.shape)}: loss {rec['loss_sharded']:.6f} against unsharded "
+          f"{rec['loss_unsharded']:.6f} (err/limit {loss_over:.3f}, bf16_chain); update over "
+          f"2-D+ leaves {update_rel:.3e} in norm (bf16_grad {limit}), 1-D signs agreeing "
+          f"{sign_agree:.4f}; first call {json.dumps(rec['first_call_s'])}; plan "
+          f"{rec['plan_steps']} steps; launches {rec['launches']}", flush=True)
+    check(rec["launches"] == want and runs["unsharded"]["launches"] == want,
+          f"train on {mesh.shape}: launches {rec['launches']}, "
+          f"{runs['unsharded']['launches']}, want {want}")
+    check(not rec["fallback_gathers"], f"train on {mesh.shape}: {rec['fallback_gathers']}")
+    check(loss_over <= 1.0 and update_rel <= limit and sign_agree >= 0.95,
+          f"train on {mesh.shape}: off the unsharded step: {rec}")
+    return rec
+
+
+def checkpoint_phase(seed, card):
+    """Checkpoints on the card (``checkpoint_restart_case``,
+    ``checkpoint_reshard_case``), in a temporary directory under ``build/``
+    removed at the end."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(prefix="ckpt-", dir=str(build))
+    free = shutil.disk_usage(root).free
+    print(f"checkpoint: crash and restart through launch.train.main, and a cross-mesh restore "
+          f"through the partitioner; {free / 1e9:.1f} GB free under {build}; {card}", flush=True)
+    try:
+        restart = checkpoint_restart_case(seed, card, root)
+        torch.cuda.empty_cache()
+        reshard = checkpoint_reshard_case(seed, card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    print(f"checkpoint: {seconds:.1f} s", flush=True)
+    return {"restart": restart, "reshard": reshard, "free_disk_gb": free / 1e9,
+            "seconds": seconds}
+
+
+def checkpoint_phase_in_own_process(seed, card, timeout=300):
+    """``checkpoint_phase`` in a fresh process, with its own time limit."""
+    code = (f"import sys, json; sys.path.insert(0, {str(ROOT)!r}); import torch, chip_smoke; "
+            "torch.backends.cuda.matmul.allow_tf32 = False; "
+            "torch.backends.cudnn.allow_tf32 = False; "
+            f"print(json.dumps(chip_smoke.checkpoint_phase({seed}, {card!r})))")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=timeout)
+    lines = proc.stdout.splitlines()
+    print("\n".join(lines[:-1] if proc.returncode == 0 else lines), flush=True)
+    check(proc.returncode == 0 and lines,
+          f"the checkpoint phase failed ({proc.returncode}): {proc.stderr[-3000:]}")
+    return json.loads(lines[-1])
+
+
 # the kernels' templates by variant, as the mangled names in ptxas's report,
 # in the SASS and in profiler traces show them
 VARIANT_OF = {"flash_bwd_prep": "bwd_prep", "flash_bwd_main": "bwd_main",
@@ -4875,9 +5465,13 @@ def main(argv=None):
           "partitioner on a simulated (\"stage\" 4, \"model\" 2) mesh, against the unpipelined "
           "and the unsharded steps", flush=True)
     pipeline = pipeline_phase_in_own_process(args.seed, partition["card"])
+    print(f"checkpoint (at {time.perf_counter() - t0:.0f} s): crash and restart through "
+          "launch.train.main, and the partitioned state restored onto other meshes", flush=True)
+    checkpoint = checkpoint_phase_in_own_process(args.seed, partition["card"])
     print(f"phases done at {time.perf_counter() - t0:.0f} s (plan_opt "
           f"{sharded['plan_opt']['seconds']:.0f} s, scan {sharded['scan']['seconds']:.0f} s, "
-          f"pipeline {pipeline['seconds']:.0f} s of them)", flush=True)
+          f"pipeline {pipeline['seconds']:.0f} s, checkpoint {checkpoint['seconds']:.0f} s of "
+          "them)", flush=True)
 
     fa_main = next(c for c in fa_cases if c["case"] == "decode_8x16_pos1023")
     fa_prefill = next(c for c in fa_cases if c["case"] == "prefill_qwen_loss_2x2048")
@@ -4988,7 +5582,8 @@ def main(argv=None):
                                  "two_layer_step": qwen_two_layer},
         "mamba2": {"loss": mamba_loss, "serve": mamba_serve, "consistency": mamba_consistency,
                    "train": mamba_train, "two_layer_step": mamba_two_layer},
-        "partition": partition, "sharded": sharded, "pipeline": pipeline}
+        "partition": partition, "sharded": sharded, "pipeline": pipeline,
+        "checkpoint": checkpoint}
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

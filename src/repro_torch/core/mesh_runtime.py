@@ -292,6 +292,20 @@ def shard(x: torch.Tensor, s: Sharding) -> torch.Tensor:
     return blocks[_on_device(tuple(int(t) for t in tiles), torch.long, x.device)]
 
 
+def shard_slices(shape: Sequence[int], s: Sharding) -> Tuple[Tuple[slice, ...], ...]:
+    """The global index each stacked position holds under ``s``: one tuple
+    of slices per position, in ``shard``'s order (a sharded read fetches
+    exactly these ranges)."""
+    _check_divisible(shape, s)
+    tiles, tile_shape = _tiles(s)
+    local = [size // n for size, n in zip(shape, tile_shape)]
+    out = []
+    for t in tiles:
+        idx = np.unravel_index(int(t), tile_shape) if s.rank else ()
+        out.append(tuple(slice(int(i) * l, (int(i) + 1) * l) for i, l in zip(idx, local)))
+    return tuple(out)
+
+
 def unshard(x: torch.Tensor, s: Sharding) -> torch.Tensor:
     """The global tensor whose shards under ``s`` are the stacked ``x``."""
     tiles, tile_shape = _tiles(s)

@@ -53,8 +53,12 @@ call metadata (``call``: ``trips``, ``num_consts``, ``num_carry``), as the
 reference's: the body is planned once under its completed shardings and
 run once per trip; ``PlanStats``, ``PlanCost`` and ``plan_peak_bytes``
 count it at trip count (the body's live peak as the step's
-``transient_bytes``).  Not here yet: state-reshard plans (A14), and a fitted
-machine profile to stand in for the reference's default constants (A15).
+``transient_bytes``).
+
+:func:`compile_state_reshard` lowers a cross-topology checkpoint restore
+into a :class:`StateReshardPlan`: one reshard program per leaf, priced like
+a partition plan.  Not here yet: a fitted machine profile to stand in for
+the reference's default constants (A15).
 """
 from __future__ import annotations
 
@@ -463,7 +467,7 @@ class GuardConfig:
     ``loss`` and ``moments`` select state leaves; ``max_grad_norm`` bounds
     the global gradient norm.  ``rewind_after`` consecutive faulted steps
     escalate from a skipped batch to a ``NumericsFault`` (the rewind to a
-    checkpoint is ROADMAP A14).
+    checkpoint is the elastic coordinator's, ROADMAP A14b).
     """
 
     outputs: Optional[Tuple[int, ...]] = None
@@ -1343,3 +1347,144 @@ def lower_for_cost(captured, in_shardings, mesh: Mesh, optimize: bool = True,
     """:func:`lower_plan`, priced: no execution, no device."""
     return plan_cost(lower_plan(captured, in_shardings, mesh, optimize=optimize,
                                 verify=verify, guard=guard, profile=profile))
+
+
+# ---------------------------------------------------------------------------------
+# state-reshard plans: cross-topology checkpoint restore as a compiled program
+# ---------------------------------------------------------------------------------
+#
+# Restoring a checkpoint saved on one mesh onto another is a pure layout
+# problem: every leaf has a *source* sharding (the manifest's spec projected
+# onto the new mesh: axes that no longer exist or divide become replication)
+# and a *target* sharding.  One reshard program per leaf is lowered by the
+# cost-model planner, priced with the same model as any partition plan, and
+# replayed on the simulated mesh's stacked shards.
+
+
+def dtype_bytes(dtype: str) -> int:
+    """Bytes per element of a dtype named as a manifest names it ("float32",
+    "bfloat16", "int32", ...)."""
+    return getattr(torch, str(dtype)).itemsize
+
+
+@dataclasses.dataclass
+class LeafReshard:
+    """One leaf's planned source->target layout change."""
+
+    key: str
+    src: Sharding
+    dst: Sharding
+    global_shape: Tuple[int, ...]
+    dtype: str
+    program: ReshardProgram
+
+    @property
+    def is_identity(self) -> bool:
+        return self.program.is_identity
+
+
+@dataclasses.dataclass
+class StateReshardPlan:
+    """A compiled cross-topology restore: per-leaf reshard programs on one
+    (target) mesh, priced like any other plan.
+
+    Planning is pure (no tensors), so a full-size restore is priced on the
+    host; :meth:`execute` replays each program on the stacked shards of its
+    leaf's source layout.  Time-valued fields need ``params`` (a
+    :class:`RooflineParams`): the port has no default constants.
+    """
+
+    mesh: Mesh
+    leaves: List[LeafReshard]
+    stats: PlanStats
+    gather_all_bytes: float = 0.0  # reference: replicate-then-slice restore
+    params: Optional[RooflineParams] = None
+
+    @property
+    def wire_bytes(self) -> float:
+        return sum(l.program.cost_bytes for l in self.leaves)
+
+    @property
+    def launches(self) -> int:
+        return sum(1 for l in self.leaves for s in l.program.steps if s.op != "dynamic_slice")
+
+    @property
+    def resharded_leaves(self) -> int:
+        return sum(1 for l in self.leaves if not l.is_identity)
+
+    def cost(self) -> PlanCost:
+        """A restore is all collectives: ``collective_s`` is its time (wire
+        bytes over the link rate plus a launch cost each)."""
+        peak = sum(max(_nbytes_of(shard_shape(l.global_shape, l.src), dtype_bytes(l.dtype)),
+                       _nbytes_of(shard_shape(l.global_shape, l.dst), dtype_bytes(l.dtype)))
+                   for l in self.leaves)
+        return PlanCost(wire_bytes=self.wire_bytes, launches=self.launches,
+                        flops_per_device=0.0, ideal_flops_per_device=0.0,
+                        peak_bytes=peak, steps=len(self.leaves), params=self.params)
+
+    def source_specs(self) -> Dict[str, Sharding]:
+        """Per-leaf source shardings (the checkpoint's layout on the mesh)."""
+        return {l.key: l.src for l in self.leaves}
+
+    def target_specs(self) -> Dict[str, Sharding]:
+        """Per-leaf destination shardings (the new layout)."""
+        return {l.key: l.dst for l in self.leaves}
+
+    def report(self) -> Dict:
+        """The reference's report keys; ``reshard_s`` is None without
+        ``params``."""
+        cost = self.cost()
+        return {
+            "leaves": len(self.leaves),
+            "resharded_leaves": self.resharded_leaves,
+            "wire_bytes": self.wire_bytes,
+            "launches": self.launches,
+            "gather_all_bytes": self.gather_all_bytes,
+            "ratio_vs_gather_all": (self.wire_bytes / self.gather_all_bytes
+                                    if self.gather_all_bytes else 1.0),
+            "reshard_s": cost.collective_s if self.params is not None else None,
+            "collectives": dict(self.stats.collectives),
+        }
+
+    def execute_leaf(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Leaf ``i``'s program on ``x``, the stacked shards of its source
+        layout; returns the stacked shards of its target layout."""
+        return execute_program(x, self.leaves[i].program)
+
+    def execute(self, arrays) -> Tuple[torch.Tensor, ...]:
+        """Every leaf's program on its stacked source shards, in order."""
+        return tuple(self.execute_leaf(i, x) for i, x in enumerate(arrays))
+
+
+def compile_state_reshard(items, mesh: Mesh, verify: Optional[bool] = None,
+                          profile: Optional[RooflineParams] = None) -> StateReshardPlan:
+    """Lower a cross-topology state restore into a :class:`StateReshardPlan`.
+
+    ``items`` holds ``(key, src, dst, global_shape, dtype)`` with both
+    shardings on ``mesh`` (project manifest specs with
+    ``sharding.project_dims_mapping`` first).  Each leaf's program is chosen
+    by ``plan_reshard``; the replicate-then-slice restore is priced as
+    ``gather_all_bytes``.  Raises ``PlanError`` when a layout change is
+    inexpressible.  The plan is verified (``plan_verify.verify_state_reshard``)
+    unless ``verify`` is False.
+    """
+    leaves: List[LeafReshard] = []
+    stats = PlanStats()
+    gather_bytes = 0.0
+    for key, src, dst, shape, dtype in items:
+        shape = tuple(int(s) for s in shape)
+        db = dtype_bytes(dtype)
+        local = shard_shape(shape, src)
+        prog = plan_reshard(src, dst, local, dtype_bytes=db)
+        stats.add_program(prog)
+        stats.steps += 1
+        ref_steps = _candidate_gather_all(src, dst, local)
+        if ref_steps is not None:
+            gather_bytes += simulate(src, dst, ref_steps, local, db)
+        leaves.append(LeafReshard(key, src, dst, shape, str(dtype), prog))
+    plan = StateReshardPlan(mesh, leaves, stats, gather_bytes, profile)
+    from .plan_verify import verify_enabled, verify_state_reshard
+
+    if verify_enabled(verify):
+        verify_state_reshard(plan)
+    return plan

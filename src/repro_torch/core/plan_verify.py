@@ -33,7 +33,9 @@ does), a non-negative trip count, and the step's ``transient_bytes``
 equal to the body's peak.
 
 Failures raise :class:`PlanVerifyError` with every violation found.
-``verify_state_reshard`` (the elastic restore's plans) is ROADMAP A14.
+:func:`verify_state_reshard` checks a cross-topology restore's
+:class:`~.plan.StateReshardPlan`: each leaf's shardings on the plan's mesh
+and its program replayed from source to target at its recorded cost.
 The simulation of a program is cached per (program, local shape, element
 size): a train plan holds thousands of reshards of a few hundred distinct
 programs.
@@ -299,6 +301,57 @@ def verify_plan(plan, strict: bool = True) -> VerifyReport:
     report = VerifyReport()
     _verify_body(plan, report)
     _accounting_checks(plan, report.violations)
+    _TELEMETRY["plans_verified"] += 1
+    if report.violations:
+        _TELEMETRY["violations"] += len(report.violations)
+        if strict:
+            raise PlanVerifyError(report.violations)
+    return report
+
+
+def verify_state_reshard(plan, strict: bool = True) -> VerifyReport:
+    """Verify a :class:`~.plan.StateReshardPlan` (a cross-topology restore).
+
+    Per leaf: the source and target shardings live on the plan's mesh with
+    rank matching the global shape, and the leaf's program replays through
+    the simulator from ``src`` to ``dst`` at its recorded cost.
+    """
+    from .plan import dtype_bytes
+    from .reshard import shard_shape
+
+    report = VerifyReport()
+    report.plans = 1
+    out = report.violations
+    axis_names = set(plan.mesh.axis_names)
+    for leaf in plan.leaves:
+        report.steps += 1
+        where = f"leaf '{leaf.key}'"
+        for s, nm in ((leaf.src, "src"), (leaf.dst, "dst")):
+            if s.rank != len(leaf.global_shape):
+                out.append(f"{where}: {nm} rank {s.rank} != shape rank "
+                           f"{len(leaf.global_shape)}")
+            for dim_axes in s.dims_mapping:
+                for a in dim_axes:
+                    if a not in axis_names:
+                        out.append(f"{where}: {nm} uses axis '{a}' not in "
+                                   f"mesh {plan.mesh.axis_names}")
+        if leaf.program.cost_bytes < 0:
+            out.append(f"{where}: negative cost_bytes {leaf.program.cost_bytes}")
+        if leaf.program.src.dims_mapping != leaf.src.dims_mapping:
+            out.append(f"{where}: program.src {leaf.program.src.dims_mapping} disagrees with "
+                       f"leaf src {leaf.src.dims_mapping}")
+        if leaf.program.dst.dims_mapping != leaf.dst.dims_mapping:
+            out.append(f"{where}: program.dst {leaf.program.dst.dims_mapping} disagrees with "
+                       f"leaf dst {leaf.dst.dims_mapping}")
+        local = shard_shape(leaf.global_shape, leaf.src)
+        try:
+            cost = simulate(leaf.src, leaf.dst, list(leaf.program.steps), local,
+                            dtype_bytes(leaf.dtype))
+            if not _close(cost, leaf.program.cost_bytes):
+                out.append(f"{where}: recorded cost_bytes {leaf.program.cost_bytes:.1f} != "
+                           f"simulated {cost:.1f}")
+        except PlanError as e:
+            out.append(f"{where}: program does not reach its dst ({e})")
     _TELEMETRY["plans_verified"] += 1
     if report.violations:
         _TELEMETRY["violations"] += len(report.violations)

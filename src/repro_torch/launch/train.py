@@ -13,7 +13,16 @@ master weights, remat "dots", Adafactor); its SSD's gradient is the backward
 kernel.  ``--arch mamba2-130m --reduce 8 --batch 2 --seq 64 --device cpu``
 is a small CPU run.
 
-``--ckpt-dir`` raises until checkpoints are ported (ROADMAP A14).
+``--ckpt-dir DIR`` saves a checkpoint every ``--ckpt-every`` steps and at
+the end (``train/checkpoint.py``, the JAX package's format) and, when DIR
+already holds one, restores the newest and resumes at its data cursor,
+logging ``restored checkpoint step=N cursor=C``; ``--fail-at-step K``
+raises at the start of step K (a crash to restart from):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduce 16 --steps 6 \
+        --ckpt-dir build/ck --ckpt-every 3 --fail-at-step 4   # raises at step 4
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduce 16 --steps 6 \
+        --ckpt-dir build/ck --ckpt-every 3                    # resumes at step 3
 """
 from __future__ import annotations
 
@@ -31,8 +40,9 @@ from repro_torch.train.optimizer import get_optimizer
 
 
 def main(argv=None, hooks=None):
-    """Train and return the per-step losses; ``hooks`` join the loop's own
-    (``log`` and ``straggler`` print)."""
+    """Train and return the per-step losses (of the steps this run took);
+    ``hooks`` join the loop's own (``log`` and ``straggler`` print, so a
+    restore prints its step and cursor)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen1.5-0.5b")
     ap.add_argument("--strategy", default=None)

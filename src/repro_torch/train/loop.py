@@ -40,12 +40,20 @@ step counter still advances, so the data moves past the poisoned batch.
 skips, calls the ``numerics_fault`` hook, and raises ``NumericsFault`` after
 ``guard.rewind_after`` consecutive faults.
 
-Not ported yet, and refused where asked for: checkpoint/restart and the
-rewind to a checkpoint (``TrainConfig.ckpt_dir``: ``train/checkpoint.py``,
-ROADMAP A14) and the ``obs`` metrics and control events (A15; the loop
-calls its hooks only).  The dense family and Mamba2 train (attention's and the
-SSD's gradients are kernels on the card: ``kernels/ops.py``); the families
-with no model yet raise (ROADMAP A12).
+**Checkpoint/restart** (``TrainConfig.ckpt_dir``, ``train/checkpoint.py``):
+``run`` saves after every ``ckpt_every``-th step (a skipped step too) and
+once at the end, the manifest's ``extra`` holding the data cursor (the next
+batch index: the resume point) and the guard counters; under an ambient
+mesh each leaf's spec is the layout ``partitioned_train_step`` annotates it
+with (``launch/elastic.py::state_partition_specs`` projected onto the
+mesh).  A run with no ``initial_state`` restores the newest checkpoint in
+``ckpt_dir`` and resumes at its cursor.
+
+Not ported yet: the rewind to a checkpoint after escalated faults (the
+elastic coordinator's, ROADMAP A14b) and the ``obs`` metrics and control
+events (A15; the loop calls its hooks only).  The dense family and Mamba2
+train (attention's and the SSD's gradients are kernels on the card:
+``kernels/ops.py``); the families with no model yet raise (ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -64,6 +72,7 @@ from ..core.device import resolve_device
 from ..core.tree import leaves, leaves_with_paths, tree_from_paths, tree_map
 from ..models import api
 from ..models.layers import annotate_spec, annotate_tree, tree_init, tree_shapes, tree_specs
+from . import checkpoint as ckpt_lib
 from .optimizer import Optimizer, opt_state_specs
 
 
@@ -382,20 +391,37 @@ def init_state(cfg: ModelConfig, st: Strategy, opt: Optimizer, tc: TrainConfig,
     return state
 
 
+def checkpoint_specs(cfg: ModelConfig, st: Strategy, opt: Optimizer, tc: TrainConfig, state,
+                     mesh) -> Dict[str, Any]:
+    """Each leaf's ``Sharding`` on ``mesh`` by checkpoint key: the state's
+    partition specs (``launch/elastic.py::state_partition_specs``) projected
+    onto the mesh, the layout ``partitioned_train_step`` annotates the state
+    with at entry.  ``state``'s leaves may be meta tensors: only their
+    shapes are read."""
+    from ..core.sharding import project_dims_mapping
+    from ..launch.elastic import specs_by_key, state_partition_specs
+
+    by_key = specs_by_key(state_partition_specs(cfg, st, opt, tc))
+    out = {}
+    for key, leaf in ckpt_lib._flatten_with_paths(state):
+        shape = tuple(getattr(leaf, "shape", ()))
+        out[key] = project_dims_mapping(
+            mesh, ckpt_lib._dims_mapping(by_key.get(key, ()), len(shape)), shape)
+    return out
+
+
 class TrainLoop:
-    """Drives training with a straggler watchdog and the numerics guards'
-    skip and escalation.  ``step_times`` (seconds) and ``tokens_per_s`` hold
-    each finished step's wall time (host clock around the step, ending when
-    its loss reaches the host) and throughput; ``guard_counters`` (faults,
-    skips, rewinds) and ``skipped_steps`` what the guards did.
-    ``plan_profile`` is ``make_train_step``'s (under a mesh only)."""
+    """Drives training with checkpoint/restart, a straggler watchdog and the
+    numerics guards' skip and escalation.  ``step_times`` (seconds) and
+    ``tokens_per_s`` hold each finished step's wall time (host clock around
+    the step, ending when its loss reaches the host) and throughput;
+    ``guard_counters`` (faults, skips, rewinds; restored from a checkpoint's
+    ``extra``) and ``skipped_steps`` what the guards did.  ``plan_profile``
+    is ``make_train_step``'s (under a mesh only).  A ``ckpt_extra`` hook's
+    dict merges into every manifest's ``extra``."""
 
     def __init__(self, cfg, st, opt, tc: TrainConfig, pipeline, gen=None, step_fn=None,
                  hooks=None, device="cuda", plan_profile=None):
-        if tc.ckpt_dir:
-            raise NotImplementedError(
-                "TrainConfig.ckpt_dir needs train/checkpoint.py, which is not ported yet "
-                "(ROADMAP A14)")
         self.cfg, self.st, self.opt, self.tc = cfg, st, opt, tc
         self.pipeline = pipeline
         self.hooks = hooks or {}
@@ -415,15 +441,63 @@ class TrainLoop:
         self.step_fn = step_fn
         self.step_times = []  # old timings are not comparable post-reshard
 
+    def _ckpt_extra(self, step: int) -> Dict[str, Any]:
+        """Manifest ``extra``: the data cursor (next batch index) is the
+        resume point, so a restart replays nothing and skips nothing; the
+        guard counters ride along, and a ``ckpt_extra`` hook merges its
+        dict in."""
+        extra = {"data_cursor": step + 1}
+        if self.tc.guard is not None:
+            extra["guard"] = dict(self.guard_counters)
+        if "ckpt_extra" in self.hooks:
+            extra.update(self.hooks["ckpt_extra"]() or {})
+        return extra
+
+    def _save(self, save_step: int, state, cursor_step: int, prune: bool = True) -> None:
+        """One checkpoint save, then the retention pass (keep the newest
+        ``keep_ckpts``) unless ``prune`` is off."""
+        mesh = get_abstract_mesh()
+        specs = None if mesh is None else checkpoint_specs(self.cfg, self.st, self.opt, self.tc,
+                                                           state, mesh)
+        ckpt_lib.save(self.tc.ckpt_dir, save_step, state, extra=self._ckpt_extra(cursor_step),
+                      specs=specs)
+        if prune:
+            ckpt_lib.cleanup(self.tc.ckpt_dir, self.tc.keep_ckpts)
+
+    def _restore_or_init(self):
+        """``(state, start_step)``: a fresh state, or the newest checkpoint
+        in ``ckpt_dir`` restored onto it (params marked for autograd again,
+        as ``init_state`` marks them), with the start taken from the
+        manifest's data cursor and the guard counters from its ``extra``."""
+        state = init_state(self.cfg, self.st, self.opt, self.tc, self.gen, self.device)
+        start = 0
+        if self.tc.ckpt_dir:
+            last = ckpt_lib.latest_step(self.tc.ckpt_dir)
+            if last is not None:
+                state, manifest = ckpt_lib.restore(self.tc.ckpt_dir, state, last,
+                                                   device=self.device)
+                for p in leaves(state["params"]):
+                    p.requires_grad_(True)
+                extra = manifest.get("extra", {})
+                start = int(extra.get("data_cursor", manifest["step"]))
+                saved = extra.get("guard")
+                if saved:
+                    self.guard_counters.update({k: int(v) for k, v in saved.items()})
+                if "log" in self.hooks:
+                    self.hooks["log"](f"restored checkpoint step={last} cursor={start}")
+        return state, start
+
     def run(self, initial_state=None, start_step: Optional[int] = None):
         """Train until ``tc.steps``.  ``initial_state``/``start_step`` resume
-        mid-process."""
+        mid-process (skipping the checkpoint restore); otherwise the newest
+        checkpoint in ``tc.ckpt_dir``, if any, is restored."""
         if initial_state is not None:
             state = initial_state
             start = start_step if start_step is not None else int(state["step"])
         else:
-            state = init_state(self.cfg, self.st, self.opt, self.tc, self.gen, self.device)
-            start = start_step if start_step is not None else 0
+            state, start = self._restore_or_init()
+            if start_step is not None:
+                start = start_step
         tokens = self.pipeline.local_batch * self.pipeline.cfg.seq_len
         losses = []
         for step in range(start, self.tc.steps):
@@ -443,6 +517,8 @@ class TrainLoop:
                 # the step already kept the old state; decode the leaves,
                 # count, and escalate after K consecutive faults
                 self._on_fault(gc, step, state, metrics)
+                if self.tc.ckpt_dir and (step + 1) % self.tc.ckpt_every == 0:
+                    self._save(step + 1, state, step)
                 continue
             self._consecutive_faults = 0
             self.step_times.append(dt)
@@ -454,14 +530,19 @@ class TrainLoop:
                 med = float(np.median(self.step_times[-32:]))
                 if dt > self.tc.straggler_factor * med and "straggler" in self.hooks:
                     self.hooks["straggler"](step, dt, med)
+            if self.tc.ckpt_dir and (step + 1) % self.tc.ckpt_every == 0:
+                self._save(step + 1, state, step)
             if "log" in self.hooks and step % self.tc.log_every == 0:
                 self.hooks["log"](f"step {step} loss {loss:.4f} ({dt * 1e3:.0f} ms)")
+        if self.tc.ckpt_dir:
+            self._save(self.tc.steps, state, self.tc.steps - 1, prune=False)
         return state, losses
 
     def _on_fault(self, gc: GuardConfig, step: int, state, metrics) -> None:
         """Host side of a faulted step: per-leaf provenance, counters, the
         ``numerics_fault`` hook, and ``NumericsFault`` once ``rewind_after``
-        consecutive steps faulted (the rewind itself is ROADMAP A14)."""
+        consecutive steps faulted (the rewind to a checkpoint is the elastic
+        coordinator's, ROADMAP A14b)."""
         if self.guard_leaves is None:
             self.guard_leaves = guard_leaf_names(gc, state)
         faults = guard_faults(gc, metrics["guard"].cpu().numpy(), self.guard_leaves)

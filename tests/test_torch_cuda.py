@@ -1295,3 +1295,62 @@ def test_pipelined_loss_launches_one_kernel_call_per_layer_and_tick(cuda, arch):
     with torch.no_grad():
         want = api.loss_fn(cfg.with_(scan_layers=False), st, params, batch)
     assert_close(loss.detach(), want, "f32_chain")
+
+
+# ---------------------------------------------------------------------------------
+# checkpoints of tensors on the card
+# ---------------------------------------------------------------------------------
+
+
+def _card_state(cuda):
+    """float32 params (one of them bf16), an int32 leaf and the int step,
+    from a seeded generator on the card."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = {"w": torch.randn((32, 64), generator=gen, device=cuda),
+              "h": torch.randn((16, 8), generator=gen, device=cuda).bfloat16(),
+              "b": torch.randn((64,), generator=gen, device=cuda)}
+    for p in params.values():
+        p.requires_grad_(True)
+    return {"params": params, "idx": torch.arange(12, dtype=torch.int32, device=cuda), "step": 5}
+
+
+def test_checkpoint_of_card_tensors_restores_bit_equal(cuda, tmp_path):
+    """CUDA tensors (bf16 included) saved and restored onto the card equal
+    the originals bit for bit; the restored params need no grad."""
+    from repro_torch.train import checkpoint as ckpt
+
+    state = _card_state(cuda)
+    ckpt.save(str(tmp_path), 1, state)
+    restored, manifest = ckpt.restore(str(tmp_path), state)
+    assert {l["key"]: l["dtype"] for l in manifest["leaves"]}["params/h"] == "bfloat16"
+    for (path, got), want in zip(leaves_with_paths(restored), leaves(state)):
+        if isinstance(want, torch.Tensor):
+            assert got.device.type == "cuda" and got.dtype == want.dtype, path
+            assert torch.equal(got, want.detach()), path
+            assert not got.requires_grad, path
+        else:
+            assert got == want
+    assert ckpt.verify_dir(str(tmp_path))["ok"]
+
+
+def test_restore_resharded_with_sharded_reads_lands_on_the_card(cuda, tmp_path):
+    """A state saved with (2,4) specs, restored onto (4,2) and onto a
+    replicated target by per-device slice reads: every leaf on the card,
+    bit-equal, no grad."""
+    from repro_torch.core.sharding import Mesh, mesh_split
+    from repro_torch.train import checkpoint as ckpt
+
+    state = _card_state(cuda)
+    src = Mesh.create((2, 4), ("data", "model"))
+    ckpt.save(str(tmp_path), 1, state, specs={"params/w": mesh_split(2, src, ["data", "model"])})
+    cpu_target = tree_map(lambda t: t.detach().cpu() if isinstance(t, torch.Tensor) else t, state)
+    new = Mesh.create((4, 2), ("data", "model"))
+    for specs in ({"params/w": ("data", "model"), "params/b": ("model",)}, None):
+        restored, _, report = ckpt.restore_resharded(str(tmp_path), cpu_target, new, specs,
+                                                     sharded_io=True, device=cuda)
+        assert report["io"]["bytes_read"] == report["io"]["full_bytes"]
+        for (path, got), want in zip(leaves_with_paths(restored), leaves(state)):
+            if isinstance(want, torch.Tensor):
+                assert got.device.type == "cuda" and not got.requires_grad, path
+                assert torch.equal(got, want.detach()), path
+    assert report["resharded_leaves"] == 1  # the replicated target gathers w

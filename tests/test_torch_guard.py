@@ -1,7 +1,8 @@
 """Numerics guards: the plan's guard epilogue, the runner's NumericsFault and
 the train loop's skip and escalation, against the JAX package's
-(tests/test_guard.py's cases, without a checkpoint directory: checkpoints
-and the rewind to one are ROADMAP A14).
+(tests/test_guard.py's cases; those with a checkpoint directory are in
+tests/test_torch_checkpoint.py, and the rewind to a checkpoint is the
+elastic coordinator's, ROADMAP A14b).
 
 * ``guard_faults`` decodes as the reference's does, and
   ``append_guard_steps`` adds the same leaves, stat steps and one pmax over

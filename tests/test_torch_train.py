@@ -4,6 +4,7 @@ numeric-fault window), the loop's loss curve, remat and the master weights.
 Weights come from the reference's ``tree_init``, carried across through
 numpy; batches from the pipelines; tolerances from the port's
 ``TOLERANCES``."""
+import os
 import time
 import types
 
@@ -342,16 +343,21 @@ def test_master_weights_leave_serving_outputs_unchanged():
                      "exact")
 
 
-def test_unported_settings_raise_and_name_their_roadmap_items():
+def test_unported_settings_raise_and_name_their_roadmap_items(tmp_path):
     _, cfg = _tiny("float32")
     opt = get_optimizer("sgd")
     # the numerics guards are ported (tests/test_torch_guard.py)
     assert callable(make_train_step(cfg, ST, opt, TrainConfig(guard=GuardConfig())))
     pipe = TokenPipeline(DataConfig(cfg.vocab_size, 16, 4))
-    with pytest.raises(NotImplementedError, match="A14"):
-        TrainLoop(cfg, ST, opt, TrainConfig(ckpt_dir="ck"), pipe, device="cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        launch_train.main(["--device", "cpu", "--reduce", "16", "--ckpt-dir", "ck"])
+    # checkpoints are ported (tests/test_torch_checkpoint.py): a loop and the
+    # entry point with a checkpoint directory save into it
+    ck = tmp_path / "ck"
+    TrainLoop(cfg, ST, opt, TrainConfig(steps=1, ckpt_dir=str(ck / "loop")), pipe,
+              device="cpu").run()
+    assert sorted(os.listdir(ck / "loop")) == ["step_00000001"]
+    launch_train.main(["--device", "cpu", "--reduce", "32", "--steps", "1", "--batch", "2",
+                       "--seq", "16", "--ckpt-dir", str(ck / "main")])
+    assert sorted(os.listdir(ck / "main")) == ["step_00000001"]
     # Mamba2 trains (its SSD's gradient is the backward kernel on the card);
     # a family with no model yet still raises, naming its item
     assert callable(make_train_step(reduced_config(get_config("mamba2-130m"), 8), ST, opt,
