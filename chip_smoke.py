@@ -89,7 +89,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
    device ms of the three runs and host and wall ms per call (times of the
    simulation: one card does the eight devices' work), peak memory beside
    the plan's modeled peak, the plan's steps and stats, and its
-   ``PlanCost`` priced with a profile measured in this run; run in a
+   ``PlanCost`` priced with the committed H100 profile; run in a
    process of its own so that its profiler traces are whole;
 7. partitioned training, in the partition phase's process: qwen1.5-0.5b
    at its published widths (bf16 compute, float32 masters, Adafactor)
@@ -102,10 +102,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
    same loop unsharded on the card: losses, the step-0 gradient and
    update, per step one flash forward launch per layer (two under remat)
    and one backward call per layer for all eight devices, no gathering
-   fallback, no plan step holding a whole vocabulary dim; first-call
-   seconds (capture, completion, plan compile), plan steps and
-   collectives per step, wall, host and device-busy ms per step, peak
-   memory beside the plan's modeled peak; then ``compress_grads`` and the
+   fallback, no plan step holding a whole vocabulary dim, the optimized
+   plan's modeled peak no higher than the unoptimized plan's, and under
+   remat "full" and "dots" the allocator's and the modeled peak below
+   "none"'s; first-call seconds (capture, completion, plan compile), plan
+   steps and collectives per step, wall, host and device-busy ms per
+   step, peak memory beside the plan's modeled peak; then ``compress_grads`` and the
    numeric-fault window (two layers, float32, four steps each) against
    the unsharded steps; then mamba2-130m's train step partitioned (the
    three Table-1 strategies at two layers in float32, B8 S512, step 0's
@@ -136,8 +138,20 @@ Phases, each of which raises (and so exits non-zero) on failure:
    holding a whole vocabulary dim;
    tokens/s, step wall, host and device-busy ms, the cache's shard and
    unshard ms, syncs per step and peak memory;
+8b. observability, in the same process (``obs_phase``): qwen1.5-0.5b's
+   partitioned train step at full width (eight layers scanned, remat
+   "none", 2d_finalized, B8 S512, bf16) built by ``make_train_step`` under
+   ``set_mesh`` (its plan optimized and verified, priced by the committed
+   H100 profile), run untraced and under ``TraceConfig(timing="tight")``:
+   the traced outputs bit-equal to the untraced ones (within bf16_grad in
+   norm per leaf where two untraced calls differ), the traced call's
+   path launches equal to the untraced call's and the counters equal to
+   them plus the timed repeats', the Chrome trace valid (written to
+   ``chiprun_out/``), the calibration table per step class, a profile
+   fitted to the spans beside the committed one, and the allocator's peak
+   beside ``plan_peak_bytes``;
 9. the whole-program plan optimizer and the plan verifier, in the same
-   process, priced by a profile measured in this run: three paths at full
+   process, priced by the committed H100 profile: three paths at full
    width and two layers (qwen1.5-0.5b's partitioned train step, 2d_finalized,
    remat "none", B8 S512, bf16; its sequence-sharded decode step behind
    ``Engine(8 slots, max_len 1024)``, 2d_attempt1; mamba2-130m's
@@ -151,12 +165,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
    host and device-busy ms and peak memory beside the plan's modeled peak;
    then a guard drill at two layers: ``TrainLoop`` under ``set_mesh`` with
    a plan profile skipping a NaN-poisoned step with the params kept bit
-   for bit, ``Engine`` with and without a plan profile serving the same
+   for bit, ``Engine`` unoptimized and optimized serving the same
    tokens, and the guarded partitioned loss raising ``NumericsFault`` on a
    NaN token embedding.
 
-10. the scan node, in the same process, priced by a profile measured in
-   this run: each path captured with the layer loop scanned (one scan node
+10. the scan node, in the same process, priced by the committed H100
+   profile: each path captured with the layer loop scanned (one scan node
    whose body plan runs once per trip) and unrolled, run in turns
    (scanned, unrolled, unrolled, scanned) with unoptimized plans, and the
    scanned plan once more optimized: qwen1.5-0.5b's partitioned train step
@@ -1635,46 +1649,25 @@ def host_and_wall_ms(fn, calls=7):
     return statistics.median(host), statistics.median(wall)
 
 
-def measured_roofline(mesh):
-    """A ``RooflineParams`` for ``PlanCost`` from this card and this run: a
-    bf16 GEMM rate and an HBM copy rate (CUDA events), the link rate from
-    the H100 SXM data sheet (NVLink 4: 900 GB/s both ways, 450 GB/s each
-    way), the launch cost of one small psum over the mesh's last axis on the
-    simulated mesh (host wall per call, synchronised), and no overlap (one stream runs the simulated
-    collectives and the products in series)."""
-    from repro_torch.analysis.roofline import RooflineParams
-    from repro_torch.core import mesh_runtime as mr
+def card_profile():
+    """The ``RooflineParams`` the phases price plans with: the profile fitted
+    on an H100 by ``python -m repro_torch.obs profile`` and committed with
+    the package (``obs/h100_profile.json``), which the entry points resolve
+    by default; returns (params, a record of it)."""
+    from repro_torch.analysis.roofline import PROFILE_FILE
+    from repro_torch.obs.profile import MachineProfile, resolve_profile
 
-    n = 8192
-    a = torch.randn(n, n, device="cuda").bfloat16()
-    b = torch.randn(n, n, device="cuda").bfloat16()
-    gemm_ms = time_ms(lambda i: a @ b, 1)
-    del a, b
-    x = torch.empty(2**28, device="cuda")
-    y = torch.empty_like(x)
-    copy_ms = time_ms(lambda i: y.copy_(x), 1)
-    del x, y
-    z = torch.randn(mesh.size, 256, device="cuda")
-    axis = mesh.axis_names[-1]
-    for _ in range(10):
-        mr.psum(z, mesh, (axis,))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(200):
-        mr.psum(z, mesh, (axis,))
-    torch.cuda.synchronize()
-    psum_s = (time.perf_counter() - t0) / 200
-    rec = {"bf16_gemm_tflops": 2 * n**3 / gemm_ms / 1e9, "hbm_copy_gbs": 2 * 4 * 2**28 / copy_ms / 1e6,
-           "link_gbs_data_sheet": 450.0, "small_psum_us_simulated": psum_s * 1e6,
-           "overlap_efficiency": 0.0}
-    print(f"  roofline profile (this run): bf16 GEMM {rec['bf16_gemm_tflops']:.1f} TFLOP/s "
-          f"(8192^3, events), HBM copy {rec['hbm_copy_gbs']:.1f} GB/s (1 GiB), link 450 GB/s "
-          f"each way (H100 SXM data sheet, NVLink 4; not measured), collective launch "
-          f"{rec['small_psum_us_simulated']:.1f} us (one small psum on the simulated mesh), "
-          f"overlap 0 (one stream)", flush=True)
-    params = RooflineParams(peak_flops=rec["bf16_gemm_tflops"] * 1e12,
-                            hbm_bw=rec["hbm_copy_gbs"] * 1e9, ici_bw=450e9,
-                            collective_launch_s=psum_s, overlap_efficiency=0.0)
+    prof = MachineProfile.load(PROFILE_FILE)
+    params = resolve_profile()
+    check(params == prof.params, "resolve_profile() is not the committed profile: "
+          "is REPRO_TORCH_MACHINE_PROFILE set?")
+    rec = {"file": os.path.relpath(PROFILE_FILE, ROOT), "device": prof.device,
+           "digest": prof.digest(), **params.as_dict()}
+    print(f"  roofline profile: the committed {rec['file']} (fitted on {prof.device}): peak "
+          f"{params.peak_flops / 1e12:.2f} TFLOP/s a simulated device, link "
+          f"{params.ici_bw / 1e9:.2f} GB/s (the simulated mesh's copies), launch "
+          f"{params.collective_launch_s * 1e6:.1f} us, HBM {params.hbm_bw / 1e9:.0f} GB/s, "
+          f"overlap {params.overlap_efficiency:g}", flush=True)
     return params, rec
 
 
@@ -1811,7 +1804,7 @@ def partition_case(name, fn, args, kind, mesh, counts, params, fold=None, refere
     print(f"    peak above inputs GiB: compiled {rec['compiled_peak_gib']:.3f} (modeled plan peak "
           f"x{mesh.size} {rec['modeled_peak_x8_gib']:.3f}) dynamic {rec['dynamic_peak_gib']:.3f} "
           f"unsharded {rec['unsharded_peak_gib']:.3f}", flush=True)
-    print(f"    PlanCost (this run's profile): {json.dumps(cost)}", flush=True)
+    print(f"    PlanCost (the committed profile): {json.dumps(cost)}", flush=True)
     if fold is not None:
         print(f"    flash launches per call: compiled {rec['compiled_flash_launches_per_call']}, "
               f"dynamic {rec['dynamic_flash_launches_per_call']}; device-dim fold of q, k, v "
@@ -1905,7 +1898,7 @@ def partition_phase(seed):
     print(f"  every number of this phase on {card}; float32 products and convolutions run "
           "without TF32 (cuBLAS and cuDNN)", flush=True)
     mesh = Mesh.create((2, 4), ("x", "y"))
-    params, profile = measured_roofline(mesh)
+    params, profile = card_profile()
     cfg = get_config("qwen1.5-0.5b")
     T, D, Fd = 8192, cfg.d_model, cfg.d_ff
     gen = torch.Generator(device="cuda").manual_seed(seed + 30)
@@ -2005,13 +1998,15 @@ def cache_gather_steps(runner, args, T, dh):
         args, lambda t: t.ndim >= 5 and t.shape[-3] == T and t.shape[-1] == dh)
 
 
-def partition_train_run(label, cfg, st, opt, state, pipe, steps, mesh, batch, readings=True):
-    """``TrainLoop.run`` for ``steps`` steps under ``mesh`` (None: unsharded)
-    with the kernels' launches per step, wall ms per step (the host clock
-    around the step, to its loss on the host), the params after step 0 and
-    the peak memory; then, with ``readings``, host and wall ms per step
-    (device drained before each) and device-busy ms per step (profiler);
-    and, partitioned, the plan's readings."""
+def partition_train_run(label, cfg, st, opt, state, pipe, steps, mesh, batch, readings=True,
+                        optimize=True):
+    """``TrainLoop.run`` for ``steps`` steps under ``mesh`` (None: unsharded;
+    ``optimize`` is ``TrainLoop``'s) with the kernels' launches per step,
+    wall ms per step (the host clock around the step, to its loss on the
+    host), the params after step 0 and the peak memory; then, with
+    ``readings``, host and wall ms per step (device drained before each)
+    and device-busy ms per step (profiler); and, partitioned, the plan's
+    readings."""
     from repro_torch.core.compat import set_mesh
     from repro_torch.core.tree import tree_map
     from repro_torch.train.loop import TrainConfig, TrainLoop
@@ -2035,7 +2030,8 @@ def partition_train_run(label, cfg, st, opt, state, pipe, steps, mesh, batch, re
     torch.cuda.reset_peak_memory_stats()
     with set_mesh(mesh):
         loop = TrainLoop(cfg, st, opt, TrainConfig(steps=steps, log_every=10**9), pipe,
-                         device="cuda", hooks={"fault": fault, "metrics": metrics})
+                         device="cuda", hooks={"fault": fault, "metrics": metrics},
+                         **({} if mesh is None else {"optimize": optimize}))
         _, losses = loop.run(initial_state=state)
     torch.cuda.synchronize()
     out = {"label": label, "losses": losses, "steps": recs,
@@ -2079,8 +2075,9 @@ def partition_train_case(strategy, layers, steps, coarse_grads, remat, B, S, see
     which a gradient within rounding of 0 flips, 95 % of the signs
     agreeing.  Per step one flash forward launch and one backward call per
     layer (all eight devices in one), no fallback that gathers (rope's slice
-    and cat keep their sharding) and no plan step holding a whole
-    vocabulary dim.  Under remat "full" and "dots" the forward launches twice
+    and cat keep their sharding), no plan step holding a whole
+    vocabulary dim, and the optimized plan's modeled peak no higher than
+    the same program's plan compiled unoptimized.  Under remat "full" and "dots" the forward launches twice
     per layer (the recompute).  ``baselines`` keeps the partitioned gradient
     program's loss and gradient under remat "none" by (strategy, depth,
     batch); a case under another remat with a baseline holds its loss and
@@ -2090,6 +2087,7 @@ def partition_train_case(strategy, layers, steps, coarse_grads, remat, B, S, see
     from repro_torch.configs.base import get_strategy
     from repro_torch.core.compat import TOLERANCES, set_mesh
     from repro_torch.core.partitioner import spmd_partition
+    from repro_torch.core.plan import compile_plan
     from repro_torch.core.tree import leaves, leaves_with_paths, tree_map
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.launch.mesh import make_test_mesh
@@ -2142,6 +2140,13 @@ def partition_train_case(strategy, layers, steps, coarse_grads, remat, B, S, see
 
     sharded = partition_train_run("sharded", cfg, st, opt, fresh(), pipe, steps, mesh, batch)
     runner = sharded.pop("runner")
+    # the same program's plan unoptimized: the optimized plan may model no
+    # higher a peak (plan_opt.py::_within_peak under the committed profile)
+    entry = _plan_of(runner)
+    raw = compile_plan(entry.captured, entry.prop, mesh, optimize=False, cost_only=True,
+                       verify=False)
+    sharded["unoptimized_modeled_peak_x8_gib"] = raw.peak_bytes * mesh.size / 2**30
+    del entry, raw
     state = fresh()
     holders = whole_vocab_steps(runner, (tree_map(torch.Tensor.detach, state["params"]),
                                          state["opt"], torch.tensor(0, device="cuda"), batch), V)
@@ -2227,7 +2232,8 @@ def partition_train_case(strategy, layers, steps, coarse_grads, remat, B, S, see
               f"{r['host_ms_per_step']:.1f} ms, drained wall {r['drained_wall_ms_per_step']:.1f} "
               f"ms, device busy {_ms(r['device_busy_ms_per_step'])} per step; peak "
               f"{r['peak_gib']:.3f} GiB"
-              + (f" (plan's modeled peak x8 {r['modeled_peak_x8_gib']:.3f})"
+              + (f" (plan's modeled peak x8 {r['modeled_peak_x8_gib']:.3f}, unoptimized "
+                 f"{r['unoptimized_modeled_peak_x8_gib']:.3f})"
                  if "modeled_peak_x8_gib" in r else ""), flush=True)
     for r in sharded["steps"] + unsharded["steps"]:
         check(r["launches"] == want,
@@ -2237,6 +2243,10 @@ def partition_train_case(strategy, layers, steps, coarse_grads, remat, B, S, see
     check(set(sharded["fallbacks"]) <= set(ROPE_FALLBACKS),
           f"{strategy}: ops took the fallback: {sharded['fallbacks']}")
     check(not holders, f"{strategy}: plan steps held a whole vocabulary dim: {holders}")
+    check(sharded["modeled_peak_x8_gib"] <= sharded["unoptimized_modeled_peak_x8_gib"],
+          f"{strategy} remat {remat}: the optimized plan models a higher peak than the "
+          f"unoptimized one ({sharded['modeled_peak_x8_gib']} > "
+          f"{sharded['unoptimized_modeled_peak_x8_gib']} GiB)")
     check(all(math.isfinite(x) for x in sharded["losses"]), f"{strategy}: non-finite loss")
     check(rec["step0_loss_err_over_bf16_chain"] <= 1.0, f"{strategy}: step-0 loss off")
     check(rec["loss_curve_err_over_limit"] <= 1.0, f"{strategy}: loss curve off")
@@ -2278,7 +2288,8 @@ def partition_train_phase(seed, card):
     """The partitioned training step for each strategy of ``PARTITION_TRAIN``
     (``partition_train_case``)."""
     print("partition: qwen1.5-0.5b trained by TrainLoop under set_mesh (the train step as one "
-          "program through spmd_partition(..., optimize=False)) against the same loop "
+          "program through spmd_partition, its plan optimized by the committed profile) "
+          "against the same loop "
           "unsharded on the card", flush=True)
     cases, baselines = [], {}
     for case in PARTITION_TRAIN:
@@ -2286,7 +2297,79 @@ def partition_train_phase(seed, card):
         torch.cuda.empty_cache()
     del baselines
     torch.cuda.empty_cache()
+    # remat trades compute for memory: under "full" and "dots" the
+    # partitioned step's allocator peak and modeled peak fall below "none"'s
+    none = {(c["strategy"], c["layers"], c["B"], c["S"]): c for c in cases
+            if c["remat"] == "none"}
+    for c in cases:
+        n = none.get((c["strategy"], c["layers"], c["B"], c["S"]))
+        if c["remat"] == "none" or n is None:
+            continue
+        print(f"  remat {c['remat']} against none ({c['label']}): allocator peak "
+              f"{c['sharded_peak_gib']:.3f} against {n['sharded_peak_gib']:.3f} GiB, modeled "
+              f"x8 {c['sharded_modeled_peak_x8_gib']:.3f} against "
+              f"{n['sharded_modeled_peak_x8_gib']:.3f}; {card}", flush=True)
+        check(c["sharded_peak_gib"] < n["sharded_peak_gib"]
+              and c["sharded_modeled_peak_x8_gib"] < n["sharded_modeled_peak_x8_gib"],
+              f"{c['label']}: remat did not lower the partitioned step's peak below none's")
     return cases
+
+
+def plan_peaks_phase(seed, card, layers=24, B=8, S=512):
+    """``--plan-peaks``: qwen1.5-0.5b's partitioned train step (2d_finalized,
+    ``layers`` deep, B8 S512, Adafactor) by ``TrainLoop`` under ``set_mesh``
+    on ("data" 2, "model" 4) under remat "none", "full" and "dots", each
+    with ``optimize=False`` and with the default optimized plan (in that
+    order, from the same state on the same batches): two steps each, the
+    allocator's peak, the plan's modeled peak x 8, device-busy, host and
+    drained wall ms per step, and the losses, which must agree within
+    bf16_grad (the flash backward adds dq by atomics)."""
+    from repro_torch.configs.base import get_strategy
+    from repro_torch.core.compat import TOLERANCES, set_mesh
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.train.loop import TrainConfig, init_state
+    from repro_torch.train.optimizer import get_optimizer
+
+    st, opt, mesh = get_strategy("2d_finalized"), get_optimizer("adafactor"), make_test_mesh()
+    print(f"plan peaks: qwen1.5-0.5b's partitioned train step, 2d_finalized, {layers} layers, "
+          f"B{B} S{S}, unoptimized and optimized plans; {card}", flush=True)
+    rows = []
+    for remat in ("none", "full", "dots"):
+        cfg = partition_train_config(layers, remat)
+        pipe = TokenPipeline(DataConfig(cfg.vocab_size, S, B, seed=seed, pattern="arithmetic"))
+        batch = {k: torch.from_numpy(v).to("cuda").long() for k, v in pipe.batch_at(0).items()}
+        with set_mesh(mesh):
+            state0 = init_state(cfg, st, opt, TrainConfig(),
+                                torch.Generator("cuda").manual_seed(seed), "cuda")
+        runs = {}
+        for tag, optimize in (("unoptimized", False), ("optimized", True)):
+            params = tree_map(lambda p: p.detach().clone().requires_grad_(), state0["params"])
+            r = partition_train_run(tag, cfg, st, opt,
+                                    {"params": params, "opt": opt.init(params), "step": 0},
+                                    pipe, 2, mesh, batch, optimize=optimize)
+            r.pop("runner")
+            r.pop("params_after_step0")
+            runs[tag] = r
+            print(f"  remat {remat}, {tag}: peak {r['peak_gib']:.3f} GiB (plan's modeled peak "
+                  f"x8 {r['modeled_peak_x8_gib']:.3f}); device busy "
+                  f"{_ms(r['device_busy_ms_per_step'])}, host {r['host_ms_per_step']:.1f} ms, "
+                  f"drained wall {r['drained_wall_ms_per_step']:.1f} ms per step; plan "
+                  f"{r['plan_steps']} steps; losses {r['losses']}", flush=True)
+            del params
+            torch.cuda.empty_cache()
+        u, o = runs["unoptimized"], runs["optimized"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(o["losses"], u["losses"]))
+        check(rel <= TOLERANCES["bf16_grad"][0], f"plan peaks, remat {remat}: losses {runs}")
+        rows.append({"remat": remat, "layers": layers, "B": B, "S": S, "card": card,
+                     **{f"{t}_{k}": runs[t][k] for t in runs
+                        for k in ("peak_gib", "modeled_peak_x8_gib", "device_busy_ms_per_step",
+                                  "host_ms_per_step", "drained_wall_ms_per_step",
+                                  "plan_steps", "losses")}})
+        del state0
+        torch.cuda.empty_cache()
+    return rows
 
 
 OPTION_STEPS = 4
@@ -2464,7 +2547,8 @@ def partition_mamba_train_case(strategy, layers, dtype, B, S, steps, gate, seed,
     in the gradient program) the SSD forward launched twice per layer (the
     "dots" recompute) and its backward once per layer, each one call for
     all eight devices; no fallback that gathers a sharded dim; no plan step
-    holding a whole vocabulary dim; finite losses.  Reads: collectives,
+    holding a whole vocabulary dim; the optimized plan's modeled peak no
+    higher than the unoptimized plan's; finite losses.  Reads: collectives,
     plan steps, first-call seconds, wall, host and device-busy ms per step
     and peak memory beside the plan's modeled peak x 8."""
     from repro_torch.configs.base import get_strategy
@@ -2473,6 +2557,7 @@ def partition_mamba_train_case(strategy, layers, dtype, B, S, steps, gate, seed,
     from repro_torch.core.partitioner import spmd_partition
     from repro_torch.core.tree import leaves, leaves_with_paths, tree_map
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.core.plan import compile_plan
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.train.loop import (TrainConfig, init_state, sharded_value_and_grad,
@@ -2569,6 +2654,13 @@ def partition_mamba_train_case(strategy, layers, dtype, B, S, steps, gate, seed,
         return rec
     sharded = partition_train_run("sharded", cfg, st, opt, fresh(), pipe, steps, mesh, batch)
     runner = sharded.pop("runner")
+    # the same program's plan unoptimized: the optimized plan may model no
+    # higher a peak (plan_opt.py::_within_peak under the committed profile)
+    entry = _plan_of(runner)
+    raw = compile_plan(entry.captured, entry.prop, mesh, optimize=False, cost_only=True,
+                       verify=False)
+    sharded["unoptimized_modeled_peak_x8_gib"] = raw.peak_bytes * mesh.size / 2**30
+    del entry, raw
     state = fresh()
     holders = whole_vocab_steps(runner, (tree_map(torch.Tensor.detach, state["params"]),
                                          state["opt"], torch.tensor(0, device="cuda"), batch), V)
@@ -2591,7 +2683,8 @@ def partition_mamba_train_case(strategy, layers, dtype, B, S, steps, gate, seed,
               f"{r['host_ms_per_step']:.1f} ms, drained wall {r['drained_wall_ms_per_step']:.1f} "
               f"ms, device busy {_ms(r['device_busy_ms_per_step'])} per step; peak "
               f"{r['peak_gib']:.3f} GiB"
-              + (f" (plan's modeled peak x8 {r['modeled_peak_x8_gib']:.3f})"
+              + (f" (plan's modeled peak x8 {r['modeled_peak_x8_gib']:.3f}, unoptimized "
+                 f"{r['unoptimized_modeled_peak_x8_gib']:.3f})"
                  if "modeled_peak_x8_gib" in r else ""), flush=True)
     for r in sharded["steps"] + unsharded["steps"]:
         check(r["launches"] == want, f"mamba2 {strategy}: step {r['step']} launched "
@@ -2599,6 +2692,10 @@ def partition_mamba_train_case(strategy, layers, dtype, B, S, steps, gate, seed,
     check(not sharded["fallback_gathers"],
           f"mamba2 {strategy}: fallbacks gathered a sharded dim: {sharded['fallback_gathers']}")
     check(not holders, f"mamba2 {strategy}: plan steps held a whole vocabulary dim: {holders}")
+    check(sharded["modeled_peak_x8_gib"] <= sharded["unoptimized_modeled_peak_x8_gib"],
+          f"mamba2 {strategy}: the optimized plan models a higher peak than the unoptimized "
+          f"one ({sharded['modeled_peak_x8_gib']} > {sharded['unoptimized_modeled_peak_x8_gib']}"
+          " GiB)")
     check(all(math.isfinite(x) for x in sharded["losses"] + unsharded["losses"]),
           f"mamba2 {strategy}: non-finite loss")
     if gate:
@@ -2783,8 +2880,9 @@ def partition_mamba_float64_case(strategy, layers, B, S, steps, seed, card):
 
 
 def partition_mamba_train_phase(seed, card):
-    print("partition: mamba2-130m's train step through spmd_partition(..., optimize=False) on "
-          "(data 2, model 4) against the same step unsharded on the card", flush=True)
+    print("partition: mamba2-130m's train step through spmd_partition (the gradient programs "
+          "unoptimized, TrainLoop's step optimized) on (data 2, model 4) against the same step "
+          "unsharded on the card", flush=True)
     # the float64 witness first: it launches no kernel, and its loop sets
     # the launch counts to 0 at each step, which the kernel cases after it
     # then count up again for this phase's own check
@@ -2914,16 +3012,16 @@ def sharded_loss_phase(seed, card):
 
 def dropped_psum_readings(runner, step):
     """Planted faults in the served bf16 plan, one at a time: the first, the
-    middle and the last standalone psum replaced by the local value; each
-    reading is the relative change of the step's logits in norm over
-    bf16_grad's limit, beside the psum's site.  Read, not gated: the gate
-    is ``float32_twin_readings``."""
+    middle and the last standalone psum (none where the optimizer fused
+    them all) replaced by the local value; each reading is the relative
+    change of the step's logits in norm over bf16_grad's limit, beside the
+    psum's site.  Read, not gated: the gate is ``float32_twin_readings``."""
     from repro_torch.core import plan as plan_mod
     from repro_torch.core.compat import TOLERANCES
 
     plan = _plan_of(runner).plan
     psums = [s for s in plan.steps if s.kind == "collective" and s.reduce_op == "add"]
-    planted = [psums[0], psums[len(psums) // 2], psums[-1]]
+    planted = [psums[0], psums[len(psums) // 2], psums[-1]] if psums else []
     with torch.no_grad():
         sound = step()[0].float()
         out = []
@@ -2978,8 +3076,12 @@ def float32_twin_readings(cfg, st, params, mesh, runner, state, kv_seq):
     standalone psum of the plan, scan body plans included; with ``kv_seq`` also the decode combine's
     all-reduces, each device keeping its own shard's partial) relative
     error in norm against the unsharded step over that limit, the psums'
-    sites, and whether the float32 plan has the served plan's collectives
-    and reshards (what makes it a stand-in for it)."""
+    sites, and whether the float32 plan has the served program's
+    collectives and reshards (what makes it a stand-in for it).  Both are
+    compared before the optimizer: the twin's plan is unoptimized, so that
+    each psum stands alone to be dropped, and the served program's is
+    compiled again unoptimized from the served entry (the optimizer's
+    fusion buckets by bytes, and float32 members are twice bf16's)."""
     from repro_torch.core import partitioner
     from repro_torch.core import plan as plan_mod
     from repro_torch.core.compat import TOLERANCES, set_mesh
@@ -3004,7 +3106,10 @@ def float32_twin_readings(cfg, st, params, mesh, runner, state, kv_seq):
             return ((got - want).norm() / want.norm()).item() / limit
 
         sound = over()
-        plan, served = _plan_of(twin).plan, _plan_of(runner).plan
+        entry = _plan_of(runner)
+        plan = _plan_of(twin).plan
+        served = plan_mod.compile_plan(entry.captured, entry.prop, mesh, optimize=False,
+                                       cost_only=True, verify=False)
         layout = lambda pl: ([(x.op, x.axes, x.reduce_op) for x in _all_steps(pl)  # noqa: E731
                               if x.kind == "collective"],
                              [tuple(y.op for y in x.program.steps) for x in _all_steps(pl)
@@ -3088,7 +3193,9 @@ def serve_run(cfg, st, params, mesh, prompts, new_tokens, teacher=None):
     ``teacher``, at the steps it names the unsharded eager step reruns the
     step's input (a copy of the cache, the token and the position) outside
     the timed region, and its logits are kept beside the step's, with, in
-    a float32 model, the step's logits evaluated in float64."""
+    a float32 model, the step's logits evaluated in float64.  The engine is
+    the default one: its plan optimized and verified, priced by the
+    committed profile."""
     from repro_torch.core.compat import set_mesh
     from repro_torch.models import api
     from repro_torch.serve.engine import Engine, Request
@@ -3399,8 +3506,8 @@ def _first_layers(layers, n):
 
 def sharded_serve_phase(seed, card):
     print("partition: serving under set_mesh (the decode step as one program through "
-          "spmd_partition(..., optimize=False), its position on the card) against the same "
-          "Engine unsharded", flush=True)
+          "spmd_partition, its plan optimized by the committed profile, its position on the "
+          "card) against the same Engine unsharded", flush=True)
     return [sharded_serve_case(*case, seed, card) for case in SHARDED_SERVE]
 
 
@@ -3434,7 +3541,7 @@ def _tensors(out):
 
 def plan_opt_case(label, runner, args, mesh, profile, card, repeats, V, kv_seq=None):
     """One path's plan, captured and completed once (``runner.plans``' entry),
-    compiled unoptimized (the entry's own plan) and optimized
+    compiled from that entry unoptimized and optimized
     (``plan_opt.optimize_plan`` under ``profile``), both verified; then the
     path run in turns (unoptimized, optimized, optimized, unoptimized) on
     the same inputs ``args`` (per turn one call, timed on the host with the
@@ -3455,7 +3562,8 @@ def plan_opt_case(label, runner, args, mesh, profile, card, repeats, V, kv_seq=N
     from repro_torch.core.plan_verify import verify_plan
 
     entry = _plan_of(runner)
-    raw = entry.plan
+    raw = compile_plan(entry.captured, entry.prop, mesh, optimize=False, verify=False,
+                       profile=profile)
     t0 = time.perf_counter()
     plan = compile_plan(entry.captured, entry.prop, mesh, optimize=False, verify=False,
                         profile=profile)
@@ -3554,7 +3662,8 @@ def plan_opt_case(label, runner, args, mesh, profile, card, repeats, V, kv_seq=N
 def _train_runner(cfg, st, mesh, seed, published_mamba=False):
     """The partitioned train step of ``cfg`` built through ``make_train_step``
     under ``set_mesh`` and run once (its plan captured, completed and
-    compiled unoptimized); returns the runner and the step's inputs."""
+    compiled, optimized by default); returns the runner and the step's
+    inputs."""
     from repro_torch.core.compat import set_mesh
     from repro_torch.core.tree import tree_map
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
@@ -3584,7 +3693,8 @@ def guard_drill(seed, card, profile, mesh):
     ``GuardConfig(rewind_after=3)`` and NaN poisoning step 4 over eight
     steps: step 4 skipped, the params after it equal those before it bit for
     bit, seven finite losses, the counters; ``Engine`` under ``set_mesh``
-    with and without ``plan_profile`` serving the same tokens; and
+    with ``optimize=False`` and with its default optimized plan serving the
+    same tokens; and
     ``spmd_partition(api.partitionable_loss, guard=GuardConfig())`` raising
     ``NumericsFault`` naming a non-finite leaf on a NaN token embedding
     (clean first)."""
@@ -3628,23 +3738,24 @@ def guard_drill(seed, card, profile, mesh):
           and len(losses) == GUARD_STEPS - 1 and all(math.isfinite(x) for x in losses)
           and loop.guard_counters == {"faults": 1, "skips": 1, "rewinds": 0}
           and plan.opt_report is not None, "the guard drill did not skip the poisoned step")
-    # the same two-layer Engine with and without a plan profile
+    # the same two-layer Engine unoptimized and optimized
     served = {}
     scfg, _, params = full_width_model("qwen1.5-0.5b", seed)
     scfg = scfg.with_(num_layers=2)
     params = {**params, "layers": _first_layers(params["layers"], 2)}
     rng = np.random.default_rng(seed + 70)
     prompts = [rng.integers(0, V, 8).tolist() for _ in range(8)]
-    for tag, prof in (("unoptimized", None), ("optimized", profile)):
+    for tag, optimize in (("unoptimized", False), ("optimized", True)):
         with set_mesh(mesh):
-            eng = Engine(scfg, st, params, batch_slots=8, max_len=64, plan_profile=prof)
+            eng = Engine(scfg, st, params, batch_slots=8, max_len=64, plan_profile=profile,
+                         optimize=optimize)
         reqs = [Request(prompt=p, max_new_tokens=4) for p in prompts]
         with torch.no_grad():
             eng.generate(reqs)
         served[tag] = [r.out for r in reqs]
-        check((_plan_of(eng.runner).plan.opt_report is not None) == (prof is not None),
-              f"Engine plan_profile {tag}")
-    print(f"  Engine at two layers with and without plan_profile served the same tokens: "
+        check((_plan_of(eng.runner).plan.opt_report is not None) == optimize,
+              f"Engine optimize {tag}")
+    print(f"  Engine at two layers with optimize=False and True served the same tokens: "
           f"{served['optimized'] == served['unoptimized']}", flush=True)
     check(served["optimized"] == served["unoptimized"], f"Engine tokens differ: {served}")
     # the guarded partitioned loss on a NaN token embedding
@@ -3671,7 +3782,7 @@ def guard_drill(seed, card, profile, mesh):
 def plan_opt_phase(seed, card):
     """The whole-program optimizer and verifier on three paths at full width
     and ``PLAN_OPT_LAYERS`` deep on the simulated ("data" 2, "model" 4) mesh, priced by a
-    profile measured in this run (``measured_roofline``): qwen1.5-0.5b's
+    committed H100 profile (``card_profile``): qwen1.5-0.5b's
     partitioned train step (2d_finalized, remat "none", B8 S512, bf16),
     its sequence-sharded decode step (``Engine(8 slots, max_len 1024)``,
     2d_attempt1, ``shard_kv_seq``) and mamba2-130m's partitioned train step
@@ -3684,14 +3795,13 @@ def plan_opt_phase(seed, card):
 
     t0 = time.perf_counter()
     mesh = make_test_mesh()
-    profile, prof_rec = measured_roofline(mesh)
+    profile, prof_rec = card_profile()
     from repro_torch.analysis.roofline import fusion_bucket_bytes
 
     cap = fusion_bucket_bytes(profile)
     print(f"plan_opt: the whole-program optimizer and verifier on the card, fusion bucket cap "
-          f"{cap / 2**20:.1f} MiB (this run's profile); {card}", flush=True)
+          f"{cap / 2**20:.1f} MiB (the committed profile); {card}", flush=True)
     cases = []
-    print(f"  profile measured at {time.perf_counter() - t0:.0f} s", flush=True)
     cfg = partition_train_config(PLAN_OPT_LAYERS)
     runner, args = _train_runner(cfg, get_strategy("2d_finalized"), mesh, seed)
     cases.append(plan_opt_case(f"qwen1.5-0.5b train step, {PLAN_OPT_LAYERS} layers, 2d_finalized, "
@@ -4257,7 +4367,7 @@ def scan_serve_case(arch, strategy, dtype, kv_seq, seed, card, mesh):
 def scan_phase(seed, card):
     """The scan node on the card (``core/scan.py``): each path captured with
     the layer loop scanned and unrolled, on the simulated ("data" 2,
-    "model" 4) mesh, priced by a profile measured in this run: qwen's
+    "model" 4) mesh, priced by the committed H100 profile: qwen's
     partitioned train step under remat "none" and "dots" and Mamba2's
     (``scan_train_case``, ``scan_mamba_case``), qwen's with ``grad_accum``
     2 (``scan_grad_accum_case``), and ``Engine`` for qwen with
@@ -4266,7 +4376,7 @@ def scan_phase(seed, card):
 
     t0 = time.perf_counter()
     mesh = make_test_mesh()
-    profile, prof_rec = measured_roofline(mesh)
+    profile, prof_rec = card_profile()
     print(f"scan: the scan node, each path scanned and unrolled on the card; {card}", flush=True)
     cases = []
     for remat in ("none", "dots"):
@@ -4282,6 +4392,164 @@ def scan_phase(seed, card):
     seconds = time.perf_counter() - t0
     print(f"scan: {seconds:.1f} s", flush=True)
     return {"profile": prof_rec, "cases": cases, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------------
+# observability: the partitioned train step traced, calibrated and fitted
+# ---------------------------------------------------------------------------------
+
+OBS_REPEATS = 3  # tight timing's timed repeats per plan step
+
+
+def obs_phase(seed, card):
+    """The observability layer (``repro_torch/obs``) under qwen1.5-0.5b's
+    partitioned train step at its published widths (``SCAN_LAYERS["none"]``
+    layers scanned, remat "none", 2d_finalized, B8 S512, bf16 compute,
+    float32 masters, Adafactor) on the simulated ("data" 2, "model" 4) mesh,
+    built by ``make_train_step`` under ``set_mesh`` (its plan optimized and
+    verified, priced by the committed profile) and run untraced twice and
+    under ``TraceConfig(timing="tight")``: the traced outputs bit-equal to
+    the untraced ones where two untraced calls repeat themselves, else
+    within bf16_grad in norm per leaf (the flash backward's atomics), the
+    traced call's path launches equal to the untraced call's (the timed
+    repeats' launches counted apart), the Chrome trace valid, the per-class
+    calibration table, a profile fitted to the spans beside the committed
+    one, and the allocator's peak of an untraced call beside the plan's
+    modeled peak."""
+    from repro_torch.analysis.roofline import PROFILE_FILE
+    from repro_torch.configs.base import get_strategy
+    from repro_torch.core.compat import TOLERANCES, set_mesh
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.obs import (MachineProfile, TraceConfig, attach_profile,
+                                 calibration_report, collect_samples, device_memory_stats,
+                                 fit_profile, memory_report, rescore_report,
+                                 validate_trace_events)
+    from repro_torch.train.loop import TrainConfig, init_state, make_train_step
+    from repro_torch.train.optimizer import get_optimizer
+
+    t0 = time.perf_counter()
+    mesh = make_test_mesh()
+    committed = MachineProfile.load(PROFILE_FILE)
+    cfg = partition_train_config(SCAN_LAYERS["none"]).with_(scan_layers=True)
+    st, opt, L = get_strategy("2d_finalized"), get_optimizer("adafactor"), cfg.num_layers
+    label = (f"qwen1.5-0.5b train step, {L} layers scanned, 2d_finalized, remat none, "
+             f"B{SCAN_B} S{SCAN_S}, bf16")
+    print(f"obs: plan-step tracing, calibration and a fitted profile under the {label}; {card}",
+          flush=True)
+    with set_mesh(mesh):
+        state = init_state(cfg, st, opt, TrainConfig(), torch.Generator("cuda").manual_seed(seed),
+                           "cuda")
+        step = make_train_step(cfg, st, opt, TrainConfig())
+        traced_step = make_train_step(cfg, st, opt, TrainConfig(),
+                                      trace=TraceConfig(timing="tight", repeats=OBS_REPEATS))
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, SCAN_S, SCAN_B, seed=seed,
+                                    pattern="arithmetic"))
+    batch = {k: torch.from_numpy(v).to("cuda").long() for k, v in pipe.batch_at(0).items()}
+    twin = {**state, "params": tree_map(lambda t: t.detach().clone(), state["params"]),
+            "opt": tree_map(torch.Tensor.clone, state["opt"])}
+    step(state, batch)
+    first_s = time.perf_counter() - t0
+    traced_step(twin, batch)  # the traced runner's capture, plan and first traced call
+    del twin
+    runner, traced = step.runner, traced_step.runner
+    tracer = traced.tracer
+    args = (tree_map(torch.Tensor.detach, state["params"]), state["opt"],
+            torch.tensor(state["step"], dtype=torch.int64), batch)
+    plan = _plan_of(runner).plan
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = device_memory_stats()
+    with torch.no_grad():
+        want, launches = counted(lambda: runner(*args))
+    mem = memory_report(plan, mem0, device_memory_stats())
+    with torch.no_grad():
+        again, _ = counted(lambda: runner(*args))
+    flat_want = _tensors(want)
+    repeats = all(torch.equal(a, b) for a, b in zip(flat_want, _tensors(again)))
+    del again
+    path0, timing0 = dict(tracer.launches["path"]), dict(tracer.launches["timing"])
+    with torch.no_grad():
+        got, traced_launches = counted(lambda: traced(*args))
+    path = {k: tracer.launches["path"][k] - path0.get(k, 0) for k in launches}
+    timing = {k: tracer.launches["timing"][k] - timing0.get(k, 0) for k in launches}
+    flat_got = _tensors(got)
+    equal = len(flat_got) == len(flat_want) and all(
+        torch.equal(a, b) for a, b in zip(flat_got, flat_want))
+    diverged = [i for i, (a, b) in enumerate(zip(flat_got, flat_want)) if not torch.equal(a, b)]
+    # where two untraced calls differ (the flash backward adds dq by
+    # atomics), the traced call is held to them in norm per leaf instead
+    worst_rel = max((_rel(a, b) for a, b in zip(flat_got, flat_want)
+                     if a.is_floating_point()), default=0.0)
+    same_shapes = len(flat_got) == len(flat_want) and all(
+        a.shape == b.shape and a.dtype == b.dtype for a, b in zip(flat_got, flat_want))
+    del got, want
+    doc = tracer.chrome_trace()
+    problems = validate_trace_events(doc["traceEvents"])
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    trace_path = tracer.write(str(out_dir / "obs_train_step_trace.json"))
+    report = calibration_report(doc)
+    spans = tracer.measured_events()
+    samples = collect_samples(_plan_of(traced).plan, spans)
+    fitted = fit_profile(samples, committed.params, device=card,
+                         source=f"chip_smoke.obs_phase: tight spans of the {label}")
+    attach_profile(report, fitted)
+    rescore = rescore_report(samples, fitted.params, committed.params)
+    gib = 2 ** 30
+    print(f"  plan: {len(plan.steps)} steps, optimized {plan.opt_report is not None}, priced by "
+          f"the committed profile {plan.params == committed.params}; first call {first_s:.1f} s",
+          flush=True)
+    print(f"  untraced calls repeat bit for bit: {repeats}; traced (tight, {OBS_REPEATS} "
+          f"repeats) == untraced bit for bit: {equal}"
+          + (f" (leaves differing: {diverged[:8]})" if diverged else "")
+          + f"; largest relative error in norm of a leaf {worst_rel:.3e} (bf16_grad "
+          f"{TOLERANCES['bf16_grad'][0]} where the untraced calls do not repeat)", flush=True)
+    print(f"  launches: untraced {launches}; traced call's path {path}, its timed repeats "
+          f"{timing}, counted {traced_launches}", flush=True)
+    print(f"  Chrome trace: {len(doc['traceEvents'])} events ({len(spans)} measured spans over "
+          f"{tracer.calls} traced calls), {len(problems)} problems; written to "
+          f"{os.path.relpath(trace_path, ROOT)}", flush=True)
+    print("  calibration (measured tight seconds / modeled seconds by the committed profile, "
+          f"per traced call; {card}):", flush=True)
+    print("    " + report.table().replace("\n", "\n    "), flush=True)
+    print(f"  profile fitted to these spans ({fitted.n_samples} samples, {fitted.dropped} "
+          f"dropped, fitted {fitted.fitted}) beside the committed one ({committed.device}):",
+          flush=True)
+    for k, v in sorted(fitted.params.as_dict().items()):
+        print(f"    {k:<20} {v:.6g}  (committed {committed.params.as_dict()[k]:.6g})", flush=True)
+    print(f"    residuals under the fit {fitted.residuals}, flagged {fitted.flagged}; rescored "
+          f"in-band classes {rescore['in_band_classes']}, improved all "
+          f"{rescore['improved_all']}", flush=True)
+    print(f"  memory of an untraced call ({card}): allocator peak "
+          f"{mem['measured_peak_bytes'] / gib:.3f} GiB (live after "
+          f"{mem['measured_live_bytes'] / gib:.3f}, peak above the start "
+          f"{mem['measured_peak_delta_bytes'] / gib:.3f}) against plan_peak_bytes "
+          f"{mem['modeled_peak_bytes'] / gib:.3f} GiB a device x {mem['devices']} = "
+          f"{mem['modeled_peak_bytes_all_devices'] / gib:.3f} GiB", flush=True)
+    seconds = time.perf_counter() - t0
+    print(f"obs: {seconds:.1f} s", flush=True)
+    check(problems == [], f"obs: the Chrome trace has problems: {problems[:5]}")
+    check(equal if repeats else same_shapes and worst_rel <= TOLERANCES["bf16_grad"][0],
+          f"obs: traced outputs differ from untraced: leaves {diverged[:8]}, largest relative "
+          f"error in norm {worst_rel:.3e} (untraced calls repeat: {repeats})")
+    check(path == launches and launches["flash_attention"] == L
+          and launches["flash_attention_bwd"] == L,
+          f"obs: launches untraced {launches}, traced path {path}")
+    check(traced_launches == {k: path[k] + timing[k] for k in launches},
+          f"obs: the counters {traced_launches} are not path {path} + timing {timing}")
+    check(report.complete, f"obs: a priced class has no measured span: {report.as_dict()}")
+    del state, args, runner, traced, step, traced_step
+    torch.cuda.empty_cache()
+    return {"label": label, "card": card, "plan_steps": len(plan.steps),
+            "untraced_repeats": repeats, "traced_equal": equal, "diverged_leaves": diverged,
+            "traced_rel_err_max": worst_rel,
+            "launches": launches, "traced_path_launches": path,
+            "traced_timing_launches": timing, "trace_events": len(doc["traceEvents"]),
+            "trace_problems": problems, "calibration": report.as_dict(),
+            "fitted_profile": fitted.as_dict(), "committed_profile": committed.as_dict(),
+            "rescore": rescore, "memory": mem, "first_call_s": first_s, "seconds": seconds}
 
 
 # ---------------------------------------------------------------------------------
@@ -4670,8 +4938,8 @@ def pipeline_phase_in_own_process(seed, card, timeout=300):
 
 
 def sharded_phases_in_own_process(seed, card):
-    """``sharded_loss_phase``, ``sharded_serve_phase``, ``plan_opt_phase`` and
-    ``scan_phase`` in a fresh process (whole profiler traces, as
+    """``sharded_loss_phase``, ``sharded_serve_phase``, ``obs_phase``,
+    ``plan_opt_phase`` and ``scan_phase`` in a fresh process (whole profiler traces, as
     ``partition_phase_in_own_process``), the first two with the kernels'
     launch counts set to 0 before and read after (the SSD launches in the
     loss and not in serving; the flash kernel in qwen's serving), the last
@@ -4683,10 +4951,11 @@ def sharded_phases_in_own_process(seed, card):
             f"{card!r})); "
             f"serve, m = chip_smoke.counted(lambda: chip_smoke.sharded_serve_phase({seed}, "
             f"{card!r})); "
+            f"obs = chip_smoke.obs_phase({seed}, {card!r}); "
             f"plan_opt = chip_smoke.plan_opt_phase({seed}, {card!r}); "
             f"scan = chip_smoke.scan_phase({seed}, {card!r}); "
             "print(json.dumps({'loss': loss, 'loss_launches': n, 'serve': serve, "
-            "'serve_launches': m, 'plan_opt': plan_opt, 'scan': scan}))")
+            "'serve_launches': m, 'obs': obs, 'plan_opt': plan_opt, 'scan': scan}))")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=1100)
     lines = proc.stdout.splitlines()
@@ -5024,7 +5293,7 @@ def checkpoint_reshard_case(seed, card, root):
     cfg, st, opt = checkpoint_reshard_config()
     L, V = cfg.num_layers, cfg.vocab_size
     mesh = make_test_mesh()
-    profile, _ = measured_roofline(mesh)
+    profile, _ = card_profile()
     predicted = checkpoint_plan_prediction(profile)
     d = os.path.join(root, "partitioned")
     pipe = TokenPipeline(DataConfig(V, CKPT_RESHARD_S, CKPT_RESHARD_B, seed=seed,
@@ -5405,6 +5674,9 @@ def scan_node_check():
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--plan-peaks", action="store_true",
+                    help="only build the kernels and run plan_peaks_phase (qwen's partitioned "
+                         "train step with unoptimized and optimized plans); no result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -5419,6 +5691,13 @@ def main(argv=None):
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
     build = build_kernels()
+    if args.plan_peaks:
+        rows = plan_peaks_phase(args.seed, smi)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "plan_peaks.json").write_text(json.dumps(rows, indent=1))
+        print(f"plan peaks: done at {time.perf_counter() - t0:.0f} s", flush=True)
+        return 0
     scan_node_check()
 
     print("kernel: flash_attention (CUDA) vs plain PyTorch on the card", flush=True)
@@ -5468,8 +5747,9 @@ def main(argv=None):
     print(f"checkpoint (at {time.perf_counter() - t0:.0f} s): crash and restart through "
           "launch.train.main, and the partitioned state restored onto other meshes", flush=True)
     checkpoint = checkpoint_phase_in_own_process(args.seed, partition["card"])
-    print(f"phases done at {time.perf_counter() - t0:.0f} s (plan_opt "
-          f"{sharded['plan_opt']['seconds']:.0f} s, scan {sharded['scan']['seconds']:.0f} s, "
+    print(f"phases done at {time.perf_counter() - t0:.0f} s (obs {sharded['obs']['seconds']:.0f} "
+          f"s, plan_opt {sharded['plan_opt']['seconds']:.0f} s, scan "
+          f"{sharded['scan']['seconds']:.0f} s, "
           f"pipeline {pipeline['seconds']:.0f} s, checkpoint {checkpoint['seconds']:.0f} s of "
           "them)", flush=True)
 

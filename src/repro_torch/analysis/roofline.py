@@ -4,13 +4,17 @@ planner (``core/collective_planner.py``) and the einsum planner
 compiled plans (``core/plan.py::PlanCost``).
 
 A port of the JAX package's ``analysis/roofline.py`` (``RooflineParams``,
-``overlap_time_s``, ``collective_wire_bytes``, ``collective_time_s``).  The
-reference's ``RooflineParams`` defaults to TPU v5e-class constants; the
-port's has no defaults and carries no device constant.  Every field is
-required, so a time is only ever priced with a profile the caller measured
-(``chip_smoke.py`` builds one from rates it measures on the card).  The
-modeled quantities that need no constant (wire bytes, launches, flops, peak
-bytes) are priced without one.
+``overlap_time_s``, ``collective_wire_bytes``, ``collective_time_s``,
+``DEFAULT_PARAMS``).  The reference's ``RooflineParams`` defaults to TPU
+v5e-class constants; the port's class has no defaults and carries no device
+constant: every field is required, and a function here that prices time
+takes its params explicitly.  ``DEFAULT_PARAMS`` is the machine profile
+fitted on an NVIDIA H100 by ``python -m repro_torch.obs profile`` and
+committed with the package (``obs/h100_profile.json``); the entry points
+and ``spmd_partition`` price with it when neither the caller nor
+``$REPRO_TORCH_MACHINE_PROFILE`` names another (``obs/profile.py::
+resolve_profile``).  The modeled quantities that need no constant (wire
+bytes, launches, flops, peak bytes) are priced without one.
 
 Given the per-device *input* bytes B of a collective over a group of n
 devices (ring algorithms, per device):
@@ -28,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import os
 from typing import Dict
 
 
@@ -60,6 +65,31 @@ class RooflineParams:
         """Stable short hash of the constants (a cache-key ingredient)."""
         payload = json.dumps(self.as_dict(), sort_keys=True)
         return hashlib.sha256(payload.encode()).hexdigest()[:16]
+
+
+PROFILE_FILE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            "obs", "h100_profile.json")
+
+
+def __getattr__(name):
+    """``DEFAULT_PARAMS``, read from ``PROFILE_FILE`` at its first use.
+
+    The port's default constants: the profile fitted on an NVIDIA H100 (its
+    name and power limit are the file's "device").  ``peak_flops``,
+    ``ici_bw`` and ``collective_launch_s`` are fitted to tight-timed plan
+    steps of a matmul chain on the simulated (2, 4) mesh, so they price what
+    the port runs: ``peak_flops`` is one simulated device's share of the
+    card (a step's FLOPs are one device's; the card runs all eight), and
+    ``ici_bw`` prices the *simulated* mesh's collectives, which are copies
+    on one card, not NVLink.  ``hbm_bw`` is an HBM copy timed with CUDA
+    events; ``overlap_efficiency`` is 0, since one stream runs the simulated
+    collectives and the products in series."""
+    if name == "DEFAULT_PARAMS":
+        with open(PROFILE_FILE) as f:
+            params = RooflineParams.from_dict(json.load(f)["params"])
+        globals()["DEFAULT_PARAMS"] = params
+        return params
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def overlap_time_s(compute_s: float, comm_s: float, params: RooflineParams) -> float:

@@ -82,7 +82,6 @@ import torch.fx
 from torch.utils._pytree import tree_flatten
 
 from ..analysis import graph_cost  # a module import: graph_cost imports core.rules
-from ..analysis.roofline import RooflineParams
 from ..kernels.ops import (flash_attention_bwd_op, flash_attention_fwd_op, flash_decode,
                            a_per_row, flash_decode_partial, flash_forward, ssd, ssd_scan_bwd_op)
 from . import mesh_runtime as mr
@@ -1268,6 +1267,9 @@ class PlanCacheStats:
 
     hits: int = 0
     misses: int = 0
+    # labels this cache in the metrics registry: hits and misses also land in
+    # its ``plan_cache.<scope>.{hits,misses}`` counters (None: no feed)
+    scope: Optional[str] = None
     _lock: threading.Lock = dataclasses.field(
         default_factory=threading.Lock, repr=False, compare=False,
     )
@@ -1275,10 +1277,26 @@ class PlanCacheStats:
     def record_hit(self) -> None:
         with self._lock:
             self.hits += 1
+        if self.scope:
+            from ..obs.metrics import inc
+
+            inc(f"plan_cache.{self.scope}.hits")
 
     def record_miss(self) -> None:
         with self._lock:
             self.misses += 1
+        if self.scope:
+            from ..obs.metrics import inc
+
+            inc(f"plan_cache.{self.scope}.misses")
+
+    @property
+    def hit_rate(self) -> float:
+        total = self.hits + self.misses
+        return self.hits / total if total else 0.0
+
+    def as_dict(self) -> Dict[str, float]:
+        return {"hits": self.hits, "misses": self.misses, "hit_rate": self.hit_rate}
 
     def reset(self) -> None:
         with self._lock:
@@ -1305,7 +1323,7 @@ def _aval_key(a) -> tuple:
 # content digest.
 
 _PROCESS_CACHE: Dict[tuple, _CacheEntry] = {}
-_PROCESS_STATS = PlanCacheStats()
+_PROCESS_STATS = PlanCacheStats(scope="process")
 
 
 def process_plan_cache_stats() -> PlanCacheStats:
@@ -1342,19 +1360,28 @@ def spmd_partition(fn, mesh: Mesh, compile_plans: bool = True, optimize: bool = 
     decide nothing.  ``compile_plans=False`` is the dynamic path
     (``SpmdPartitioner``), which decides every op anew on each call.  On
     compiled plans: ``optimize=True`` (the default) runs the whole-program
-    optimizer (``plan_opt.py``), which prices its passes with ``profile``
-    (a ``RooflineParams``); the port has no default constants, so
-    ``optimize=True`` without a profile raises ``ValueError``.
-    ``verify`` runs the static verifier (``plan_verify.py``): None (the
-    default) and True verify, False does not.  ``guard`` (a
-    ``plan.GuardConfig``) appends the numerics-sentinel epilogue; the
-    runner strips the guard vector from the outputs and raises
-    ``plan.NumericsFault``, naming the leaves, when a guarded output is
-    non-finite or above ``guard.max_abs``; it needs ``compile_plans=True``.
-    A fitted profile (A15), ``autoshard`` (A11) and ``trace`` (A15) raise
-    naming their item.  ``process_cache=False`` opts this runner out of
-    the process-level cache.  ``device`` is "cuda" unless the caller asks
-    for "cpu" (no fallback from one to the other).
+    optimizer (``plan_opt.py``).  ``profile`` prices the plan: a
+    ``RooflineParams``, a fitted ``obs.profile.MachineProfile`` or a
+    profile JSON path; None falls back to ``$REPRO_TORCH_MACHINE_PROFILE``
+    and then to the profile fitted on an H100 and committed with the
+    package (``obs.profile.resolve_profile``).  The resolved profile's
+    digest keys the process cache, and applying it emits a
+    ``profile_applied`` control event.  ``verify`` runs the static verifier
+    (``plan_verify.py``): None (the default) and True verify, False does
+    not.  ``guard`` (a ``plan.GuardConfig``) appends the numerics-sentinel
+    epilogue; the runner strips the guard vector from the outputs and
+    raises ``plan.NumericsFault``, naming the leaves, when a guarded output
+    is non-finite or above ``guard.max_abs``; it needs
+    ``compile_plans=True``.  ``trace`` (an ``obs.trace.TraceConfig``) opts
+    the runner into plan-step tracing (``runner.tracer``: the modeled
+    timeline of each compiled plan and, with ``trace.measured``, a span per
+    plan step of every call; see ``obs/trace.py``); it needs
+    ``compile_plans=True``, ``TraceConfig(enabled=False)`` is the same as
+    no config (the same cache key and runner), and a traced runner stays
+    out of the process cache.  ``autoshard`` (A11) raises naming its item.
+    ``process_cache=False`` opts this runner out of the process-level
+    cache.  ``device`` is "cuda" unless the caller asks for "cpu" (no
+    fallback from one to the other).
 
     The runner exposes ``cache_stats`` (hits/misses), ``plans`` (cache key →
     entry: the captured graph, the completed shardings, compiled,
@@ -1366,30 +1393,36 @@ def spmd_partition(fn, mesh: Mesh, compile_plans: bool = True, optimize: bool = 
     """
     if autoshard is not None:
         _refuse("autoshard", "A11", "the autoshard search")
-    if trace is not None:
-        _refuse("trace", "A15", "plan-step tracing (obs/trace.py)")
-    if profile is not None and not isinstance(profile, RooflineParams):
-        _refuse("profile", "A15", "a fitted machine profile (obs/profile.py)")
     if guard is not None and not compile_plans:
         raise ValueError("spmd_partition: guard= requires compile_plans=True")
-    if compile_plans and optimize and profile is None:
-        raise ValueError(
-            "spmd_partition(optimize=True) prices the plan optimizer's passes with a machine "
-            "profile and the port has no default constants: pass profile=RooflineParams(...) "
-            "or optimize=False")
+    if trace is not None and not trace.enabled:
+        trace = None  # a disabled config is no tracing: the same runner
+    if trace is not None and not compile_plans:
+        raise ValueError("spmd_partition: trace= requires compile_plans=True")
+    tracer = None
+    if trace is not None:
+        from ..obs.trace import Tracer
+
+        tracer = Tracer(trace)
+        process_cache = False  # the tracer is runner-local state
     dev = resolve_device(device)
     mkey = mesh.structural_key()
     cache: Dict[tuple, _CacheEntry] = {}
-    stats = PlanCacheStats()
+    stats = PlanCacheStats(scope="runner")
 
     def _build(flat, args):
+        from ..obs.profile import resolve_profile
+
+        # resolved per build, so that an edit of $REPRO_TORCH_MACHINE_PROFILE
+        # is picked up; its digest keys the process cache
+        prof = resolve_profile(profile)
         t0 = time.perf_counter()
         captured = capture(fn, *args)
         t1 = time.perf_counter()
         pkey: Optional[tuple] = None
         if process_cache:
             pkey = (captured.digest(), mkey, tuple(_aval_key(a) for a in flat), compile_plans,
-                    optimize, verify, guard, profile.digest() if profile is not None else None)
+                    optimize, verify, guard, prof.digest())
             entry = _PROCESS_CACHE.get(pkey)
             if entry is not None:
                 _PROCESS_STATS.record_hit()
@@ -1402,7 +1435,12 @@ def spmd_partition(fn, mesh: Mesh, compile_plans: bool = True, optimize: bool = 
             from .plan import compile_plan
 
             plan = compile_plan(captured, prop, mesh, optimize=optimize, verify=verify,
-                                guard=guard, profile=profile)
+                                guard=guard, profile=prof)
+            from ..obs.trace import control_event
+
+            control_event("profile_applied", digest=prof.digest(), mesh=list(mesh.shape))
+            if tracer is not None:
+                tracer.on_plan(plan)  # the modeled lane
         entry = _CacheEntry(captured, prop, plan, {
             "capture_s": t1 - t0, "completion_s": t2 - t1,
             "plan_compile_s": time.perf_counter() - t2})
@@ -1426,8 +1464,9 @@ def spmd_partition(fn, mesh: Mesh, compile_plans: bool = True, optimize: bool = 
         captured, plan = entry.captured, entry.plan
         if plan is not None:
             local = [mr.shard(a, s) for a, s in zip(flat, plan.in_shardings)]
+            step_tracer = tracer if tracer is not None and tracer.config.measured else None
             with mr.recording() as log:
-                outs = plan.execute(*local)
+                outs = plan.execute(*local, tracer=step_tracer)
             shs = plan.out_shardings
             fallbacks, gathered = plan.fallbacks, plan.fallback_gathers
         else:
@@ -1456,6 +1495,7 @@ def spmd_partition(fn, mesh: Mesh, compile_plans: bool = True, optimize: bool = 
     runner.calls = 0
     runner.cache_stats = stats
     runner.plans = cache
+    runner.tracer = tracer
     runner.fallbacks = []
     runner.fallback_gathers = []
     runner.collectives = {}

@@ -57,8 +57,10 @@ count it at trip count (the body's live peak as the step's
 
 :func:`compile_state_reshard` lowers a cross-topology checkpoint restore
 into a :class:`StateReshardPlan`: one reshard program per leaf, priced like
-a partition plan.  Not here yet: a fitted machine profile to stand in for
-the reference's default constants (A15).
+a partition plan.  This module takes its profile explicitly: the callers
+that stand in for the reference's default constants (``spmd_partition``
+and the entry points) resolve one with ``obs/profile.py::resolve_profile``,
+the committed H100 profile unless told otherwise.
 """
 from __future__ import annotations
 
@@ -358,18 +360,29 @@ class PartitionPlan:
         self.dead = _dead_after(self.steps, self.out_keys)
         self.stats.steps = len(self.steps)
 
-    def execute(self, *args, on_step: Optional[Callable[[PlanStep, Env], None]] = None):
+    def execute(self, *args, on_step: Optional[Callable[[PlanStep, Env], None]] = None,
+                tracer=None):
         """Run the plan on the stacked local shards of its inputs; returns the
         outputs' stacked shards (under ``out_shardings``).  Each value is
         dropped after its last reader, as ``plan_peak_bytes`` models.
         ``on_step(step, env)``, if given, sees each step's results before
-        its dead values are dropped, the steps of scan bodies too."""
+        its dead values are dropped, the steps of scan bodies too.
+        ``tracer`` (an ``obs.trace.Tracer``) runs and times each of this
+        plan's steps (a scan's call step is one span) as its config says;
+        the values are those of an untraced run."""
         env: Env = dict(self.consts)
         env.update(zip(self.invars, args))
         token = _ON_STEP.set(on_step)
+        call = None
+        if tracer is not None:
+            call = tracer.begin_call(cuda=any(isinstance(a, torch.Tensor) and a.is_cuda
+                                              for a in args))
         try:
-            for step, dead in zip(self.steps, self.dead):
-                step.run(env, step.reads, step.writes)
+            for i, (step, dead) in enumerate(zip(self.steps, self.dead)):
+                if tracer is None:
+                    step.run(env, step.reads, step.writes)
+                else:
+                    tracer.run_step(i, step, env, call)
                 if on_step is not None:
                     on_step(step, env)
                 for k in dead:
@@ -1219,14 +1232,14 @@ def plan_peak_bytes(plan: PartitionPlan) -> float:
     Inputs and constants are resident for the whole plan; intermediates are
     allocated at their producing step (each step's ``wbytes``) and freed
     after their last reader; outputs stay live to the end.  A scan step adds
-    its body plan's peak as a transient while it runs.
+    its body plan's peak as a transient while it runs, less the body's
+    consts and xs slices: those are views of values live in this plan
+    already.  The body's carry stays in the transient: from the second trip
+    on it is the previous trip's output, a buffer of its own, while this
+    plan's initial carry stays live until the scan step ends.
     """
-    resident = plan.const_bytes
-    pinned = set()
-    for v, s in zip(plan.invars, plan.in_shardings):
-        a = aval(v)
-        resident += _nbytes_of(shard_shape(a.shape, s), a.dtype.itemsize)
-        pinned.add(id(v))
+    resident = plan.const_bytes + sum(_input_sizes(plan))
+    pinned = {id(v) for v in plan.invars}
     last_read: Dict[int, int] = {}
     for i, step in enumerate(plan.steps):
         for k in step.reads:
@@ -1234,18 +1247,28 @@ def plan_peak_bytes(plan: PartitionPlan) -> float:
     for k in plan.out_keys:
         last_read[id(k)] = len(plan.steps)
     live = peak = resident
-    alive: Dict[int, float] = {}
+    freed_after: Dict[int, float] = {}  # step index -> bytes its end frees
     for i, step in enumerate(plan.steps):
         for w, b in zip(step.writes, step.wbytes):
             if id(w) in pinned:
                 continue
-            alive[id(w)] = b
             live += b
-        peak = max(peak, live + step.transient_bytes)
-        for k in list(alive):
-            if last_read.get(k, -1) <= i:
-                live -= alive.pop(k)
+            end = max(i, last_read.get(id(w), -1))
+            freed_after[end] = freed_after.get(end, 0.0) + b
+        transient = step.transient_bytes
+        if step.inner is not None:
+            nc, nk = step.call["num_consts"], step.call["num_carry"]
+            sizes = _input_sizes(step.inner)
+            transient -= sum(sizes[:nc]) + sum(sizes[nc + nk:])
+        peak = max(peak, live + transient)
+        live -= freed_after.pop(i, 0.0)
     return peak
+
+
+def _input_sizes(plan: PartitionPlan) -> List[float]:
+    """Per-device bytes of each of a plan's inputs under its input shardings."""
+    return [_nbytes_of(shard_shape(aval(v).shape, s), aval(v).dtype.itemsize)
+            for v, s in zip(plan.invars, plan.in_shardings)]
 
 
 @dataclasses.dataclass
@@ -1272,9 +1295,9 @@ class PlanCost:
     def _p(self) -> RooflineParams:
         if self.params is None:
             raise ValueError(
-                "PlanCost: no machine profile (RooflineParams) to price time with: the port "
-                "has no default constants; pass profile= to compile_plan / lower_plan / "
-                "lower_for_cost (a fitted MachineProfile is ROADMAP A15)")
+                "PlanCost: no machine profile (RooflineParams) to price time with: pass "
+                "profile= to compile_plan / lower_plan / lower_for_cost (the committed H100 "
+                "profile is repro_torch.obs.profile.resolve_profile())")
         return self.params
 
     @property

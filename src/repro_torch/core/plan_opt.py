@@ -43,10 +43,20 @@ trip count too.
    ``analysis/roofline.py::fusion_bucket_bytes`` of the profile (or an
    explicit ``bucket_bytes``).
 7. **overlap scheduling** (:func:`schedule_overlap`): a list schedule onto a
-   two-resource (compute, interconnect) machine priced by the profile.  On
-   the simulated mesh one stream runs products and collectives in series,
-   so the schedule reorders steps and cannot hide time; it is pure
-   reordering, deterministic for a given plan.
+   two-resource (compute, interconnect) machine priced by the profile; it
+   is pure reordering, deterministic for a given plan.  On the simulated
+   mesh one stream runs products and collectives in series (the committed
+   profile's ``overlap_efficiency`` is 0): one lane, and the plan keeps
+   its order.
+
+Under a one-lane profile, where the schedule keeps the order, CSE with DCE
+and fusion are each undone where they raise the plan's modeled peak above
+its peak before the passes (:func:`_within_peak`): under remat CSE would
+keep the forward's gathers alive for the backward's recompute, and on one
+stream nothing hides a collective, so the optimized plan costs no memory
+that the unoptimized one does not.  A profile that overlaps keeps the
+reference's passes as they are, so that their reports can be held against
+the JAX package's.
 
 Collectives a compute step runs inside itself (``PlanStep.collectives``: a
 ``LocalOp``'s decode combine, SSD-gradient psums, ``logsumexp`` and index-op
@@ -65,6 +75,7 @@ re-derives these on every plan ``compile_plan`` returns.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
@@ -738,6 +749,12 @@ def _slot_s(dc: float, dm: float, params: RooflineParams) -> float:
     return overlap_time_s(dc, dm, params) if (dc > 0.0 and dm > 0.0) else dc + dm
 
 
+def _one_lane(params: RooflineParams) -> bool:
+    """Whether the profile runs collectives and products in series (no
+    overlap at all): then the machine is one lane, not two."""
+    return params.overlap_efficiency <= 0.0
+
+
 def schedule_overlap(plan: PartitionPlan) -> PassReport:
     """Reorder dataflow-independent steps so that collectives issue as early
     as their inputs allow, and record the max-of-terms overlap model.
@@ -745,7 +762,10 @@ def schedule_overlap(plan: PartitionPlan) -> PassReport:
     Greedy list scheduling onto (compute, interconnect): among the ready
     steps, place the one that can start earliest, a wire-only step first on
     ties, then the lower original index.  The emitted order is a
-    topological order of the dataflow, the same for the same plan.
+    topological order of the dataflow, the same for the same plan.  Under a
+    profile with no overlap (one stream runs both) there is one lane, no
+    order finishes sooner, and an earlier collective only lengthens its
+    result's life: the plan keeps its order.
     """
     rep = PassReport("overlap-schedule")
     steps = plan.steps
@@ -753,6 +773,11 @@ def schedule_overlap(plan: PartitionPlan) -> PassReport:
     mesh = plan.mesh
     params = _params(plan)
     durs = [_step_durations(s, mesh, params) for s in steps]
+    if _one_lane(params):
+        serial = sum(_slot_s(dc, dm, params) for dc, dm in durs)
+        rep.detail = {"compute_s": sum(d[0] for d in durs), "comm_s": sum(d[1] for d in durs),
+                      "serial_s": serial, "overlapped_s": serial}
+        return rep
     producer: Dict[int, int] = {}
     for j, s in enumerate(steps):
         for w in s.writes:
@@ -835,8 +860,9 @@ def step_class(step: PlanStep) -> str:
 def modeled_timeline(plan: PartitionPlan) -> List[Dict]:
     """The schedule as a timeline: one row per step in the plan's order with
     modeled start and duration seconds and the lane it occupies, by
-    :func:`schedule_overlap`'s rules, so that on an optimized plan the
-    makespan equals ``opt_report.overlap["overlapped_s"]``."""
+    :func:`schedule_overlap`'s rules (one lane under a profile with no
+    overlap), so that on an optimized plan the makespan equals
+    ``opt_report.overlap["overlapped_s"]``."""
     steps = plan.steps
     mesh = plan.mesh
     params = _params(plan)
@@ -846,6 +872,7 @@ def modeled_timeline(plan: PartitionPlan) -> List[Dict]:
             producer[id(w)] = j
     finish = [0.0] * len(steps)
     tc = tm = 0.0
+    one_lane = _one_lane(params)
     rows: List[Dict] = []
     for j, s in enumerate(steps):
         dc, dm = _step_durations(s, mesh, params)
@@ -854,15 +881,15 @@ def modeled_timeline(plan: PartitionPlan) -> List[Dict]:
             p = producer.get(id(r))
             if p is not None and p < j:
                 start = max(start, finish[p])
-        if dc > 0.0:
+        if dc > 0.0 or one_lane:
             start = max(start, tc)
-        if dm > 0.0:
+        if dm > 0.0 or one_lane:
             start = max(start, tm)
         dur = _slot_s(dc, dm, params)
         finish[j] = start + dur
-        if dc > 0.0:
+        if dc > 0.0 or one_lane:
             tc = finish[j]
-        if dm > 0.0:
+        if dm > 0.0 or one_lane:
             tm = finish[j]
         rows.append({"index": j, "name": f"{s.kind}:{s.op}" if s.op else s.kind,
                      "cls": step_class(s),
@@ -876,14 +903,41 @@ def modeled_timeline(plan: PartitionPlan) -> List[Dict]:
 # ---------------------------------------------------------------------------------
 
 
+def _within_peak(plan: PartitionPlan, budget: float, passes) -> List[PassReport]:
+    """Run ``passes`` on ``plan`` and keep their edits unless they raise its
+    modeled peak (``plan_peak_bytes``) above both its peak before them and
+    ``budget``; then undo them (the steps, their reads and ``plan.stats``
+    as they were) and report each as undone.  CSE stretches the first
+    reshard's result to its last reader (under remat, the forward's gather
+    to the backward's recompute, which is what remat let go); fusion moves
+    its members' results or inputs to the bucket's anchor."""
+    steps = list(plan.steps)
+    reads = [s.reads for s in steps]
+    stats = copy.deepcopy(plan.stats)
+    before = plan_peak_bytes(plan)
+    reports = [run(plan) for run in passes]
+    after = plan_peak_bytes(plan)
+    limit = max(before, budget)
+    if after <= limit:
+        return reports
+    for s, r in zip(steps, reads):
+        s.reads = r
+    plan.steps[:] = steps
+    plan.stats = stats
+    return [PassReport(r.name, detail={"undone": "peak", "peak_bytes": after, "limit": limit})
+            for r in reports]
+
+
 def optimize_plan(plan: PartitionPlan, bucket_bytes: Optional[float] = None) -> PartitionPlan:
     """Run the pass pipeline (inline, hoist, CSE, DCE, alias sinking, fusion,
     overlap scheduling) on ``plan`` in place and attach an
     :class:`OptReport`: first on each scan body plan (innermost first, each
     with its own report; this plan's ``PlanStats`` follow the body's at
-    trip count), then on this plan.  ``bucket_bytes`` overrides the fusion
-    cap; every other price is the plan's profile, without which this
-    raises."""
+    trip count), then on this plan.  Under a one-lane profile (the committed
+    one) CSE with DCE, and fusion, are each undone where they would raise
+    the modeled peak above the plan's before the passes
+    (:func:`_within_peak`).  ``bucket_bytes`` overrides the fusion cap;
+    every other price is the plan's profile, without which this raises."""
     _params(plan)
     steps_before = len(plan.steps)
     coll_before = whole_collective_launches(plan)
@@ -896,15 +950,17 @@ def optimize_plan(plan: PartitionPlan, bucket_bytes: Optional[float] = None) -> 
             optimize_plan(inner, bucket_bytes)
             plan.stats.add_inner(inner.stats, trips)
             step.transient_bytes = inner.peak_bytes
-    reports = [
-        inline_pjit(plan),
-        hoist_scan_invariants(plan),
-        reshard_cse(plan),
-        dead_reshard_elim(plan),
-        sink_output_aliases(plan),
-        fuse_collectives(plan, bucket_bytes),
-        schedule_overlap(plan),
-    ]
+    reports = [inline_pjit(plan), hoist_scan_invariants(plan)]
+    fuse = lambda p: fuse_collectives(p, bucket_bytes)  # noqa: E731
+    if _one_lane(plan.params):
+        budget = plan_peak_bytes(plan)
+        reports += _within_peak(plan, budget, (reshard_cse, dead_reshard_elim))
+        reports.append(sink_output_aliases(plan))
+        reports += _within_peak(plan, budget, (fuse,))
+    else:
+        reports += [reshard_cse(plan), dead_reshard_elim(plan), sink_output_aliases(plan),
+                    fuse(plan)]
+    reports.append(schedule_overlap(plan))
     sched = reports[-1]
     plan.relive()
     plan.opt_report = OptReport(

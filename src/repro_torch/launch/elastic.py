@@ -17,9 +17,9 @@ restore needs today:
 The recovery loop itself (``ElasticCoordinator``), the fault schedules of
 ``FaultInjector``, the ``DeviceLossError`` / ``DeviceReturnError`` errors
 and ``sharding_problem`` are ROADMAP A14b: the coordinator re-solves the
-assignment through autoshard (A11) warm-started from its last dump, and
-every fault and recovery it handles is an ``obs`` control event and
-counter (A15), neither of which is ported yet.
+assignment through autoshard (A11, not ported yet) warm-started from its
+last dump, and every fault and recovery it handles is an ``obs`` control
+event and counter (``repro_torch/obs``).
 """
 from __future__ import annotations
 

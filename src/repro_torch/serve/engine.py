@@ -16,15 +16,14 @@ Constructed under ``core.compat.set_mesh(mesh)``, the engine runs its decode
 step as one SPMD program on that (simulated) mesh, as the reference's jitted
 step runs under its mesh: ``models/api.py::partitionable_decode`` (params by
 their specs, the token on "data", the cache by ``api.cache_specs``, the
-position as data) through ``spmd_partition`` on the params' device.  With
-a ``plan_profile`` (a ``RooflineParams``) its plan is optimized and
-verified (``optimize=True, verify=True, profile=plan_profile``); ``None``
-keeps the unoptimized (verified) plan, standing in for the reference's
-default constants until a ``MachineProfile`` fitted on the card (ROADMAP
-A15) can price the optimizer.  The plan is compiled at the first step and
-serves every later one (``runner.plans``).  The cache stays a global
-tensor, sharded and gathered by the runner at each step; the runner is
-``engine.runner``.
+position as data) through ``spmd_partition`` on the params' device, its
+plan optimized and verified as the reference's is, priced by
+``plan_profile`` (``None``: ``$REPRO_TORCH_MACHINE_PROFILE``, then the
+committed H100 profile; ``obs/profile.py::resolve_profile``);
+``optimize=False`` keeps the unoptimized (verified) plan.  The plan is
+compiled at the first step and serves every later one (``runner.plans``).
+The cache stays a global tensor, sharded and gathered by the runner at
+each step; the runner is ``engine.runner``.
 """
 from __future__ import annotations
 
@@ -50,7 +49,8 @@ class Request:
 
 class Engine:
     def __init__(self, cfg: ModelConfig, st: Strategy, params, batch_slots: int,
-                 max_len: int, rng: Optional[torch.Generator] = None, plan_profile=None):
+                 max_len: int, rng: Optional[torch.Generator] = None, plan_profile=None,
+                 optimize: bool = True):
         self.cfg, self.st, self.params = cfg, st, params
         self.B, self.T = batch_slots, max_len
         self.device = params["embed"]["embedding"].device
@@ -75,7 +75,7 @@ class Engine:
             from ..core.partitioner import spmd_partition
 
             self.runner = spmd_partition(api.partitionable_decode(cfg, st, self.mesh), self.mesh,
-                                         optimize=plan_profile is not None, verify=True,
+                                         optimize=optimize, verify=True,
                                          profile=plan_profile, device=str(self.device))
 
     def _decode(self, tokens: np.ndarray):

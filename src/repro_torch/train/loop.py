@@ -22,13 +22,13 @@ step, batch) -> (params', opt_state', loss, grad_norm)``, its inputs
 annotated at entry (params by their declared specs, the optimizer state by
 ``opt_state_specs``, the batch on "data") and the gradient taken inside it,
 runs through ``spmd_partition``: capture, completion and the plan on the
-first call, the plan alone on every later one.  With a ``plan_profile`` (a
-``RooflineParams``) the plan is optimized and verified
-(``spmd_partition(..., optimize=True, verify=True, profile=plan_profile)``);
-``None`` keeps the unoptimized (verified) plan, standing in for the
-reference's default constants until a ``MachineProfile`` fitted on the card
-(ROADMAP A15) can price the optimizer.  The step writes the results back
-into the state's tensors, so callers see the same in-place contract.
+first call, the plan alone on every later one.  The plan is optimized and
+verified, as the reference's ``spmd_partition`` does by default, priced by
+``plan_profile`` (``None``: ``$REPRO_TORCH_MACHINE_PROFILE``, then the
+profile fitted on an H100 and committed with the package;
+``obs/profile.py::resolve_profile``); ``optimize=False`` keeps the
+unoptimized (verified) plan.  The step writes the results back into the
+state's tensors, so callers see the same in-place contract.
 
 **Numerics guards** (``TrainConfig.guard``, a ``core/plan.py::GuardConfig``):
 both steps compute a non-finite / abs-max sentinel over the guarded tensors
@@ -49,9 +49,14 @@ with (``launch/elastic.py::state_partition_specs`` projected onto the
 mesh).  A run with no ``initial_state`` restores the newest checkpoint in
 ``ckpt_dir`` and resumes at its cursor.
 
+**Observability** (``obs/``): ``run`` observes ``train.step_ms`` and
+``train.tokens_per_s`` for every step, counts ``train.guard.faults`` and
+``train.guard.skips``, and emits the reference's control events
+(``ckpt_save``, ``numerics_fault``, ``skip_step``, ``straggler``) beside
+its hooks.
+
 Not ported yet: the rewind to a checkpoint after escalated faults (the
-elastic coordinator's, ROADMAP A14b) and the ``obs`` metrics and control
-events (A15; the loop calls its hooks only).  The dense family and Mamba2
+elastic coordinator's, ROADMAP A14b).  The dense family and Mamba2
 train (attention's and the SSD's gradients are kernels on the card:
 ``kernels/ops.py``); the families with no model yet raise (ROADMAP A12).
 """
@@ -72,6 +77,8 @@ from ..core.device import resolve_device
 from ..core.tree import leaves, leaves_with_paths, tree_from_paths, tree_map
 from ..models import api
 from ..models.layers import annotate_spec, annotate_tree, tree_init, tree_shapes, tree_specs
+from ..obs import metrics as obs_metrics
+from ..obs.trace import control_event
 from . import checkpoint as ckpt_lib
 from .optimizer import Optimizer, opt_state_specs
 
@@ -145,15 +152,16 @@ def value_and_grad(cfg: ModelConfig, st: Strategy, params, batch, grad_accum: in
 
 
 def make_train_step(cfg: ModelConfig, st: Strategy, opt: Optimizer, tc: TrainConfig,
-                    plan_profile=None):
+                    plan_profile=None, optimize: bool = True, trace=None):
     """Returns step(state, batch) -> (state, metrics); state = {"params",
     "opt", "step"[, "ef"]}, updated in place.  Under an ambient mesh, the
-    partitioned step (``partitioned_train_step``, its plan optimized with
-    ``plan_profile`` where one is given)."""
+    partitioned step (``partitioned_train_step``, which takes
+    ``plan_profile``, ``optimize`` and ``trace``)."""
     _require_trainable(cfg, tc)
     mesh = get_abstract_mesh()
     if mesh is not None:
-        return partitioned_train_step(cfg, st, opt, tc, mesh, plan_profile=plan_profile)
+        return partitioned_train_step(cfg, st, opt, tc, mesh, plan_profile=plan_profile,
+                                      optimize=optimize, trace=trace)
 
     def step_fn(state, batch):
         params, opt_state, step = state["params"], state["opt"], state["step"]
@@ -291,7 +299,7 @@ def _compressed(grads, ef):
 
 
 def partitioned_train_step(cfg: ModelConfig, st: Strategy, opt: Optimizer, tc: TrainConfig,
-                           mesh, plan_profile=None):
+                           mesh, plan_profile=None, optimize: bool = True, trace=None):
     """The train step as one SPMD program on ``mesh`` (the simulated mesh
     of ``core/mesh_runtime.py``), through the port's partitioner.
 
@@ -308,10 +316,12 @@ def partitioned_train_step(cfg: ModelConfig, st: Strategy, opt: Optimizer, tc: T
     with ``tc.guard``, the sentinel and the keep of the old state on a
     fault; it returns (params', opt_state', loss, grad_norm[, ef'][, guard,
     fault]).  ``spmd_partition`` captures, completes and plans it on the
-    first call, on the device the params are on, optimized and verified
-    with ``plan_profile`` (unoptimized with None); every later call runs
-    the plan.  The step writes the results into ``state``'s tensors.  The
-    runner is ``step.runner``."""
+    first call, on the device the params are on, verified and (unless
+    ``optimize=False``) optimized, priced by ``plan_profile`` as
+    ``spmd_partition`` resolves it; every later call runs the plan, traced
+    when ``trace`` (an ``obs.trace.TraceConfig``) asks.  The step writes
+    the results into ``state``'s tensors.  The runner is
+    ``step.runner``."""
     from ..core.partitioner import spmd_partition
 
     with set_mesh(mesh):
@@ -346,7 +356,6 @@ def partitioned_train_step(cfg: ModelConfig, st: Strategy, opt: Optimizer, tc: T
         return (new_params, new_opt, loss, gnorm) + new_ef + guard
 
     runners = {}
-    optimize = plan_profile is not None
 
     def step_fn(state, batch):
         params, opt_state, step = state["params"], state["opt"], state["step"]
@@ -355,7 +364,7 @@ def partitioned_train_step(cfg: ModelConfig, st: Strategy, opt: Optimizer, tc: T
         if runner is None:
             runner = runners[dev] = spmd_partition(program, mesh, optimize=optimize,
                                                    verify=True, profile=plan_profile,
-                                                   device=str(dev))
+                                                   trace=trace, device=str(dev))
             step_fn.runner = runner
         ef = (state["ef"],) if tc.compress_grads else ()
         with torch.no_grad():
@@ -417,16 +426,17 @@ class TrainLoop:
     the step, ending when its loss reaches the host) and throughput;
     ``guard_counters`` (faults, skips, rewinds; restored from a checkpoint's
     ``extra``) and ``skipped_steps`` what the guards did.  ``plan_profile``
-    is ``make_train_step``'s (under a mesh only).  A ``ckpt_extra`` hook's
-    dict merges into every manifest's ``extra``."""
+    and ``optimize`` are ``make_train_step``'s (under a mesh only).  A
+    ``ckpt_extra`` hook's dict merges into every manifest's ``extra``."""
 
     def __init__(self, cfg, st, opt, tc: TrainConfig, pipeline, gen=None, step_fn=None,
-                 hooks=None, device="cuda", plan_profile=None):
+                 hooks=None, device="cuda", plan_profile=None, optimize: bool = True):
         self.cfg, self.st, self.opt, self.tc = cfg, st, opt, tc
         self.pipeline = pipeline
         self.hooks = hooks or {}
         self.device = resolve_device(device)
-        self.step_fn = step_fn or make_train_step(cfg, st, opt, tc, plan_profile=plan_profile)
+        self.step_fn = step_fn or make_train_step(cfg, st, opt, tc, plan_profile=plan_profile,
+                                                  optimize=optimize)
         self.gen = gen if gen is not None else torch.Generator(self.device).manual_seed(0)
         self.step_times = []
         self.tokens_per_s = []
@@ -454,13 +464,16 @@ class TrainLoop:
         return extra
 
     def _save(self, save_step: int, state, cursor_step: int, prune: bool = True) -> None:
-        """One checkpoint save, then the retention pass (keep the newest
-        ``keep_ckpts``) unless ``prune`` is off."""
+        """One checkpoint save with a ``ckpt_save`` control event (so that a
+        trace shows the restore points beside the faults), then the
+        retention pass (keep the newest ``keep_ckpts``) unless ``prune`` is
+        off."""
         mesh = get_abstract_mesh()
         specs = None if mesh is None else checkpoint_specs(self.cfg, self.st, self.opt, self.tc,
                                                            state, mesh)
         ckpt_lib.save(self.tc.ckpt_dir, save_step, state, extra=self._ckpt_extra(cursor_step),
                       specs=specs)
+        control_event("ckpt_save", step=save_step, data_cursor=cursor_step + 1)
         if prune:
             ckpt_lib.cleanup(self.tc.ckpt_dir, self.tc.keep_ckpts)
 
@@ -512,6 +525,9 @@ class TrainLoop:
             state, metrics = self.step_fn(state, batch)
             loss = float(metrics["loss"])
             dt = time.perf_counter() - t0
+            obs_metrics.observe("train.step_ms", dt * 1e3)
+            if tokens and dt > 0:
+                obs_metrics.observe("train.tokens_per_s", tokens / dt)
             gc = self.tc.guard
             if gc is not None and bool(metrics["fault"]):
                 # the step already kept the old state; decode the leaves,
@@ -528,8 +544,10 @@ class TrainLoop:
                 self.hooks["metrics"](step, loss)
             if len(self.step_times) >= 8:
                 med = float(np.median(self.step_times[-32:]))
-                if dt > self.tc.straggler_factor * med and "straggler" in self.hooks:
-                    self.hooks["straggler"](step, dt, med)
+                if dt > self.tc.straggler_factor * med:
+                    control_event("straggler", step=step, dt_ms=dt * 1e3, median_ms=med * 1e3)
+                    if "straggler" in self.hooks:
+                        self.hooks["straggler"](step, dt, med)
             if self.tc.ckpt_dir and (step + 1) % self.tc.ckpt_every == 0:
                 self._save(step + 1, state, step)
             if "log" in self.hooks and step % self.tc.log_every == 0:
@@ -551,12 +569,17 @@ class TrainLoop:
                        "value": float(metrics["grad_norm"])},)
         self.guard_counters["faults"] += 1
         self._consecutive_faults += 1
+        obs_metrics.inc("train.guard.faults")
+        control_event("numerics_fault", step=step, consecutive=self._consecutive_faults,
+                      leaves=[f["leaf"] for f in faults[:4]])
         if "numerics_fault" in self.hooks:
             self.hooks["numerics_fault"](step, faults, self._consecutive_faults)
         if self._consecutive_faults >= gc.rewind_after:
             raise NumericsFault(step, faults, self._consecutive_faults)
         self.guard_counters["skips"] += 1
         self.skipped_steps.append(step)
+        obs_metrics.inc("train.guard.skips")
+        control_event("skip_step", step=step)
         if "log" in self.hooks:
             self.hooks["log"](f"step {step} numerics fault -> skipped "
                               f"({self._consecutive_faults} consecutive): "

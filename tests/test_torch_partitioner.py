@@ -347,24 +347,31 @@ def test_runner_and_process_caches():
     ({}, "A9"), ({"compile_plans": True, "optimize": False, "verify": True}, "A9"),
     ({"compile_plans": False, "autoshard": object()}, "A11"),
     ({"compile_plans": False, "guard": object()}, "A9"),
-    ({"compile_plans": False, "trace": object()}, "A15"),
-    ({"compile_plans": False, "profile": object()}, "A15"),
+    ({"compile_plans": False, "trace": "TraceConfig"}, "A15"),
+    ({"compile_plans": True, "profile": object()}, "A15"),
 ])
 def test_unported_options_raise_naming_their_item(kw, item):
-    """A11 and A15 still raise naming their items.  A9's options are ported:
-    ``optimize=True`` (the default) needs a machine profile, ``guard=`` a
-    compiled plan, and ``verify=True`` runs."""
-    if item != "A9":
+    """Only A11 still raises naming its item.  A9's options are ported:
+    ``optimize=True`` (the default) prices the optimizer with the committed
+    profile, ``guard=`` needs a compiled plan, and ``verify=True`` runs.
+    A15's are ported: ``trace=`` needs a compiled plan, and ``profile=``
+    takes a ``RooflineParams``, a ``MachineProfile`` or a path (anything
+    else is a TypeError at the first call)."""
+    from repro_torch.obs import TraceConfig
+
+    if kw.get("trace") == "TraceConfig":
+        kw = dict(kw, trace=TraceConfig())
+    x = torch.arange(8.0)
+    if item == "A11":
         with pytest.raises(NotImplementedError, match=item):
             spmd_partition(lambda x: x, MESH, device="cpu", **kw)
-    elif "guard" in kw:
+    elif "guard" in kw or "trace" in kw:
         with pytest.raises(ValueError, match="compile_plans=True"):
             spmd_partition(lambda x: x, MESH, device="cpu", **kw)
-    elif kw.get("optimize", True):
-        with pytest.raises(ValueError, match="profile="):
-            spmd_partition(lambda x: x, MESH, device="cpu", **kw)
+    elif "profile" in kw:
+        with pytest.raises(TypeError, match="profile"):
+            spmd_partition(lambda x: x, MESH, device="cpu", **kw)(x)
     else:
-        x = torch.arange(8.0)
         assert_close(spmd_partition(lambda x: x * 2, MESH, device="cpu", **kw)(x), x * 2,
                      "exact")
 

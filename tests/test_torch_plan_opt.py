@@ -372,6 +372,31 @@ def test_schedule_overlap_issues_collective_early_and_is_deterministic():
     assert [(s.kind, s.op) for s in opt.steps] == [(s.kind, s.op) for s in again.steps]
 
 
+@pytest.mark.parametrize("name", list(PROGRAMS))
+def test_one_lane_profile_keeps_the_order_and_the_unoptimized_peak(name):
+    """Under a profile with no overlap (the committed card profile's kind)
+    the schedule keeps the plan's order and models it serially, and the
+    optimized plan's modeled peak is at most the unoptimized plan's: CSE
+    and fusion are undone where they would raise it.  The overlapping
+    profile's plan is the reference's (test_opt_report_matches_reference):
+    its fusion raises the peak of fanout_psum (92,160 to 141,312 bytes)
+    and gather_hoist (22,528 to 28,672), and there the one-lane plan undoes
+    it."""
+    f, _, shapes = PROGRAMS[name]()
+    cap = capture(f, *[torch.empty(s, device="meta") for s in shapes])
+    prop = propagate(cap, MESH).result()
+    one = RooflineParams(**dict(PROFILE, overlap_efficiency=0.0))
+    raw = compile_plan(cap, prop, MESH, optimize=False, cost_only=True, profile=one)
+    opt = compile_plan(cap, prop, MESH, optimize=True, cost_only=True, profile=one)
+    _check_write_before_read(opt)
+    sched = _pass(opt, "overlap-schedule")
+    ov = opt.opt_report.overlap
+    assert sched.moved_steps == 0 and ov["overlapped_s"] == ov["serial_s"]
+    assert opt.peak_bytes <= raw.peak_bytes
+    undone = {p.name for p in opt.opt_report.passes if p.detail.get("undone") == "peak"}
+    assert undone == ({"collective-fusion"} if name in ("fanout_psum", "gather_hoist") else set())
+
+
 def test_opt_report_as_dict_schema():
     _, opt, _, _ = _plans("fanout_psum")
     d = opt.opt_report.as_dict()
