@@ -150,6 +150,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``chiprun_out/``), the calibration table per step class, a profile
    fitted to the spans beside the committed one, and the allocator's peak
    beside ``plan_peak_bytes``;
+8b. the autoshard search, in the same process: qwen1.5-0.5b's loss and
+   gradient (``value_and_grad``) at its published widths, eight layers
+   scanned, B8 S512, bf16, with no mesh set and no annotation, through
+   ``spmd_partition(autoshard=AutoshardConfig(...))`` on the simulated
+   ("data" 2, "model" 4) mesh with the golden tests' knobs and a budget
+   midway between the replicated and the Table-1 modeled peaks: a feasible
+   assignment modeled no slower than the Table-1 one, its plan's peak
+   within the budget, loss and gradients within bf16_grad in norm of the
+   unsharded step, 8 + 8 flash launches over the eight devices, no
+   fallback gather or whole-vocabulary step, a second call site lowering
+   nothing; the assignment by leaf path, evals and search seconds, both
+   assignments' modeled terms and device busy, the allocator's peak
+   beside the plan's;
 9. the whole-program plan optimizer and the plan verifier, in the same
    process, priced by the committed H100 profile: three paths at full
    width and two layers (qwen1.5-0.5b's partitioned train step, 2d_finalized,
@@ -194,10 +207,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    one stage body vmapped over four stages, a 7-tick shifting-buffer
    scan, B8 S512 in four microbatches) through the partitioner on a
    simulated ("stage" 4, "model" 2) mesh, 2d_finalized, remat "none", for
-   qwen1.5-0.5b at 24 layers in float32 and bf16 and mamba2-130m at eight
-   in float32, against the unpipelined partitioned gradient on the same
-   mesh and the unsharded one: losses and gradient leaves within their
-   classes, 42 + 42 flash (Mamba2: 14 + 14 SSD) calls a call, each one
+   qwen1.5-0.5b in float32 and bf16 and mamba2-130m in float32, both at
+   eight layers (``PIPE_CASES``, cut for the script's time limit), against
+   the unpipelined partitioned gradient on the same mesh and the unsharded
+   one: losses and gradient leaves within their classes, 14 + 14 flash
+   (Mamba2: 14 + 14 SSD) calls a call, each one
    launch for every stage and device, one ppermute a tick each way (14 a
    call) moving one stage row, no gathering fallback (scan bodies'
    included), no other collective over "stage" in a tick body than the
@@ -4553,15 +4567,245 @@ def obs_phase(seed, card):
 
 
 # ---------------------------------------------------------------------------------
+# autoshard: the annotation-free sharding search behind spmd_partition(autoshard=)
+# ---------------------------------------------------------------------------------
+
+AUTOSHARD_KNOBS = dict(top_n=3, sa_steps=4, max_candidates=8)  # the golden tests' knobs
+
+
+def annotation_free_value_and_grad(cfg, st):
+    """``value_and_grad`` as a program with no mesh set and no annotation:
+    what ``spmd_partition(autoshard=)`` searches the input shardings of."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.train.loop import value_and_grad
+
+    def program(params, batch):
+        live = tree_map(lambda p: p.detach().requires_grad_(), params)
+        with torch.enable_grad():
+            return value_and_grad(cfg, st, live, batch)
+
+    return program
+
+
+def autoshard_phase(seed, card):
+    """The autoshard search (``repro_torch/autoshard``) behind
+    ``spmd_partition(autoshard=)`` on the annotation-free loss and gradient
+    of qwen1.5-0.5b at its published widths (``SCAN_LAYERS["none"]`` layers
+    scanned, remat "none", B8 S512, bf16 compute, float32 masters) on the
+    simulated ("data" 2, "model" 4) mesh, with the golden tests' knobs and
+    the budget midway between the modeled peaks of the replicated and the
+    Table-1 assignments (``sharded_value_and_grad``'s annotations on the
+    same inputs), both priced by the port's ``Evaluator`` under the
+    committed profile.  Gates: a feasible assignment, modeled no slower
+    than the baseline, its plan's modeled peak within the budget; loss and
+    gradients within bf16_grad in norm per leaf of the unsharded
+    ``value_and_grad`` on the card (the key bias, whose gradient is 0, read
+    only); one flash forward and one backward launch a layer, each over all
+    eight simulated devices; no fallback gather and no whole-vocabulary
+    plan step; a second call site with the same config lowers nothing
+    new.  Printed: the assignment by leaf path, the search's evals and
+    seconds, both assignments' modeled terms, their device busy on the card
+    beside the modeled ratio, and the allocator's peak beside the plan's."""
+    import dataclasses
+
+    from repro_torch import autoshard
+    from repro_torch.autoshard import api as as_api
+    from repro_torch.configs.base import get_strategy
+    from repro_torch.core.compat import TOLERANCES, capture, set_mesh
+    from repro_torch.core.partitioner import spmd_partition
+    from repro_torch.core.tree import leaves_with_paths, tree_from_paths, tree_map
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import api as model_api
+    from repro_torch.models.layers import tree_init, tree_specs
+    from repro_torch.obs import device_memory_stats, memory_report
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.train.loop import sharded_value_and_grad, value_and_grad
+
+    t0 = time.perf_counter()
+    mesh = make_test_mesh()
+    profile, _ = card_profile()
+    cfg = partition_train_config(SCAN_LAYERS["none"]).with_(scan_layers=True)
+    st, L, V = get_strategy("2d_finalized"), cfg.num_layers, cfg.vocab_size
+    label = (f"qwen1.5-0.5b loss and gradient, {L} layers scanned, remat none, B{SCAN_B} "
+             f"S{SCAN_S}, bf16, no annotation")
+    print(f"autoshard: the sharding search behind spmd_partition(autoshard=) on the {label}; "
+          f"{card}", flush=True)
+    decls = model_api.param_tree(cfg, st)
+    with set_mesh(mesh):  # the Table-1 specs, as sharded_value_and_grad reads them
+        specs = dict(leaves_with_paths(tree_specs(model_api.param_tree(cfg, st))))
+    # the inputs in the JAX package's leaf order: params by sorted keys, then
+    # labels, tokens (an assignment's index i is the i-th leaf path)
+    params = tree_from_paths(leaves_with_paths(tree_init(
+        decls, torch.Generator("cuda").manual_seed(seed), dtype=cfg.param_dtype,
+        device="cuda")))
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, SCAN_S, SCAN_B, seed=seed,
+                                    pattern="arithmetic"))
+    raw = pipe.batch_at(0)
+    batch = {k: torch.from_numpy(raw[k]).to("cuda").long() for k in ("labels", "tokens")}
+    paths = ["/".join(p) for p, _ in leaves_with_paths(params)] + ["labels", "tokens"]
+    program = annotation_free_value_and_grad(cfg, st)
+
+    # the budget: midway between the replicated and the Table-1 modeled peaks
+    captured = capture(program, params, batch)
+    free = autoshard.Evaluator(captured, mesh, profile=profile)
+    shapes = free.invar_shapes()
+    base_specs = [specs[tuple(p.split("/"))] for p in paths[:-2]] + [("data",), ("data",)]
+    baseline = [autoshard.sharding_from_spec(mesh, s, shape)
+                for s, shape in zip(base_specs, shapes)]
+    repl_ev, base_ev = free([None] * len(shapes)), free(baseline)
+    budget = (repl_ev.cost.peak_bytes + base_ev.cost.peak_bytes) / 2.0
+    t_budget = time.perf_counter() - t0
+    check(base_ev.feasible and repl_ev.feasible, f"autoshard: the bounds do not lower: "
+          f"{repl_ev.reason} {base_ev.reason}")
+    config = autoshard.AutoshardConfig(budget_bytes=budget, **AUTOSHARD_KNOBS)
+
+    # the searched program: one spmd_partition call site, then a second
+    autoshard.clear_assignment_cache()
+    evals0 = obs_metrics.registry().counter("autoshard.evals").value
+    search_ms0 = obs_metrics.registry().histogram("autoshard.search_ms").summary()["sum"]
+    t1 = time.perf_counter()
+    runner = spmd_partition(program, mesh, autoshard=config)
+    runner(params, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t1
+    search_s = (obs_metrics.registry().histogram("autoshard.search_ms").summary()["sum"]
+                - search_ms0) / 1e3
+    found = as_api.solve_jaxpr_cached(captured, mesh, dataclasses.replace(config,
+                                                                          profile=profile))
+    evals = obs_metrics.registry().counter("autoshard.evals").value - evals0
+    check(found.evaluation.feasible, f"autoshard: infeasible: {found.evaluation.reason}")
+    plan = _plan_of(runner).plan
+    args = (params, batch)
+
+    seen, restore = _fold_shapes()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = device_memory_stats()
+        got, launches = counted(lambda: runner(*args))
+        mem = memory_report(plan, mem0, device_memory_stats())
+    finally:
+        restore()
+    fallbacks, gathers = list(runner.fallbacks), list(runner.fallback_gathers)
+    t2 = time.perf_counter()
+    with torch.enable_grad():
+        want = value_and_grad(cfg, st, tree_map(lambda p: p.detach().requires_grad_(), params),
+                              batch)
+    limit = TOLERANCES["bf16_grad"][0]
+    loss_rel = _rel(got[0], want[0])
+    grad_rel = {"/".join(p): _rel(g, w) for (p, g), (_, w) in zip(
+        leaves_with_paths(got[1]), leaves_with_paths(want[1]))}
+    gated = {k: v for k, v in grad_rel.items() if k != KEY_BIAS}
+    del got, want
+    vocab_steps = whole_vocab_steps(runner, args, V)
+    tokens_sh = plan.in_shardings[paths.index("tokens")]
+    fold_rows = mesh.size * (SCAN_B // tokens_sh.num_shards(0))
+
+    # a second call site with the same config: the assignment comes from the
+    # process cache (its own plan, no process plan cache), no new lowering
+    t3 = time.perf_counter()
+    n_cached, evals1 = len(as_api._ASSIGNMENT_CACHE), obs_metrics.registry().counter(
+        "autoshard.evals").value
+    runner2 = spmd_partition(program, mesh, autoshard=config, process_cache=False)
+    runner2(*args)
+    second_lowerings = obs_metrics.registry().counter("autoshard.evals").value - evals1
+    same_plan = [s.dims_mapping for s in _plan_of(runner2).plan.in_shardings] == \
+        [s.dims_mapping for s in plan.in_shardings]
+    del runner2
+
+    t4 = time.perf_counter()
+    # the Table-1 program on the card, for the measured ratio
+    base_runner = spmd_partition(sharded_value_and_grad(cfg, st, mesh), mesh)
+    base_runner(*args)
+    busy = {"searched": device_ms(lambda i: runner(*args), 1, calls=1, warm=False),
+            "baseline": device_ms(lambda i: base_runner(*args), 1, calls=1, warm=False)}
+    base_plan = _plan_of(base_runner).plan
+    del base_runner
+    t5 = time.perf_counter()
+    split = {"budget": t_budget, "first_call": first_s, "gated_call": t2 - t1 - first_s,
+             "unsharded_and_vocab": t3 - t2, "second_call_site": t4 - t3,
+             "table1_and_busy": t5 - t4}
+    modeled_ratio = found.evaluation.score / base_ev.score
+    measured_ratio = (busy["searched"] / busy["baseline"]
+                      if busy["searched"] and busy["baseline"] else None)
+    assignment = {p: (None if s is None else repr(s)) for p, s in zip(paths, found.assignment)}
+    gib = 2 ** 30
+
+    def terms(ev):
+        c = ev.cost
+        return {k: c.as_dict()[k] for k in ("wire_bytes", "launches", "flops_per_device",
+                                             "peak_bytes", "compute_s", "collective_s",
+                                             "mem_s", "total_s")}
+
+    print(f"  budget {budget / gib:.4f} GiB a device: replicated peak "
+          f"{repl_ev.cost.peak_bytes / gib:.4f}, Table-1 peak {base_ev.cost.peak_bytes / gib:.4f} "
+          f"(both priced by the committed profile, {t_budget:.1f} s with the capture)",
+          flush=True)
+    print(f"  search: {evals} evals ({found.evals} in the result), {search_s:.2f} s; first call "
+          f"{first_s:.1f} s with capture, search and plan; searched inputs "
+          f"{[paths[i] for i in found.searched_invars]}", flush=True)
+    print("  assignment (None: left to propagation): "
+          + ", ".join(f"{p}={s}" for p, s in assignment.items() if s is not None), flush=True)
+    print(f"  modeled, searched: {terms(found.evaluation)}", flush=True)
+    print(f"  modeled, Table-1:  {terms(base_ev)}", flush=True)
+    print(f"  device busy on the card ({card}): searched {_ms(busy['searched'])}, Table-1 "
+          f"{_ms(busy['baseline'])}; measured ratio "
+          f"{'not measured' if measured_ratio is None else f'{measured_ratio:.3f}'} beside the "
+          f"modeled {modeled_ratio:.3f}", flush=True)
+    print(f"  memory ({card}): allocator peak {mem['measured_peak_bytes'] / gib:.3f} GiB "
+          f"(above the start {mem['measured_peak_delta_bytes'] / gib:.3f}) against "
+          f"plan_peak_bytes {plan.peak_bytes / gib:.4f} GiB x {mesh.size} = "
+          f"{mem['modeled_peak_bytes_all_devices'] / gib:.3f} GiB (Table-1 plan "
+          f"{base_plan.peak_bytes / gib:.4f} GiB a device)", flush=True)
+    print(f"  launches {launches}, fold rows {seen}, fallbacks {collections.Counter(fallbacks)}, "
+          f"gathers {gathers}, whole-vocab steps {vocab_steps}; loss rel {loss_rel:.3e}, "
+          f"largest gradient rel {max(gated.values()):.3e} (bf16_grad {limit}); second call "
+          f"site: {second_lowerings} lowerings, cache {n_cached} -> "
+          f"{len(as_api._ASSIGNMENT_CACHE)}, same plan inputs {same_plan}", flush=True)
+    seconds = time.perf_counter() - t0
+    print(f"autoshard: {seconds:.1f} s ({', '.join(f'{k} {v:.1f}' for k, v in split.items())})",
+          flush=True)
+    check(found.evaluation.score <= base_ev.score * (1 + 1e-9),
+          f"autoshard: searched {found.evaluation.score} above the Table-1 {base_ev.score}")
+    check(plan.peak_bytes <= budget, f"autoshard: plan peak {plan.peak_bytes} over {budget}")
+    check(loss_rel <= limit and max(gated.values()) <= limit,
+          f"autoshard: off the unsharded run: loss {loss_rel:.3e}, grads {gated}")
+    check(launches["flash_attention"] == L and launches["flash_attention_bwd"] == L,
+          f"autoshard: launches {launches}")
+    check(seen.get("flash_attention", (0,))[0] == fold_rows
+          and seen.get("flash_attention_bwd", (0,))[0] == fold_rows,
+          f"autoshard: a flash launch does not cover the eight devices: {seen}, want "
+          f"{fold_rows} rows")
+    check(gathers == [] and vocab_steps == [],
+          f"autoshard: fallback gathers {gathers}, whole-vocab steps {vocab_steps}")
+    check(second_lowerings == 0 and len(as_api._ASSIGNMENT_CACHE) == n_cached and same_plan,
+          f"autoshard: the second call site lowered {second_lowerings}")
+    del runner, params, batch, args
+    torch.cuda.empty_cache()
+    return {"label": label, "card": card, "budget_bytes": budget,
+            "replicated": terms(repl_ev), "baseline": terms(base_ev),
+            "searched": terms(found.evaluation), "assignment": assignment,
+            "searched_invars": [paths[i] for i in found.searched_invars],
+            "evals": evals, "search_s": search_s, "first_call_s": first_s,
+            "launches": launches, "fold": seen, "loss_rel": loss_rel, "grad_rel": grad_rel,
+            "fallbacks": dict(collections.Counter(fallbacks)), "fallback_gathers": gathers,
+            "whole_vocab_steps": vocab_steps, "busy_ms": busy,
+            "modeled_ratio": modeled_ratio, "measured_ratio": measured_ratio, "memory": mem,
+            "baseline_plan_peak_bytes": base_plan.peak_bytes,
+            "second_call_site_lowerings": second_lowerings, "seconds": seconds,
+            "split_s": split}
+
+# ---------------------------------------------------------------------------------
 # GSPMD §3.3 pipelining (pipeline/stages.py) on a simulated ("stage" 4, "model" 2) mesh
 # ---------------------------------------------------------------------------------
 
 PIPE_B, PIPE_S = 8, 512  # the partitioned train steps' batch
 PIPE_STAGES, PIPE_MICRO = 4, 4  # 7 ticks
-# (arch, layers, dtypes): qwen at full depth (6 layers a stage); Mamba2 cut to
-# eight layers (two a stage) for the script's time limit, in float32 only
-# (bf16 Mamba2 with random weights is chaotic under rounding, ROADMAP R6)
-PIPE_CASES = (("qwen1.5-0.5b", 24, ("float32", "bfloat16")), ("mamba2-130m", 8, ("float32",)))
+# (arch, layers, dtypes): both cut to eight layers (two a stage) for the
+# script's time limit; Mamba2 in float32 only (bf16 Mamba2 with random
+# weights is chaotic under rounding, ROADMAP R6)
+PIPE_CASES = (("qwen1.5-0.5b", 8, ("float32", "bfloat16")), ("mamba2-130m", 8, ("float32",)))
 
 
 # device time by kind of kernel, by substrings of the kernels' names
@@ -4904,9 +5148,9 @@ def pipeline_case(arch, layers, dtype, seed, card, mesh):
 
 def pipeline_phase(seed, card):
     """GSPMD §3.3 pipelining on the card (``pipeline_case``): qwen1.5-0.5b
-    at 24 layers in float32 and bf16, mamba2-130m at eight layers in
-    float32, each pipelined over four stages on a simulated ("stage" 4,
-    "model" 2) mesh."""
+    in float32 and bf16 and mamba2-130m in float32, at the depths of
+    ``PIPE_CASES``, each pipelined over four stages on a simulated ("stage"
+    4, "model" 2) mesh."""
     from repro_torch.core.sharding import Mesh
 
     t0 = time.perf_counter()
@@ -4939,7 +5183,7 @@ def pipeline_phase_in_own_process(seed, card, timeout=300):
 
 def sharded_phases_in_own_process(seed, card):
     """``sharded_loss_phase``, ``sharded_serve_phase``, ``obs_phase``,
-    ``plan_opt_phase`` and ``scan_phase`` in a fresh process (whole profiler traces, as
+    ``autoshard_phase``, ``plan_opt_phase`` and ``scan_phase`` in a fresh process (whole profiler traces, as
     ``partition_phase_in_own_process``), the first two with the kernels'
     launch counts set to 0 before and read after (the SSD launches in the
     loss and not in serving; the flash kernel in qwen's serving), the last
@@ -4952,10 +5196,12 @@ def sharded_phases_in_own_process(seed, card):
             f"serve, m = chip_smoke.counted(lambda: chip_smoke.sharded_serve_phase({seed}, "
             f"{card!r})); "
             f"obs = chip_smoke.obs_phase({seed}, {card!r}); "
+            f"autoshard = chip_smoke.autoshard_phase({seed}, {card!r}); "
             f"plan_opt = chip_smoke.plan_opt_phase({seed}, {card!r}); "
             f"scan = chip_smoke.scan_phase({seed}, {card!r}); "
             "print(json.dumps({'loss': loss, 'loss_launches': n, 'serve': serve, "
-            "'serve_launches': m, 'obs': obs, 'plan_opt': plan_opt, 'scan': scan}))")
+            "'serve_launches': m, 'obs': obs, 'autoshard': autoshard, 'plan_opt': plan_opt, "
+            "'scan': scan}))")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=1100)
     lines = proc.stdout.splitlines()
@@ -5748,7 +5994,7 @@ def main(argv=None):
           "launch.train.main, and the partitioned state restored onto other meshes", flush=True)
     checkpoint = checkpoint_phase_in_own_process(args.seed, partition["card"])
     print(f"phases done at {time.perf_counter() - t0:.0f} s (obs {sharded['obs']['seconds']:.0f} "
-          f"s, plan_opt {sharded['plan_opt']['seconds']:.0f} s, scan "
+          f"s, autoshard {sharded['autoshard']['seconds']:.0f} s, plan_opt {sharded['plan_opt']['seconds']:.0f} s, scan "
           f"{sharded['scan']['seconds']:.0f} s, "
           f"pipeline {pipeline['seconds']:.0f} s, checkpoint {checkpoint['seconds']:.0f} s of "
           "them)", flush=True)
@@ -5804,6 +6050,7 @@ def main(argv=None):
         "partition_train_case": {"case": fa_fold["case"], **{k: fa_fold[k] for k in keys}},
         "pipeline_launches_per_call": pipe_launches["flash_attention"],
         "pipeline_case": {"case": fa_pipe["case"], **{k: fa_pipe[k] for k in keys}},
+        "autoshard_launches_per_call": sharded["autoshard"]["launches"]["flash_attention"],
         "decode_position_on_device": {n: {k: c[k] for k in keys + ("device_ms", "splits")}
                                       for n, c in devpos.items()},
         "decode_position_per_row": {n: {k: c[k] for k in keys + (
@@ -5838,6 +6085,7 @@ def main(argv=None):
         "partition_train_case": {"case": bwd_fold["case"], **{k: bwd_fold[k] for k in keys},
                                  "device_ms": bwd_fold["device_ms"]},
         "pipeline_launches_per_call": pipe_launches["flash_attention_bwd"],
+        "autoshard_launches_per_call": sharded["autoshard"]["launches"]["flash_attention_bwd"],
         "pipeline_case": {"case": bwd_pipe["case"], **{k: bwd_pipe[k] for k in keys},
                           "device_ms": bwd_pipe["device_ms"]},
         "cases": bwd_cases,

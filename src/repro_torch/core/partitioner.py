@@ -1335,11 +1335,6 @@ def clear_process_plan_cache() -> None:
     _PROCESS_STATS.reset()
 
 
-def _refuse(option: str, item: str, what: str):
-    raise NotImplementedError(
-        f"spmd_partition({option}=...) needs {what}, which is not ported yet (ROADMAP {item})")
-
-
 def spmd_partition(fn, mesh: Mesh, compile_plans: bool = True, optimize: bool = True,
                    process_cache: bool = True, autoshard=None, verify=None, guard=None,
                    trace=None, profile=None, device="cuda"):
@@ -1378,7 +1373,13 @@ def spmd_partition(fn, mesh: Mesh, compile_plans: bool = True, optimize: bool = 
     plan step of every call; see ``obs/trace.py``); it needs
     ``compile_plans=True``, ``TraceConfig(enabled=False)`` is the same as
     no config (the same cache key and runner), and a traced runner stays
-    out of the process cache.  ``autoshard`` (A11) raises naming its item.
+    out of the process cache.  ``autoshard`` (an
+    ``autoshard.AutoshardConfig``) searches the captured program's input
+    shardings instead of reading them from ``annotate`` seeds
+    (``autoshard.solve_jaxpr_cached``, once per program, mesh, config and
+    profile in the process); the search prices with the config's profile,
+    else with the one the plan is priced by, and a search that finds no
+    feasible assignment raises ``ValueError``.
     ``process_cache=False`` opts this runner out of the process-level
     cache.  ``device`` is "cuda" unless the caller asks for "cpu" (no
     fallback from one to the other).
@@ -1391,8 +1392,6 @@ def spmd_partition(fn, mesh: Mesh, compile_plans: bool = True, optimize: bool = 
     gathered a sharded dim) and ``collectives`` (the collectives run, by
     kind).
     """
-    if autoshard is not None:
-        _refuse("autoshard", "A11", "the autoshard search")
     if guard is not None and not compile_plans:
         raise ValueError("spmd_partition: guard= requires compile_plans=True")
     if trace is not None and not trace.enabled:
@@ -1422,13 +1421,29 @@ def spmd_partition(fn, mesh: Mesh, compile_plans: bool = True, optimize: bool = 
         pkey: Optional[tuple] = None
         if process_cache:
             pkey = (captured.digest(), mkey, tuple(_aval_key(a) for a in flat), compile_plans,
-                    optimize, verify, guard, prof.digest())
+                    optimize, autoshard.cache_key() if autoshard is not None else None,
+                    verify, guard, prof.digest())
             entry = _PROCESS_CACHE.get(pkey)
             if entry is not None:
                 _PROCESS_STATS.record_hit()
                 return entry
             _PROCESS_STATS.record_miss()
-        prop = propagate(captured, mesh).result()
+        in_seeds = None
+        if autoshard is not None:
+            from ..autoshard.api import solve_jaxpr_cached
+
+            config = (autoshard if autoshard.profile is not None
+                      else dataclasses.replace(autoshard, profile=prof))
+            found = solve_jaxpr_cached(captured, mesh, config)
+            if not found.evaluation.feasible:
+                # never drop the caller's constraints (an unmeetable budget)
+                raise ValueError(
+                    "autoshard: no feasible assignment found "
+                    f"({found.evaluation.reason or 'search exhausted'}); relax "
+                    "AutoshardConfig.budget_bytes or widen the search (top_n / sa_steps / "
+                    "max_candidates)")
+            in_seeds = found.assignment
+        prop = propagate(captured, mesh, in_shardings=in_seeds).result()
         t2 = time.perf_counter()
         plan = None
         if compile_plans:

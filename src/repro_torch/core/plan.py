@@ -1281,7 +1281,9 @@ class PlanCost:
     port has no default constants, so with no params they raise.
     :attr:`total_s` is max-of-terms: the roofline overlap time of the
     compute term (per-device FLOPs / peak) and the collective term (wire
-    bytes / link bandwidth + a launch cost per collective).
+    bytes / link bandwidth + a launch cost per collective), plus
+    :attr:`mem_s`, the optional soft-budget memory term (off at the default
+    weight 0).
     """
 
     wire_bytes: float
@@ -1290,6 +1292,8 @@ class PlanCost:
     ideal_flops_per_device: float
     peak_bytes: float
     steps: int
+    soft_budget_bytes: Optional[float] = None
+    mem_weight: float = 0.0
     params: Optional[RooflineParams] = None
 
     def _p(self) -> RooflineParams:
@@ -1315,8 +1319,19 @@ class PlanCost:
         return excess / self._p().peak_flops
 
     @property
+    def mem_s(self) -> float:
+        """Soft-budget memory term: the peak's overshoot above
+        ``soft_budget_bytes`` over the HBM bandwidth, times ``mem_weight``;
+        0 when the term is off (no soft budget or weight 0) or the peak is
+        under the budget."""
+        p = self._p()
+        if not self.mem_weight or self.soft_budget_bytes is None:
+            return 0.0
+        return self.mem_weight * max(self.peak_bytes - self.soft_budget_bytes, 0.0) / p.hbm_bw
+
+    @property
     def total_s(self) -> float:
-        return overlap_time_s(self.compute_s, self.collective_s, self._p())
+        return overlap_time_s(self.compute_s, self.collective_s, self._p()) + self.mem_s
 
     def as_dict(self) -> Dict:
         d = {"wire_bytes": self.wire_bytes, "launches": self.launches,
@@ -1325,7 +1340,7 @@ class PlanCost:
              "peak_bytes": self.peak_bytes, "steps": self.steps}
         if self.params is not None:
             d.update(collective_s=self.collective_s, compute_s=self.compute_s,
-                     imbalance_s=self.imbalance_s, total_s=self.total_s)
+                     imbalance_s=self.imbalance_s, mem_s=self.mem_s, total_s=self.total_s)
         return d
 
 

@@ -76,6 +76,11 @@ class Propagation:
         """
         if s is None or not isinstance(v, torch.fx.Node):
             return
+        cur = self.env.get(v)
+        if cur is not None and cur.dims_mapping == s.dims_mapping:
+            # masking, the locks and the merge below could only keep cur or
+            # find it incompatible: either way v keeps its sharding
+            return
         a = aval(v)
         if a is None or a.ndim != s.rank:
             return
@@ -91,7 +96,6 @@ class Propagation:
             dm.append(tuple(kept))
         if masked:
             s = Sharding(s.mesh, tuple(dm))
-        cur = self.env.get(v)
         locked = self.locked.get(v)
         if locked:
             # locked dims keep their seeded mapping

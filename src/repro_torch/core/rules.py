@@ -104,11 +104,18 @@ class Aval:
 
 
 def aval(node) -> Optional[Aval]:
-    """The node's shape and dtype, or None when it is not a tensor."""
-    v = node.meta.get("val") if isinstance(node, torch.fx.Node) else None
-    if isinstance(v, torch.Tensor):
-        return Aval(tuple(int(s) for s in v.shape), v.dtype)
-    return None
+    """The node's shape and dtype, or None when it is not a tensor.  Kept in
+    the node's meta beside the value it was read from: propagation asks for
+    it tens of thousands of times per program."""
+    if not isinstance(node, torch.fx.Node):
+        return None
+    v = node.meta.get("val")
+    hit = node.meta.get("_repro_aval")
+    if hit is not None and hit[0] is v:
+        return hit[1]
+    a = Aval(tuple(int(s) for s in v.shape), v.dtype) if isinstance(v, torch.Tensor) else None
+    node.meta["_repro_aval"] = (v, a)
+    return a
 
 
 @dataclasses.dataclass

@@ -17,9 +17,10 @@ restore needs today:
 The recovery loop itself (``ElasticCoordinator``), the fault schedules of
 ``FaultInjector``, the ``DeviceLossError`` / ``DeviceReturnError`` errors
 and ``sharding_problem`` are ROADMAP A14b: the coordinator re-solves the
-assignment through autoshard (A11, not ported yet) warm-started from its
-last dump, and every fault and recovery it handles is an ``obs`` control
-event and counter (``repro_torch/obs``).
+assignment through ``repro_torch.autoshard`` (``solve_problem``
+warm-started from its last dump by ``remap_assignment`` /
+``expand_assignment``), and every fault and recovery it handles is an
+``obs`` control event and counter (``repro_torch/obs``).
 """
 from __future__ import annotations
 

@@ -17,14 +17,16 @@ programs.
   ppermute and the output-collection psum are first-class plan steps.
 * ``schedule.py``: the schedule cost model: the bubble fraction
   ``(S−1)/(M+S−1)``, tick counts, ppermute wire bytes, microbatch
-  activation memory (:class:`ScheduleCost`), and the
-  :class:`PipelineDecision` decision variables (the autoshard search over
-  them is ROADMAP A11).
+  activation memory (:class:`ScheduleCost`), the
+  :class:`PipelineDecision` decision variables and the
+  :class:`PipelineConfig` bounds of the autoshard search over them
+  (``autoshard.solve(..., pipeline=)``).
 
 The older ``core/pipeline.py`` wrapper stays as the §3.3 schedule-math
 reference (GPipe against circular bubble ratios).
 """
 from .schedule import (
+    PipelineConfig,
     PipelineDecision,
     ScheduleCost,
     bubble_fraction,
@@ -35,7 +37,7 @@ from .schedule import (
 from .stages import pipelined_apply, pipelined_loss_fn, stage_batch, stage_stack_params
 
 __all__ = [
-    "PipelineDecision", "ScheduleCost", "bubble_fraction",
+    "PipelineConfig", "PipelineDecision", "ScheduleCost", "bubble_fraction",
     "pipeline_ticks", "pipelined_apply", "pipelined_loss_fn",
     "plan_ppermute_bytes", "schedule_cost", "stage_batch", "stage_stack_params",
 ]

@@ -16,15 +16,37 @@ ppermute wire bytes, per-microbatch activation memory, as a
 :class:`ScheduleCost` around the plan's :class:`~repro_torch.core.plan
 .PlanCost`.
 
-:class:`PipelineDecision` is one point of the pipeline decision space:
-the mesh axis that carries the stage dim, the number of stages and of
-microbatches.  The reference's ``PipelineConfig``, the bounds of the
-autoshard search over that space, comes with the search (ROADMAP A11).
+:class:`PipelineConfig` bounds the autoshard search over pipelining
+(``autoshard.solve(..., pipeline=PipelineConfig(max_stages=4))``);
+:class:`PipelineDecision` is one point of that decision space (the mesh
+axis that carries the stage dim, the number of stages and of
+microbatches), enumerated by ``autoshard.space.pipeline_decisions`` and
+priced jointly with the tensor-sharding assignment.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """Pipeline decision-variable bounds for the autoshard search.
+
+    ``max_stages`` caps the stage count; ``num_microbatches`` pins M (or
+    ``None`` to search ``microbatch_options``); ``stage_axes`` restricts
+    which mesh axes may carry the stage dim (``None``: any).  Stage counts
+    are multiples of the chosen axis size (even local stage rows) that
+    divide the layer count.
+    """
+
+    max_stages: int = 4
+    num_microbatches: Optional[int] = None
+    microbatch_options: Tuple[int, ...] = (2, 4)
+    stage_axes: Optional[Tuple[str, ...]] = None
+
+    def as_dict(self) -> Dict:
+        return dataclasses.asdict(self)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1354,3 +1354,47 @@ def test_restore_resharded_with_sharded_reads_lands_on_the_card(cuda, tmp_path):
                 assert got.device.type == "cuda" and not got.requires_grad, path
                 assert torch.equal(got, want.detach()), path
     assert report["resharded_leaves"] == 1  # the replicated target gathers w
+
+
+# -- the autoshard search behind spmd_partition(autoshard=) -------------------------
+
+
+def test_autoshard_gradient_program_on_cuda_matches_cpu(cuda):
+    """qwen1.5-0.5b's loss and gradient at reduced width (d128, 4 heads) cut
+    to two scanned layers, float32, with no mesh set and no annotation,
+    through ``spmd_partition(autoshard=)`` on a simulated (2, 4) mesh: the
+    searched plan on the card equals the same runner on the CPU within
+    f32_chain, with one flash forward and one backward launch a layer for
+    all eight devices."""
+    from repro_torch.autoshard import AutoshardConfig
+    from repro_torch.core.partitioner import spmd_partition
+    from repro_torch.launch.mesh import make_test_mesh
+
+    cfg = reduced_config(get_config("qwen1.5-0.5b"), 8).with_(
+        dtype="float32", num_layers=2, remat="none", scan_layers=True)
+    st, mesh = get_strategy("2d_finalized"), make_test_mesh()
+    params = tree_init(api.param_tree(cfg, st), torch.Generator("cpu").manual_seed(5),
+                       dtype="float32", device="cpu")
+    tok = torch.from_numpy(np.random.default_rng(6).integers(0, cfg.vocab_size, (8, 65)))
+    batch = {"labels": tok[:, 1:], "tokens": tok[:, :-1]}
+
+    def program(p, b):
+        live = tree_map(lambda t: t.detach().requires_grad_(), p)
+        with torch.enable_grad():
+            return value_and_grad(cfg, st, live, b)
+
+    config = AutoshardConfig(top_n=2, sa_steps=2, max_candidates=6)
+    outs = {}
+    for device in ("cpu", "cuda"):
+        runner = spmd_partition(program, mesh, autoshard=config, process_cache=False,
+                                device=device)
+        runner(params, batch)
+        fa.launches = fab.launches = 0
+        loss, grads = runner(params, batch)
+        torch.cuda.synchronize()
+        outs[device] = [loss] + leaves(grads)
+        if device == "cuda":
+            assert (fa.launches, fab.launches) == (2, 2)
+            assert runner.fallback_gathers == []
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert_close(a, b, "f32_chain")

@@ -345,27 +345,29 @@ def test_runner_and_process_caches():
 
 @pytest.mark.parametrize("kw,item", [
     ({}, "A9"), ({"compile_plans": True, "optimize": False, "verify": True}, "A9"),
-    ({"compile_plans": False, "autoshard": object()}, "A11"),
+    ({"compile_plans": False, "autoshard": "AutoshardConfig"}, "A11"),
     ({"compile_plans": False, "guard": object()}, "A9"),
     ({"compile_plans": False, "trace": "TraceConfig"}, "A15"),
     ({"compile_plans": True, "profile": object()}, "A15"),
 ])
 def test_unported_options_raise_naming_their_item(kw, item):
-    """Only A11 still raises naming its item.  A9's options are ported:
-    ``optimize=True`` (the default) prices the optimizer with the committed
-    profile, ``guard=`` needs a compiled plan, and ``verify=True`` runs.
-    A15's are ported: ``trace=`` needs a compiled plan, and ``profile=``
-    takes a ``RooflineParams``, a ``MachineProfile`` or a path (anything
-    else is a TypeError at the first call)."""
+    """No option raises naming its item any more.  A9's options are
+    ported: ``optimize=True`` (the default) prices the optimizer with the
+    committed profile, ``guard=`` needs a compiled plan, and
+    ``verify=True`` runs.  A15's are ported: ``trace=`` needs a compiled
+    plan, and ``profile=`` takes a ``RooflineParams``, a ``MachineProfile``
+    or a path (anything else is a TypeError at the first call).  A11's
+    ``autoshard=`` searches the inputs' shardings, on the dynamic path
+    too."""
+    from repro_torch.autoshard import AutoshardConfig
     from repro_torch.obs import TraceConfig
 
     if kw.get("trace") == "TraceConfig":
         kw = dict(kw, trace=TraceConfig())
+    if kw.get("autoshard") == "AutoshardConfig":
+        kw = dict(kw, autoshard=AutoshardConfig(top_n=1, sa_steps=2, max_candidates=4))
     x = torch.arange(8.0)
-    if item == "A11":
-        with pytest.raises(NotImplementedError, match=item):
-            spmd_partition(lambda x: x, MESH, device="cpu", **kw)
-    elif "guard" in kw or "trace" in kw:
+    if "guard" in kw or "trace" in kw:
         with pytest.raises(ValueError, match="compile_plans=True"):
             spmd_partition(lambda x: x, MESH, device="cpu", **kw)
     elif "profile" in kw:
