@@ -95,9 +95,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    at its published widths (bf16 compute, float32 masters, Adafactor)
    trained by ``TrainLoop`` under ``set_mesh`` on ("data" 2, "model" 4),
    the whole step one program through the partitioner (2d_finalized with
-   24 layers at B8 S512 under remat "none" for three steps, "full" and
-   "dots" for two, each held against "none", and "dots" at B4 S2048 with
-   eight layers (cut from 24 for the script's time limit) for two;
+   eight layers, ``PARTITION_TRAIN_LAYERS``, cut from 24 for the script's
+   time limit: at B8 S512 under remat "none" for three steps, "full" and
+   "dots" for two, each held against "none", and "dots" at B4 S2048 for two;
    2d_attempt1 and 2d_attempt2 with two layers for two), against the
    same loop unsharded on the card: losses, the step-0 gradient and
    update, per step one flash forward launch per layer (two under remat)
@@ -230,17 +230,42 @@ Phases, each of which raises (and so exits non-zero) on failure:
    losses within bf16_chain and its final params per leaf in norm within
    bf16_grad of run 1's (whether bit-equal printed: the flash backward's dq
    atomics), flash launches per step as in 4, the verify CLI passing; then
-   qwen (24 layers scanned, full width, B8 S512) trained two steps by
-   ``TrainLoop`` under ``set_mesh`` of ("data" 2, "model" 4) saving each
-   step, its manifest's specs the state's partition specs on that mesh,
-   restored by ``restore_resharded`` onto ("data" 4, "model" 2) and
-   ``derive_mesh(4, 4)`` (full and sliced reads) and onto (4, 2) all
-   replicated: bit-equal, verified, wire bytes, launches and resharded
-   leaves equal to the pure plan's, then one step on each mesh against the
-   unsharded step (loss within bf16_chain, the update within bf16_grad);
-   a flipped and a truncated payload in the largest sharded leaf fall back
-   to step 1 bit-equal, and the verify CLI fails; save, restore and verify
-   seconds and GB/s, sliced-read I/O counts, ``reshard_s``, peak memory.
+   elastic recovery (13); then qwen (eight layers scanned, full width, B8
+   S512; ``CKPT_RESHARD_LAYERS``, 24 before the elastic drill took over the
+   (4, 2) restore and its train-on) trained two steps by ``TrainLoop``
+   under ``set_mesh`` of ("data" 2, "model" 4) saving each step, its
+   manifest's specs the state's partition specs on that mesh, restored by
+   ``restore_resharded`` onto ``derive_mesh(4, 4)`` (full and sliced
+   reads) and onto ("data" 4, "model" 2) all replicated: bit-equal,
+   verified, wire bytes, launches and resharded leaves equal to the pure
+   plan's, then one step on (1, 4) against the unsharded step (loss within
+   bf16_chain, the update within bf16_grad); a flipped and a truncated
+   payload in the largest sharded leaf fall back to step 1 bit-equal, and
+   the verify CLI fails; save, restore and verify seconds and GB/s,
+   sliced-read I/O counts, ``reshard_s``, peak memory;
+13. elastic recovery, in the checkpoint process, in a temporary directory
+   under ``build/``: ``ElasticCoordinator`` over a simulated world of 8
+   devices (``model_parallel`` 2) drives qwen1.5-0.5b's partitioned train
+   step at its published widths (eight layers scanned, remat "none",
+   2d_finalized, B8 S512, bf16, Adafactor, 12 steps, a checkpoint every
+   two, ``GuardConfig(rewind_after=2)``) through a ``FaultInjector``
+   schedule (``ELASTIC_SCHEDULE``): four devices lost at step 3 ((4, 2) ->
+   (2, 2)), a two-step NaN burst at 6 (a skip, then a rewind on (2, 2)),
+   the newest manifest corrupted and four devices back at 9 ((2, 2) ->
+   (4, 2), falling back past the corrupted step).  Gates: the chaos
+   harness's invariant battery clean and two planted faults (a loss
+   removed, a data cursor off by one) caught; the recovery log as
+   ``ELASTIC_LOG``, one restore each, the narrative rebuilt from the
+   control events alone; both mesh changes warm-started; no
+   ``numerics_fault`` after the rewind; the losses within loss_curve of an
+   uninterrupted 12-step run on (4, 2) from the same initial state; on
+   every mesh 8 + 8 flash calls a step, each over every simulated device,
+   no gathering fallback and no whole-vocabulary plan step.  Printed: each
+   recovery's duration, solve (warm, beside the first cold solve), restore
+   (seconds, wire bytes, launches, resharded leaves, I/O), the first step
+   after the swap and the fault-to-next-finished-step seconds; device busy
+   of a step on (4, 2) and (2, 2); the allocator's peak; the phase's
+   seconds.
 
 Every path runs with the kernels' launch counts set to 0 just before it and
 read just after.  The last two lines of output are the kernels' JSON record
@@ -1964,18 +1989,20 @@ def partition_phase(seed):
 # ---------------------------------------------------------------------------------
 
 # (strategy, layers, steps, whether step 0's gradient is held per element
-# within coarse): the finalized strategy at full depth, the two earlier
+# within coarse): the finalized strategy deeper, the two earlier
 # attempts of Table 1 cut to two layers to keep the phase short.  At 24
 # layers one element of the value bias's gradient read 1.026 x coarse on
 # the card (the other leaves at most 0.728), so there each leaf is held in
 # norm only; at two layers the largest reading was 0.525
 # (strategy, layers, steps, coarse_grads, remat, B, S): remat "none", "full"
 # and "dots" at B8 S512 (each remat held against "none"), then "dots" at the
-# unsharded launch's B4 S2048, the registered config's default, cut to eight
-# layers for the script's time limit
-PARTITION_TRAIN = (("2d_finalized", 24, 3, False, "none", 8, 512),
-                   ("2d_finalized", 24, 2, False, "full", 8, 512),
-                   ("2d_finalized", 24, 2, False, "dots", 8, 512),
+# unsharded launch's B4 S2048, the registered config's default, all cut to
+# eight layers for the script's time limit (the B8 S512 cases ran 24 until
+# the elastic phase needed their time)
+PARTITION_TRAIN_LAYERS = 8
+PARTITION_TRAIN = (("2d_finalized", PARTITION_TRAIN_LAYERS, 3, False, "none", 8, 512),
+                   ("2d_finalized", PARTITION_TRAIN_LAYERS, 2, False, "full", 8, 512),
+                   ("2d_finalized", PARTITION_TRAIN_LAYERS, 2, False, "dots", 8, 512),
                    ("2d_finalized", 8, 2, False, "dots", 4, 2048),
                    ("2d_attempt1", 2, 2, True, "none", 8, 512),
                    ("2d_attempt2", 2, 2, True, "none", 8, 512))
@@ -5224,25 +5251,25 @@ CKPT_ARGV = ("--arch", "qwen1.5-0.5b", "--reduce", "1", "--batch", "4", "--seq",
              "--steps", "6", "--ckpt-every", "3", "--data-pattern", "arithmetic")
 CKPT_FAIL_AT = 4
 CKPT_RESHARD_B, CKPT_RESHARD_S = 8, 512
+CKPT_RESHARD_LAYERS = 8  # 24 until the elastic drill took over the (4, 2) restore
 
 
 def _meta_state(cfg, st, opt):
     """The train state's structure on the meta device (shapes and dtypes,
     no memory): a restore target."""
-    from repro_torch.models import api
-    from repro_torch.models.layers import tree_shapes
+    from repro_torch.launch.elastic import meta_state
+    from repro_torch.train.loop import TrainConfig
 
-    shapes = tree_shapes(api.param_tree(cfg, st), cfg.param_dtype)
-    return {"params": shapes, "opt": opt.init(shapes), "step": 0}
+    return meta_state(cfg, st, opt, TrainConfig())
 
 
 def checkpoint_reshard_config():
-    """qwen1.5-0.5b at its published widths, 24 layers, the layer loop
-    scanned, remat "none", 2d_finalized, Adafactor."""
+    """qwen1.5-0.5b at its published widths, ``CKPT_RESHARD_LAYERS`` layers,
+    the layer loop scanned, remat "none", 2d_finalized, Adafactor."""
     from repro_torch.configs.base import get_strategy
     from repro_torch.train.optimizer import get_optimizer
 
-    cfg = partition_train_config(24, "none").with_(scan_layers=True)
+    cfg = partition_train_config(CKPT_RESHARD_LAYERS, "none").with_(scan_layers=True)
     return cfg, get_strategy("2d_finalized"), get_optimizer("adafactor")
 
 
@@ -5251,12 +5278,14 @@ def checkpoint_restores():
     specs: the state's own or all replicated).  Named axes keep their
     meaning on the new mesh, so the state's own specs move no leaf that
     (2,4) kept sharded (the tiles are cut anew as the leaves are read); the
-    replicated target gathers every sharded leaf."""
+    replicated target gathers every sharded leaf.  The restore onto (4, 2)
+    under the state's own specs, with sliced reads and a fallback, is the
+    elastic drill's (``elastic_phase``)."""
     from repro_torch.launch.elastic import derive_mesh
     from repro_torch.core.sharding import Mesh
 
     m1 = Mesh.create((4, 2), ("data", "model"))
-    return (("M1", m1, "own"), ("M2", derive_mesh(n_devices=4, model_parallel=4), "own"),
+    return (("M2", derive_mesh(n_devices=4, model_parallel=4), "own"),
             ("M1 replicated", m1, "replicated"))
 
 
@@ -5508,21 +5537,21 @@ def checkpoint_restart_case(seed, card, root):
 
 def checkpoint_reshard_case(seed, card, root):
     """The partitioned state saved on ("data" 2, "model" 4) by ``TrainLoop``
-    under ``set_mesh`` (qwen1.5-0.5b, 24 layers scanned, full width, remat
-    "none", 2d_finalized, B8 S512, Adafactor; two steps, a checkpoint after
-    each), restored by ``restore_resharded`` onto ("data" 4, "model" 2) and
+    under ``set_mesh`` (qwen1.5-0.5b, ``CKPT_RESHARD_LAYERS`` layers scanned,
+    full width, remat "none", 2d_finalized, B8 S512, Adafactor; two steps, a
+    checkpoint after each), restored by ``restore_resharded`` onto
     ``derive_mesh(4, 4)`` = ("data" 1, "model" 4) under the state's own
     specs, full and sliced reads, and onto ("data" 4, "model" 2) all
-    replicated (every sharded leaf gathered), then trained one step on each
-    mesh against the same step unsharded.
+    replicated (every sharded leaf gathered), then trained one step on
+    (1, 4) against the same step unsharded.
     Gates: the manifest's specs are the state's partition specs projected
     onto (2,4); every restore bit-equal to the saved state, verified, at
     most the gather-all bytes, with wire bytes, launches and resharded
     leaves equal to the pure plan's (``checkpoint_plan_prediction``); the
     step on each mesh: loss within bf16_chain of the unsharded step's, the
     update over leaves of two or more dims in norm within bf16_grad and 95 %
-    of the 1-D update's signs agreeing, 24 flash forward launches and 24
-    backward calls, no gathering fallback; a flipped payload byte in the
+    of the 1-D update's signs agreeing, a flash forward launch and a
+    backward call a layer, no gathering fallback; a flipped payload byte in the
     largest sharded leaf raises ``CheckpointCorruptError`` naming it on a
     pinned restore and falls back to step 1 (bit-equal) without one, and so
     does a truncated file under sliced reads; the verify CLI fails."""
@@ -5743,9 +5772,9 @@ def checkpoint_train_on(cfg, st, opt, pipe, mesh, restored, want):
 
 
 def checkpoint_phase(seed, card):
-    """Checkpoints on the card (``checkpoint_restart_case``,
-    ``checkpoint_reshard_case``), in a temporary directory under ``build/``
-    removed at the end."""
+    """Checkpoints on the card (``checkpoint_restart_case``, then
+    ``elastic_phase``, then ``checkpoint_reshard_case``), in temporary
+    directories under ``build/`` removed at the end."""
     import tempfile
 
     t0 = time.perf_counter()
@@ -5758,16 +5787,21 @@ def checkpoint_phase(seed, card):
     try:
         restart = checkpoint_restart_case(seed, card, root)
         torch.cuda.empty_cache()
+        elastic = elastic_phase(seed, card)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
         reshard = checkpoint_reshard_case(seed, card, root)
+        reshard["seconds"] = time.perf_counter() - t1
     finally:
         shutil.rmtree(root, ignore_errors=True)
     seconds = time.perf_counter() - t0
-    print(f"checkpoint: {seconds:.1f} s", flush=True)
-    return {"restart": restart, "reshard": reshard, "free_disk_gb": free / 1e9,
-            "seconds": seconds}
+    print(f"checkpoint: {seconds:.1f} s (elastic {elastic['seconds']:.1f} s, reshard "
+          f"{reshard['seconds']:.1f} s of it)", flush=True)
+    return {"restart": restart, "elastic": elastic, "reshard": reshard,
+            "free_disk_gb": free / 1e9, "seconds": seconds}
 
 
-def checkpoint_phase_in_own_process(seed, card, timeout=300):
+def checkpoint_phase_in_own_process(seed, card, timeout=450):
     """``checkpoint_phase`` in a fresh process, with its own time limit."""
     code = (f"import sys, json; sys.path.insert(0, {str(ROOT)!r}); import torch, chip_smoke; "
             "torch.backends.cuda.matmul.allow_tf32 = False; "
@@ -5780,6 +5814,301 @@ def checkpoint_phase_in_own_process(seed, card, timeout=300):
     check(proc.returncode == 0 and lines,
           f"the checkpoint phase failed ({proc.returncode}): {proc.stderr[-3000:]}")
     return json.loads(lines[-1])
+
+
+# ---------------------------------------------------------------------------------
+# elastic recovery (launch/elastic.py): shrink, rewind and regrow under the
+# partitioned train step
+# ---------------------------------------------------------------------------------
+
+ELASTIC_STEPS = 12
+ELASTIC_SCHEDULE = {"version": 1, "events": [  # a FaultInjector schedule, as its JSON
+    {"kind": "device_loss", "step": 3, "lose": 4},
+    {"kind": "nan_burst", "step": 6, "steps": 2},
+    {"kind": "manifest_corrupt", "step": 9},
+    {"kind": "device_return", "step": 9, "gain": 4},
+]}
+# the recovery log the schedule gives: classes, restored from, the mesh after,
+# rewound to, fell back from (the reference's coordinator gives the same at a
+# world of one, lose and gain 0)
+ELASTIC_LOG = [
+    (["device_loss"], 2, [2, 2], None, None),
+    (["numerics"], 6, [2, 2], 6, None),
+    (["corrupt_checkpoint", "device_return"], 6, [4, 2], None, [8]),
+]
+ELASTIC_KNOBS = dict(top_n=2, sa_steps=2, max_candidates=6)  # the reference tests' knobs
+
+
+def _elastic_gates(co, state, events, spec, corrupted):
+    """The drill's invariant battery (``chaos.check_invariants``) and two
+    planted faults it must catch: the loss log with one step removed, and
+    the newest manifest's data cursor off by one (re-checksummed, so that
+    it still verifies).  Returns (violations, planted violations)."""
+    import types
+
+    from repro_torch.launch import chaos
+    from repro_torch.train import checkpoint as ckpt
+
+    violations = chaos.check_invariants(co, state, events, spec, corrupted)
+    gap = dict(co.losses)
+    del gap[max(set(gap) - set(co.loop.skipped_steps))]  # a step the guard never skipped
+    planted = {"loss_removed": chaos.check_invariants(
+        types.SimpleNamespace(losses=gap, loop=co.loop, tc=co.tc, injector=co.injector,
+                              recoveries=co.recoveries), state, events, spec, corrupted)}
+    d, last = co.tc.ckpt_dir, ckpt.latest_step(co.tc.ckpt_dir)
+    man = ckpt._load_manifest(d, last)
+    man["extra"]["data_cursor"] += 1
+    man.pop("checksum")
+    man["checksum"] = ckpt._manifest_checksum(man)
+    with open(os.path.join(d, f"step_{last:08d}", "manifest.json"), "w") as f:
+        json.dump(man, f)
+    planted["cursor_off_by_one"] = chaos.check_invariants(co, state, events, spec, corrupted)
+    return violations, planted
+
+
+def elastic_phase(seed, card):
+    """``ElasticCoordinator`` (``launch/elastic.py``) through
+    ``ELASTIC_SCHEDULE`` under qwen1.5-0.5b's partitioned train step at its
+    published widths (``SCAN_LAYERS["none"]`` layers scanned, remat "none",
+    2d_finalized, B8 S512, bf16 compute, float32 masters, Adafactor) over a
+    simulated world of eight devices with ``model_parallel`` 2, so that it
+    starts on ("data" 4, "model" 2), shrinks to (2, 2), rewinds and grows
+    back; then the same 12 steps uninterrupted on (4, 2) from the same
+    initial state.  In a temporary directory under ``build/``, removed at
+    the end.  Gates and readings: module docstring, phase 13."""
+    import tempfile
+
+    from repro_torch.autoshard import AutoshardConfig
+    from repro_torch.configs.base import get_strategy
+    from repro_torch.core.compat import TOLERANCES, set_mesh
+    from repro_torch.core.plan import GuardConfig, NumericsFault
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.launch import chaos
+    from repro_torch.launch.elastic import (DeviceLossError, DeviceReturnError,
+                                            ElasticCoordinator, FaultInjector, derive_mesh)
+    from repro_torch.obs import control_events, recovery_narrative
+    from repro_torch.train.loop import TrainConfig, TrainLoop
+    from repro_torch.train.optimizer import get_optimizer
+
+    t_phase = time.perf_counter()
+    cfg = partition_train_config(SCAN_LAYERS["none"]).with_(scan_layers=True)
+    st, opt, L, V = get_strategy("2d_finalized"), get_optimizer("adafactor"), cfg.num_layers, \
+        cfg.vocab_size
+    profile, _ = card_profile()
+    pipe = lambda: TokenPipeline(DataConfig(V, SCAN_S, SCAN_B, seed=seed,  # noqa: E731
+                                            pattern="arithmetic"))
+    guard = GuardConfig(rewind_after=2)
+    label = (f"qwen1.5-0.5b train step, {L} layers scanned, 2d_finalized, remat none, "
+             f"B{SCAN_B} S{SCAN_S}, bf16, {ELASTIC_STEPS} steps")
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(prefix="elastic-", dir=str(build))
+    print(f"elastic: ElasticCoordinator over 8 simulated devices (model_parallel 2) under the "
+          f"{label}; schedule {json.dumps(ELASTIC_SCHEDULE['events'])}; {card}", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    mods = _kernel_modules()
+    steps, faults_at, runners, rows, clock = [], [], {}, [], {}
+    saved = [(fa, "flash_attention", fa.flash_attention),
+             (fab, "flash_attention_bwd", fab.flash_attention_bwd)]
+    for mod, name, fn in saved:  # each call's folded rows: every simulated device's
+
+        def watched(*args, fn=fn, name=name, **kw):
+            rows.append((name, int(args[0].shape[0])))
+            return fn(*args, **kw)
+
+        setattr(mod, name, watched)
+    try:
+        tc = TrainConfig(steps=ELASTIC_STEPS, ckpt_dir=os.path.join(root, "ck"), ckpt_every=2,
+                         keep_ckpts=3, log_every=10**9, guard=guard)
+        inj = FaultInjector.load_schedule(json.loads(json.dumps(ELASTIC_SCHEDULE)))
+
+        def on_numerics(step, leaves, consecutive):
+            if consecutive >= guard.rewind_after:
+                faults_at.append(("numerics", step, time.perf_counter()))
+
+        co = ElasticCoordinator(cfg, st, opt, tc, pipe(), n_devices=8, model_parallel=2,
+                                autoshard_config=AutoshardConfig(**ELASTIC_KNOBS),
+                                injector=inj, max_recoveries=4, device="cuda",
+                                gen=torch.Generator("cuda").manual_seed(seed),
+                                plan_profile=profile, hooks={"numerics_fault": on_numerics})
+        check(co.mesh.shape == (4, 2), f"elastic: starts on {co.mesh.shape}")
+        inner_fault, inner_metrics = co.loop.hooks["fault"], co.loop.hooks["metrics"]
+
+        def fault(step):
+            for mod in mods.values():
+                mod.launches = 0
+            rows.clear()
+            clock["t0"] = time.perf_counter()
+            try:
+                inner_fault(step)
+            except (DeviceLossError, DeviceReturnError) as e:
+                faults_at.append((type(e).__name__, step, time.perf_counter()))
+                raise
+
+        def metrics(step, loss):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            runner = co.loop.step_fn.runner
+            first = id(runner) not in runners
+            if first:
+                (entry,) = runner.plans.values()
+                runners[id(runner)] = {"runner": runner, "mesh": list(co.mesh.shape),
+                                       "build_s": dict(entry.build_s), "first_step": step}
+            steps.append({"step": step, "loss": loss, "mesh": list(co.mesh.shape),
+                          "wall_s": now - clock["t0"], "at": now, "first_of_runner": first,
+                          "launches": {n: m.launches for n, m in mods.items()},
+                          "rows": sorted(set(rows)),
+                          "fallback_gathers": list(runner.fallback_gathers)})
+            inner_metrics(step, loss)
+
+        co.loop.hooks.update(fault=fault, metrics=metrics)
+        t0 = time.perf_counter()
+        cold = co.solve_assignment()
+        cold_rec = {"s": time.perf_counter() - t0, "evals": cold.evals,
+                    "warm_started": cold.warm_started}
+        n0 = len(control_events())
+        state, losses = co.run()
+        events = control_events()[n0:]
+        drill_s = time.perf_counter() - t0
+        corrupted = [ev["corrupted_step"] for ev in inj.schedule
+                     if ev.get("corrupted_step") is not None]
+        spec = chaos.CampaignSpec(seed=seed, steps=ELASTIC_STEPS, ckpt_every=2, keep_ckpts=3,
+                                  rewind_after=guard.rewind_after, world=8, model_parallel=2,
+                                  schedule=ELASTIC_SCHEDULE["events"])
+        violations, planted = _elastic_gates(co, state, events, spec, corrupted)
+        narrative = recovery_narrative(events)
+
+        # per mesh: device busy of one step and the whole-vocabulary check,
+        # on the final state (the runners are functional: nothing written back)
+        batch = {k: torch.from_numpy(v).to("cuda").long() for k, v in pipe().batch_at(0).items()}
+        args = (tree_map(torch.Tensor.detach, state["params"]), state["opt"],
+                torch.tensor(0, dtype=torch.int64, device="cuda"), batch)
+        per_runner, busy = [], {}
+        for rec in reversed(list(runners.values())):
+            per_runner.insert(0, {k: rec[k] for k in ("mesh", "first_step", "build_s")})
+            key = str(tuple(rec["mesh"]))
+            if key in busy:  # the mesh's last runner (the clean (2, 2), the regrown (4, 2))
+                continue     # reads for it; the earlier one differs by the fault window
+            run = rec["runner"]
+            with torch.no_grad():
+                per_runner[0]["whole_vocab_steps"] = whole_vocab_steps(run, args, V)
+                busy[key] = device_ms(lambda i: run(*args), 1, calls=1, warm=False)
+        del args, runners
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        recoveries, final_mesh = co.recoveries, list(co.mesh.shape)
+        del co, state, inj
+        torch.cuda.empty_cache()
+
+        # the same 12 steps uninterrupted on (4, 2) from the same initial state
+        t1 = time.perf_counter()
+        with set_mesh(derive_mesh(8, 2)):
+            loop = TrainLoop(cfg, st, opt, TrainConfig(steps=ELASTIC_STEPS, log_every=10**9,
+                                                       guard=guard), pipe(), device="cuda",
+                             gen=torch.Generator("cuda").manual_seed(seed), plan_profile=profile)
+            _, want = loop.run()
+        straight_s = time.perf_counter() - t1
+        del loop
+        torch.cuda.empty_cache()
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+        shutil.rmtree(root, ignore_errors=True)
+
+    # readings per recovery: the fault, the first finished step after it
+    readings = []
+    for rec, (kind, fstep, ft) in zip(recoveries, faults_at):
+        nxt = next((s for s in steps if s["at"] > ft), None)
+        first_runner = next((r for r in per_runner if nxt and r["first_step"] == nxt["step"]
+                             and r["mesh"] == nxt["mesh"]), None)
+        readings.append({
+            "classes": rec["classes"], "step": rec["step"], "mesh": rec["mesh"],
+            "restored_from": rec.get("restored_from"), "rewound_to": rec.get("rewound_to"),
+            "fell_back_from": rec.get("fell_back_from"), "duration_ms": rec["duration_ms"],
+            "solve": ({"s": rec["solve_s"], "evals": rec["evals"],
+                       "warm_started": rec["warm_started"], "degraded": rec["degraded"]}
+                      if "evals" in rec else None),
+            "restore": {"s": rec.get("restore_s"), **rec.get("reshard", {}),
+                        "io": rec.get("io")},
+            "first_step_after": (None if nxt is None else {
+                "step": nxt["step"], "wall_s": nxt["wall_s"],
+                "build_s": first_runner["build_s"] if first_runner else None}),
+            "fault_to_next_step_s": None if nxt is None else nxt["at"] - ft,
+            "fault": kind})
+    after_rewind = False
+    numerics_after_rewind = []
+    for e in events:
+        if e["name"] == "rewind":
+            after_rewind = True
+        elif e["name"] == "numerics_fault" and after_rewind:
+            numerics_after_rewind.append(e["args"].get("step"))
+    loss_over = _err_over(torch.tensor(losses), torch.tensor(want), "loss_curve")
+    seconds = time.perf_counter() - t_phase
+    for r in readings:
+        print(f"  recovery {r['classes']} at step {r['step']} ({r['fault']}): mesh "
+              f"{r['mesh']['from']} -> {r['mesh']['to']}, restored step {r['restored_from']}, "
+              f"rewound to {r['rewound_to']}, fell back from {r['fell_back_from']}"
+              f"; {r['duration_ms']:.1f} ms; solve {json.dumps(r['solve'])}; restore "
+              f"{json.dumps(r['restore'], default=str)}; first step after "
+              f"{json.dumps(r['first_step_after'])}; fault to the next finished step "
+              f"{r['fault_to_next_step_s']:.3f} s", flush=True)
+    print(f"  the first (cold) solve on (4, 2): {json.dumps(cold_rec)}; drill {drill_s:.1f} s, "
+          f"uninterrupted run {straight_s:.1f} s; final mesh {final_mesh}", flush=True)
+    print(f"  losses {losses}", flush=True)
+    print(f"  uninterrupted {want}; err/limit {loss_over:.4f} (loss_curve)", flush=True)
+    print(f"  per step: " + "; ".join(
+        f"{s['step']} {tuple(s['mesh'])} {s['launches']['flash_attention']}+"
+        f"{s['launches']['flash_attention_bwd']} rows {s['rows']} {s['wall_s'] * 1e3:.0f} ms"
+        for s in steps), flush=True)
+    print(f"  runners: {json.dumps(per_runner)}", flush=True)
+    print(f"  device busy a step ({card}): {json.dumps(busy)}; allocator peak {peak:.3f} GiB "
+          f"above the phase's start", flush=True)
+    print(f"  invariants {violations}; planted: {json.dumps(planted)}; narrative "
+          f"{json.dumps([{k: ep[k] for k in ('classes', 'restores', 'mesh')} for ep in narrative])}",
+          flush=True)
+    print(f"elastic: {seconds:.1f} s", flush=True)
+
+    check(violations == [], f"elastic: invariants {violations}")
+    check(all(planted.values()), f"elastic: a planted fault passed the battery: {planted}")
+    got_log = [(r["classes"], r.get("restored_from"), r["mesh"]["to"], r.get("rewound_to"),
+                r.get("fell_back_from")) for r in recoveries]
+    check(got_log == ELASTIC_LOG, f"elastic: recovery log {got_log}, want {ELASTIC_LOG}")
+    restores = [e for e in events if e["name"] == "restore"]
+    check(len(restores) == 3 and [ep["restores"] for ep in narrative] == [1, 1, 1]
+          and [sorted(ep["classes"]) for ep in narrative] == [c for c, *_ in ELASTIC_LOG],
+          f"elastic: {len(restores)} restores, narrative {narrative}")
+    check(all(r["solve"]["warm_started"] and not r["solve"]["degraded"]
+              for r in readings if r["solve"] is not None)
+          and sum(r["solve"] is not None for r in readings) == 2,
+          f"elastic: mesh changes not warm-started: {[r['solve'] for r in readings]}")
+    check(numerics_after_rewind == [], f"elastic: faults after the rewind at "
+                                        f"{numerics_after_rewind}")
+    check(len(losses) == ELASTIC_STEPS and len(want) == ELASTIC_STEPS and loss_over <= 1.0,
+          f"elastic: losses off the uninterrupted run ({loss_over:.3f} of loss_curve)")
+    meshes = {tuple(s["mesh"]) for s in steps}
+    check(meshes == {(4, 2), (2, 2)}, f"elastic: meshes {meshes}")
+    for s in steps:
+        m = s["mesh"]
+        fold = m[0] * m[1] * (SCAN_B // m[0])
+        check(s["launches"]["flash_attention"] == L and s["launches"]["flash_attention_bwd"] == L
+              and s["rows"] == [("flash_attention", fold), ("flash_attention_bwd", fold)]
+              and s["fallback_gathers"] == [],
+              f"elastic: step {s['step']} on {m}: {s['launches']}, rows {s['rows']} (want "
+              f"{fold}), gathers {s['fallback_gathers']}")
+    vocab = [r["whole_vocab_steps"] for r in per_runner if "whole_vocab_steps" in r]
+    check(len(vocab) == 2 and vocab == [[], []], f"elastic: whole-vocab steps {vocab}")
+    return {"card": card, "label": label, "schedule": ELASTIC_SCHEDULE["events"],
+            "recoveries": readings, "cold_solve": cold_rec, "losses": losses,
+            "uninterrupted": want, "loss_err_over_loss_curve": loss_over,
+            "steps": [{k: v for k, v in s.items() if k != "at"} for s in steps],
+            "runners": per_runner, "busy_ms": busy, "peak_gib": peak,
+            "launches_per_step": {str(tuple(s["mesh"])): s["launches"] for s in steps},
+            "invariants": violations, "planted": planted, "drill_s": drill_s,
+            "uninterrupted_s": straight_s, "seconds": seconds}
 
 
 # the kernels' templates by variant, as the mangled names in ptxas's report,
@@ -5996,8 +6325,8 @@ def main(argv=None):
     print(f"phases done at {time.perf_counter() - t0:.0f} s (obs {sharded['obs']['seconds']:.0f} "
           f"s, autoshard {sharded['autoshard']['seconds']:.0f} s, plan_opt {sharded['plan_opt']['seconds']:.0f} s, scan "
           f"{sharded['scan']['seconds']:.0f} s, "
-          f"pipeline {pipeline['seconds']:.0f} s, checkpoint {checkpoint['seconds']:.0f} s of "
-          "them)", flush=True)
+          f"pipeline {pipeline['seconds']:.0f} s, checkpoint {checkpoint['seconds']:.0f} s "
+          f"with elastic {checkpoint['elastic']['seconds']:.0f} s of them)", flush=True)
 
     fa_main = next(c for c in fa_cases if c["case"] == "decode_8x16_pos1023")
     fa_prefill = next(c for c in fa_cases if c["case"] == "prefill_qwen_loss_2x2048")
@@ -6028,6 +6357,9 @@ def main(argv=None):
             return c["launches"][name]
         return c["runs"]["scanned"]["launches_per_step"][name]
 
+    elastic_launches = {  # per step of the elastic drill, by mesh
+        name: {mesh: c[name] for mesh, c in checkpoint["elastic"]["launches_per_step"].items()}
+        for name in ("flash_attention", "flash_attention_bwd")}
     scan_launches = {  # per call (per decode step for the engines) of the scanned plans
         name: {c["label"]: scanned_launches(c, name) for c in sharded["scan"]["cases"]}
         for name in ("flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")}
@@ -6051,6 +6383,7 @@ def main(argv=None):
         "pipeline_launches_per_call": pipe_launches["flash_attention"],
         "pipeline_case": {"case": fa_pipe["case"], **{k: fa_pipe[k] for k in keys}},
         "autoshard_launches_per_call": sharded["autoshard"]["launches"]["flash_attention"],
+        "elastic_launches_per_step": elastic_launches["flash_attention"],
         "decode_position_on_device": {n: {k: c[k] for k in keys + ("device_ms", "splits")}
                                       for n, c in devpos.items()},
         "decode_position_per_row": {n: {k: c[k] for k in keys + (
@@ -6086,6 +6419,7 @@ def main(argv=None):
                                  "device_ms": bwd_fold["device_ms"]},
         "pipeline_launches_per_call": pipe_launches["flash_attention_bwd"],
         "autoshard_launches_per_call": sharded["autoshard"]["launches"]["flash_attention_bwd"],
+        "elastic_launches_per_step": elastic_launches["flash_attention_bwd"],
         "pipeline_case": {"case": bwd_pipe["case"], **{k: bwd_pipe[k] for k in keys},
                           "device_ms": bwd_pipe["device_ms"]},
         "cases": bwd_cases,

@@ -479,8 +479,8 @@ class GuardConfig:
     them.  Train level (``train/loop.py::make_train_step``): ``grads``,
     ``loss`` and ``moments`` select state leaves; ``max_grad_norm`` bounds
     the global gradient norm.  ``rewind_after`` consecutive faulted steps
-    escalate from a skipped batch to a ``NumericsFault`` (the rewind to a
-    checkpoint is the elastic coordinator's, ROADMAP A14b).
+    escalate from a skipped batch to a ``NumericsFault``, on which
+    ``launch/elastic.py::ElasticCoordinator`` rewinds to a checkpoint.
     """
 
     outputs: Optional[Tuple[int, ...]] = None

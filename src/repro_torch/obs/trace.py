@@ -378,10 +378,10 @@ def _lane_metadata() -> List[Dict[str, Any]]:
 _CONTROL_LOCK = threading.Lock()
 _CONTROL_EVENTS: List[Dict[str, Any]] = []
 
-# Every control-event kind of the JAX package's guard, checkpoint, elastic and
-# chaos machinery (the port emits the guard, checkpoint, straggler and profile
-# kinds; the elastic ones come with ROADMAP A14b).  The set is advisory
-# (control_event stays permissive) but narrative reconstruction keys off it.
+# Every control-event kind of the guard, checkpoint, elastic and chaos
+# machinery (train/loop.py, launch/elastic.py) and of profile application.
+# The set is advisory (control_event stays permissive) but narrative
+# reconstruction keys off it.
 CONTROL_EVENT_KINDS = frozenset({
     "numerics_fault", "skip_step", "rewind",          # guard (train/loop)
     "device_loss", "device_return",                   # world membership

@@ -166,20 +166,22 @@ def _rebuild(target, values: Dict[str, Any], path: Tuple[str, ...] = ()):
 
 
 def _host(leaf) -> Tuple[np.ndarray, str]:
-    """``(array, dtype name)`` of one leaf as written: a bfloat16 leaf is its
+    """``(array, dtype name)`` of one leaf as written, in C order as the
+    reference writes every leaf (a transposed tensor would otherwise save
+    in Fortran order, which sliced reads refuse): a bfloat16 leaf is its
     raw 2-byte values (uint16); a Python int (the step counter) is a 0-d
     int32, as the reference's state holds it."""
     import torch
 
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach()
+        t = leaf.detach().contiguous()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).cpu().numpy().view(np.uint16), "bfloat16"
         arr = t.cpu().numpy()
         return arr, str(arr.dtype)
     if isinstance(leaf, int):
         return np.asarray(leaf, np.int32), "int32"
-    arr = np.asarray(leaf)
+    arr = np.require(np.asarray(leaf), requirements="C")
     if arr.dtype.name == "bfloat16":
         return arr.view(np.uint16), "bfloat16"
     return arr, str(arr.dtype)

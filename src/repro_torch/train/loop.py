@@ -55,8 +55,10 @@ mesh).  A run with no ``initial_state`` restores the newest checkpoint in
 (``ckpt_save``, ``numerics_fault``, ``skip_step``, ``straggler``) beside
 its hooks.
 
-Not ported yet: the rewind to a checkpoint after escalated faults (the
-elastic coordinator's, ROADMAP A14b).  The dense family and Mamba2
+The rewind to a checkpoint after escalated faults is the elastic
+coordinator's (``launch/elastic.py::ElasticCoordinator``): the loop raises
+``NumericsFault``, and the coordinator restores, acknowledges the fault
+window and swaps in a new step (``swap_plan``).  The dense family and Mamba2
 train (attention's and the SSD's gradients are kernels on the card:
 ``kernels/ops.py``); the families with no model yet raise (ROADMAP A12).
 """
@@ -435,6 +437,7 @@ class TrainLoop:
         self.pipeline = pipeline
         self.hooks = hooks or {}
         self.device = resolve_device(device)
+        self.plan_profile, self.optimize = plan_profile, optimize
         self.step_fn = step_fn or make_train_step(cfg, st, opt, tc, plan_profile=plan_profile,
                                                   optimize=optimize)
         self.gen = gen if gen is not None else torch.Generator(self.device).manual_seed(0)
@@ -447,7 +450,7 @@ class TrainLoop:
 
     def swap_plan(self, step_fn) -> None:
         """Replace the step function without restarting the process (the
-        elastic-recovery path after a mesh change)."""
+        elastic coordinator's, after a mesh change or a rewind)."""
         self.step_fn = step_fn
         self.step_times = []  # old timings are not comparable post-reshard
 
@@ -559,8 +562,8 @@ class TrainLoop:
     def _on_fault(self, gc: GuardConfig, step: int, state, metrics) -> None:
         """Host side of a faulted step: per-leaf provenance, counters, the
         ``numerics_fault`` hook, and ``NumericsFault`` once ``rewind_after``
-        consecutive steps faulted (the rewind to a checkpoint is the elastic
-        coordinator's, ROADMAP A14b)."""
+        consecutive steps faulted (``launch/elastic.py::ElasticCoordinator``
+        rewinds to a checkpoint)."""
         if self.guard_leaves is None:
             self.guard_leaves = guard_leaf_names(gc, state)
         faults = guard_faults(gc, metrics["guard"].cpu().numpy(), self.guard_leaves)

@@ -287,6 +287,24 @@ def test_read_npy_slice_matches_numpy(tmp_path):
             assert stats["bytes_read"] < arr.nbytes or got.nbytes == arr.nbytes
 
 
+def test_transposed_leaf_saves_in_c_order_for_sliced_reads(tmp_path):
+    """A leaf whose tensor is a transpose (Adafactor's factored moments can
+    be) is written in C order, as the reference writes every leaf, so that
+    a sliced read takes it: saved in Fortran order it made a restore with
+    sliced reads fall back past every step that held it."""
+    d = str(tmp_path / "ck")
+    w = torch.arange(12.0).reshape(3, 4).t()
+    ckpt.save(d, 1, {"w": w})
+    path = os.path.join(d, "step_00000001", "w.npy")
+    assert not ckpt._npy_header(path)[2]  # fortran_order
+    np.testing.assert_array_equal(ckpt.read_npy_slice(path, (slice(1, 3), slice(0, 3))),
+                                  w[1:3, 0:3].numpy())
+    mesh = Mesh.create((1, 2), ("data", "model"))
+    tree, _, rep = ckpt.restore_resharded(d, {"w": torch.empty(4, 3, device="meta")}, mesh,
+                                          {"w": (None, "model")}, sharded_io=True, device="cpu")
+    assert rep["fell_back_from"] == [] and torch.equal(tree["w"], w)
+
+
 def test_read_npy_slice_detects_torn_write_and_header_mismatch(tmp_path):
     arr = np.arange(24, dtype=np.float32).reshape(4, 6)
     p = str(tmp_path / "a.npy")

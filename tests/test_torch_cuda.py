@@ -1398,3 +1398,58 @@ def test_autoshard_gradient_program_on_cuda_matches_cpu(cuda):
             assert runner.fallback_gathers == []
     for a, b in zip(outs["cuda"], outs["cpu"]):
         assert_close(a, b, "f32_chain")
+
+
+# -- elastic recovery: the coordinator's shrink on the card -------------------------
+
+
+def test_elastic_device_loss_on_cuda_matches_cpu(cuda, tmp_path):
+    """``ElasticCoordinator`` on a simulated world of 8 (model_parallel 2)
+    with qwen1.5-0.5b at reduced width (d128, 4 heads) cut to two scanned
+    layers, float32: four devices lost at step 3, so (4, 2) -> (2, 2) with
+    one restore, and every step on the card launches 2 flash forward and 2
+    backward calls; the losses within coarse of the same schedule on the
+    CPU, from one initial state (a step-0 checkpoint)."""
+    from repro_torch.core.plan import GuardConfig
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.elastic import ElasticCoordinator, FaultInjector
+    from repro_torch.autoshard import AutoshardConfig
+    from repro_torch.train import checkpoint as ckpt
+
+    cfg = reduced_config(get_config("qwen1.5-0.5b"), 8).with_(
+        dtype="float32", num_layers=2, remat="none", scan_layers=True)
+    st, opt = get_strategy("2d_finalized"), get_optimizer("adafactor", lr=0.05)
+    state = init_state(cfg, st, opt, TrainConfig(), torch.Generator("cpu").manual_seed(5), "cpu")
+    runs = {}
+    for device in ("cpu", "cuda"):
+        d = str(tmp_path / device)
+        ckpt.save(d, 0, state, extra={"data_cursor": 0})
+        tc = TrainConfig(steps=6, ckpt_dir=d, ckpt_every=2, log_every=1000,
+                         guard=GuardConfig(rewind_after=2))
+        co = ElasticCoordinator(
+            cfg, st, opt, tc, TokenPipeline(DataConfig(cfg.vocab_size, 32, 8, seed=7,
+                                                       pattern="arithmetic")),
+            n_devices=8, model_parallel=2, injector=FaultInjector(device_loss_at=3, lose=4),
+            autoshard_config=AutoshardConfig(top_n=2, sa_steps=2, max_candidates=6),
+            max_recoveries=2, device=device)
+        counts, fault, metrics = {}, co.loop.hooks["fault"], co.loop.hooks["metrics"]
+
+        def reset(step, fault=fault):
+            fa.launches = fab.launches = 0
+            fault(step)
+
+        def read(step, loss, metrics=metrics, counts=counts):
+            torch.cuda.synchronize()
+            counts[step] = (fa.launches, fab.launches)
+            metrics(step, loss)
+
+        co.loop.hooks.update(fault=reset, metrics=read)
+        _, losses = co.run()
+        runs[device] = (co, losses, counts)
+    co, losses, counts = runs["cuda"]
+    (ev,) = co.recoveries
+    assert ev["mesh"] == {"from": [4, 2], "to": [2, 2]} and ev["restored_from"] == 2
+    assert sorted(counts) == list(range(6))
+    assert all(c == (2, 2) for c in counts.values()), counts
+    assert co.loop.step_fn.runner.fallback_gathers == []
+    assert_close(np.array(losses), np.array(runs["cpu"][1]), "coarse")

@@ -2,10 +2,11 @@
 """Print the checkpoint and the cross-mesh restore plan that
 ``chip_smoke.py::checkpoint_reshard_case`` saves and replays, by pure
 planning on the host (no tensors, no device): qwen1.5-0.5b's train state at
-full width (24 layers, Adafactor) saved on ("data" 2, "model" 4), its leaves
-and bytes, and ``restore_resharded``'s plan onto ("data" 4, "model" 2) and
-``derive_mesh(4, 4)``: wire bytes, launches, resharded leaves.  The card run
-must give the same plan.
+full width (``chip_smoke.CKPT_RESHARD_LAYERS`` layers, Adafactor) saved on
+("data" 2, "model" 4), its leaves and bytes, and ``restore_resharded``'s
+plan onto ``derive_mesh(4, 4)`` and onto ("data" 4, "model" 2) all
+replicated: wire bytes, launches, resharded leaves.  The card run must give
+the same plan.
 
     PYTHONPATH=src python tools/ckpt_plan.py
 """
