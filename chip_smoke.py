@@ -267,6 +267,33 @@ Phases, each of which raises (and so exits non-zero) on failure:
    of a step on (4, 2) and (2, 2); the allocator's peak; the phase's
    seconds.
 
+14. the MoE family, in a process of its own (``moe_phase``, after 5):
+   granite-moe-1b-a400m at full width (24 layers, d1024, 16 heads on 8 kv
+   heads of 64, 32 experts, top 8, expert ff 512, V 49155, bf16; random
+   weights from the seed): serve 16 greedy requests behind
+   ``Engine(slots=8, max_len=1024)`` (pooled routing, 8 tokens a step, C 4;
+   24 flash decode launches a step); ``loss_fn`` of B2 S2048 (C 640); the
+   forward B4 S256 through the flash kernel against the same forward on the
+   plain attention, held by routing first (the tokens whose top-8 sets
+   differ counted per layer, each flip at a margin within twice its router
+   logits' own change, the logits within bf16_chain on each row's prefix
+   before its first flip); training through ``launch.train.main`` (B4
+   S2048, four Adafactor steps: every loss finite, step 0's equal to
+   ``loss_fn``, 48 + 24 flash calls a step); and, cut to eight layers,
+   ``api.partitionable_loss`` and the partitioned step's gradient (B8
+   S512, bf16, float32 masters, remat "none") under moe_2d on ("data" 2,
+   "model" 4) against the same programs unsharded on the card with the
+   partitioned run's routing forced (loss within bf16_chain, each gradient
+   leaf within bf16_grad in norm; the flips against the unforced run held
+   sound), the dispatch's AllToAll at least once per MoE layer each way
+   (twice with the gradient), no gathering fallback, no whole-vocabulary
+   step; and ``Engine`` under ``set_mesh`` in float32 for four new tokens
+   a request against the same engine unsharded (routing flips counted
+   and held sound, the logits before the first flip in norm within
+   bf16_round's rtol, eight decode launches a step). Each path's device
+   time split by ``moe_split``: routing, scatter and gather, expert
+   GEMMs, attention kernels, the rest; the allocator's peak.
+
 Every path runs with the kernels' launch counts set to 0 just before it and
 read just after.  The last two lines of output are the kernels' JSON record
 and ``{"ok": true, "device": {...}}``.
@@ -274,6 +301,7 @@ and ``{"ok": true, "device": {...}}``.
 import argparse
 import collections
 import concurrent.futures
+import contextlib
 import json
 import math
 import os
@@ -477,7 +505,7 @@ def kernel_case(name, *, B, S, T, KR, Gl, D, dtype, causal, q_offset=0, kv_len=N
     return rec
 
 
-def decode_position_case(name, *, B, KR, gen, T=1024, D=64):
+def decode_position_case(name, *, B, KR, gen, T=1024, D=64, Gl=1, q_dtype=torch.bfloat16):
     """The decode with its position on the device (``ops.flash_decode``: an
     int32 the kernel reads, splits sized by T) against the plain version at
     positions 0 and 1 (fewer keys than splits: empty splits), the one
@@ -485,22 +513,22 @@ def decode_position_case(name, *, B, KR, gen, T=1024, D=64):
     of 64 per split, and one less), and T - 2; then timed at T - 2 beside
     the plain version, SDPA over the visible keys and the bound, as
     ``kernel_case``.  One launch per call; the host never reads the
-    position."""
+    position.  The cache is bf16; ``q_dtype`` is the model's."""
     from repro_torch.core.compat import TOLERANCES
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import chunked_attention_ref
 
     dev, bf16 = torch.device("cuda"), torch.bfloat16
-    pl = fa.plan(B, 1, KR, 1, T, D, bf16, bf16, causal=False, q_offset=0, kv_len=1,
+    pl = fa.plan(B, 1, KR, Gl, T, D, q_dtype, bf16, causal=False, q_offset=0, kv_len=1,
                  position_on_device=True)
     boundary = pl.splits * fa.MIN_SPLIT_KEYS - 1  # pos + 1 keys: 64 per split
     positions = (0, 1, boundary - 1, boundary, T - 2)
     last = T - 2
-    q_bytes = B * KR * D * 2
+    q_bytes = B * KR * Gl * D * (torch.finfo(q_dtype).bits // 8)
     nbytes = 2 * q_bytes + 2 * B * (last + 1) * KR * D * 2 + 4  # q, o, visible k/v, pos
     copies = max(1, min(8, math.ceil(2 * L2_BYTES / (nbytes + 2 * B * T * KR * D * 2))))
-    sets = [(torch.randn(B, 1, KR, 1, D, generator=gen, device=dev).to(bf16),
+    sets = [(torch.randn(B, 1, KR, Gl, D, generator=gen, device=dev).to(q_dtype),
              torch.randn(B, T, KR, D, generator=gen, device=dev).to(bf16),
              torch.randn(B, T, KR, D, generator=gen, device=dev).to(bf16)) for _ in range(copies)]
     pos = torch.zeros((), dtype=torch.int32, device=dev)
@@ -530,22 +558,28 @@ def decode_position_case(name, *, B, KR, gen, T=1024, D=64):
         return chunked_attention_ref(q, k, v, causal=False, chunk=T, q_offset=last,
                                      kv_len=last + 1)
 
-    sdpa = [(q.reshape(B, KR, 1, D), k[:, :last + 1].transpose(1, 2).contiguous(),
-             v[:, :last + 1].transpose(1, 2).contiguous()) for q, k, v in sets]
-    t_ops = 4 * D * (last + 1) * B * KR / PEAK_BF16_FLOPS * 1e3
+    sdpa = [(q.reshape(B, KR * Gl, 1, D), k[:, :last + 1].transpose(1, 2).to(q_dtype).contiguous(),
+             v[:, :last + 1].transpose(1, 2).to(q_dtype).contiguous()) for q, k, v in sets]
+
+    def run_library(i):
+        return F.scaled_dot_product_attention(*sdpa[i], enable_gqa=Gl > 1)
+
+    peak = PEAK_F32_FLOPS if q_dtype == torch.float32 else PEAK_BF16_FLOPS
+    t_ops = 4 * D * (last + 1) * B * KR * Gl / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
+    dtype = str(q_dtype).replace("torch.", "")
     rec = {
-        "case": name, "dtype": "bfloat16", "variant": pl.variant, "splits": pl.splits,
-        "shape": dict(B=B, S=1, T=T, KR=KR, Gl=1, D=D), "positions": list(positions),
+        "case": name, "dtype": dtype, "kv_dtype": "bfloat16", "variant": pl.variant,
+        "splits": pl.splits, "shape": dict(B=B, S=1, T=T, KR=KR, Gl=Gl, D=D),
+        "positions": list(positions),
         "max_abs_err_by_pos": errs, "max_abs_err": max(errs.values()), "tol": "bf16_round",
         "ms": time_ms(run_kernel, copies), "device_ms": device_ms(run_kernel, copies),
         "plain_ms": time_ms(run_plain, copies),
-        "library_ms": time_ms(lambda i: F.scaled_dot_product_attention(*sdpa[i]), copies),
-        "library_device_ms": device_ms(lambda i: F.scaled_dot_product_attention(*sdpa[i]),
-                                       copies),
+        "library_ms": time_ms(run_library, copies),
+        "library_device_ms": device_ms(run_library, copies),
         "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops > t_bytes else "bytes",
     }
-    print(f"  {name:30s} bfloat16 {pl.variant}/{pl.splits} (position on the device) errs "
+    print(f"  {name:30s} {dtype:8s} {pl.variant}/{pl.splits} (position on the device) errs "
           f"{', '.join(f'pos {p}: {e:.3g}' for p, e in errs.items())} (bf16_round); at pos "
           f"{last}: kernel {rec['ms']:.4f} ms (device {_ms(rec['device_ms'])})  plain "
           f"{rec['plain_ms']:.4f} ms  sdpa {rec['library_ms']:.4f} ms (device "
@@ -705,6 +739,24 @@ def kernel_phase(seed):
     # devices' B4 KR4 in one launch)
     cases.append(decode_position_case("decode_devpos_8x16", B=8, KR=16, gen=gen))
     cases.append(decode_position_case("decode_devpos_fold_32x4", B=32, KR=4, gen=gen))
+    # granite-moe-1b-a400m's calls (moe_phase): 16 q heads on 8 kv heads of
+    # 64.  The loss (B2) and the train step's forward (B4) at S2048; the
+    # partitioned loss and step's fold (8 devices x local batch 4, KR 8 / 4
+    # on "model"); the served decode (8 slots, T 1024) and the float32
+    # engines of the partitioned serve check, unsharded and folded
+    for B in (MOE_LOSS_B, MOE_TRAIN_B):
+        cases.append(kernel_case(f"prefill_granite_{B}x2048_kr8_gl2", B=B, S=2048, T=2048,
+                                 KR=8, Gl=2, D=64, dtype=bf16, causal=True, chunk=1024,
+                                 layout="model", gen=gen))
+    cases.append(kernel_case("moe_partitioned_fold_32x512_kr2_gl2", B=32, S=512, T=512, KR=2,
+                             Gl=2, D=64, dtype=bf16, causal=True, chunk=512, layout="model",
+                             gen=gen))
+    cases.append(decode_position_case("decode_devpos_granite_8x8x2", B=8, KR=8, Gl=2,
+                                      T=SERVE_MAX_LEN, gen=gen))
+    cases.append(decode_position_case("decode_devpos_granite_8x8x2_f32q", B=8, KR=8, Gl=2,
+                                      T=SERVE_MAX_LEN, q_dtype=f32, gen=gen))
+    cases.append(decode_position_case("decode_devpos_granite_fold_32x2x2_f32q", B=32, KR=2,
+                                      Gl=2, T=SERVE_MAX_LEN, q_dtype=f32, gen=gen))
     # a position per row with the log-sum-exp: the sequence-sharded serve
     # step's fold (8 devices x 8 slots, KR 16/4, 1024/2 keys per device)
     for dtype in (bf16, f32):
@@ -839,6 +891,12 @@ def bwd_phase(seed):
         # 2, S512, KR 16 / 2 on "model"; 42 per call (6 layers x 7 ticks)
         bwd_case("pipeline_fold_16x512_kr8", B=16, S=512, KR=8, Gl=1, D=64, dtype=bf16,
                  causal=True, gen=gen),
+        # granite-moe-1b-a400m's training step (24 per step) and its
+        # partitioned step's fold (8 devices x local batch 4, KR 8 / 4)
+        bwd_case("train_granite_4x2048_kr8_gl2", B=MOE_TRAIN_B, S=2048, KR=8, Gl=2, D=64,
+                 dtype=bf16, causal=True, gen=gen),
+        bwd_case("moe_partitioned_fold_32x512_kr2_gl2", B=32, S=512, KR=2, Gl=2, D=64,
+                 dtype=bf16, causal=True, gen=gen),
     ]
 
 
@@ -1171,6 +1229,11 @@ def full_width_model(arch, seed, dtype=None):
         got = (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.dh, cfg.d_ff,
                cfg.vocab_size, cfg.qkv_bias, cfg.dtype)
         want = (24, 1024, 16, 16, 64, 2816, 151936, True, "bfloat16")
+    elif arch == MOE_ARCH:
+        got = (cfg.family, cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.dh,
+               cfg.num_experts, cfg.top_k, cfg.expert_d_ff, cfg.moe_every, cfg.vocab_size,
+               cfg.dtype)
+        want = ("moe", 24, 1024, 16, 8, 64, 32, 8, 512, 1, 49155, "bfloat16")
     else:
         got = (cfg.family, cfg.num_layers, cfg.d_model, cfg.ssm_expand, cfg.ssm_head_dim,
                cfg.ssm_state, cfg.ssm_conv, cfg.vocab_size, cfg.dtype)
@@ -1400,10 +1463,12 @@ TRAIN_STEPS = 10
 PROFILED_STEP = 6  # the step traced for device busy time (left out of the wall median)
 
 
-def train_phase(seed, arch="qwen1.5-0.5b", B=4, S=2048):
+def train_phase(seed, arch="qwen1.5-0.5b", B=4, S=2048, steps_n=TRAIN_STEPS,
+                profiled=PROFILED_STEP):
     """``arch`` at full width trained through ``launch.train.main`` (the
     port's entry point: float32 master weights, bf16 compute, remat "dots",
-    Adafactor) for TRAIN_STEPS steps on the arithmetic pattern.  Checks:
+    Adafactor) for ``steps_n`` steps on the arithmetic pattern, step
+    ``profiled`` traced (an MoE model's trace also split by ``moe_split``).  Checks:
     every loss finite; step 0's loss equal to ``api.loss_fn`` of the same
     weights and batch without autograd; per step, the layers' kernel
     launched once per layer forward plus once more in the recompute (remat
@@ -1438,7 +1503,7 @@ def train_phase(seed, arch="qwen1.5-0.5b", B=4, S=2048):
     mods, steps, clock, trace = _kernel_modules(), [], {}, {}
 
     def fault(step):  # called at the start of each step
-        if step == PROFILED_STEP:
+        if step == profiled:
             trace["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
             trace["prof"].start()
         for mod in mods.values():
@@ -1447,7 +1512,7 @@ def train_phase(seed, arch="qwen1.5-0.5b", B=4, S=2048):
 
     def metrics(step, loss):  # called once the step's loss is on the host
         ms = (time.perf_counter() - clock["t0"]) * 1e3
-        if step == PROFILED_STEP:
+        if step == profiled:
             torch.cuda.synchronize()
             trace["prof"].stop()
         launches = {name: mod.launches for name, mod in mods.items()}
@@ -1458,10 +1523,10 @@ def train_phase(seed, arch="qwen1.5-0.5b", B=4, S=2048):
     torch.cuda.reset_peak_memory_stats()
     losses = launch_train.main(
         ["--arch", arch, "--reduce", "1", "--batch", str(B), "--seq", str(S), "--steps",
-         str(TRAIN_STEPS), "--data-pattern", "arithmetic", "--seed", str(seed)],
+         str(steps_n), "--data-pattern", "arithmetic", "--seed", str(seed)],
         hooks={"fault": fault, "metrics": metrics})
     peak = torch.cuda.max_memory_allocated() / 2**30
-    check(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+    check(len(losses) == steps_n and all(math.isfinite(x) for x in losses),
           f"train losses {losses}")
     assert_close(np.float32(losses[0]), np.float32(loss0), "f32",
                  err_msg="step 0's loss against api.loss_fn without autograd")
@@ -1473,7 +1538,7 @@ def train_phase(seed, arch="qwen1.5-0.5b", B=4, S=2048):
     want.update({fwd: 2 * L, bwd_kernel: L})
     for rec in steps:
         check(rec["launches"] == want, f"step {rec['step']} launches {rec['launches']} != {want}")
-    wall = statistics.median(r["ms"] for r in steps[1:] if r["step"] != PROFILED_STEP)
+    wall = statistics.median(r["ms"] for r in steps[1:] if r["step"] != profiled)
     device = [e for e in trace["prof"].events() if e.device_type == DeviceType.CUDA]
     by_name = {}
     for e in device:
@@ -1486,16 +1551,20 @@ def train_phase(seed, arch="qwen1.5-0.5b", B=4, S=2048):
             bwd[_variant(n)] = bwd.get(_variant(n), 0.0) + ms
     bwd_ms = sum(bwd.values()) if device else None
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    print(f"train {arch}: B={B} S={S}, {TRAIN_STEPS} steps, loss {losses[0]:.4f} -> "
+    print(f"train {arch}: B={B} S={S}, {steps_n} steps, loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f} (step 0 without autograd {loss0:.6f}); wall {wall:.1f} ms/step "
-          f"(median of steps 1-{TRAIN_STEPS - 1} but {PROFILED_STEP}), {B * S / wall * 1e3:.0f} "
-          f"tokens/s; step {PROFILED_STEP} device busy {_ms(busy)} ({len(device)} device ops), "
+          f"(median of steps 1-{steps_n - 1} but {profiled}), {B * S / wall * 1e3:.0f} "
+          f"tokens/s; step {profiled} device busy {_ms(busy)} ({len(device)} device ops), "
           f"the backward kernel {_ms(bwd_ms)}" + (f" ({bwd_ms / busy:.1%}: " + ", ".join(
               f"{v} {ms:.3f}" for v, ms in sorted(bwd.items())) + ")" if busy else "") +
           f"; peak memory {peak:.2f} GiB", flush=True)
     for name, ms in top:
         print(f"  {ms:.4f} ms/step  {name[:90]}")
+    split = moe_split(trace["prof"]) if cfg.moe else None
+    if split is not None:
+        print(f"  step {profiled} by part: {_split_text(split)}", flush=True)
     return {"arch": arch, "B": B, "S": S, "losses": losses, "loss0_no_grad": loss0,
+            "moe_split": split,
             "ms_per_step": wall, "tokens_per_s": B * S / wall * 1e3,
             "device_busy_ms_per_step": busy, "bwd_device_ms_per_step": bwd_ms,
             "bwd_device_ms_by_launch": bwd, "device_ops_per_step": len(device),
@@ -2027,8 +2096,10 @@ def _err_over(got, want, kind):
 
 def whole_vocab_steps(runner, args, V):
     """The plan steps whose result holds a whole vocabulary dim (size ``V``)
-    on a device: a gathered (B,S,V) logits tensor or (V, M) table would."""
-    return _plan_of(runner).plan.steps_holding(args, lambda t: V in tuple(t.shape[1:]))
+    on a device: a gathered (B,S,V) logits tensor or (V, M) table would.  A
+    vector of V (the mask of a vocabulary padded to "model") is not one."""
+    return _plan_of(runner).plan.steps_holding(
+        args, lambda t: t.ndim > 2 and V in tuple(t.shape[1:]))
 
 
 def cache_gather_steps(runner, args, T, dh):
@@ -3900,7 +3971,7 @@ def plan_opt_phase(seed, card):
 SCAN_B, SCAN_S = 8, 512  # the train steps' batch
 SCAN_TURNS = ("scanned", "unrolled", "unrolled", "scanned")
 # the paths' layers, cut from the published 24 to eight for the script's
-# time limit (the pipeline phase and the partition phase run 24)
+# time limit (the pipeline phase and the partition phase run eight too)
 SCAN_LAYERS = {"none": 8, "dots": 8, "mamba2": 8, "grad_accum": 8, "serve": 8}
 SCAN_SERVE_PROMPTS, SCAN_SERVE_NEW = 8, 4  # prompts of 8 tokens, new tokens each
 
@@ -5193,18 +5264,20 @@ def pipeline_phase(seed, card):
     return {"cases": cases, "seconds": seconds}
 
 
-def pipeline_phase_in_own_process(seed, card, timeout=300):
-    """``pipeline_phase`` in a fresh process, with its own time limit."""
+def phase_in_own_process(phase, seed, card, timeout):
+    """``chip_smoke.<phase>(seed, card)`` (``pipeline_phase``,
+    ``checkpoint_phase``, ``moe_phase``) in a fresh process, with its own
+    time limit; its printed lines, then its result."""
     code = (f"import sys, json; sys.path.insert(0, {str(ROOT)!r}); import torch, chip_smoke; "
             "torch.backends.cuda.matmul.allow_tf32 = False; "
             "torch.backends.cudnn.allow_tf32 = False; "
-            f"print(json.dumps(chip_smoke.pipeline_phase({seed}, {card!r})))")
+            f"print(json.dumps(chip_smoke.{phase}({seed}, {card!r})))")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=timeout)
     lines = proc.stdout.splitlines()
     print("\n".join(lines[:-1] if proc.returncode == 0 else lines), flush=True)
     check(proc.returncode == 0 and lines,
-          f"the pipeline phase failed ({proc.returncode}): {proc.stderr[-3000:]}")
+          f"{phase} failed ({proc.returncode}): {proc.stderr[-3000:]}")
     return json.loads(lines[-1])
 
 
@@ -5240,6 +5313,492 @@ def sharded_phases_in_own_process(seed, card):
           and res["serve_launches"]["flash_attention"] > 0,
           f"the sharded phases' launches: {res['loss_launches']}, {res['serve_launches']}")
     return res
+
+
+# ---------------------------------------------------------------------------------
+# the MoE family (models/moe.py): granite-moe-1b-a400m served, trained and
+# partitioned at full width
+# ---------------------------------------------------------------------------------
+
+MOE_ARCH = "granite-moe-1b-a400m"
+MOE_LOSS_B, MOE_LOSS_S = 2, 2048
+MOE_TRAIN_B, MOE_TRAIN_S = 4, 2048
+MOE_TRAIN_STEPS, MOE_PROFILED_STEP = 4, 2
+MOE_CONSIST_B, MOE_CONSIST_S = 4, 256
+# the partitioned paths' depth, cut from 24 for the script's time limit
+MOE_PARTITION_LAYERS = 8
+MOE_PARTITION_B, MOE_PARTITION_S = 8, 512
+MOE_SERVE_NEW = 4  # new tokens per request of the partitioned engine's run
+# a trace's device time by part (``moe_split``): self device time of these
+# aten ops; attention by kernel name; the rest is the remainder
+MOE_PARTS = {"routing": ("aten::_softmax", "aten::_softmax_backward_data", "aten::topk",
+                         "aten::sort", "aten::searchsorted"),
+             "scatter_gather": ("aten::scatter_add", "aten::gather", "aten::scatter"),
+             "expert_gemms": ("aten::bmm",)}
+
+
+def moe_split(prof, calls=1):
+    """Device ms per call of a ``torch.profiler`` trace by part: the routing
+    ops (softmax, top-k, the two sorts, searchsorted; their gradients), the
+    dispatch's scatter and the combine's gather (and theirs), the expert
+    products (the model's only batched products: attention is the flash
+    kernel), the attention kernels and the rest (dense GEMMs, elementwise
+    passes, copies, a partitioned program's simulated collectives); None
+    where the trace holds no device event."""
+    from torch.autograd import DeviceType
+
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not device:
+        return None
+    busy = sum(e.time_range.elapsed_us() for e in device) / 1e3 / calls
+    flash = [k for k in VARIANT_OF if k.startswith("flash_")]
+    out = {"attention": sum(e.time_range.elapsed_us() for e in device
+                            if any(k in e.name for k in flash)) / 1e3 / calls}
+    self_ms = collections.Counter()
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        self_ms[e.key] += (t if t is not None else e.self_cuda_time_total) / 1e3 / calls
+    for part, names in MOE_PARTS.items():
+        out[part] = sum(self_ms[n] for n in names)
+    out["rest"] = busy - sum(out.values())
+    out["busy"] = busy
+    return out
+
+
+def _split_text(split):
+    return ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+
+
+def traced_split(fn, calls=1):
+    """``fn()`` traced (after a warm call) and split by ``moe_split``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return moe_split(prof, calls)
+
+
+def moe_consistency(cfg, st, params, seed, card):
+    """The forward (logits) through the flash kernel against the same forward
+    with its attention on the plain version, on the card, held by routing
+    first: the tokens whose top-k sets differ between the two runs' own
+    routing are counted per layer, and each must be a sound flip
+    (``routing_flips``: its margin within twice its logits' own change);
+    then the plain forward is run again with the kernel run's experts forced
+    (``RoutingSpy(record, forced=)``), and every logit of it is held to the
+    kernel run's within bf16_chain."""
+    from repro_torch.core.compat import TOLERANCES
+    from repro_torch.models import api
+    from repro_torch.obs.routing import RoutingSpy, routing_flips, stacked
+
+    B, S = MOE_CONSIST_B, MOE_CONSIST_S
+    tokens = torch.from_numpy(np.random.default_rng(seed + 61).integers(
+        0, cfg.vocab_size, (B, S))).cuda()
+    rec_k, rec_p, rec_f = [], [], []
+    with torch.inference_mode():
+        with RoutingSpy(rec_k):
+            fwd, launches = counted(lambda: api.forward(cfg, st, params, tokens))
+        run_plain = plain_attention(lambda: api.forward(cfg, st, params, tokens))
+        with RoutingSpy(rec_p):
+            own = run_plain()
+        logits_k, experts_k = stacked(rec_k)
+        with RoutingSpy(rec_f, forced=experts_k):
+            plain = run_plain()
+    flips = routing_flips(logits_k, experts_k, *stacked(rec_p))
+    forced_ok = torch.equal(stacked(rec_f)[1], experts_k)
+    fwd, plain, own = fwd.float(), plain.float(), own.float()
+    rtol, atol = TOLERANCES["bf16_chain"]
+    worst = ((fwd - plain).abs() / (atol + rtol * plain.abs())).max().item()
+    rel = ((fwd - plain).norm() / plain.norm()).item()
+    rel_own = ((fwd - own).norm() / own.norm()).item()
+    print(f"moe consistency: the forward B{B} S{S} with the flash kernel against the plain "
+          f"attention on the card; {card}", flush=True)
+    print(f"  routing: {flips['flips']} of {flips['tokens']} x {cfg.num_layers} token-layers "
+          f"differ in their top-{cfg.top_k} set (per layer {flips['per_call']}); smallest "
+          f"margin among them {flips['min_margin']}, largest margin over the logits' own "
+          f"change x2 {flips['max_margin_over_own_diff']:.3f} (<= 1), router logits' largest "
+          f"difference {flips['max_logit_diff']:.3e}; first flip per row "
+          f"{flips['first_flip_per_row']}", flush=True)
+    print(f"  logits with the kernel run's routing forced on the plain run: all {B * S} "
+          f"tokens, worst err/bf16_chain {worst:.3f}, {rel:.3e} in norm; with the plain "
+          f"run's own routing {rel_own:.3e} in norm (read); launches {launches}", flush=True)
+    want = {n: cfg.num_layers if n == "flash_attention" else 0 for n in launches}
+    check(launches == want, f"moe consistency launches {launches} != {want}")
+    check(len(rec_k) == len(rec_p) == len(rec_f) == cfg.num_layers,
+          "a layer's routing was not recorded")
+    check(forced_ok, "the forced plain run did not take the kernel run's routing")
+    check(all(bool(torch.isfinite(t).all()) for t in (fwd, plain, own)), "non-finite logits")
+    check(flips["max_margin_over_own_diff"] <= 1.0,
+          f"a routing flip at a margin above the router logits' own change: {flips}")
+    check(worst <= 1.0, f"logits off with the routing forced: {worst} x bf16_chain")
+    return {"B": B, "S": S, "routing": flips, "forced_worst_err_over_bf16_chain": worst,
+            "forced_rel_err_norm": rel, "own_routing_rel_err_norm": rel_own,
+            "launches": launches}
+
+
+def moe_partition_case(label, cfg, st, params, batch, mesh, seed, card, grad):
+    """``label``'s program (``api.partitionable_loss``, or with ``grad`` the
+    partitioned step's ``sharded_value_and_grad``) on ("data" 2, "model" 4)
+    through ``spmd_partition(..., optimize=False)``, against the same
+    program unsharded on the card.  The routing is read from a second
+    runner of the program returning it too (``with_routing``), whose loss
+    must equal the program's bit for bit (its gradient leaves in norm
+    within twice the program's own second call's distance from its first,
+    or coarse: the backward's atomics reorder sums): the unsharded run's
+    own routing (the flips counted and held sound, ``routing_flips``) and
+    the partitioned run's forced on it (``RoutingSpy``), to which the loss
+    (bf16_chain) and each gradient leaf (bf16_grad in norm) are held.
+    Gates, timings and the plan are the program's own: the dispatch's
+    AllToAll at least once per MoE layer each way (twice with the gradient:
+    its reverse), no fallback that gathers, no plan step holding a whole
+    vocabulary dim, one flash forward (and backward) launch per layer for
+    all eight devices."""
+    from repro_torch.core.compat import TOLERANCES
+    from repro_torch.core.partitioner import spmd_partition
+    from repro_torch.core.tree import leaves, leaves_with_paths, tree_map
+    from repro_torch.models import api, moe
+    from repro_torch.obs.routing import RoutingSpy, routing_flips, stacked, with_routing
+    from repro_torch.train.loop import sharded_value_and_grad, value_and_grad
+
+    L, V = cfg.num_layers, params["embed"]["embedding"].shape[0]  # the padded vocabulary
+    program = (sharded_value_and_grad if grad else api.partitionable_loss)(cfg, st, mesh)
+
+    def unsharded(forced=None):
+        rec = []
+        with RoutingSpy(rec, forced):
+            if grad:
+                live = tree_map(lambda p: p.detach().requires_grad_(), params)
+                out = value_and_grad(cfg, st, live, batch)
+            else:
+                with torch.no_grad():
+                    out = api.loss_fn(cfg, st, params, batch)
+        return (out, *stacked(rec))
+
+    runner = spmd_partition(program, mesh, optimize=False, device="cuda")
+    call = (lambda: runner(params, batch))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, launches = counted(call)
+    first_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    routed = spmd_partition(with_routing(program), mesh, optimize=False, device="cuda")
+    (out_r, logits, experts), _ = counted(lambda: routed(params, batch))
+    again, _ = counted(call)
+    # the forward is deterministic, so the losses agree bit for bit; the
+    # gradient's sums are not (atomic adds reorder them from call to call):
+    # its leaves against the program's, beside the program's second call
+    # against its first
+    loss_of = (lambda o: o[0]) if grad else (lambda o: o)
+    same_loss = torch.equal(loss_of(out), loss_of(out_r))
+
+    def grad_gap(a, b):
+        return max(((x.double() - y.double()).norm() / y.double().norm().clamp_min(1e-30))
+                   .item() for x, y in zip(leaves(a[1]), leaves(b[1]))) if grad else 0.0
+
+    routed_gap, self_gap = grad_gap(out_r, out), grad_gap(again, out)
+    del out_r, again, routed
+    (out_u, logits_u, experts_u), launches_u = counted(unsharded)
+    flips = routing_flips(logits, experts, logits_u, experts_u)
+    (out_f, _, experts_f), _ = counted(lambda: unsharded(experts))
+    check(torch.equal(experts_f, experts), "the forced run did not take the forced routing")
+    loss, loss_f = (out[0], out_f[0]) if grad else (out, out_f)
+    rtol, atol = TOLERANCES["bf16_chain"]
+    loss_over = abs(loss.item() - loss_f.item()) / (atol + rtol * abs(loss_f.item()))
+    grad_rel = {}
+    if grad:
+        for (path, g), (_, w) in zip(leaves_with_paths(out[1]), leaves_with_paths(out_f[1])):
+            grad_rel[path] = ((g.double() - w.double()).norm() / w.double().norm()).item()
+    del out, out_u, out_f
+    torch.cuda.empty_cache()
+    host, wall = host_and_wall_ms(call, calls=2)
+    split = traced_split(call)
+    plan = _plan_of(runner).plan
+    a2a = moe.dispatch_alltoalls(plan)
+    holders = whole_vocab_steps(runner, (params, batch), V)
+    rec = {"label": label, "layers": L, "grad": grad, "card": card, "loss": loss.item(),
+           "routed_loss_equal": same_loss, "routed_grad_rel_err_norm_max": routed_gap,
+           "second_call_grad_rel_err_norm_max": self_gap,
+           "loss_forced_unsharded": loss_f.item(), "loss_err_over_bf16_chain": loss_over,
+           "grad_rel_err_norm_max": max(grad_rel.values()) if grad else None,
+           "routing": flips, "dispatch_alltoalls": a2a, "launches": launches,
+           "launches_unsharded": launches_u, "first_call_s": first_s, "host_ms": host,
+           "wall_ms": wall, "split": split, "peak_gib": peak,
+           "whole_vocab_steps": holders, **_plan_readings(runner, mesh)}
+    print(f"  {label}: {L} layers, B{batch['tokens'].shape[0]} S{batch['tokens'].shape[1]}; "
+          f"loss {loss.item():.6f}, unsharded with the partitioned run's routing "
+          f"{loss_f.item():.6f} ({loss_over:.3f} x bf16_chain)"
+          + (f"; gradient leaves in norm at most {rec['grad_rel_err_norm_max']:.3e} "
+             f"(bf16_grad {TOLERANCES['bf16_grad'][0]})" if grad else ""), flush=True)
+    print(f"    the routing-returning runner against the program: loss equal bit for bit "
+          f"{same_loss}" + (f", gradient leaves in norm at most {routed_gap:.3e} (the "
+                           f"program's second call against its first {self_gap:.3e}; "
+                           f"at most twice that or coarse {TOLERANCES['coarse'][0]})"
+                           if grad else ""), flush=True)
+    print(f"    routing against the unsharded run's own: {flips['flips']} of "
+          f"{flips['tokens']} x {L} token-layers differ (per layer {flips['per_call']}), "
+          f"smallest margin {flips['min_margin']}, margin over own change x2 "
+          f"{flips['max_margin_over_own_diff']:.3f}", flush=True)
+    print(f"    dispatch all-to-alls {a2a}; collectives per call "
+          f"{json.dumps(rec['collectives_per_call'])}; fallbacks {json.dumps(rec['fallbacks'])}; "
+          f"whole-vocabulary steps {holders}; plan {rec['plan_steps']} steps, first call "
+          f"{first_s:.1f} s {json.dumps(rec['first_call_s'])}", flush=True)
+    print(f"    host {host:.1f} ms, wall {wall:.1f} ms per call; by part "
+          f"{_split_text(split) if split else 'not measured'}; peak {peak:.3f} GiB (plan's "
+          f"modeled peak x8 {rec['modeled_peak_x8_gib']:.3f}); launches {launches}",
+          flush=True)
+    want = {"flash_attention": L, "flash_attention_bwd": L if grad else 0, "ssd_scan": 0,
+            "ssd_scan_bwd": 0}
+    check(launches == want and launches_u == want,
+          f"{label}: launches {launches} (unsharded {launches_u}), want {want}")
+    check(same_loss and routed_gap <= max(2 * self_gap, TOLERANCES["coarse"][0]),
+          f"{label}: the routing-returning runner differs from the program: loss equal "
+          f"{same_loss}, gradient leaves {routed_gap} in norm")
+    each = 2 * L if grad else L
+    check(a2a["to_experts"] >= each and a2a["to_batch"] >= each,
+          f"{label}: the dispatch all-to-alls {a2a}, want {each} each way")
+    check(not rec["fallback_gathers"], f"{label}: fallbacks gathered {rec['fallback_gathers']}")
+    check(not holders, f"{label}: plan steps held a whole vocabulary dim: {holders}")
+    check(flips["max_margin_over_own_diff"] <= 1.0,
+          f"{label}: a routing flip at a margin above the logits' own change: {flips}")
+    check(math.isfinite(rec["loss"]) and loss_over <= 1.0, f"{label}: loss off: {rec}")
+    check(not grad or rec["grad_rel_err_norm_max"] <= TOLERANCES["bf16_grad"][0],
+          f"{label}: gradient leaves off: {grad_rel}")
+    del runner
+    torch.cuda.empty_cache()
+    return rec
+
+
+def moe_partition_phase(seed, card):
+    """granite-moe-1b-a400m at full width cut to MOE_PARTITION_LAYERS under
+    moe_2d on ("data" 2, "model" 4): the loss and the step's gradient
+    (float32 masters, bf16 compute, remat "none", the layer loop unrolled;
+    ``moe_partition_case``), then ``Engine`` under ``set_mesh`` in float32
+    (the decode step one program; pooled routing) against the same engine
+    unsharded: logits per step by tests/test_torch_serve.py's rule in
+    "coarse", one flash decode launch per layer per step, no fallback that
+    gathers, no whole-vocabulary step, each read from the engine's own
+    runner (``moe_serve_run``)."""
+    from repro_torch.configs.base import get_strategy
+    from repro_torch.configs.registry import default_strategy, get_config
+    from repro_torch.core.compat import TOLERANCES, set_mesh
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import api, moe
+    from repro_torch.models.layers import tree_init
+    from repro_torch.obs.routing import routing_flips
+
+    mesh, Lp = make_test_mesh(), MOE_PARTITION_LAYERS
+    st = get_strategy(default_strategy(MOE_ARCH))
+    cfg = get_config(MOE_ARCH).with_(num_layers=Lp, scan_layers=False, remat="none")
+
+    def init(dtype, seed_):
+        """Params as the mesh declares them: the vocabulary padded to "model"
+        (49,155 -> 49,156), the pad's rows zero; both runs take them."""
+        with set_mesh(mesh):
+            p = tree_init(api.param_tree(cfg, st), torch.Generator("cuda").manual_seed(seed_),
+                          dtype=dtype, device="cuda")
+        p["embed"]["embedding"][cfg.vocab_size:] = 0
+        return p
+
+    params = init(cfg.param_dtype, seed + 62)
+    rng = np.random.default_rng(seed + 63)
+    tok = rng.integers(0, cfg.vocab_size, (MOE_PARTITION_B, MOE_PARTITION_S + 1))
+    batch = {"tokens": torch.from_numpy(tok[:, :-1].copy()).cuda(),
+             "labels": torch.from_numpy(tok[:, 1:].copy()).cuda()}
+    print(f"moe partition: {MOE_ARCH} at {Lp} layers under {st.name} on (data 2, model 4), "
+          f"against the same programs unsharded on the card; {card}", flush=True)
+    out = {"loss": moe_partition_case("loss", cfg, st, params, batch, mesh, seed, card, False),
+           "grad": moe_partition_case("loss and gradient", cfg, st, params, batch, mesh, seed,
+                                      card, True)}
+    del params
+    torch.cuda.empty_cache()
+    # serving: float32, for its routing: in bf16 the two runs' router
+    # logits part by about 1e-2 and a pooled token's experts flip within a
+    # few steps
+    cfg32 = cfg.with_(dtype="float32")
+    p32 = init("float32", seed + 64)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(4, 9, size=8)]
+    un = moe_serve_run(cfg32, st, p32, None, prompts)
+    torch.cuda.empty_cache()
+    sh = moe_serve_run(cfg32, st, p32, mesh, prompts)
+    runner = sh.pop("runner")
+    sh.update(_plan_readings(runner, mesh))
+    sh["dispatch_alltoalls"] = moe.dispatch_alltoalls(_plan_of(runner).plan)
+    token = torch.zeros((8, 1), dtype=torch.long, device="cuda")
+    cache, pos = sh.pop("cache"), torch.zeros((), dtype=torch.int32, device="cuda")
+    step = (lambda: runner(p32, token, cache, pos))
+    with torch.no_grad():
+        sh["host_ms"], sh["drained_wall_ms"] = host_and_wall_ms(step, calls=2)
+        sh["split"] = traced_split(step)
+        holders = whole_vocab_steps(runner, (p32, token, cache, pos),
+                                    p32["embed"]["embedding"].shape[0])
+    del cache
+    # the steps before the first routing flip, while the greedy tokens agree:
+    # each step's logits in norm within bf16_round's rtol (the caches are
+    # bf16 in both runs, R10: a k or v element rounded the other way)
+    flips = [routing_flips(a[0], a[1], b[0], b[1])
+             for a, b in zip(sh.pop("routing"), un.pop("routing"))]
+    first = next((i for i, f in enumerate(flips) if f["flips"]), len(flips))
+    limit = TOLERANCES["bf16_round"][0]
+    held, parted, worst = _logits_rule(sh["logits"][:first], un["logits"][:first], "coarse",
+                                       limit)
+    want = {"flash_attention": Lp, "flash_attention_bwd": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
+    bad = [i for i, (a, b) in enumerate(zip(sh["launches"], un["launches"]))
+           if a != want or b != want]
+    sound = max(f["max_margin_over_own_diff"] for f in flips)
+    print(f"  serve float32, Engine(8 slots, max_len {SERVE_MAX_LEN}) under set_mesh: "
+          f"{sh['steps']} steps, routing flips per step {[f['flips'] for f in flips]} (margin "
+          f"over own change x2 at most {sound:.3f}), logits vs unsharded before the first "
+          f"flip ({first} steps, {limit} in norm) held {held}, parted at {parted}, worst "
+          f"{worst:.3f}; tokens equal {sh['outs'] == un['outs']}; {len(runner.plans)} plan, "
+          f"{sh['plan_steps']} steps, collectives per step "
+          f"{json.dumps(sh['collectives_per_call'])}, dispatch all-to-alls "
+          f"{sh['dispatch_alltoalls']}, fallbacks {json.dumps(sh['fallbacks'])}, "
+          f"whole-vocabulary steps {holders}; the routing-returning runner equal to the "
+          f"engine's bit for bit at {sum(sh['routed_equal'])} of {len(sh['routed_equal'])} "
+          f"steps", flush=True)
+    print(f"    sharded: first step {sh['step_ms'][0]:.1f} ms, step wall "
+          f"{statistics.median(sh['step_ms'][1:]):.2f} ms, drained host {sh['host_ms']:.2f} "
+          f"ms, by part {_split_text(sh['split']) if sh['split'] else 'not measured'}, peak "
+          f"{sh['peak_gib']:.3f} GiB above the params and cache (plan's modeled peak x8 "
+          f"{sh['modeled_peak_x8_gib']:.3f}); unsharded step wall "
+          f"{statistics.median(un['step_ms'][1:]):.2f} ms, peak {un['peak_gib']:.3f} GiB",
+          flush=True)
+    check(all(sh["routed_equal"]) and len(sh["routed_equal"]) == sh["steps"],
+          f"moe partitioned serve: the routing-returning runner differs from the engine's: "
+          f"{sh['routed_equal']}")
+    check(held, f"moe partitioned serve: logits off at step {parted} ({worst:.3f})")
+    check(sound <= 1.0, f"moe partitioned serve: a routing flip at a margin above the "
+          f"logits' own change: {flips}")
+    check(not bad, f"moe partitioned serve: launches off at steps {bad}; want {want}")
+    check(len(runner.plans) == 1, f"moe partitioned serve: {len(runner.plans)} plans")
+    check(not sh["fallback_gathers"], f"moe partitioned serve: fallbacks gathered "
+          f"{sh['fallback_gathers']}")
+    check(not holders, f"moe partitioned serve: whole-vocabulary steps {holders}")
+    check(sh["done"] and un["done"], "moe partitioned serve: unfinished requests")
+    out["serve"] = {**{k: v for k, v in sh.items() if k not in ("outs", "logits", "launches")},
+                    "unsharded_step_ms": un["step_ms"], "routing_flips": flips,
+                    "steps_before_first_flip": first,
+                    "logits_rule": {"held": held, "parted_at_step": parted, "worst": worst,
+                                    "norm_limit": limit},
+                    "launches_per_step": want, "whole_vocab_steps": holders}
+    del runner, p32
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_serve_run(cfg, st, params, mesh, prompts):
+    """``Engine(slots=8, max_len=SERVE_MAX_LEN)`` serving ``prompts`` with
+    MOE_SERVE_NEW new tokens each, each step's routing recorded: unsharded
+    by ``RoutingSpy`` around its decode step; under ``set_mesh(mesh)`` the
+    engine's own step (``engine.runner``) and, on the same inputs, a second
+    runner of ``api.partitionable_decode`` built with the engine's options
+    and returning its routing too (``with_routing``), whose logits and
+    cache must equal the engine's bit for bit.  Per step: the last
+    position's logits, the routing, the kernels' launches in the engine's
+    step and the wall ms of that step to the sampler's read; under the
+    mesh also the engine's runner and last cache."""
+    from repro_torch.core.compat import set_mesh
+    from repro_torch.core.partitioner import spmd_partition
+    from repro_torch.models import api
+    from repro_torch.obs.routing import RoutingSpy, stacked, with_routing
+    from repro_torch.serve.engine import Engine, Request
+
+    with set_mesh(mesh):
+        eng = Engine(cfg, st, params, batch_slots=len(prompts), max_len=SERVE_MAX_LEN)
+    rec = {"logits": [], "routing": [], "launches": [], "step_ms": [], "routed_equal": []}
+    decode = eng._decode
+    if mesh is not None:
+        routed = spmd_partition(with_routing(api.partitionable_decode(cfg, st, mesh)), mesh,
+                                optimize=True, verify=True, profile=None, device="cuda")
+
+    def step(tokens):
+        cache = eng.cache
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        layers = []
+        with RoutingSpy(layers) if mesh is None else contextlib.nullcontext():
+            out, launches = counted(lambda: decode(tokens))
+        rec["logits"].append(out[0][:, -1].float().cpu())
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["launches"].append(launches)
+        if mesh is None:
+            rec["routing"].append(stacked(layers))
+        else:
+            (logits, new_cache), routing_logits, experts = routed(
+                eng.params, torch.as_tensor(tokens, device=eng.device), cache, eng._pos)
+            rec["routed_equal"].append(torch.equal(logits, out[0]) and all(
+                torch.equal(new_cache[k], out[1][k]) for k in out[1]))
+            rec["routing"].append((routing_logits, experts))
+        return out
+
+    eng._decode = step
+    reqs = [Request(prompt=p, max_new_tokens=MOE_SERVE_NEW) for p in prompts]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        eng.generate(reqs)
+    rec.update(steps=eng.pos, outs=[r.out for r in reqs], done=all(r.done for r in reqs),
+               peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30)
+    if mesh is not None:
+        rec.update(runner=eng.runner, cache=eng.cache)
+    return rec
+
+
+def moe_phase(seed, card):
+    """granite-moe-1b-a400m at full width (random weights from the seed):
+    serving (``serve_phase``: 16 greedy requests behind ``Engine(slots=8,
+    max_len=1024)``, pooled routing, 24 flash decode launches a step), the
+    loss (``loss_phase``, B2 S2048), the kernel path against the plain path
+    by routing first (``moe_consistency``), training (``train_phase``
+    through ``launch.train.main``, B4 S2048, MOE_TRAIN_STEPS Adafactor
+    steps) and the partitioned paths (``moe_partition_phase``), each path's
+    device time split by ``moe_split``."""
+    from repro_torch.models import api
+
+    t0 = time.perf_counter()
+    cfg, st, params = full_width_model(MOE_ARCH, seed)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    serve = serve_phase(cfg, st, params, seed, "flash_attention")
+    serve["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30  # above the params
+    loss = loss_phase(cfg, st, params, seed, B=MOE_LOSS_B, S=MOE_LOSS_S,
+                      kernel="flash_attention")
+    rng = np.random.default_rng(seed + 2)  # loss_phase's batch
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (MOE_LOSS_B, MOE_LOSS_S)))
+             .cuda() for k in ("tokens", "labels")}
+    with torch.inference_mode():
+        loss["split"] = traced_split(lambda: api.loss_fn(cfg, st, params, batch))
+        token = torch.zeros((8, 1), dtype=torch.long, device="cuda")
+        cache = {k: torch.zeros(v, dtype=api.cache_dtype(k), device="cuda")
+                 for k, v in api.cache_shapes(cfg, st, 8, 1024).items()}
+        pos = torch.full((), 512, dtype=torch.int32, device="cuda")
+        eng_split = traced_split(lambda: api.decode_step(cfg, st, params, token, cache, pos)[0]
+                                 [:, -1].float().cpu(), calls=3)
+    serve["split"] = eng_split
+    print(f"  loss by part: {_split_text(loss['split']) if loss['split'] else 'not measured'}"
+          f"; a decode step by part: {_split_text(eng_split) if eng_split else 'not measured'}"
+          f"; serving's peak above the params {serve['peak_gib']:.3f} GiB", flush=True)
+    del batch, cache
+    consistency = moe_consistency(cfg, st, params, seed, card)
+    del params
+    torch.cuda.empty_cache()
+    train = train_phase(seed, arch=MOE_ARCH, B=MOE_TRAIN_B, S=MOE_TRAIN_S,
+                        steps_n=MOE_TRAIN_STEPS, profiled=MOE_PROFILED_STEP)
+    torch.cuda.empty_cache()
+    partition = moe_partition_phase(seed, card)
+    seconds = time.perf_counter() - t0
+    print(f"moe: {seconds:.1f} s", flush=True)
+    return {"arch": MOE_ARCH, "serve": serve, "loss": loss, "consistency": consistency,
+            "train": train, "partition": partition, "seconds": seconds}
 
 
 # ---------------------------------------------------------------------------------
@@ -5801,21 +6360,6 @@ def checkpoint_phase(seed, card):
             "free_disk_gb": free / 1e9, "seconds": seconds}
 
 
-def checkpoint_phase_in_own_process(seed, card, timeout=450):
-    """``checkpoint_phase`` in a fresh process, with its own time limit."""
-    code = (f"import sys, json; sys.path.insert(0, {str(ROOT)!r}); import torch, chip_smoke; "
-            "torch.backends.cuda.matmul.allow_tf32 = False; "
-            "torch.backends.cudnn.allow_tf32 = False; "
-            f"print(json.dumps(chip_smoke.checkpoint_phase({seed}, {card!r})))")
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                          timeout=timeout)
-    lines = proc.stdout.splitlines()
-    print("\n".join(lines[:-1] if proc.returncode == 0 else lines), flush=True)
-    check(proc.returncode == 0 and lines,
-          f"the checkpoint phase failed ({proc.returncode}): {proc.stderr[-3000:]}")
-    return json.loads(lines[-1])
-
-
 # ---------------------------------------------------------------------------------
 # elastic recovery (launch/elastic.py): shrink, rewind and regrow under the
 # partitioned train step
@@ -6306,6 +6850,10 @@ def main(argv=None):
     torch.cuda.empty_cache()
     mamba_two_layer = mamba_two_layer_phase(args.seed)
     torch.cuda.empty_cache()
+    print(f"moe (at {time.perf_counter() - t0:.0f} s): {MOE_ARCH} at full width served, its "
+          "loss, its kernel path against the plain path by routing, trained, and partitioned "
+          "with the dispatch as an AllToAll", flush=True)
+    moe = phase_in_own_process("moe_phase", args.seed, smi, timeout=300)
 
     print(f"partition (at {time.perf_counter() - t0:.0f} s): the port's partitioner on a "
           "simulated (2,4) mesh, by compiled plan and by the dynamic path, against the same "
@@ -6318,15 +6866,17 @@ def main(argv=None):
     print(f"pipeline (at {time.perf_counter() - t0:.0f} s): GSPMD §3.3 pipelining through the "
           "partitioner on a simulated (\"stage\" 4, \"model\" 2) mesh, against the unpipelined "
           "and the unsharded steps", flush=True)
-    pipeline = pipeline_phase_in_own_process(args.seed, partition["card"])
+    pipeline = phase_in_own_process("pipeline_phase", args.seed, partition["card"], timeout=300)
     print(f"checkpoint (at {time.perf_counter() - t0:.0f} s): crash and restart through "
           "launch.train.main, and the partitioned state restored onto other meshes", flush=True)
-    checkpoint = checkpoint_phase_in_own_process(args.seed, partition["card"])
+    checkpoint = phase_in_own_process("checkpoint_phase", args.seed, partition["card"],
+                                      timeout=450)
     print(f"phases done at {time.perf_counter() - t0:.0f} s (obs {sharded['obs']['seconds']:.0f} "
           f"s, autoshard {sharded['autoshard']['seconds']:.0f} s, plan_opt {sharded['plan_opt']['seconds']:.0f} s, scan "
           f"{sharded['scan']['seconds']:.0f} s, "
           f"pipeline {pipeline['seconds']:.0f} s, checkpoint {checkpoint['seconds']:.0f} s "
-          f"with elastic {checkpoint['elastic']['seconds']:.0f} s of them)", flush=True)
+          f"with elastic {checkpoint['elastic']['seconds']:.0f} s of them, moe "
+          f"{moe['seconds']:.0f} s)", flush=True)
 
     fa_main = next(c for c in fa_cases if c["case"] == "decode_8x16_pos1023")
     fa_prefill = next(c for c in fa_cases if c["case"] == "prefill_qwen_loss_2x2048")
@@ -6364,6 +6914,10 @@ def main(argv=None):
         name: {c["label"]: scanned_launches(c, name) for c in sharded["scan"]["cases"]}
         for name in ("flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    moe_cases = {  # the kernels at granite-moe-1b-a400m's shapes
+        name: {c["case"]: {k: c[k] for k in keys} for c in cases
+               if "granite" in c["case"] or c["case"].startswith("moe_")}
+        for name, cases in (("flash_attention", fa_cases), ("flash_attention_bwd", bwd_cases))}
     ssd_keys = ("dev_ms", "pass_dev_ms", "launches_per_call")
     record = {"kernels": [{
         "name": "flash_attention", "route": "cuda",
@@ -6393,6 +6947,18 @@ def main(argv=None):
             f"{c['arch']} {c['strategy']} {c['layers']}L {c['dtype']}"
             + (" shard_kv_seq" if c["shard_kv_seq"] else ""):
             c["sharded_launches_per_step"]["flash_attention"] for c in sharded["serve"]},
+        "moe_launches": {  # granite-moe-1b-a400m's paths
+            "serve": moe["serve"]["launches"]["flash_attention"],
+            "serve_decode_steps": moe["serve"]["decode_steps"],
+            "loss": moe["loss"]["launches"]["flash_attention"],
+            "consistency_forward": moe["consistency"]["launches"]["flash_attention"],
+            "train": moe["train"]["launches"]["flash_attention"],
+            "train_steps": MOE_TRAIN_STEPS,
+            "partition_loss_per_call": moe["partition"]["loss"]["launches"]["flash_attention"],
+            "partition_grad_per_call": moe["partition"]["grad"]["launches"]["flash_attention"],
+            "partition_serve_per_step":
+                moe["partition"]["serve"]["launches_per_step"]["flash_attention"]},
+        "moe_cases": moe_cases["flash_attention"],
         "cases": fa_cases,
     }, {
         "name": "ssd_scan", "route": "cuda",
@@ -6420,6 +6986,11 @@ def main(argv=None):
         "pipeline_launches_per_call": pipe_launches["flash_attention_bwd"],
         "autoshard_launches_per_call": sharded["autoshard"]["launches"]["flash_attention_bwd"],
         "elastic_launches_per_step": elastic_launches["flash_attention_bwd"],
+        "moe_launches": {"train": moe["train"]["launches"]["flash_attention_bwd"],
+                         "train_steps": MOE_TRAIN_STEPS,
+                         "partition_grad_per_call":
+                             moe["partition"]["grad"]["launches"]["flash_attention_bwd"]},
+        "moe_cases": moe_cases["flash_attention_bwd"],
         "pipeline_case": {"case": bwd_pipe["case"], **{k: bwd_pipe[k] for k in keys},
                           "device_ms": bwd_pipe["device_ms"]},
         "cases": bwd_cases,
@@ -6444,7 +7015,7 @@ def main(argv=None):
                                  "two_layer_step": qwen_two_layer},
         "mamba2": {"loss": mamba_loss, "serve": mamba_serve, "consistency": mamba_consistency,
                    "train": mamba_train, "two_layer_step": mamba_two_layer},
-        "partition": partition, "sharded": sharded, "pipeline": pipeline,
+        "moe": moe, "partition": partition, "sharded": sharded, "pipeline": pipeline,
         "checkpoint": checkpoint}
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps(record))

@@ -7,10 +7,12 @@ per input element; the flash-attention operators at 4·B·H·S·T·D (the
 forward's two products; ``flash_attention``, ``flash_decode`` and
 ``flash_attention_fwd``) and 2.5 times that (the backward's five), halved for
 a causal mask; the SSD scan as ``ssd_flops`` counts it, its gradient as
-``ssd_bwd_flops``; a scan node (``core/scan.py``) as its body's at trip
-count.  Data movement (views, permutes, copies, casts) counts nothing.
-``core/plan.py::plan_cost`` divides the total by the mesh size for the
-ideal per-device balance point.
+``ssd_bwd_flops``; the MoE routing ops that work along one dim (softmax and
+its gradient, topk, sort, scatter, searchsorted; ``rules.ALONG_DIM``) at 1
+flop per element of their (first) result, as the elementwise ops; a scan
+node (``core/scan.py``) as its body's at trip count.  Data movement (views,
+permutes, copies, casts) counts nothing.  ``core/plan.py::plan_cost``
+divides the total by the mesh size for the ideal per-device balance point.
 
 The graph spells some ops otherwise than a jaxpr: ``addmm`` holds its bias
 add (the reference counts a separate ``add``), a convolution its bias, and
@@ -22,8 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch.fx
 
-from ..core.rules import (FLASH, FLASH_BWD, FLASH_DECODE, FLASH_FWD, REDUCE, SCANS, SSD, SSD_BWD,
-                          lower)
+from ..core.rules import (ALONG_DIM, FLASH, FLASH_BWD, FLASH_DECODE, FLASH_FWD, REDUCE, SCANS, SSD,
+                          SSD_BWD, lower)
 
 ELEMENTWISE_1FLOP = {"aten." + n for n in (
     "add", "sub", "rsub", "mul", "div", "maximum", "minimum", "neg", "abs", "exp", "log",
@@ -47,6 +49,8 @@ def eqn_flops(eqn) -> float:
         return ssd_bwd_flops(Bb, S, H, hd, eqn.in_avals[2].shape[-1], eqn.params["chunk"])
     if name in SCANS:
         return eqn.params["length"] * count_flops(eqn.params["body"].graph)
+    if name in ALONG_DIM:
+        return _nelems((eqn.out_avals or eqn.tuple_avals)[0].shape)
     if not eqn.out_avals:
         return 0.0
     out = eqn.out_avals[0].shape

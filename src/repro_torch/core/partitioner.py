@@ -38,6 +38,10 @@ devices' shards), with explicit collectives:
                      the indexed dim sharded: masked local lookups plus a
                      psum, or masked local scatters, no gather of the table;
 * logsumexp        — local max, pmax, local sum of exp, psum;
+* MoE routing      — softmax and its gradient, topk, sort, scatter and
+                     searchsorted on each device's shard, the dim they work
+                     along gathered first, every other dim kept (no
+                     collective of their own);
 * stack / unbind / select and their gradients — the dim they insert,
                      remove or slice replicated, the others kept;
 * factories        — replicated, a sharded constant fill at its local shape;
@@ -92,12 +96,12 @@ from .einsum_rules import partitioned_einsum
 from .halo import local_conv, sharded_conv_nd
 from .propagation import PropagationResult, add0, drop0, propagate
 from .reshard import reshard_local, shard_shape
-from .rules import (BROADCAST, DOT, ELEMENTWISE, FACTORY, FLASH, FLASH_BWD, FLASH_DECODE, SCANS,
-                    FLASH_FWD, REDUCE, RESHAPE, SSD, SSD_BWD, TRANSPOSE, _SSD_DIMS, _bcast_map,
-                    _heads, _heads_layout, _invert, _project, _reshape_dim_map, _ssd_dims,
-                    decode_layout, decode_seq_axes, flash_heads, flash_layout, index_copy_maps,
-                    index_maps, insert_map, kwargs_of, lower, ssd_bwd_dims, ssd_heads,
-                    ssd_layout)
+from .rules import (ALONG_DIM, BROADCAST, DOT, ELEMENTWISE, FACTORY, FLASH, FLASH_BWD,
+                    FLASH_DECODE, SCANS, FLASH_FWD, REDUCE, RESHAPE, SSD, SSD_BWD, TRANSPOSE,
+                    _SSD_DIMS, _bcast_map, _heads, _heads_layout, _invert, _project,
+                    _reshape_dim_map, _ssd_dims, along_dim_maps, decode_layout, decode_seq_axes,
+                    flash_heads, flash_layout, index_copy_maps, index_maps, insert_map, kwargs_of,
+                    lower, ssd_bwd_dims, ssd_heads, ssd_layout)
 from .sharding import Mesh, Sharding, merge_shardings, replicated
 
 
@@ -880,6 +884,57 @@ def decide_scatter_add(eqn, shardings, want, mesh: Mesh) -> LocalOp:
     return LocalOp(targets, base, fn)
 
 
+# -- ops along one dim: the MoE routing ops ------------------------------------------
+
+
+def decide_along_dim(eqn, shardings, want, mesh: Mesh) -> Optional[LocalOp]:
+    """softmax, its gradient, topk, sort, scatter and searchsorted
+    (``rules.along_dim_maps``): the result's completed sharding (else the
+    merge of the operands' carried dims) without the operated dim, each
+    operand resharded to it on the dims it carries, the operated dim whole;
+    then the op on each device's shard at its dim shifted past the stacked
+    device dim (a 1-D sorted sequence for queries of higher rank takes the
+    fallback).  No collective: the plan prices it as the elementwise ops
+    (one flop per local result element, the reshards as their programs)."""
+    searchsorted = eqn.name == "aten.searchsorted"
+    if searchsorted and eqn.in_avals[0].ndim == 1 and eqn.in_avals[1].ndim > 1:
+        return None  # one sorted sequence for queries of higher rank: not batched
+    maps = along_dim_maps(eqn)
+    avals = eqn.out_avals or eqn.tuple_avals
+    rank = avals[0].ndim
+    wants = want if isinstance(want, list) else [want]
+    base = replicated(mesh, rank)
+    for s in [w for w in wants if w is not None] + [
+            _project(s, mp, rank) for s, mp in zip(shardings, maps)]:
+        base = merge_shardings(base, s) or base
+    # a result dim keeps its sharding where every operand carries it (the
+    # queries of searchsorted alone: each is looked up on its own)
+    carried = maps[-1:] if searchsorted else maps
+    out = _sharding(mesh, [a if all(mp[j] is not None for mp in carried) else ()
+                           for j, a in enumerate(base.dims_mapping)])
+    targets = [_project(out, _invert(mp, a.ndim), a.ndim) for mp, a in zip(maps, eqn.in_avals)]
+    node, invars = eqn.node, eqn.invars
+    kw = kwargs_of(node)  # the schema's "self" is normalized to "input"
+    if "input" in kw:
+        kw["self"] = kw.pop("input")
+    if "dim" in kw:
+        kw["dim"] = eqn.params["dim"] + 1
+    positional = [a.name for a in node.target._schema.arguments if not a.kwarg_only]
+
+    def fn(*vals):
+        local = dict(zip(invars, vals))
+        k = {n: _substitute(a, local.__getitem__) for n, a in kw.items()}
+        if searchsorted:  # stacked shards may be strided views
+            k["sorted_sequence"] = k["sorted_sequence"].contiguous()
+            k["self"] = k["self"].contiguous()
+        r = node.target(*[k.pop(n) for n in positional], **k)
+        return list(r) if isinstance(r, tuple) else r
+
+    local_elems = float(np.prod(shard_shape(avals[0].shape, out) or (1,)))
+    return LocalOp(targets, [out] * len(avals) if eqn.tuple_avals else out, fn,
+                   flops=local_elems)
+
+
 LOCAL_OPS = {
     FLASH: decide_flash,
     FLASH_FWD: decide_flash_fwd,
@@ -899,6 +954,7 @@ LOCAL_OPS = {
     "aten.gather": decide_gather,
     "aten.scatter_add": decide_scatter_add,
     **{name: decide_factory for name in FACTORY},
+    **{name: decide_along_dim for name in ALONG_DIM},
 }
 
 

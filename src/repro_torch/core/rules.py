@@ -45,6 +45,14 @@ Where an aten graph differs from a jaxpr:
   takes its fallback, where XLA partitions its model layer; the port has no
   XLA behind it, so these rules stand in for XLA's partitioning of the
   sharded loss (ROADMAP Queue C);
+* the ops of MoE routing (``models/moe.py``) that work along one dim:
+  ``_softmax`` and its gradient ``_softmax_backward_data``, ``topk`` (both
+  results), ``sort`` (stable or not, both results), ``scatter`` (the
+  gradient of ``topk``) and ``searchsorted`` (its sorted sequence's last
+  dim): every other dim carries its sharding between operands and
+  results, the operated dim none (the partitioner gathers it first);
+  the reference has no rules for them and takes its fallback, which here
+  would gather every dim;
 * factory ops (``ones``, ``zeros``, ``arange``, ...) are created replicated,
   like the reference's ``iota``;
 * the SSD scan (``repro_torch::ssd_scan``) maps batch, heads and the head
@@ -338,6 +346,12 @@ def _slice_backward_params(node, ins, out):
 
 def _gather_params(node, ins, out):
     return {"dim": _dim_param(node, ins[0].ndim)}
+
+
+def _along_dim_params(node, ins, out):
+    """The dim a softmax, topk, sort or scatter works along."""
+    kw = kwargs_of(node)
+    return {"dim": _norm(kw.get("dim", -1), ins[0].ndim)}
 
 
 def _flip_params(node, ins, out):
@@ -896,6 +910,33 @@ def index_copy_maps(eqn) -> List[List[Optional[int]]]:
     return [list(range(rank)), [None] * rank, [j if j != d else None for j in range(rank)]]
 
 
+def along_dim_maps(eqn) -> List[List[Optional[int]]]:
+    """Result dim -> operand dim for the ops that work along one dim (its
+    sharding dropped), every other dim carried between operands of equal
+    size there:
+
+    * _softmax(x, dim) and _softmax_backward_data(grad, out, dim) -> x's shape;
+    * topk(x, k, dim) and sort(x, dim) -> (values, indices);
+    * scatter(self, dim, index, src) -> self's shape (the gradient of topk);
+    * searchsorted(sorted_sequence, x) -> x's shape: x's every dim (each
+      query is looked up alone), the sequence's leading dims (a 1-D
+      sequence: none)."""
+    name, ins = eqn.name, eqn.in_avals
+    out = (eqn.out_avals or eqn.tuple_avals)[0]
+    if name == "aten.searchsorted":
+        seq, x = ins
+        lead = [j if seq.ndim > 1 and j < seq.ndim - 1 else None for j in range(out.ndim)]
+        return [lead, list(range(out.ndim))]
+    d = eqn.params["dim"]
+    return [[j if j != d and a.shape[j] == out.shape[j] else None for j in range(out.ndim)]
+            for a in ins]
+
+
+def rule_along_dim(eqn, in_sh, out_sh, direction):
+    return _mapped(in_sh, out_sh, eqn.in_avals, eqn.out_avals or eqn.tuple_avals,
+                   along_dim_maps(eqn))
+
+
 def rule_index_copy(eqn, in_sh, out_sh, direction):
     """The cache write of a decode step, the counterpart of the reference's
     ``dynamic_update_slice_in_dim``: the written dim keeps its sharding (the
@@ -948,6 +989,11 @@ _PARAMS = {
     "aten.gather": _gather_params,
     "aten.scatter_add": _gather_params,
     "aten.index_copy": _gather_params,
+    "aten.scatter": _along_dim_params,
+    "aten._softmax": _along_dim_params,
+    "aten._softmax_backward_data": _along_dim_params,
+    "aten.topk": _along_dim_params,
+    "aten.sort": _along_dim_params,
     FLASH_DECODE: lambda node, ins, out: {"causal": False,
                                           "chunk": int(kwargs_of(node)["chunk"])},
     SSD: lambda node, ins, out: {"chunk": int(kwargs_of(node)["chunk"])},
@@ -1022,6 +1068,13 @@ for name, rule in (("aten.unbind", rule_drop_dim), ("aten.select", rule_drop_dim
                    *((n, rule_index) for n in INDEX)):
     RULES[name] = rule
     PRIORITY[name] = 1
+
+# the MoE routing ops, at the priority of the other dimension-changing ops
+ALONG_DIM = {"aten._softmax", "aten._softmax_backward_data", "aten.topk", "aten.sort",
+             "aten.scatter", "aten.searchsorted"}
+for name in ALONG_DIM:
+    RULES[name] = rule_along_dim
+    PRIORITY[name] = 2
 
 RULES[STAGE_SHIFT] = rule_stage_shift
 PRIORITY[STAGE_SHIFT] = 1

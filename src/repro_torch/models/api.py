@@ -11,9 +11,9 @@ and, for any family, ``cache_specs`` / ``abstract_cache`` (the reference's)
 and the programs the partitioner runs under a mesh: ``partitionable_loss``
 (the loss, no gradient), ``partitionable_pipelined_loss`` (the same loss
 with the layer stack pipelined, GSPMD §3.3) and ``partitionable_decode``
-(one serve step, its position a tensor).  The port has the dense and ssm
-families so far; the others raise and name the ROADMAP item that brings
-them.
+(one serve step, its position a tensor).  The port has the dense, moe
+and ssm families so far; the others raise and name the ROADMAP item that
+brings them.
 
 Families with a homogeneous layer stack also declare a **stackable-layer
 boundary** (:func:`pipeline_boundary`): the prologue / layer body /
@@ -32,15 +32,14 @@ from . import ssm_lm, transformer
 from .layers import annotate_spec, annotate_tree
 
 _PENDING = {
-    "moe": "A12",
-    "hybrid": "A12",
-    "encdec": "A12",
-    "vlm": "A12",
+    "hybrid": "A12b",
+    "encdec": "A12c",
+    "vlm": "A12c",
 }
 
 
 def family_module(cfg: ModelConfig):
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):  # MoE FFNs live inside the transformer layer
         return transformer
     if cfg.family == "ssm":
         return ssm_lm
@@ -56,8 +55,8 @@ def param_tree(cfg: ModelConfig, st: Strategy):
 
 
 def forward(cfg: ModelConfig, st: Strategy, params, tokens):
-    """Logits (B,S,V); the dense family's aux loss (0 without MoE) is dropped."""
-    if cfg.family == "dense":
+    """Logits (B,S,V); the transformer's aux loss (0 without MoE) is dropped."""
+    if cfg.family in ("dense", "moe"):
         return transformer.forward(cfg, st, params, tokens)[0]
     return family_module(cfg).forward(cfg, st, params, tokens)
 
@@ -94,7 +93,8 @@ class PipelineBoundary(NamedTuple):
 
 def pipeline_boundary(cfg: ModelConfig, st: Strategy) -> Optional[PipelineBoundary]:
     """The family's stackable-layer boundary, or None where the stack is not
-    homogeneous (MoE, hybrid, encdec, vlm) or the config declares
+    homogeneous (MoE superblocks and aux carries, hybrid, encdec, vlm) or
+    the config declares
     ``stackable_layers=False``.  Decided from the config alone, before any
     family module is reached (the families not ported yet raise there)."""
     from .layers import embed_lookup, rms_norm, softmax_xent, streamed_xent, unembed_logits
@@ -127,7 +127,8 @@ def pipeline_boundary(cfg: ModelConfig, st: Strategy) -> Optional[PipelineBounda
 
 def cache_specs(cfg: ModelConfig, st: Strategy) -> Dict[str, tuple]:
     """The spec (a plain tuple, trailing Nones dropped) of each cache entry,
-    its leading layer dim unsharded: kv caches on ("batch", seq, "kv", None),
+    its leading layer dims unsharded (one, or two in MoE superblocks): kv
+    caches on ("batch", seq, "kv", None),
     seq on "kv_seq" where ``cfg.shard_kv_seq``; the SSM state on ("batch",
     "heads", None, None) and its conv buffer on ("batch", None, "heads",
     None).  Under a mesh the strategy drops the axes the mesh lacks."""

@@ -3,11 +3,13 @@
 ``params_from_numpy`` takes the JAX package's param tree (nested dicts whose
 leaves are numpy arrays, layer leaves stacked along a leading L dim) and
 returns the port's params on ``device``.  Names map one to one, for every
-ported family; each leaf is stored in the dtype its declaration gives
+ported family (the MoE family's router, its experts with their leading E
+dim and superblock keys ``"0".."sb-1"`` among them); each leaf is stored
+in the dtype its declaration gives
 (``layers.stored_dtype``): ``dtype`` (``cfg.dtype`` by default, as serving
 stores them; ``cfg.param_dtype`` for training's float32 master weights), or
-float32 for the leaves the reference reads in float32 (norm scales,
-Mamba2's ``A_log``, ``dt_bias``, ``D`` and ``norm``).
+float32 for the leaves the reference reads in float32 (norm scales, the MoE
+router, Mamba2's ``A_log``, ``dt_bias``, ``D`` and ``norm``).
 """
 from __future__ import annotations
 

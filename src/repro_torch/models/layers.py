@@ -10,7 +10,8 @@ once, and every matmul weight and bias is cast to ``cfg.dtype`` at its use
 every leaf in ``cfg.param_dtype`` (float32 master weights, which the
 optimizer updates); serving may store them in ``cfg.dtype`` once, where the
 cast at use is a no-op and gives the same values.  Leaves the JAX package
-reads in float32 (norm scales; the SSM's ``A_log``, ``dt_bias`` and ``D``)
+reads in float32 (norm scales; the MoE router; the SSM's ``A_log``,
+``dt_bias`` and ``D``)
 are float32 in either case (``dtype="float32"`` in their declaration).
 """
 from __future__ import annotations
@@ -161,18 +162,25 @@ def rope(q, positions, dh, base=10000.0):
     return out.to(q.dtype)
 
 
-def mlp_params(cfg: ModelConfig, st: Strategy, d_ff: int = 0):
+def mlp_params(cfg: ModelConfig, st: Strategy, d_ff: int = 0, expert_dims=()):
+    """MLP weights; ``expert_dims=(E,)`` prepends an expert dim (§5.5): E on
+    "expert", the per-expert M on "expert_embed" (E already takes the X
+    axis) and H on "expert_mlp"."""
     d_ff = d_ff or cfg.d_ff
     M = cfg.d_model
+    pre = tuple(expert_dims)
+    e = ("expert",) if expert_dims else ()
+    mlp_ax = "expert_mlp" if expert_dims else "mlp"
+    m_ax = "expert_embed" if expert_dims else "embed"
     if cfg.mlp == "swiglu":
         return {
-            "wi_gate": pspec((M, d_ff), st.w("embed", "mlp"), fan_in=M),
-            "wi_up": pspec((M, d_ff), st.w("embed", "mlp"), fan_in=M),
-            "wo": pspec((d_ff, M), st.w("mlp", "embed"), fan_in=d_ff),
+            "wi_gate": pspec(pre + (M, d_ff), st.w(*e, m_ax, mlp_ax), fan_in=M),
+            "wi_up": pspec(pre + (M, d_ff), st.w(*e, m_ax, mlp_ax), fan_in=M),
+            "wo": pspec(pre + (d_ff, M), st.w(*e, mlp_ax, m_ax), fan_in=d_ff),
         }
     return {
-        "wi": pspec((M, d_ff), st.w("embed", "mlp"), fan_in=M),
-        "wo": pspec((d_ff, M), st.w("mlp", "embed"), fan_in=d_ff),
+        "wi": pspec(pre + (M, d_ff), st.w(*e, m_ax, mlp_ax), fan_in=M),
+        "wo": pspec(pre + (d_ff, M), st.w(*e, mlp_ax, m_ax), fan_in=d_ff),
     }
 
 

@@ -58,9 +58,10 @@ its hooks.
 The rewind to a checkpoint after escalated faults is the elastic
 coordinator's (``launch/elastic.py::ElasticCoordinator``): the loop raises
 ``NumericsFault``, and the coordinator restores, acknowledges the fault
-window and swaps in a new step (``swap_plan``).  The dense family and Mamba2
-train (attention's and the SSD's gradients are kernels on the card:
-``kernels/ops.py``); the families with no model yet raise (ROADMAP A12).
+window and swaps in a new step (``swap_plan``).  The dense and MoE
+families and Mamba2 train (attention's and the SSD's gradients are kernels
+on the card: ``kernels/ops.py``; the MoE layer's aux loss joins the loss);
+the families with no model yet raise (ROADMAP A12b, A12c).
 """
 from __future__ import annotations
 

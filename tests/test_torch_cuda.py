@@ -1453,3 +1453,144 @@ def test_elastic_device_loss_on_cuda_matches_cpu(cuda, tmp_path):
     assert all(c == (2, 2) for c in counts.values()), counts
     assert co.loop.step_fn.runner.fallback_gathers == []
     assert_close(np.array(losses), np.array(runs["cpu"][1]), "coarse")
+
+
+# ---------------------------------------------------------------------------------
+# the MoE family on the card (models/moe.py)
+# ---------------------------------------------------------------------------------
+
+
+def _moe_cfg(arch="granite-moe-1b-a400m", **over):
+    """Reduced granite with 8 experts, top 2 (llama4: superblocks of two, a
+    shared expert, top 1), float32: its routing on the card and on the CPU
+    is the same at these sizes, so the paths are held to each other."""
+    cfg = reduced_config(get_config(arch), 16).with_(dtype="float32", **over)
+    return cfg.with_(num_experts=8, top_k=2) if arch.startswith("granite") else cfg
+
+
+def test_moe_layer_on_cuda_matches_cpu(cuda):
+    """One MoE layer by rows (B2 S64, capacity 1.25, drops) and pooled (8
+    rows of one token): the routing first (the same top-k experts), then
+    the output and the aux loss within f32_chain."""
+    from repro_torch.models import moe
+
+    cfg = _moe_cfg()
+    st = get_strategy("moe_2d")
+    cpu = tree_map(lambda t: t[0], tree_init(api.param_tree(cfg, st), torch.Generator()
+                                             .manual_seed(0), dtype="float32",
+                                             device="cpu")["layers"]["moe"])
+    gpu = _to(cpu, cuda)
+    for B, S in ((2, 64), (8, 1)):
+        x = torch.from_numpy(np.random.default_rng(B).standard_normal(
+            (B, S, cfg.d_model)).astype(np.float32))
+        xr = x.reshape(1, B * S, -1) if S == 1 else x
+        assert torch.equal(moe.route(cfg, gpu, xr.to(cuda))[3].cpu(), moe.route(cfg, cpu, xr)[3])
+        got, aux = moe.moe_forward(cfg, st, gpu, x.to(cuda))
+        want, aux_c = moe.moe_forward(cfg, st, cpu, x)
+        assert_close(got, want, "f32_chain")
+        assert_close(aux, aux_c, "f32_chain")
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "llama4-maverick-400b-a17b"])
+def test_moe_loss_backward_on_cuda_matches_cpu(cuda, arch):
+    """The reduced MoE models' loss and every gradient on the card (the flash
+    kernels: one forward and one backward call per layer) against the
+    CPU's, from the same float32 master weights, held by routing first:
+    the CPU's own routing may flip a near-tie (llama4's top 1 did: one
+    token, its expert's gradient 7 % off), and each flip must be sound
+    (``obs/routing.py::routing_flips``); the loss and gradients are held
+    against the CPU run made to take the card's routing."""
+    from repro_torch.obs.routing import RoutingSpy, routing_flips, stacked
+
+    cfg = _moe_cfg(arch, remat="none")
+    st = get_strategy("moe_2d")
+    cpu = _train_params(cfg, st)
+    gpu = tree_map(lambda p: p.detach().to(cuda).requires_grad_(), cpu)
+    batch = {k: torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 128)))
+             for k in ("tokens", "labels")}
+    rec_g, rec_c = [], []
+    fa.launches = fab.launches = 0
+    with RoutingSpy(rec_g):
+        loss_g, grads_g = value_and_grad(cfg, st, gpu, {k: v.to(cuda) for k, v in batch.items()})
+    assert (fa.launches, fab.launches) == (cfg.num_layers, cfg.num_layers)
+    routing_g = [t.cpu() for t in stacked(rec_g)]
+    with RoutingSpy(rec_c):
+        value_and_grad(cfg, st, cpu, batch)
+    assert routing_flips(*routing_g, *stacked(rec_c))["max_margin_over_own_diff"] <= 1.0
+    with RoutingSpy([], forced=routing_g[1]):
+        loss_c, grads_c = value_and_grad(cfg, st, cpu, batch)
+    assert_close(loss_g, loss_c, "f32_chain")
+    _assert_grads_agree(grads_g, grads_c, "float32")
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "llama4-maverick-400b-a17b"])
+def test_moe_decode_on_cuda_matches_cpu(cuda, arch):
+    """Five decode steps (pooled routing, llama4's caches in superblocks) on
+    the card and on the CPU, the CPU step made to take the card step's
+    routing (any flip of its own held sound): each step's logits in norm
+    within coarse's rtol (the caches are bf16 in both, R10, and a cache
+    element rounded the other way reaches later steps through the router's
+    weights: one logit of 50,512 at 1.15 x coarse at step 3 once), one
+    decode launch per layer per step."""
+    from repro_torch.obs.routing import RoutingSpy, routing_flips, stacked
+
+    cfg = _moe_cfg(arch)
+    st = get_strategy("moe_2d")
+    cpu = tree_init(api.param_tree(cfg, st), torch.Generator().manual_seed(0), dtype="float32",
+                    device="cpu")
+    gpu = _to(cpu, cuda)
+    tokens = np.random.default_rng(6).integers(0, cfg.vocab_size, (4, 5))
+    shapes = api.cache_shapes(cfg, st, 4, 16)
+    caches = [{k: torch.zeros(v, dtype=torch.bfloat16, device=d) for k, v in shapes.items()}
+              for d in ("cpu", cuda)]
+    fa.launches = 0
+    for pos in range(5):
+        tok = torch.from_numpy(tokens[:, pos:pos + 1])
+        rec_g, rec_c = [], []
+        with RoutingSpy(rec_g):
+            got, caches[1] = api.decode_step(cfg, st, gpu, tok.to(cuda), caches[1], pos)
+        routing_g = [t.cpu() for t in stacked(rec_g)]
+        own = {k: v.clone() for k, v in caches[0].items()}
+        with RoutingSpy(rec_c):
+            api.decode_step(cfg, st, cpu, tok, own, pos)
+        assert routing_flips(*routing_g, *stacked(rec_c))["max_margin_over_own_diff"] <= 1.0
+        with RoutingSpy([], forced=routing_g[1]):
+            want, caches[0] = api.decode_step(cfg, st, cpu, tok, caches[0], pos)
+        rel = ((got.cpu().double() - want.double()).norm() / want.double().norm()).item()
+        assert rel <= TOLERANCES["coarse"][0], f"pos {pos}: {rel}"
+    assert fa.launches == 5 * cfg.num_layers
+
+
+def test_partitioned_moe_loss_on_cuda_matches_unsharded(cuda):
+    """The reduced granite's loss (two layers, 4 kv heads, capacity 4.0)
+    through the partitioner under moe_2d on ("data" 2, "model" 4), every
+    device's shard on the card, against the loss unsharded on the card:
+    within f32_chain; the dispatch's AllToAll once per layer each way; one
+    flash launch per layer for all eight devices; no fallback that
+    gathers."""
+    from repro_torch.core.compat import set_mesh
+    from repro_torch.core.partitioner import spmd_partition
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe
+
+    cfg = reduced_config(get_config("granite-moe-1b-a400m"), 8).with_(
+        dtype="float32", num_layers=2, num_experts=8, top_k=2, capacity_factor=4.0,
+        num_kv_heads=4, scan_layers=False)
+    st, mesh = get_strategy("moe_2d"), make_test_mesh()
+    with set_mesh(mesh):
+        params = tree_init(api.param_tree(cfg, st), torch.Generator("cuda").manual_seed(1),
+                           dtype="float32", device="cuda")
+    tok = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (8, 65))).to(cuda)
+    batch = {"tokens": tok[:, :-1].contiguous(), "labels": tok[:, 1:].contiguous()}
+    runner = spmd_partition(api.partitionable_loss(cfg, st, mesh), mesh, optimize=False,
+                            device="cuda")
+    fa.launches = 0
+    with torch.no_grad():
+        got = runner(params, batch)
+        assert fa.launches == cfg.num_layers
+        want = api.loss_fn(cfg, st, params, batch)
+    assert_close(got, want, "f32_chain")
+    (entry,) = runner.plans.values()
+    a2a = moe.dispatch_alltoalls(entry.plan)
+    assert a2a["to_experts"] >= cfg.num_layers and a2a["to_batch"] >= cfg.num_layers
+    assert runner.fallback_gathers == []

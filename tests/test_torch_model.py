@@ -157,7 +157,7 @@ def test_params_from_numpy_checks_names_and_shapes():
         params_from_numpy(np_tree, cfg, "cpu")
 
 
-@pytest.mark.parametrize("arch,item", [("granite-moe-1b-a400m", "A12"), ("whisper-base", "A12")])
+@pytest.mark.parametrize("arch,item", [("jamba-1.5-large-398b", "A12b"), ("whisper-base", "A12c")])
 def test_unported_families_raise(arch, item):
     with pytest.raises(NotImplementedError, match=item):
         api.param_tree(get_config(arch), ST)

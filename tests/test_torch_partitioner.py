@@ -292,15 +292,16 @@ def test_fallback_keeps_batch_sharding_for_cat():
 
 
 def test_op_without_rule_gathers_and_is_counted():
+    # log_softmax has no rule (softmax has one since the MoE routing ops)
     def f(x):
         x = annotate(x, mesh_split(2, MESH, ["x", "y"]))
-        return torch.softmax(x, dim=-1)[1:3] + 1.0
+        return torch.log_softmax(x, dim=-1)[1:3] + 1.0
 
     (x,) = data(9, (8, 16))
     got, runner = run(f, x)
-    want = np.asarray(jax.nn.softmax(x, axis=-1))[1:3] + 1.0
+    want = np.asarray(jax.nn.log_softmax(x, axis=-1))[1:3] + 1.0
     assert_close(got, want, "f32")
-    assert runner.fallbacks[0] == "aten._softmax" and "all-gather" in runner.collectives
+    assert runner.fallbacks[0] == "aten._log_softmax" and "all-gather" in runner.collectives
 
 
 def test_bf16_partials_reduce_in_bf16():

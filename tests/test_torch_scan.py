@@ -515,14 +515,15 @@ def test_scanned_engine_matches_reference():
 
 def test_compiled_scan_plan_lists_its_body_fallbacks():
     """A scan body's fallbacks are the plan's, as the dynamic path lists
-    them: a softmax over a sharded dim inside the body gathers it."""
+    them: a log-softmax (no rule) over a sharded dim inside the body
+    gathers it."""
     mesh = Mesh.create((4,), ("x",))
 
     def f(xs):
         xs = annotate(xs, mesh_split(3, mesh, [-1, "x", -1]))
 
         def body(c, x):
-            y = torch.softmax(x, dim=0)
+            y = torch.log_softmax(x, dim=0)
             return c + y.sum(0), y
 
         return scan(body, torch.zeros(4), xs)
@@ -533,5 +534,5 @@ def test_compiled_scan_plan_lists_its_body_fallbacks():
     got, want = compiled(xs), dynamic(xs)
     for a, b in zip(got, want):
         assert_close(a, b, "exact")
-    assert compiled.fallback_gathers == dynamic.fallback_gathers == ["aten._softmax"]
+    assert compiled.fallback_gathers == dynamic.fallback_gathers == ["aten._log_softmax"]
     assert compiled.fallbacks == dynamic.fallbacks

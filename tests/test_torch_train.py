@@ -362,8 +362,8 @@ def test_unported_settings_raise_and_name_their_roadmap_items(tmp_path):
     # a family with no model yet still raises, naming its item
     assert callable(make_train_step(reduced_config(get_config("mamba2-130m"), 8), ST, opt,
                                     TrainConfig()))
-    with pytest.raises(NotImplementedError, match="A12"):
-        make_train_step(reduced_config(get_config("granite-moe-1b-a400m"), 8), ST, opt,
+    with pytest.raises(NotImplementedError, match="A12b"):
+        make_train_step(reduced_config(get_config("jamba-1.5-large-398b"), 8), ST, opt,
                         TrainConfig())
 
 
